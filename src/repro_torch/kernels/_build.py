@@ -119,6 +119,9 @@ _SIGNATURES = {
     "repro_gemm_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "repro_gemm_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "repro_gemm_smem_bytes": [_I, _I, _I, _I],
+    # x, w, out, E, cap, d_out, d_in, out_bf16, bm, bn, bk, vec_ok, stream
+    "repro_grouped_gemm_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "repro_grouped_gemm_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, BH, Sq, Skv, d, H, q_per_kv, 6 strides, sm_scale, causal,
     # bq, bkv, vec_ok, stream
     "repro_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_STRIDES,

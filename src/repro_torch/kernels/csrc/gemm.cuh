@@ -59,10 +59,19 @@ __device__ __forceinline__ void store_out(void* c, long long idx, float v, int o
   }
 }
 
-template <typename T, int BM, int BN, int BK>
+// GROUPED (grouped_gemm.cuh) runs one independent product per blockIdx.z:
+// A, B and C are then (Z, M, K), (Z, K, N) and (Z, M, N), and the block moves
+// its three pointers to slice blockIdx.z.  Without it the code is K1's alone.
+template <typename T, int BM, int BN, int BK, bool GROUPED = false>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, void* __restrict__ C,
             int M, int N, int K, int out_bf16, int vec_ok) {
+  if constexpr (GROUPED) {
+    const long long z = blockIdx.z;
+    A += z * M * K;
+    B += z * K * N;
+    C = static_cast<char*>(C) + z * M * N * (out_bf16 ? 2 : 4);
+  }
   constexpr int PAD = GemmPad<T>::value;
   constexpr int LDA = BK + PAD;
   constexpr int LDB = BN + PAD;

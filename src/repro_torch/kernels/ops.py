@@ -11,8 +11,7 @@ Responsibilities:
   interpret flag, and on a CUDA tensor a kernel launches or raises.
 
 Model code calls these through ``repro_torch.models.layers`` with
-``cfg.kernels == "cuda"``.  ``wkv6`` and ``grouped_matmul`` arrive with
-their kernels.
+``cfg.kernels == "cuda"``.  ``wkv6`` arrives with its kernel.
 """
 from __future__ import annotations
 
@@ -23,6 +22,7 @@ import torch
 from . import flash_attention as _fa
 from . import flash_decode as _fd
 from . import gemm as _gemm
+from . import moe_gmm as _moe
 from . import ref as ref
 
 
@@ -96,3 +96,20 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m, l, acc = _fd.flash_decode_partials(q, k, v, kv_splits=kv_splits, sm_scale=scale,
                                           kv_valid_len=kv_valid_len, q_per_kv=q_per_kv)
     return _fd.combine_partials(m, l, acc, out_dtype=q.dtype)
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                   block: Optional[Tuple[int, int, int]] = None,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Per-expert GEMM.  x: (E, cap, d_in), w: (E, d_in, d_out).  Blocks are
+    planned for one expert's (cap, d_out, d_in) product, as the reference
+    does, and snapped to the compiled tiles."""
+    _, cap, d_in = x.shape
+    d_out = w.shape[-1]
+    if block is None:
+        from repro_torch.core.lower_torch import plan_gemm_blocks
+        block = plan_gemm_blocks(cap, d_out, d_in, x.dtype)
+    bm = _gemm.snap_tile(fit_block(cap, block[0]), _gemm.TILE_M)
+    bn = _gemm.snap_tile(fit_block(d_out, block[1]), _gemm.TILE_N)
+    bk = _gemm.snap_tile(fit_block(d_in, block[2]), _gemm.TILE_K)
+    return _moe.grouped_matmul(x, w, block=(bm, bn, bk), out_dtype=out_dtype)

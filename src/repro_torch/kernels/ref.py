@@ -1,7 +1,7 @@
 """Plain PyTorch oracles for the ported kernels (the allclose references).
 
-Float32 accumulation, the reference package's signatures.  ``wkv6_ref`` and
-``grouped_matmul_ref`` arrive with their kernels.
+Float32 accumulation, the reference package's signatures.  ``wkv6_ref``
+arrives with its kernel.
 """
 from __future__ import annotations
 
@@ -36,3 +36,10 @@ def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                sm_scale: Optional[float] = None) -> torch.Tensor:
     """Single-token decode: q: (BH, 1, d)."""
     return attention_ref(q, k, v, sm_scale=sm_scale, causal=False)
+
+
+def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Per-expert GEMM.  x: (E, cap, d_in), w: (E, d_in, d_out)."""
+    out_dtype = out_dtype or x.dtype
+    return torch.einsum("eci,eio->eco", x.float(), w.float()).to(out_dtype)

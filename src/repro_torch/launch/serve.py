@@ -3,9 +3,11 @@ with a KV cache, on one GPU.
 
 ``python -m repro_torch.launch.serve --arch qwen2.5-3b --batch 4
 --prompt-len 512 --tokens 32`` greedy-decodes a batch of synthetic prompts
-with random weights made from ``--seed``.  The prompt goes through the
-FlashAttention kernel in one pass, every decode step through the
-flash-decode kernels with the cache's valid length; projections, MLP and LM
+with random weights made from ``--seed``; ``--arch qwen3-moe-30b-a3b`` or
+``deepseek-moe-16b`` serves an MoE model the same way.  The prompt goes
+through the FlashAttention kernel in one pass, every decode step through the
+flash-decode kernels with the cache's valid length; an MoE layer's experts
+go through the grouped-GEMM kernel; projections, router, dense MLP and LM
 head are ``torch.einsum``.  ``--device cpu`` runs the same code with the
 kernels' plain versions (tests do); without a GPU and without that flag the
 launcher raises.
@@ -30,7 +32,7 @@ from repro_torch.data import DataConfig, make_source
 from repro_torch.models import build_model
 from repro_torch.models import layers as L
 from repro_torch.models.api import ModelAPI, require_device
-from repro_torch.models.param import tree_map
+from repro_torch.models import param as P
 from repro_torch.obs import metrics
 from repro_torch.train.serve_step import make_serve_step
 
@@ -54,15 +56,13 @@ def _sync(device: torch.device) -> None:
 
 
 def load_params(api: ModelAPI, device, seed: int) -> Dict[str, Any]:
-    """Random weights from ``seed``, drawn in the parameter dtype as the
-    reference does and then cast **once** to the compute dtype, so that the
-    per-use casts in ``models/layers.py`` cost nothing while serving."""
+    """Random weights from ``seed``, each leaf drawn **directly in the
+    compute dtype**, so that the per-use casts in ``models/layers.py`` cost
+    nothing while serving and no float32 copy is ever held: qwen3-moe-30b-a3b
+    takes 61 GB in bf16 but would take 122 GB in the spec's float32."""
     dev = require_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = api.init(gen, dev)
-    dt = L.cdtype(api.cfg)
-    return tree_map(lambda w: w.to(dt), params,
-                    is_leaf=lambda x: isinstance(x, torch.Tensor))
+    return P.materialize(gen, P.cast_spec_dtype(api.spec, L.cdtype(api.cfg)), dev)
 
 
 def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, device) -> torch.Tensor:
@@ -170,7 +170,8 @@ def profile_decode(api: ModelAPI, params, prompts: torch.Tensor, steps: int) -> 
 def serve_config(arch: str, *, reduced: bool = False,
                  kernels_path: str = "cuda") -> ModelConfig:
     """The served model's config: ``kernels_path`` is ``"cuda"`` (attention
-    through ``repro_torch.kernels``) or ``"plain"`` (dense PyTorch)."""
+    and MoE experts through ``repro_torch.kernels``) or ``"plain"`` (dense
+    PyTorch)."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()

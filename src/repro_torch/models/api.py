@@ -2,8 +2,8 @@
 
 ``build_model(cfg)`` returns a :class:`ModelAPI` whose members close over the
 config: parameter spec (single source of truth for init / abstract shapes /
-axes), logits function, decode step, prefill and cache constructor.  Only
-the dense decoder family is ported so far; the other families raise.
+axes), logits function, decode step, prefill and cache constructor.  The
+dense decoder and MoE families are ported so far; the others raise.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from . import layers as L
 from . import param as P
-from . import transformer
+from . import moe, transformer
 
 Params = Dict[str, Any]
 
@@ -60,7 +60,7 @@ def _cast(spec, cfg: ModelConfig):
     return P.cast_spec_dtype(spec, L.pdtype(cfg))
 
 
-_QUEUE = {"moe": "MoE family with kernel K4", "ssm": "RWKV6 with kernel K5",
+_QUEUE = {"ssm": "RWKV6 with kernel K5",
           "hybrid": "mamba2 / zamba2", "vlm": "encdec / vlm", "audio": "encdec / vlm"}
 
 
@@ -72,6 +72,13 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             logits_fn=lambda p, b: transformer.forward(p, b["tokens"], cfg),
             decode_step=lambda p, t, c: transformer.decode_step(p, t, c, cfg),
             prefill=lambda p, t, c: transformer.prefill(p, t, c, cfg),
+            init_cache=transformer.init_cache)
+    if fam == "moe":
+        return ModelAPI(
+            cfg=cfg, spec=_cast(moe.moe_spec(cfg), cfg),
+            logits_fn=lambda p, b: moe.forward(p, b["tokens"], cfg)[0],
+            decode_step=lambda p, t, c: moe.decode_step(p, t, c, cfg),
+            prefill=lambda p, t, c: moe.prefill(p, t, c, cfg),
             init_cache=transformer.init_cache)
     if fam in _QUEUE:
         raise NotImplementedError(

@@ -8,8 +8,8 @@ plain versions), anything else takes the dense plain path below.
 Projections, the MLP and the LM head are ``torch.einsum``, as the reference
 leaves them to XLA.  Weights are cast to the activation dtype at every use,
 as in the reference; a caller that holds its weights in the compute dtype
-already (``launch.serve.load_params`` casts them once after ``init``) pays
-nothing for it.
+already (``launch.serve.load_params`` draws them in it) pays nothing for
+it.
 """
 from __future__ import annotations
 

@@ -94,17 +94,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _cached_pass(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
-                 cfg: ModelConfig, last_only: bool
+                 cfg: ModelConfig, last_only: bool, block=block_apply
                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Run ``tokens`` through every layer's ``block`` against the cache,
+    writing their keys and values at its index.  ``block`` is
+    :func:`block_apply`'s signature and returns ``(x, new_kv)``."""
     x = _embed(params, tokens, cfg)
     idx = int(cache["index"])
     if idx + tokens.shape[1] > cache["k"].shape[2]:
         raise ValueError(f"cache of {cache['k'].shape[2]} keys cannot take "
                          f"{tokens.shape[1]} more at index {idx}")
     for i in range(cfg.n_layers):
-        x, _ = block_apply(_layer(params, i), x, cfg,
-                           kv_cache=(cache["k"][i], cache["v"][i]),
-                           cache_index=idx)
+        x, _ = block(_layer(params, i), x, cfg,
+                     kv_cache=(cache["k"][i], cache["v"][i]), cache_index=idx)
     if last_only:
         x = x[:, -1:]
     logits = _head(params, x, cfg)

@@ -94,6 +94,86 @@ def test_serve_reduced_on_the_card_matches_the_plain_path(cuda):
         torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 128, 128, 128), (8, 256, 128, 256), (128, 8, 256, 192),
+                                   (3, 24, 96, 160), (5, 13, 45, 51), (2, 160, 768, 256)])
+def test_grouped_gemm_kernel_every_tile(cuda, shape, dtype):
+    from repro_torch.kernels import moe_gmm
+    E, cap, d_in, d_out = shape
+    x = torch.randn(E, cap, d_in, device=cuda).to(dtype)
+    w = (torch.randn(E, d_in, d_out, device=cuda) * d_in ** -0.5).to(dtype)
+    want = moe_gmm.grouped_matmul_plain(x, w, out_dtype=torch.float32)
+    before = moe_gmm.launches
+    for tile in moe_gmm.COMPILED_TILES:
+        for out_dtype in (torch.float32, dtype):
+            got = moe_gmm.grouped_matmul(x, w, block=tile, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            assert got.dtype == out_dtype
+            torch.testing.assert_close(got.float(), want, **_tol(out_dtype))
+    assert moe_gmm.launches == before + 2 * len(moe_gmm.COMPILED_TILES)
+
+
+def test_serve_moe_reduced_on_the_card_matches_the_plain_path(cuda, monkeypatch):
+    """The plain run replays the kernel run's routing: on near-flat random
+    routers a bf16 difference in attention picks other experts.  Both bf16
+    runs are held against the same loop in float32 (same ids, routing and
+    bf16 weights): the kernel path may be at most 1.25 x as far from it as
+    the plain path, plus 2e-2 in the largest difference; a control whose
+    expert products keep 5 mantissa bits must fail that bound."""
+    from dataclasses import replace
+    from repro_torch import kernels
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, moe
+    cfg = serve.serve_config("qwen3-moe-30b-a3b", reduced=True)
+    api = build_model(cfg)
+    params = serve.load_params(api, cuda, seed=0)
+    prompts = serve.make_prompts(cfg, 2, 64, cuda)
+    routed = []
+    real = moe._router
+
+    def record(xf, router_w, c):
+        out = real(xf, router_w, c)
+        routed.append(out[:2])
+        return out
+
+    monkeypatch.setattr(moe, "_router", record)
+    kernels.reset_launch_counts()
+    res = serve.generate(api, params, prompts, 8, keep_step_logits=True)
+    counts = kernels.launch_counts()
+    assert counts["grouped_matmul"] == 3 * cfg.n_layers * 9
+    assert counts["flash_attention"] == cfg.n_layers and counts["gemm"] == 0
+
+    def replayed(run_cfg):
+        replay = iter(routed)
+        monkeypatch.setattr(moe, "_router",
+                            lambda xf, router_w, c: (*next(replay), real(xf, router_w, c)[2]))
+        out = serve.generate(build_model(run_cfg), params, prompts, 8, keep_step_logits=True,
+                             forced_ids=res.generated)
+        assert next(replay, None) is None
+        return torch.cat([x.float().flatten() for x in [out.prefill_logits, *out.step_logits]])
+
+    plain = replayed(replace(cfg, kernels="plain"))
+    exact = replayed(replace(cfg, kernels="plain", compute_dtype="float32"))
+    plain_products = moe_gmm.grouped_matmul_plain
+
+    def five_bits(x, w, *, block=None, out_dtype=None):
+        i = plain_products(x, w, out_dtype=torch.float32).view(torch.int32)
+        return ((i + (1 << 17)) & -(1 << 18)).view(torch.float32).to(out_dtype or x.dtype)
+
+    monkeypatch.setattr(moe_gmm, "grouped_matmul_plain", five_bits)
+    control = replayed(replace(cfg, kernels="plain"))
+    got = torch.cat([x.float().flatten() for x in [res.prefill_logits, *res.step_logits]])
+
+    def within(run):
+        diff, base = run - exact, plain - exact
+        return bool(diff.abs().max() <= 1.25 * base.abs().max() + 2e-2
+                    and diff.square().mean().sqrt() <= 1.25 * base.square().mean().sqrt())
+
+    assert within(got)
+    assert not within(control)
+
+
 def test_python_footprints_mirror_the_compiled_kernels(cuda):
     """The shared-memory formulas the planner prunes with are the kernels' own."""
     from repro_torch.kernels import _build, flash_attention as FA, gemm as G

@@ -48,7 +48,8 @@ def test_importing_every_module_loads_neither_jax_nor_reference(tmp_path):
         " or m == 'repro' or m.startswith('repro.') or m == 'triton')\n"
         "print(len(names)); print(bad)\n"
         "assert not bad, bad\n"
-        "assert len(names) > 60, names\n")
+        "assert len(names) > 60, names\n"
+        "assert {'repro_torch.models.moe', 'repro_torch.kernels.moe_gmm'} <= set(names)\n")
     env = {"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin", "HOME": str(tmp_path)}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=300)

@@ -12,16 +12,24 @@ these phases, each printing one JSON line; any failure raises:
 3. kernels  every kernel against its plain PyTorch version on the card, at
             the serving shapes and at one ragged shape each, in bf16 and
             float32 (tolerances 2e-2 and 1e-4, those of the reference's
-            kernel tests), each timed with CUDA events (median of 25 single
+            kernel tests; 2e-3 for the WKV scan in float32 and for its
+            final state), each timed with CUDA events (median of 25 single
             launches, the L2 cache flushed before each) beside its plain
-            version, one PyTorch library call and the roofline bound;
+            version, one PyTorch library call where one computes the same
+            function, and the roofline bound;
 4. planner  ``ops.matmul`` with no block at the model's projection shape:
             planner -> GEMM kernel, search then registry hit, no fallback;
 5. serve    ``qwen2.5-3b`` at full width and depth with random weights:
             batch 4, prompt 512, 32 greedy tokens through
             ``repro_torch.launch.serve``, compared step by step with the same
             loop run on the plain PyTorch attention;
-6. moe      ``qwen3-moe-30b-a3b`` at full width and depth (30.5 B
+6. rwkv     ``rwkv6-3b`` at full width and depth, the prompt's WKV scan
+            through the chunked-WKV kernel once per layer; the kernel run and
+            the plain run (the kernel's plain version in its place, the
+            kernel run's ids) are held against the same loop in float32, and
+            every kernel call of a prefill against its plain version on the
+            same inputs, with controls that must fail;
+7. moe      ``qwen3-moe-30b-a3b`` at full width and depth (30.5 B
             parameters, 61 GB in bf16), its experts through the grouped-GEMM
             kernel; the kernel run and the plain run, both fed the kernel
             run's ids and routing (a near-flat random router turns bf16
@@ -40,6 +48,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -58,6 +67,7 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 ARCH = "qwen2.5-3b"
 MOE_ARCH = "qwen3-moe-30b-a3b"
+RWKV_ARCH = "rwkv6-3b"
 BATCH, PROMPT, NEW_TOKENS = 4, 512, 32
 
 
@@ -96,6 +106,22 @@ class Timer:
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+
+def ptxas_usage(compiler_output: str) -> dict:
+    """Registers and spilled bytes of every compiled kernel, from the
+    ``-Xptxas -v`` lines of the build."""
+    usage, name = {}, None
+    for line in compiler_output.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = entry.group(1)
+            usage[name] = {}
+        elif name and "spill stores" in line:
+            usage[name]["spill_bytes"] = int(re.search(r"(\d+) bytes spill stores", line)[1])
+        elif name and "Used" in line and "registers" in line:
+            usage[name]["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
+    return usage
 
 
 def nbytes(*tensors) -> int:
@@ -245,6 +271,57 @@ def grouped_case(timer, gen, E, cap, d_in, d_out, dtype, serving):
     return res
 
 
+def wkv6_inputs(gen, dev, BH, T, d, dtype, floor=False):
+    """r, k, v ~ N(0, 1), u ~ N(0, 1/4) and log-decays as the model draws
+    them (``-exp`` of a normal, floored at -4); ``floor`` puts every decay in
+    [-4, 0], which at chunk 32 drives a masked score past float32's range."""
+    r, k, v = (torch.randn(BH, T, d, generator=gen, device=dev) for _ in range(3))
+    if floor:
+        log_w = -4.0 * torch.rand(BH, T, d, generator=gen, device=dev)
+    else:
+        log_w = (-torch.exp(torch.randn(BH, T, d, generator=gen, device=dev))).clamp(min=-4.0)
+    u = torch.randn(BH, d, generator=gen, device=dev) * 0.5
+    return [x.to(dtype) for x in (r, k, v, log_w, u)]
+
+
+def compare_state(name: str, got: torch.Tensor, want: torch.Tensor, rel: float = 2e-3):
+    """Largest difference of two float32 states relative to the largest entry."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: state shape {tuple(got.shape)} or non-finite values")
+    err = ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+    if err > rel:
+        raise AssertionError(f"{name}: final states disagree, relative error {err} > {rel}")
+    return err
+
+
+def wkv6_case(timer, gen, BH, T, d, chunk, dtype, serving, floor=False):
+    """K5 through ``ops.wkv6`` (chunk fitted to T) against its plain version.
+    No single PyTorch call computes this function, so there is no library
+    time.  The bound counts the bytes of the five inputs, the output and the
+    final state, and the float32 multiply-adds the chunked scan needs (the
+    state read and update, 4 C d^2 a chunk, and the strictly lower
+    triangle of the scores and their product with v, 2 C (C - 1) d), at the
+    float32 rate: the function is defined with float32 arithmetic inside."""
+    from repro_torch.kernels import ops, rwkv6 as K
+    dev = timer.flush.device
+    xs = wkv6_inputs(gen, dev, BH, T, d, dtype, floor)
+    c = ops.fit_block(T, chunk)
+    run = lambda: ops.wkv6(*xs, chunk=chunk)
+    plain = lambda: K.wkv6_plain(*xs, chunk=c)
+    (o, state), (po, pstate) = run(), plain()
+    label = f"BH={BH} T={T} d={d} chunk={c}" + (" decays in [-4, 0]" if floor else "")
+    tol = 2e-3 if dtype == torch.float32 else TOL[dtype]
+    err = compare(f"wkv6 {label} {dname(dtype)}", o, po, dtype, tol=tol)
+    state_err = compare_state(f"wkv6 {label} {dname(dtype)}", state, pstate)
+    res = {"name": "wkv6", "shape": label, "dtype": dname(dtype), "serving": serving,
+           "max_abs_err": err, "state_rel_err": state_err, "kernel_ms": timer.ms(run),
+           "plain_ms": timer.ms(plain), "library_ms": None}
+    flops = 2.0 * BH * (T // c) * (2 * c * d * d + c * (c - 1) * d)
+    res.update(bound(flops, nbytes(*xs, o, state), torch.float32))
+    return res
+
+
 # -------------------------------------------------------------------- phases
 def phase_kernels(timer, gen):
     from repro_torch.configs import get_config
@@ -279,6 +356,20 @@ def phase_kernels(timer, gen):
         cases.append(grouped_case(timer, gen, dcfg.n_experts, dcap, d_in, d_out,
                                   torch.bfloat16, False))
     cases.append(grouped_case(timer, gen, 8, 24, 96, 160, torch.float32, False))
+    # K5 at rwkv6-3b's prefill (40 heads of 64 per sequence, chunk 16), the
+    # reference's sweep shapes, a ragged T (100 -> chunk 4) and decays at
+    # the floor with chunk 32
+    from repro_torch.models import rwkv6
+    rcfg = get_config(RWKV_ARCH)
+    rH, rd = rwkv6._n_heads(rcfg), rwkv6._head_dim(rcfg)
+    for dtype in (torch.bfloat16, torch.float32):
+        cases.append(wkv6_case(timer, gen, BATCH * rH, PROMPT, rd, rwkv6.WKV_CHUNK, dtype,
+                               serving=True))
+    for T, chunk in ((64, 32), (128, 32), (96, 16)):
+        cases.append(wkv6_case(timer, gen, 3, T, 32, chunk, torch.float32, False))
+    for dtype in (torch.bfloat16, torch.float32):
+        cases.append(wkv6_case(timer, gen, 8, 100, rd, rwkv6.WKV_CHUNK, dtype, False))
+    cases.append(wkv6_case(timer, gen, 16, 256, rd, 32, torch.float32, False, floor=True))
     emit({"phase": "kernels", "timing": "median of 25 single launches, L2 flushed "
           "before each, CUDA events", "cases": cases})
     return cases
@@ -352,7 +443,7 @@ def phase_serve(device):
 
     L = cfg.n_layers
     want = {"gemm": 0, "flash_attention": L, "flash_decode_partials": L * NEW_TOKENS,
-            "flash_decode_combine": L * NEW_TOKENS, "grouped_matmul": 0}
+            "flash_decode_combine": L * NEW_TOKENS, "grouped_matmul": 0, "wkv6": 0}
     if launches != want:
         raise AssertionError(f"serve: kernel launches {launches}, expected {want}")
     check_outputs("serve", res, cfg)
@@ -465,18 +556,22 @@ def replayed_run(api, params, prompts, ids, routed):
     return res
 
 
+def coarse(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """``x`` rounded (half away from zero) to ``bits`` explicit mantissa bits
+    in float32, returned in its own type."""
+    drop = 23 - bits
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + (1 << (drop - 1))) & -(1 << drop)).view(torch.float32).to(x.dtype)
+
+
 def coarse_products(bits: int):
-    """The plain expert products rounded (half away from zero) to ``bits``
-    explicit mantissa bits instead of bf16's 7: a control that a correct
-    check must reject."""
+    """The plain expert products rounded to ``bits`` explicit mantissa bits
+    instead of bf16's 7: a control that a correct check must reject."""
     from repro_torch.kernels import moe_gmm
     plain = moe_gmm.grouped_matmul_plain
-    drop = 23 - bits
 
     def products(x, w, *, block=None, out_dtype=None):
-        i = plain(x, w, out_dtype=torch.float32).view(torch.int32)
-        out = ((i + (1 << (drop - 1))) & -(1 << drop)).view(torch.float32)
-        return out.to(out_dtype or x.dtype)
+        return coarse(plain(x, w, out_dtype=torch.float32), bits).to(out_dtype or x.dtype)
 
     return products
 
@@ -531,6 +626,168 @@ def against_float32(plain_api, f32_api, params, prompts, res, routed, greedy) ->
             "_plain": plain, "_exact": exact}
 
 
+def coarse_wkv6(bits: int):
+    """The plain WKV scan with its output ``o`` rounded to ``bits`` mantissa
+    bits instead of bf16's 7: a control that a correct check must reject."""
+    from repro_torch.kernels import rwkv6 as K
+    plain = K.wkv6_plain
+
+    def scan(*args, chunk):
+        o, state = plain(*args, chunk=chunk)
+        return coarse(o, bits), state
+
+    return scan
+
+
+BF16_ULP = 2.0 ** -7                  # bf16's spacing relative to a value, at most
+
+
+def per_call_check(api, params, prompts, scan=None) -> dict:
+    """One prefill in which every call of the WKV scan (the kernel, or
+    ``scan`` in its place) is held against the plain version on the same
+    inputs.  Both compute in float32 and round ``o`` to bf16 once, so they
+    may differ by one bf16 step where a value lies near a rounding
+    boundary: ``|o - plain| <= 2^-7 |plain| + 1e-4 max |plain|`` (the second
+    term for sums that cancel), and the final state at 2e-3 relative.  A
+    flat 2e-2 would pass an output with 5 mantissa bits (at most 1.6 %
+    off)."""
+    from repro_torch.kernels import rwkv6 as K
+    kernel = scan or K.wkv6
+    errs = []
+
+    def checked(*args, chunk):
+        o, state = kernel(*args, chunk=chunk)
+        po, pstate = K.wkv6_plain(*args, chunk=chunk)
+        diff, ref = (o.float() - po.float()).abs(), po.float().abs()
+        slack = BF16_ULP * ref + 1e-4 * ref.max()
+        s_err = ((state - pstate).abs().max() / pstate.abs().max().clamp(min=1e-30)).item()
+        errs.append((diff.max().item(), (diff / slack).max().item(),
+                     bool((diff <= slack).all()) and s_err <= 2e-3, s_err))
+        return o, state
+
+    cache = api.init_cache(api.cfg, prompts.shape[0], prompts.shape[1] + 1,
+                           device=prompts.device)
+    with torch.no_grad(), patched(K, "wkv6", checked):
+        api.prefill(params, prompts, cache)
+    return {"calls": len(errs), "o_max_abs_err": max(e[0] for e in errs),
+            "o_max_share_of_bound": max(e[1] for e in errs),
+            "state_max_rel_err": max(e[3] for e in errs),
+            "within": len(errs) == api.cfg.n_layers and all(e[2] for e in errs)}
+
+
+def phase_rwkv(device):
+    """rwkv6-3b served at full size, the prompt's WKV scan through K5.
+
+    Two correct bf16 paths end a few bf16 ulps apart, so the kernel run is
+    held, with the plain run (the same loop with the kernel's plain version
+    in its place, fed the kernel run's ids), against the same loop in
+    float32: the kernel path may be at most 1.25 x as far from it as the
+    plain path (:func:`within`), on the greedy ids and on teacher-forced
+    random ids.  A logit-level bound mostly sees the bf16 rounding of every
+    other tensor, so every K5 call of a prefill is also held against its
+    plain version on the same inputs (:func:`per_call_check`).  A control
+    whose WKV output keeps 5 mantissa bits must fail the two together; the
+    share of each is reported, with 6- and 4-bit controls."""
+    from repro_torch import kernels
+    from repro_torch.kernels import rwkv6 as K
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    cfg = serve.serve_config(RWKV_ARCH, kernels_path="cuda")
+    api = build_model(cfg)
+    t0 = time.perf_counter()
+    params = serve.load_params(api, device, seed=0)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    prompts = serve.make_prompts(cfg, BATCH, PROMPT, device)
+    serve.generate(api, params, prompts, 2)            # warm-up: allocator, kernel build
+
+    kernels.reset_launch_counts()
+    res = serve.generate(api, params, prompts, NEW_TOKENS, keep_step_logits=True)
+    launches = kernels.launch_counts()
+    L = cfg.n_layers
+    want = {"gemm": 0, "flash_attention": 0, "flash_decode_partials": 0,
+            "flash_decode_combine": 0, "grouped_matmul": 0, "wkv6": L}
+    if launches != want:
+        raise AssertionError(f"rwkv: kernel launches {launches}, expected {want}")
+    check_outputs("rwkv", res, cfg)
+
+    f32_api = build_model(replace(cfg, compute_dtype="float32"))
+
+    def run(run_api, ids, scan=K.wkv6_plain):
+        with patched(K, "wkv6", scan):
+            return serve.generate(run_api, params, prompts, NEW_TOKENS, keep_step_logits=True,
+                                  forced_ids=ids)
+
+    def against(kern_res, greedy) -> dict:
+        ids = kern_res.generated
+        ref, exact = run(api, ids), run(f32_api, ids)
+        kern, plain = from_float32(kern_res, exact), from_float32(ref, exact)
+        chosen_ok, same = True, 0
+        for i, logits in enumerate([exact.prefill_logits, *exact.step_logits][:-1]
+                                   if greedy else []):
+            best = logits.max(dim=1).values
+            chosen = logits.gather(1, ids[:, i:i + 1]).squeeze(1)
+            chosen_ok &= bool(((best - chosen) <= 2 * (1.25 * plain[0] + 2e-2)).all())
+            same += int((logits.argmax(dim=1) == ids[:, i]).sum())
+        controls = {}
+        for bits in ((6, 5, 4) if greedy else ()):
+            dist = from_float32(run(api, ids, coarse_wkv6(bits)), exact)
+            controls[bits] = {"vs_float32_max": dist[0], "vs_float32_rms": dist[1],
+                              "max_ratio": dist[0] / plain[0], "rms_ratio": dist[1] / plain[1],
+                              "float32_rule_rejects": not within(dist, plain)}
+        return {"kernel_vs_float32_max": kern[0], "plain_vs_float32_max": plain[0],
+                "kernel_vs_float32_rms": kern[1], "plain_vs_float32_rms": plain[1],
+                "max_ratio": kern[0] / plain[0], "rms_ratio": kern[1] / plain[1],
+                "within": within(kern, plain) and chosen_ok,
+                "ids_equal_float32_argmax": f"{same}/{BATCH * NEW_TOKENS}" if greedy
+                else None,
+                "kernel_vs_plain_max": max((a - b).abs().max().item() for a, b in zip(
+                    [kern_res.prefill_logits, *kern_res.step_logits],
+                    [ref.prefill_logits, *ref.step_logits])),
+                "max_abs_float32_logit": max(x.abs().max().item() for x in
+                                             [exact.prefill_logits, *exact.step_logits]),
+                "plain_prefill_ms": ref.prefill_s * 1e3,
+                "plain_decode_ms_per_token": ref.decode_s * 1e3 / NEW_TOKENS,
+                "_controls": controls}
+
+    greedy = against(res, True)
+    controls = greedy.pop("_controls")
+    rand_ids = torch.randint(1, cfg.vocab_size, (BATCH, NEW_TOKENS), device=device,
+                             generator=torch.Generator(device=device).manual_seed(1))
+    forced = against(serve.generate(api, params, prompts, NEW_TOKENS, keep_step_logits=True,
+                                    forced_ids=rand_ids), False)
+    del forced["_controls"]
+    per_call = per_call_check(api, params, prompts)
+    for bits, ctl in controls.items():
+        ctl["per_call"] = per_call_check(api, params, prompts, coarse_wkv6(bits))
+        ctl["rejected"] = ctl["float32_rule_rejects"] or not ctl["per_call"]["within"]
+    emit({"phase": "rwkv", "arch": cfg.name, "n_layers": L, "d_model": cfg.d_model,
+          "n_params": api.n_params(), "batch": BATCH, "prompt_len": PROMPT,
+          "new_tokens": NEW_TOKENS, "compute_dtype": cfg.compute_dtype, "load_s": load_s,
+          "prefill_ms": res.prefill_s * 1e3,
+          "decode_ms_per_token": res.decode_s * 1e3 / NEW_TOKENS,
+          "tok_per_s": BATCH * NEW_TOKENS / res.decode_s, "peak_bytes": res.peak_bytes,
+          "launches": launches,
+          "check": "kernel path's distance from float32 at most 1.25 x the plain path's "
+                   "(max + 2e-2, rms), same ids; every K5 call of a prefill within one bf16 "
+                   "step (o) and 2e-3 relative (state) of its plain version on the same "
+                   "inputs",
+          "greedy_ids": greedy, "forced_random_ids": forced, "per_call": per_call,
+          "controls": {f"{b}_mantissa_bits": c for b, c in controls.items()},
+          "distinct_greedy_ids": int(res.generated.unique().numel()),
+          "first_ids": res.generated[0, :16].tolist()})
+    for name, check in (("greedy", greedy), ("forced random", forced)):
+        if not check["within"]:
+            raise AssertionError(f"rwkv ({name} ids): the kernel path is further from "
+                                 f"float32 than the plain path allows: {check}")
+    if not per_call["within"]:
+        raise AssertionError(f"rwkv: a K5 call of the prefill disagrees with its plain "
+                             f"version: {per_call}")
+    if not controls[5]["rejected"]:
+        raise AssertionError("rwkv: the checks did not reject the 5-bit control")
+    return launches
+
+
 def phase_moe(device):
     """qwen3-moe-30b-a3b served at full size through the kernels.
 
@@ -562,7 +819,7 @@ def phase_moe(device):
     L = cfg.n_layers
     want = {"gemm": 0, "flash_attention": L, "flash_decode_partials": L * NEW_TOKENS,
             "flash_decode_combine": L * NEW_TOKENS,
-            "grouped_matmul": 3 * L * (1 + NEW_TOKENS)}
+            "grouped_matmul": 3 * L * (1 + NEW_TOKENS), "wkv6": 0}
     if launches != want:
         raise AssertionError(f"moe: kernel launches {launches}, expected {want}")
     check_outputs("moe", res, cfg)
@@ -652,6 +909,7 @@ SOURCES = {
                              "src/repro/kernels/flash_decode.py:103"),
     "grouped_matmul": ("src/repro_torch/kernels/csrc/grouped_gemm.cuh",
                        "src/repro/kernels/moe_gmm.py:23"),
+    "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu", "src/repro/kernels/rwkv6.py:39"),
 }
 
 
@@ -675,7 +933,8 @@ def main() -> int:
     info = _build.build_info()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled_here": bool(info.get("built")), "library": info.get("path"),
-          "sources": [p.name for p in _build.sources()]})
+          "sources": [p.name for p in _build.sources()],
+          "ptxas": ptxas_usage(str(info.get("compiler_output", "")))})
 
     timer = Timer(device)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -686,10 +945,14 @@ def main() -> int:
     serve_launches = phase_serve(device)
     gc.collect()
     torch.cuda.empty_cache()                # the dense model's weights go first
+    rwkv_launches = phase_rwkv(device)
+    gc.collect()
+    torch.cuda.empty_cache()
     moe_launches = phase_moe(device)
 
     launches = dict(serve_launches, gemm=gemm_launches,
-                    grouped_matmul=moe_launches["grouped_matmul"])
+                    grouped_matmul=moe_launches["grouped_matmul"],
+                    wkv6=rwkv_launches["wkv6"])
     launches["flash_decode"] = min(launches["flash_decode_partials"],
                                    launches["flash_decode_combine"])
     kernels_line = []

@@ -1,16 +1,16 @@
 # Hand-written Hopper kernels for the compute hot-spots the planner blocks
-# (GEMM, FlashAttention forward, flash-decode, the MoE grouped GEMM).  Each
-# kernel module holds its wrapper, its launch counter and its plain PyTorch
-# version; the CUDA sources are under csrc/ and are built at first use by
-# _build.py; ops.py holds the public wrappers with planner-chosen tile
-# shapes; ref.py the oracles.
+# (GEMM, FlashAttention forward, flash-decode, the MoE grouped GEMM) and for
+# the RWKV6 chunked WKV scan.  Each kernel module holds its wrapper, its
+# launch counter and its plain PyTorch version; the CUDA sources are under
+# csrc/ and are built at first use by _build.py; ops.py holds the public
+# wrappers with planner-chosen tile shapes; ref.py the oracles.
 #
 # The kernel functions are reached through their modules
 # (``kernels.gemm.gemm``, ``kernels.moe_gmm.grouped_matmul``, ...):
 # re-exporting them here would shadow the modules of the same name.
-from . import flash_attention, flash_decode, gemm, moe_gmm, ops, ref
+from . import flash_attention, flash_decode, gemm, moe_gmm, ops, ref, rwkv6
 
-__all__ = ["ops", "ref", "gemm", "flash_attention", "flash_decode", "moe_gmm",
+__all__ = ["ops", "ref", "gemm", "flash_attention", "flash_decode", "moe_gmm", "rwkv6",
            "launch_counts", "reset_launch_counts"]
 
 
@@ -19,7 +19,7 @@ def launch_counts() -> dict:
     return {"gemm": gemm.launches, "flash_attention": flash_attention.launches,
             "flash_decode_partials": flash_decode.partials_launches,
             "flash_decode_combine": flash_decode.combine_launches,
-            "grouped_matmul": moe_gmm.launches}
+            "grouped_matmul": moe_gmm.launches, "wkv6": rwkv6.launches}
 
 
 def reset_launch_counts() -> None:
@@ -28,3 +28,4 @@ def reset_launch_counts() -> None:
     flash_decode.partials_launches = 0
     flash_decode.combine_launches = 0
     moe_gmm.launches = 0
+    rwkv6.launches = 0

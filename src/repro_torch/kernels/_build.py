@@ -25,8 +25,10 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+# -Xptxas -v only prints each kernel's registers, shared memory and spills
+# (kept in build_info()["compiler_output"])
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 ENV_BUILD_DIR = "REPRO_TORCH_BUILD_DIR"
 
 _LOCK = threading.Lock()
@@ -136,6 +138,8 @@ _SIGNATURES = {
                                     *_STRIDES, _F, _I, _I, _P],
     # m, l, acc, out, BH, splits, d, out_bf16, stream
     "repro_flash_decode_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # r, k, v, log_w, u, o, state, BH, T, d, chunk, is_bf16, stream
+    "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -10,8 +10,8 @@ Responsibilities:
   and a CUDA tensor to the kernel.  Nothing else decides: there is no
   interpret flag, and on a CUDA tensor a kernel launches or raises.
 
-Model code calls these through ``repro_torch.models.layers`` with
-``cfg.kernels == "cuda"``.  ``wkv6`` arrives with its kernel.
+Model code calls these through ``repro_torch.models.layers`` (and
+``models/rwkv6.py`` for ``wkv6``) with ``cfg.kernels == "cuda"``.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from . import flash_decode as _fd
 from . import gemm as _gemm
 from . import moe_gmm as _moe
 from . import ref as ref
+from . import rwkv6 as _rwkv
 
 
 def fit_block(n: int, desired: int, minimum: int = 8) -> int:
@@ -113,3 +114,16 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
     bn = _gemm.snap_tile(fit_block(d_out, block[1]), _gemm.TILE_N)
     bk = _gemm.snap_tile(fit_block(d_in, block[2]), _gemm.TILE_K)
     return _moe.grouped_matmul(x, w, block=(bm, bn, bk), out_dtype=out_dtype)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
+         u: torch.Tensor, *, chunk: int = _rwkv.DEFAULT_CHUNK
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 WKV scan.  r/k/v/log_w: (BH, T, d); u: (BH, d) -> (o, final
+    state (BH, d, d) float32).
+
+    The chunk is the largest power of two that divides T and is at most
+    ``chunk``, as in the reference, and at most the kernel's longest chunk;
+    nothing pads, so a prompt of odd length runs at chunk 1."""
+    c = fit_block(r.shape[1], min(chunk, _rwkv.MAX_CHUNK))
+    return _rwkv.wkv6(r, k, v, log_w, u, chunk=c)

@@ -1,0 +1,133 @@
+"""Chunked RWKV6 (Finch) WKV scan: wrapper, launch counter and plain version.
+
+Counterpart of ``repro/kernels/rwkv6.py``.  The data-dependent-decay
+recurrence per head (state S in R^{d x d}, key index i, value index j):
+
+    o_t[j]   = sum_i r_t[i] * (S_{t-1}[i,j] + u[i] * k_t[i] * v_t[j])
+    S_t[i,j] = w_t[i] * S_{t-1}[i,j] + k_t[i] * v_t[j]
+
+runs chunk by chunk: inside a chunk of C steps the pairwise part is a dense
+(C x C) product, and the (d, d) float32 state is carried from one chunk to
+the next.  The CUDA kernel (``csrc/wkv6.cu``) computes the reference
+kernel's chunked math; a tensor on the CPU goes to :func:`wkv6_plain`, a
+CUDA tensor launches the kernel or raises.
+
+Against the reference, both also return the **final state** (BH, d, d) in
+float32: the reference kernel leaves it in its scratch memory, the port's
+prefill hands it to decode.  Both start from a zero state.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+DEFAULT_CHUNK = 32
+COMPILED_HEAD_DIMS = (16, 32, 64)
+MAX_CHUNK = 32                      # longest chunk the kernel's buffers hold
+
+launches = 0                        # kernel launches made by wkv6()
+
+
+def _chunk_of(T: int, chunk: int) -> int:
+    """The reference's chunk: ``min(chunk, T)``, which must divide T."""
+    c = min(int(chunk), T)
+    if T and (c < 1 or T % c):
+        raise ValueError(f"chunk {chunk} does not divide T={T} (ops.wkv6 fits it)")
+    return c
+
+
+def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
+               u: torch.Tensor, *, chunk: int = DEFAULT_CHUNK
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's chunked math in plain PyTorch, float32 inside.
+
+    r/k/v/log_w: (BH, T, d); u: (BH, d) -> (o (BH, T, d) in r's type,
+    final state (BH, d, d) float32).  A masked score is selected away, never
+    multiplied by 0: at chunk 32 its two factors may overflow to inf."""
+    BH, T, d = r.shape
+    c = _chunk_of(T, chunk)
+    uf = u.float()
+    S = torch.zeros((BH, d, d), dtype=torch.float32, device=r.device)
+    if T == 0:
+        return torch.empty_like(r), S
+    lower = torch.tril(torch.ones(c, c, dtype=torch.bool, device=r.device), -1)
+    outs = []
+    for t0 in range(0, T, c):
+        rr, kk, vv, ww = (x[:, t0:t0 + c].float() for x in (r, k, v, log_w))
+        cum = torch.cumsum(ww, dim=1)                      # inclusive (BH, c, d)
+        cum_excl = cum - ww
+        last = cum[:, -1]                                  # (BH, d)
+        # inter-chunk: decayed read of the carried state
+        o = torch.einsum("btd,bde->bte", rr * torch.exp(cum_excl), S)
+        # intra-chunk pairwise scores, both factors offset by the per-channel
+        # midpoint decay (exact: the offsets cancel in the product)
+        c_off = 0.5 * last[:, None, :]
+        r_sc = rr * torch.exp(cum_excl - c_off)
+        k_sc = kk * torch.exp(c_off - cum)
+        scores = torch.einsum("btd,bsd->bts", r_sc, k_sc)
+        scores = torch.where(lower, scores, torch.zeros((), device=r.device))
+        diag = torch.sum(rr * uf[:, None, :] * kk, dim=-1)
+        o = o + torch.einsum("bts,bse->bte", scores, vv) + diag[..., None] * vv
+        outs.append(o)
+        # the state after the chunk
+        k_carry = kk * torch.exp(last[:, None, :] - cum)
+        S = S * torch.exp(last)[:, :, None] + torch.einsum("bsd,bse->bde", k_carry, vv)
+    return torch.cat(outs, dim=1).to(r.dtype), S
+
+
+def _check(r, k, v, log_w, u) -> None:
+    if r.dim() != 3 or any(x.shape != r.shape for x in (k, v, log_w)) \
+            or u.shape != (r.shape[0], r.shape[2]):
+        raise ValueError(f"wkv6 wants r/k/v/log_w (BH, T, d) and u (BH, d), got "
+                         f"{[tuple(x.shape) for x in (r, k, v, log_w, u)]}")
+    if any(x.device != r.device for x in (k, v, log_w, u)):
+        raise ValueError("wkv6's operands lie on different devices")
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
+         u: torch.Tensor, *, chunk: int = DEFAULT_CHUNK
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r/k/v/log_w: (BH, T, d); u: (BH, d) -> (o (BH, T, d) in r's type,
+    final state (BH, d, d) float32).
+
+    ``log_w`` is the elementwise log of the decay (<= 0); ``min(chunk, T)``
+    must divide T.  On a CUDA tensor all five operands are float32 or
+    bfloat16 of one type, contiguous, with d in :data:`COMPILED_HEAD_DIMS`
+    and a chunk of at most :data:`MAX_CHUNK`."""
+    global launches
+    _check(r, k, v, log_w, u)
+    if r.device.type == "cpu":
+        return wkv6_plain(r, k, v, log_w, u, chunk=chunk)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6 runs on cpu or cuda tensors, not {r.device}")
+    BH, T, d = r.shape
+    c = _chunk_of(T, chunk)
+    if d not in COMPILED_HEAD_DIMS:
+        raise ValueError(f"head dimension {d} is not compiled; choose from "
+                         f"{COMPILED_HEAD_DIMS}")
+    if T and not 1 <= c <= MAX_CHUNK:
+        raise ValueError(f"chunk {c} is not compiled; the kernel takes 1 to {MAX_CHUNK}")
+    if r.dtype not in (torch.float32, torch.bfloat16) \
+            or any(x.dtype != r.dtype for x in (k, v, log_w, u)):
+        raise TypeError(f"wkv6 takes float32 or bfloat16 operands of one type, got "
+                        f"{[x.dtype for x in (r, k, v, log_w, u)]}")
+    if not all(x.is_contiguous() for x in (r, k, v, log_w, u)):
+        raise ValueError("wkv6 takes contiguous operands")
+    o = torch.empty_like(r)
+    state = torch.empty((BH, d, d), dtype=torch.float32, device=r.device)
+    if BH == 0:
+        return o, state
+    if T == 0:
+        return o, state.zero_()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _build.lib().repro_wkv6(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(), u.data_ptr(),
+            o.data_ptr(), state.data_ptr(), BH, T, d, c,
+            int(r.dtype == torch.bfloat16), stream)
+    _build.check(code, f"wkv6 BH={BH} T={T} d={d} chunk={c}")
+    launches += 1
+    return o, state

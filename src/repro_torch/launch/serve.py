@@ -1,16 +1,19 @@
 """Batched serving launcher: one causal prefill pass + a greedy decode loop
-with a KV cache, on one GPU.
+with a KV cache (a recurrent state for RWKV6), on one GPU.
 
 ``python -m repro_torch.launch.serve --arch qwen2.5-3b --batch 4
 --prompt-len 512 --tokens 32`` greedy-decodes a batch of synthetic prompts
 with random weights made from ``--seed``; ``--arch qwen3-moe-30b-a3b`` or
-``deepseek-moe-16b`` serves an MoE model the same way.  The prompt goes
-through the FlashAttention kernel in one pass, every decode step through the
-flash-decode kernels with the cache's valid length; an MoE layer's experts
-go through the grouped-GEMM kernel; projections, router, dense MLP and LM
-head are ``torch.einsum``.  ``--device cpu`` runs the same code with the
-kernels' plain versions (tests do); without a GPU and without that flag the
-launcher raises.
+``deepseek-moe-16b`` serves an MoE model the same way, ``--arch rwkv6-3b``
+the RWKV6 family.  The prompt goes through the FlashAttention kernel in one
+pass, every decode step through the flash-decode kernels with the cache's
+valid length; an MoE layer's experts go through the grouped-GEMM kernel; an
+RWKV6 layer's prompt goes through the chunked-WKV kernel in one pass, which
+hands its final state to decode, and a decode step runs the plain
+single-token recurrence, as the reference does; projections, router, dense
+MLP and LM head are ``torch.einsum``.  ``--device cpu`` runs the same code
+with the kernels' plain versions (tests do); without a GPU and without that
+flag the launcher raises.
 
 Not ported yet (ROADMAP.md, Queue 1): the mesh-plan ranking, ``--tenants``
 mode and the ``--introspect-port`` / ``--flightrec`` flags of the reference.
@@ -126,29 +129,16 @@ def generate(api: ModelAPI, params, prompts: torch.Tensor, tokens: int, *,
                     if device.type == "cuda" else 0))
 
 
-@torch.no_grad()
-def profile_decode(api: ModelAPI, params, prompts: torch.Tensor, steps: int) -> Dict[str, Any]:
-    """Where a decode step's time goes on the card: prefill, warm up, then
-    trace ``steps`` decode steps with ``torch.profiler`` and report the wall
-    time per step, the time the device was busy, its idle share and the
-    kernels that took most device time."""
+def _traced(fn, device: torch.device, repeat: int) -> Dict[str, Any]:
+    """Run ``fn`` ``repeat`` times under ``torch.profiler``; the wall time per
+    run, the device's busy time and idle share, and the kernels that took
+    most device time."""
     from torch.profiler import ProfilerActivity, profile
-    cfg = api.cfg
-    device = prompts.device
-    if device.type != "cuda":
-        raise ValueError("profile_decode traces the card; it needs a CUDA device")
-    cache = api.init_cache(cfg, prompts.shape[0], prompts.shape[1] + steps + 4,
-                           device=device)
-    step = make_serve_step(api)
-    logits, cache = api.prefill(params, prompts, cache)
-    tok = torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1)
-    for _ in range(2):
-        logits, cache = step(params, tok, cache)
     _sync(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            logits, cache = step(params, tok, cache)
+        for _ in range(repeat):
+            fn()
         _sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel: Dict[str, List[float]] = {}
@@ -160,18 +150,48 @@ def profile_decode(api: ModelAPI, params, prompts: torch.Tensor, steps: int) -> 
             rec[1] += 1
     busy_ms = sum(v[0] for v in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
-    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
-            "device_busy_ms_per_step": busy_ms / steps,
+    return {"runs": repeat, "wall_ms": wall_ms / repeat, "device_busy_ms": busy_ms / repeat,
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
-            "top_kernels": [{"name": n[:80], "ms_per_step": v[0] / steps,
-                             "calls_per_step": v[1] / steps} for n, v in top]}
+            "top_kernels": [{"name": n[:80], "ms": v[0] / repeat, "calls": v[1] / repeat}
+                            for n, v in top]}
+
+
+@torch.no_grad()
+def profile_serve(api: ModelAPI, params, prompts: torch.Tensor, steps: int) -> Dict[str, Any]:
+    """Where the time goes on the card: one traced prefill of ``prompts``
+    (after an untraced one) and ``steps`` traced decode steps (after two
+    untraced ones), each with its wall time per run, the device's busy time,
+    its idle share and the kernels that took most device time."""
+    cfg = api.cfg
+    device = prompts.device
+    if device.type != "cuda":
+        raise ValueError("profile_serve traces the card; it needs a CUDA device")
+    max_len = prompts.shape[1] + steps + 4
+
+    def prefill():
+        cache = api.init_cache(cfg, prompts.shape[0], max_len, device=device)
+        return api.prefill(params, prompts, cache)
+
+    prefill()
+    traced_prefill = _traced(prefill, device, 1)
+    logits, cache = prefill()
+    step = make_serve_step(api)
+    tok = torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1)
+    for _ in range(2):
+        logits, cache = step(params, tok, cache)
+    state = {"cache": cache}
+
+    def decode():
+        state["cache"] = step(params, tok, state["cache"])[1]
+
+    return {"prefill": traced_prefill, "decode_step": _traced(decode, device, steps)}
 
 
 def serve_config(arch: str, *, reduced: bool = False,
                  kernels_path: str = "cuda") -> ModelConfig:
-    """The served model's config: ``kernels_path`` is ``"cuda"`` (attention
-    and MoE experts through ``repro_torch.kernels``) or ``"plain"`` (dense
-    PyTorch)."""
+    """The served model's config: ``kernels_path`` is ``"cuda"`` (attention,
+    MoE experts and the RWKV6 prompt scan through ``repro_torch.kernels``) or
+    ``"plain"`` (dense PyTorch)."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -189,8 +209,9 @@ def main(argv=None) -> ServeResult:
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
-                    help="after the run, trace STEPS decode steps with torch.profiler "
-                         "and print the device's busy time, idle share and top kernels")
+                    help="after the run, trace one prefill and STEPS decode steps with "
+                         "torch.profiler and print the device's busy time, idle share "
+                         "and top kernels for each")
     args = ap.parse_args(argv)
 
     device = require_device(args.device)
@@ -221,8 +242,8 @@ def main(argv=None) -> ServeResult:
         print(f"[serve] metrics snapshot written to {dumped}")
     if args.profile > 0:
         import json
-        print("[serve] decode profile: "
-              + json.dumps(profile_decode(api, params, prompts, args.profile)))
+        print("[serve] profile: "
+              + json.dumps(profile_serve(api, params, prompts, args.profile)))
     return res
 
 

@@ -3,7 +3,8 @@
 ``build_model(cfg)`` returns a :class:`ModelAPI` whose members close over the
 config: parameter spec (single source of truth for init / abstract shapes /
 axes), logits function, decode step, prefill and cache constructor.  The
-dense decoder and MoE families are ported so far; the others raise.
+dense decoder, MoE and RWKV6 (``ssm``) families are ported so far; the
+others raise.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from . import layers as L
 from . import param as P
-from . import moe, transformer
+from . import moe, rwkv6, transformer
 
 Params = Dict[str, Any]
 
@@ -60,8 +61,7 @@ def _cast(spec, cfg: ModelConfig):
     return P.cast_spec_dtype(spec, L.pdtype(cfg))
 
 
-_QUEUE = {"ssm": "RWKV6 with kernel K5",
-          "hybrid": "mamba2 / zamba2", "vlm": "encdec / vlm", "audio": "encdec / vlm"}
+_QUEUE = {"hybrid": "mamba2 / zamba2", "vlm": "encdec / vlm", "audio": "encdec / vlm"}
 
 
 def build_model(cfg: ModelConfig) -> ModelAPI:
@@ -80,6 +80,13 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             decode_step=lambda p, t, c: moe.decode_step(p, t, c, cfg),
             prefill=lambda p, t, c: moe.prefill(p, t, c, cfg),
             init_cache=transformer.init_cache)
+    if fam == "ssm":
+        return ModelAPI(
+            cfg=cfg, spec=_cast(rwkv6.rwkv6_spec(cfg), cfg),
+            logits_fn=lambda p, b: rwkv6.forward(p, b["tokens"], cfg),
+            decode_step=lambda p, t, c: rwkv6.decode_step(p, t, c, cfg),
+            prefill=lambda p, t, c: rwkv6.prefill(p, t, c, cfg),
+            init_cache=rwkv6.init_cache)
     if fam in _QUEUE:
         raise NotImplementedError(
             f"family {fam!r} ({cfg.name}) is not ported yet: see ROADMAP.md, "

@@ -29,9 +29,8 @@ def from_reference(params_numpy: Dict[str, Any], device="cuda") -> Dict[str, Any
 
 
 def cache_from_reference(cache_numpy: Dict[str, Any], device="cuda") -> Dict[str, Any]:
-    """The reference's ``{"k", "v", "index"}`` serving cache as the port's:
-    the same (layers, batch, T, kv_heads, head_dim) tensors, ``index`` as a
-    Python int."""
-    return {"k": _to_tensor(cache_numpy["k"], device),
-            "v": _to_tensor(cache_numpy["v"], device),
-            "index": int(np.asarray(cache_numpy["index"]))}
+    """The reference's serving cache as the port's: every tensor with the same
+    shape (``k``/``v`` of the attention families, ``state``/``shift_tm``/
+    ``shift_cm`` of RWKV6), ``index`` as a Python int."""
+    return {name: int(np.asarray(x)) if name == "index" else _to_tensor(x, device)
+            for name, x in cache_numpy.items()}

@@ -174,6 +174,131 @@ def test_serve_moe_reduced_on_the_card_matches_the_plain_path(cuda, monkeypatch)
     assert not within(control)
 
 
+def _wkv_inputs(BH, T, d, dtype, device, floor=False):
+    """r, k, v, log_w, u on the card; ``floor`` draws log w in [-4, 0], the
+    model's decay floor, which at chunk 32 drives a masked score's two
+    factors past float32's range."""
+    gen = torch.Generator(device=device).manual_seed(BH * 1000 + T + d)
+    r, k, v = (torch.randn(BH, T, d, generator=gen, device=device) for _ in range(3))
+    if floor:
+        log_w = -4.0 * torch.rand(BH, T, d, generator=gen, device=device)
+    else:
+        log_w = -torch.exp(torch.randn(BH, T, d, generator=gen, device=device) * 0.5 - 1.0)
+    u = torch.randn(BH, d, generator=gen, device=device) * 0.5
+    return [x.to(dtype) for x in (r, k, v, log_w, u)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(3, 64, 32, 32, False), (3, 128, 32, 32, False),
+                                  (3, 96, 32, 16, False), (2, 64, 16, 32, False),
+                                  (160, 512, 64, 16, False), (4, 100, 64, 4, False),
+                                  (2, 7, 32, 1, False), (5, 96, 64, 32, True),
+                                  (6, 48, 16, 24, True)])
+def test_wkv6_kernel(cuda, case, dtype):
+    """K5 against its plain version: o at 2e-3 in float32 (the reference's
+    kernel tolerance) and 2e-2 in bfloat16, the final state at 2e-3
+    relative to its largest entry."""
+    from repro_torch.kernels import rwkv6 as K
+    BH, T, d, chunk, floor = case
+    xs = _wkv_inputs(BH, T, d, dtype, cuda, floor)
+    before = K.launches
+    o, state = K.wkv6(*xs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert K.launches == before + 1
+    want_o, want_state = K.wkv6_plain(*xs, chunk=chunk)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(state).all()
+    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=tol, atol=tol)
+    scale = want_state.abs().max().item()
+    torch.testing.assert_close(state, want_state, rtol=2e-3, atol=2e-3 * scale)
+
+
+def test_wkv6_kernel_refuses_what_is_not_compiled(cuda):
+    from repro_torch.kernels import ops, rwkv6 as K
+    xs = _wkv_inputs(2, 64, 128, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dimension 128 is not compiled"):
+        K.wkv6(*xs, chunk=16)
+    xs = _wkv_inputs(2, 128, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="chunk 64 is not compiled"):
+        K.wkv6(*xs, chunk=64)
+    with pytest.raises(TypeError, match="one type"):
+        K.wkv6(*xs[:4], xs[4].to(torch.bfloat16), chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.wkv6(xs[0].transpose(1, 2).contiguous().transpose(1, 2), *xs[1:], chunk=16)
+    o, _ = ops.wkv6(*xs, chunk=64)                # ops snaps the chunk to 32
+    torch.cuda.synchronize()
+    assert o.shape == xs[0].shape
+
+
+def test_serve_rwkv6_reduced_on_the_card_is_as_close_to_float32_as_plain(cuda, monkeypatch):
+    """rwkv6-3b reduced: K5 once per layer in prefill.  The plain run is the
+    same bf16 loop with the kernel's plain version in its place, fed the
+    kernel run's ids; both are held against the loop in float32 (same ids
+    and bf16 weights): the kernel path may be at most 1.25 x as far from it
+    as the plain path (largest difference plus 2e-2, and RMS).  That bound
+    mostly sees the bf16 rounding of the other tensors, so every K5 call of
+    a prefill is also held against its plain version on the same inputs,
+    within one bf16 step; a control whose WKV output keeps 5 mantissa bits
+    must fail the two together (chip_smoke.py's rwkv phase does the same at
+    full size)."""
+    from dataclasses import replace
+    from repro_torch import kernels
+    from repro_torch.kernels import rwkv6 as K
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    cfg = serve.serve_config("rwkv6-3b", reduced=True)
+    api = build_model(cfg)
+    params = serve.load_params(api, cuda, seed=0)
+    prompts = serve.make_prompts(cfg, 2, 64, cuda)
+    kernels.reset_launch_counts()
+    res = serve.generate(api, params, prompts, 8, keep_step_logits=True)
+    counts = kernels.launch_counts()
+    assert counts["wkv6"] == cfg.n_layers
+    assert sum(counts.values()) == cfg.n_layers
+    kernel, plain_scan = K.wkv6, K.wkv6_plain
+
+    def run(run_cfg, scan):
+        monkeypatch.setattr(K, "wkv6", scan)
+        out = serve.generate(build_model(run_cfg), params, prompts, 8, keep_step_logits=True,
+                             forced_ids=res.generated)
+        return torch.cat([x.float().flatten() for x in [out.prefill_logits, *out.step_logits]])
+
+    def five_bits(*args, chunk):
+        o, state = plain_scan(*args, chunk=chunk)
+        i = o.float().contiguous().view(torch.int32)
+        return ((i + (1 << 17)) & -(1 << 18)).view(torch.float32).to(o.dtype), state
+
+    def per_call_within(scan) -> bool:
+        ok = []
+
+        def checked(*args, chunk):
+            o, state = scan(*args, chunk=chunk)
+            po, pstate = plain_scan(*args, chunk=chunk)
+            diff, ref = (o.float() - po.float()).abs(), po.float().abs()
+            ok.append(bool((diff <= 2 ** -7 * ref + 1e-4 * ref.max()).all()) and
+                      bool((state - pstate).abs().max() <= 2e-3 * pstate.abs().max()))
+            return o, state
+
+        monkeypatch.setattr(K, "wkv6", checked)
+        with torch.no_grad():
+            api.prefill(params, prompts, api.init_cache(cfg, 2, 65, device=cuda))
+        return len(ok) == cfg.n_layers and all(ok)
+
+    plain = run(cfg, plain_scan)
+    exact = run(replace(cfg, compute_dtype="float32"), plain_scan)
+    control = run(cfg, five_bits)
+    got = torch.cat([x.float().flatten() for x in [res.prefill_logits, *res.step_logits]])
+    assert torch.isfinite(got).all()
+
+    def within(x):
+        diff, base = x - exact, plain - exact
+        return bool(diff.abs().max() <= 1.25 * base.abs().max() + 2e-2
+                    and diff.square().mean().sqrt() <= 1.25 * base.square().mean().sqrt())
+
+    assert within(got) and per_call_within(kernel)
+    assert not (within(control) and per_call_within(five_bits))
+
+
 def test_python_footprints_mirror_the_compiled_kernels(cuda):
     """The shared-memory formulas the planner prunes with are the kernels' own."""
     from repro_torch.kernels import _build, flash_attention as FA, gemm as G

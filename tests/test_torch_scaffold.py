@@ -49,7 +49,8 @@ def test_importing_every_module_loads_neither_jax_nor_reference(tmp_path):
         "print(len(names)); print(bad)\n"
         "assert not bad, bad\n"
         "assert len(names) > 60, names\n"
-        "assert {'repro_torch.models.moe', 'repro_torch.kernels.moe_gmm'} <= set(names)\n")
+        "assert {'repro_torch.models.moe', 'repro_torch.kernels.moe_gmm',\n"
+        "        'repro_torch.models.rwkv6', 'repro_torch.kernels.rwkv6'} <= set(names)\n")
     env = {"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin", "HOME": str(tmp_path)}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=300)
@@ -113,7 +114,7 @@ def test_unported_families_raise_naming_the_queue():
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config("rwkv6-3b"))
+        build_model(get_config("zamba2-1.2b"))
 
 
 def test_chip_smoke_fails_without_gpu():

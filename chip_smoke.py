@@ -10,7 +10,8 @@ these phases, each printing one JSON line; any failure raises:
 1. device   the card's name and power limit, torch and CUDA versions;
 2. build    compile ``src/repro_torch/kernels/csrc/*.cu`` and load the library;
 3. kernels  every kernel against its plain PyTorch version on the card, at
-            the serving shapes and at one ragged shape each, in bf16 and
+            the serving shapes (K2 at qwen2.5-3b's and at the MoE's
+            prefill) and at one ragged shape each, in bf16 and
             float32 (tolerances 2e-2 and 1e-4, those of the reference's
             kernel tests; 2e-3 for the WKV scan in float32 and for its
             final state), each timed with CUDA events (median of 25 single
@@ -19,6 +20,9 @@ these phases, each printing one JSON line; any failure raises:
             function, and the roofline bound;
 4. planner  ``ops.matmul`` with no block at the model's projection shape:
             planner -> GEMM kernel, search then registry hit, no fallback;
+            every compiled GEMM and flash tile timed at the served shape,
+            with the planner's flash tile's rank and its time over the
+            fastest tile's;
 5. serve    ``qwen2.5-3b`` at full width and depth with random weights:
             batch 4, prompt 512, 32 greedy tokens through
             ``repro_torch.launch.serve``, compared step by step with the same
@@ -341,11 +345,14 @@ def phase_kernels(timer, gen):
         cases += decode_cases(timer, gen, BATCH, H, Hkv, buffer_len, PROMPT + 1, d, dtype,
                               serving=True)
         cases += decode_cases(timer, gen, 1, 4, 4, 2048, None, 64, dtype, False, splits=8)
+    # K2 at the MoE's prefill (32 query heads on 4 kv heads per sequence)
+    from repro_torch.models import moe
+    mcfg = get_config(MOE_ARCH)
+    cases.append(flash_case(timer, gen, BATCH, mcfg.n_heads, mcfg.n_kv_heads, PROMPT, PROMPT,
+                            mcfg.head_dim_, True, torch.bfloat16, serving=True))
     # the grouped GEMM at the MoE's served shapes, decode gate/up first (the
     # shape with most launches, the one the kernels line reports), then at
     # deepseek-moe-16b's prefill shapes and one ragged float32 shape
-    from repro_torch.models import moe
-    mcfg = get_config(MOE_ARCH)
     E, d, f = mcfg.n_experts, mcfg.d_model, mcfg.moe_d_ff
     for cap in (moe._capacity(BATCH, mcfg), moe._capacity(BATCH * PROMPT, mcfg)):
         cases.append(grouped_case(timer, gen, E, cap, d, f, torch.bfloat16, True))
@@ -416,11 +423,14 @@ def phase_planner(timer, gen):
     flash_tiles = {str(t): timer.ms(lambda t=t: FA.flash_attention(
         q, k4, v4, causal=True, block_q=t[0], block_kv=t[1], q_per_kv=H // Hkv), n=10)
         for t in lower_torch.flash_tile_options(d, 2)}
+    ranked = sorted(flash_tiles, key=flash_tiles.get)
+    chosen = str(tuple(flash_blocks))
     emit({"phase": "planner", "gemm_shape": list(shape), "gemm_blocks": list(blocks),
           "first": first_source, "second": source, "planner_fallbacks": fallbacks,
           "gemm_launches": launches, "max_abs_err": err, "gemm_tile_ms": tiles,
           "flash_shape": [PROMPT, PROMPT, d], "flash_blocks": list(flash_blocks),
-          "flash_tile_ms": flash_tiles})
+          "flash_tile_ms": flash_tiles, "flash_blocks_rank": ranked.index(chosen) + 1,
+          "flash_blocks_vs_fastest": flash_tiles[chosen] / flash_tiles[ranked[0]]})
     return launches
 
 

@@ -158,18 +158,22 @@ def _chip():
 
 
 def _cached_blocks(template: str, params: dict, shape: Tuple[int, ...],
-                   progs, fallback: Tuple[int, ...], pick) -> Tuple[int, ...]:
+                   progs, fallback: Tuple[int, ...], pick,
+                   tiles: list) -> Tuple[int, ...]:
     """Shared request-level cache path for the block-shape tables.
 
     On a key hit the stored block tuple is returned without touching the
     planner.  On a miss the search is warm-started from the nearest cached
     shape of the same template, then the winning blocks are persisted.
+    ``tiles`` (each candidate tile with its shared-memory footprint) is part
+    of the key, so a choice made for another build of the kernel is never
+    served.
     """
     hw, hw_dig = _chip()
     request = (template, tuple(params.values()))
     budget = effective_budget(_CHIP_BUDGET)
     store = plancache.get_store()
-    key = plancache.request_key(template, params, hw, budget)
+    key = plancache.request_key(template, params, hw, budget, extra={"tiles": tiles})
     ent = store.get(key)
     if ent is not None:
         try:
@@ -246,9 +250,10 @@ def plan_gemm_blocks(M: int, N: int, K: int, dtype=torch.bfloat16
 def _gemm_blocks_memo(M: int, N: int, K: int, dtype, _fast: bool
                       ) -> Tuple[int, int, int]:
     dbytes = dtype_bytes(dtype)
+    options = gemm_tile_options(dbytes)
     progs = [matmul_program(max(M, bm), max(N, bn), max(K, bk),
                             bm=bm, bn=bn, bk=bk, dtype_bytes=dbytes)
-             for bm, bn, bk in gemm_tile_options(dbytes)]
+             for bm, bn, bk in options]
 
     def pick(res) -> Tuple[int, int, int]:
         loads = {c.access.tensor.name: c for c in res.best.plan.loads}
@@ -258,7 +263,8 @@ def _gemm_blocks_memo(M: int, N: int, K: int, dtype, _fast: bool
 
     return _cached_blocks("gemm_blocks",
                           {"M": M, "N": N, "K": K, "dbytes": dbytes},
-                          (M, N, K), progs, GEMM_FALLBACK, pick)
+                          (M, N, K), progs, GEMM_FALLBACK, pick,
+                          [[*t, _gemm.gemm_smem_bytes(*t, dbytes)] for t in options])
 
 
 def plan_flash_blocks(Sq: int, Skv: int, d: int, dtype=torch.bfloat16
@@ -271,9 +277,10 @@ def plan_flash_blocks(Sq: int, Skv: int, d: int, dtype=torch.bfloat16
 def _flash_blocks_memo(Sq: int, Skv: int, d: int, dtype, _fast: bool
                        ) -> Tuple[int, int]:
     dbytes = dtype_bytes(dtype)
+    options = flash_tile_options(d, dbytes)
     progs = [flash_attention_program(8, max(Sq, bq), max(Skv, bkv), d,
                                      bq=bq, bkv=bkv, dtype_bytes=dbytes)
-             for bq, bkv in flash_tile_options(d, dbytes)]
+             for bq, bkv in options]
 
     def pick(res) -> Tuple[int, int]:
         loads = {c.access.tensor.name: c for c in res.best.plan.loads}
@@ -283,7 +290,8 @@ def _flash_blocks_memo(Sq: int, Skv: int, d: int, dtype, _fast: bool
 
     return _cached_blocks("flash_blocks",
                           {"Sq": Sq, "Skv": Skv, "d": d, "dbytes": dbytes},
-                          (Sq, Skv, d), progs, FLASH_FALLBACK, pick)
+                          (Sq, Skv, d), progs, FLASH_FALLBACK, pick,
+                          [[*t, _fa.flash_smem_bytes(*t, d, dbytes)] for t in options])
 
 
 def clear_block_caches() -> None:

@@ -6,12 +6,11 @@
 // sequential grid axis and the running max / denominator / output live in
 // scratch memory between grid steps.  Here one thread block owns a
 // (head, BQ-row query tile) pair for its whole life, the KV axis is the
-// block's loop, each warp owns 16 query rows, the running max and
-// denominator live in registers and the float32 output accumulator in the
-// block's shared memory.  Semantics kept from the reference: the finite
-// -1e30 mask sentinel, causal masking by absolute position (q_pos >= k_pos,
-// no end alignment), Sq != Skv allowed, and a row whose keys are all masked
-// gives 0 (l == 0 -> 1) rather than NaN.
+// block's loop and each warp owns 16 query rows.  Semantics kept from the
+// reference: the finite -1e30 mask sentinel (a masked score never adds
+// exp(0)), causal masking by absolute position (q_pos >= k_pos, no end
+// alignment), Sq != Skv allowed, and a row whose keys are all masked gives 0
+// (l == 0 -> 1) rather than NaN.
 //
 // Grouped-query attention without a repeated copy: the reference repeats
 // K/V `q_per_kv` times before its kernel; this kernel takes the un-repeated
@@ -23,17 +22,39 @@
 // heads, 512 x 512 causal, d = 128, bf16) does 4 * 64 * 512 * 512 * 128 / 2
 // = 4.3 GFLOP and has to move 19 MB (q and o once, the un-repeated k and v
 // once): about 4 microseconds of tensor-core work and 6 of memory traffic,
-// so by the roofline it sits just on the bytes side, and far below either
-// bound a block's own shared-memory traffic and softmax arithmetic decide
-// its speed.  The bf16 path runs both products on the tensor cores
-// (`mma.sync` via nvcuda::wmma) and skips tiles above the causal diagonal.
-// It is a first, simple kernel: scores, probabilities and the accumulator
-// pass through shared memory because a wmma fragment's layout is opaque; a
-// register-resident `wgmma` pipeline with TMA loads is the known faster
-// route.  float32 inputs use true float32 FMAs (no TF32).
+// so by the roofline it sits just on the bytes side.  At that size latency
+// and instruction count decide: how many blocks are in flight, whether
+// their K/V loads overlap the products, and how many instructions a tile
+// costs.
+//
+// bf16 design (flash_fwd_bf16_kernel):
+//  * scores, probabilities and the output accumulator stay in registers.
+//    Both products are `mma.sync.m16n8k16` (bf16 in, float32 accumulate)
+//    through inline PTX.  Q and K fragments come from shared memory with
+//    `ldmatrix`, V fragments with `ldmatrix.trans`.  The float32 score
+//    accumulator is scaled, masked, exponentiated (exp2 with
+//    sm_scale * log2 e folded in) and summed where it lies; a row's max and
+//    sum take two quad shuffles each.  The m16n8k16 accumulator layout of
+//    two adjacent n8 tiles is the A layout of one k16 step, so the scores
+//    are packed to bf16 pairs and fed to P V without leaving registers.  O is
+//    rescaled in registers, normalised once and stored straight to memory.
+//  * K/V tiles are copied with `cp.async` into two stages: tile t+1 is in
+//    flight while tile t is computed, behind one barrier per tile.  Rows are
+//    padded by 16 bytes, so the 8 rows one `ldmatrix` phase reads fall in 8
+//    different bank groups.
+//  * without S, P and O in shared memory a block takes Q plus two stages of
+//    K and V (104,448 bytes at (128, 64), d 128), so two blocks fit an SM,
+//    and `__launch_bounds__` caps the registers so that they do (128 a
+//    thread for 8 warps; uncapped ptxas takes 198).  Query tiles are
+//    launched heaviest first (the causal diagonal's far end), and only the
+//    tiles that cross the diagonal or the ragged end of the keys pay for the
+//    per-element mask.
+//  * `vec_ok == 0` (a misaligned pointer or stride) loads synchronously with
+//    scalar loads into the same stages.
+//
+// float32 inputs (flash_fwd_f32_kernel) keep the first design: true float32
+// FMAs (no TF32), with scores and accumulator in shared memory.
 #pragma once
-
-#include <mma.h>
 
 #include "common.cuh"
 
@@ -44,40 +65,310 @@ constexpr int FLASH_MAX_SMEM = 232448;   // bytes one block may use on sm_90
 // Shared-memory layout of one block; mirrored by flash_smem_bytes() in
 // kernels/flash_attention.py, which the planner uses to prune tile shapes.
 template <typename T, int D, int BQ, int BKV>
-struct FlashLayout {
-  static constexpr int PAD = 16 / sizeof(T);
-  static constexpr int LDQ = D + PAD;       // rows of the Q, K and V tiles
-  static constexpr int LDS = BKV + 4;       // float32 scores
-  static constexpr int LDP = BKV + PAD;     // bf16 probabilities (bf16 path only)
-  static constexpr int LDO = D + 4;         // float32 output accumulator
-  static constexpr int Q_BYTES = BQ * LDQ * (int)sizeof(T);
-  static constexpr int KV_BYTES = BKV * LDQ * (int)sizeof(T);
-  static constexpr int S_BYTES = BQ * LDS * 4;
-  static constexpr int P_BYTES = is_bf16<T>::value ? BQ * LDP * (int)sizeof(T) : 0;
-  static constexpr int O_BYTES = BQ * LDO * 4;
-  static constexpr int TOTAL = Q_BYTES + 2 * KV_BYTES + S_BYTES + P_BYTES + O_BYTES;
+struct FlashLayout;
+
+// bf16: the Q tile and two stages of K and V tiles, rows padded by 16 bytes.
+template <int D, int BQ, int BKV>
+struct FlashLayout<__nv_bfloat16, D, BQ, BKV> {
+  static constexpr int LD = D + 8;
+  static constexpr int Q_BYTES = BQ * LD * 2;
+  static constexpr int KV_BYTES = BKV * LD * 2;   // one K or V tile
+  static constexpr int STAGES = 2;
+  static constexpr int TOTAL = Q_BYTES + 2 * STAGES * KV_BYTES;
+  // blocks an SM should hold: as many as its 228 KB of shared memory take
+  // (1 KB of each reserved), at most 2 of 8 warps (128 registers a thread)
+  // or 3 of 4 warps (170); one where ptxas spilled under the 128-register
+  // cap ((128, 32) at d 128, (128, 64) at d 64)
+  static constexpr bool SPILLS_AT_2 = BQ == 128 && ((D == 128 && BKV == 32) ||
+                                                    (D == 64 && BKV == 64));
+  static constexpr int BY_SMEM = 233472 / (TOTAL + 1024);
+  static constexpr int BY_REGS = BQ == 128 ? (SPILLS_AT_2 ? 1 : 2) : 3;
+  static constexpr int MIN_BLOCKS = BY_SMEM < BY_REGS ? BY_SMEM : BY_REGS;
 };
 
-template <typename T, int D, int BQ, int BKV>
-__global__ void __launch_bounds__(BQ * 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int Sq, int Skv, int H, int q_per_kv,
-                 long long k_sb, long long k_sh, long long k_st,
-                 long long v_sb, long long v_sh, long long v_st,
-                 float sm_scale, int causal, int vec_ok) {
-  using L = FlashLayout<T, D, BQ, BKV>;
+// float32: Q, K and V tiles, float32 scores and output accumulator.
+template <int D, int BQ, int BKV>
+struct FlashLayout<float, D, BQ, BKV> {
+  static constexpr int LDQ = D + 4;
+  static constexpr int LDS = BKV + 4;
+  static constexpr int LDO = D + 4;
+  static constexpr int Q_BYTES = BQ * LDQ * 4;
+  static constexpr int KV_BYTES = BKV * LDQ * 4;
+  static constexpr int S_BYTES = BQ * LDS * 4;
+  static constexpr int O_BYTES = BQ * LDO * 4;
+  static constexpr int TOTAL = Q_BYTES + 2 * KV_BYTES + S_BYTES + O_BYTES;
+};
+
+// ---- tensor-core and shared-memory primitives (sm_80+ PTX) ------------------
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c (16 x 8, float32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, col-major)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// Copy a tile into shared memory: asynchronously (the caller commits and
+// waits) when pointers and strides are 16-byte aligned, else with scalar loads.
+template <int ROWS, int D, int LD, int NT>
+__device__ __forceinline__ void flash_copy(__nv_bfloat16* s, const __nv_bfloat16* g, int row0,
+                                           int n_rows, long long ld_g, bool vec_ok, int tid) {
+  if (vec_ok) {
+    load_tile_async<__nv_bfloat16, ROWS, D, LD, NT>(s, g, row0, 0, n_rows, D, ld_g, tid);
+  } else {
+    load_tile<__nv_bfloat16, ROWS, D, LD, NT>(s, g, row0, 0, n_rows, D, ld_g, false, tid);
+  }
+}
+
+__device__ __forceinline__ unsigned special_reg_tid_x() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned special_reg_ctaid_x() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned special_reg_ctaid_y() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(r));
+  return r;
+}
+
+// The register cap of __launch_bounds__ lets FlashLayout::MIN_BLOCKS blocks
+// share an SM (at (128, 64), d 128: two blocks, 128 registers a thread).
+template <int D, int BQ, int BKV>
+__global__ void __launch_bounds__(BQ * 2, (FlashLayout<__nv_bfloat16, D, BQ, BKV>::MIN_BLOCKS))
+flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                      int Sq, int Skv, int H, int q_per_kv, long long k_sb, long long k_sh,
+                      long long k_st, long long v_sb, long long v_sh, long long v_st,
+                      float scale_log2, int causal, int vec_ok) {
+  using L = FlashLayout<__nv_bfloat16, D, BQ, BKV>;
+  using bf16 = __nv_bfloat16;
   constexpr int NT = BQ * 2;                // one warp per 16 query rows
-  constexpr int LDQ = L::LDQ, LDS = L::LDS, LDP = L::LDP, LDO = L::LDO;
+  constexpr int LD = L::LD;
+  constexpr int NS = BKV / 8;               // n8 tiles of the scores
+  constexpr int NO = D / 8;                 // n8 tiles of the output
+  constexpr unsigned FULL = 0xffffffffu;
+  static_assert(D % 16 == 0 && BKV % 16 == 0 && BQ % 16 == 0, "tiles are whole mma steps");
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw + L::Q_BYTES);              // [stage][BKV][LD]
+  bf16* Vs = reinterpret_cast<bf16*>(smem_raw + L::Q_BYTES + L::STAGES * L::KV_BYTES);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;                  // accumulator rows g and g + 8
+  const int tq = lane & 3;                  // accumulator columns 2 tq, 2 tq + 1
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest causal tiles first
+
+  const bf16* qb = q + (long long)bh * Sq * D;
+  const long long kv_b = bh / H;
+  const long long kv_h = (bh % H) / q_per_kv;
+  const bf16* kb = k + kv_b * k_sb + kv_h * k_sh;
+  const bf16* vb = v + kv_b * v_sb + kv_h * v_sh;
+
+  int kv_end = Skv;
+  if (causal && q0 + BQ < kv_end) kv_end = q0 + BQ;   // tiles above the diagonal
+  const int n_tiles = (kv_end + BKV - 1) / BKV;
+
+  flash_copy<BQ, D, LD, NT>(Qs, qb, q0, Sq, D, vec_ok, tid);
+  flash_copy<BKV, D, LD, NT>(Ks, kb, 0, Skv, k_st, vec_ok, tid);
+  flash_copy<BKV, D, LD, NT>(Vs, vb, 0, Skv, v_st, vec_ok, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();                          // Q and the first K/V tile landed
+
+  const int wq0 = q0 + warp * 16;           // first query row of this warp
+  const int row_a = wq0 + g;                // the thread's two rows
+  const int row_b = row_a + 8;
+  const bf16* Qw = Qs + warp * 16 * LD;
+
+  float oacc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+  float m_a = NEG_INF, m_b = NEG_INF;       // running max (log2 domain)
+  float l_a = 0.f, l_b = 0.f;               // this thread's share of the running sums
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t > 0) {
+      cp_async_wait<0>();
+      __syncthreads();                      // tile t landed; every warp is done with t - 1
+    }
+    if (t + 1 < n_tiles) {                  // into the stage tile t - 1 used
+      const int st = (t + 1) & 1;
+      flash_copy<BKV, D, LD, NT>(Ks + st * BKV * LD, kb, (t + 1) * BKV, Skv, k_st, vec_ok, tid);
+      flash_copy<BKV, D, LD, NT>(Vs + st * BKV * LD, vb, (t + 1) * BKV, Skv, v_st, vec_ok, tid);
+    }
+    cp_async_commit();
+    const int kv0 = t * BKV;
+    if (causal && kv0 > wq0 + 15) continue;           // nothing visible to this warp
+    const bf16* Kt = Ks + (t & 1) * BKV * LD;
+    const bf16* Vt = Vs + (t & 1) * BKV * LD;
+
+    // ---- S = Q K^T: 16 rows x BKV keys per warp, in registers -----------------
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      unsigned a[4];
+      ldmatrix_x4(a, smem_addr(Qw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {    // 16 keys: two n8 tiles
+        unsigned b[4];
+        ldmatrix_x4(b, smem_addr(Kt + (j * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                                 kk * 16 + ((lane >> 3) & 1) * 8));
+        mma_bf16(s[2 * j], a, b[0], b[1]);
+        mma_bf16(s[2 * j + 1], a, b[2], b[3]);
+      }
+    }
+
+    // ---- online softmax where the scores lie ------------------------------------
+    const bool need_mask = kv0 + BKV > Skv || (causal && kv0 + BKV - 1 > wq0);
+    float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (need_mask) {
+          const int kp = kv0 + j * 8 + 2 * tq + (e & 1);
+          const int qp = e < 2 ? row_a : row_b;
+          if (kp >= Skv || (causal && qp < kp)) x = NEG_INF;
+        }
+        s[j][e] = x;
+      }
+      mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[j][2], s[j][3]));
+    }
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, 1));
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, 2));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, 1));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, 2));
+    const float mn_a = fmaxf(m_a, mx_a);
+    const float mn_b = fmaxf(m_b, mx_b);
+    const float alpha_a = exp2f(m_a - mn_a);
+    const float alpha_b = exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float mn = e < 2 ? mn_a : mn_b;
+        s[j][e] = s[j][e] > 0.5f * NEG_INF ? exp2f(s[j][e] - mn) : 0.f;
+      }
+      sum_a += s[j][0] + s[j][1];
+      sum_b += s[j][2] + s[j][3];
+    }
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      oacc[n][0] *= alpha_a;
+      oacc[n][1] *= alpha_a;
+      oacc[n][2] *= alpha_b;
+      oacc[n][3] *= alpha_b;
+    }
+
+    // ---- O += P V: P straight from the score registers ----------------------------
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      const unsigned a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int n = 0; n < NO / 2; ++n) {    // 16 output columns: two n8 tiles
+        unsigned b[4];
+        ldmatrix_x4_trans(b, smem_addr(Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                       n * 16 + (lane >> 4) * 8));
+        mma_bf16(oacc[2 * n], a, b[0], b[1]);
+        mma_bf16(oacc[2 * n + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();                       // no copy outlives the block
+
+  // The thread's row, column and head are read again from the special
+  // registers rather than kept live through the loop: under the register cap
+  // ptxas would otherwise spill one of them.
+  const unsigned tx = special_reg_tid_x();
+  const int ra = (int)((gridDim.y - 1 - special_reg_ctaid_y()) * BQ + (tx / 32) * 16 +
+                       ((tx % 32) >> 2));
+  const int rb = ra + 8;
+  const int tc = 2 * (int)(tx & 3);
+
+  // ---- normalise once and store the warp's 16 rows --------------------------------
+  l_a += __shfl_xor_sync(FULL, l_a, 1);
+  l_a += __shfl_xor_sync(FULL, l_a, 2);
+  l_b += __shfl_xor_sync(FULL, l_b, 1);
+  l_b += __shfl_xor_sync(FULL, l_b, 2);
+  const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
+  const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
+  bf16* ob = o + (long long)special_reg_ctaid_x() * Sq * D;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int c = n * 8 + tc;
+    if (ra < Sq)
+      *reinterpret_cast<unsigned*>(ob + (long long)ra * D + c) =
+          pack_bf16(oacc[n][0] * inv_a, oacc[n][1] * inv_a);
+    if (rb < Sq)
+      *reinterpret_cast<unsigned*>(ob + (long long)rb * D + c) =
+          pack_bf16(oacc[n][2] * inv_b, oacc[n][3] * inv_b);
+  }
+}
+
+template <int D, int BQ, int BKV>
+__global__ void __launch_bounds__(BQ * 2)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv, int H,
+                     int q_per_kv, long long k_sb, long long k_sh, long long k_st,
+                     long long v_sb, long long v_sh, long long v_st, float sm_scale,
+                     int causal, int vec_ok) {
+  using L = FlashLayout<float, D, BQ, BKV>;
+  constexpr int NT = BQ * 2;                // one warp per 16 query rows
+  constexpr int LDQ = L::LDQ, LDS = L::LDS, LDO = L::LDO;
   constexpr unsigned FULL = 0xffffffffu;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = reinterpret_cast<T*>(smem_raw + L::Q_BYTES);
-  T* Vs = reinterpret_cast<T*>(smem_raw + L::Q_BYTES + L::KV_BYTES);
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Ks = reinterpret_cast<float*>(smem_raw + L::Q_BYTES);
+  float* Vs = reinterpret_cast<float*>(smem_raw + L::Q_BYTES + L::KV_BYTES);
   float* Ss = reinterpret_cast<float*>(smem_raw + L::Q_BYTES + 2 * L::KV_BYTES);
-  T* Ps = reinterpret_cast<T*>(smem_raw + L::Q_BYTES + 2 * L::KV_BYTES + L::S_BYTES);
-  float* Os = reinterpret_cast<float*>(smem_raw + L::Q_BYTES + 2 * L::KV_BYTES +
-                                       L::S_BYTES + L::P_BYTES);
+  float* Os = reinterpret_cast<float*>(smem_raw + L::Q_BYTES + 2 * L::KV_BYTES + L::S_BYTES);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -87,22 +378,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
 
-  const T* qb = q + (long long)bh * Sq * D;
+  const float* qb = q + (long long)bh * Sq * D;
   const long long kv_b = bh / H;
   const long long kv_h = (bh % H) / q_per_kv;
-  const T* kb = k + kv_b * k_sb + kv_h * k_sh;
-  const T* vb = v + kv_b * v_sb + kv_h * v_sh;
+  const float* kb = k + kv_b * k_sb + kv_h * k_sh;
+  const float* vb = v + kv_b * v_sb + kv_h * v_sh;
 
-  load_tile<T, BQ, D, LDQ, NT>(Qs, qb, q0, 0, Sq, D, D, vec_ok, tid);
+  load_tile<float, BQ, D, LDQ, NT>(Qs, qb, q0, 0, Sq, D, D, vec_ok, tid);
   for (int i = tid; i < BQ * LDO; i += NT) Os[i] = 0.f;
   __syncthreads();
 
-  T* Qw = Qs + warp * 16 * LDQ;
   float* Sw = Ss + warp * 16 * LDS;
-  T* Pw = Ps + warp * 16 * LDP;
   float* Ow = Os + warp * 16 * LDO;
   float* srow = Sw + row * LDS;
   float* orow = Ow + row * LDO;
+  const float* qrow = Qs + (warp * 16 + row) * LDQ;
 
   float m_run = NEG_INF;
   float l_run = 0.f;
@@ -116,38 +406,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int t = 0; t < n_tiles; ++t) {
     const int kv0 = t * BKV;
     __syncthreads();                        // every warp is done with the last tile
-    load_tile<T, BKV, D, LDQ, NT>(Ks, kb, kv0, 0, Skv, D, k_st, vec_ok, tid);
-    load_tile<T, BKV, D, LDQ, NT>(Vs, vb, kv0, 0, Skv, D, v_st, vec_ok, tid);
+    load_tile<float, BKV, D, LDQ, NT>(Ks, kb, kv0, 0, Skv, D, k_st, vec_ok, tid);
+    load_tile<float, BKV, D, LDQ, NT>(Vs, vb, kv0, 0, Skv, D, v_st, vec_ok, tid);
     __syncthreads();
     if (causal && kv0 > warp_last_q) continue;   // nothing visible to this warp
 
-    // ---- S = Q K^T for this warp's 16 rows --------------------------------
-    if constexpr (is_bf16<T>::value) {
-      using namespace nvcuda;
-#pragma unroll
-      for (int n = 0; n < BKV / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc;
-        wmma::fill_fragment(sacc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, Qw + kk * 16, LDQ);
-          wmma::load_matrix_sync(fb, Ks + n * 16 * LDQ + kk * 16, LDQ);
-          wmma::mma_sync(sacc, fa, fb, sacc);
-        }
-        wmma::store_matrix_sync(Sw + n * 16, sacc, LDS, wmma::mem_row_major);
-      }
-    } else {
-      const T* qrow = Qw + row * LDQ;
-      for (int j = 0; j < BKV / 2; ++j) {
-        const int c = 2 * j + half;
-        const T* krow = Ks + c * LDQ;
-        float s = 0.f;
+    // ---- S = Q K^T for this warp's 16 rows, two lanes per row -----------------
+    for (int j = 0; j < BKV / 2; ++j) {
+      const int c = 2 * j + half;
+      const float* krow = Ks + c * LDQ;
+      float s = 0.f;
 #pragma unroll 8
-        for (int e = 0; e < D; ++e) s = fmaf(to_float(qrow[e]), to_float(krow[e]), s);
-        srow[c] = s;
-      }
+      for (int e = 0; e < D; ++e) s = fmaf(qrow[e], krow[e], s);
+      srow[c] = s;
     }
     __syncwarp();
 
@@ -172,11 +443,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int c = 2 * j + half;
       const float p = sv[j] > 0.5f * NEG_INF ? expf(sv[j] - m_new) : 0.f;
       sum += p;
-      if constexpr (is_bf16<T>::value) {
-        Pw[row * LDP + c] = __float2bfloat16(p);
-      } else {
-        srow[c] = p;
-      }
+      srow[c] = p;
     }
     sum += __shfl_xor_sync(FULL, sum, 1);
     l_run = l_run * alpha + sum;
@@ -185,30 +452,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     __syncwarp();
 
     // ---- O += P V --------------------------------------------------------------
-    if constexpr (is_bf16<T>::value) {
-      using namespace nvcuda;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fp[BKV / 16];
-#pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) wmma::load_matrix_sync(fp[kk], Pw + kk * 16, LDP);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc;
-        wmma::load_matrix_sync(oacc, Ow + n * 16, LDO, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BKV / 16; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fv;
-          wmma::load_matrix_sync(fv, Vs + kk * 16 * LDQ + n * 16, LDQ);
-          wmma::mma_sync(oacc, fp[kk], fv, oacc);
-        }
-        wmma::store_matrix_sync(Ow + n * 16, oacc, LDO, wmma::mem_row_major);
-      }
-    } else {
-      for (int dc = half; dc < D; dc += 2) {
-        float acc = orow[dc];
+    for (int dc = half; dc < D; dc += 2) {
+      float acc = orow[dc];
 #pragma unroll 8
-        for (int c = 0; c < BKV; ++c) acc = fmaf(srow[c], to_float(Vs[c * LDQ + dc]), acc);
-        orow[dc] = acc;
-      }
+      for (int c = 0; c < BKV; ++c) acc = fmaf(srow[c], Vs[c * LDQ + dc], acc);
+      orow[dc] = acc;
     }
     __syncwarp();
   }
@@ -217,13 +465,34 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const float inv = 1.f / (l_run == 0.f ? 1.f : l_run);
   for (int dc = half; dc < D; dc += 2) orow[dc] *= inv;
   __syncwarp();
-  T* ob = o + (long long)bh * Sq * D;
+  float* ob = o + (long long)bh * Sq * D;
   for (int e = lane; e < 16 * D; e += 32) {
     const int r = e / D;
     const int c = e % D;
     const int gq = q0 + warp * 16 + r;
-    if (gq < Sq) ob[(long long)gq * D + c] = from_float<T>(Ow[r * LDO + c]);
+    if (gq < Sq) ob[(long long)gq * D + c] = Ow[r * LDO + c];
   }
+}
+
+template <int D, int BQ, int BKV>
+int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
+                      int Skv, int H, int q_per_kv, long long k_sb, long long k_sh,
+                      long long k_st, long long v_sb, long long v_sh, long long v_st,
+                      float sm_scale, int causal, int vec_ok, cudaStream_t stream) {
+  using L = FlashLayout<__nv_bfloat16, D, BQ, BKV>;
+  using bf16 = __nv_bfloat16;
+  constexpr float LOG2E = 1.4426950408889634f;
+  const int nq = (Sq + BQ - 1) / BQ;
+  if (nq > 65535) return -1;                // query tiles run along gridDim.y
+  auto kern = flash_fwd_bf16_kernel<D, BQ, BKV>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         L::TOTAL);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3(BH, nq), BQ * 2, L::TOTAL, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), Sq, Skv, H, q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
+      sm_scale * LOG2E, causal, vec_ok);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int D, int BQ, int BKV>
@@ -233,16 +502,22 @@ int launch_flash_tile(const void* q, const void* k, const void* v, void* o, int 
                       float sm_scale, int causal, int vec_ok, cudaStream_t stream) {
   using L = FlashLayout<T, D, BQ, BKV>;
   if (L::TOTAL > FLASH_MAX_SMEM) return -2;
-  auto kern = flash_fwd_kernel<T, D, BQ, BKV>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         L::TOTAL);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, BH);
-  kern<<<grid, BQ * 2, L::TOTAL, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Skv, H, q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
-      sm_scale, causal, vec_ok);
-  return (int)cudaGetLastError();
+  if constexpr (is_bf16<T>::value) {
+    return launch_flash_bf16<D, BQ, BKV>(q, k, v, o, BH, Sq, Skv, H, q_per_kv, k_sb, k_sh,
+                                         k_st, v_sb, v_sh, v_st, sm_scale, causal, vec_ok,
+                                         stream);
+  } else {
+    auto kern = flash_fwd_f32_kernel<D, BQ, BKV>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           L::TOTAL);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((Sq + BQ - 1) / BQ, BH);
+    kern<<<grid, BQ * 2, L::TOTAL, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), Sq, Skv, H, q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
+        sm_scale, causal, vec_ok);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, int D, int BQ, int BKV>

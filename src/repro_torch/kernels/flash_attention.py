@@ -2,7 +2,9 @@
 
 Counterpart of ``repro/kernels/flash_attention.py``.  The CUDA kernel
 (``csrc/flash_attention.cuh``) gives one thread block a (head, query tile)
-pair and loops over the KV axis inside it.  It is compiled for head
+pair and loops over the KV axis inside it; in bf16 each warp keeps its
+scores, probabilities and output in registers (``mma.sync``) while the next
+K/V tile arrives by ``cp.async``.  It is compiled for head
 dimensions :data:`COMPILED_HEAD_DIMS` and the tiles :data:`COMPILED_TILES`;
 the planner (``core/lower_torch.py``) chooses among those that fit a block's
 shared memory.  A tensor on the CPU goes to :func:`flash_attention_plain`; a
@@ -36,14 +38,14 @@ launches = 0                        # kernel launches made by flash_attention()
 
 def flash_smem_bytes(bq: int, bkv: int, d: int, elem_size: int) -> int:
     """Shared memory one block of the kernel takes (mirrors ``FlashLayout``
-    in ``csrc/flash_attention.cuh``): the Q, K and V tiles, float32 scores,
-    bf16 probabilities (bf16 only) and the float32 output accumulator."""
-    pad = 16 // elem_size
-    qkv = (bq + 2 * bkv) * (d + pad) * elem_size
-    s = bq * (bkv + 4) * 4
-    p = bq * (bkv + pad) * elem_size if elem_size == 2 else 0
-    o = bq * (d + 4) * 4
-    return qkv + s + p + o
+    in ``csrc/flash_attention.cuh``).  bf16: the Q tile and two stages of K
+    and V tiles, rows padded by 16 bytes; scores, probabilities and output
+    stay in registers.  float32: the Q, K and V tiles, float32 scores and the
+    float32 output accumulator."""
+    if elem_size == 2:
+        return (bq + 2 * 2 * bkv) * (d + 8) * 2
+    qkv = (bq + 2 * bkv) * (d + 4) * 4
+    return qkv + bq * (bkv + 4) * 4 + bq * (d + 4) * 4
 
 
 def legal_tiles(d: int, elem_size: int) -> Tuple[Tuple[int, int], ...]:

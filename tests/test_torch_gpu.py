@@ -39,16 +39,29 @@ def test_gemm_kernel_every_tile(cuda, shape, dtype):
     assert G.launches == before + len(G.COMPILED_TILES)
 
 
+def _kv_view(n_kv, Skv, d, dtype, device, offset):
+    """(1, n_kv, Skv, d) view of a (1, Skv, n_kv, d) buffer that starts
+    ``offset`` elements into its storage (1: not 16-byte aligned)."""
+    buf = torch.randn(offset + Skv * n_kv * d, device=device).to(dtype)
+    return buf[offset:].view(1, Skv, n_kv, d).permute(0, 2, 1, 3)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", [(4, 1, 256, 256, 64, False), (4, 1, 256, 256, 64, True),
-                                  (2, 1, 128, 384, 64, False), (8, 4, 100, 100, 32, True),
-                                  (16, 8, 512, 512, 128, True)])
+@pytest.mark.parametrize("case", [(4, 1, 256, 256, 64, False, 0),
+                                  (4, 1, 256, 256, 64, True, 0),
+                                  (2, 1, 128, 384, 64, False, 0),
+                                  (8, 4, 100, 100, 32, True, 0),
+                                  (16, 8, 512, 512, 128, True, 0),
+                                  (128, 8, 512, 512, 128, True, 0),    # the MoE's prefill
+                                  (8, 4, 200, 136, 128, True, 1),      # vec_ok == 0
+                                  (6, 3, 77, 150, 64, False, 1)])
 def test_flash_attention_kernel_every_tile(cuda, case, dtype):
     from repro_torch.kernels import flash_attention as FA
-    BH, g, Sq, Skv, d, causal = case
+    BH, g, Sq, Skv, d, causal, offset = case
     q = torch.randn(BH, Sq, d, device=cuda).to(dtype)
-    k = torch.randn(1, Skv, BH // g, d, device=cuda).to(dtype).permute(0, 2, 1, 3)
-    v = torch.randn(1, Skv, BH // g, d, device=cuda).to(dtype).permute(0, 2, 1, 3)
+    k = _kv_view(BH // g, Skv, d, dtype, cuda, offset)
+    v = _kv_view(BH // g, Skv, d, dtype, cuda, offset)
+    assert (k.data_ptr() % 16 == 0) == (offset == 0)
     want = FA.flash_attention_plain(q, k, v, causal=causal, q_per_kv=g)
     for bq, bkv in FA.legal_tiles(d, q.element_size()):
         got = FA.flash_attention(q, k, v, causal=causal, block_q=bq, block_kv=bkv,

@@ -247,6 +247,26 @@ def test_smem_footprints_bound_the_tile_sets(es):
     assert ((128, 64) in legal) == (es == 2)
 
 
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_bf16_flash_footprint_is_q_and_two_kv_stages(d):
+    """bf16 keeps scores, probabilities and output in registers: a block
+    holds the Q tile and two stages of K and V, rows padded by 16 bytes, and
+    every compiled tile fits one block."""
+    for bq, bkv in FA.COMPILED_TILES:
+        assert FA.flash_smem_bytes(bq, bkv, d, 2) == (bq + 4 * bkv) * (d + 8) * 2
+        assert FA.flash_smem_bytes(bq, bkv, d, 2) <= FA.MAX_SMEM
+    assert FA.legal_tiles(d, 2) == FA.COMPILED_TILES
+
+
+def test_served_bf16_flash_tile_fits_twice_on_an_sm():
+    """The served tile (128, 64), d 128: Q 34,816 bytes plus two stages of K
+    and V 69,632; two blocks (each with the 1 KB the runtime reserves) fit
+    an H100 SM's 228 KB of shared memory."""
+    served = FA.flash_smem_bytes(128, 64, 128, 2)
+    assert served == 34816 + 69632
+    assert 2 * (served + 1024) <= 228 * 1024
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(TypeError):
         G.gemm(torch.zeros(4, 4, dtype=torch.float16), torch.zeros(4, 4, dtype=torch.float16))

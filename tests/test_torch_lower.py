@@ -75,6 +75,46 @@ def test_tile_options_are_pruned_by_the_real_footprint():
     assert LT.gemm_tile_options(2) == G.COMPILED_TILES
 
 
+def test_tile_options_follow_the_footprint_limit(monkeypatch):
+    """Pruning reads the kernel's footprint formula against the block limit:
+    at a 90,000-byte limit the bf16 (128, 64) tile at d 128 (104,448 bytes)
+    drops out and the rest stay."""
+    monkeypatch.setattr(FA, "MAX_SMEM", 90000)
+    kept = LT.flash_tile_options(128, 2)
+    assert kept == tuple(t for t in FA.COMPILED_TILES
+                         if FA.flash_smem_bytes(*t, 128, 2) <= 90000)
+    assert (128, 64) not in kept and (64, 64) in kept
+
+
+@pytest.mark.parametrize("template", ["flash_blocks", "gemm_blocks"])
+def test_registry_entry_of_another_tile_set_is_a_miss(store, counting, fast_search,
+                                                      monkeypatch, template):
+    """A block choice stored for one build of a kernel (its tile set and
+    footprints) is not served to another; the original build still hits."""
+    if template == "flash_blocks":
+        shape, plan, module, name = (512, 512, 128), LT.plan_flash_blocks, FA, \
+            "flash_smem_bytes"
+    else:
+        shape, plan, module, name = (1024, 1024, 1024), LT.plan_gemm_blocks, G, \
+            "gemm_smem_bytes"
+    first = plan(*shape)
+    real = getattr(module, name)
+
+    def fresh_process():
+        LT.clear_block_caches()
+        store.clear_memory()
+
+    fresh_process()
+    monkeypatch.setattr(module, name, lambda *a: real(*a) + 16)   # another layout
+    assert plan(*shape) == first
+    assert counting["n"] == 2 and store.n_entries() == 2
+    monkeypatch.setattr(module, name, real)
+    fresh_process()
+    assert plan(*shape) == first
+    assert counting["n"] == 2
+    assert LT.resolved_blocks()[(template, shape + (2,))] == (first, "cache")
+
+
 def test_gemm_blocks_cold_then_disk_hit(store, counting, fast_search):
     cold = LT.plan_gemm_blocks(1024, 1024, 1024)
     assert counting["n"] == 1

@@ -11,18 +11,21 @@ these phases, each printing one JSON line; any failure raises:
 2. build    compile ``src/repro_torch/kernels/csrc/*.cu`` and load the library;
 3. kernels  every kernel against its plain PyTorch version on the card, at
             the serving shapes (K2 at qwen2.5-3b's and at the MoE's
-            prefill) and at one ragged shape each, in bf16 and
-            float32 (tolerances 2e-2 and 1e-4, those of the reference's
-            kernel tests; 2e-3 for the WKV scan in float32 and for its
-            final state), each timed with CUDA events (median of 25 single
-            launches, the L2 cache flushed before each) beside its plain
-            version, one PyTorch library call where one computes the same
-            function, and the roofline bound;
+            prefill, K4 at the MoE's four) and at one ragged shape each, in
+            bf16 and float32 (tolerances 2e-2 and 1e-4, those of the
+            reference's kernel tests; 2e-3 for the WKV scan in float32 and
+            for its final state), each timed with CUDA events (median of 25
+            single launches, the L2 cache flushed before each) beside its
+            plain version, one PyTorch library call where one computes the
+            same function, and the roofline bound; at the served bf16 K1 and
+            K4 shapes also the staged GEMM body's fastest tile and the host
+            microseconds per call of each body;
 4. planner  ``ops.matmul`` with no block at the model's projection shape:
-            planner -> GEMM kernel, search then registry hit, no fallback;
-            every compiled GEMM and flash tile timed at the served shape,
-            with the planner's flash tile's rank and its time over the
-            fastest tile's;
+            planner -> GEMM kernel on the TMA body, search then registry
+            hit, no fallback; every compiled bf16 GEMM tile (both bodies)
+            and flash tile timed at the served shape, and every TMA tile at
+            the MoE's two K4 prefill shapes, with the rank of the planner's
+            tiles and their time over the fastest tile's;
 5. serve    ``qwen2.5-3b`` at full width and depth with random weights:
             batch 4, prompt 512, 32 greedy tokens through
             ``repro_torch.launch.serve``, compared step by step with the same
@@ -35,12 +38,12 @@ these phases, each printing one JSON line; any failure raises:
             same inputs, with controls that must fail;
 7. moe      ``qwen3-moe-30b-a3b`` at full width and depth (30.5 B
             parameters, 61 GB in bf16), its experts through the grouped-GEMM
-            kernel; the kernel run and the plain run, both fed the kernel
-            run's ids and routing (a near-flat random router turns bf16
-            differences into other experts), are held against the same loop
-            in float32, with a control that must fail; the share of prefill
-            expert choices that agree when the plain run routes by itself
-            is reported.
+            kernel, every launch on the TMA body; the kernel run and the
+            plain run, both fed the kernel run's ids and routing (a near-flat
+            random router turns bf16 differences into other experts), are
+            held against the same loop in float32, with a control that must
+            fail; the share of prefill expert choices that agree when the
+            plain run routes by itself is reported.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the main
 path and its measured times, the card's name and power limit, and as the
@@ -167,13 +170,46 @@ def gemm_case(timer, gen, M, N, K, dtype, block, serving):
     run = lambda: ops.matmul(a, b, block=block)
     out = run()
     err = compare(f"gemm {M}x{N}x{K} {dname(dtype)}", out, G.gemm_plain(a, b), dtype)
+    body = G.gemm_body(dtype, K, N, a.data_ptr(), b.data_ptr())
     res = {"name": "gemm", "shape": f"({M},{K})@({K},{N})", "dtype": dname(dtype),
-           "serving": serving, "block": list(block) if block else None,
+           "serving": serving, "block": list(block) if block else None, "body": body,
            "max_abs_err": err, "kernel_ms": timer.ms(run),
            "plain_ms": timer.ms(lambda: G.gemm_plain(a, b)),
            "library_ms": timer.ms(lambda: torch.matmul(a, b))}
     res.update(bound(2.0 * M * N * K, nbytes(a, b, out), dtype))
+    if serving and body == "tma":
+        on_body = lambda body, t: G.gemm_on_body(a, b, body, block=t)
+        res.update(staged_body(timer, on_body, G.gemm_plain(a, b), dtype, block))
     return res
+
+
+def staged_body(timer, on_body, want, dtype, block) -> dict:
+    """The staged body (the first kernels' design) on the same inputs, each
+    of its tiles checked and timed: the fastest is the time to beat.  And
+    the host microseconds per call of each body, at the served tile and at
+    that fastest tile."""
+    from repro_torch.kernels import gemm as G
+    times = {}
+    for t in G.STAGED_TILES:
+        compare(f"staged body {t}", on_body("staged", t), want, dtype)
+        times[t] = timer.ms(lambda t=t: on_body("staged", t), n=10)
+    best = min(times, key=times.get)
+    return {"staged_ms": times[best], "staged_block": list(best),
+            "host_us": host_us(lambda: on_body("tma", block)),
+            "staged_host_us": host_us(lambda: on_body("staged", best))}
+
+
+def host_us(launch, n: int = 200) -> float:
+    """Host microseconds per call of ``launch`` (the wrapper's Python, the
+    tensor maps' encoding, the launch), taken while the card drains a queue
+    that the calls keep ahead of it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        launch()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
 
 
 def _qkv(gen, dev, B, H, Hkv, Sq, Skv, d, dtype):
@@ -258,20 +294,28 @@ def decode_cases(timer, gen, B, H, Hkv, Skv, valid, d, dtype, serving, splits=No
 
 
 def grouped_case(timer, gen, E, cap, d_in, d_out, dtype, serving):
-    from repro_torch.kernels import moe_gmm, ops
+    from repro_torch.core import lower_torch
+    from repro_torch.kernels import gemm as G, moe_gmm, ops
     dev = timer.flush.device
     x = torch.randn(E, cap, d_in, generator=gen, device=dev).to(dtype)
     w = (torch.randn(E, d_in, d_out, generator=gen, device=dev) * d_in ** -0.5).to(dtype)
     run = lambda: ops.grouped_matmul(x, w)
     out = run()
+    want = moe_gmm.grouped_matmul_plain(x, w)
     err = compare(f"grouped_matmul E={E} cap={cap} {d_in}->{d_out} {dname(dtype)}", out,
-                  moe_gmm.grouped_matmul_plain(x, w), dtype)
+                  want, dtype)
+    planned = lower_torch.plan_gemm_blocks(cap, d_out, d_in, dtype)
+    body = G.gemm_body(dtype, d_in, d_out, x.data_ptr(), w.data_ptr())
     res = {"name": "grouped_matmul", "shape": f"E={E} cap={cap} {d_in}->{d_out}",
-           "dtype": dname(dtype), "serving": serving, "max_abs_err": err,
-           "kernel_ms": timer.ms(run),
+           "dtype": dname(dtype), "serving": serving,
+           "block": list(ops.gemm_launch_block(cap, d_out, d_in, dtype, planned)),
+           "body": body, "max_abs_err": err, "kernel_ms": timer.ms(run),
            "plain_ms": timer.ms(lambda: moe_gmm.grouped_matmul_plain(x, w)),
            "library_ms": timer.ms(lambda: torch.bmm(x, w))}
     res.update(bound(2.0 * E * cap * d_in * d_out, nbytes(x, w, out), dtype))
+    if serving and body == "tma":
+        on_body = lambda body, t: moe_gmm.grouped_matmul_on_body(x, w, body, block=t)
+        res.update(staged_body(timer, on_body, want, dtype, tuple(res["block"])))
     return res
 
 
@@ -405,18 +449,42 @@ def phase_planner(timer, gen):
     kernels.reset_launch_counts()
     out = ops.matmul(a, b)
     launches = kernels.launch_counts()["gemm"]
+    by_body = kernels.launches_by_body()["gemm"]
     err = compare("planner -> gemm", out, G.gemm_plain(a, b), dtype)
     blocks, source = lower_torch.resolved_blocks()[request]
     fallbacks = first_fallbacks + lower_torch.planner_fallback_count()
-    if launches != 1 or fallbacks != 0 or blocks != first_blocks:
-        raise AssertionError(f"planner phase: launches={launches} fallbacks={fallbacks} "
-                             f"blocks {first_blocks} -> {blocks}")
+    if launches != 1 or by_body != {"tma": 1, "staged": 0} or fallbacks != 0 \
+            or blocks != first_blocks:
+        raise AssertionError(f"planner phase: launches={launches} by body {by_body} "
+                             f"fallbacks={fallbacks} blocks {first_blocks} -> {blocks}")
     if (first_source, source) != ("search", "cache"):
         raise AssertionError(f"expected a search then a registry hit, got "
                              f"{first_source} then {source}")
-    # how good was the choice: every compiled tile at the same shape
-    tiles = {str(t): timer.ms(lambda t=t: G.gemm(a, b, block=t), n=10)
-             for t in lower_torch.gemm_tile_options(2)}
+    # how good was the choice: every compiled bf16 tile of both bodies at the
+    # same shape
+    tiles = {str(t): timer.ms(lambda t=t: G.gemm_on_body(a, b, G.tile_body(t), block=t), n=10)
+             for t in G.COMPILED_TILES}
+    gemm_ranked = sorted(tiles, key=tiles.get)
+    # and K4's: every TMA tile at the MoE's two prefill shapes, against the
+    # tile the planner gives one expert's product
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.models import moe
+    mcfg = get_config(MOE_ARCH)
+    cap = moe._capacity(BATCH * PROMPT, mcfg)
+    grouped = {}
+    for d_in, d_out in ((mcfg.d_model, mcfg.moe_d_ff), (mcfg.moe_d_ff, mcfg.d_model)):
+        x = torch.randn(mcfg.n_experts, cap, d_in, generator=gen, device=dev).to(dtype)
+        w = torch.randn(mcfg.n_experts, d_in, d_out, generator=gen, device=dev).to(dtype)
+        chosen = ops.gemm_launch_block(cap, d_out, d_in, dtype,
+                                       lower_torch.plan_gemm_blocks(cap, d_out, d_in, dtype))
+        times = {str(t): timer.ms(lambda t=t: moe_gmm.grouped_matmul(x, w, block=t), n=10)
+                 for t in G.TMA_TILES}
+        order = sorted(times, key=times.get)
+        grouped[f"E={mcfg.n_experts} cap={cap} {d_in}->{d_out}"] = {
+            "blocks": list(chosen), "tile_ms": times,
+            "blocks_rank": order.index(str(chosen)) + 1,
+            "blocks_vs_fastest": times[str(chosen)] / times[order[0]]}
+        del x, w
     H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q, k4, v4 = _qkv(gen, dev, BATCH, H, Hkv, PROMPT, PROMPT, d, dtype)
     flash_blocks = lower_torch.plan_flash_blocks(PROMPT, PROMPT, d, dtype)
@@ -427,11 +495,14 @@ def phase_planner(timer, gen):
     chosen = str(tuple(flash_blocks))
     emit({"phase": "planner", "gemm_shape": list(shape), "gemm_blocks": list(blocks),
           "first": first_source, "second": source, "planner_fallbacks": fallbacks,
-          "gemm_launches": launches, "max_abs_err": err, "gemm_tile_ms": tiles,
+          "gemm_launches": launches, "gemm_launches_by_body": by_body, "max_abs_err": err,
+          "gemm_tile_ms": tiles, "gemm_blocks_rank": gemm_ranked.index(str(tuple(blocks))) + 1,
+          "gemm_blocks_vs_fastest": tiles[str(tuple(blocks))] / tiles[gemm_ranked[0]],
+          "grouped_prefill_tiles": grouped,
           "flash_shape": [PROMPT, PROMPT, d], "flash_blocks": list(flash_blocks),
           "flash_tile_ms": flash_tiles, "flash_blocks_rank": ranked.index(chosen) + 1,
           "flash_blocks_vs_fastest": flash_tiles[chosen] / flash_tiles[ranked[0]]})
-    return launches
+    return launches, by_body
 
 
 def phase_serve(device):
@@ -826,12 +897,16 @@ def phase_moe(device):
     kernels.reset_launch_counts()
     res, routed = recorded_run(api, params, prompts)
     launches = kernels.launch_counts()
+    by_body = kernels.launches_by_body()
     L = cfg.n_layers
     want = {"gemm": 0, "flash_attention": L, "flash_decode_partials": L * NEW_TOKENS,
             "flash_decode_combine": L * NEW_TOKENS,
             "grouped_matmul": 3 * L * (1 + NEW_TOKENS), "wkv6": 0}
     if launches != want:
         raise AssertionError(f"moe: kernel launches {launches}, expected {want}")
+    if by_body["grouped_matmul"] != {"tma": want["grouped_matmul"], "staged": 0}:
+        raise AssertionError(f"moe: the expert products did not all run on the TMA body: "
+                             f"{by_body}")
     check_outputs("moe", res, cfg)
     fallbacks = check_planner("moe", res)
 
@@ -881,6 +956,7 @@ def phase_moe(device):
           "decode_ms_per_token": res.decode_s * 1e3 / NEW_TOKENS,
           "tok_per_s": BATCH * NEW_TOKENS / res.decode_s,
           "peak_bytes": res.peak_bytes, "launches": launches,
+          "grouped_matmul_launches_by_body": by_body["grouped_matmul"],
           "planner_fallbacks": fallbacks,
           "check": "kernel path's distance from float32 at most 1.25 x the plain path's "
                    "(max + 2e-2, rms), same ids and routing",
@@ -902,11 +978,11 @@ def phase_moe(device):
                                  f"float32 than the plain path allows: {check}")
     if not controls["5_mantissa_bits"]["rejected"]:
         raise AssertionError("moe: the float32 check did not reject the 5-bit control")
-    return launches
+    return launches, by_body["grouped_matmul"]
 
 
 SOURCES = {
-    "gemm": ("src/repro_torch/kernels/csrc/gemm.cuh", "src/repro/kernels/gemm.py:26"),
+    "gemm": ("src/repro_torch/kernels/csrc/gemm_sm90.cuh", "src/repro/kernels/gemm.py:26"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cuh",
                         "src/repro/kernels/flash_attention.py:28"),
     # both stages as ``ops.flash_decode`` runs them: the function that one
@@ -917,7 +993,7 @@ SOURCES = {
                               "src/repro/kernels/flash_decode.py:31"),
     "flash_decode_combine": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                              "src/repro/kernels/flash_decode.py:103"),
-    "grouped_matmul": ("src/repro_torch/kernels/csrc/grouped_gemm.cuh",
+    "grouped_matmul": ("src/repro_torch/kernels/csrc/gemm_sm90.cuh",
                        "src/repro/kernels/moe_gmm.py:23"),
     "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu", "src/repro/kernels/rwkv6.py:39"),
 }
@@ -941,15 +1017,19 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.lib()
     info = _build.build_info()
+    ptxas = ptxas_usage(str(info.get("compiler_output", "")))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled_here": bool(info.get("built")), "library": info.get("path"),
-          "sources": [p.name for p in _build.sources()],
-          "ptxas": ptxas_usage(str(info.get("compiler_output", "")))})
+          "sources": [p.name for p in _build.sources()], "ptxas": ptxas})
+    spilled = {k: v for k, v in ptxas.items()
+               if "gemm_tma_kernel" in k and v.get("spill_bytes")}
+    if info.get("built") and (spilled or not any("gemm_tma_kernel" in k for k in ptxas)):
+        raise AssertionError(f"the TMA GEMM instantiations spill or are missing: {spilled}")
 
     timer = Timer(device)
     gen = torch.Generator(device=device).manual_seed(0)
     cases = phase_kernels(timer, gen)
-    gemm_launches = phase_planner(timer, gen)
+    gemm_launches, gemm_by_body = phase_planner(timer, gen)
     del timer
     torch.cuda.empty_cache()
     serve_launches = phase_serve(device)
@@ -958,7 +1038,7 @@ def main() -> int:
     rwkv_launches = phase_rwkv(device)
     gc.collect()
     torch.cuda.empty_cache()
-    moe_launches = phase_moe(device)
+    moe_launches, moe_by_body = phase_moe(device)
 
     launches = dict(serve_launches, gemm=gemm_launches,
                     grouped_matmul=moe_launches["grouped_matmul"],
@@ -979,12 +1059,19 @@ def main() -> int:
             "ms": c["kernel_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "shape": c["shape"], "dtype": c["dtype"]})
+        if "staged_ms" in c:
+            kernels_line[-1].update(
+                block=c["block"], staged_ms=c["staged_ms"], host_us=c["host_us"],
+                staged_host_us=c["staged_host_us"],
+                launches_by_body=gemm_by_body if c["name"] == "gemm" else moe_by_body)
         served = [x for x in cases if x["serving"] and x["name"] == c["name"]
                   and x["dtype"] == "bfloat16"]
         if len(served) > 1:
             kernels_line[-1]["served_shapes"] = [
-                {k: x[k] for k in ("shape", "kernel_ms", "plain_ms", "library_ms",
-                                   "bound_ms", "bound_by", "max_abs_err")} for x in served]
+                {k: x[k] for k in ("shape", "block", "body", "kernel_ms", "staged_ms",
+                                   "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                   "max_abs_err", "host_us", "staged_host_us") if k in x}
+                for x in served]
     if len(kernels_line) != len(SOURCES):
         raise AssertionError("a kernel of the main path is missing from the report")
     emit({"kernels": kernels_line})

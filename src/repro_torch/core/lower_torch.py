@@ -51,11 +51,12 @@ H100_HBM_GBPS = 3350.0
 H100_PEAK_BF16 = 989e12             # dense tensor-core FLOP/s
 H100_PEAK_F32 = 67e12               # FLOP/s outside the tensor cores
 H100_CUDA_CORES_PER_SM = 128
-MMA_TILE = (16, 16, 16)             # the tensor-core tile the kernels use (wmma)
+MMA_TILE = (16, 16, 16)             # the tensor-core tile of the first kernels (wmma)
 
 _CHIP_BUDGET = SearchBudget(top_k=1, max_plans_per_mapping=24,
                             max_mappings=16)
-GEMM_FALLBACK = (128, 128, 32)
+# the tile served when the planner fails, per GEMM body (kernels/gemm.py)
+GEMM_FALLBACK = {"tma": (128, 128, 64), "staged": (128, 128, 32)}
 FLASH_FALLBACK = (64, 64)
 
 _DTYPE_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2,
@@ -136,10 +137,14 @@ def _note_fallback(template: str, shape, err, fallback) -> None:
                     fallback)
 
 
-def gemm_tile_options(dbytes: int) -> Tuple[Tuple[int, int, int], ...]:
-    """The GEMM kernel's compiled tiles whose shared memory fits one block."""
-    return tuple(t for t in _gemm.COMPILED_TILES
-                 if _gemm.gemm_smem_bytes(*t, dbytes) <= _gemm.MAX_STATIC_SMEM)
+def gemm_tile_options(dbytes: int, body: str | None = None
+                      ) -> Tuple[Tuple[int, int, int], ...]:
+    """The compiled tiles of one GEMM body whose shared memory fits one block
+    of it: by default the TMA body's for 2-byte elements and the staged
+    body's for 4-byte ones, each against its own limit."""
+    body = body or ("tma" if dbytes == 2 else "staged")
+    return tuple(t for t in _gemm.body_tiles(body)
+                 if _gemm.gemm_smem_bytes(*t, dbytes) <= _gemm.smem_limit(t))
 
 
 def flash_tile_options(d: int, dbytes: int) -> Tuple[Tuple[int, int], ...]:
@@ -237,8 +242,10 @@ def plan_gemm_blocks(M: int, N: int, K: int, dtype=torch.bfloat16
     """Choose (bm, bn, bk) for the GEMM kernel on one H100.
 
     Builds one tile program per compiled tile shape that fits shared memory
-    and lets the TileLoom planner rank them on the H100 df model.  Falls
-    back to :data:`GEMM_FALLBACK` when the planner finds nothing feasible.
+    and lets the TileLoom planner rank them on the H100 df model.  The
+    tiles are those of the body the request will take with aligned operands
+    (``kernels.gemm.shape_body``).  Falls back to that body's
+    :data:`GEMM_FALLBACK` tile when the planner finds nothing feasible.
     """
     # the in-process memo must key on the fast-search env too (the disk key
     # covers it via the effective budget; an env flip mid-process would
@@ -250,7 +257,8 @@ def plan_gemm_blocks(M: int, N: int, K: int, dtype=torch.bfloat16
 def _gemm_blocks_memo(M: int, N: int, K: int, dtype, _fast: bool
                       ) -> Tuple[int, int, int]:
     dbytes = dtype_bytes(dtype)
-    options = gemm_tile_options(dbytes)
+    body = _gemm.shape_body(dtype, K, N)
+    options = gemm_tile_options(dbytes, body)
     progs = [matmul_program(max(M, bm), max(N, bn), max(K, bk),
                             bm=bm, bn=bn, bk=bk, dtype_bytes=dbytes)
              for bm, bn, bk in options]
@@ -263,7 +271,7 @@ def _gemm_blocks_memo(M: int, N: int, K: int, dtype, _fast: bool
 
     return _cached_blocks("gemm_blocks",
                           {"M": M, "N": N, "K": K, "dbytes": dbytes},
-                          (M, N, K), progs, GEMM_FALLBACK, pick,
+                          (M, N, K), progs, GEMM_FALLBACK[body], pick,
                           [[*t, _gemm.gemm_smem_bytes(*t, dbytes)] for t in options])
 
 

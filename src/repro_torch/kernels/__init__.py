@@ -11,7 +11,7 @@
 from . import flash_attention, flash_decode, gemm, moe_gmm, ops, ref, rwkv6
 
 __all__ = ["ops", "ref", "gemm", "flash_attention", "flash_decode", "moe_gmm", "rwkv6",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "launches_by_body", "reset_launch_counts"]
 
 
 def launch_counts() -> dict:
@@ -22,7 +22,16 @@ def launch_counts() -> dict:
             "grouped_matmul": moe_gmm.launches, "wkv6": rwkv6.launches}
 
 
+def launches_by_body() -> dict:
+    """K1's and K4's launches split by GEMM body (``"tma"``, ``"staged"``)."""
+    return {"gemm": dict(gemm.launches_by_body),
+            "grouped_matmul": dict(moe_gmm.launches_by_body)}
+
+
 def reset_launch_counts() -> None:
+    for counts in (gemm.launches_by_body, moe_gmm.launches_by_body):
+        for body in counts:
+            counts[body] = 0
     gemm.launches = 0
     flash_attention.launches = 0
     flash_decode.partials_launches = 0

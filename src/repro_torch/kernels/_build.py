@@ -9,6 +9,12 @@ flags, so an edit rebuilds and an unchanged tree reuses the library.  The
 build goes to ``build/kernels`` at the repository root
 (``REPRO_TORCH_BUILD_DIR`` overrides the directory).
 
+The TMA tensor maps of the GEMM core (``csrc/gemm_sm90.cuh``) are encoded on
+the host by ``cuTensorMapEncodeTiled``, a symbol of libcuda.  The library
+reaches it through the runtime (``cudaGetDriverEntryPointByVersion``, or
+``cudaGetDriverEntryPoint`` before CUDA 12.5) at its first use, so the link
+step needs no ``-lcuda`` and the flags are the same as before.
+
 A build or load failure raises :class:`KernelBuildError` with the compiler's
 output; nothing here ever gives way to a plain PyTorch version.
 """
@@ -120,10 +126,14 @@ _SIGNATURES = {
     # a, b, c, M, N, K, out_bf16, bm, bn, bk, vec_ok, stream
     "repro_gemm_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "repro_gemm_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # a, b, c, M, N, K, out_bf16, bm, bn, stream (the TMA + wgmma body)
+    "repro_gemm_tma_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_gemm_smem_bytes": [_I, _I, _I, _I],
     # x, w, out, E, cap, d_out, d_in, out_bf16, bm, bn, bk, vec_ok, stream
     "repro_grouped_gemm_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "repro_grouped_gemm_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, out, E, cap, d_out, d_in, out_bf16, bm, bn, stream (the TMA + wgmma body)
+    "repro_grouped_gemm_tma_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, BH, Sq, Skv, d, H, q_per_kv, 6 strides, sm_scale, causal,
     # bq, bkv, vec_ok, stream
     "repro_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_STRIDES,
@@ -173,11 +183,15 @@ def build_info() -> Dict[str, object]:
 def check(code: int, what: str) -> None:
     """Raise on a non-zero return of one of the library's launch functions:
     a ``cudaError_t``, ``-1`` for a shape that is not compiled, ``-2`` for a
-    tile whose shared memory does not fit one block."""
+    tile whose shared memory does not fit one block, ``-3`` for a TMA tensor
+    map that could not be encoded."""
     if code == 0:
         return
     if code == -1:
         raise ValueError(f"{what}: this shape or tile is not among the compiled kernels")
     if code == -2:
         raise ValueError(f"{what}: the tile's shared memory exceeds what one block may use")
+    if code == -3:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused the operands' tensor map "
+                           f"(or libcuda does not export it)")
     raise RuntimeError(f"{what}: CUDA launch failed with cudaError {code}")

@@ -1,27 +1,30 @@
-// Planner-blocked GEMM for Hopper (sm_90a): C[M,N] = A[M,K] @ B[K,N].
+// Planner-blocked GEMM, staged body (sm_90a): C[M,N] = A[M,K] @ B[K,N].
 //
-// Replaces the TPU kernel `_gemm_kernel` / `gemm` of
-// src/repro/kernels/gemm.py.  There the contraction is the innermost,
-// sequential axis of the grid and the output block is revisited with a
-// float32 accumulator in scratch memory.  A GPU grid has no order, so the K
-// axis becomes a loop inside one thread block per (BM, BN) output tile: the
-// accumulator stays in registers for the whole loop and the A and B tiles
-// are staged through shared memory.  The tile shape (BM, BN, BK) is a
-// template parameter; the planner (core/lower_torch.py) chooses among the
-// shapes instantiated at the bottom of this file.
+// Replaces, with the TMA + wgmma core of gemm_sm90.cuh, the TPU kernel
+// `_gemm_kernel` / `gemm` of src/repro/kernels/gemm.py.  There the
+// contraction is the innermost, sequential axis of the grid and the output
+// block is revisited with a float32 accumulator in scratch memory.  A GPU
+// grid has no order, so the K axis becomes a loop inside one thread block per
+// (BM, BN) output tile: the accumulator stays in registers for the whole
+// loop and the A and B tiles are staged through static shared memory by the
+// block's own threads.  The tile shape (BM, BN, BK) is a template parameter;
+// the planner (core/lower_torch.py) chooses among the shapes instantiated at
+// the bottom of this file.
+//
+// Which operands come here: every bf16 product whose operands TMA can take
+// (K % 8 == 0, N % 8 == 0, 16-byte-aligned bases) runs on gemm_sm90.cuh;
+// this body takes float32, which it multiplies in true float32 on the CUDA
+// cores (no TF32, which would break the reference's 1e-4 tolerance), and
+// bf16 operands without that alignment, which it multiplies on the tensor
+// cores (`mma.sync` through nvcuda::wmma, 16x16x16 tiles, float32
+// accumulate) from tiles filled by element-wise loads.  Its two-stage
+// `cp.async` path (`vec_ok`) is kept for aligned bf16 operands that a caller
+// sends here on purpose, to compare the two bodies.
 //
 // What bounds it on an H100: at the serving projection shape
-// (2048 x 2048 @ 2048 x 11008, bf16) the product needs 92 GFLOP and moves
-// 98 MB, about 940 FLOP per byte, far above the card's ~295 FLOP/byte
-// balance point, so the tensor cores are the limit (operations).  The bf16
-// path therefore multiplies on the tensor cores (`mma.sync` through
-// nvcuda::wmma, 16x16x16 tiles, float32 accumulate) and fills two
-// shared-memory stages with `cp.async`, so the next k-step's tiles arrive
-// while this one's are multiplied.  It is still a simple kernel: no `wgmma`,
-// no TMA, one block-wide barrier pair per k-step; those are the known route
-// to the card's full rate.  float32 inputs are multiplied in true
-// float32 on the CUDA cores (no TF32), which keeps the 1e-4 tolerance of the
-// reference's tests.
+// (2048 x 2048 @ 2048 x 11008) the product does about 940 FLOP per byte, far
+// above the card's ~295 FLOP/byte balance point, so the arithmetic is the
+// limit (operations): 67 TFLOP/s in float32.
 //
 // Edges that do not divide the tile are masked here: loads beyond the matrix
 // read as zero and stores beyond it are dropped.

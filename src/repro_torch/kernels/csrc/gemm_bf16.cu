@@ -1,7 +1,9 @@
-// bf16 instantiations of the planner-blocked GEMM (see gemm.cuh) behind a
-// plain C interface: no allocation, no synchronisation, launches on the
-// stream it is handed and returns cudaGetLastError().
+// bf16 GEMM behind a plain C interface: the TMA + wgmma core (gemm_sm90.cuh)
+// and the staged body of gemm.cuh for operands TMA cannot take.  No
+// allocation, no synchronisation; each function launches on the stream it is
+// handed and returns cudaGetLastError() (or a negative code, see _build.py).
 #include "gemm.cuh"
+#include "gemm_sm90.cuh"
 
 extern "C" int repro_gemm_bf16(const void* a, const void* b, void* c, int M, int N, int K,
                                int out_bf16, int bm, int bn, int bk, int vec_ok,
@@ -10,7 +12,15 @@ extern "C" int repro_gemm_bf16(const void* a, const void* b, void* c, int M, int
                                            stream);
 }
 
+extern "C" int repro_gemm_tma_bf16(const void* a, const void* b, void* c, int M, int N, int K,
+                                   int out_bf16, int bm, int bn, void* stream) {
+  return repro::sm90::launch_gemm_tma<false>(a, b, c, 1, M, N, K, out_bf16, bm, bn, stream);
+}
+
+// Shared memory of one block of the body that owns the tile: BK 64 in bf16
+// is the TMA core's (dynamic), the rest gemm.cuh's (static).
 extern "C" int repro_gemm_smem_bytes(int bm, int bn, int bk, int in_bf16) {
+  if (in_bf16 && bk == repro::sm90::BK) return repro::sm90::smem_bytes(bm, bn);
   return in_bf16 ? repro::gemm_smem_bytes<__nv_bfloat16>(bm, bn, bk)
                  : repro::gemm_smem_bytes<float>(bm, bn, bk);
 }

@@ -1,0 +1,468 @@
+// The Hopper GEMM core (sm_90a) behind K1 (gemm) and K4 (grouped_matmul) in
+// bf16: C = A @ B with A (M, K) and B (K, N) row-major, float32 accumulate,
+// output in float32 or bf16; GROUPED runs one such product per expert.
+//
+// Replaces, with gemm.cuh's body for float32 and unaligned operands, the TPU
+// kernels `_gemm_kernel` / `gemm` (src/repro/kernels/gemm.py) and
+// `_gmm_kernel` / `grouped_matmul` (src/repro/kernels/moe_gmm.py).  On the
+// TPU the contraction is the innermost sequential grid axis with a float32
+// accumulator in VMEM; here one thread block owns a (BM, BN) output tile and
+// runs the whole K loop, its accumulator in registers.
+//
+// What bounds it on an H100: K1 at the serving projection (2048 x 2048 @
+// 2048 x 11008) does ~940 FLOP a byte, far above the card's ~295, so the
+// tensor cores are the limit and only `wgmma` reaches their full rate.  K4
+// streams all 128 experts' weights on every launch, 8 FLOP a byte at the
+// decode capacity of 8 and 124 at the prefill capacity of 160: bytes bound,
+// so the weights must cross HBM once per launch with enough bytes in
+// flight on every SM to cover the memory's latency.  The design:
+//
+// * One producer warpgroup (the last) drops to 40 registers with
+//   `setmaxnreg`, which the two consumer warpgroups of BM 128 take up; one
+//   thread of it keeps a ring of STAGES shared-memory stages filled by TMA
+//   (`cp.async.bulk.tensor`), each stage an A box (BM rows x 64 of K) and
+//   BN/64 B boxes (64 of K x 64 of N), with one `full` and one `empty`
+//   mbarrier per stage.  The producer announces the
+//   stage's full box bytes (`arrive.expect_tx`); TMA zero-fills whatever a
+//   box reaches past the tensor and still counts those bytes, so ragged M,
+//   N and K need no code of their own.
+// * One consumer warpgroup per 64 output rows (BM 64 or 128) keeps its
+//   64 x BN float32 accumulator in registers and issues four
+//   `wgmma.m64nBNk16` per stage straight from shared memory; after
+//   `wgmma.wait_group 1` it releases the stage before the current one.
+// * STAGES is the deepest ring that fits 227 KB of dynamic shared memory:
+//   4 to 14 stages of 16-48 KB, so every SM keeps 100-200 KB of loads in
+//   flight.
+// * Layouts.  A is K-major: its 128-byte rows (64 bf16 of K) land in the
+//   128-byte swizzle and a k16 step moves the descriptor 32 bytes along the
+//   row.  B is row-major (K, N), so N is contiguous: MN-major.  Each B box
+//   is 64 K-rows of 128 bytes of N; `wgmma` reads it with the transpose-B
+//   immediate set, its leading byte offset the 8 KB from one 64-column box
+//   to the next and its stride byte offset the 1 KB from one 8-row group of
+//   K to the next; a k16 step moves 16 rows (2 KB).  Nothing transposes the
+//   weights in memory.
+// * Tensor maps are 3-D, (inner, rows, Z): Z is the expert for K4 and 1 for
+//   K1, so an expert's zero-fill stops at its own capacity.  One block per
+//   output tile.  K4's grid puts the row tile in blockIdx.x, so the row
+//   tiles of one (expert, column slice) run next to each other: the weights
+//   cross HBM once and the other row tiles find them in L2.  K1's
+//   one-dimensional grid walks M-tiles in groups of GROUP_M so that a B
+//   panel is reused while it is in L2.
+// * The epilogue reads rows and columns from the documented accumulator
+//   layout (per warp, the m16n8 layout of `mma.sync` repeated over N/8) and
+//   stores pairs of values with masks on ragged M and N.
+//
+// Requirements, checked by the wrapper before it chooses this body:
+// bf16 operands, K % 8 == 0, N % 8 == 0 and 16-byte-aligned bases (TMA's
+// 16-byte rule for addresses and row strides).
+#pragma once
+
+#include <cuda.h>   // CUtensorMap and the encode function's types; the
+                    // function itself is reached through the runtime
+
+#include "common.cuh"
+
+namespace repro {
+namespace sm90 {
+
+constexpr int BK = 64;                 // one 128-byte swizzle row of bf16
+constexpr int SMEM_LIMIT = 232448;     // dynamic shared memory one block may use
+constexpr int ALIGN = 1024;            // the 128-byte swizzle's atom
+constexpr int GROUP_M = 8;             // K1's raster: M-tiles walked per B panel
+constexpr int MAX_SPINS = 1 << 26;     // an mbarrier wait that never ends traps
+
+__host__ __device__ constexpr int stage_bytes(int bm, int bn) { return (bm + bn) * BK * 2; }
+// the deepest ring that fits: each stage adds its tiles and two mbarriers
+__host__ __device__ constexpr int stages(int bm, int bn) {
+  return (SMEM_LIMIT - ALIGN) / (stage_bytes(bm, bn) + 16);
+}
+// Dynamic shared memory of one block; mirrored by gemm_smem_bytes() in
+// kernels/gemm.py, which the planner prunes with.
+__host__ __device__ constexpr int smem_bytes(int bm, int bn) {
+  return ALIGN + stages(bm, bn) * (stage_bytes(bm, bn) + 16);
+}
+
+template <int BM, int BN>
+struct Cfg {
+  static constexpr int CONSUMERS = BM / 64;
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);
+  // One block an SM (the ring takes its shared memory).  With 384 threads
+  // every thread starts at 168 registers; the producer gives back down to 40
+  // and the two consumer warpgroups take them, 232 each.  With 256 threads
+  // every thread may already hold 255, so the one consumer keeps its count.
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 232;
+  static constexpr int STAGES = stages(BM, BN);
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int B_BOX_BYTES = 64 * BK * 2;
+  static constexpr int STAGE_BYTES = stage_bytes(BM, BN);
+  static_assert(BM == 64 || BM == 128, "BM is 64 or 128");
+  static_assert(BN == 64 || BN == 128 || BN == 256, "BN is 64, 128 or 256");
+  static_assert(STAGES >= 3, "the ring needs at least three stages");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (int spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == MAX_SPINS) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A shared-memory matrix descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma instructions
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma.m64nNk16, f32 += bf16 x bf16, A and B from shared memory (A
+// K-major, B MN-major: transpose-B immediate 1), accumulating into d.
+template <int N> struct Wgmma;
+
+template <> struct Wgmma<64> {
+  __device__ static __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <> struct Wgmma<128> {
+  __device__ static __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <> struct Wgmma<256> {
+  __device__ static __forceinline__ void mma(float (&d)[128], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+          "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+
+__device__ __forceinline__ void store_pair(void* c, long long idx, float x, float y,
+                                           int out_bf16) {
+  if (out_bf16) {
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(c) + idx) =
+        __floats2bfloat162_rn(x, y);
+  } else {
+    *reinterpret_cast<float2*>(static_cast<float*>(c) + idx) = make_float2(x, y);
+  }
+}
+
+// Z products C[z] = A[z] @ B[z] (Z = gridDim.z when GROUPED, else 1), A and B
+// read through the 3-D tensor maps, C (Z, M, N) written directly; one block
+// per (BM, BN) output tile.
+template <int BM, int BN, bool GROUPED>
+__global__ void __launch_bounds__(Cfg<BM, BN>::THREADS, 1)
+gemm_tma_kernel(const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_b, void* __restrict__ C, int M, int N,
+                int K, int out_bf16) {
+  using Cf = Cfg<BM, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + ALIGN - 1) & ~static_cast<uint32_t>(ALIGN - 1);
+  const uint32_t bars = base + Cf::STAGES * Cf::STAGE_BYTES;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (Cf::STAGES + s); };
+
+  int m_tile, n_tile, z;
+  if constexpr (GROUPED) {
+    m_tile = blockIdx.x;          // row tiles of one (expert, column slice) run together
+    n_tile = blockIdx.y;
+    z = blockIdx.z;
+  } else {
+    const int m_tiles = (M + BM - 1) / BM;
+    const int n_tiles = (N + BN - 1) / BN;
+    const int per_group = GROUP_M * n_tiles;
+    const int first_m = (blockIdx.x / per_group) * GROUP_M;
+    const int group_m = min(m_tiles - first_m, GROUP_M);
+    const int in_group = blockIdx.x % per_group;
+    m_tile = first_m + in_group % group_m;
+    n_tile = in_group / group_m;
+    z = 0;
+  }
+  const int n_k = (K + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Cf::STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 128 * Cf::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == Cf::CONSUMERS) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Cf::PRODUCER_REGS));
+    if (threadIdx.x == 128 * Cf::CONSUMERS) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map_a))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map_b))
+                   : "memory");
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % Cf::STAGES;
+        if (kt >= Cf::STAGES) mbar_wait(empty(s), ((kt / Cf::STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(s), Cf::STAGE_BYTES);
+        const uint32_t a = base + s * Cf::STAGE_BYTES;
+        tma_load_3d(a, &map_a, full(s), kt * BK, m_tile * BM, z);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_3d(a + Cf::A_BYTES + j * Cf::B_BOX_BYTES, &map_b, full(s),
+                      n_tile * BN + 64 * j, kt * BK, z);
+      }
+    }
+  } else {
+    // consumer warpgroup `wg`: output rows [64 wg, 64 wg + 64) of the tile
+    if constexpr (Cf::CONSUMERS > 1)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Cf::CONSUMER_REGS));
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int s = kt % Cf::STAGES;
+      mbar_wait(full(s), (kt / Cf::STAGES) & 1);
+      const uint32_t a = base + s * Cf::STAGE_BYTES + wg * 64 * BK * 2;
+      const uint32_t b = base + s * Cf::STAGE_BYTES + Cf::A_BYTES;
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Wgmma<BN>::mma(acc, smem_desc(a + kk * 32, 16, 1024),
+                       smem_desc(b + kk * 16 * 128, Cf::B_BOX_BYTES, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();             // the products of stage kt - 1 are done
+      fence_operands(acc);
+      if (kt > 0) mbar_arrive(empty((kt - 1) % Cf::STAGES));
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+
+    const int t = threadIdx.x % 128;
+    const int row = m_tile * BM + wg * 64 + (t / 32) * 16 + (t % 32) / 4;
+    const int col = n_tile * BN + 2 * (t % 4);
+    void* c = C;
+    if constexpr (GROUPED)
+      c = static_cast<char*>(C) + static_cast<long long>(z) * M * N * (out_bf16 ? 2 : 4);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int cj = col + 8 * j;
+      if (cj >= N) continue;       // N % 8 == 0, so cj + 1 < N as well
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row + 8 * h;
+        if (r < M)
+          store_pair(c, static_cast<long long>(r) * N + cj, acc[4 * j + 2 * h],
+                     acc[4 * j + 2 * h + 1], out_bf16);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------- host
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a symbol of libcuda: it is looked up once
+// through the runtime, so the library needs no link to libcuda.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor (d2, d1, d0) with d0 contiguous, read in (box1, box0) boxes
+// under the 128-byte swizzle; outside the tensor a box reads zeros.
+inline bool encode_3d(CUtensorMap* map, const void* ptr, long long d0, long long d1,
+                      long long d2, int box0, int box1) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)(d0 * 2), (cuuint64_t)(d0 * d1 * 2)};
+  const cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+            box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM, int BN, bool GROUPED>
+int launch_tma_tile(const void* a, const void* b, void* c, int Z, int M, int N, int K,
+                    int out_bf16, cudaStream_t stream) {
+  using Cf = Cfg<BM, BN>;
+  constexpr int smem = smem_bytes(BM, BN);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gemm_tma_kernel<BM, BN, GROUPED>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap map_a, map_b;
+  if (!encode_3d(&map_a, a, K, M, Z, BK, BM) || !encode_3d(&map_b, b, N, K, Z, 64, BK))
+    return -3;
+  const int m_tiles = (M + BM - 1) / BM;
+  const int n_tiles = (N + BN - 1) / BN;
+  const dim3 grid = GROUPED ? dim3(m_tiles, n_tiles, Z) : dim3(m_tiles * n_tiles);
+  gemm_tma_kernel<BM, BN, GROUPED><<<grid, Cf::THREADS, smem, stream>>>(map_a, map_b, c, M, N,
+                                                                        K, out_bf16);
+  return (int)cudaGetLastError();
+}
+
+// Dispatch over the compiled tiles {64, 128} x {64, 128, 256} (BK 64).
+// Returns a cudaError_t, -1 for a tile that is not compiled, -3 when a
+// tensor map cannot be encoded.
+template <bool GROUPED>
+int launch_gemm_tma(const void* a, const void* b, void* c, int Z, int M, int N, int K,
+                    int out_bf16, int bm, int bn, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_TMA_CASE(BM_, BN_)                                                      \
+  if (bm == BM_ && bn == BN_)                                                         \
+    return launch_tma_tile<BM_, BN_, GROUPED>(a, b, c, Z, M, N, K, out_bf16, s);
+  REPRO_TMA_CASE(64, 64)
+  REPRO_TMA_CASE(64, 128)
+  REPRO_TMA_CASE(64, 256)
+  REPRO_TMA_CASE(128, 64)
+  REPRO_TMA_CASE(128, 128)
+  REPRO_TMA_CASE(128, 256)
+#undef REPRO_TMA_CASE
+  return -1;
+}
+
+}  // namespace sm90
+}  // namespace repro

@@ -1,32 +1,24 @@
-// Grouped (per-expert) GEMM for Hopper (sm_90a):
+// Grouped (per-expert) GEMM, staged body (sm_90a):
 // out[e] = x[e] @ w[e] for x (E, cap, d_in), w (E, d_in, d_out) -> (E, cap, d_out).
 //
-// Replaces the TPU kernel `_gmm_kernel` / `grouped_matmul` of
-// src/repro/kernels/moe_gmm.py.  There the grid is (E, cap/bm, d_out/bn,
-// d_in/bk) with the contraction innermost and sequential and a float32
-// accumulator in VMEM.  Here the expert is blockIdx.z, each block owns one
-// (BM, BN) tile of its expert's output and runs the d_in loop inside itself
-// with the float32 accumulator in registers: it is K1's kernel (gemm.cuh)
-// instantiated with GROUPED, which moves the block's x, w and out pointers
-// to expert blockIdx.z.  The tile shapes, the bf16 tensor-core path
-// (wmma, two cp.async stages), the true-float32 CUDA-core path and the
-// masking of ragged cap, d_in and d_out are all K1's.
+// Replaces, with the TMA + wgmma core of gemm_sm90.cuh (GROUPED), the TPU
+// kernel `_gmm_kernel` / `grouped_matmul` of src/repro/kernels/moe_gmm.py.
+// There the grid is (E, cap/bm, d_out/bn, d_in/bk) with the contraction
+// innermost and sequential and a float32 accumulator in VMEM.  Here the
+// expert is blockIdx.z, each block owns one (BM, BN) tile of its expert's
+// output and runs the d_in loop inside itself with the float32 accumulator
+// in registers: it is K1's staged kernel (gemm.cuh) instantiated with
+// GROUPED, which moves the block's x, w and out pointers to expert
+// blockIdx.z.  It takes what the TMA core cannot: float32 operands and bf16
+// operands without 16-byte alignment (and aligned bf16 sent here on purpose
+// to compare the two bodies).
 //
 // What bounds it on an H100: the MoE layer of qwen3-moe-30b-a3b serves
-// (E=128, cap, 2048 -> 768) and (128, cap, 768 -> 2048) in bf16.  Every
-// launch reads all 128 experts' weights, 403 MB, whatever cap is.  At the
-// decode cap of 8 that is 408 MB for 3.2 GFLOP, 8 FLOP a byte: bytes bound,
-// 0.122 ms at 3.35 TB/s.  At the prefill cap of 160 (4 x 512 prompt tokens)
-// it is 518 MB for 64 GFLOP, 124 FLOP a byte, still below the card's ~295:
-// bytes bound, 0.155 ms.  So the weights must stream at the memory's rate
-// and be read once.  A block reads its (expert, column tile) slice of w once
-// per row tile: at cap <= BM there is one row tile; at cap 160 there are
-// three, launched only gridDim.x blocks apart (blockIdx.x varies fastest), so
-// the second and third reads of a slice should find it in the 50 MB L2.
-// What this simple design leaves on the table: rows beyond
-// cap are zero-filled and multiplied (8 of 64 rows are real at decode, which
-// costs tensor-core time but no bytes), and an expert that holds no token
-// still has its weights read; skipping those, and wgmma/TMA, are later work.
+// (E=128, cap, 2048 -> 768) and (128, cap, 768 -> 2048).  Every launch reads
+// all 128 experts' weights whatever cap is: at the decode cap of 8 that is
+// 8 FLOP a byte, at the prefill cap of 160 124 FLOP a byte, both below the
+// card's ~295 in bf16: bytes bound.  In float32 the weights are twice the
+// bytes and the CUDA cores' 67 TFLOP/s are the limit at prefill.
 #pragma once
 
 #include "gemm.cuh"

@@ -1,11 +1,19 @@
-"""Planner-blocked GEMM: wrapper, launch counter and plain version.
+"""Planner-blocked GEMM: wrapper, launch counters and plain version.
 
-Counterpart of ``repro/kernels/gemm.py``.  The CUDA kernel
-(``csrc/gemm.cuh``) runs the K loop inside one thread block per (bm, bn)
-output tile; its tile shapes are compiled in, and the planner
-(``core/lower_torch.py``) chooses among exactly :data:`COMPILED_TILES`.  A
-tensor on the CPU goes to :func:`gemm_plain`; a CUDA tensor launches the
-kernel or raises.
+Counterpart of ``repro/kernels/gemm.py``.  Two CUDA bodies compute it:
+
+* ``"tma"`` (``csrc/gemm_sm90.cuh``): bf16 only.  A producer warp keeps a
+  ring of shared-memory stages filled by TMA and one or two consumer
+  warpgroups multiply with ``wgmma``; tiles :data:`TMA_TILES` (BK 64), in
+  dynamic shared memory up to :data:`MAX_DYNAMIC_SMEM`.
+* ``"staged"`` (``csrc/gemm.cuh``): float32 on the CUDA cores, and bf16
+  operands that TMA cannot take; tiles :data:`STAGED_TILES`, in static
+  shared memory up to :data:`MAX_STATIC_SMEM`.
+
+:func:`gemm_body` picks one from the dtype, the shapes and the pointers
+before the launch; :func:`nearest_tile` moves a requested tile to that body's
+closest compiled one.  A tensor on the CPU goes to :func:`gemm_plain`; a CUDA
+tensor launches a kernel or raises.
 """
 from __future__ import annotations
 
@@ -15,22 +23,58 @@ import torch
 
 from . import _build
 
-TILE_M = (64, 128)
+TILE_M = (64, 128)                  # the staged body's tile sizes
 TILE_N = (64, 128)
 TILE_K = (16, 32)
-COMPILED_TILES = tuple((bm, bn, bk) for bm in TILE_M for bn in TILE_N for bk in TILE_K)
+STAGED_TILES = tuple((bm, bn, bk) for bm in TILE_M for bn in TILE_N for bk in TILE_K)
+TMA_TILE_M = (64, 128)              # the TMA body's: one consumer warpgroup per 64 rows
+TMA_TILE_N = (64, 128, 256)
+TMA_BK = 64                         # one 128-byte swizzle row of bf16
+TMA_TILES = tuple((bm, bn, TMA_BK) for bm in TMA_TILE_M for bn in TMA_TILE_N)
+COMPILED_TILES = STAGED_TILES + TMA_TILES
+BODIES = ("tma", "staged")
 DEFAULT_BLOCK = (128, 128, 32)
-MAX_STATIC_SMEM = 48 * 1024         # the kernel's shared memory is static
-_THREADS = 256
+MAX_STATIC_SMEM = 48 * 1024         # the staged body's shared memory is static
+MAX_DYNAMIC_SMEM = 232448           # what one block may take on sm_90
+_THREADS = 256                      # the staged body's block
+_ALIGN = 1024                       # the TMA body aligns its ring to the swizzle atom
 
-launches = 0                        # kernel launches made by gemm()
+launches = 0                        # kernel launches made by gemm() / gemm_on_body()
+launches_by_body = {b: 0 for b in BODIES}
+
+
+def tile_body(tile: Sequence[int]) -> str:
+    """The body a compiled tile belongs to (the two tile sets are disjoint:
+    the TMA body's BK is 64)."""
+    return "tma" if tuple(tile) in TMA_TILES else "staged"
+
+
+def body_tiles(body: str) -> Tuple[Tuple[int, int, int], ...]:
+    return TMA_TILES if body == "tma" else STAGED_TILES
+
+
+def smem_limit(tile: Sequence[int]) -> int:
+    """Shared memory one block of the tile's body may take."""
+    return MAX_DYNAMIC_SMEM if tile_body(tile) == "tma" else MAX_STATIC_SMEM
+
+
+def tma_stages(bm: int, bn: int) -> int:
+    """Stages of the TMA body's ring: as many as fit, each with its A and B
+    tiles and two 8-byte mbarriers (``sm90::stages``)."""
+    return (MAX_DYNAMIC_SMEM - _ALIGN) // ((bm + bn) * TMA_BK * 2 + 16)
 
 
 def gemm_smem_bytes(bm: int, bn: int, bk: int, elem_size: int) -> int:
-    """Shared memory one block of the kernel takes (mirrors
-    ``gemm_smem_bytes`` in ``csrc/gemm.cuh``): the padded A and B tiles (two
-    stages of them for bf16, which double-buffers with ``cp.async``), and for
-    bf16 one 16 x 16 float staging tile per warp for the epilogue."""
+    """Shared memory one block takes, mirroring ``repro_gemm_smem_bytes``.
+
+    A bf16 tile with BK 64 is the TMA body's: the alignment slack and
+    :func:`tma_stages` stages of the A and B tiles and their two mbarriers
+    (``sm90::smem_bytes`` in ``csrc/gemm_sm90.cuh``).  Any other tile is the
+    staged body's (``gemm_smem_bytes`` in ``csrc/gemm.cuh``): the padded A
+    and B tiles, two stages of them for bf16, and for bf16 one 16 x 16 float
+    staging tile per warp for the epilogue."""
+    if elem_size == 2 and bk == TMA_BK:
+        return _ALIGN + tma_stages(bm, bn) * ((bm + bn) * TMA_BK * 2 + 16)
     pad = 16 // elem_size
     ab = (bm * (bk + pad) + bk * (bn + pad)) * elem_size
     if elem_size == 2:
@@ -38,11 +82,35 @@ def gemm_smem_bytes(bm: int, bn: int, bk: int, elem_size: int) -> int:
     return ab
 
 
+def shape_body(dtype: torch.dtype, K: int, N: int) -> str:
+    """The body a product of this type and shape takes when its operands are
+    16-byte aligned: TMA needs bf16 and rows of whole 16-byte pieces."""
+    return "tma" if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0 else "staged"
+
+
+def gemm_body(dtype: torch.dtype, K: int, N: int, *data_ptrs: int) -> str:
+    """The body that computes a product of this type and shape from operands
+    at these addresses: ``"tma"`` when :func:`shape_body` says so and every
+    base is 16-byte aligned, else ``"staged"``."""
+    if shape_body(dtype, K, N) == "tma" and all(p % 16 == 0 for p in data_ptrs):
+        return "tma"
+    return "staged"
+
+
 def snap_tile(b: int, options: Sequence[int]) -> int:
     """The largest compiled size that does not exceed ``b`` (the smallest
     one when ``b`` is below all of them; the kernel masks the edge)."""
     fits = [o for o in options if o <= b]
     return max(fits) if fits else min(options)
+
+
+def nearest_tile(block: Sequence[int], body: str) -> Tuple[int, int, int]:
+    """``block`` moved to the closest compiled tile of ``body``: each side
+    snapped to that body's sizes."""
+    bm, bn, bk = (int(x) for x in block)
+    if body == "tma":
+        return (snap_tile(bm, TMA_TILE_M), snap_tile(bn, TMA_TILE_N), TMA_BK)
+    return (snap_tile(bm, TILE_M), snap_tile(bn, TILE_N), snap_tile(bk, TILE_K))
 
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor, *,
@@ -74,33 +142,55 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *,
          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``a @ b`` with an explicit tile shape.  a: (M, K), b: (K, N) -> (M, N).
 
-    ``block`` must be one of :data:`COMPILED_TILES` on a CUDA tensor; shapes
-    that the tile does not divide are masked inside the kernel."""
-    global launches
+    ``block`` must be one of :data:`COMPILED_TILES`; the body comes from
+    :func:`gemm_body` and runs at the tile :func:`nearest_tile` gives for it.
+    Shapes that the tile does not divide are masked inside the kernel."""
     out_dtype = out_dtype or a.dtype
     _check(a, b, out_dtype)
     if a.device.type == "cpu":
         return gemm_plain(a, b, block=block, out_dtype=out_dtype)
+    body = gemm_body(a.dtype, a.shape[1], b.shape[1], a.data_ptr(), b.data_ptr())
+    return gemm_on_body(a, b, body, block=block, out_dtype=out_dtype)
+
+
+def gemm_on_body(a: torch.Tensor, b: torch.Tensor, body: str, *,
+                 block: Tuple[int, int, int] = DEFAULT_BLOCK,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`gemm` on the body named, at its tile nearest ``block``: the
+    way to time the two bodies on one product.  The TMA body refuses
+    operands :func:`gemm_body` would not give it."""
+    global launches
+    out_dtype = out_dtype or a.dtype
+    _check(a, b, out_dtype)
     if a.device.type != "cuda":
-        raise ValueError(f"gemm runs on cpu or cuda tensors, not {a.device}")
-    bm, bn, bk = (int(x) for x in block)
-    if (bm, bn, bk) not in COMPILED_TILES:
-        raise ValueError(f"tile {(bm, bn, bk)} is not compiled; choose from "
+        raise ValueError(f"gemm runs its kernels on cuda tensors, not {a.device}")
+    if tuple(int(x) for x in block) not in COMPILED_TILES:
+        raise ValueError(f"tile {tuple(block)} is not compiled; choose from "
                          f"{COMPILED_TILES}")
     M, K = a.shape
     N = b.shape[1]
+    if body == "tma" and gemm_body(a.dtype, K, N, a.data_ptr(), b.data_ptr()) != "tma":
+        raise ValueError(f"the TMA body takes bf16 with K, N multiples of 8 and 16-byte "
+                         f"aligned bases; got {a.dtype} K={K} N={N}")
+    bm, bn, bk = nearest_tile(block, body)
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
     if M == 0 or N == 0:
         return out
-    vec = 16 // a.element_size()
-    vec_ok = int(K % vec == 0 and N % vec == 0 and a.data_ptr() % 16 == 0
-                 and b.data_ptr() % 16 == 0)
-    fn = (_build.lib().repro_gemm_bf16 if a.dtype == torch.bfloat16
-          else _build.lib().repro_gemm_f32)
+    out_bf16 = int(out_dtype == torch.bfloat16)
+    lib = _build.lib()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
-                  int(out_dtype == torch.bfloat16), bm, bn, bk, vec_ok, stream)
-    _build.check(code, f"gemm {M}x{N}x{K} tile {(bm, bn, bk)}")
+        if body == "tma":
+            code = lib.repro_gemm_tma_bf16(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N,
+                                           K, out_bf16, bm, bn, stream)
+        else:
+            vec = 16 // a.element_size()
+            vec_ok = int(K % vec == 0 and N % vec == 0 and a.data_ptr() % 16 == 0
+                         and b.data_ptr() % 16 == 0)
+            fn = lib.repro_gemm_bf16 if a.dtype == torch.bfloat16 else lib.repro_gemm_f32
+            code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, out_bf16,
+                      bm, bn, bk, vec_ok, stream)
+    _build.check(code, f"gemm {M}x{N}x{K} {body} tile {(bm, bn, bk)}")
     launches += 1
+    launches_by_body[body] += 1
     return out

@@ -3,11 +3,16 @@ version.
 
 Counterpart of ``repro/kernels/moe_gmm.py``.  Capacity-based routing packs
 each expert's tokens into a dense (E, cap, d_in) buffer, and the expert FFN
-is one GEMM per expert.  The CUDA kernel (``csrc/grouped_gemm.cuh``) is the
-GEMM kernel's tile loop with the expert as ``blockIdx.z``; it takes the same
-compiled tile shapes (:data:`repro_torch.kernels.gemm.COMPILED_TILES`).  A
+is one GEMM per expert.  The CUDA kernels are the GEMM's two bodies with the
+expert as ``blockIdx.z``: the TMA + ``wgmma`` core for bf16
+(``csrc/gemm_sm90.cuh``: 3-D tensor maps so each expert's zero-fill stops
+at its own capacity, the row tiles of one weight slice adjacent in launch
+order) and the staged body (``csrc/grouped_gemm.cuh``) for float32 and
+unaligned bf16; the body is chosen as
+:func:`repro_torch.kernels.gemm.gemm_body` chooses it, and the tiles are the
+GEMM's (:data:`repro_torch.kernels.gemm.COMPILED_TILES`).  A
 tensor on the CPU goes to :func:`grouped_matmul_plain`; a CUDA tensor
-launches the kernel or raises.
+launches a kernel or raises.
 """
 from __future__ import annotations
 
@@ -16,9 +21,10 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .gemm import COMPILED_TILES, DEFAULT_BLOCK
+from .gemm import BODIES, COMPILED_TILES, DEFAULT_BLOCK, gemm_body, nearest_tile
 
 launches = 0                        # kernel launches made by grouped_matmul()
+launches_by_body = {b: 0 for b in BODIES}
 
 
 def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
@@ -53,34 +59,60 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
     """x: (E, cap, d_in), w: (E, d_in, d_out) -> (E, cap, d_out).
 
     ``block`` = (rows of cap, columns of d_out, depth of d_in) must be one of
-    the compiled tiles on a CUDA tensor; shapes it does not divide are
-    masked inside the kernel."""
-    global launches
+    the compiled tiles; the body comes from
+    :func:`repro_torch.kernels.gemm.gemm_body` and runs at its tile nearest
+    ``block``.  Shapes the tile does not divide are masked inside the
+    kernel."""
     out_dtype = out_dtype or x.dtype
     _check(x, w, out_dtype)
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w, block=block, out_dtype=out_dtype)
+    body = gemm_body(x.dtype, x.shape[2], w.shape[2], x.data_ptr(), w.data_ptr())
+    return grouped_matmul_on_body(x, w, body, block=block, out_dtype=out_dtype)
+
+
+def grouped_matmul_on_body(x: torch.Tensor, w: torch.Tensor, body: str, *,
+                           block: Tuple[int, int, int] = DEFAULT_BLOCK,
+                           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`grouped_matmul` on the body named, at its tile nearest
+    ``block``: the way to time the two bodies on one product.  The TMA body
+    refuses operands ``gemm_body`` would not give it."""
+    global launches
+    out_dtype = out_dtype or x.dtype
+    _check(x, w, out_dtype)
     if x.device.type != "cuda":
-        raise ValueError(f"grouped_matmul runs on cpu or cuda tensors, not {x.device}")
-    bm, bn, bk = (int(b) for b in block)
-    if (bm, bn, bk) not in COMPILED_TILES:
-        raise ValueError(f"tile {(bm, bn, bk)} is not compiled; choose from "
+        raise ValueError(f"grouped_matmul runs its kernels on cuda tensors, not {x.device}")
+    if tuple(int(b) for b in block) not in COMPILED_TILES:
+        raise ValueError(f"tile {tuple(block)} is not compiled; choose from "
                          f"{COMPILED_TILES}")
     E, cap, d_in = x.shape
     d_out = w.shape[2]
+    if body == "tma" and gemm_body(x.dtype, d_in, d_out, x.data_ptr(),
+                                   w.data_ptr()) != "tma":
+        raise ValueError(f"the TMA body takes bf16 with d_in, d_out multiples of 8 and "
+                         f"16-byte aligned bases; got {x.dtype} {d_in}->{d_out}")
+    bm, bn, bk = nearest_tile(block, body)
     out = torch.empty((E, cap, d_out), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
-    vec = 16 // x.element_size()
-    vec_ok = int(d_in % vec == 0 and d_out % vec == 0 and x.data_ptr() % 16 == 0
-                 and w.data_ptr() % 16 == 0)
-    fn = (_build.lib().repro_grouped_gemm_bf16 if x.dtype == torch.bfloat16
-          else _build.lib().repro_grouped_gemm_f32)
+    out_bf16 = int(out_dtype == torch.bfloat16)
+    lib = _build.lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), E, cap, d_out, d_in,
-                  int(out_dtype == torch.bfloat16), bm, bn, bk, vec_ok, stream)
-    _build.check(code, f"grouped_matmul E={E} cap={cap} {d_in}->{d_out} tile "
+        if body == "tma":
+            code = lib.repro_grouped_gemm_tma_bf16(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                                   E, cap, d_out, d_in, out_bf16, bm, bn,
+                                                   stream)
+        else:
+            vec = 16 // x.element_size()
+            vec_ok = int(d_in % vec == 0 and d_out % vec == 0 and x.data_ptr() % 16 == 0
+                         and w.data_ptr() % 16 == 0)
+            fn = (lib.repro_grouped_gemm_bf16 if x.dtype == torch.bfloat16
+                  else lib.repro_grouped_gemm_f32)
+            code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), E, cap, d_out, d_in,
+                      out_bf16, bm, bn, bk, vec_ok, stream)
+    _build.check(code, f"grouped_matmul E={E} cap={cap} {d_in}->{d_out} {body} tile "
                        f"{(bm, bn, bk)}")
     launches += 1
+    launches_by_body[body] += 1
     return out

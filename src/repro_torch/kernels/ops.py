@@ -3,7 +3,8 @@
 Responsibilities:
 * fit shapes to legal block sizes (largest power-of-two divisor, as the
   reference does) and snap them to the tile shapes the kernels are
-  compiled for;
+  compiled for; the TMA GEMM body masks ragged edges itself and takes the
+  planner's tile as it is (:func:`gemm_launch_block`);
 * pick block shapes via the TileLoom planner when not given
   (``core/lower_torch.py`` sizes them against the H100 description);
 * send a tensor that lies on the CPU to the kernel's plain PyTorch version
@@ -45,10 +46,24 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     if block is None:
         from repro_torch.core.lower_torch import plan_gemm_blocks
         block = plan_gemm_blocks(M, N, K, a.dtype)
-    bm = _gemm.snap_tile(fit_block(M, block[0]), _gemm.TILE_M)
-    bn = _gemm.snap_tile(fit_block(N, block[1]), _gemm.TILE_N)
-    bk = _gemm.snap_tile(fit_block(K, block[2]), _gemm.TILE_K)
-    return _gemm.gemm(a, b, block=(bm, bn, bk), out_dtype=out_dtype)
+    return _gemm.gemm(a, b, block=gemm_launch_block(M, N, K, a.dtype, block),
+                      out_dtype=out_dtype)
+
+
+def gemm_launch_block(M: int, N: int, K: int, dtype: torch.dtype,
+                      block: Tuple[int, int, int]) -> Tuple[int, int, int]:
+    """The compiled tile a (M, K) @ (K, N) product of ``dtype`` launches at
+    for a requested ``block``.  Where the TMA body takes the shape, it is the
+    nearest TMA tile: that body masks ragged edges itself, so the row tile is
+    not cut to a power-of-two divisor of M (cap 160 keeps BM 128).  The
+    staged body keeps the reference's ``fit_block`` rule, snapped to its
+    tiles; ``gemm`` moves a tile to the staged body's nearest if the
+    operands' addresses send a TMA-shaped product there."""
+    if _gemm.shape_body(dtype, K, N) == "tma":
+        return _gemm.nearest_tile(block, "tma")
+    return (_gemm.snap_tile(fit_block(M, block[0]), _gemm.TILE_M),
+            _gemm.snap_tile(fit_block(N, block[1]), _gemm.TILE_N),
+            _gemm.snap_tile(fit_block(K, block[2]), _gemm.TILE_K))
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -104,16 +119,14 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Per-expert GEMM.  x: (E, cap, d_in), w: (E, d_in, d_out).  Blocks are
     planned for one expert's (cap, d_out, d_in) product, as the reference
-    does, and snapped to the compiled tiles."""
+    does, and moved to a compiled tile by :func:`gemm_launch_block`."""
     _, cap, d_in = x.shape
     d_out = w.shape[-1]
     if block is None:
         from repro_torch.core.lower_torch import plan_gemm_blocks
         block = plan_gemm_blocks(cap, d_out, d_in, x.dtype)
-    bm = _gemm.snap_tile(fit_block(cap, block[0]), _gemm.TILE_M)
-    bn = _gemm.snap_tile(fit_block(d_out, block[1]), _gemm.TILE_N)
-    bk = _gemm.snap_tile(fit_block(d_in, block[2]), _gemm.TILE_K)
-    return _moe.grouped_matmul(x, w, block=(bm, bn, bk), out_dtype=out_dtype)
+    block = gemm_launch_block(cap, d_out, d_in, x.dtype, block)
+    return _moe.grouped_matmul(x, w, block=block, out_dtype=out_dtype)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,

@@ -39,6 +39,129 @@ def test_gemm_kernel_every_tile(cuda, shape, dtype):
     assert G.launches == before + len(G.COMPILED_TILES)
 
 
+@pytest.mark.parametrize("shape", [(96, 64, 160), (256, 128, 384), (128, 128, 96),
+                                   (200, 136, 160), (8, 2048, 768), (2048, 11008, 2048)])
+def test_gemm_tma_body_every_tile(cuda, shape):
+    """The TMA + wgmma body at each of its tiles against the plain version:
+    ragged M and N, K tails that 64 does not divide (96, 160), the MoE's
+    decode rows and the served K1 shape; both output types."""
+    from repro_torch.kernels import gemm as G
+    M, N, K = shape
+    gen = torch.Generator(device=cuda).manual_seed(M + N + K)
+    a = (torch.randn(M, K, generator=gen, device=cuda) * K ** -0.5).to(torch.bfloat16)
+    b = torch.randn(K, N, generator=gen, device=cuda).to(torch.bfloat16)
+    assert G.gemm_body(a.dtype, K, N, a.data_ptr(), b.data_ptr()) == "tma"
+    want = G.gemm_plain(a, b, out_dtype=torch.float32)
+    before = G.launches_by_body["tma"]
+    for tile in G.TMA_TILES:
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = G.gemm_on_body(a, b, "tma", block=tile, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            assert got.dtype == out_dtype
+            torch.testing.assert_close(got.float(), want, **_tol(out_dtype))
+    assert G.launches_by_body["tma"] == before + 2 * len(G.TMA_TILES)
+
+
+@pytest.mark.parametrize("shape", [(96, 64, 160), (256, 128, 384), (100, 77, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_staged_body_every_tile(cuda, shape, dtype):
+    """The staged body at each of its tiles, aligned bf16 (its cp.async
+    path) included, as a caller that compares the two bodies runs it."""
+    from repro_torch.kernels import gemm as G
+    M, N, K = shape
+    a = torch.randn(M, K, device=cuda).to(dtype)
+    b = torch.randn(K, N, device=cuda).to(dtype)
+    want = G.gemm_plain(a, b, out_dtype=torch.float32)
+    before = G.launches_by_body["staged"]
+    for tile in G.STAGED_TILES:
+        got = G.gemm_on_body(a, b, "staged", block=tile, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **_tol(dtype))
+    assert G.launches_by_body["staged"] == before + len(G.STAGED_TILES)
+
+
+def test_gemm_body_follows_dtype_shape_and_alignment(cuda):
+    """(100, 77, 33) and float32 take the staged body; a bf16 operand whose
+    base is 2 bytes off 16-byte alignment, at a shape the planner sizes for
+    the TMA body, runs the staged body at its nearest tile, and is right."""
+    from repro_torch.kernels import gemm as G, ops
+    a = torch.randn(100, 33, device=cuda).to(torch.bfloat16)
+    b = torch.randn(33, 77, device=cuda).to(torch.bfloat16)
+    before = dict(G.launches_by_body)
+    torch.testing.assert_close(ops.matmul(a, b, out_dtype=torch.float32),
+                               G.gemm_plain(a, b, out_dtype=torch.float32), rtol=2e-2, atol=2e-2)
+    assert G.launches_by_body == dict(before, staged=before["staged"] + 1)
+    buf = torch.randn(1 + 256 * 128, device=cuda).to(torch.bfloat16)
+    a = buf[1:].view(256, 128)
+    b = torch.randn(128, 192, device=cuda).to(torch.bfloat16)
+    assert a.data_ptr() % 16 == 2
+    assert G.gemm_body(a.dtype, 128, 192, a.data_ptr(), b.data_ptr()) == "staged"
+    block = ops.gemm_launch_block(256, 192, 128, a.dtype, (128, 256, 64))
+    assert block == (128, 256, 64)
+    before = dict(G.launches_by_body)
+    got = G.gemm(a, b, block=block, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, G.gemm_plain(a, b, out_dtype=torch.float32),
+                               rtol=2e-2, atol=2e-2)
+    assert G.launches_by_body == dict(before, staged=before["staged"] + 1)
+    with pytest.raises(ValueError, match="TMA body"):
+        G.gemm_on_body(a, b, "tma", block=block)
+    x = torch.randn(64, 64, device=cuda)
+    before = dict(G.launches_by_body)
+    G.gemm(x, x, block=(128, 128, 64))
+    torch.cuda.synchronize()
+    assert G.launches_by_body == dict(before, staged=before["staged"] + 1)
+
+
+@pytest.mark.parametrize("cap", [8, 13, 160])
+@pytest.mark.parametrize("dims", [(2048, 768), (768, 2048)])
+def test_grouped_gemm_tma_body_at_the_moe_shapes(cuda, cap, dims):
+    """K4's TMA body with 128 experts at the decode capacity 8, a ragged 13
+    (boxes of 64 or 128 rows, taller than each expert's rows) and the
+    prefill capacity 160, every tile, both output types; each expert's
+    zero-fill stops at its own rows."""
+    from repro_torch.kernels import gemm as G, moe_gmm
+    d_in, d_out = dims
+    gen = torch.Generator(device=cuda).manual_seed(cap + d_in)
+    x = torch.randn(128, cap, d_in, generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(128, d_in, d_out, generator=gen, device=cuda) * d_in ** -0.5
+         ).to(torch.bfloat16)
+    want = moe_gmm.grouped_matmul_plain(x, w, out_dtype=torch.float32)
+    before = moe_gmm.launches_by_body["tma"]
+    for tile in G.TMA_TILES:
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = moe_gmm.grouped_matmul(x, w, block=tile, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want, **_tol(out_dtype))
+    assert moe_gmm.launches_by_body["tma"] == before + 2 * len(G.TMA_TILES)
+
+
+def test_served_gemm_shapes_run_on_the_tma_body(cuda):
+    """The planner's tiles at the served K1 shape and the MoE's four K4
+    shapes launch the TMA body, and a misaligned expert buffer the staged
+    one."""
+    from repro_torch import kernels
+    from repro_torch.kernels import moe_gmm, ops
+    kernels.reset_launch_counts()
+    a = torch.randn(2048, 2048, device=cuda).to(torch.bfloat16)
+    b = torch.randn(2048, 11008, device=cuda).to(torch.bfloat16)
+    ops.matmul(a, b)
+    for cap in (8, 160):
+        for d_in, d_out in ((2048, 768), (768, 2048)):
+            x = torch.randn(128, cap, d_in, device=cuda).to(torch.bfloat16)
+            w = torch.randn(128, d_in, d_out, device=cuda).to(torch.bfloat16)
+            ops.grouped_matmul(x, w)
+    buf = torch.randn(1 + 4 * 8 * 64, device=cuda).to(torch.bfloat16)
+    x = buf[1:].view(4, 8, 64)
+    w = torch.randn(4, 64, 96, device=cuda).to(torch.bfloat16)
+    got = ops.grouped_matmul(x, w, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, moe_gmm.grouped_matmul_plain(x, w, out_dtype=torch.float32),
+                               rtol=2e-2, atol=2e-2)
+    assert kernels.launches_by_body() == {"gemm": {"tma": 1, "staged": 0},
+                                          "grouped_matmul": {"tma": 4, "staged": 1}}
+
+
 def _kv_view(n_kv, Skv, d, dtype, device, offset):
     """(1, n_kv, Skv, d) view of a (1, Skv, n_kv, d) buffer that starts
     ``offset`` elements into its storage (1: not 16-byte aligned)."""
@@ -313,7 +436,8 @@ def test_serve_rwkv6_reduced_on_the_card_is_as_close_to_float32_as_plain(cuda, m
 
 
 def test_python_footprints_mirror_the_compiled_kernels(cuda):
-    """The shared-memory formulas the planner prunes with are the kernels' own."""
+    """The shared-memory formulas the planner prunes with are the kernels'
+    own, for the TMA body's tiles and the staged body's alike."""
     from repro_torch.kernels import _build, flash_attention as FA, gemm as G
     lib = _build.lib()
     for tile in G.COMPILED_TILES:

@@ -239,12 +239,85 @@ def test_snap_tile_picks_compiled_sizes():
 
 @pytest.mark.parametrize("es", [2, 4])
 def test_smem_footprints_bound_the_tile_sets(es):
-    """Every GEMM tile fits the kernel's static shared memory; the flash
-    tiles are pruned by the block limit (float32 d=128 loses the largest)."""
-    assert all(G.gemm_smem_bytes(*t, es) <= G.MAX_STATIC_SMEM for t in G.COMPILED_TILES)
+    """Every GEMM tile of the body that takes it at this element size fits
+    that body's limit: the TMA body's bf16 tiles the 227 KB of dynamic
+    shared memory, the staged body's the 48 KB of static shared memory; the
+    flash tiles are pruned by the block limit (float32 d=128 loses the
+    largest)."""
+    tiles = G.COMPILED_TILES if es == 2 else G.STAGED_TILES
+    assert all(G.gemm_smem_bytes(*t, es) <= G.smem_limit(t) for t in tiles)
+    assert all(G.gemm_smem_bytes(*t, es) <= G.MAX_STATIC_SMEM for t in G.STAGED_TILES)
     legal = FA.legal_tiles(128, es)
     assert legal and all(FA.flash_smem_bytes(*t, 128, es) <= FA.MAX_SMEM for t in legal)
     assert ((128, 64) in legal) == (es == 2)
+
+
+@pytest.mark.parametrize("tile", [(64, 64, 64), (64, 128, 64), (64, 256, 64),
+                                  (128, 64, 64), (128, 128, 64), (128, 256, 64)])
+def test_tma_tiles_take_the_deepest_ring_that_fits(tile):
+    """The TMA body's footprint: 1 KB of alignment slack and STAGES stages of
+    the A box (BM x 64), the B boxes (64 x BN) and two 8-byte mbarriers;
+    STAGES is at least 3 and one more would not fit 232,448 bytes."""
+    bm, bn, bk = tile
+    assert tile in G.TMA_TILES and G.tile_body(tile) == "tma"
+    stages = G.tma_stages(bm, bn)
+    per_stage = (bm + bn) * 64 * 2 + 16
+    assert stages >= 3
+    assert G.gemm_smem_bytes(*tile, 2) == 1024 + stages * per_stage <= G.MAX_DYNAMIC_SMEM
+    assert 1024 + (stages + 1) * per_stage > G.MAX_DYNAMIC_SMEM
+
+
+@pytest.mark.parametrize("case", [
+    (torch.bfloat16, 2048, 11008, (0, 0), "tma"),
+    (torch.bfloat16, 768, 2048, (256, 4096), "tma"),
+    (torch.bfloat16, 45, 64, (0, 0), "staged"),          # K % 8
+    (torch.bfloat16, 64, 77, (0, 0), "staged"),          # N % 8
+    (torch.bfloat16, 64, 64, (2, 0), "staged"),          # a's base 2 bytes off
+    (torch.bfloat16, 64, 64, (0, 8), "staged"),          # b's base 8 bytes off
+    (torch.float32, 2048, 11008, (0, 0), "staged"),
+    (torch.float16, 64, 64, (0, 0), "staged")])
+def test_gemm_body_selection(case):
+    dtype, K, N, ptrs, body = case
+    assert G.gemm_body(dtype, K, N, *ptrs) == body
+    if ptrs == (0, 0):
+        assert G.shape_body(dtype, K, N) == body
+
+
+def test_nearest_tile_stays_in_the_body():
+    assert G.nearest_tile((128, 128, 32), "tma") == (128, 128, 64)
+    assert G.nearest_tile((128, 256, 64), "staged") == (128, 128, 32)
+    assert G.nearest_tile((32, 512, 16), "tma") == (64, 256, 64)
+    for body in G.BODIES:
+        for t in G.COMPILED_TILES:
+            assert G.nearest_tile(t, body) in G.body_tiles(body)
+        for t in G.body_tiles(body):
+            assert G.nearest_tile(t, body) == t
+
+
+def test_grouped_wrapper_keeps_the_row_tile_at_cap_160():
+    """The TMA body masks its own edges, so ``ops`` no longer cuts the row
+    tile to a power-of-two divisor of the capacity (fit_block(160, 128) is
+    32, which the staged body snaps to 64); the staged body keeps that rule."""
+    assert ops.fit_block(160, 128) == 32
+    for d_in, d_out in ((2048, 768), (768, 2048)):
+        assert ops.gemm_launch_block(160, d_out, d_in, torch.bfloat16,
+                                     (128, 128, 64)) == (128, 128, 64)
+        assert ops.gemm_launch_block(160, d_out, d_in, torch.float32,
+                                     (128, 128, 32)) == (64, 128, 32)
+    assert ops.gemm_launch_block(8, 768, 2048, torch.bfloat16, (64, 256, 64)) == (64, 256, 64)
+    assert ops.gemm_launch_block(64, 64, 45, torch.bfloat16, (128, 128, 64)) == (64, 64, 16)
+
+
+def test_cpu_grouped_matmul_counts_no_body():
+    from repro_torch import kernels
+    from repro_torch.kernels import moe_gmm
+    kernels.reset_launch_counts()
+    x = torch.randn(2, 8, 16).to(torch.bfloat16)
+    w = torch.randn(2, 16, 24).to(torch.bfloat16)
+    got = ops.grouped_matmul(x, w, block=(128, 128, 64))
+    torch.testing.assert_close(got.float(), moe_gmm.grouped_matmul_plain(x, w).float())
+    assert kernels.launches_by_body() == {"gemm": {"tma": 0, "staged": 0},
+                                          "grouped_matmul": {"tma": 0, "staged": 0}}
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])

@@ -50,8 +50,8 @@ def test_h100_description_matches_the_data_sheet():
 def test_gemm_blocks_are_compiled_tiles_and_fit_shared_memory(store, fast_search,
                                                               shape, dtype):
     block = LT.plan_gemm_blocks(*shape, dtype)
-    assert block in G.COMPILED_TILES
-    assert G.gemm_smem_bytes(*block, LT.dtype_bytes(dtype)) <= G.MAX_STATIC_SMEM
+    assert block in G.body_tiles("tma" if dtype == torch.bfloat16 else "staged")
+    assert G.gemm_smem_bytes(*block, LT.dtype_bytes(dtype)) <= G.smem_limit(block)
     assert LT.planner_fallback_count() == 0
 
 
@@ -72,7 +72,39 @@ def test_tile_options_are_pruned_by_the_real_footprint():
     assert (128, 64) not in LT.flash_tile_options(128, 4)      # 232 KB > 227 KB
     assert LT.flash_tile_options(128, 4)
     assert LT.flash_tile_options(96, 2) == ()
-    assert LT.gemm_tile_options(2) == G.COMPILED_TILES
+    assert LT.gemm_tile_options(2) == G.TMA_TILES
+    assert LT.gemm_tile_options(4) == G.STAGED_TILES
+    assert LT.gemm_tile_options(2, "staged") == G.STAGED_TILES
+
+
+@pytest.mark.parametrize("case", [((2048, 11008, 2048), torch.bfloat16, "tma"),
+                                  ((160, 2048, 768), torch.bfloat16, "tma"),
+                                  ((8, 768, 2048), torch.bfloat16, "tma"),
+                                  ((2048, 11008, 2048), torch.float32, "staged"),
+                                  ((64, 64, 45), torch.bfloat16, "staged")])
+def test_gemm_blocks_are_tiles_of_the_body_the_request_takes(store, fast_search, case):
+    """The served K1 shape and the MoE's K4 shapes in bf16 get a TMA tile;
+    float32 and bf16 with K = 45 (rows TMA cannot take) a staged tile."""
+    shape, dtype, body = case
+    block = LT.plan_gemm_blocks(*shape, dtype)
+    assert block in G.body_tiles(body)
+    assert LT.planner_fallback_count() == 0
+
+
+@pytest.mark.parametrize("case", [(torch.bfloat16, (640, 640, 640), "tma"),
+                                  (torch.float32, (640, 640, 640), "staged"),
+                                  (torch.bfloat16, (64, 64, 45), "staged")])
+def test_gemm_fallback_is_a_compiled_tile_of_the_requests_body(store, monkeypatch, case):
+    dtype, shape, body = case
+    assert LT.GEMM_FALLBACK[body] in G.body_tiles(body)
+    assert G.gemm_smem_bytes(*LT.GEMM_FALLBACK[body], LT.dtype_bytes(dtype)) <= \
+        G.smem_limit(LT.GEMM_FALLBACK[body])
+
+    def boom(*a, **kw):
+        raise RuntimeError("no feasible plan")
+
+    monkeypatch.setattr(LT, "plan_kernel_multi", boom)
+    assert LT.plan_gemm_blocks(*shape, dtype) == LT.GEMM_FALLBACK[body]
 
 
 def test_tile_options_follow_the_footprint_limit(monkeypatch):
@@ -165,8 +197,8 @@ def test_planner_failure_serves_the_fallback_and_counts(store, monkeypatch):
         raise RuntimeError("no feasible plan")
 
     monkeypatch.setattr(LT, "plan_kernel_multi", boom)
-    assert LT.plan_gemm_blocks(640, 640, 640) == LT.GEMM_FALLBACK
-    assert LT.plan_gemm_blocks(768, 640, 640) == LT.GEMM_FALLBACK
+    assert LT.plan_gemm_blocks(640, 640, 640) == LT.GEMM_FALLBACK["tma"]
+    assert LT.plan_gemm_blocks(768, 640, 640) == LT.GEMM_FALLBACK["tma"]
     assert LT.planner_fallback_count("gemm_blocks") == 2
     assert LT.resolved_blocks()[("gemm_blocks", (640, 640, 640, 2))][1] == "fallback"
     assert store.n_entries() == 0                               # nothing persisted

@@ -11,7 +11,8 @@ these phases, each printing one JSON line; any failure raises:
 2. build    compile ``src/repro_torch/kernels/csrc/*.cu`` and load the library;
 3. kernels  every kernel against its plain PyTorch version on the card, at
             the serving shapes (K2 at qwen2.5-3b's and at the MoE's
-            prefill, K4 at the MoE's four) and at one ragged shape each, in
+            prefill, K3 at both models' decode, K4 at the MoE's four) and at
+            one ragged shape each, in
             bf16 and float32 (tolerances 2e-2 and 1e-4, those of the
             reference's kernel tests; 2e-3 for the WKV scan in float32 and
             for its final state), each timed with CUDA events (median of 25
@@ -46,7 +47,10 @@ these phases, each printing one JSON line; any failure raises:
             plain run routes by itself is reported.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the main
-path and its measured times, the card's name and power limit, and as the
+path and its measured times (the reference's two decode functions,
+``flash_decode_partials`` and ``combine_partials``, are checked and timed
+but marked off the main path: ``ops.flash_decode`` computes both in one
+launch), the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -243,18 +247,24 @@ def flash_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving):
 
 
 def decode_cases(timer, gen, B, H, Hkv, Skv, valid, d, dtype, serving, splits=None):
-    """The two-stage decode as ``ops.flash_decode`` runs it, and each stage
-    on its own."""
+    """The decode as ``ops.flash_decode`` runs it (both stages in one
+    launch, the splits capped at one cluster's 8), and the reference's two
+    functions on their own (partials and combine, at the uncapped split
+    count ``flash_decode_partials`` is used with)."""
     from repro_torch.kernels import flash_decode as FD, ops
     dev = timer.flush.device
     g = H // Hkv
     q, k4, v4 = _qkv(gen, dev, B, H, Hkv, 1, Skv, d, dtype)
     n = Skv if valid is None else valid
-    s = splits or FD.choose_splits(n, B * Hkv, FD.sm_count(dev))
+    s = splits or FD.choose_splits(n, B * Hkv, FD.sm_count(dev), FD.MAX_CLUSTER_SPLITS)
     run = lambda: ops.flash_decode(q, k4, v4, kv_splits=splits, kv_valid_len=valid,
                                    q_per_kv=g)
     plain = lambda: FD.flash_decode_plain(q, k4, v4, kv_valid_len=valid, q_per_kv=g)
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
     out = run()
+    if kernels.launch_counts()["flash_decode"] != 1 or sum(kernels.launch_counts().values()) != 1:
+        raise AssertionError(f"ops.flash_decode made {kernels.launch_counts()} launches")
     label = f"BH={B * H} kv_heads={B * Hkv} buffer={Skv} valid={n} d={d} splits={s}"
     err = compare(f"flash_decode {label} {dname(dtype)}", out, plain(), dtype)
     q4 = q.reshape(B, H, 1, d)
@@ -267,6 +277,8 @@ def decode_cases(timer, gen, B, H, Hkv, Skv, valid, d, dtype, serving, splits=No
             "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib)}
     both.update(bound(4.0 * B * H * n * d, kv_bytes + nbytes(q, out), dtype))
 
+    s = splits or FD.choose_splits(n, B * Hkv, FD.sm_count(dev))
+    label = f"BH={B * H} kv_heads={B * Hkv} buffer={Skv} valid={n} d={d} splits={s}"
     part = lambda: FD.flash_decode_partials(q, k4, v4, kv_splits=s, kv_valid_len=valid,
                                             q_per_kv=g)
     part_plain = lambda: FD.flash_decode_partials_plain(q, k4, v4, kv_splits=s,
@@ -394,6 +406,9 @@ def phase_kernels(timer, gen):
     mcfg = get_config(MOE_ARCH)
     cases.append(flash_case(timer, gen, BATCH, mcfg.n_heads, mcfg.n_kv_heads, PROMPT, PROMPT,
                             mcfg.head_dim_, True, torch.bfloat16, serving=True))
+    # K3 at the MoE's decode (32 query heads on 4 kv heads per sequence)
+    cases += decode_cases(timer, gen, BATCH, mcfg.n_heads, mcfg.n_kv_heads, buffer_len,
+                          PROMPT + 1, mcfg.head_dim_, torch.bfloat16, serving=True)
     # the grouped GEMM at the MoE's served shapes, decode gate/up first (the
     # shape with most launches, the one the kernels line reports), then at
     # deepseek-moe-16b's prefill shapes and one ragged float32 shape
@@ -523,8 +538,9 @@ def phase_serve(device):
     launches = kernels.launch_counts()
 
     L = cfg.n_layers
-    want = {"gemm": 0, "flash_attention": L, "flash_decode_partials": L * NEW_TOKENS,
-            "flash_decode_combine": L * NEW_TOKENS, "grouped_matmul": 0, "wkv6": 0}
+    want = {"gemm": 0, "flash_attention": L, "flash_decode": L * NEW_TOKENS,
+            "flash_decode_partials": 0, "flash_decode_combine": 0, "grouped_matmul": 0,
+            "wkv6": 0}
     if launches != want:
         raise AssertionError(f"serve: kernel launches {launches}, expected {want}")
     check_outputs("serve", res, cfg)
@@ -786,7 +802,7 @@ def phase_rwkv(device):
     res = serve.generate(api, params, prompts, NEW_TOKENS, keep_step_logits=True)
     launches = kernels.launch_counts()
     L = cfg.n_layers
-    want = {"gemm": 0, "flash_attention": 0, "flash_decode_partials": 0,
+    want = {"gemm": 0, "flash_attention": 0, "flash_decode": 0, "flash_decode_partials": 0,
             "flash_decode_combine": 0, "grouped_matmul": 0, "wkv6": L}
     if launches != want:
         raise AssertionError(f"rwkv: kernel launches {launches}, expected {want}")
@@ -899,8 +915,8 @@ def phase_moe(device):
     launches = kernels.launch_counts()
     by_body = kernels.launches_by_body()
     L = cfg.n_layers
-    want = {"gemm": 0, "flash_attention": L, "flash_decode_partials": L * NEW_TOKENS,
-            "flash_decode_combine": L * NEW_TOKENS,
+    want = {"gemm": 0, "flash_attention": L, "flash_decode": L * NEW_TOKENS,
+            "flash_decode_partials": 0, "flash_decode_combine": 0,
             "grouped_matmul": 3 * L * (1 + NEW_TOKENS), "wkv6": 0}
     if launches != want:
         raise AssertionError(f"moe: kernel launches {launches}, expected {want}")
@@ -985,8 +1001,8 @@ SOURCES = {
     "gemm": ("src/repro_torch/kernels/csrc/gemm_sm90.cuh", "src/repro/kernels/gemm.py:26"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cuh",
                         "src/repro/kernels/flash_attention.py:28"),
-    # both stages as ``ops.flash_decode`` runs them: the function that one
-    # library call (scaled_dot_product_attention) also computes
+    # both stages in one launch, as ``ops.flash_decode`` runs them: the
+    # function that one library call (scaled_dot_product_attention) computes
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:62"),
     "flash_decode_partials": ("src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -997,6 +1013,11 @@ SOURCES = {
                        "src/repro/kernels/moe_gmm.py:23"),
     "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu", "src/repro/kernels/rwkv6.py:39"),
 }
+# the reference's two decode functions, kept and checked, but no longer on the
+# served path: ``ops.flash_decode`` computes both in one launch
+OFF_MAIN_PATH = ("flash_decode_partials", "flash_decode_combine")
+# the bodies redesigned last: their registers and spills go in the build line
+REDESIGNED = ("decode_mma_kernel", "decode_f32_kernel", "wkv6_kernel")
 
 
 def main() -> int:
@@ -1018,13 +1039,17 @@ def main() -> int:
     _build.lib()
     info = _build.build_info()
     ptxas = ptxas_usage(str(info.get("compiler_output", "")))
+    redesigned = {k: v for k, v in ptxas.items() if any(b in k for b in REDESIGNED)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled_here": bool(info.get("built")), "library": info.get("path"),
-          "sources": [p.name for p in _build.sources()], "ptxas": ptxas})
+          "sources": [p.name for p in _build.sources()], "ptxas": ptxas,
+          "redesigned": redesigned})
     spilled = {k: v for k, v in ptxas.items()
                if "gemm_tma_kernel" in k and v.get("spill_bytes")}
-    if info.get("built") and (spilled or not any("gemm_tma_kernel" in k for k in ptxas)):
-        raise AssertionError(f"the TMA GEMM instantiations spill or are missing: {spilled}")
+    if info.get("built") and (spilled or not any("gemm_tma_kernel" in k for k in ptxas)
+                              or not all(any(b in k for k in ptxas) for b in REDESIGNED)):
+        raise AssertionError(f"the TMA GEMM instantiations spill, or a GEMM, decode or WKV "
+                             f"instantiation is missing: {spilled}")
 
     timer = Timer(device)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -1043,22 +1068,21 @@ def main() -> int:
     launches = dict(serve_launches, gemm=gemm_launches,
                     grouped_matmul=moe_launches["grouped_matmul"],
                     wkv6=rwkv_launches["wkv6"])
-    launches["flash_decode"] = min(launches["flash_decode_partials"],
-                                   launches["flash_decode_combine"])
     kernels_line = []
     for c in cases:
         if not (c["serving"] and c["dtype"] == "bfloat16" and c["name"] in SOURCES) \
                 or any(k["name"] == c["name"] for k in kernels_line):
             continue
         source, replaces = SOURCES[c["name"]]
-        if launches[c["name"]] < 1:
+        on_path = c["name"] not in OFF_MAIN_PATH
+        if on_path and launches[c["name"]] < 1:
             raise AssertionError(f"{c['name']} was never launched on the main path")
         kernels_line.append({
             "name": c["name"], "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[c["name"]], "max_abs_err": c["max_abs_err"],
             "ms": c["kernel_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-            "shape": c["shape"], "dtype": c["dtype"]})
+            "shape": c["shape"], "dtype": c["dtype"], "main_path": on_path})
         if "staged_ms" in c:
             kernels_line[-1].update(
                 block=c["block"], staged_ms=c["staged_ms"], host_us=c["host_us"],

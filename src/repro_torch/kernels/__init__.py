@@ -17,6 +17,7 @@ __all__ = ["ops", "ref", "gemm", "flash_attention", "flash_decode", "moe_gmm", "
 def launch_counts() -> dict:
     """How often each kernel has been launched since the last reset."""
     return {"gemm": gemm.launches, "flash_attention": flash_attention.launches,
+            "flash_decode": flash_decode.launches,
             "flash_decode_partials": flash_decode.partials_launches,
             "flash_decode_combine": flash_decode.combine_launches,
             "grouped_matmul": moe_gmm.launches, "wkv6": rwkv6.launches}
@@ -34,6 +35,7 @@ def reset_launch_counts() -> None:
             counts[body] = 0
     gemm.launches = 0
     flash_attention.launches = 0
+    flash_decode.launches = 0
     flash_decode.partials_launches = 0
     flash_decode.combine_launches = 0
     moe_gmm.launches = 0

@@ -142,14 +142,19 @@ _SIGNATURES = {
                                   _F, _I, _I, _I, _I, _P],
     "repro_flash_smem_bytes_bf16": [_I, _I, _I],
     "repro_flash_smem_bytes_f32": [_I, _I, _I],
+    # q, k, v, out, n_groups, G, hkv, d, kv_len, splits, 6 strides, sm_scale,
+    # is_bf16, vec_ok, stream (both stages, one launch)
+    "repro_flash_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_STRIDES, _F, _I, _I, _P],
     # q, k, v, m, l, acc, n_groups, G, hkv, d, kv_len, splits, 6 strides,
     # sm_scale, is_bf16, vec_ok, stream
     "repro_flash_decode_partials": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     *_STRIDES, _F, _I, _I, _P],
     # m, l, acc, out, BH, splits, d, out_bf16, stream
     "repro_flash_decode_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_flash_decode_smem_bytes": [_I, _I],
     # r, k, v, log_w, u, o, state, BH, T, d, chunk, is_bf16, stream
     "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_wkv6_smem_bytes": [_I, _I],
 }
 
 

@@ -1,63 +1,347 @@
 // Flash-decode for Hopper (sm_90a): one query token against a long KV cache,
-// split over the KV sequence, plus the log-sum-exp combine of the splits.
+// split over the KV sequence, with the log-sum-exp combine of the splits in
+// the same launch.
 //
 // Replaces the TPU kernel `_decode_kernel` / `flash_decode_partials` of
-// src/repro/kernels/flash_decode.py, and `combine_partials` of the same file
-// (plain array code there, a second small kernel here).  The two stages are
-// kept: a partials kernel over the grid (kv-head group, split) that emits
-// float32 (m, l, acc) per query head and split, and a combine over the
-// splits.  Two things are new against the reference kernel:
+// src/repro/kernels/flash_decode.py, and `combine_partials` of the same file.
+// One body computes a split's (m, l, acc) per query head; two epilogues
+// finish it:
 //
-//   * a valid length: the kernel walks keys [0, kv_len) of a longer cache
-//     buffer, cuts that range into `splits` strips itself and masks the
-//     ragged end of the last tile, so neither the buffer length nor the valid
-//     length has to divide anything; a strip that lies wholly beyond the
-//     valid length returns (m, l, acc) = (-1e30, 0, 0), which the combine
-//     ignores;
-//   * grouped-query attention without a repeated copy: one block serves all
-//     `G = q_per_kv` query heads of a kv head, so each K/V byte is read from
-//     device memory once, not once per query head.  K/V come with explicit
-//     (batch, kv-head, key) strides, so the serving cache is read in place.
+//   * COMBINE (`ops.flash_decode`, the serving path): the splits of one
+//     (batch x kv-head) group run as one thread-block cluster along the
+//     split axis (at most 8 blocks, the portable cluster size).  After
+//     `cluster.sync()` every block reads its peers' (m, l, acc) through
+//     distributed shared memory and writes its share of the normalised
+//     output.  No global scratch, no second launch.
+//   * PARTIALS (`flash_decode_partials`, the reference's first function):
+//     the split's float32 (m, l, acc) go to device memory, for
+//     `decode_combine_kernel` (`combine_partials`) to fold.
 //
-// What bounds it on an H100: bytes.  A decode step of the serving model
-// (4 sequences, 16 query heads on 2 kv heads, 513 valid keys, d = 128, bf16)
-// reads 2.1 MB of K/V for 17 MFLOP: 8 operations per byte, far below the
-// card's balance point.  The least time is the K/V bytes over the memory
-// rate, under a microsecond at this cache length, so a launch costs more
-// than the work; the split axis is what spreads the 8 (batch x kv-head)
-// groups over the card's 132 SMs.
-// The design stages each 64-key K and V tile in shared memory with 16-byte
-// loads that all threads start at once, gives every thread whole q.k dot
-// products (no shuffle reductions: a warp that folds one key's products with
-// dependent shuffles spends its time waiting on them), keeps every read
-// coalesced along d, and does the arithmetic in float32 on the CUDA cores;
-// nothing here needs the tensor cores.
+// Against the reference kernel: a valid length (keys [0, kv_len) of a longer
+// buffer take part; the valid range is cut into `splits` strips and the
+// ragged end is masked, so nothing has to divide anything; a strip wholly
+// beyond the valid length gives (m, l, acc) = (-1e30, 0, 0), which the
+// combine ignores), and grouped-query attention without a repeated copy: one
+// block serves all G = q_per_kv query heads of a kv head, so each K/V byte is
+// read from device memory once.  K/V come with explicit (batch, kv-head, key)
+// strides, so the serving cache is read in place.
+//
+// What bounds it on an H100: bytes, and before them latency.  A decode step
+// of qwen2.5-3b (4 sequences, 16 query heads on 2 kv heads, 513 valid keys,
+// d = 128, bf16) reads 2.1 MB of K/V for 17 MFLOP, 0.6 us at the memory
+// rate, so a launch and one round trip to device memory cost more than the
+// work.  The bf16 design (decode_mma_kernel) therefore keeps the chain from
+// launch to store short:
+//   * one launch per call (the COMBINE epilogue);
+//   * each of the block's 4 warps owns every 4th 16-key chunk of the strip
+//     and issues `cp.async` for up to DEC_STAGES of its chunks before it
+//     computes anything, into a ring of its own: at the served shape (65 keys
+//     a strip, at most 2 chunks a warp) the whole strip is in flight at once,
+//     one round trip sets the pace, and no barrier is needed until the warps
+//     merge.  Two stages keep a block at 82 KB (d 128), so two blocks fit
+//     an SM and 16 clusters of 8 (the MoE's decode) find room at once;
+//   * the G query heads of a kv head (padded to 16) are the rows of an
+//     `mma.sync.m16n8k16` tile: scores, probabilities and the output
+//     accumulator stay in registers, with K2's fragment helpers (mma.cuh);
+//   * the warps merge their (m, l, acc) in shared memory, then the splits
+//     through the cluster.
+// float32 (decode_f32_kernel) keeps the first scalar design, true float32
+// FMAs (no TF32: its tolerance is 1e-4), with the same two epilogues.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace repro {
 
-constexpr int DEC_THREADS = 128;
-constexpr int DEC_TILE = 64;      // keys per inner tile
-constexpr int DEC_GMAX = 16;      // most query heads one kv head may serve
+namespace cg = cooperative_groups;
 
-// Dynamic shared memory of one block: the K and V tiles (rows padded by 16
-// bytes against bank conflicts).
-template <typename T, int D>
-constexpr int decode_smem_bytes() {
-  return 2 * DEC_TILE * (D + 16 / (int)sizeof(T)) * (int)sizeof(T);
+constexpr int DEC_THREADS = 128;
+constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int DEC_GMAX = 16;       // most query heads one kv head may serve (mma rows)
+constexpr int DEC_CHUNK = 16;      // keys a warp takes at a time: one k16 step of P V
+constexpr int DEC_STAGES = 2;      // chunks each warp keeps in flight
+constexpr int DEC_MAX_CLUSTER = 8; // the portable cluster size: most splits COMBINE takes
+constexpr int DEC_TILE = 128;      // keys per inner tile of the float32 body: one a thread
+
+// A split's result in shared memory: m and l per query head, then acc (G x D).
+template <int D>
+constexpr int decode_result_bytes() { return (2 * DEC_GMAX + DEC_GMAX * D) * 4; }
+
+// bf16 body: Q (16 rows), each warp's ring of K and V chunks, the result.
+// Rows padded by 16 bytes; mirrored by flash_decode.decode_smem_bytes().
+template <int D>
+struct DecodeLayout {
+  static constexpr int LD = D + 8;
+  static constexpr int Q_BYTES = DEC_GMAX * LD * 2;
+  static constexpr int CHUNK_ELEMS = DEC_CHUNK * LD;
+  static constexpr int RING_BYTES = DEC_WARPS * DEC_STAGES * 2 * CHUNK_ELEMS * 2;
+  static constexpr int WLD = D + 8;  // float row of the warps' merge scratch (over Q and ring)
+  static constexpr int TOTAL = Q_BYTES + RING_BYTES + decode_result_bytes<D>();
+  static_assert(DEC_WARPS * (2 * DEC_GMAX + DEC_GMAX * WLD) * 4 <= Q_BYTES + RING_BYTES,
+                "the warps' merge scratch reuses Q and the ring");
+};
+
+// float32 body: one K and one V tile of DEC_TILE keys, rows padded by 16
+// bytes, then the result.  A tile of 128 keys holds a served strip (65 keys at
+// 8 splits) whole, so the body makes one pass.
+template <int D>
+constexpr int decode_f32_smem_bytes() {
+  return 2 * DEC_TILE * (D + 4) * 4 + decode_result_bytes<D>();
 }
 
-template <typename T, int D>
+// ---- the two epilogues: `res` holds this split's m[16], l[16], acc[16][D] -----
+// The group and split are read again from the block index rather than kept
+// live through the body.
+template <int D, bool COMBINE, typename TO>
+__device__ __forceinline__ void decode_epilogue(const float* res, TO* __restrict__ out,
+                                                float* __restrict__ m_out,
+                                                float* __restrict__ l_out,
+                                                float* __restrict__ acc_out, int G, int splits) {
+  const int tid = threadIdx.x;
+  const int group = blockIdx.x;
+  const int split = blockIdx.y;
+  if constexpr (!COMBINE) {
+    for (int e = tid; e < G * D; e += DEC_THREADS) {
+      const long long row = (long long)(group * G + e / D) * splits + split;
+      acc_out[row * D + e % D] = res[2 * DEC_GMAX + e];
+    }
+    if (tid < G) {
+      const long long row = (long long)(group * G + tid) * splits + split;
+      m_out[row] = res[tid];
+      l_out[row] = res[DEC_GMAX + tid];
+    }
+  } else {
+    // every block of the cluster writes every `splits`-th slice of the
+    // group's G x D outputs from all the splits' results
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();                                    // every split's result is final
+    for (int e = (int)cluster.block_rank() * DEC_THREADS + tid; e < G * D;
+         e += splits * DEC_THREADS) {
+      const int r = e / D;
+      float m_g = NEG_INF;
+      for (int s = 0; s < splits; ++s) m_g = fmaxf(m_g, cluster.map_shared_rank(res, s)[r]);
+      float l_g = 0.f, a_g = 0.f;
+      for (int s = 0; s < splits; ++s) {
+        const float* peer = cluster.map_shared_rank(res, s);
+        const float scale = expf(peer[r] - m_g);
+        l_g = fmaf(peer[DEC_GMAX + r], scale, l_g);
+        a_g = fmaf(peer[2 * DEC_GMAX + e], scale, a_g);
+      }
+      if (l_g == 0.f) l_g = 1.f;
+      out[(long long)group * G * D + e] = from_float<TO>(a_g / l_g);
+    }
+    cluster.sync();                    // no block leaves while a peer reads its result
+  }
+}
+
+// ---- bf16: tensor-core body -----------------------------------------------------
+template <int D, bool COMBINE>
 __global__ void __launch_bounds__(DEC_THREADS)
-decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, float* __restrict__ m_out,
-                       float* __restrict__ l_out, float* __restrict__ acc_out, int G, int hkv,
-                       int kv_len, int splits, long long k_sb, long long k_sh, long long k_st,
-                       long long v_sb, long long v_sh, long long v_st, float sm_scale,
-                       int vec_ok) {
-  constexpr int VEC = 16 / (int)sizeof(T);       // elements in a 16-byte piece
-  static_assert(DEC_THREADS == 2 * DEC_TILE, "the score phase maps two threads to a key");
-  constexpr int LDK = D + 16 / (int)sizeof(T);   // padded row of the staged tiles
+decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                  float* __restrict__ m_out, float* __restrict__ l_out,
+                  float* __restrict__ acc_out, int G, int hkv, int kv_len, int splits,
+                  long long k_sb, long long k_sh, long long k_st, long long v_sb,
+                  long long v_sh, long long v_st, float sm_scale, int vec_ok) {
+  using L = DecodeLayout<D>;
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = L::LD;
+  constexpr int KD = D / 16;                // k16 steps of Q K^T
+  constexpr int NO = D / 8;                 // n8 tiles of the output
+  constexpr float LOG2E = 1.4426950408889634f;
+  constexpr unsigned FULL = 0xffffffffu;
+  static_assert(D % 16 == 0, "head dimension is whole mma steps");
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + L::Q_BYTES);
+  float* res = reinterpret_cast<float*>(smem_raw + L::Q_BYTES + L::RING_BYTES);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;                  // accumulator rows g and g + 8
+  const int tq = lane & 3;                  // accumulator columns 2 tq, 2 tq + 1
+  const int group = blockIdx.x;             // batch * hkv + kv head
+  const int split = blockIdx.y;
+
+  const int strip = (kv_len + splits - 1) / splits;
+  const int t_begin = min(kv_len, split * strip);
+  const int t_end = min(kv_len, t_begin + strip);
+  const int n_chunks = (t_end - t_begin + DEC_CHUNK - 1) / DEC_CHUNK;
+  const int mine = n_chunks > warp ? (n_chunks - warp + DEC_WARPS - 1) / DEC_WARPS : 0;
+
+  const bf16* kb = k + (long long)(group / hkv) * k_sb + (long long)(group % hkv) * k_sh;
+  const bf16* vb = v + (long long)(group / hkv) * v_sb + (long long)(group % hkv) * v_sh;
+  bf16* Kw = ring + warp * DEC_STAGES * 2 * L::CHUNK_ELEMS;   // stage st: K, then V
+
+  // every chunk this warp will need, up to DEC_STAGES of them, before any math
+  auto issue = [&](int j) {
+    const int row0 = t_begin + (warp + DEC_WARPS * j) * DEC_CHUNK;
+    bf16* st = Kw + (j % DEC_STAGES) * 2 * L::CHUNK_ELEMS;
+    flash_copy<DEC_CHUNK, D, LD, 32>(st, kb, row0, t_end, k_st, vec_ok, lane);
+    flash_copy<DEC_CHUNK, D, LD, 32>(st + L::CHUNK_ELEMS, vb, row0, t_end, v_st, vec_ok, lane);
+  };
+#pragma unroll
+  for (int j = 0; j < DEC_STAGES; ++j) {
+    if (j < mine) issue(j);
+    cp_async_commit();
+  }
+  // the G query rows; rows G..15 are zeros
+  load_tile<bf16, DEC_GMAX, D, LD, DEC_THREADS>(Qs, q + (long long)group * G * D, 0, 0, G, D, D,
+                                                vec_ok, tid);
+  __syncthreads();
+  unsigned qa[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    ldmatrix_x4(qa[kk], smem_addr(Qs + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8));
+
+  float oacc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+  float m_a = NEG_INF, m_b = NEG_INF;       // running max of rows g, g + 8
+  float l_a = 0.f, l_b = 0.f;               // this thread's share of the running sums
+
+  for (int j = 0; j < mine; ++j) {
+    cp_async_wait<DEC_STAGES - 1>();
+    __syncwarp();                           // chunk j landed for every lane
+    const bf16* Kt = Kw + (j % DEC_STAGES) * 2 * L::CHUNK_ELEMS;
+    const bf16* Vt = Kt + L::CHUNK_ELEMS;
+    const int key0 = t_begin + (warp + DEC_WARPS * j) * DEC_CHUNK;
+
+    // ---- S = Q K^T: 16 rows x 16 keys ----------------------------------------------
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      unsigned b[4];
+      ldmatrix_x4(b, smem_addr(Kt + ((lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                               ((lane >> 3) & 1) * 8));
+      mma_bf16(s[0], qa[kk], b[0], b[1]);
+      mma_bf16(s[1], qa[kk], b[2], b[3]);
+    }
+
+    // ---- online softmax where the scores lie (natural-log domain, as the
+    // partials are defined) -------------------------------------------------------------
+    float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + n * 8 + 2 * tq + (e & 1);
+        s[n][e] = key < t_end ? s[n][e] * sm_scale : NEG_INF;   // ragged end
+      }
+      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
+    }
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, 1));
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, 2));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, 1));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, 2));
+    const float mn_a = fmaxf(m_a, mx_a);
+    const float mn_b = fmaxf(m_b, mx_b);
+    const float alpha_a = exp2f((m_a - mn_a) * LOG2E);
+    const float alpha_b = exp2f((m_b - mn_b) * LOG2E);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float mn = e < 2 ? mn_a : mn_b;
+        s[n][e] = s[n][e] > 0.5f * NEG_INF ? exp2f((s[n][e] - mn) * LOG2E) : 0.f;
+      }
+      sum_a += s[n][0] + s[n][1];
+      sum_b += s[n][2] + s[n][3];
+    }
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      oacc[n][0] *= alpha_a;
+      oacc[n][1] *= alpha_a;
+      oacc[n][2] *= alpha_b;
+      oacc[n][3] *= alpha_b;
+    }
+
+    // ---- O += P V: P straight from the score registers -------------------------------
+    const unsigned a[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                           pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+    for (int n = 0; n < NO / 2; ++n) {      // 16 output columns: two n8 tiles
+      unsigned b[4];
+      ldmatrix_x4_trans(b, smem_addr(Vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + n * 16 +
+                                     (lane >> 4) * 8));
+      mma_bf16(oacc[2 * n], a, b[0], b[1]);
+      mma_bf16(oacc[2 * n + 1], a, b[2], b[3]);
+    }
+    __syncwarp();                           // every lane is done with this stage
+    if (j + DEC_STAGES < mine) issue(j + DEC_STAGES);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  l_a += __shfl_xor_sync(FULL, l_a, 1);
+  l_a += __shfl_xor_sync(FULL, l_a, 2);
+  l_b += __shfl_xor_sync(FULL, l_b, 1);
+  l_b += __shfl_xor_sync(FULL, l_b, 2);
+
+  // ---- merge the warps: (m, l, acc) of each warp through Q's and the ring's space -
+  __syncthreads();                          // every warp is done with Q and its ring
+  float* wsc = reinterpret_cast<float*>(smem_raw);
+  constexpr int WSZ = 2 * DEC_GMAX + DEC_GMAX * L::WLD;
+  float* mine_sc = wsc + warp * WSZ;
+  if (tq == 0) {
+    mine_sc[g] = m_a;
+    mine_sc[g + 8] = m_b;
+    mine_sc[DEC_GMAX + g] = l_a;
+    mine_sc[DEC_GMAX + g + 8] = l_b;
+  }
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    float* row_a = mine_sc + 2 * DEC_GMAX + g * L::WLD + n * 8 + 2 * tq;
+    *reinterpret_cast<float2*>(row_a) = make_float2(oacc[n][0], oacc[n][1]);
+    *reinterpret_cast<float2*>(row_a + 8 * L::WLD) = make_float2(oacc[n][2], oacc[n][3]);
+  }
+  __syncthreads();
+  for (int e = tid; e < G * D; e += DEC_THREADS) {
+    const int r = e / D;
+    const int c = e % D;
+    float mb = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) mb = fmaxf(mb, wsc[w * WSZ + r]);
+    float lb = 0.f, ab = 0.f;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) {
+      const float scale = exp2f((wsc[w * WSZ + r] - mb) * LOG2E);
+      lb = fmaf(wsc[w * WSZ + DEC_GMAX + r], scale, lb);
+      ab = fmaf(wsc[w * WSZ + 2 * DEC_GMAX + r * L::WLD + c], scale, ab);
+    }
+    res[2 * DEC_GMAX + e] = ab;
+    if (c == 0) {
+      res[r] = mb;
+      res[DEC_GMAX + r] = lb;
+    }
+  }
+  __syncthreads();
+  decode_epilogue<D, COMBINE>(res, out, m_out, l_out, acc_out, G, splits);
+}
+
+// ---- float32: scalar body ---------------------------------------------------------
+// The K and V tiles are staged in shared memory with 16-byte loads that all
+// threads start at once; every thread takes the whole q.k dot products of
+// one key, one warp per query head runs the online softmax, and a thread
+// owns an output column in P V.
+template <int D, bool COMBINE>
+__global__ void __launch_bounds__(DEC_THREADS)
+decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out,
+                  float* __restrict__ m_out, float* __restrict__ l_out,
+                  float* __restrict__ acc_out, int G, int hkv, int kv_len, int splits,
+                  long long k_sb, long long k_sh, long long k_st, long long v_sb,
+                  long long v_sh, long long v_st, float sm_scale, int vec_ok) {
+  static_assert(DEC_THREADS == DEC_TILE, "the score phase maps a thread to a key");
+  constexpr int LDK = D + 4;                     // padded row of the staged tiles
   constexpr int PARTS = DEC_THREADS / D;         // threads sharing one output column
   constexpr unsigned FULL = 0xffffffffu;
   __shared__ float qs[DEC_GMAX][D];
@@ -65,8 +349,9 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ float red[DEC_GMAX * DEC_THREADS];
   __shared__ float m_s[DEC_GMAX], l_s[DEC_GMAX], alpha_s[DEC_GMAX];
   extern __shared__ __align__(128) unsigned char dec_smem[];
-  T* Ks = reinterpret_cast<T*>(dec_smem);
-  T* Vs = Ks + DEC_TILE * LDK;
+  float* Ks = reinterpret_cast<float*>(dec_smem);
+  float* Vs = Ks + DEC_TILE * LDK;
+  float* res = Vs + DEC_TILE * LDK;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -74,15 +359,15 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int group = blockIdx.x;                  // batch * hkv + kv head
   const int split = blockIdx.y;
 
-  const int chunk = (kv_len + splits - 1) / splits;
-  const int t_begin = split * chunk;
-  const int t_end = min(kv_len, t_begin + chunk);
+  const int strip = (kv_len + splits - 1) / splits;
+  const int t_begin = split * strip;
+  const int t_end = min(kv_len, t_begin + strip);
 
-  const T* kb = k + (long long)(group / hkv) * k_sb + (long long)(group % hkv) * k_sh;
-  const T* vb = v + (long long)(group / hkv) * v_sb + (long long)(group % hkv) * v_sh;
-  const T* qb = q + (long long)group * G * D;
+  const float* kb = k + (long long)(group / hkv) * k_sb + (long long)(group % hkv) * k_sh;
+  const float* vb = v + (long long)(group / hkv) * v_sb + (long long)(group % hkv) * v_sh;
+  const float* qb = q + (long long)group * G * D;
 
-  for (int i = tid; i < G * D; i += DEC_THREADS) qs[i / D][i % D] = to_float(qb[i]);
+  for (int i = tid; i < G * D; i += DEC_THREADS) qs[i / D][i % D] = qb[i];
   if (tid < DEC_GMAX) {
     m_s[tid] = NEG_INF;
     l_s[tid] = 0.f;
@@ -98,57 +383,55 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t0 = t_begin; t0 < t_end; t0 += DEC_TILE) {
     const int tile_n = min(DEC_TILE, t_end - t0);
     // rows at or beyond t_end are staged as zeros and masked below
-    load_tile<T, DEC_TILE, D, LDK, DEC_THREADS>(Ks, kb, t0, 0, t_end, D, k_st, vec_ok, tid);
-    load_tile<T, DEC_TILE, D, LDK, DEC_THREADS>(Vs, vb, t0, 0, t_end, D, v_st, vec_ok, tid);
+    load_tile<float, DEC_TILE, D, LDK, DEC_THREADS>(Ks, kb, t0, 0, t_end, D, k_st, vec_ok, tid);
+    load_tile<float, DEC_TILE, D, LDK, DEC_THREADS>(Vs, vb, t0, 0, t_end, D, v_st, vec_ok, tid);
     __syncthreads();
 
-    // ---- scores: a thread owns one key and every other query head; it reads
-    // the key row from shared memory in 16-byte pieces (the row padding makes
-    // that conflict-free) and the query values as broadcasts -------------------
+    // ---- scores: a thread owns one key and every query head --------------------
     {
-      const int j = tid % DEC_TILE;
-      const int g0 = tid / DEC_TILE;             // 0 or 1: even or odd query heads
-      const T* krow = Ks + j * LDK;
-      float s[DEC_GMAX / 2];
+      const float* krow = Ks + tid * LDK;
+      float s[DEC_GMAX];
 #pragma unroll
-      for (int gi = 0; gi < DEC_GMAX / 2; ++gi) s[gi] = 0.f;
-      for (int c = 0; c < D; c += VEC) {
-        __align__(16) T piece[VEC];
-        *reinterpret_cast<uint4*>(piece) = *reinterpret_cast<const uint4*>(krow + c);
-        float kf[VEC];
+      for (int g = 0; g < DEC_GMAX; ++g) s[g] = 0.f;
+      for (int c = 0; c < D; c += 4) {
+        const float4 kf = *reinterpret_cast<const float4*>(krow + c);
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) kf[e] = to_float(piece[e]);
-#pragma unroll
-        for (int gi = 0; gi < DEC_GMAX / 2; ++gi) {
-          const int g = g0 + 2 * gi;
+        for (int g = 0; g < DEC_GMAX; ++g) {
           if (g < G) {
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) s[gi] = fmaf(kf[e], qs[g][c + e], s[gi]);
+            s[g] = fmaf(kf.x, qs[g][c], s[g]);
+            s[g] = fmaf(kf.y, qs[g][c + 1], s[g]);
+            s[g] = fmaf(kf.z, qs[g][c + 2], s[g]);
+            s[g] = fmaf(kf.w, qs[g][c + 3], s[g]);
           }
         }
       }
 #pragma unroll
-      for (int gi = 0; gi < DEC_GMAX / 2; ++gi) {
-        const int g = g0 + 2 * gi;
-        if (g < G) ss[g][j] = j < tile_n ? s[gi] * sm_scale : NEG_INF;   // ragged end
-      }
+      for (int g = 0; g < DEC_GMAX; ++g)
+        if (g < G) ss[g][tid] = tid < tile_n ? s[g] * sm_scale : NEG_INF;   // ragged end
     }
     __syncthreads();
 
     // ---- online softmax per query head: one warp per head ---------------------
-    for (int g = warp; g < G; g += DEC_THREADS / 32) {
-      const float s0 = ss[g][lane];
-      const float s1 = ss[g][lane + 32];
-      float mx = fmaxf(s0, s1);
+    constexpr int PER_LANE = DEC_TILE / 32;
+    for (int g = warp; g < G; g += DEC_WARPS) {
+      float sv[PER_LANE];
+      float mx = NEG_INF;
+#pragma unroll
+      for (int e = 0; e < PER_LANE; ++e) {
+        sv[e] = ss[g][lane + 32 * e];
+        mx = fmaxf(mx, sv[e]);
+      }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
       const float m_old = m_s[g];
       const float m_new = fmaxf(m_old, mx);
-      const float p0 = s0 > 0.5f * NEG_INF ? expf(s0 - m_new) : 0.f;
-      const float p1 = s1 > 0.5f * NEG_INF ? expf(s1 - m_new) : 0.f;
-      ss[g][lane] = p0;
-      ss[g][lane + 32] = p1;
-      float sum = p0 + p1;
+      float sum = 0.f;
+#pragma unroll
+      for (int e = 0; e < PER_LANE; ++e) {
+        const float p = sv[e] > 0.5f * NEG_INF ? expf(sv[e] - m_new) : 0.f;
+        ss[g][lane + 32 * e] = p;
+        sum += p;
+      }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(FULL, sum, off);
       __syncwarp();
@@ -166,7 +449,7 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int g = 0; g < DEC_GMAX; ++g)
       if (g < G) acc[g] *= alpha_s[g];
     for (int j = part; j < tile_n; j += PARTS) {
-      const float vv = to_float(Vs[j * LDK + col]);
+      const float vv = Vs[j * LDK + col];
 #pragma unroll
       for (int g = 0; g < DEC_GMAX; ++g)
         if (g < G) acc[g] = fmaf(ss[g][j], vv, acc[g]);
@@ -174,7 +457,7 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                   // ss, Ks and Vs are rewritten by the next tile
   }
 
-  // ---- fold the threads that share a column, then write the partials ----------
+  // ---- fold the threads that share a column into the split's result -----------
 #pragma unroll
   for (int g = 0; g < DEC_GMAX; ++g)
     if (g < G) red[g * DEC_THREADS + tid] = acc[g];
@@ -184,19 +467,19 @@ decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float a = 0.f;
 #pragma unroll
       for (int p = 0; p < PARTS; ++p) a += red[g * DEC_THREADS + p * D + col];
-      const long long row = (long long)(group * G + g) * splits + split;
-      acc_out[row * D + col] = a;
+      res[2 * DEC_GMAX + g * D + col] = a;
     }
   }
   if (tid < G) {
-    const long long row = (long long)(group * G + tid) * splits + split;
-    m_out[row] = m_s[tid];
-    l_out[row] = l_s[tid];
+    res[tid] = m_s[tid];
+    res[DEC_GMAX + tid] = l_s[tid];
   }
+  __syncthreads();
+  decode_epilogue<D, COMBINE>(res, out, m_out, l_out, acc_out, G, splits);
 }
 
-// Log-sum-exp combine of the per-split partials: one block per query head,
-// one thread per output column.
+// Log-sum-exp combine of the per-split partials (`combine_partials`): one
+// block per query head, one thread per output column.
 __global__ void decode_combine_kernel(const float* __restrict__ m, const float* __restrict__ l,
                                       const float* __restrict__ acc, void* __restrict__ out,
                                       int splits, int d, int out_bf16) {
@@ -224,25 +507,63 @@ __global__ void decode_combine_kernel(const float* __restrict__ m, const float* 
   }
 }
 
-template <typename T>
-int launch_decode(const void* q, const void* k, const void* v, float* m, float* l, float* acc,
-                  int n_groups, int G, int hkv, int d, int kv_len, int splits, long long k_sb,
-                  long long k_sh, long long k_st, long long v_sb, long long v_sh,
-                  long long v_st, float sm_scale, int vec_ok, cudaStream_t s) {
-  if (G < 1 || G > DEC_GMAX || splits < 1) return -1;
-  dim3 grid(n_groups, splits);
+struct DecodeArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  float* m;
+  float* l;
+  float* acc;
+  int n_groups, G, hkv, d, kv_len, splits;
+  long long k_sb, k_sh, k_st, v_sb, v_sh, v_st;
+  float sm_scale;
+  int vec_ok;
+};
+
+// One launch of body `kern` with `smem` bytes of dynamic shared memory; the
+// COMBINE epilogue runs the splits of a group as one cluster.
+template <typename T, typename TO>
+int launch_decode_body(void (*kern)(const T*, const T*, const T*, TO*, float*, float*, float*,
+                                    int, int, int, int, long long, long long, long long,
+                                    long long, long long, long long, float, int),
+                       int smem, bool combine, const DecodeArgs& a, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.n_groups, a.splits);
+  cfg.blockDim = dim3(DEC_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = a.splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = combine ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+                           static_cast<const T*>(a.v), static_cast<TO*>(a.out), a.m, a.l, a.acc,
+                           a.G, a.hkv, a.kv_len, a.splits, a.k_sb, a.k_sh, a.k_st, a.v_sb,
+                           a.v_sh, a.v_st, a.sm_scale, a.vec_ok);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The body follows the type: bf16 runs on the tensor cores, float32 on the
+// scalar body.  Both take any alignment (`vec_ok == 0` copies with scalar
+// loads), G <= 16 and d in {32, 64, 128}.
+template <bool COMBINE>
+int launch_decode(const DecodeArgs& a, int is_bf16, cudaStream_t s) {
+  if (a.G < 1 || a.G > DEC_GMAX || a.splits < 1) return -1;
+  if (COMBINE && a.splits > DEC_MAX_CLUSTER) return -1;
 #define REPRO_DEC_CASE(D_)                                                                 \
-  if (d == D_) {                                                                           \
-    auto kern = decode_partials_kernel<T, D_>;                                             \
-    constexpr int smem = decode_smem_bytes<T, D_>();                                       \
-    cudaError_t err =                                                                      \
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);     \
-    if (err != cudaSuccess) return (int)err;                                               \
-    kern<<<grid, DEC_THREADS, smem, s>>>(                                                  \
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), m, l, \
-        acc, G, hkv, kv_len, splits, k_sb, k_sh, k_st, v_sb, v_sh, v_st, sm_scale,         \
-        vec_ok);                                                                           \
-    return (int)cudaGetLastError();                                                        \
+  if (a.d == D_) {                                                                         \
+    if (is_bf16)                                                                           \
+      return launch_decode_body(decode_mma_kernel<D_, COMBINE>, DecodeLayout<D_>::TOTAL,   \
+                                COMBINE, a, s);                                            \
+    return launch_decode_body(decode_f32_kernel<D_, COMBINE>, decode_f32_smem_bytes<D_>(), \
+                              COMBINE, a, s);                                              \
   }
   REPRO_DEC_CASE(32)
   REPRO_DEC_CASE(64)
@@ -254,24 +575,30 @@ int launch_decode(const void* q, const void* k, const void* v, float* m, float* 
 }  // namespace repro
 
 // Plain C interface: no allocation, no synchronisation; each function
-// launches on the stream it is handed and returns cudaGetLastError(), or -1
-// for a shape that is not compiled (d not in {32, 64, 128}, more than 16
-// query heads per kv head).
+// launches on the stream it is handed and returns cudaGetLastError() (or
+// the launch's own error), or -1 for a shape that is not compiled (d not in
+// {32, 64, 128}, more than 16 query heads per kv head, more than 8 splits
+// for the one-launch decode).
+extern "C" int repro_flash_decode(const void* q, const void* k, const void* v, void* out,
+                                  int n_groups, int G, int hkv, int d, int kv_len, int splits,
+                                  long long k_sb, long long k_sh, long long k_st, long long v_sb,
+                                  long long v_sh, long long v_st, float sm_scale, int is_bf16,
+                                  int vec_ok, void* stream) {
+  const repro::DecodeArgs a{q, k, v, out, nullptr, nullptr, nullptr, n_groups, G, hkv, d,
+                            kv_len, splits, k_sb, k_sh, k_st, v_sb, v_sh, v_st, sm_scale,
+                            vec_ok};
+  return repro::launch_decode<true>(a, is_bf16, static_cast<cudaStream_t>(stream));
+}
+
 extern "C" int repro_flash_decode_partials(
     const void* q, const void* k, const void* v, void* m, void* l, void* acc, int n_groups,
     int G, int hkv, int d, int kv_len, int splits, long long k_sb, long long k_sh,
     long long k_st, long long v_sb, long long v_sh, long long v_st, float sm_scale,
     int is_bf16, int vec_ok, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* mf = static_cast<float*>(m);
-  float* lf = static_cast<float*>(l);
-  float* af = static_cast<float*>(acc);
-  if (is_bf16)
-    return repro::launch_decode<__nv_bfloat16>(q, k, v, mf, lf, af, n_groups, G, hkv, d, kv_len,
-                                               splits, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
-                                               sm_scale, vec_ok, s);
-  return repro::launch_decode<float>(q, k, v, mf, lf, af, n_groups, G, hkv, d, kv_len, splits,
-                                     k_sb, k_sh, k_st, v_sb, v_sh, v_st, sm_scale, vec_ok, s);
+  const repro::DecodeArgs a{q, k, v, nullptr, static_cast<float*>(m), static_cast<float*>(l),
+                            static_cast<float*>(acc), n_groups, G, hkv, d, kv_len, splits,
+                            k_sb, k_sh, k_st, v_sb, v_sh, v_st, sm_scale, vec_ok};
+  return repro::launch_decode<false>(a, is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_flash_decode_combine(const void* m, const void* l, const void* acc,
@@ -283,4 +610,16 @@ extern "C" int repro_flash_decode_combine(const void* m, const void* l, const vo
       static_cast<const float*>(m), static_cast<const float*>(l),
       static_cast<const float*>(acc), out, splits, d, out_bf16);
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of one block of the decode body for `d` and the
+// type (mirrored by flash_decode.decode_smem_bytes), -1 if not compiled.
+extern "C" int repro_flash_decode_smem_bytes(int d, int is_bf16) {
+#define REPRO_DEC_SMEM(D_)                                                                  \
+  if (d == D_) return is_bf16 ? repro::DecodeLayout<D_>::TOTAL : repro::decode_f32_smem_bytes<D_>();
+  REPRO_DEC_SMEM(32)
+  REPRO_DEC_SMEM(64)
+  REPRO_DEC_SMEM(128)
+#undef REPRO_DEC_SMEM
+  return -1;
 }

@@ -2,12 +2,17 @@
 
 Counterpart of ``repro/kernels/flash_decode.py``: one query token against a
 long KV cache, split over the KV sequence into per-split partial
-``(m, l, acc)`` statistics that a log-sum-exp combine folds.  Both stages are
-CUDA kernels here (``csrc/flash_decode.cu``).  Against the reference the
-partials kernel gains ``kv_valid_len``: only keys ``[0, kv_valid_len)`` of
-the buffer take part, the valid range (not the buffer) is cut into splits,
-and nothing has to divide anything.  ``None`` means the whole buffer, which
-reproduces the reference kernel.
+``(m, l, acc)`` statistics that a log-sum-exp combine folds.  The kernels
+are in ``csrc/flash_decode.cu``.  :func:`flash_decode` computes both stages
+in one launch: the splits of a (batch x kv-head) group run as one thread
+block cluster (at most :data:`MAX_CLUSTER_SPLITS`) and fold their partials
+through distributed shared memory.  :func:`flash_decode_partials` and
+:func:`combine_partials` keep the reference's two functions, one launch
+each.  In bf16 the body runs on the tensor cores, in float32 on the CUDA
+cores.  Against the reference the kernels gain ``kv_valid_len``: only keys
+``[0, kv_valid_len)`` of the buffer take part, the valid range (not the
+buffer) is cut into splits, and nothing has to divide anything.  ``None``
+means the whole buffer, which reproduces the reference kernel.
 
 As in ``flash_attention``, ``k``/``v`` may hold ``q_per_kv`` times fewer
 heads than ``q`` and may be a strided 4-D view ``(batch, kv_heads, Skv, d)``
@@ -26,18 +31,40 @@ from .flash_attention import COMPILED_HEAD_DIMS, NEG_INF, _kv_4d
 MAX_Q_PER_KV = 16                   # query heads one block of the kernel serves
 MIN_SPLIT_KEYS = 64                 # the kernel's inner tile
 MAX_SPLITS = 64
+MAX_CLUSTER_SPLITS = 8              # the portable cluster size: splits of one launch
+DECODE_STAGES = 2                   # 16-key chunks each warp of the bf16 body keeps in flight
+DECODE_WARPS = 4
+F32_TILE = 128                      # keys per inner tile of the float32 body
 
+launches = 0                        # launches made by flash_decode()
 partials_launches = 0               # launches made by flash_decode_partials()
 combine_launches = 0                # launches made by combine_partials()
 
 
-def choose_splits(kv_valid_len: int, n_groups: int, sm_count: int) -> int:
+def choose_splits(kv_valid_len: int, n_groups: int, sm_count: int,
+                  max_splits: int = MAX_SPLITS) -> int:
     """How many strips to cut the valid keys into: enough (batch x kv-head)
     x split blocks to cover the card's ``sm_count`` multiprocessors about
-    twice, but no strip shorter than the kernel's 64-key tile."""
+    twice, but no strip shorter than the kernel's 64-key tile and no more
+    than ``max_splits`` (:data:`MAX_CLUSTER_SPLITS` for the one-launch
+    decode, whose splits form one cluster)."""
     want = -(-2 * sm_count // max(1, n_groups))
     by_len = -(-max(1, kv_valid_len) // MIN_SPLIT_KEYS)
-    return max(1, min(want, by_len, MAX_SPLITS))
+    return max(1, min(want, by_len, max_splits))
+
+
+def decode_smem_bytes(d: int, elem_size: int) -> int:
+    """Dynamic shared memory of one block of the decode body (mirrors
+    ``DecodeLayout`` and ``decode_f32_smem_bytes`` in
+    ``csrc/flash_decode.cu``): a split's float32 result (m and l for 16
+    query rows, acc 16 x d) plus, in bf16, the 16 query rows and each warp's
+    ring of K and V chunks (16 keys, rows padded by 16 bytes), in float32
+    one K and one V tile of 128 keys (rows padded by 16 bytes)."""
+    result = (2 * MAX_Q_PER_KV + MAX_Q_PER_KV * d) * 4
+    if elem_size == 2:
+        ld = d + 8
+        return MAX_Q_PER_KV * ld * 2 + DECODE_WARPS * DECODE_STAGES * 2 * 16 * ld * 2 + result
+    return 2 * F32_TILE * (d + 4) * 4 + result
 
 
 def sm_count(device: torch.device) -> int:
@@ -112,23 +139,12 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return combine_partials_plain(m, l, acc, out_dtype=q.dtype)
 
 
-def flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          kv_splits: int = 8, sm_scale: Optional[float] = None,
-                          kv_valid_len: Optional[int] = None, q_per_kv: int = 1
-                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q: (BH, 1, d); k/v: (BH / q_per_kv, Skv, d) or a 4-D strided view
-    (batch, kv_heads, Skv, d) -> float32 per-split partials (m, l, acc) of
-    shapes (BH, splits, 1, 1), (BH, splits, 1, 1), (BH, splits, 1, d)."""
-    global partials_launches
-    if q.dim() != 3 or q.shape[1] != 1:
-        raise ValueError(f"q must be (BH, 1, d), got {tuple(q.shape)}")
-    if kv_splits < 1:
-        raise ValueError(f"kv_splits={kv_splits} must be at least 1")
-    if q.device.type == "cpu":
-        return flash_decode_partials_plain(q, k, v, kv_splits=kv_splits,
-                                           sm_scale=sm_scale,
-                                           kv_valid_len=kv_valid_len,
-                                           q_per_kv=q_per_kv)
+def _launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 sm_scale: Optional[float], kv_valid_len: Optional[int], q_per_kv: int,
+                 kv_splits: int) -> Tuple[torch.Tensor, torch.Tensor, list]:
+    """Check what the kernels take; return k and v as 4-D views and the C
+    arguments after the pointers: n_groups, G, hkv, d, valid length,
+    splits, six strides, sm_scale, is_bf16, vec_ok."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on cpu or cuda tensors, not {q.device}")
     BH, _, d = q.shape
@@ -152,23 +168,75 @@ def flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q must be contiguous and k/v contiguous along d")
     n = _valid_len(kv_valid_len, k4.shape[2])
     sm_scale = float(sm_scale if sm_scale is not None else d ** -0.5)
-    m = torch.empty((BH, kv_splits, 1, 1), dtype=torch.float32, device=q.device)
-    l = torch.empty((BH, kv_splits, 1, 1), dtype=torch.float32, device=q.device)
-    acc = torch.empty((BH, kv_splits, 1, d), dtype=torch.float32, device=q.device)
-    n_groups = k4.shape[0] * k4.shape[1]
     vec = 16 // q.element_size()
     strides = [k4.stride(0), k4.stride(1), k4.stride(2),
                v4.stride(0), v4.stride(1), v4.stride(2)]
     vec_ok = int(all(s % vec == 0 for s in strides)
-                 and k4.data_ptr() % 16 == 0 and v4.data_ptr() % 16 == 0)
+                 and all(t.data_ptr() % 16 == 0 for t in (q, k4, v4)))
+    return k4, v4, [k4.shape[0] * k4.shape[1], q_per_kv, k4.shape[1], d, n, kv_splits, *strides,
+            sm_scale, int(q.dtype == torch.bfloat16), vec_ok]
+
+
+def _check_q(q: torch.Tensor, kv_splits: int) -> None:
+    if q.dim() != 3 or q.shape[1] != 1:
+        raise ValueError(f"q must be (BH, 1, d), got {tuple(q.shape)}")
+    if kv_splits < 1:
+        raise ValueError(f"kv_splits={kv_splits} must be at least 1")
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 kv_splits: int = 1, sm_scale: Optional[float] = None,
+                 kv_valid_len: Optional[int] = None, q_per_kv: int = 1) -> torch.Tensor:
+    """Both stages in one launch: q (BH, 1, d) against k/v as in
+    :func:`flash_decode_partials` -> (BH, 1, d) in q's type.  On a CUDA
+    tensor the ``kv_splits`` splits of a group form one cluster, so at most
+    :data:`MAX_CLUSTER_SPLITS`."""
+    global launches
+    _check_q(q, kv_splits)
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k, v, kv_splits=kv_splits, sm_scale=sm_scale,
+                                  kv_valid_len=kv_valid_len, q_per_kv=q_per_kv)
+    if kv_splits > MAX_CLUSTER_SPLITS:
+        raise ValueError(f"kv_splits={kv_splits}: the one-launch decode takes at most "
+                         f"{MAX_CLUSTER_SPLITS} splits (one cluster)")
+    k4, v4, args = _launch_args(q, k, v, sm_scale, kv_valid_len, q_per_kv, kv_splits)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _build.lib().repro_flash_decode(
+            q.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), *args, stream)
+    _build.check(code, f"flash_decode BH={q.shape[0]} Skv={k4.shape[2]} valid={args[4]} "
+                       f"d={args[3]} splits={kv_splits}")
+    launches += 1
+    return out
+
+
+def flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          kv_splits: int = 8, sm_scale: Optional[float] = None,
+                          kv_valid_len: Optional[int] = None, q_per_kv: int = 1
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q: (BH, 1, d); k/v: (BH / q_per_kv, Skv, d) or a 4-D strided view
+    (batch, kv_heads, Skv, d) -> float32 per-split partials (m, l, acc) of
+    shapes (BH, splits, 1, 1), (BH, splits, 1, 1), (BH, splits, 1, d)."""
+    global partials_launches
+    _check_q(q, kv_splits)
+    if q.device.type == "cpu":
+        return flash_decode_partials_plain(q, k, v, kv_splits=kv_splits,
+                                           sm_scale=sm_scale,
+                                           kv_valid_len=kv_valid_len,
+                                           q_per_kv=q_per_kv)
+    k4, v4, args = _launch_args(q, k, v, sm_scale, kv_valid_len, q_per_kv, kv_splits)
+    BH, _, d = q.shape
+    m = torch.empty((BH, kv_splits, 1, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty((BH, kv_splits, 1, 1), dtype=torch.float32, device=q.device)
+    acc = torch.empty((BH, kv_splits, 1, d), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _build.lib().repro_flash_decode_partials(
             q.data_ptr(), k4.data_ptr(), v4.data_ptr(), m.data_ptr(), l.data_ptr(),
-            acc.data_ptr(), n_groups, q_per_kv, k4.shape[1], d, n, kv_splits,
-            *strides, sm_scale, int(q.dtype == torch.bfloat16), vec_ok, stream)
-    _build.check(code, f"flash_decode_partials BH={BH} Skv={k4.shape[2]} valid={n} d={d} "
-                       f"splits={kv_splits}")
+            acc.data_ptr(), *args, stream)
+    _build.check(code, f"flash_decode_partials BH={BH} Skv={k4.shape[2]} valid={args[4]} "
+                       f"d={d} splits={kv_splits}")
     partials_launches += 1
     return m, l, acc
 

@@ -99,19 +99,19 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  q_per_kv: int = 1) -> torch.Tensor:
     """Decode attention: q: (BH, 1, d) vs. k/v: (BH, Skv, d) (or un-repeated /
     strided as in :func:`attention`), of which the first ``kv_valid_len`` keys
-    count (``None``: all).  The split count comes from the valid length when
-    ``kv_splits`` is not given.  The reference's ``block_kv`` has no
-    counterpart: the kernel's inner tile is fixed."""
+    count (``None``: all).  One launch computes the splits and their
+    combine; the split count comes from the valid length when ``kv_splits``
+    is not given, at most the cluster's 8.  The reference's ``block_kv`` has
+    no counterpart: the kernel's inner tile is fixed."""
     BH, _, d = q.shape
     Skv = k.shape[-2]
     valid = Skv if kv_valid_len is None else int(kv_valid_len)
     if kv_splits is None:
         kv_splits = _fd.choose_splits(valid, max(1, BH // q_per_kv),
-                                       _fd.sm_count(q.device))
+                                       _fd.sm_count(q.device), _fd.MAX_CLUSTER_SPLITS)
     scale = sm_scale if sm_scale is not None else d ** -0.5
-    m, l, acc = _fd.flash_decode_partials(q, k, v, kv_splits=kv_splits, sm_scale=scale,
-                                          kv_valid_len=kv_valid_len, q_per_kv=q_per_kv)
-    return _fd.combine_partials(m, l, acc, out_dtype=q.dtype)
+    return _fd.flash_decode(q, k, v, kv_splits=kv_splits, sm_scale=scale,
+                            kv_valid_len=kv_valid_len, q_per_kv=q_per_kv)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,

@@ -27,8 +27,21 @@ from . import _build
 DEFAULT_CHUNK = 32
 COMPILED_HEAD_DIMS = (16, 32, 64)
 MAX_CHUNK = 32                      # longest chunk the kernel's buffers hold
+THREADS = 256                       # one block of the kernel per (batch x head) row
 
 launches = 0                        # kernel launches made by wkv6()
+
+
+def wkv6_smem_bytes(d: int, chunk: int) -> int:
+    """Dynamic shared memory of one block of the kernel (mirrors
+    ``wkv6_smem_floats`` in ``csrc/wkv6.cu``), rows padded to d + 4 floats:
+    the state in two buffers; r e^{cum_excl} and k e^{last - cum} in three
+    chunk slots; the two midpoint-scaled copies, r u k and v in two; two
+    slots of scores and bonus sums, three of decays, two of the threads'
+    log-decay sums, and u."""
+    ld = d + 4
+    return 4 * (2 * d * ld + 14 * chunk * ld + 2 * chunk * chunk + 2 * chunk + 3 * d
+                + 2 * THREADS + d)
 
 
 def _chunk_of(T: int, chunk: int) -> int:

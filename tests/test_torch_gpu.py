@@ -197,17 +197,76 @@ def test_flash_attention_kernel_every_tile(cuda, case, dtype):
 @pytest.mark.parametrize("case", [(4, 1, 1024, None, 64, 4), (4, 1, 2048, None, 64, 8),
                                   (4, 1, 512, None, 64, 1), (16, 8, 545, 513, 128, None),
                                   (16, 8, 545, 1, 128, None), (12, 3, 300, 7, 32, 5),
-                                  (16, 8, 545, 0, 128, 2)])
+                                  (16, 8, 545, 0, 128, 2), (128, 8, 545, 513, 128, None),
+                                  (32, 16, 545, 513, 128, None), (16, 8, 2048, None, 128, 8),
+                                  (16, 8, 545, 0, 128, None), (16, 8, 545, 1, 128, 8)])
 def test_flash_decode_kernels(cuda, case, dtype):
+    """``ops.flash_decode`` against its plain version, one launch a call
+    (the MoE's decode shape, G = 16, splits at the cluster's 8, valid 0
+    and 1 among the cases)."""
+    from repro_torch import kernels
     from repro_torch.kernels import flash_decode as FD, ops
     BH, g, Skv, valid, d, splits = case
     q = torch.randn(BH, 1, d, device=cuda).to(dtype)
     k = torch.randn(1, Skv, BH // g, d, device=cuda).to(dtype).permute(0, 2, 1, 3)
     v = torch.randn(1, Skv, BH // g, d, device=cuda).to(dtype).permute(0, 2, 1, 3)
+    kernels.reset_launch_counts()
     got = ops.flash_decode(q, k, v, kv_splits=splits, kv_valid_len=valid, q_per_kv=g)
     torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_decode"] == 1 and sum(counts.values()) == 1
     want = FD.flash_decode_plain(q, k, v, kv_valid_len=valid, q_per_kv=g)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_flash_decode_on_a_strided_cache_view(cuda, dtype, offset):
+    """The serving cache (B, T, Hkv, d) read in place through a permuted
+    view, whole or one element off 16-byte alignment (the scalar copies)."""
+    from repro_torch.kernels import flash_decode as FD, ops
+    B, H, Hkv, T, d = 4, 16, 2, 545, 128
+    q = torch.randn(B * H, 1, d, device=cuda).to(dtype)
+    kc = torch.randn(B, T, Hkv, d + offset, device=cuda).to(dtype)[..., offset:]
+    vc = torch.randn(B, T, Hkv, d + offset, device=cuda).to(dtype)[..., offset:]
+    k, v = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
+    got = ops.flash_decode(q, k, v, kv_valid_len=513, q_per_kv=H // Hkv)
+    torch.cuda.synchronize()
+    want = FD.flash_decode_plain(q, k, v, kv_valid_len=513, q_per_kv=H // Hkv)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(64, 8, 545, 513, 128, 9), (128, 8, 545, 513, 128, 9),
+                                  (16, 16, 300, 7, 64, 5), (8, 2, 2048, None, 32, 16)])
+def test_flash_decode_partials_epilogue(cuda, case, dtype):
+    """``flash_decode_partials`` (the decode body's partials epilogue, any
+    split count) against its plain version through the exact float32
+    combine, since a split's (m, l, acc) are defined up to a common scale;
+    and ``combine_partials`` on the plain partials."""
+    from repro_torch.kernels import flash_decode as FD
+    BH, g, Skv, valid, d, splits = case
+    q = torch.randn(BH, 1, d, device=cuda).to(dtype)
+    k = torch.randn(1, Skv, BH // g, d, device=cuda).to(dtype).permute(0, 2, 1, 3)
+    v = torch.randn(1, Skv, BH // g, d, device=cuda).to(dtype).permute(0, 2, 1, 3)
+    m, l, acc = FD.flash_decode_partials(q, k, v, kv_splits=splits, kv_valid_len=valid,
+                                         q_per_kv=g)
+    mp, lp, accp = FD.flash_decode_partials_plain(q, k, v, kv_splits=splits,
+                                                  kv_valid_len=valid, q_per_kv=g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(FD.combine_partials_plain(m, l, acc),
+                               FD.combine_partials_plain(mp, lp, accp), **_tol(dtype))
+    torch.testing.assert_close(FD.combine_partials(mp, lp, accp, out_dtype=dtype).float(),
+                               FD.combine_partials_plain(mp, lp, accp, out_dtype=dtype).float(),
+                               **_tol(dtype))
+
+
+def test_flash_decode_refuses_more_splits_than_a_cluster(cuda):
+    from repro_torch.kernels import flash_decode as FD
+    q = torch.randn(8, 1, 64, device=cuda)
+    k = torch.randn(8, 256, 64, device=cuda)
+    with pytest.raises(ValueError, match="at most 8 splits"):
+        FD.flash_decode(q, k, k, kv_splits=9)
 
 
 def test_serve_reduced_on_the_card_matches_the_plain_path(cuda):
@@ -222,7 +281,8 @@ def test_serve_reduced_on_the_card_matches_the_plain_path(cuda):
     kernels.reset_launch_counts()
     res = serve.generate(api, params, prompts, 8, keep_step_logits=True)
     assert kernels.launch_counts()["flash_attention"] == cfg.n_layers
-    assert kernels.launch_counts()["flash_decode_partials"] == cfg.n_layers * 8
+    assert kernels.launch_counts()["flash_decode"] == cfg.n_layers * 8
+    assert kernels.launch_counts()["flash_decode_partials"] == 0
     ref = serve.generate(build_model(replace(cfg, kernels="plain")), params, prompts, 8,
                          keep_step_logits=True, forced_ids=res.generated)
     for a, b in zip([res.prefill_logits, *res.step_logits],
@@ -329,7 +389,8 @@ def _wkv_inputs(BH, T, d, dtype, device, floor=False):
                                   (3, 96, 32, 16, False), (2, 64, 16, 32, False),
                                   (160, 512, 64, 16, False), (4, 100, 64, 4, False),
                                   (2, 7, 32, 1, False), (5, 96, 64, 32, True),
-                                  (6, 48, 16, 24, True)])
+                                  (6, 48, 16, 24, True), (160, 512, 64, 32, True),
+                                  (4, 1, 64, 16, False)])
 def test_wkv6_kernel(cuda, case, dtype):
     """K5 against its plain version: o at 2e-3 in float32 (the reference's
     kernel tolerance) and 2e-2 in bfloat16, the final state at 2e-3
@@ -437,9 +498,17 @@ def test_serve_rwkv6_reduced_on_the_card_is_as_close_to_float32_as_plain(cuda, m
 
 def test_python_footprints_mirror_the_compiled_kernels(cuda):
     """The shared-memory formulas the planner prunes with are the kernels'
-    own, for the TMA body's tiles and the staged body's alike."""
-    from repro_torch.kernels import _build, flash_attention as FA, gemm as G
+    own, for the TMA body's tiles and the staged body's alike; so are the
+    decode bodies' and the WKV scan's."""
+    from repro_torch.kernels import _build, flash_attention as FA, flash_decode as FD, gemm as G
+    from repro_torch.kernels import rwkv6 as K
     lib = _build.lib()
+    for d in FA.COMPILED_HEAD_DIMS:
+        assert lib.repro_flash_decode_smem_bytes(d, 1) == FD.decode_smem_bytes(d, 2)
+        assert lib.repro_flash_decode_smem_bytes(d, 0) == FD.decode_smem_bytes(d, 4)
+    for d in K.COMPILED_HEAD_DIMS:
+        for chunk in (1, 16, 24, 32):
+            assert lib.repro_wkv6_smem_bytes(d, chunk) == K.wkv6_smem_bytes(d, chunk)
     for tile in G.COMPILED_TILES:
         assert lib.repro_gemm_smem_bytes(*tile, 1) == G.gemm_smem_bytes(*tile, 2)
         assert lib.repro_gemm_smem_bytes(*tile, 0) == G.gemm_smem_bytes(*tile, 4)

@@ -223,6 +223,62 @@ def test_choose_splits_follows_the_valid_length():
     assert FD.choose_splits(100_000, 8, FD.sm_count(torch.device("cpu"))) == 1
 
 
+@pytest.mark.parametrize("skv,splits", [(1024, 4), (2048, 8), (512, 1)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_one_launch_decode_wrapper_matches_reference_kernel(skv, splits, dtype):
+    """``flash_decode.flash_decode`` (both stages, one launch on the card;
+    its plain version on the CPU) equals the reference's partials and
+    combine."""
+    BH, d = 4, 64
+    rng = np.random.default_rng(9)
+    qj, qt = _pair(rng, (BH, 1, d), dtype)
+    kj, kt = _pair(rng, (BH, skv, d), dtype)
+    vj, vt = _pair(rng, (BH, skv, d), dtype)
+    m, l, acc = ref_partials(qj, kj, vj, kv_splits=splits, block_kv=256,
+                             interpret=True)
+    got = FD.flash_decode(qt, kt, vt, kv_splits=splits)
+    assert got.dtype == qt.dtype and got.shape == (BH, 1, d)
+    np.testing.assert_allclose(_np(got), _np(ref_combine(m, l, acc)), **_tol(dtype))
+
+
+SERVED_DECODE_GROUPS = {"qwen2.5-3b": 4 * 2, "qwen3-moe-30b-a3b": 4 * 4}
+
+
+@pytest.mark.parametrize("arch", sorted(SERVED_DECODE_GROUPS))
+@pytest.mark.parametrize("n,want", [(0, 1), (1, 1), (64, 1), (65, 2), (513, 8)])
+def test_capped_split_rule_at_the_served_decode_shapes(arch, n, want):
+    """The one-launch decode's splits form one cluster, so ``ops.flash_decode``
+    caps the split rule at 8 on an H100 (132 SMs); the uncapped rule would
+    give 9 at 513 keys.  The capped count changes nothing in the result."""
+    groups = SERVED_DECODE_GROUPS[arch]
+    got = FD.choose_splits(n, groups, 132, FD.MAX_CLUSTER_SPLITS)
+    assert got == want <= FD.MAX_CLUSTER_SPLITS
+    assert FD.choose_splits(n, groups, 132) == (9 if n == 513 else want)
+    rng = np.random.default_rng(n)
+    _, q = _pair(rng, (2 * 8, 1, 32), "float32")
+    _, k = _pair(rng, (2, 545, 32), "float32")
+    _, v = _pair(rng, (2, 545, 32), "float32")
+    one = ops.flash_decode(q, k, v, kv_splits=1, kv_valid_len=n, q_per_kv=8)
+    capped = ops.flash_decode(q, k, v, kv_splits=got, kv_valid_len=n, q_per_kv=8)
+    np.testing.assert_allclose(_np(capped), _np(one), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_decode_footprints_fit_one_block(d):
+    """The decode bodies' shared memory (mirrored from csrc/flash_decode.cu):
+    bf16 holds 16 query rows, four warps' rings of two 16-key K and V
+    chunks (rows padded by 16 bytes) and the split's float32 result; at d
+    128 that is 82,304 bytes, two blocks an SM.  float32 holds one 128-key
+    K and V tile and the result."""
+    result = (32 + 16 * d) * 4
+    assert FD.decode_smem_bytes(d, 2) == 16 * (d + 8) * 2 + 4 * 2 * 2 * 16 * (d + 8) * 2 + result
+    assert FD.decode_smem_bytes(d, 4) == 2 * 128 * (d + 4) * 4 + result
+    assert max(FD.decode_smem_bytes(d, 2), FD.decode_smem_bytes(d, 4)) <= FA.MAX_SMEM
+    if d == 128:
+        assert FD.decode_smem_bytes(d, 2) == 82304
+        assert 2 * (82304 + 1024) <= 228 * 1024
+
+
 # ------------------------------------------------------------ the wrappers
 @pytest.mark.parametrize("n", [1, 7, 8, 96, 160, 545, 1024, 4096])
 @pytest.mark.parametrize("desired", [1, 8, 128, 512])
@@ -362,3 +418,14 @@ def test_cpu_tensors_never_count_as_launches():
     ops.matmul(torch.randn(8, 8), torch.randn(8, 8), block=(64, 64, 16))
     ops.flash_decode(torch.randn(2, 1, 32), torch.randn(2, 9, 32), torch.randn(2, 9, 32))
     assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_launch_counts_carry_the_one_launch_decode():
+    """``flash_decode`` counts the one-launch decode, beside the partials and
+    combine counters, and a reset zeroes it."""
+    from repro_torch import kernels
+    assert {"flash_decode", "flash_decode_partials",
+            "flash_decode_combine"} <= set(kernels.launch_counts())
+    FD.launches = 3
+    kernels.reset_launch_counts()
+    assert kernels.launch_counts()["flash_decode"] == 0 == FD.launches

@@ -140,6 +140,34 @@ def test_ops_wkv6_chunk_choice(T, chunk, fitted, monkeypatch):
         np.testing.assert_allclose(_np(o), want, rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("T,chunk,floor", [(1, 16, False), (64, 32, True)])
+def test_wkv6_edge_cases_match_reference_kernel(T, chunk, floor):
+    """One step (chunk 1) and decays at the model's floor with chunk 32,
+    where a masked score's two factors leave float32's range."""
+    rng = np.random.default_rng(T)
+    r, k, v, log_w, u = _wkv_inputs(rng, 3, T, 64)
+    if floor:
+        log_w = (-4.0 * rng.random((3, T, 64))).astype(np.float32)
+    xs = [r, k, v, log_w, u]
+    c = min(chunk, T)
+    want = _np(ref_wkv6(*_jax(xs), chunk=c, interpret=True))
+    o, state = K.wkv6(*_torch(xs), chunk=c)
+    assert np.isfinite(_np(o)).all() and np.isfinite(_np(state)).all()
+    np.testing.assert_allclose(_np(o), want, rtol=2e-3, atol=2e-3)
+
+
+def test_wkv6_footprint_puts_two_served_blocks_on_an_sm():
+    """One block of 256 threads per head (mirrored from csrc/wkv6.cu): at
+    the served shape (d 64, chunk 16) 100,992 bytes, so two blocks (each
+    with the 1 KB the runtime reserves) share an H100 SM's 228 KB and the
+    160 heads run in one wave on 132 SMs; chunk 32 fits one block."""
+    assert K.THREADS == 256
+    served = K.wkv6_smem_bytes(64, 16)
+    assert served == 100992 and 2 * (served + 1024) <= 228 * 1024
+    for d in K.COMPILED_HEAD_DIMS:
+        assert K.wkv6_smem_bytes(d, K.MAX_CHUNK) <= 232448
+
+
 def test_wkv6_checks_its_operands():
     xs = _torch(_wkv_inputs(np.random.default_rng(0), 2, 16, 16))
     with pytest.raises(ValueError, match="BH, T, d"):

@@ -11,8 +11,11 @@ these phases, each printing one JSON line; any failure raises:
 2. build    compile ``src/repro_torch/kernels/csrc/*.cu`` and load the library;
 3. kernels  every kernel against its plain PyTorch version on the card, at
             the serving shapes (K2 at qwen2.5-3b's and at the MoE's
-            prefill, K3 at both models' decode, K4 at the MoE's four) and at
-            one ragged shape each, in
+            prefill, K3 at both models' decode, K4 at the MoE's four, K5 at
+            rwkv6-3b's prefill; at head dim 64 K2 at zamba2-1.2b's and
+            internvl2-1b's prefill, seamless-m4t-medium's encoder and its
+            cross prompt pass, K3 at zamba2's and internvl2's decode and
+            seamless's cross step) and at one ragged shape each, in
             bf16 and float32 (tolerances 2e-2 and 1e-4, those of the
             reference's kernel tests; 2e-3 for the WKV scan in float32 and
             for its final state), each timed with CUDA events (median of 25
@@ -24,7 +27,8 @@ these phases, each printing one JSON line; any failure raises:
 4. planner  ``ops.matmul`` with no block at the model's projection shape:
             planner -> GEMM kernel on the TMA body, search then registry
             hit, no fallback; every compiled bf16 GEMM tile (both bodies)
-            and flash tile timed at the served shape, and every TMA tile at
+            and flash tile timed at the served shape (d 128, and d 64 at
+            zamba2's prefill and seamless's encoder), and every TMA tile at
             the MoE's two K4 prefill shapes, with the rank of the planner's
             tiles and their time over the fastest tile's;
 5. serve    ``qwen2.5-3b`` at full width and depth with random weights:
@@ -37,7 +41,17 @@ these phases, each printing one JSON line; any failure raises:
             kernel run's ids) are held against the same loop in float32, and
             every kernel call of a prefill against its plain version on the
             same inputs, with controls that must fail;
-7. moe      ``qwen3-moe-30b-a3b`` at full width and depth (30.5 B
+7. hybrid   ``zamba2-1.2b``, 8. vlm ``internvl2-1b`` (256 stub image patches
+   ahead of the prompt), 9. encdec ``seamless-m4t-medium`` (1024 stub audio
+            frames through the encoder, the decoder's cross-attention over
+            them): each at full width and depth, every prompt pass through
+            K2 and every decode-step attention through K3 with exact launch
+            counts; the kernel run and the plain run (the kernel run's ids)
+            are held against the same loop in float32, every K2 and K3 call
+            of a prefill and a decode step against its plain version on the
+            same inputs, and a control whose K2/K3 outputs keep 5 mantissa
+            bits must fail;
+10. moe     ``qwen3-moe-30b-a3b`` at full width and depth (30.5 B
             parameters, 61 GB in bf16), its experts through the grouped-GEMM
             kernel, every launch on the TMA body; the kernel run and the
             plain run, both fed the kernel run's ids and routing (a near-flat
@@ -79,6 +93,7 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 ARCH = "qwen2.5-3b"
 MOE_ARCH = "qwen3-moe-30b-a3b"
 RWKV_ARCH = "rwkv6-3b"
+HYBRID_ARCH, VLM_ARCH, ENCDEC_ARCH = "zamba2-1.2b", "internvl2-1b", "seamless-m4t-medium"
 BATCH, PROMPT, NEW_TOKENS = 4, 512, 32
 
 
@@ -224,7 +239,7 @@ def _qkv(gen, dev, B, H, Hkv, Sq, Skv, d, dtype):
     return q, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
 
 
-def flash_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving):
+def flash_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving, model=None):
     from repro_torch.kernels import flash_attention as FA, ops
     dev = timer.flush.device
     g = H // Hkv
@@ -240,17 +255,18 @@ def flash_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving):
     visible = Sq * (Sq + 1) // 2 if causal else Sq * Skv
     res = {"name": "flash_attention", "shape": f"BH={B * H} kv_heads={B * Hkv} "
            f"Sq={Sq} Skv={Skv} d={d} causal={causal}", "dtype": dname(dtype),
-           "serving": serving, "max_abs_err": err, "kernel_ms": timer.ms(run),
+           "serving": serving, "model": model, "max_abs_err": err, "kernel_ms": timer.ms(run),
            "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib)}
     res.update(bound(4.0 * B * H * visible * d, nbytes(q, k4, v4, out), dtype))
     return res
 
 
-def decode_cases(timer, gen, B, H, Hkv, Skv, valid, d, dtype, serving, splits=None):
+def decode_cases(timer, gen, B, H, Hkv, Skv, valid, d, dtype, serving, splits=None,
+                 model=None, stages=True):
     """The decode as ``ops.flash_decode`` runs it (both stages in one
-    launch, the splits capped at one cluster's 8), and the reference's two
-    functions on their own (partials and combine, at the uncapped split
-    count ``flash_decode_partials`` is used with)."""
+    launch, the splits capped at one cluster's 8), and, with ``stages``, the
+    reference's two functions on their own (partials and combine, at the
+    uncapped split count ``flash_decode_partials`` is used with)."""
     from repro_torch.kernels import flash_decode as FD, ops
     dev = timer.flush.device
     g = H // Hkv
@@ -273,9 +289,11 @@ def decode_cases(timer, gen, B, H, Hkv, Skv, valid, d, dtype, serving, splits=No
     compare("library decode", lib().reshape(B * H, 1, d), plain(), dtype, tol=2e-2)
     kv_bytes = 2 * B * Hkv * n * d * q.element_size()
     both = {"name": "flash_decode", "shape": label, "dtype": dname(dtype),
-            "serving": serving, "max_abs_err": err, "kernel_ms": timer.ms(run),
-            "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib)}
+            "serving": serving, "model": model, "max_abs_err": err,
+            "kernel_ms": timer.ms(run), "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib)}
     both.update(bound(4.0 * B * H * n * d, kv_bytes + nbytes(q, out), dtype))
+    if not stages:
+        return [both]
 
     s = splits or FD.choose_splits(n, B * Hkv, FD.sm_count(dev))
     label = f"BH={B * H} kv_heads={B * Hkv} buffer={Skv} valid={n} d={d} splits={s}"
@@ -396,19 +414,29 @@ def phase_kernels(timer, gen):
         cases.append(gemm_case(timer, gen, M, N, K, dtype, block, serving=True))
         cases.append(gemm_case(timer, gen, 96, 64, 160, dtype, (128, 128, 128), False))
         cases.append(flash_case(timer, gen, BATCH, H, Hkv, PROMPT, PROMPT, d, True, dtype,
-                                serving=True))
+                                serving=True, model=cfg.name))
         cases.append(flash_case(timer, gen, 1, 2, 2, 128, 384, 64, False, dtype, False))
         cases += decode_cases(timer, gen, BATCH, H, Hkv, buffer_len, PROMPT + 1, d, dtype,
-                              serving=True)
+                              serving=True, model=cfg.name)
         cases += decode_cases(timer, gen, 1, 4, 4, 2048, None, 64, dtype, False, splits=8)
     # K2 at the MoE's prefill (32 query heads on 4 kv heads per sequence)
     from repro_torch.models import moe
     mcfg = get_config(MOE_ARCH)
     cases.append(flash_case(timer, gen, BATCH, mcfg.n_heads, mcfg.n_kv_heads, PROMPT, PROMPT,
-                            mcfg.head_dim_, True, torch.bfloat16, serving=True))
+                            mcfg.head_dim_, True, torch.bfloat16, serving=True, model=mcfg.name))
     # K3 at the MoE's decode (32 query heads on 4 kv heads per sequence)
     cases += decode_cases(timer, gen, BATCH, mcfg.n_heads, mcfg.n_kv_heads, buffer_len,
-                          PROMPT + 1, mcfg.head_dim_, torch.bfloat16, serving=True)
+                          PROMPT + 1, mcfg.head_dim_, torch.bfloat16, serving=True,
+                          model=mcfg.name)
+    # K2 and K3 at head dim 64, at the shapes the hybrid, VLM and
+    # encoder-decoder serves give them: group sizes 1 and 7, a prompt pass
+    # of 256 patches + 512 tokens, and non-causal passes with Sq != Skv
+    for model, B_, H_, Hkv_, Sq, Skv, causal in served_flash_d64():
+        cases.append(flash_case(timer, gen, B_, H_, Hkv_, Sq, Skv, 64, causal,
+                                torch.bfloat16, serving=True, model=model))
+    for model, B_, H_, Hkv_, T, valid in served_decode_d64():
+        cases += decode_cases(timer, gen, B_, H_, Hkv_, T, valid, 64, torch.bfloat16,
+                              serving=True, model=model, stages=False)
     # the grouped GEMM at the MoE's served shapes, decode gate/up first (the
     # shape with most launches, the one the kernels line reports), then at
     # deepseek-moe-16b's prefill shapes and one ragged float32 shape
@@ -437,8 +465,59 @@ def phase_kernels(timer, gen):
         cases.append(wkv6_case(timer, gen, 8, 100, rd, rwkv6.WKV_CHUNK, dtype, False))
     cases.append(wkv6_case(timer, gen, 16, 256, rd, 32, torch.float32, False, floor=True))
     emit({"phase": "kernels", "timing": "median of 25 single launches, L2 flushed "
-          "before each, CUDA events", "cases": cases})
+          "before each, CUDA events", "cases": cases, "plain_modules": [ssd_case(timer, gen)]})
     return cases
+
+
+def ssd_case(timer, gen) -> dict:
+    """The Mamba2 SSD scan, plain PyTorch as in the reference (no kernel of
+    the port runs it), at zamba2-1.2b's prefill shape, once per Mamba2 layer
+    of a prompt pass.  Its CUDA-event time brackets the host issuing some
+    hundred small operations, so the device's busy time of one call is read
+    from ``torch.profiler`` as well."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import mamba2
+    cfg = get_config(HYBRID_ARCH)
+    dev = timer.flush.device
+    _, H, dh, ds = mamba2.dims(cfg)
+    x = torch.randn(BATCH, PROMPT, H, dh, generator=gen, device=dev).to(torch.bfloat16)
+    dt = F.softplus(torch.randn(BATCH, PROMPT, H, generator=gen, device=dev))
+    A = -torch.exp(torch.randn(H, generator=gen, device=dev) * 0.5)
+    Bm, Cm = (torch.randn(BATCH, PROMPT, ds, generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    scan = lambda: mamba2.ssd_chunked(x, dt, A, Bm, Cm)
+    ms = timer.ms(scan, n=10)
+    traced = serve._traced(scan, dev, 3)
+    return {"name": "ssd_chunked", "model": cfg.name, "route": "plain PyTorch",
+            "shape": f"B={BATCH} T={PROMPT} H={H} dh={dh} ds={ds} chunk=32",
+            "ms": ms, "device_busy_ms": traced["device_busy_ms"],
+            "calls_per_prefill": cfg.n_layers,
+            "device_busy_ms_per_prefill": traced["device_busy_ms"] * cfg.n_layers}
+
+
+def served_flash_d64():
+    """(model, batch, q heads, kv heads, Sq, Skv, causal) of every K2 call
+    shape of the three head-dim-64 serves."""
+    from repro_torch.configs import get_config
+    z, i, s = (get_config(a) for a in (HYBRID_ARCH, VLM_ARCH, ENCDEC_ARCH))
+    vlm_len = i.frontend_len + PROMPT
+    return [(z.name, BATCH, z.n_heads, z.n_kv_heads, PROMPT, PROMPT, True),
+            (i.name, BATCH, i.n_heads, i.n_kv_heads, vlm_len, vlm_len, True),
+            (s.name + " encoder", BATCH, s.n_heads, s.n_kv_heads, s.frontend_len,
+             s.frontend_len, False),
+            (s.name + " cross", BATCH, s.n_heads, s.n_kv_heads, PROMPT, s.frontend_len, False)]
+
+
+def served_decode_d64():
+    """(model, batch, q heads, kv heads, buffer, valid) of every K3 call
+    shape of the three head-dim-64 serves at their first decode step."""
+    from repro_torch.configs import get_config
+    z, i, s = (get_config(a) for a in (HYBRID_ARCH, VLM_ARCH, ENCDEC_ARCH))
+    return [(z.name, BATCH, z.n_heads, z.n_kv_heads, PROMPT + NEW_TOKENS + 1, PROMPT + 1),
+            (i.name, BATCH, i.n_heads, i.n_kv_heads,
+             i.frontend_len + PROMPT + NEW_TOKENS + 1, i.frontend_len + PROMPT + 1),
+            (s.name + " cross", BATCH, s.n_heads, s.n_kv_heads, s.frontend_len, None)]
 
 
 def phase_planner(timer, gen):
@@ -508,6 +587,18 @@ def phase_planner(timer, gen):
         for t in lower_torch.flash_tile_options(d, 2)}
     ranked = sorted(flash_tiles, key=flash_tiles.get)
     chosen = str(tuple(flash_blocks))
+    # and at head dim 64: zamba2's causal prefill and seamless's encoder
+    flash_d64 = {}
+    for model, B_, H_, Hkv_, Sq, Skv, causal in served_flash_d64()[::2]:
+        q, k4, v4 = _qkv(gen, dev, B_, H_, Hkv_, Sq, Skv, 64, dtype)
+        planned = str(tuple(lower_torch.plan_flash_blocks(Sq, Skv, 64, dtype)))
+        times = {str(t): timer.ms(lambda t=t: FA.flash_attention(
+            q, k4, v4, causal=causal, block_q=t[0], block_kv=t[1], q_per_kv=H_ // Hkv_), n=10)
+            for t in lower_torch.flash_tile_options(64, 2)}
+        order = sorted(times, key=times.get)
+        flash_d64[model] = {"shape": [Sq, Skv, 64], "causal": causal, "blocks": planned,
+                            "tile_ms": times, "blocks_rank": order.index(planned) + 1,
+                            "blocks_vs_fastest": times[planned] / times[order[0]]}
     emit({"phase": "planner", "gemm_shape": list(shape), "gemm_blocks": list(blocks),
           "first": first_source, "second": source, "planner_fallbacks": fallbacks,
           "gemm_launches": launches, "gemm_launches_by_body": by_body, "max_abs_err": err,
@@ -516,7 +607,8 @@ def phase_planner(timer, gen):
           "grouped_prefill_tiles": grouped,
           "flash_shape": [PROMPT, PROMPT, d], "flash_blocks": list(flash_blocks),
           "flash_tile_ms": flash_tiles, "flash_blocks_rank": ranked.index(chosen) + 1,
-          "flash_blocks_vs_fastest": flash_tiles[chosen] / flash_tiles[ranked[0]]})
+          "flash_blocks_vs_fastest": flash_tiles[chosen] / flash_tiles[ranked[0]],
+          "flash_d64": flash_d64})
     return launches, by_body
 
 
@@ -690,15 +782,17 @@ def within(dist, base) -> bool:
     return dist[0] <= 1.25 * base[0] + 2e-2 and dist[1] <= 1.25 * base[1]
 
 
-def against_float32(plain_api, f32_api, params, prompts, res, routed, greedy) -> dict:
-    """The kernel run ``res`` and the plain bf16 path, both fed ``res``'s ids
-    and routing, against the same loop computed in float32 (same bf16
-    weights, ids and routing).  Where ``res`` chose its ids (``greedy``), each
-    must be the float32 run's best or close enough to it that the bound on
-    the logits allows it."""
+def float32_rule(res, plain_run, exact_run, greedy, controls=None) -> dict:
+    """The kernel run ``res`` and the plain bf16 path against the same loop
+    computed in float32 (same bf16 weights and frontend input).
+    ``plain_run(ids)`` and ``exact_run(ids)`` run the plain and float32 loops
+    fed ``res``'s ids (and whatever else the kernel run chose, such as its
+    routing); ``controls`` maps mantissa bits to a run of a deliberately
+    coarsened path, each measured against the same float32 run.  Where
+    ``res`` chose its ids (``greedy``), each must be the float32 run's best
+    or close enough to it that the bound on the logits allows it."""
     ids = res.generated
-    ref = replayed_run(plain_api, params, prompts, ids, routed)
-    exact = replayed_run(f32_api, params, prompts, ids, routed)
+    ref, exact = plain_run(ids), exact_run(ids)
     kern, plain = from_float32(res, exact), from_float32(ref, exact)
     chosen_ok, same = True, 0
     for i, logits in enumerate([exact.prefill_logits, *exact.step_logits][:-1]
@@ -708,6 +802,12 @@ def against_float32(plain_api, f32_api, params, prompts, res, routed, greedy) ->
         # both within the bound of the kernel's logits, so at most twice it apart
         chosen_ok &= bool(((best - chosen) <= 2 * (1.25 * plain[0] + 2e-2)).all())
         same += int((logits.argmax(dim=1) == ids[:, i]).sum())
+    coarser = {}
+    for bits, run in (controls or {}).items():
+        dist = from_float32(run(ids), exact)
+        coarser[bits] = {"vs_float32_max": dist[0], "vs_float32_rms": dist[1],
+                         "max_ratio": dist[0] / plain[0], "rms_ratio": dist[1] / plain[1],
+                         "float32_rule_rejects": not within(dist, plain)}
     return {"kernel_vs_float32_max": kern[0], "plain_vs_float32_max": plain[0],
             "kernel_vs_float32_rms": kern[1], "plain_vs_float32_rms": plain[1],
             "max_ratio": kern[0] / plain[0], "rms_ratio": kern[1] / plain[1],
@@ -720,7 +820,7 @@ def against_float32(plain_api, f32_api, params, prompts, res, routed, greedy) ->
                                          [exact.prefill_logits, *exact.step_logits]),
             "plain_prefill_ms": ref.prefill_s * 1e3,
             "plain_decode_ms_per_token": ref.decode_s * 1e3 / NEW_TOKENS,
-            "_plain": plain, "_exact": exact}
+            "_controls": coarser}
 
 
 def coarse_wkv6(bits: int):
@@ -816,36 +916,10 @@ def phase_rwkv(device):
                                   forced_ids=ids)
 
     def against(kern_res, greedy) -> dict:
-        ids = kern_res.generated
-        ref, exact = run(api, ids), run(f32_api, ids)
-        kern, plain = from_float32(kern_res, exact), from_float32(ref, exact)
-        chosen_ok, same = True, 0
-        for i, logits in enumerate([exact.prefill_logits, *exact.step_logits][:-1]
-                                   if greedy else []):
-            best = logits.max(dim=1).values
-            chosen = logits.gather(1, ids[:, i:i + 1]).squeeze(1)
-            chosen_ok &= bool(((best - chosen) <= 2 * (1.25 * plain[0] + 2e-2)).all())
-            same += int((logits.argmax(dim=1) == ids[:, i]).sum())
-        controls = {}
-        for bits in ((6, 5, 4) if greedy else ()):
-            dist = from_float32(run(api, ids, coarse_wkv6(bits)), exact)
-            controls[bits] = {"vs_float32_max": dist[0], "vs_float32_rms": dist[1],
-                              "max_ratio": dist[0] / plain[0], "rms_ratio": dist[1] / plain[1],
-                              "float32_rule_rejects": not within(dist, plain)}
-        return {"kernel_vs_float32_max": kern[0], "plain_vs_float32_max": plain[0],
-                "kernel_vs_float32_rms": kern[1], "plain_vs_float32_rms": plain[1],
-                "max_ratio": kern[0] / plain[0], "rms_ratio": kern[1] / plain[1],
-                "within": within(kern, plain) and chosen_ok,
-                "ids_equal_float32_argmax": f"{same}/{BATCH * NEW_TOKENS}" if greedy
-                else None,
-                "kernel_vs_plain_max": max((a - b).abs().max().item() for a, b in zip(
-                    [kern_res.prefill_logits, *kern_res.step_logits],
-                    [ref.prefill_logits, *ref.step_logits])),
-                "max_abs_float32_logit": max(x.abs().max().item() for x in
-                                             [exact.prefill_logits, *exact.step_logits]),
-                "plain_prefill_ms": ref.prefill_s * 1e3,
-                "plain_decode_ms_per_token": ref.decode_s * 1e3 / NEW_TOKENS,
-                "_controls": controls}
+        controls = {bits: (lambda ids, bits=bits: run(api, ids, coarse_wkv6(bits)))
+                    for bits in ((6, 5, 4) if greedy else ())}
+        return float32_rule(kern_res, lambda ids: run(api, ids), lambda ids: run(f32_api, ids),
+                            greedy, controls)
 
     greedy = against(res, True)
     controls = greedy.pop("_controls")
@@ -882,6 +956,170 @@ def phase_rwkv(device):
                              f"version: {per_call}")
     if not controls[5]["rejected"]:
         raise AssertionError("rwkv: the checks did not reject the 5-bit control")
+    return launches
+
+
+# relative root-mean-square difference of a bf16 K2/K3 output from its plain
+# version on the same inputs that a call may show: half of bf16's largest
+# relative step.  Two bf16 results of the same float32 function differ by a
+# step on part of the elements; an output with 5 mantissa bits is about
+# 2^-5 / sqrt(12 x 2.2) = 0.0061 off on its own
+ATTN_REL_RMS = 2.0 ** -8
+
+
+def coarse_attention(bits: int) -> dict:
+    """K2's and K3's wrappers with their outputs rounded to ``bits``
+    explicit mantissa bits instead of bf16's 7: a control that a correct
+    check must reject."""
+    from repro_torch.kernels import ops
+    attn, dec = ops.attention, ops.flash_decode
+    return {"attention": lambda *a, **k: coarse(attn(*a, **k), bits),
+            "flash_decode": lambda *a, **k: coarse(dec(*a, **k), bits)}
+
+
+@contextlib.contextmanager
+def attention_kernels(replacement: dict):
+    """``ops.attention`` / ``ops.flash_decode`` replaced inside the block."""
+    from repro_torch.kernels import ops
+    with contextlib.ExitStack() as stack:
+        for name, fn in replacement.items():
+            stack.enter_context(patched(ops, name, fn))
+        yield
+
+
+def attention_per_call(api, params, prompts, inputs, replacement=None) -> dict:
+    """One prefill and one decode step in which every K2 and K3 call (the
+    kernel, or ``replacement``'s in its place) is held against the kernel's
+    plain version on the same inputs: within 2e-2 (the reference's kernel
+    tolerance) and at most :data:`ATTN_REL_RMS` apart in relative root mean
+    square."""
+    from repro_torch.kernels import flash_attention as FA, flash_decode as FD, ops
+    kernels_ = {"attention": ops.attention, "flash_decode": ops.flash_decode,
+                **(replacement or {})}
+    stats = {"attention": [], "flash_decode": []}
+
+    def checked(name, plain):
+        def call(q, k, v, **kw):
+            out = kernels_[name](q, k, v, **kw)
+            want = plain(q, k, v, **kw).float()
+            diff = out.float() - want
+            stats[name].append((diff.abs().max().item(),
+                                (diff.norm() / want.norm().clamp(min=1e-30)).item(),
+                                bool(torch.allclose(out.float(), want, rtol=2e-2, atol=2e-2))))
+            return out
+        return call
+
+    cfg = api.cfg
+    cache = api.init_cache(cfg, prompts.shape[0], api.prefix_len() + prompts.shape[1] + 2,
+                           device=prompts.device)
+    with torch.no_grad(), attention_kernels({
+            "attention": checked("attention", FA.flash_attention_plain),
+            "flash_decode": checked("flash_decode", FD.flash_decode_plain)}):
+        logits, cache = api.prefill(params, prompts, cache, **inputs)
+        api.decode_step(params, torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1), cache)
+    out = {}
+    for name, rows in stats.items():
+        out[name] = {"calls": len(rows), "max_abs_err": max(r[0] for r in rows),
+                     "max_rel_rms": max(r[1] for r in rows),
+                     "within_2e-2": all(r[2] for r in rows)}
+    out["within"] = all(r[2] and r[1] <= ATTN_REL_RMS for rows in stats.values() for r in rows)
+    return out
+
+
+def phase_attention_family(device, phase: str, arch: str, prompt_passes: int,
+                           per_step: int) -> dict:
+    """One of the head-dim-64 families (zamba2's hybrid, internvl2's VLM,
+    seamless's encoder-decoder) served at full size through K2 and K3, with
+    its stub frontend input drawn from seed 0.
+
+    Launch counts are exact: ``prompt_passes`` K2 calls and ``per_step`` K3
+    calls a decode step, nothing else.  Two correct bf16 paths through these
+    depths end apart by more than a flat 2e-2 allows, so the kernel run and
+    the plain run (fed the kernel run's ids) are held against the same loop
+    in float32: the kernel path at most 1.25 x as far from it as the plain
+    path (:func:`within`), on the greedy ids and on teacher-forced random
+    ids.  Every K2 and K3 call of a prefill and a decode step is held
+    against its plain version on the same inputs
+    (:func:`attention_per_call`).  A control whose K2 and K3 outputs keep 5
+    mantissa bits must fail the two together; one with 6 bits is reported."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    cfg = serve.serve_config(arch, kernels_path="cuda")
+    api = build_model(cfg)
+    t0 = time.perf_counter()
+    params = serve.load_params(api, device, seed=0)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    prompts = serve.make_prompts(cfg, BATCH, PROMPT, device)
+    inputs = api.frontend_inputs(BATCH, torch.Generator(device=device).manual_seed(0), device)
+
+    def run(run_api, ids=None, replacement=None):
+        with attention_kernels(replacement or {}):
+            return serve.generate(run_api, params, prompts, NEW_TOKENS, inputs=inputs,
+                                  keep_step_logits=True, forced_ids=ids)
+
+    serve.generate(api, params, prompts, 2, inputs=inputs)   # warm-up: planner, allocator
+    kernels.reset_launch_counts()
+    res = run(api)
+    launches = kernels.launch_counts()
+    want = {"gemm": 0, "flash_attention": prompt_passes, "flash_decode": per_step * NEW_TOKENS,
+            "flash_decode_partials": 0, "flash_decode_combine": 0, "grouped_matmul": 0,
+            "wkv6": 0}
+    if launches != want:
+        raise AssertionError(f"{phase}: kernel launches {launches}, expected {want}")
+    check_outputs(phase, res, cfg)
+    fallbacks = check_planner(phase, res)
+
+    plain_api = build_model(replace(cfg, kernels="plain"))
+    f32_api = build_model(replace(cfg, kernels="plain", compute_dtype="float32"))
+
+    def against(kern_res, greedy) -> dict:
+        controls = {bits: (lambda ids, bits=bits: run(api, ids, coarse_attention(bits)))
+                    for bits in ((6, 5) if greedy else ())}
+        return float32_rule(kern_res, lambda ids: run(plain_api, ids),
+                            lambda ids: run(f32_api, ids), greedy, controls)
+
+    greedy = against(res, True)
+    controls = greedy.pop("_controls")
+    rand_ids = torch.randint(1, cfg.vocab_size, (BATCH, NEW_TOKENS), device=device,
+                             generator=torch.Generator(device=device).manual_seed(1))
+    forced = against(run(api, rand_ids), False)
+    del forced["_controls"]
+    per_call = attention_per_call(api, params, prompts, inputs)
+    for bits, ctl in controls.items():
+        ctl["per_call"] = attention_per_call(api, params, prompts, inputs,
+                                             coarse_attention(bits))
+        ctl["rejected"] = ctl["float32_rule_rejects"] or not ctl["per_call"]["within"]
+    emit({"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "head_dim": cfg.head_dim_, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+          "n_params": api.n_params(), "batch": BATCH, "prompt_len": PROMPT,
+          "frontend_input": {k: list(v.shape) for k, v in inputs.items()},
+          "new_tokens": NEW_TOKENS, "compute_dtype": cfg.compute_dtype, "load_s": load_s,
+          "prefill_ms": res.prefill_s * 1e3,
+          "decode_ms_per_token": res.decode_s * 1e3 / NEW_TOKENS,
+          "tok_per_s": BATCH * NEW_TOKENS / res.decode_s, "peak_bytes": res.peak_bytes,
+          "launches": launches, "planner_fallbacks": fallbacks,
+          "check": "kernel path's distance from float32 at most 1.25 x the plain path's "
+                   "(max + 2e-2, rms), same ids; every K2/K3 call of a prefill and a decode "
+                   f"step within 2e-2 and {ATTN_REL_RMS} relative rms of its plain version "
+                   "on the same inputs",
+          "greedy_ids": greedy, "forced_random_ids": forced, "per_call": per_call,
+          "controls": {f"{b}_mantissa_bits": c for b, c in controls.items()},
+          "distinct_greedy_ids": int(res.generated.unique().numel()),
+          "first_ids": res.generated[0, :16].tolist(),
+          "blocks": {f"{t}{list(s)}": [list(b), src]
+                     for (t, s), (b, src) in res.blocks.items()}})
+    for name, check in (("greedy", greedy), ("forced random", forced)):
+        if not check["within"]:
+            raise AssertionError(f"{phase} ({name} ids): the kernel path is further from "
+                                 f"float32 than the plain path allows: {check}")
+    if not per_call["within"] or per_call["attention"]["calls"] != prompt_passes \
+            or per_call["flash_decode"]["calls"] != per_step:
+        raise AssertionError(f"{phase}: a K2/K3 call disagrees with its plain version, or "
+                             f"the calls were not counted: {per_call}")
+    if not controls[5]["rejected"]:
+        raise AssertionError(f"{phase}: the checks did not reject the 5-bit control")
     return launches
 
 
@@ -928,25 +1166,29 @@ def phase_moe(device):
 
     plain_api = build_model(replace(cfg, kernels="plain"))
     f32_api = build_model(replace(cfg, kernels="plain", compute_dtype="float32"))
-    greedy = against_float32(plain_api, f32_api, params, prompts, res, routed, True)
-    ref, exact = greedy.pop("_plain"), greedy.pop("_exact")
-    controls = {}
-    for bits in (6, 5):
-        with patched(moe_gmm, "grouped_matmul_plain", coarse_products(bits)):
-            run = replayed_run(plain_api, params, prompts, res.generated, routed)
-        dist = from_float32(run, exact)
-        controls[f"{bits}_mantissa_bits"] = {
-            "vs_float32_max": dist[0], "vs_float32_rms": dist[1],
-            "max_ratio": dist[0] / ref[0], "rms_ratio": dist[1] / ref[1],
-            "rejected": not within(dist, ref)}
-        del run
-    del exact
+
+    def against(kern_res, routing, greedy) -> dict:
+        def replay(run_api, ids):
+            return replayed_run(run_api, params, prompts, ids, routing)
+
+        def coarser(bits):
+            def run(ids):
+                with patched(moe_gmm, "grouped_matmul_plain", coarse_products(bits)):
+                    return replay(plain_api, ids)
+            return run
+
+        return float32_rule(kern_res, lambda ids: replay(plain_api, ids),
+                            lambda ids: replay(f32_api, ids), greedy,
+                            {bits: coarser(bits) for bits in ((6, 5) if greedy else ())})
+
+    greedy = against(res, routed, True)
+    controls = {f"{bits}_mantissa_bits": dict(c, rejected=c.pop("float32_rule_rejects"))
+                for bits, c in greedy.pop("_controls").items()}
     rand_ids = torch.randint(1, cfg.vocab_size, (BATCH, NEW_TOKENS), device=device,
                              generator=torch.Generator(device=device).manual_seed(1))
     forced_res, forced_routed = recorded_run(api, params, prompts, rand_ids)
-    forced = against_float32(plain_api, f32_api, params, prompts, forced_res, forced_routed,
-                             False)
-    del forced["_plain"], forced["_exact"], forced_res, forced_routed
+    forced = against(forced_res, forced_routed, False)
+    del forced["_controls"], forced_res, forced_routed
 
     # for information: the plain prefill routing by itself
     _, own = recorded_run(plain_api, params, prompts)
@@ -1061,9 +1303,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()                # the dense model's weights go first
     rwkv_launches = phase_rwkv(device)
+    # the head-dim-64 families: prompt passes through K2 and decode-step
+    # attentions through K3 (zamba2: 19 shared-attention sites; internvl2:
+    # 24 layers; seamless: 12 encoder + 12 decoder self + 12 cross passes,
+    # 12 self + 12 cross a step)
+    by_path = {"serve": serve_launches, "rwkv": rwkv_launches}
+    for phase, arch, passes, per_step in (("hybrid", HYBRID_ARCH, 19, 19),
+                                          ("vlm", VLM_ARCH, 24, 24),
+                                          ("encdec", ENCDEC_ARCH, 36, 24)):
+        gc.collect()
+        torch.cuda.empty_cache()                # the last model's weights go first
+        by_path[phase] = phase_attention_family(device, phase, arch, passes, per_step)
     gc.collect()
     torch.cuda.empty_cache()
     moe_launches, moe_by_body = phase_moe(device)
+    by_path["moe"] = moe_launches
 
     launches = dict(serve_launches, gemm=gemm_launches,
                     grouped_matmul=moe_launches["grouped_matmul"],
@@ -1082,7 +1336,9 @@ def main() -> int:
             "launches": launches[c["name"]], "max_abs_err": c["max_abs_err"],
             "ms": c["kernel_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-            "shape": c["shape"], "dtype": c["dtype"], "main_path": on_path})
+            "shape": c["shape"], "dtype": c["dtype"], "main_path": on_path,
+            "launches_by_path": {p: n[c["name"]] for p, n in by_path.items()
+                                 if n.get(c["name"])}})
         if "staged_ms" in c:
             kernels_line[-1].update(
                 block=c["block"], staged_ms=c["staged_ms"], host_us=c["host_us"],
@@ -1092,7 +1348,7 @@ def main() -> int:
                   and x["dtype"] == "bfloat16"]
         if len(served) > 1:
             kernels_line[-1]["served_shapes"] = [
-                {k: x[k] for k in ("shape", "block", "body", "kernel_ms", "staged_ms",
+                {k: x[k] for k in ("model", "shape", "block", "body", "kernel_ms", "staged_ms",
                                    "plain_ms", "library_ms", "bound_ms", "bound_by",
                                    "max_abs_err", "host_us", "staged_host_us") if k in x}
                 for x in served]

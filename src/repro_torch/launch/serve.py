@@ -1,19 +1,27 @@
 """Batched serving launcher: one causal prefill pass + a greedy decode loop
-with a KV cache (a recurrent state for RWKV6), on one GPU.
+with a KV cache (a recurrent state for RWKV6, both for zamba2), on one GPU.
 
 ``python -m repro_torch.launch.serve --arch qwen2.5-3b --batch 4
 --prompt-len 512 --tokens 32`` greedy-decodes a batch of synthetic prompts
-with random weights made from ``--seed``; ``--arch qwen3-moe-30b-a3b`` or
-``deepseek-moe-16b`` serves an MoE model the same way, ``--arch rwkv6-3b``
-the RWKV6 family.  The prompt goes through the FlashAttention kernel in one
-pass, every decode step through the flash-decode kernels with the cache's
-valid length; an MoE layer's experts go through the grouped-GEMM kernel; an
-RWKV6 layer's prompt goes through the chunked-WKV kernel in one pass, which
-hands its final state to decode, and a decode step runs the plain
-single-token recurrence, as the reference does; projections, router, dense
-MLP and LM head are ``torch.einsum``.  ``--device cpu`` runs the same code
-with the kernels' plain versions (tests do); without a GPU and without that
-flag the launcher raises.
+with random weights made from ``--seed``.  ``--arch`` names any of the six
+families' configs: a dense decoder (``qwen2.5-3b``), an MoE
+(``qwen3-moe-30b-a3b``, ``deepseek-moe-16b``), RWKV6 (``rwkv6-3b``), the
+Mamba2 hybrid (``zamba2-1.2b``), the VLM (``internvl2-1b``, whose prompt
+follows 256 stub image patches) or the encoder-decoder
+(``seamless-m4t-medium``, whose decoder attends to 1024 encoded stub audio
+frames).  The stub frontend input is drawn from the seed as well.
+
+Every prompt pass (the decoder's, the VLM's image prefix and prompt, the
+encoder's frames, the cross-attention over the memory) goes through the
+FlashAttention kernel, every decode step's attention, self and cross,
+through the flash-decode kernel; an MoE layer's experts go through the
+grouped-GEMM kernel; an RWKV6 layer's prompt goes through the chunked-WKV
+kernel in one pass, which hands its final state to decode.  The RWKV6 and
+Mamba2 decode recurrences and the Mamba2 SSD scan are plain PyTorch, as the
+reference's are plain array code; projections, router, dense MLP and LM
+head are ``torch.einsum``.  ``--device cpu`` runs the same code with the
+kernels' plain versions (tests do); without a GPU and without that flag the
+launcher raises.
 
 Not ported yet (ROADMAP.md, Queue 1): the mesh-plan ranking, ``--tenants``
 mode and the ``--introspect-port`` / ``--flightrec`` flags of the reference.
@@ -76,10 +84,13 @@ def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, device) -> torch
 
 @torch.no_grad()
 def generate(api: ModelAPI, params, prompts: torch.Tensor, tokens: int, *,
+             inputs: Optional[Dict[str, torch.Tensor]] = None,
              keep_step_logits: bool = False,
              forced_ids: Optional[torch.Tensor] = None) -> ServeResult:
     """Prefill ``prompts`` in one causal pass, then decode ``tokens`` ids
-    greedily.  The kernels' launch counters are read around the run.
+    greedily.  ``inputs`` is the stub frontend input the VLM and the
+    encoder-decoder take (:meth:`ModelAPI.frontend_inputs`).  The kernels'
+    launch counters are read around the run.
 
     With ``forced_ids`` (batch, tokens) the loop feeds those ids instead of
     its own argmax (teacher forcing), which lets two attention paths be
@@ -87,7 +98,8 @@ def generate(api: ModelAPI, params, prompts: torch.Tensor, tokens: int, *,
     cfg = api.cfg
     device = prompts.device
     batch, prompt_len = prompts.shape
-    max_len = prompt_len + tokens + 1
+    inputs = inputs or {}
+    max_len = api.prefix_len() + prompt_len + tokens + 1
     cache = api.init_cache(cfg, batch, max_len, device=device)
     step = make_serve_step(api)
     before = kernels.launch_counts()
@@ -96,7 +108,7 @@ def generate(api: ModelAPI, params, prompts: torch.Tensor, tokens: int, *,
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = api.prefill(params, prompts, cache)
+    logits, cache = api.prefill(params, prompts, cache, **inputs)
     _sync(device)
     prefill_s = time.perf_counter() - t0
     prefill_logits = logits[:, -1, :cfg.vocab_size].float()
@@ -157,20 +169,22 @@ def _traced(fn, device: torch.device, repeat: int) -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def profile_serve(api: ModelAPI, params, prompts: torch.Tensor, steps: int) -> Dict[str, Any]:
+def profile_serve(api: ModelAPI, params, prompts: torch.Tensor, steps: int,
+                  inputs: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, Any]:
     """Where the time goes on the card: one traced prefill of ``prompts``
-    (after an untraced one) and ``steps`` traced decode steps (after two
-    untraced ones), each with its wall time per run, the device's busy time,
-    its idle share and the kernels that took most device time."""
+    (and the frontend ``inputs``; after an untraced one) and ``steps`` traced
+    decode steps (after two untraced ones), each with its wall time per run,
+    the device's busy time, its idle share and the kernels that took most
+    device time."""
     cfg = api.cfg
     device = prompts.device
     if device.type != "cuda":
         raise ValueError("profile_serve traces the card; it needs a CUDA device")
-    max_len = prompts.shape[1] + steps + 4
+    max_len = api.prefix_len() + prompts.shape[1] + steps + 4
 
     def prefill():
         cache = api.init_cache(cfg, prompts.shape[0], max_len, device=device)
-        return api.prefill(params, prompts, cache)
+        return api.prefill(params, prompts, cache, **(inputs or {}))
 
     prefill()
     traced_prefill = _traced(prefill, device, 1)
@@ -219,7 +233,9 @@ def main(argv=None) -> ServeResult:
     api = build_model(cfg)
     params = load_params(api, device, args.seed)
     prompts = make_prompts(cfg, args.batch, args.prompt_len, device)
-    res = generate(api, params, prompts, args.tokens)
+    inputs = api.frontend_inputs(args.batch,
+                                 torch.Generator(device=device).manual_seed(args.seed), device)
+    res = generate(api, params, prompts, args.tokens, inputs=inputs)
 
     print(f"[serve] {cfg.name} on {device} "
           f"({api.n_params() / 1e9:.2f}B params, kernels={cfg.kernels})")
@@ -243,7 +259,7 @@ def main(argv=None) -> ServeResult:
     if args.profile > 0:
         import json
         print("[serve] profile: "
-              + json.dumps(profile_serve(api, params, prompts, args.profile)))
+              + json.dumps(profile_serve(api, params, prompts, args.profile, inputs)))
     return res
 
 

@@ -2,9 +2,11 @@
 
 ``build_model(cfg)`` returns a :class:`ModelAPI` whose members close over the
 config: parameter spec (single source of truth for init / abstract shapes /
-axes), logits function, decode step, prefill and cache constructor.  The
-dense decoder, MoE and RWKV6 (``ssm``) families are ported so far; the
-others raise.
+axes), logits function, decode step, prefill and cache constructor, for all
+six families.  The VLM and the encoder-decoder also take a stubbed frontend
+input (image patches, audio frames): :meth:`ModelAPI.frontend_inputs` makes
+it, and ``prefill(params, tokens, cache, **inputs)`` and ``logits_fn``
+consume it.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from . import layers as L
 from . import param as P
-from . import moe, rwkv6, transformer
+from . import encdec, moe, rwkv6, transformer, vlm, zamba2
 
 Params = Dict[str, Any]
 
@@ -56,12 +58,33 @@ class ModelAPI:
     def n_params(self) -> int:
         return P.count_params(self.spec)
 
+    # -- the stubbed modality frontend ------------------------------------------
+    def frontend_inputs(self, batch: int, generator: torch.Generator,
+                        device) -> Dict[str, torch.Tensor]:
+        """What ``prefill`` takes beside the tokens: ``{}``, or for the VLM
+        ``{"patches": ...}`` and for the encoder-decoder ``{"frames": ...}``,
+        (batch, frontend_len, frontend_dim) in the compute dtype, drawn from
+        ``generator`` as ``SyntheticLM`` draws them (standard normal x 0.02)."""
+        cfg = self.cfg
+        name = _FRONTEND.get(cfg.family)
+        if name is None:
+            return {}
+        x = torch.randn((batch, cfg.frontend_len, cfg.frontend_dim), generator=generator,
+                        device=require_device(device)) * 0.02
+        return {name: x.to(L.cdtype(cfg))}
+
+    def prefix_len(self) -> int:
+        """Cache positions the frontend input takes ahead of the prompt: the
+        VLM's image patches; 0 elsewhere (the encoder memory has its own
+        cross K/V)."""
+        return self.cfg.frontend_len if self.cfg.family == "vlm" else 0
+
 
 def _cast(spec, cfg: ModelConfig):
     return P.cast_spec_dtype(spec, L.pdtype(cfg))
 
 
-_QUEUE = {"hybrid": "mamba2 / zamba2", "vlm": "encdec / vlm", "audio": "encdec / vlm"}
+_FRONTEND = {"vlm": "patches", "audio": "frames"}
 
 
 def build_model(cfg: ModelConfig) -> ModelAPI:
@@ -87,8 +110,25 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             decode_step=lambda p, t, c: rwkv6.decode_step(p, t, c, cfg),
             prefill=lambda p, t, c: rwkv6.prefill(p, t, c, cfg),
             init_cache=rwkv6.init_cache)
-    if fam in _QUEUE:
-        raise NotImplementedError(
-            f"family {fam!r} ({cfg.name}) is not ported yet: see ROADMAP.md, "
-            f"Queue 1, '{_QUEUE[fam]}'")
+    if fam == "hybrid":
+        return ModelAPI(
+            cfg=cfg, spec=_cast(zamba2.zamba2_spec(cfg), cfg),
+            logits_fn=lambda p, b: zamba2.forward(p, b["tokens"], cfg),
+            decode_step=lambda p, t, c: zamba2.decode_step(p, t, c, cfg),
+            prefill=lambda p, t, c: zamba2.prefill(p, t, c, cfg),
+            init_cache=zamba2.init_cache)
+    if fam == "vlm":
+        return ModelAPI(
+            cfg=cfg, spec=_cast(vlm.vlm_spec(cfg), cfg),
+            logits_fn=lambda p, b: vlm.forward(p, b["tokens"], b["patches"], cfg),
+            decode_step=lambda p, t, c: vlm.decode_step(p, t, c, cfg),
+            prefill=lambda p, t, c, *, patches: vlm.prefill(p, t, c, cfg, patches=patches),
+            init_cache=vlm.init_cache)
+    if fam == "audio":
+        return ModelAPI(
+            cfg=cfg, spec=_cast(encdec.encdec_spec(cfg), cfg),
+            logits_fn=lambda p, b: encdec.forward(p, b["frames"], b["tokens"], cfg),
+            decode_step=lambda p, t, c: encdec.decode_step(p, t, c, cfg),
+            prefill=lambda p, t, c, *, frames: encdec.prefill(p, t, c, cfg, frames=frames),
+            init_cache=encdec.init_cache)
     raise ValueError(f"unknown family {fam!r}")

@@ -1,0 +1,185 @@
+"""seamless-m4t-medium backbone: an encoder-decoder transformer with a stubbed
+audio frontend.
+
+Counterpart of ``repro/models/encdec.py``.  The modality frontend is a stub:
+the caller hands over precomputed frame embeddings (B, F, frontend_dim) and
+a linear adapter projects them into the encoder's width.  Encoder blocks are
+bidirectional; decoder blocks are causal self-attention, cross-attention to
+the encoder memory and an MLP.  Serving projects the memory's cross K/V once
+per request (:func:`prepare_cross`) and keeps them in the cache beside the
+decoder's self-attention KV.  The cache is updated **in place**.  ``loss_fn``
+arrives with training.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from . import layers as L
+from .param import LeafSpec, stack_specs
+from .transformer import _layer
+
+Params = Dict[str, Any]
+
+
+def enc_block_spec(cfg: ModelConfig) -> Params:
+    return {
+        "attn_norm": L.rmsnorm_spec(cfg.d_model),
+        "attn": L.attention_spec(cfg),
+        "mlp_norm": L.rmsnorm_spec(cfg.d_model),
+        "mlp": L.mlp_spec(cfg),
+    }
+
+
+def dec_block_spec(cfg: ModelConfig) -> Params:
+    return {
+        "self_norm": L.rmsnorm_spec(cfg.d_model),
+        "self_attn": L.attention_spec(cfg),
+        "cross_norm": L.rmsnorm_spec(cfg.d_model),
+        "cross_attn": L.attention_spec(cfg),
+        "mlp_norm": L.rmsnorm_spec(cfg.d_model),
+        "mlp": L.mlp_spec(cfg),
+    }
+
+
+def encdec_spec(cfg: ModelConfig) -> Params:
+    n_enc = cfg.n_encoder_layers or cfg.n_layers
+    return {
+        "frontend": {
+            "w": LeafSpec((cfg.frontend_dim, cfg.d_model), ("frames", "embed")),
+            "b": LeafSpec((cfg.d_model,), ("embed",), init="zeros"),
+        },
+        "embed": L.embedding_spec(cfg),                 # decoder text embed
+        "enc_blocks": stack_specs(enc_block_spec(cfg), n_enc),
+        "enc_norm": L.rmsnorm_spec(cfg.d_model),
+        "dec_blocks": stack_specs(dec_block_spec(cfg), cfg.n_layers),
+        "dec_norm": L.rmsnorm_spec(cfg.d_model),
+        "lm_head": L.lm_head_spec(cfg),
+    }
+
+
+def _blocks(params: Params, name: str, i: int) -> Params:
+    return _layer({"blocks": params[name]}, i)
+
+
+def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """frames: (B, F, frontend_dim) -> encoder memory (B, F, d)."""
+    dt = L.cdtype(cfg)
+    x = frames.to(dt) @ params["frontend"]["w"].to(dt) + params["frontend"]["b"].to(dt)
+    for i in range(cfg.n_encoder_layers or cfg.n_layers):
+        p = _blocks(params, "enc_blocks", i)
+        o, _ = L.attention(p["attn"], L.rmsnorm(p["attn_norm"], x, cfg.norm_eps), cfg,
+                           causal=False)
+        x = x + o
+        x = x + L.mlp(p["mlp"], L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg)
+    return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _dec_block(p: Params, x: torch.Tensor, memory: Optional[torch.Tensor],
+               cfg: ModelConfig, *, kv_cache=None, cache_index=None, cross_kv=None):
+    hn = L.rmsnorm(p["self_norm"], x, cfg.norm_eps)
+    o, new_cache = L.attention(p["self_attn"], hn, cfg, causal=True,
+                               kv_cache=kv_cache, cache_index=cache_index)
+    x = x + o
+    hn = L.rmsnorm(p["cross_norm"], x, cfg.norm_eps)
+    if cross_kv is not None:
+        o, _ = L.attention(p["cross_attn"], hn, cfg, precomputed_kv=cross_kv)
+    else:
+        o, _ = L.attention(p["cross_attn"], hn, cfg, kv_input=memory, causal=False)
+    x = x + o
+    hn = L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+    return x + L.mlp(p["mlp"], hn, cfg), new_cache
+
+
+def _head(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = L.rmsnorm(params["dec_norm"], x, cfg.norm_eps)
+    return L.lm_head(params.get("lm_head", {}), x, cfg, embed_params=params["embed"])
+
+
+def decode(params: Params, tokens: torch.Tensor, memory: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    x = L.embed(params["embed"], tokens, cfg)
+    for i in range(cfg.n_layers):
+        x, _ = _dec_block(_blocks(params, "dec_blocks", i), x, memory, cfg)
+    return _head(params, x, cfg)
+
+
+def forward(params: Params, frames: torch.Tensor, tokens: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """frames: (B, F, frontend_dim), tokens: (B, S) -> logits (B, S, V)."""
+    return decode(params, tokens, encode(params, frames, cfg), cfg)
+
+
+# ----------------------------------------------------------------- serving
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               memory_len: Optional[int] = None, device="cuda") -> Dict[str, Any]:
+    """An empty cache: the decoder's self-attention KV of ``max_len`` keys
+    and the cross K/V of ``memory_len`` memory positions (default the
+    frontend's length) per layer; ``index`` is a Python int."""
+    ml = memory_len or cfg.frontend_len or 1024
+    self_shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+    cross_shape = (cfg.n_layers, batch, ml, cfg.n_kv_heads, cfg.head_dim_)
+    return {
+        "k": torch.zeros(self_shape, dtype=dtype, device=device),
+        "v": torch.zeros(self_shape, dtype=dtype, device=device),
+        "cross_k": torch.zeros(cross_shape, dtype=dtype, device=device),
+        "cross_v": torch.zeros(cross_shape, dtype=dtype, device=device),
+        "index": 0,
+    }
+
+
+def prepare_cross(params: Params, memory: torch.Tensor, cfg: ModelConfig,
+                  cache: Dict[str, Any]) -> Dict[str, Any]:
+    """Project the encoder memory into every layer's cross K/V once per
+    request, written into the cache in place (as the reference's, without
+    the projection's bias)."""
+    if memory.shape[1] != cache["cross_k"].shape[2]:
+        raise ValueError(f"a memory of {memory.shape[1]} positions does not fit a cache "
+                         f"made for {cache['cross_k'].shape[2]}")
+    for i in range(cfg.n_layers):
+        p = _blocks(params, "dec_blocks", i)["cross_attn"]
+        for name, w in (("cross_k", p["wk"]), ("cross_v", p["wv"])):
+            cache[name][i] = torch.einsum("bsd,dhk->bshk", memory, w.to(memory.dtype))
+    return dict(cache)
+
+
+def _cached_pass(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
+                 cfg: ModelConfig, last_only: bool) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    idx = int(cache["index"])
+    if idx + tokens.shape[1] > cache["k"].shape[2]:
+        raise ValueError(f"cache of {cache['k'].shape[2]} keys cannot take "
+                         f"{tokens.shape[1]} more at index {idx}")
+    x = L.embed(params["embed"], tokens, cfg)
+    for i in range(cfg.n_layers):
+        x, _ = _dec_block(_blocks(params, "dec_blocks", i), x, None, cfg,
+                          kv_cache=(cache["k"][i], cache["v"][i]), cache_index=idx,
+                          cross_kv=(cache["cross_k"][i], cache["cross_v"][i]))
+    if last_only:
+        x = x[:, -1:]
+    return _head(params, x, cfg), dict(cache, index=idx + tokens.shape[1])
+
+
+def decode_step(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
+                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decoder step against the cached self-attention KV and cross K/V.
+    tokens: (B, 1); the cache is written in place."""
+    if tokens.shape[1] != 1:
+        raise ValueError("decode_step takes one token per sequence; use prefill "
+                         "for a prompt")
+    return _cached_pass(params, tokens, cache, cfg, last_only=False)
+
+
+def prefill(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
+            cfg: ModelConfig, *, frames: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Encode ``frames``, project the memory's cross K/V into the empty cache
+    and run the decoder's causal prompt pass over ``tokens`` (self-attention
+    written into the cache, cross-attention over the cached memory K/V).
+    Returns the last token's logits (B, 1, V): with a float32 cache they
+    equal the reference's ``forward`` at the last position."""
+    if int(cache["index"]) != 0:
+        raise ValueError(f"prefill fills an empty cache; this one holds "
+                         f"{int(cache['index'])} tokens")
+    cache = prepare_cross(params, encode(params, frames, cfg), cfg, cache)
+    return _cached_pass(params, tokens, cache, cfg, last_only=True)

@@ -84,10 +84,12 @@ def attention_spec(cfg: ModelConfig, cross: bool = False) -> Params:
     return spec
 
 
-def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
+def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 kv_input: Optional[torch.Tensor] = None):
+    kv_x = x if kv_input is None else kv_input
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", kv_x, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", kv_x, p["wv"].to(x.dtype))
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -143,16 +145,33 @@ def _sdpa_kernel(q, k, v, causal: bool, sm_scale: float, q_per_kv: int,
     return out.reshape(B, H, S, D).permute(0, 2, 1, 3)
 
 
+def _attend(q, k, v, causal: bool, cfg: ModelConfig,
+            kv_valid_len: Optional[int] = None) -> torch.Tensor:
+    """q: (B,S,H,D) against k/v: (B,T,Hkv,D), not repeated: through the
+    kernels when ``cfg.kernels == "cuda"``, else the dense plain path."""
+    sm_scale = cfg.head_dim_ ** -0.5
+    if cfg.kernels == "cuda":
+        if q.dtype != k.dtype:
+            k, v = k.to(q.dtype), v.to(q.dtype)
+        return _sdpa_kernel(q, k, v, causal, sm_scale, cfg.q_per_kv,
+                            kv_valid_len=kv_valid_len)
+    kr = _repeat_kv(k, cfg.q_per_kv)
+    vr = _repeat_kv(v, cfg.q_per_kv)
+    return _sdpa_plain_dense(q, kr, vr, causal, sm_scale, kv_valid_len=kv_valid_len)
+
+
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               causal: bool = True,
               positions: Optional[torch.Tensor] = None,
               kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               cache_index: Optional[int] = None,
+              kv_input: Optional[torch.Tensor] = None,
+              precomputed_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               use_rope: bool = True):
-    """GQA self-attention.  Returns (out, new_kv_cache | None).
+    """GQA attention.  Returns (out, new_kv_cache | None).
 
     * train/prefill without a cache: ``kv_cache is None``: full causal
-      self-attention.
+      self-attention (or bidirectional with ``causal=False``).
     * cached: ``kv_cache=(k, v)`` of shape (B, T, nkv, hd); the S new tokens'
       k/v are written at ``cache_index`` **in place** and the same tensors
       are returned.  With S == 1 this is a decode step over the
@@ -160,12 +179,29 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
       tokens attend causally to each other (which is what feeding them one
       by one computes), and the cache must be empty below them
       (``cache_index == 0``).
-
-    The reference's cross-attention modes (``kv_input``,
-    ``precomputed_kv``) arrive with the encoder-decoder family.
+    * cross-attention, over all keys of another sequence, with no RoPE:
+      ``kv_input`` (B, T, d) is projected to k/v here; ``precomputed_kv``
+      hands over projected (k, v) of shape (B, T, nkv, hd), cast to the
+      activations' dtype (a cached encoder memory).  Neither takes a cache.
+      On the kernel path a prompt goes through FlashAttention without a
+      mask and one token through flash-decode over every key; the reference
+      sends ``precomputed_kv`` through its plain path even with its kernels
+      on.
     """
     B, S, d = x.shape
     hd = cfg.head_dim_
+    if kv_input is not None or precomputed_kv is not None:
+        if kv_cache is not None:
+            raise ValueError("cross-attention (kv_input, precomputed_kv) takes no cache")
+        if precomputed_kv is not None:
+            q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+            if "bq" in p:
+                q = q + p["bq"].to(x.dtype)
+            k, v = (t.to(x.dtype) for t in precomputed_kv)
+        else:
+            q, k, v = _project_qkv(p, x, cfg, kv_input)
+        out = _attend(q, k, v, False, cfg)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), None
     q, k, v = _project_qkv(p, x, cfg)
     cached = kv_cache is not None and cache_index is not None
     if use_rope:
@@ -199,16 +235,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             valid = None
             is_causal = causal
         new_cache = (ck, cv)
-    sm_scale = hd ** -0.5
-    if cfg.kernels == "cuda":
-        if q.dtype != k.dtype:
-            k, v = k.to(q.dtype), v.to(q.dtype)
-        out = _sdpa_kernel(q, k, v, is_causal, sm_scale, cfg.q_per_kv,
-                           kv_valid_len=valid)
-    else:
-        kr = _repeat_kv(k, cfg.q_per_kv)
-        vr = _repeat_kv(v, cfg.q_per_kv)
-        out = _sdpa_plain_dense(q, kr, vr, is_causal, sm_scale, kv_valid_len=valid)
+    out = _attend(q, k, v, is_causal, cfg, kv_valid_len=valid)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return out, new_cache
 

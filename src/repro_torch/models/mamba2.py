@@ -1,0 +1,146 @@
+"""Mamba2 (SSD) block, the state-space component of zamba2-1.2b.
+
+Counterpart of ``repro/models/mamba2.py``.  The chunked SSD scan
+
+    h_t = exp(A dt_t) h_{t-1} + dt_t * (x_t (x) B_t)
+    y_t = C_t . h_t + D * x_t
+
+is plain PyTorch, float32 inside, as the reference's is plain array code: no
+kernel of the port runs it.  One scalar decay A per head (the reference's
+``n_groups = 1`` simplification, kept).  Decode carries (ssd_state,
+conv_state) per layer, O(1) per token.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from .param import LeafSpec
+
+Params = Dict[str, Any]
+SSD_HEAD_DIM = 64
+
+
+def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
+    d_inner = cfg.ssm_expand * cfg.d_model
+    n_heads = cfg.ssm_heads or d_inner // SSD_HEAD_DIM
+    dh = d_inner // n_heads
+    return d_inner, n_heads, dh, cfg.ssm_state
+
+
+def mamba2_spec(cfg: ModelConfig) -> Params:
+    d = cfg.d_model
+    d_inner, H, dh, ds = dims(cfg)
+    conv_dim = d_inner + 2 * ds
+    return {
+        "in_proj": LeafSpec((d, 2 * d_inner + 2 * ds + H), ("embed", "ffn")),
+        "conv_w": LeafSpec((cfg.conv_kernel, conv_dim), ("conv", "ffn"),
+                           init="scaled", scale=0.1),
+        "conv_b": LeafSpec((conv_dim,), ("ffn",), init="zeros"),
+        "A_log": LeafSpec((H,), ("ssm_heads",), init="scaled", scale=0.5),
+        "D": LeafSpec((H,), ("ssm_heads",), init="ones"),
+        "dt_bias": LeafSpec((H,), ("ssm_heads",), init="zeros"),
+        "norm_scale": LeafSpec((d_inner,), ("ffn",), init="ones"),
+        "out_proj": LeafSpec((d_inner, d), ("ffn", "embed")),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv.  x: (B, T, C); w: (K, C).  Returns
+    ``(silu(y + b), new_state)``, the state being the last K-1 inputs; it
+    starts from zeros, or from ``state`` (decode)."""
+    K = w.shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                   # (B, T+K-1, C)
+    y = sum(xp[:, i:i + x.shape[1]] * w[i][None, None, :] for i in range(K))
+    new_state = xp[:, xp.shape[1] - (K - 1):]
+    return F.silu(y + b[None, None, :]), new_state
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bmat: torch.Tensor,
+                Cmat: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                chunk: int = 32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,T,H,dh); dt: (B,T,H); A: (H,) (negative); B/C: (B,T,ds).
+    Returns (y float32 (B,T,H,dh), h_final (B,H,dh,ds)).
+
+    The reference scans the chunks one after another; here every chunk's
+    own part (the masked intra-chunk product and the chunk's contribution
+    to the state) is computed for all chunks at once, and only the state's
+    recurrence over chunks is a loop, followed by each chunk's read of the
+    state it started from.  The arithmetic per element is the reference's."""
+    Bsz, T, H, dh = x.shape
+    ds = Bmat.shape[-1]
+    c = min(chunk, T)
+    if c < 1 or T % c:
+        raise ValueError(f"the SSD scan needs T divisible by its chunk: T={T}, chunk={c}")
+    n = T // c
+    da = (dt * A[None, None, :]).float().reshape(Bsz, n, c, H)       # <= 0
+    xc = (x * dt[..., None]).float().reshape(Bsz, n, c, H, dh)        # dt-weighted input
+    bc = Bmat.float().reshape(Bsz, n, c, ds)
+    cc = Cmat.float().reshape(Bsz, n, c, ds)
+    cum = torch.cumsum(da, dim=2)                                      # (B,n,c,H) inclusive
+    # intra-chunk: scores[t,s] = e^{cum[t]-cum[s]} (C_t . B_s), s <= t.  The
+    # valid (t >= s) differences are <= 0; clamping before exp keeps the
+    # masked upper triangle from overflowing to inf (inf * 0 = nan)
+    diff = torch.clamp(cum[:, :, :, None, :] - cum[:, :, None, :, :], max=0.0)
+    mask = torch.tril(torch.ones(c, c, device=x.device))
+    cb = torch.einsum("bntd,bnsd->bnts", cc, bc)
+    scores = torch.exp(diff) * cb[..., None] * mask[None, None, :, :, None]
+    y = torch.einsum("bntsh,bnshd->bnthd", scores, xc)
+    # each chunk's own contribution to the state it hands on
+    k_carry = torch.exp(cum[:, :, -1:, :] - cum)                       # (B,n,c,H)
+    upd = torch.einsum("bnthd,bnth,bnts->bnhds", xc, k_carry, bc)
+    decay_all = torch.exp(cum[:, :, -1])                               # (B,n,H)
+    h = torch.zeros((Bsz, H, dh, ds), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    starts = []
+    for i in range(n):
+        starts.append(h)
+        h = h * decay_all[:, i, :, None, None] + upd[:, i]
+    # inter-chunk: each chunk reads the state it started from, decayed e^{cum[t]}
+    h_in = torch.stack(starts, dim=1)                                  # (B,n,H,dh,ds)
+    y = y + torch.einsum("bntd,bnhed,bnth->bnthe", cc, h_in, torch.exp(cum))
+    return y.reshape(Bsz, T, H, dh), h
+
+
+def mamba2_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                 ssd_state: Optional[torch.Tensor] = None,
+                 conv_state: Optional[torch.Tensor] = None):
+    """Returns ``(out, (new_ssd_state, new_conv_state))``.  Without
+    ``ssd_state`` the chunked scan runs from zero over all T tokens (its
+    pair is what a prefill stores); with it, T == 1 and the single-token
+    recurrence runs in float32."""
+    B, T, d = x.shape
+    d_inner, H, dh, ds = dims(cfg)
+    proj = x @ p["in_proj"].to(x.dtype)
+    z, xin, Bm, Cm, dt = torch.split(proj, [d_inner, d_inner, ds, ds, H], dim=-1)
+    conv_in = torch.cat([xin, Bm, Cm], dim=-1)
+    conv_out, new_conv = _causal_conv(conv_in, p["conv_w"].to(x.dtype),
+                                      p["conv_b"].to(x.dtype), conv_state)
+    xin, Bm, Cm = torch.split(conv_out, [d_inner, ds, ds], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"].float()[None, None, :])
+    A = -torch.exp(p["A_log"].float())
+    xh = xin.reshape(B, T, H, dh)
+    if ssd_state is None:
+        y, new_state = ssd_chunked(xh, dt, A, Bm, Cm)
+    else:
+        # single-token recurrence (decode)
+        da = torch.exp(dt[:, 0] * A[None, :])                         # (B,H)
+        xr = (xh[:, 0] * dt[:, 0][..., None]).float()
+        upd = torch.einsum("bhd,bs->bhds", xr, Bm[:, 0].float())
+        new_state = ssd_state * da[:, :, None, None] + upd
+        y = torch.einsum("bs,bhds->bhd", Cm[:, 0].float(), new_state)[:, None]
+    y = y.to(x.dtype).reshape(B, T, d_inner) \
+        + xin * torch.repeat_interleave(p["D"].to(x.dtype), dh)[None, None, :]
+    # gated RMS norm, in float32
+    y32 = (y * F.silu(z)).float()
+    var = torch.mean(torch.square(y32), dim=-1, keepdim=True)
+    y = (y32 * torch.rsqrt(var + cfg.norm_eps) * p["norm_scale"].float()).to(x.dtype)
+    return y @ p["out_proj"].to(x.dtype), (new_state, new_conv)

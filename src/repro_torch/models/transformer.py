@@ -99,11 +99,18 @@ def _cached_pass(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
     """Run ``tokens`` through every layer's ``block`` against the cache,
     writing their keys and values at its index.  ``block`` is
     :func:`block_apply`'s signature and returns ``(x, new_kv)``."""
-    x = _embed(params, tokens, cfg)
-    idx = int(cache["index"])
-    if idx + tokens.shape[1] > cache["k"].shape[2]:
+    return cached_layers(params, _embed(params, tokens, cfg), cache, cfg, last_only, block)
+
+
+def cached_layers(params: Params, x: torch.Tensor, cache: Dict[str, Any],
+                  cfg: ModelConfig, last_only: bool, block=block_apply
+                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """:func:`_cached_pass` on embeddings ``x`` (B, S, d) already made (the
+    VLM prepends its image prefix to the text's)."""
+    idx, n = int(cache["index"]), x.shape[1]
+    if idx + n > cache["k"].shape[2]:
         raise ValueError(f"cache of {cache['k'].shape[2]} keys cannot take "
-                         f"{tokens.shape[1]} more at index {idx}")
+                         f"{n} more at index {idx}")
     for i in range(cfg.n_layers):
         x, _ = block(_layer(params, i), x, cfg,
                      kv_cache=(cache["k"][i], cache["v"][i]), cache_index=idx)
@@ -111,7 +118,7 @@ def _cached_pass(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
         x = x[:, -1:]
     logits = _head(params, x, cfg)
     return logits, {"k": cache["k"], "v": cache["v"],
-                    "index": idx + tokens.shape[1]}
+                    "index": idx + n}
 
 
 def decode_step(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],

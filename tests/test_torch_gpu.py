@@ -527,3 +527,107 @@ def test_gemm_kernel_unaligned_operands_take_the_scalar_path(cuda):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, G.gemm_plain(a, b, out_dtype=torch.float32),
                                rtol=2e-2, atol=2e-2)
+
+
+# the attention shapes the zamba2, internvl2 and seamless serves give K2 and
+# K3 at batch 4, prompt 512, 32 new tokens (head dim 64): (batch, q heads,
+# kv heads, Sq, Skv, causal) and (batch, q heads, kv heads, buffer, valid)
+SERVED_FLASH_D64 = [(4, 32, 32, 512, 512, True),      # zamba2-1.2b prefill
+                    (4, 14, 2, 768, 768, True),       # internvl2-1b: 256 patches + 512
+                    (4, 16, 16, 1024, 1024, False),   # seamless encoder
+                    (4, 16, 16, 512, 1024, False)]    # seamless cross prompt pass
+SERVED_DECODE_D64 = [(4, 32, 32, 545, 513),           # zamba2-1.2b
+                     (4, 14, 2, 801, 769),            # internvl2-1b
+                     (4, 16, 16, 1024, None)]         # seamless cross, every key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SERVED_FLASH_D64)
+def test_flash_attention_at_the_d64_served_shapes(cuda, case, dtype):
+    """K2 through ``ops.attention`` (the planner's tile) and at every legal
+    tile, on k/v read through the serving layout's strided view, against
+    its plain version: non-causal with Sq != Skv among them."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as FA, ops
+    B, H, Hkv, Sq, Skv, causal = case
+    gen = torch.Generator(device=cuda).manual_seed(Sq + Skv + H)
+    q = torch.randn(B * H, Sq, 64, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(B, Skv, Hkv, 64, generator=gen, device=cuda).to(dtype)
+            .permute(0, 2, 1, 3) for _ in range(2))
+    want = FA.flash_attention_plain(q, k, v, causal=causal, q_per_kv=H // Hkv)
+    kernels.reset_launch_counts()
+    got = ops.attention(q, k, v, causal=causal, q_per_kv=H // Hkv)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    for bq, bkv in FA.legal_tiles(64, q.element_size()):
+        got = FA.flash_attention(q, k, v, causal=causal, block_q=bq, block_kv=bkv,
+                                 q_per_kv=H // Hkv)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SERVED_DECODE_D64)
+def test_flash_decode_at_the_d64_served_shapes(cuda, case, dtype):
+    """K3 in one launch at group sizes 1 and 7 and over a whole cross memory
+    (no valid length), against its plain version."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_decode as FD, ops
+    B, H, Hkv, T, valid = case
+    gen = torch.Generator(device=cuda).manual_seed(T + H)
+    q = torch.randn(B * H, 1, 64, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(B, T, Hkv, 64, generator=gen, device=cuda).to(dtype)
+            .permute(0, 2, 1, 3) for _ in range(2))
+    kernels.reset_launch_counts()
+    got = ops.flash_decode(q, k, v, kv_valid_len=valid, q_per_kv=H // Hkv)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_decode"] == 1 and sum(counts.values()) == 1
+    want = FD.flash_decode_plain(q, k, v, kv_valid_len=valid, q_per_kv=H // Hkv)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+# reduced prompt passes through K2 and decode-step attentions through K3 per
+# family: zamba2 2 shared-attention sites, internvl2 2 layers, seamless 2
+# encoder + 2 decoder self + 2 cross prompt passes and 2 + 2 per step
+FAMILY_LAUNCHES = {"zamba2-1.2b": (2, 2), "internvl2-1b": (2, 2),
+                   "seamless-m4t-medium": (6, 4)}
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_LAUNCHES))
+def test_serve_new_families_reduced_on_the_card(cuda, arch):
+    """Each new family's prefill and decode on the card at its reduced size,
+    with exact K2/K3 launch counts and nothing else launched; the kernel
+    run and the plain run (fed the kernel run's ids) are held against the
+    same loop in float32: the kernel path at most 1.25 x as far from it as
+    the plain path (largest difference plus 2e-2, and RMS)."""
+    from dataclasses import replace
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    cfg = serve.serve_config(arch, reduced=True)
+    api = build_model(cfg)
+    params = serve.load_params(api, cuda, seed=0)
+    prompts = serve.make_prompts(cfg, 2, 64, cuda)
+    inputs = api.frontend_inputs(2, torch.Generator(device=cuda).manual_seed(0), cuda)
+    kernels.reset_launch_counts()
+    res = serve.generate(api, params, prompts, 8, inputs=inputs, keep_step_logits=True)
+    prompt_passes, per_step = FAMILY_LAUNCHES[arch]
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == prompt_passes
+    assert counts["flash_decode"] == per_step * 8
+    assert sum(counts.values()) == prompt_passes + per_step * 8
+
+    def run(run_cfg):
+        out = serve.generate(build_model(run_cfg), params, prompts, 8, inputs=inputs,
+                             keep_step_logits=True, forced_ids=res.generated)
+        return torch.cat([x.float().flatten() for x in [out.prefill_logits, *out.step_logits]])
+
+    plain = run(replace(cfg, kernels="plain"))
+    exact = run(replace(cfg, kernels="plain", compute_dtype="float32"))
+    got = torch.cat([x.float().flatten() for x in [res.prefill_logits, *res.step_logits]])
+    assert torch.isfinite(got).all()
+    diff, base = got - exact, plain - exact
+    assert diff.abs().max() <= 1.25 * base.abs().max() + 2e-2
+    assert diff.square().mean().sqrt() <= 1.25 * base.square().mean().sqrt()

@@ -58,7 +58,28 @@ these phases, each printing one JSON line; any failure raises:
             random router turns bf16 differences into other experts), are
             held against the same loop in float32, with a control that must
             fail; the share of prefill expert choices that agree when the
-            plain run routes by itself is reported.
+            plain run routes by itself is reported;
+11. train   ``qwen2.5-3b`` trained at full width and depth (float32 master
+            weights from seed 0, bf16 compute, remat, AdamW, batch 4 x 512):
+            the first step's gradient through the kernels, through the plain
+            path and in float32, the kernel path at most 1.25 x as far from
+            float32 as the plain path (worst leaf and overall); every K2-bwd
+            call of that step against its plain version on the same inputs,
+            with a 5-bit control that must be rejected; then three AdamW
+            steps through ``repro_torch.launch.train`` with exact launch
+            counts (K2 twice a layer with remat, K2-bwd once), finite losses,
+            peak memory, step time, tok/s and one traced step;
+12. moe_train ``qwen3-moe-30b-a3b`` at full width and 2 of its 48 layers:
+            one gradient step, every expert product forward, recomputed and
+            backward through K4 (its backward launches counted inside
+            ``ops.grouped_matmul``'s backward, split by body), the float32
+            rule on gradients with the kernel run's experts replayed.
+
+The kernels phase also holds the backward kernels against their plain
+versions: K2-bwd (dq, dk, dv; the forward kernel's log-sum-exp too) at the
+training passes of every attention family and one ragged shape, K1-bwd at
+qwen2.5-3b's projection and K4-bwd at the MoE's prefill, each beside the
+library's backward (SDPA's, two ``torch.matmul`` / ``torch.bmm``).
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the main
 path and its measured times (the reference's two decode functions,
@@ -72,6 +93,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -400,6 +422,106 @@ def wkv6_case(timer, gen, BH, T, d, chunk, dtype, serving, floor=False):
     return res
 
 
+def flash_bwd_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving, model=None):
+    """K2-bwd (dq, dk, dv) against its plain version, from the forward
+    kernel's output and log-sum-exp (itself checked against the plain
+    forward's).  Library time: the backward alone of
+    scaled_dot_product_attention on the same inputs.  The bound counts the
+    five products over the visible (query, key) pairs (S and dP again, dV,
+    dQ, dK) and the bytes of q, k, v, o, dout, lse, dq, dk, dv."""
+    from repro_torch.kernels import flash_attention as FA, flash_attention_bwd as FAB
+    dev = timer.flush.device
+    g = H // Hkv
+    q, k4, v4 = _qkv(gen, dev, B, H, Hkv, Sq, Skv, d, dtype)
+    dout = torch.randn(B * H, Sq, d, generator=gen, device=dev).to(dtype)
+    out, lse = FA.flash_attention(q, k4, v4, causal=causal, q_per_kv=g, block_q=64,
+                                  block_kv=64, return_lse=True)
+    pout, plse = FA.flash_attention_plain(q, k4, v4, causal=causal, q_per_kv=g,
+                                          return_lse=True)
+    lse_err = compare("flash_attention lse", lse, plse, torch.float32, tol=1e-4)
+    compare("flash_attention with lse", out, pout, dtype)
+    run = lambda: FAB.flash_attention_bwd(q, k4, v4, out, lse, dout, causal=causal,
+                                          q_per_kv=g)
+    plain = lambda: FAB.flash_attention_bwd_plain(q, k4, v4, out, lse, dout, causal=causal,
+                                                  q_per_kv=g)
+    label = (f"BH={B * H} kv_heads={B * Hkv} Sq={Sq} Skv={Skv} d={d} causal={causal}")
+    err = max(compare(f"flash_attention_bwd {name} {label} {dname(dtype)}", a, b, dtype)
+              for name, a, b in zip(("dq", "dk", "dv"), run(), plain()))
+    q4 = q.reshape(B, H, Sq, d).detach().requires_grad_()
+    kl, vl = (t.detach().contiguous().requires_grad_() for t in (k4, v4))
+    lib_out = F.scaled_dot_product_attention(q4, kl, vl, is_causal=causal, enable_gqa=g > 1)
+    dout4 = dout.reshape(B, H, Sq, d)
+    lib = lambda: torch.autograd.grad(lib_out, (q4, kl, vl), dout4, retain_graph=True)
+    visible = Sq * (Sq + 1) // 2 if causal and Sq <= Skv else Sq * Skv
+    if causal and Sq > Skv:
+        visible = Skv * (Skv + 1) // 2 + (Sq - Skv) * Skv
+    res = {"name": "flash_attention_bwd", "shape": label, "dtype": dname(dtype),
+           "serving": serving, "model": model, "max_abs_err": err, "lse_max_abs_err": lse_err,
+           "kernel_ms": timer.ms(run), "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib)}
+    res.update(bound(5 * 2.0 * B * H * visible * d,
+                     nbytes(q, k4, v4, out, lse, dout) + nbytes(q, k4, v4), dtype))
+    return res
+
+
+def gemm_bwd_case(timer, gen, M, N, K, dtype, serving):
+    """K1-bwd: dA = dC B^T and dB = A^T dC through ``ops.matmul``'s
+    backward (two planner-blocked K1 launches on contiguous transposes),
+    against the plain products; library: two ``torch.matmul``."""
+    from repro_torch.kernels import gemm as G, ops
+    dev = timer.flush.device
+    a = (torch.randn(M, K, generator=gen, device=dev) * K ** -0.5).to(dtype).requires_grad_()
+    b = torch.randn(K, N, generator=gen, device=dev).to(dtype).requires_grad_()
+    dc = torch.randn(M, N, generator=gen, device=dev).to(dtype)
+    out = ops.matmul(a, b)
+    run = lambda: torch.autograd.grad(out, (a, b), dc, retain_graph=True)
+    at, bt = a.detach().t(), b.detach().t()
+    plain = lambda: (G.gemm_plain(dc, bt), G.gemm_plain(at, dc))
+    label = f"({M},{K})@({K},{N})"
+    err = max(compare(f"gemm_bwd {n} {label} {dname(dtype)}", x, y, dtype)
+              for n, x, y in zip(("da", "db"), run(), plain()))
+    lib = lambda: (torch.matmul(dc, bt), torch.matmul(at, dc))
+    res = {"name": "gemm_bwd", "shape": label, "dtype": dname(dtype), "serving": serving,
+           "body": G.gemm_body(dtype, N, K, dc.data_ptr(), b.data_ptr()),
+           "max_abs_err": err, "kernel_ms": timer.ms(run), "plain_ms": timer.ms(plain),
+           "library_ms": timer.ms(lib)}
+    res.update(bound(2 * 2.0 * M * N * K, nbytes(a, b, dc) + nbytes(a, b), dtype))
+    return res
+
+
+def grouped_bwd_case(timer, gen, E, cap, d_in, d_out, dtype, serving):
+    """K4-bwd: dX_e = dY_e W_e^T and dW_e = X_e^T dY_e, each rounded once to
+    the operands' dtype, through ``ops.grouped_matmul``'s backward, against
+    the plain products; library: two ``torch.bmm``.  The dW product has
+    K = cap; which body it runs on is read from the launch counters, not
+    assumed."""
+    from repro_torch import kernels
+    from repro_torch.kernels import moe_gmm, ops
+    dev = timer.flush.device
+    x = torch.randn(E, cap, d_in, generator=gen, device=dev).to(dtype).requires_grad_()
+    w = (torch.randn(E, d_in, d_out, generator=gen, device=dev)
+         * d_in ** -0.5).to(dtype).requires_grad_()
+    dy = torch.randn(E, cap, d_out, generator=gen, device=dev).to(dtype)
+    out = ops.grouped_matmul(x, w)
+    run = lambda: torch.autograd.grad(out, (x, w), dy, retain_graph=True)
+    xt, wt = x.detach().transpose(1, 2), w.detach().transpose(1, 2)
+    plain = lambda: (moe_gmm.grouped_matmul_plain(dy, wt),
+                     moe_gmm.grouped_matmul_plain(xt, dy))
+    label = f"E={E} cap={cap} {d_in}->{d_out}"
+    before = kernels.launches_by_body()["grouped_matmul"]
+    got = run()
+    after = kernels.launches_by_body()["grouped_matmul"]
+    err = max(compare(f"grouped_matmul_bwd {n} {label} {dname(dtype)}", a, b, dtype)
+              for n, a, b in zip(("dx", "dw"), got, plain()))
+    lib = lambda: (torch.bmm(dy, wt), torch.bmm(xt, dy))
+    res = {"name": "grouped_matmul_bwd", "shape": label, "dtype": dname(dtype),
+           "serving": serving, "launches_by_body": {k: after[k] - before[k] for k in after},
+           "max_abs_err": err, "kernel_ms": timer.ms(run), "plain_ms": timer.ms(plain),
+           "library_ms": timer.ms(lib)}
+    res.update(bound(2 * 2.0 * E * cap * d_in * d_out,
+                     nbytes(x, w, dy) + nbytes(x, w), dtype))
+    return res
+
+
 # -------------------------------------------------------------------- phases
 def phase_kernels(timer, gen):
     from repro_torch.configs import get_config
@@ -464,6 +586,27 @@ def phase_kernels(timer, gen):
     for dtype in (torch.bfloat16, torch.float32):
         cases.append(wkv6_case(timer, gen, 8, 100, rd, rwkv6.WKV_CHUNK, dtype, False))
     cases.append(wkv6_case(timer, gen, 16, 256, rd, 32, torch.float32, False, floor=True))
+    # the backward kernels: K2-bwd at the prompt passes training runs (d 128:
+    # qwen2.5-3b first, the shape with the most launches, then the MoE; d 64:
+    # zamba2, internvl2, seamless's encoder and cross pass) and one ragged
+    # shape, K1-bwd at qwen2.5-3b's projection, K4-bwd at the MoE's prefill
+    for dtype in (torch.bfloat16, torch.float32):
+        cases.append(flash_bwd_case(timer, gen, BATCH, H, Hkv, PROMPT, PROMPT, cfg.head_dim_,
+                                    True, dtype, serving=dtype == torch.bfloat16,
+                                    model=cfg.name))
+        cases.append(flash_bwd_case(timer, gen, 1, 6, 2, 100, 77, 64, True, dtype, False))
+    cases.append(flash_bwd_case(timer, gen, BATCH, mcfg.n_heads, mcfg.n_kv_heads, PROMPT,
+                                PROMPT, mcfg.head_dim_, True, torch.bfloat16, serving=True,
+                                model=mcfg.name))
+    for model, B_, H_, Hkv_, Sq, Skv, causal in served_flash_d64():
+        cases.append(flash_bwd_case(timer, gen, B_, H_, Hkv_, Sq, Skv, 64, causal,
+                                    torch.bfloat16, serving=True, model=model))
+    cases.append(gemm_bwd_case(timer, gen, M, N, K, torch.bfloat16, True))
+    cases.append(gemm_bwd_case(timer, gen, 96, 64, 160, torch.float32, False))
+    for d_in, d_out in ((d, f), (f, d)):
+        cases.append(grouped_bwd_case(timer, gen, E, moe._capacity(BATCH * PROMPT, mcfg), d_in,
+                                      d_out, torch.bfloat16, True))
+    cases.append(grouped_bwd_case(timer, gen, 8, 24, 96, 160, torch.float32, False))
     emit({"phase": "kernels", "timing": "median of 25 single launches, L2 flushed "
           "before each, CUDA events", "cases": cases, "plain_modules": [ssd_case(timer, gen)]})
     return cases
@@ -599,7 +742,18 @@ def phase_planner(timer, gen):
         flash_d64[model] = {"shape": [Sq, Skv, 64], "causal": causal, "blocks": planned,
                             "tile_ms": times, "blocks_rank": order.index(planned) + 1,
                             "blocks_vs_fastest": times[planned] / times[order[0]]}
+    # the second entry point's gradient: ops.matmul's backward, two
+    # planner-blocked K1 launches on contiguous transposes
+    a_, b_ = a.detach().requires_grad_(), b.detach().requires_grad_()
+    dc = torch.randn(M, N, generator=gen, device=dev).to(dtype)
+    with backward_launches() as bwd:
+        ops.matmul(a_, b_).backward(dc)
+    bwd_err = max(compare("planner -> gemm backward dA", a_.grad, G.gemm_plain(dc, b.t()), dtype),
+                  compare("planner -> gemm backward dB", b_.grad, G.gemm_plain(a.t(), dc), dtype))
+    if bwd["gemm_bwd"] != 2:
+        raise AssertionError(f"planner phase: ops.matmul's backward made {bwd} launches")
     emit({"phase": "planner", "gemm_shape": list(shape), "gemm_blocks": list(blocks),
+          "gemm_bwd_launches": bwd["gemm_bwd"], "gemm_bwd_max_abs_err": bwd_err,
           "first": first_source, "second": source, "planner_fallbacks": fallbacks,
           "gemm_launches": launches, "gemm_launches_by_body": by_body, "max_abs_err": err,
           "gemm_tile_ms": tiles, "gemm_blocks_rank": gemm_ranked.index(str(tuple(blocks))) + 1,
@@ -609,14 +763,14 @@ def phase_planner(timer, gen):
           "flash_tile_ms": flash_tiles, "flash_blocks_rank": ranked.index(chosen) + 1,
           "flash_blocks_vs_fastest": flash_tiles[chosen] / flash_tiles[ranked[0]],
           "flash_d64": flash_d64})
-    return launches, by_body
+    return launches, by_body, bwd["gemm_bwd"]
 
 
 def phase_serve(device):
     from repro_torch import kernels
-    from repro_torch.launch import serve
+    from repro_torch.launch import common, serve
     from repro_torch.models import build_model
-    cfg = serve.serve_config(ARCH, kernels_path="cuda")
+    cfg = common.launch_config(ARCH, kernels_path="cuda")
     api = build_model(cfg)
     t0 = time.perf_counter()
     params = serve.load_params(api, device, seed=0)
@@ -632,7 +786,7 @@ def phase_serve(device):
     L = cfg.n_layers
     want = {"gemm": 0, "flash_attention": L, "flash_decode": L * NEW_TOKENS,
             "flash_decode_partials": 0, "flash_decode_combine": 0, "grouped_matmul": 0,
-            "wkv6": 0}
+            "wkv6": 0, "flash_attention_bwd": 0}
     if launches != want:
         raise AssertionError(f"serve: kernel launches {launches}, expected {want}")
     check_outputs("serve", res, cfg)
@@ -887,9 +1041,9 @@ def phase_rwkv(device):
     share of each is reported, with 6- and 4-bit controls."""
     from repro_torch import kernels
     from repro_torch.kernels import rwkv6 as K
-    from repro_torch.launch import serve
+    from repro_torch.launch import common, serve
     from repro_torch.models import build_model
-    cfg = serve.serve_config(RWKV_ARCH, kernels_path="cuda")
+    cfg = common.launch_config(RWKV_ARCH, kernels_path="cuda")
     api = build_model(cfg)
     t0 = time.perf_counter()
     params = serve.load_params(api, device, seed=0)
@@ -903,7 +1057,7 @@ def phase_rwkv(device):
     launches = kernels.launch_counts()
     L = cfg.n_layers
     want = {"gemm": 0, "flash_attention": 0, "flash_decode": 0, "flash_decode_partials": 0,
-            "flash_decode_combine": 0, "grouped_matmul": 0, "wkv6": L}
+            "flash_decode_combine": 0, "grouped_matmul": 0, "wkv6": L, "flash_attention_bwd": 0}
     if launches != want:
         raise AssertionError(f"rwkv: kernel launches {launches}, expected {want}")
     check_outputs("rwkv", res, cfg)
@@ -1043,9 +1197,9 @@ def phase_attention_family(device, phase: str, arch: str, prompt_passes: int,
     (:func:`attention_per_call`).  A control whose K2 and K3 outputs keep 5
     mantissa bits must fail the two together; one with 6 bits is reported."""
     from repro_torch import kernels
-    from repro_torch.launch import serve
+    from repro_torch.launch import common, serve
     from repro_torch.models import build_model
-    cfg = serve.serve_config(arch, kernels_path="cuda")
+    cfg = common.launch_config(arch, kernels_path="cuda")
     api = build_model(cfg)
     t0 = time.perf_counter()
     params = serve.load_params(api, device, seed=0)
@@ -1065,7 +1219,7 @@ def phase_attention_family(device, phase: str, arch: str, prompt_passes: int,
     launches = kernels.launch_counts()
     want = {"gemm": 0, "flash_attention": prompt_passes, "flash_decode": per_step * NEW_TOKENS,
             "flash_decode_partials": 0, "flash_decode_combine": 0, "grouped_matmul": 0,
-            "wkv6": 0}
+            "wkv6": 0, "flash_attention_bwd": 0}
     if launches != want:
         raise AssertionError(f"{phase}: kernel launches {launches}, expected {want}")
     check_outputs(phase, res, cfg)
@@ -1136,10 +1290,10 @@ def phase_moe(device):
     stream, so that it does not rest on the ids one greedy run chose."""
     from repro_torch import kernels
     from repro_torch.kernels import moe_gmm
-    from repro_torch.launch import serve
+    from repro_torch.launch import common, serve
     from repro_torch.models import build_model, moe
     free_before, total = torch.cuda.mem_get_info(device)
-    cfg = serve.serve_config(MOE_ARCH, kernels_path="cuda")
+    cfg = common.launch_config(MOE_ARCH, kernels_path="cuda")
     api = build_model(cfg)
     t0 = time.perf_counter()
     params = serve.load_params(api, device, seed=0)
@@ -1155,7 +1309,7 @@ def phase_moe(device):
     L = cfg.n_layers
     want = {"gemm": 0, "flash_attention": L, "flash_decode": L * NEW_TOKENS,
             "flash_decode_partials": 0, "flash_decode_combine": 0,
-            "grouped_matmul": 3 * L * (1 + NEW_TOKENS), "wkv6": 0}
+            "grouped_matmul": 3 * L * (1 + NEW_TOKENS), "wkv6": 0, "flash_attention_bwd": 0}
     if launches != want:
         raise AssertionError(f"moe: kernel launches {launches}, expected {want}")
     if by_body["grouped_matmul"] != {"tma": want["grouped_matmul"], "staged": 0}:
@@ -1239,6 +1393,332 @@ def phase_moe(device):
     return launches, by_body["grouped_matmul"]
 
 
+# ------------------------------------------------------------------ training
+@contextlib.contextmanager
+def backward_launches():
+    """Counts the K1 and K4 launches made inside ``ops.matmul``'s and
+    ``ops.grouped_matmul``'s backward (K1-bwd, K4-bwd): the wrappers count
+    their kernel's launches whatever calls them, so the script reads the
+    counters around each backward."""
+    from repro_torch.kernels import gemm as G, moe_gmm, ops
+    counts = {"gemm_bwd": 0, "grouped_matmul_bwd": 0}
+
+    def counting(fn, module, name):
+        def backward(ctx, grad):
+            before = module.launches
+            out = fn(ctx, grad)
+            counts[name] += module.launches - before
+            return out
+        return staticmethod(backward)
+
+    saved = {cls: cls.__dict__["backward"] for cls in (ops._Matmul, ops._GroupedMatmul)}
+    ops._Matmul.backward = counting(ops._Matmul.backward, G, "gemm_bwd")
+    ops._GroupedMatmul.backward = counting(ops._GroupedMatmul.backward, moe_gmm,
+                                           "grouped_matmul_bwd")
+    try:
+        yield counts
+    finally:
+        for cls, fn in saved.items():
+            cls.backward = fn
+
+
+def leaf_distances(grads, exact) -> dict:
+    """Each gradient leaf's RMS distance from the float32 run's, relative to
+    that leaf's RMS there, the worst of them, and the distance of all
+    gradients together relative to the float32 run's overall RMS."""
+    from repro_torch.models.param import tree_leaves
+    is_t = lambda x: isinstance(x, torch.Tensor)
+    per, num, den = [], 0.0, 0.0
+    for g, e in zip(tree_leaves(grads, is_leaf=is_t), tree_leaves(exact, is_leaf=is_t)):
+        d2 = (g.float() - e.float()).square().sum().item()
+        e2 = e.float().square().sum().item()
+        num, den = num + d2, den + e2
+        if e2 > 0:
+            per.append((d2 / e2) ** 0.5)
+    return {"worst_leaf": max(per), "overall": (num / den) ** 0.5, "per_leaf": per}
+
+
+def gradient_rule(kern: dict, plain: dict) -> dict:
+    """The float32 rule on gradients: the kernel path at most 1.25 x as far
+    from the float32 gradients as the plain path, in the worst leaf and
+    overall."""
+    return {"kernel_worst_leaf": kern["worst_leaf"], "plain_worst_leaf": plain["worst_leaf"],
+            "kernel_overall": kern["overall"], "plain_overall": plain["overall"],
+            "worst_leaf_ratio": kern["worst_leaf"] / plain["worst_leaf"],
+            "overall_ratio": kern["overall"] / plain["overall"],
+            "largest_per_leaf_ratio": max(k / max(p, 1e-30) for k, p in
+                                          zip(kern["per_leaf"], plain["per_leaf"])),
+            "within": kern["worst_leaf"] <= 1.25 * plain["worst_leaf"]
+            and kern["overall"] <= 1.25 * plain["overall"]}
+
+
+def bwd_per_call(stats: list, bits: int = 5):
+    """A K2-bwd wrapper that holds every call against the plain version on
+    the same inputs (2e-2, and relative RMS at most ATTN_REL_RMS for each of
+    dq, dk, dv) and also measures a control, the kernel's outputs rounded
+    to ``bits`` mantissa bits, against the same plain outputs."""
+    from repro_torch.kernels import flash_attention_bwd as FAB
+    kernel = FAB.flash_attention_bwd
+
+    def call(*args, **kw):
+        outs = kernel(*args, **kw)
+        wants = FAB.flash_attention_bwd_plain(*args, **kw)
+        row = {"max_abs_err": 0.0, "max_rel_rms": 0.0, "within_2e-2": True,
+               "control_max_rel_rms": 0.0}
+        for out, want in zip(outs, wants):
+            w = want.float()
+            diff = out.float() - w
+            norm = w.norm().clamp(min=1e-30)
+            row["max_abs_err"] = max(row["max_abs_err"], diff.abs().max().item())
+            row["max_rel_rms"] = max(row["max_rel_rms"], (diff.norm() / norm).item())
+            row["within_2e-2"] &= bool(torch.allclose(out.float(), w, rtol=2e-2, atol=2e-2))
+            row["control_max_rel_rms"] = max(
+                row["control_max_rel_rms"],
+                ((coarse(out, bits).float() - w).norm() / norm).item())
+        stats.append(row)
+        return outs
+
+    return call
+
+
+def summarize_per_call(stats: list) -> dict:
+    return {"calls": len(stats), "max_abs_err": max(r["max_abs_err"] for r in stats),
+            "max_rel_rms": max(r["max_rel_rms"] for r in stats),
+            "within": all(r["within_2e-2"] and r["max_rel_rms"] <= ATTN_REL_RMS
+                          for r in stats),
+            "control_5_bits_max_rel_rms": max(r["control_max_rel_rms"] for r in stats),
+            "control_5_bits_rejected": any(r["control_max_rel_rms"] > ATTN_REL_RMS
+                                           for r in stats)}
+
+
+def phase_train(device):
+    """qwen2.5-3b trained at full width and depth: float32 master weights
+    from seed 0, bf16 compute, remat, AdamW with float32 state, SyntheticLM
+    batches of 4 x 512.
+
+    (a) The first step's gradient three ways: through the kernels, through
+    the plain path (dense PyTorch attention under autograd) and in float32;
+    the float32 rule on gradients (:func:`gradient_rule`).  (b) Every K2-bwd
+    call of the kernel run against its plain version on the same inputs,
+    (c) with a 5-bit control that the per-call check must reject.  Both
+    before the optimizer state exists.  (d) Three AdamW steps through
+    ``launch/train.py``'s loop with exact launch counts (K2 forward twice a
+    layer a step with remat, K2-bwd once: the counter counts calls, each two
+    kernel launches), finite losses and gradient norms, and one traced step
+    for the device's busy time."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.kernels import flash_attention_bwd as FAB
+    from repro_torch.launch import common, serve, train as TL
+    from repro_torch.models import build_model
+    from repro_torch.train import optimizer as opt, train_step as TS
+    cfg = common.launch_config(ARCH)
+    api = build_model(cfg)
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=device).manual_seed(0), device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    source = make_source(DataConfig(vocab_size=cfg.vocab_size), cfg)
+    batch = TL.to_device(source.batch_at(0, BATCH, PROMPT), device)
+
+    f32_api = build_model(replace(cfg, kernels="plain", compute_dtype="float32"))
+    plain_api = build_model(replace(cfg, kernels="plain"))
+    f32_loss, _, exact = TS.value_and_grad(f32_api, params, batch)
+    stats = []
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched(FAB, "flash_attention_bwd", bwd_per_call(stats)):
+        kern_loss, _, grads = TS.value_and_grad(api, params, batch)
+    torch.cuda.synchronize()
+    checked_step_s = time.perf_counter() - t0
+    grad_launches = kernels.launch_counts()
+    kern = leaf_distances(grads, exact)
+    del grads
+    plain_loss, _, grads = TS.value_and_grad(plain_api, params, batch)
+    plain = leaf_distances(grads, exact)
+    del grads, exact
+    rule = gradient_rule(kern, plain)
+    per_call = summarize_per_call(stats)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    steps = 3
+    tcfg = TrainConfig(learning_rate=1e-3, total_steps=steps, warmup_steps=max(1, steps // 20))
+    state = TS.TrainState(params, opt.opt_init(params, tcfg))
+    lines = []
+    kernels.reset_launch_counts()
+    res = TL.run(api, tcfg, steps, BATCH, PROMPT, device, state=state, log_every=1,
+                 log=lines.append)
+    launches = res.launches
+    want = {"gemm": 0, "flash_attention": 2 * L * steps, "flash_attention_bwd": L * steps,
+            "flash_decode": 0, "flash_decode_partials": 0, "flash_decode_combine": 0,
+            "grouped_matmul": 0, "wkv6": 0}
+    data = TL.to_device(source.batch_at(steps, BATCH, PROMPT), device)
+    step_fn = TS.make_train_step(api, tcfg)
+    holder = {"state": res.state}
+
+    def one_step():
+        holder["state"] = step_fn(holder["state"], data)[0]
+
+    traced = serve._traced(one_step, device, 1)
+    # where the host time of a step goes (CPU activity only, self time), and
+    # the step split into gradient and optimizer, each synchronised
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        one_step()
+        torch.cuda.synchronize()
+    host_ops = [{"name": e.key[:60], "self_cpu_ms": e.self_cpu_time_total / 1e3,
+                 "calls": e.count}
+                for e in sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:12]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, grads = TS.value_and_grad(api, holder["state"].params, data)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    opt.opt_update(grads, holder["state"].opt_state, holder["state"].params, tcfg)
+    torch.cuda.synchronize()
+    split = {"gradient_ms": (t1 - t0) * 1e3, "optimizer_ms": (time.perf_counter() - t1) * 1e3}
+    del grads
+    finite = all(math.isfinite(h[k]) for h in res.history for k in ("loss", "grad_norm"))
+    emit({"phase": "train", "arch": cfg.name, "n_layers": L, "d_model": cfg.d_model,
+          "n_params": api.n_params(), "batch": BATCH, "seq": PROMPT,
+          "compute_dtype": cfg.compute_dtype, "param_dtype": cfg.param_dtype,
+          "remat": cfg.remat, "optimizer": tcfg.optimizer, "load_s": load_s,
+          "first_step_loss": {"kernel": float(kern_loss), "plain": float(plain_loss),
+                              "float32": float(f32_loss)},
+          "gradient_check": "kernel path's gradient distance from float32 (RMS relative to "
+                            "each leaf's RMS) at most 1.25 x the plain path's, in the worst "
+                            "leaf and over all leaves",
+          "gradients": rule, "grad_launches": grad_launches,
+          "checked_grad_step_s": checked_step_s,
+          "per_call_check": f"every K2-bwd call of the step within 2e-2 and {ATTN_REL_RMS} "
+                            "relative rms of its plain version on the same inputs (dq, dk, "
+                            "dv); control: the outputs with 5 mantissa bits",
+          "per_call": per_call, "steps": steps, "step_lines": lines,
+          "history": res.history, "step_ms": [t * 1e3 for t in res.step_s],
+          "tok_per_s": [BATCH * PROMPT / t for t in res.step_s],
+          "peak_bytes": res.peak_bytes, "launches": launches,
+          "launch_unit": "flash_attention counts forward launches; flash_attention_bwd "
+                         "counts wrapper calls, each two kernel launches (dQ, then dK/dV)",
+          "traced_step": traced, "host_top_ops": host_ops, "step_split": split})
+    if launches != want:
+        raise AssertionError(f"train: kernel launches {launches}, expected {want}")
+    if not finite:
+        raise AssertionError(f"train: a loss or gradient norm is not finite: {res.history}")
+    if not rule["within"]:
+        raise AssertionError(f"train: the kernel path's gradients are further from float32 "
+                             f"than the plain path allows: {rule}")
+    if not per_call["within"] or per_call["calls"] != L:
+        raise AssertionError(f"train: a K2-bwd call disagrees with its plain version, or "
+                             f"the calls were not counted: {per_call}")
+    if not per_call["control_5_bits_rejected"]:
+        raise AssertionError("train: the per-call check did not reject the 5-bit control")
+    del holder, res, state, params
+    return launches
+
+
+def replaying_router(recorded):
+    """``moe._router`` with the experts another run chose (in call order);
+    the gate weights and the load-balancing loss come from this run's own
+    router probabilities, so the router keeps its gradient."""
+    replay = iter(recorded)
+
+    def router(xf, router_w, cfg):
+        idx = next(replay)
+        logits = torch.einsum("td,de->te", xf, router_w.to(xf.dtype))
+        probs = torch.softmax(logits.float(), dim=-1)
+        gate = probs.gather(1, idx)
+        gate = gate / torch.sum(gate, dim=-1, keepdim=True)
+        chosen = torch.zeros_like(probs).scatter_add_(1, idx, torch.ones_like(gate))
+        aux = cfg.n_experts * torch.sum(probs.mean(0) * chosen.mean(0)) * cfg.router_aux_weight
+        return gate, idx, aux
+
+    return router
+
+
+MOE_TRAIN_LAYERS = 2
+
+
+def phase_moe_train(device):
+    """qwen3-moe-30b-a3b at full width and MOE_TRAIN_LAYERS of its 48
+    layers (full depth needs about 489 GB of float32 weights, gradients and
+    AdamW state): one gradient step through the kernels, every expert
+    product forward (and its remat recompute) and backward through K4, K4's
+    backward launches counted inside ``ops.grouped_matmul``'s backward and
+    split by GEMM body.  The kernel run's expert choices are replayed in the
+    plain and float32 runs; the float32 rule on gradients."""
+    from repro_torch import kernels
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.launch import common, train as TL
+    from repro_torch.models import build_model, moe
+    from repro_torch.train import train_step as TS
+    cfg = replace(common.launch_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    api = build_model(cfg)
+    L = cfg.n_layers
+    params = api.init(torch.Generator(device=device).manual_seed(0), device)
+    source = make_source(DataConfig(vocab_size=cfg.vocab_size), cfg)
+    batch = TL.to_device(source.batch_at(0, BATCH, PROMPT), device)
+    TS.value_and_grad(api, params, batch)                  # warm-up: planner, allocator
+    recorded, router = [], moe._router
+
+    def recording(xf, router_w, c):
+        out = router(xf, router_w, c)
+        recorded.append(out[1].detach())
+        return out
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with patched(moe, "_router", recording), backward_launches() as bwd:
+        loss, metrics, grads = TS.value_and_grad(api, params, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    by_body = kernels.launches_by_body()["grouped_matmul"]
+    bwd = dict(bwd)
+    want = {"gemm": 0, "flash_attention": 2 * L, "flash_attention_bwd": L,
+            "flash_decode": 0, "flash_decode_partials": 0, "flash_decode_combine": 0,
+            "grouped_matmul": 12 * L, "wkv6": 0}
+
+    def replayed(run_api):
+        with patched(moe, "_router", replaying_router(recorded)):
+            out = TS.value_and_grad(run_api, params, batch)
+        return out
+
+    f32_loss, _, exact = replayed(build_model(replace(cfg, kernels="plain",
+                                                      compute_dtype="float32")))
+    kern = leaf_distances(grads, exact)
+    del grads
+    plain_loss, _, grads = replayed(build_model(replace(cfg, kernels="plain")))
+    plain = leaf_distances(grads, exact)
+    del grads, exact
+    rule = gradient_rule(kern, plain)
+    emit({"phase": "moe_train", "arch": cfg.name, "n_layers": L, "of_layers": 48,
+          "d_model": cfg.d_model, "n_experts": cfg.n_experts, "n_params": api.n_params(),
+          "batch": BATCH, "seq": PROMPT, "remat": cfg.remat,
+          "capacity": moe._capacity(BATCH * PROMPT, cfg),
+          "loss": {"kernel": float(loss), "plain": float(plain_loss), "float32": float(f32_loss)},
+          "aux_loss": float(metrics["aux_loss"]), "grad_step_ms": step_s * 1e3,
+          "launches": launches, "grouped_matmul_launches_by_body": by_body,
+          "backward_launches": bwd,
+          "gradient_check": "kernel path's gradient distance from float32 (RMS relative to "
+                            "each leaf's RMS) at most 1.25 x the plain path's, in the worst "
+                            "leaf and over all leaves; the kernel run's expert choices "
+                            "replayed in both",
+          "gradients": rule})
+    if launches != want or bwd["grouped_matmul_bwd"] != 6 * L:
+        raise AssertionError(f"moe_train: kernel launches {launches} (backward {bwd}), "
+                             f"expected {want} and {6 * L} in the backward")
+    if not math.isfinite(float(loss)) or not rule["within"]:
+        raise AssertionError(f"moe_train: the loss is not finite, or the kernel path's "
+                             f"gradients are further from float32 than the plain path "
+                             f"allows: {rule}")
+    del params
+    return dict(launches, grouped_matmul_bwd=bwd["grouped_matmul_bwd"])
+
+
 SOURCES = {
     "gemm": ("src/repro_torch/kernels/csrc/gemm_sm90.cuh", "src/repro/kernels/gemm.py:26"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cuh",
@@ -1254,12 +1734,20 @@ SOURCES = {
     "grouped_matmul": ("src/repro_torch/kernels/csrc/gemm_sm90.cuh",
                        "src/repro/kernels/moe_gmm.py:23"),
     "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu", "src/repro/kernels/rwkv6.py:39"),
+    # the backward of K2 (the reference has none: jax.grad through its
+    # Pallas call fails), and K1's and K4's backward through their own kernels
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:28"),
+    "gemm_bwd": ("src/repro_torch/kernels/csrc/gemm_sm90.cuh", "src/repro/kernels/gemm.py:26"),
+    "grouped_matmul_bwd": ("src/repro_torch/kernels/csrc/gemm_sm90.cuh",
+                           "src/repro/kernels/moe_gmm.py:23"),
 }
 # the reference's two decode functions, kept and checked, but no longer on the
 # served path: ``ops.flash_decode`` computes both in one launch
 OFF_MAIN_PATH = ("flash_decode_partials", "flash_decode_combine")
 # the bodies redesigned last: their registers and spills go in the build line
-REDESIGNED = ("decode_mma_kernel", "decode_f32_kernel", "wkv6_kernel")
+REDESIGNED = ("decode_mma_kernel", "decode_f32_kernel", "wkv6_kernel", "flash_bwd_dq_kernel",
+              "flash_bwd_dkv_kernel")
 
 
 def main() -> int:
@@ -1282,6 +1770,9 @@ def main() -> int:
     info = _build.build_info()
     ptxas = ptxas_usage(str(info.get("compiler_output", "")))
     redesigned = {k: v for k, v in ptxas.items() if any(b in k for b in REDESIGNED)}
+    # float32 products in full float32, as the reference's tolerances assume
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled_here": bool(info.get("built")), "library": info.get("path"),
           "sources": [p.name for p in _build.sources()], "ptxas": ptxas,
@@ -1295,14 +1786,25 @@ def main() -> int:
 
     timer = Timer(device)
     gen = torch.Generator(device=device).manual_seed(0)
+    seconds, t_phase = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t_phase
+        seconds[name] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+
     cases = phase_kernels(timer, gen)
-    gemm_launches, gemm_by_body = phase_planner(timer, gen)
+    lap("kernels")
+    gemm_launches, gemm_by_body, gemm_bwd_launches = phase_planner(timer, gen)
+    lap("planner")
     del timer
     torch.cuda.empty_cache()
     serve_launches = phase_serve(device)
+    lap("serve")
     gc.collect()
     torch.cuda.empty_cache()                # the dense model's weights go first
     rwkv_launches = phase_rwkv(device)
+    lap("rwkv")
     # the head-dim-64 families: prompt passes through K2 and decode-step
     # attentions through K3 (zamba2: 19 shared-attention sites; internvl2:
     # 24 layers; seamless: 12 encoder + 12 decoder self + 12 cross passes,
@@ -1314,14 +1816,30 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()                # the last model's weights go first
         by_path[phase] = phase_attention_family(device, phase, arch, passes, per_step)
+        lap(phase)
     gc.collect()
     torch.cuda.empty_cache()
     moe_launches, moe_by_body = phase_moe(device)
     by_path["moe"] = moe_launches
+    lap("moe")
+    # training last: every served model's weights go first
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["train"] = phase_train(device)
+    lap("train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["moe_train"] = phase_moe_train(device)
+    lap("moe_train")
+    emit({"phase_seconds": seconds})
+    by_path["planner"] = {"gemm_bwd": gemm_bwd_launches}
 
     launches = dict(serve_launches, gemm=gemm_launches,
                     grouped_matmul=moe_launches["grouped_matmul"],
-                    wkv6=rwkv_launches["wkv6"])
+                    wkv6=rwkv_launches["wkv6"],
+                    flash_attention_bwd=by_path["train"]["flash_attention_bwd"],
+                    gemm_bwd=gemm_bwd_launches,
+                    grouped_matmul_bwd=by_path["moe_train"]["grouped_matmul_bwd"])
     kernels_line = []
     for c in cases:
         if not (c["serving"] and c["dtype"] == "bfloat16" and c["name"] in SOURCES) \

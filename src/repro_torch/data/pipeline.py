@@ -2,19 +2,25 @@
 
 Counterpart of ``repro/data/pipeline.py``: prompts are produced
 deterministically from (seed, step, host), so the port's serve loop reads
-exactly the prompts the reference's reads.  ``SyntheticLM`` is a Zipf-ish
-token stream with a fixed PRNG tree; ``FileTokens`` and the batch iterators
-arrive with training.
+exactly the prompts and training batches the reference's reads.  Each host
+produces only its shard of the global batch (:func:`host_batch_slice`),
+deterministically from (seed, step), so any host can restart at any step.
+Sources:
+
+* ``SyntheticLM`` -- Zipf-ish token stream with a fixed PRNG tree;
+* ``FileTokens``  -- memory-mapped token file (``.bin`` of uint16), a window
+  per (step, host, slot).
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
@@ -59,8 +65,44 @@ class SyntheticLM:
         return out
 
 
+class FileTokens:
+    """Memory-mapped contiguous token file; window per (step, host, slot)."""
+
+    def __init__(self, dcfg: DataConfig, cfg: ModelConfig):
+        if not dcfg.path:
+            raise ValueError("FileTokens needs DataConfig.path")
+        self.tokens = np.memmap(dcfg.path, dtype=np.uint16, mode="r")
+        self.cfg = cfg
+        self.dcfg = dcfg
+
+    def batch_at(self, step: int, batch: int, seq_len: int,
+                 host: int = 0) -> Dict[str, np.ndarray]:
+        n = len(self.tokens) - (seq_len + 1)
+        rng = _rng_for(self.dcfg.seed, step, host)
+        starts = rng.integers(0, max(1, n), size=batch)
+        win = np.stack([self.tokens[s:s + seq_len + 1] for s in starts])
+        win = win.astype(np.int32) % self.cfg.vocab_size
+        return {"tokens": win[:, :-1], "labels": win[:, 1:]}
+
+
 def make_source(dcfg: DataConfig, cfg: ModelConfig):
     if dcfg.source == "file":
-        raise NotImplementedError("the memory-mapped token file source is not ported "
-                                  "yet (ROADMAP.md, Queue 1, training)")
+        return FileTokens(dcfg, cfg)
     return SyntheticLM(dcfg, cfg)
+
+
+def host_batch_slice(global_batch: int, n_hosts: int, host: int) -> Tuple[int, int]:
+    """[start, size) of this host's slice of the global batch."""
+    per = global_batch // n_hosts
+    rem = global_batch % n_hosts
+    start = host * per + min(host, rem)
+    size = per + (1 if host < rem else 0)
+    return start, size
+
+
+def batches(source, shape: ShapeConfig, *, start_step: int = 0,
+            host: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    step = start_step
+    while True:
+        yield source.batch_at(step, shape.global_batch, shape.seq_len, host)
+        step += 1

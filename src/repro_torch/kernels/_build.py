@@ -134,12 +134,16 @@ _SIGNATURES = {
     "repro_grouped_gemm_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w, out, E, cap, d_out, d_in, out_bf16, bm, bn, stream (the TMA + wgmma body)
     "repro_grouped_gemm_tma_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, o, BH, Sq, Skv, d, H, q_per_kv, 6 strides, sm_scale, causal,
-    # bq, bkv, vec_ok, stream
-    "repro_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_STRIDES,
+    # q, k, v, o, lse (NULL: not written), BH, Sq, Skv, d, H, q_per_kv, 6 strides,
+    # sm_scale, causal, bq, bkv, vec_ok, stream
+    "repro_flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_STRIDES,
                                    _F, _I, _I, _I, _I, _P],
-    "repro_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_STRIDES,
+    "repro_flash_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_STRIDES,
                                   _F, _I, _I, _I, _I, _P],
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, BH, Sq, Skv, d, H, q_per_kv,
+    # 6 strides, sm_scale, causal, stream (two launches: dQ and delta, then dK/dV)
+    "repro_flash_attention_bwd_bf16": [_P] * 10 + [_I] * 6 + [*_STRIDES, _F, _I, _P],
+    "repro_flash_attention_bwd_f32": [_P] * 10 + [_I] * 6 + [*_STRIDES, _F, _I, _P],
     "repro_flash_smem_bytes_bf16": [_I, _I, _I],
     "repro_flash_smem_bytes_f32": [_I, _I, _I],
     # q, k, v, out, n_groups, G, hkv, d, kv_len, splits, 6 strides, sm_scale,

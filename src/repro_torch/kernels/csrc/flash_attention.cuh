@@ -10,7 +10,10 @@
 // reference: the finite -1e30 mask sentinel (a masked score never adds
 // exp(0)), causal masking by absolute position (q_pos >= k_pos, no end
 // alignment), Sq != Skv allowed, and a row whose keys are all masked gives 0
-// (l == 0 -> 1) rather than NaN.
+// (l == 0 -> 1) rather than NaN.  Given a pointer, the kernels also write each
+// row's float32 log-sum-exp of the scaled scores, (BH, Sq), for the backward
+// (flash_attention_bwd.cu); a fully masked row's is +1e30, so that the
+// backward's exp(s - lse) is 0 there.  The serving path passes no pointer.
 //
 // Grouped-query attention without a repeated copy: the reference repeats
 // K/V `q_per_kv` times before its kernel; this kernel takes the un-repeated
@@ -62,6 +65,7 @@
 namespace repro {
 
 constexpr int FLASH_MAX_SMEM = 232448;   // bytes one block may use on sm_90
+constexpr float LN2 = 0.6931471805599453f;
 
 // Shared-memory layout of one block; mirrored by flash_smem_bytes() in
 // kernels/flash_attention.py, which the planner uses to prune tile shapes.
@@ -124,7 +128,8 @@ template <int D, int BQ, int BKV>
 __global__ void __launch_bounds__(BQ * 2, (FlashLayout<__nv_bfloat16, D, BQ, BKV>::MIN_BLOCKS))
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                      int Sq, int Skv, int H, int q_per_kv, long long k_sb, long long k_sh,
+                      float* __restrict__ lse, int Sq, int Skv, int H, int q_per_kv,
+                      long long k_sb, long long k_sh,
                       long long k_st, long long v_sb, long long v_sh, long long v_st,
                       float scale_log2, int causal, int vec_ok) {
   using L = FlashLayout<__nv_bfloat16, D, BQ, BKV>;
@@ -295,6 +300,11 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   l_b += __shfl_xor_sync(FULL, l_b, 2);
   const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
   const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
+  if (lse != nullptr && tc == 0) {          // natural-log LSE for the backward
+    float* lb = lse + (long long)special_reg_ctaid_x() * Sq;
+    if (ra < Sq) lb[ra] = l_a == 0.f ? -NEG_INF : (m_a + log2f(l_a)) * LN2;
+    if (rb < Sq) lb[rb] = l_b == 0.f ? -NEG_INF : (m_b + log2f(l_b)) * LN2;
+  }
   bf16* ob = o + (long long)special_reg_ctaid_x() * Sq * D;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
@@ -311,7 +321,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 template <int D, int BQ, int BKV>
 __global__ void __launch_bounds__(BQ * 2)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv, int H,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int Sq, int Skv, int H,
                      int q_per_kv, long long k_sb, long long k_sh, long long k_st,
                      long long v_sb, long long v_sh, long long v_st, float sm_scale,
                      int causal, int vec_ok) {
@@ -420,6 +431,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // ---- normalise and write this warp's 16 rows ---------------------------------
   const float inv = 1.f / (l_run == 0.f ? 1.f : l_run);
+  if (lse != nullptr && half == 0 && q_pos < Sq)
+    lse[(long long)bh * Sq + q_pos] = l_run == 0.f ? -NEG_INF : m_run + logf(l_run);
   for (int dc = half; dc < D; dc += 2) orow[dc] *= inv;
   __syncwarp();
   float* ob = o + (long long)bh * Sq * D;
@@ -432,7 +445,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D, int BQ, int BKV>
-int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
+int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                      int Sq,
                       int Skv, int H, int q_per_kv, long long k_sb, long long k_sh,
                       long long k_st, long long v_sb, long long v_sh, long long v_st,
                       float sm_scale, int causal, int vec_ok, cudaStream_t stream) {
@@ -447,20 +461,21 @@ int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, int 
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(BH, nq), BQ * 2, L::TOTAL, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), Sq, Skv, H, q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
+      static_cast<bf16*>(o), lse, Sq, Skv, H, q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
       sm_scale * LOG2E, causal, vec_ok);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D, int BQ, int BKV>
-int launch_flash_tile(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
+int launch_flash_tile(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                      int Sq,
                       int Skv, int H, int q_per_kv, long long k_sb, long long k_sh,
                       long long k_st, long long v_sb, long long v_sh, long long v_st,
                       float sm_scale, int causal, int vec_ok, cudaStream_t stream) {
   using L = FlashLayout<T, D, BQ, BKV>;
   if (L::TOTAL > FLASH_MAX_SMEM) return -2;
   if constexpr (is_bf16<T>::value) {
-    return launch_flash_bf16<D, BQ, BKV>(q, k, v, o, BH, Sq, Skv, H, q_per_kv, k_sb, k_sh,
+    return launch_flash_bf16<D, BQ, BKV>(q, k, v, o, lse, BH, Sq, Skv, H, q_per_kv, k_sb, k_sh,
                                          k_st, v_sb, v_sh, v_st, sm_scale, causal, vec_ok,
                                          stream);
   } else {
@@ -471,7 +486,7 @@ int launch_flash_tile(const void* q, const void* k, const void* v, void* o, int 
     dim3 grid((Sq + BQ - 1) / BQ, BH);
     kern<<<grid, BQ * 2, L::TOTAL, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), Sq, Skv, H, q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
+        static_cast<T*>(o), lse, Sq, Skv, H, q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
         sm_scale, causal, vec_ok);
     return (int)cudaGetLastError();
   }
@@ -488,16 +503,16 @@ constexpr int flash_tile_smem() { return FlashLayout<T, D, BQ, BKV>::TOTAL; }
 // BKV in {32, 64}.  Returns a cudaError_t, -1 for a shape that is not
 // compiled, -2 for a tile whose shared memory does not fit one block.
 template <typename T>
-int launch_flash(const void* q, const void* k, const void* v, void* o, int BH, int Sq, int Skv,
-                 int d, int H, int q_per_kv, long long k_sb, long long k_sh, long long k_st,
+int launch_flash(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Sq,
+                 int Skv, int d, int H, int q_per_kv, long long k_sb, long long k_sh, long long k_st,
                  long long v_sb, long long v_sh, long long v_st, float sm_scale, int causal,
                  int bq, int bkv, int vec_ok, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_CASE(D_, BQ_, BKV_)                                                   \
   if (d == D_ && bq == BQ_ && bkv == BKV_)                                                \
-    return launch_flash_tile<T, D_, BQ_, BKV_>(q, k, v, o, BH, Sq, Skv, H, q_per_kv, k_sb, \
-                                               k_sh, k_st, v_sb, v_sh, v_st, sm_scale,    \
-                                               causal, vec_ok, s);
+    return launch_flash_tile<T, D_, BQ_, BKV_>(q, k, v, o, static_cast<float*>(lse), BH, Sq, \
+                                               Skv, H, q_per_kv, k_sb, k_sh, k_st, v_sb,  \
+                                               v_sh, v_st, sm_scale, causal, vec_ok, s);
   REPRO_FLASH_ALL(REPRO_FLASH_CASE)
 #undef REPRO_FLASH_CASE
   return -1;

@@ -15,6 +15,12 @@ Grouped-query attention: ``k``/``v`` may hold fewer heads than ``q``
 ``jnp.repeat`` order) and may come as a strided 4-D view
 ``(batch, kv_heads, Skv, d)``, so the serving path hands over the projected
 keys without a repeated or transposed copy.
+
+With ``return_lse=True`` the kernel also writes each query row's float32
+log-sum-exp of the scaled, masked scores, (BH, Sq), which the backward
+(:mod:`repro_torch.kernels.flash_attention_bwd`) reads; a row whose keys are
+all masked gets :data:`LSE_MASKED`.  Without it (the serving path) no
+pointer is passed and the launch is the same as before.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
+LSE_MASKED = 1e30                   # log-sum-exp of a row with no visible key
 COMPILED_HEAD_DIMS = (32, 64, 128)
 TILE_Q = (64, 128)
 TILE_KV = (32, 64)
@@ -71,10 +78,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           sm_scale: Optional[float] = None, causal: bool = False,
                           block_q: Optional[int] = None,
                           block_kv: Optional[int] = None,
-                          q_per_kv: int = 1) -> torch.Tensor:
+                          q_per_kv: int = 1, return_lse: bool = False):
     """The kernel's function in plain PyTorch, float32 throughout: the
     -1e30 sentinel, causal masking by absolute position, and 0 for a row
-    whose keys are all masked.  ``block_q``/``block_kv`` change nothing."""
+    whose keys are all masked.  ``block_q``/``block_kv`` change nothing.
+    With ``return_lse`` also each row's float32 log-sum-exp (BH, Sq)."""
     BH, Sq, d = q.shape
     k4 = _kv_4d(k, BH, q_per_kv, "k")
     v4 = _kv_4d(v, BH, q_per_kv, "v")
@@ -90,17 +98,22 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = s.max(dim=-1, keepdim=True).values
     p = torch.where(s > 0.5 * NEG_INF, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
-    l = torch.where(l == 0.0, torch.ones_like(l), l)
-    return (torch.einsum("hqk,hkd->hqd", p, vf) / l).to(q.dtype)
+    out = (torch.einsum("hqk,hkd->hqd", p, vf)
+           / torch.where(l == 0.0, torch.ones_like(l), l)).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l == 0.0, torch.full_like(l, LSE_MASKED), m + torch.log(l))
+    return out, lse.squeeze(-1)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sm_scale: Optional[float] = None, causal: bool = False,
                     block_q: int = DEFAULT_BLOCK_Q,
                     block_kv: int = DEFAULT_BLOCK_KV,
-                    q_per_kv: int = 1) -> torch.Tensor:
+                    q_per_kv: int = 1, return_lse: bool = False):
     """q: (BH, Sq, d); k/v: (BH / q_per_kv, Skv, d) or a 4-D strided view
-    (batch, kv_heads, Skv, d) -> (BH, Sq, d).
+    (batch, kv_heads, Skv, d) -> (BH, Sq, d), and with ``return_lse`` also
+    the float32 log-sum-exp (BH, Sq).
 
     On a CUDA tensor ``(block_q, block_kv)`` must be one of
     :data:`COMPILED_TILES` that fits shared memory for this ``d`` and type;
@@ -111,7 +124,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     BH, Sq, d = q.shape
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, sm_scale=sm_scale, causal=causal,
-                                     q_per_kv=q_per_kv)
+                                     q_per_kv=q_per_kv, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, not {q.device}")
     k4 = _kv_4d(k, BH, q_per_kv, "k")
@@ -139,6 +152,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{q.dtype}; choose from {legal_tiles(d, es)}")
     sm_scale = float(sm_scale if sm_scale is not None else d ** -0.5)
     out = torch.empty_like(q)
+    lse = torch.empty((BH, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     vec = 16 // es
     strides = [k4.stride(0), k4.stride(1), k4.stride(2),
                v4.stride(0), v4.stride(1), v4.stride(2)]
@@ -149,10 +163,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           else _build.lib().repro_flash_attention_f32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(q.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), BH, Sq, Skv,
-                  d, heads_per_batch, q_per_kv, *strides, sm_scale, int(causal),
-                  block_q, block_kv, vec_ok, stream)
+        code = fn(q.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
+                  lse.data_ptr() if return_lse else None, BH, Sq, Skv, d, heads_per_batch,
+                  q_per_kv, *strides, sm_scale, int(causal), block_q, block_kv, vec_ok, stream)
     _build.check(code, f"flash_attention BH={BH} Sq={Sq} Skv={Skv} d={d} tile "
                        f"{(block_q, block_kv)}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -1,0 +1,132 @@
+"""FlashAttention backward (K2-bwd): wrapper, launch counter and plain version.
+
+The reference has no counterpart: ``jax.grad`` through its Pallas kernel
+``repro/kernels/flash_attention.py`` fails, and it trains on its XLA path.
+The port sends every prompt-length attention through K2, so training needs
+K2's gradient.  :func:`flash_attention_bwd` takes q, k, v, the forward's
+output ``o``, its float32 log-sum-exp ``lse`` (``flash_attention(...,
+return_lse=True)``) and ``dout``, and returns dq, dk, dv with the forward's
+semantics: causal masking by absolute position, Sq != Skv, grouped-query
+k/v (un-repeated, or the strided (batch, kv_heads, Skv, d) view the layers
+hand over) and zero gradient for a row whose keys are all masked.
+
+The CUDA kernel (``csrc/flash_attention_bwd.cu``) is two launches: dQ (which
+also writes delta = rowsum(dO o)) with one block per (query head, query
+tile), then dK and dV with one block per (batch, kv head, key tile) that
+sums over the query heads of its group itself.  No float atomics: the
+result repeats exactly.  :data:`launches` counts calls of the wrapper that
+reached the card; one call is those two kernel launches.  A tensor on the
+CPU goes to :func:`flash_attention_bwd_plain`; a CUDA tensor launches or
+raises.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+from .flash_attention import COMPILED_HEAD_DIMS, NEG_INF, _kv_4d
+
+launches = 0                        # calls of flash_attention_bwd() on the card (2 kernels each)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                              sm_scale: Optional[float] = None, causal: bool = False,
+                              q_per_kv: int = 1
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch, written from the formula in
+    float32 (no autograd): P = exp(sm_scale q k^T - lse), 0 where masked
+    (by position, or at or below the -1e30 sentinel as in the forward);
+    dV = P^T dO; dS = P (dO v^T - rowsum(dO o)); dQ = sm_scale dS k;
+    dK = sm_scale dS^T q, the query heads of a group summed.  dk/dv come back
+    contiguous in the shape ``k``/``v`` were given in, in their dtype."""
+    BH, Sq, d = q.shape
+    k4 = _kv_4d(k, BH, q_per_kv, "k")
+    v4 = _kv_4d(v, BH, q_per_kv, "v")
+    Skv = k4.shape[2]
+    kf = k4.reshape(-1, Skv, d).float().repeat_interleave(q_per_kv, dim=0)
+    vf = v4.reshape(-1, Skv, d).float().repeat_interleave(q_per_kv, dim=0)
+    sm_scale = sm_scale if sm_scale is not None else d ** -0.5
+    qf, of, dof = q.float(), o.float(), dout.float()
+    s = torch.einsum("hqd,hkd->hqk", qf, kf) * sm_scale
+    visible = s > 0.5 * NEG_INF
+    if causal:
+        qi = torch.arange(Sq, device=q.device)[:, None]
+        ki = torch.arange(Skv, device=q.device)[None, :]
+        visible = visible & (qi >= ki)
+    p = torch.where(visible, torch.exp(s - lse.float()[..., None]), torch.zeros_like(s))
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    dv = torch.einsum("hqk,hqd->hkd", p, dof)
+    ds = p * (torch.einsum("hqd,hkd->hqk", dof, vf) - delta)
+    dq = torch.einsum("hqk,hkd->hqd", ds, kf) * sm_scale
+    dk = torch.einsum("hqk,hqd->hkd", ds, qf) * sm_scale
+
+    def fold(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        g = g.reshape(-1, q_per_kv, Skv, d).sum(dim=1)
+        return g.reshape(like.shape).to(like.dtype)
+
+    return dq.to(q.dtype), fold(dk, k), fold(dv, v)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor, *,
+                        sm_scale: Optional[float] = None, causal: bool = False,
+                        q_per_kv: int = 1
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, o, dout: (BH, Sq, d); k/v: (BH / q_per_kv, Skv, d) or a strided
+    (batch, kv_heads, Skv, d) view; lse: (BH, Sq) float32 from the forward
+    -> (dq like q, dk and dv contiguous in the shape of k and v)."""
+    global launches
+    if q.dim() != 3:
+        raise ValueError(f"q must be (BH, Sq, d), got {tuple(q.shape)}")
+    BH, Sq, d = q.shape
+    if o.shape != q.shape or dout.shape != q.shape or lse.shape != (BH, Sq):
+        raise ValueError(f"o {tuple(o.shape)}, dout {tuple(dout.shape)} and lse "
+                         f"{tuple(lse.shape)} must match q {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, dout, sm_scale=sm_scale,
+                                         causal=causal, q_per_kv=q_per_kv)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cpu or cuda tensors, not {q.device}")
+    k4 = _kv_4d(k, BH, q_per_kv, "k")
+    v4 = _kv_4d(v, BH, q_per_kv, "v")
+    if k4.shape != v4.shape or k4.shape[3] != d:
+        raise ValueError(f"k {tuple(k4.shape)} and v {tuple(v4.shape)} must agree with "
+                         f"each other and with d={d}")
+    if not (q.dtype == k4.dtype == v4.dtype == o.dtype == dout.dtype) or \
+            q.dtype not in (torch.float32, torch.bfloat16) or lse.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd takes float32 or bfloat16 q, k, v, o, dout of "
+                        f"one type and a float32 lse, got {q.dtype}, {k4.dtype}, {v4.dtype}, "
+                        f"{o.dtype}, {dout.dtype}, {lse.dtype}")
+    if any(t.device != q.device for t in (k4, v4, o, lse, dout)):
+        raise ValueError("all operands must lie on one device")
+    if d not in COMPILED_HEAD_DIMS:
+        raise ValueError(f"head dimension {d} is not compiled; choose from "
+                         f"{COMPILED_HEAD_DIMS}")
+    if not all(t.is_contiguous() for t in (q, o, dout, lse)) or k4.stride(3) != 1 \
+            or v4.stride(3) != 1:
+        raise ValueError("q, o, dout and lse must be contiguous and k/v contiguous along d")
+    Skv = k4.shape[2]
+    if Sq < 1 or Skv < 1:
+        raise ValueError("empty sequences are not supported")
+    sm_scale = float(sm_scale if sm_scale is not None else d ** -0.5)
+    dq = torch.empty_like(q)
+    dk = torch.empty(k4.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(v4.shape, dtype=q.dtype, device=q.device)
+    delta = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
+    strides = [k4.stride(0), k4.stride(1), k4.stride(2),
+               v4.stride(0), v4.stride(1), v4.stride(2)]
+    heads_per_batch = k4.shape[1] * q_per_kv
+    fn = (_build.lib().repro_flash_attention_bwd_bf16 if q.dtype == torch.bfloat16
+          else _build.lib().repro_flash_attention_bwd_f32)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(q.data_ptr(), k4.data_ptr(), v4.data_ptr(), o.data_ptr(), dout.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), BH, Sq, Skv, d, heads_per_batch, q_per_kv, *strides,
+                  sm_scale, int(causal), stream)
+    _build.check(code, f"flash_attention_bwd BH={BH} Sq={Sq} Skv={Skv} d={d}")
+    launches += 1
+    return dq, dk.reshape(k.shape), dv.reshape(v.shape)

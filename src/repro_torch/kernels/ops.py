@@ -9,7 +9,15 @@ Responsibilities:
   (``core/lower_torch.py`` sizes them against the H100 description);
 * send a tensor that lies on the CPU to the kernel's plain PyTorch version
   and a CUDA tensor to the kernel.  Nothing else decides: there is no
-  interpret flag, and on a CUDA tensor a kernel launches or raises.
+  interpret flag, and on a CUDA tensor a kernel launches or raises;
+* give :func:`attention`, :func:`matmul` and :func:`grouped_matmul` a
+  gradient.  Where autograd records (grad mode on and an operand that
+  requires a gradient) each is a ``torch.autograd.Function`` whose backward
+  runs kernels too: K2's backward (``flash_attention_bwd``) from the
+  log-sum-exp the forward kept, and K1's and K4's backward as products of
+  the same kernel on contiguous transposes.  Otherwise (serving runs under
+  ``torch.no_grad``) the forward launches exactly as before.  On CPU
+  tensors forward and backward are the plain versions.
 
 Model code calls these through ``repro_torch.models.layers`` (and
 ``models/rwkv6.py`` for ``wkv6``) with ``cfg.kernels == "cuda"``.
@@ -21,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import flash_attention as _fa
+from . import flash_attention_bwd as _fab
 from . import flash_decode as _fd
 from . import gemm as _gemm
 from . import moe_gmm as _moe
@@ -37,10 +46,23 @@ def fit_block(n: int, desired: int, minimum: int = 8) -> int:
     return max(b, min(n, 1)) if b >= 1 else 1
 
 
+def _records(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on these operands."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor, *,
            block: Optional[Tuple[int, int, int]] = None,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Planner-blocked GEMM.  Fits blocks to the shape when not given."""
+    """Planner-blocked GEMM.  Fits blocks to the shape when not given.
+    Differentiable: dA = dC B^T and dB = A^T dC, each a planner-blocked
+    :func:`matmul` on contiguous transposes."""
+    if _records(a, b):
+        return _Matmul.apply(a, b, block, out_dtype)
+    return _matmul(a, b, block, out_dtype)
+
+
+def _matmul(a, b, block, out_dtype) -> torch.Tensor:
     M, K = a.shape
     _, N = b.shape
     if block is None:
@@ -48,6 +70,21 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
         block = plan_gemm_blocks(M, N, K, a.dtype)
     return _gemm.gemm(a, b, block=gemm_launch_block(M, N, K, a.dtype, block),
                       out_dtype=out_dtype)
+
+
+class _Matmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, block, out_dtype):
+        ctx.save_for_backward(a, b)
+        return _matmul(a, b, block, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        dc = dc.to(a.dtype).contiguous()
+        da = _matmul(dc, b.t().contiguous(), None, a.dtype) if ctx.needs_input_grad[0] else None
+        db = _matmul(a.t().contiguous(), dc, None, b.dtype) if ctx.needs_input_grad[1] else None
+        return da, db, None, None
 
 
 def gemm_launch_block(M: int, N: int, K: int, dtype: torch.dtype,
@@ -72,7 +109,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               q_per_kv: int = 1) -> torch.Tensor:
     """FlashAttention fwd.  q: (BH, Sq, d); k/v: (BH, Skv, d), or with
     ``q_per_kv`` > 1 the un-repeated (BH / q_per_kv, Skv, d) or a strided
-    (batch, kv_heads, Skv, d) view."""
+    (batch, kv_heads, Skv, d) view.  Differentiable: where autograd records,
+    the forward also keeps its log-sum-exp and the backward is K2-bwd."""
     BH, Sq, d = q.shape
     Skv = k.shape[-2]
     if block_q is None or block_kv is None:
@@ -89,8 +127,29 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         under = [t for t in legal if t[0] <= bq and t[1] <= bkv]
         bq, bkv = max(under or legal, key=lambda t: (t[0] * t[1], t[0]))
     scale = sm_scale if sm_scale is not None else d ** -0.5
+    if _records(q, k, v):
+        return _Attention.apply(q, k, v, scale, causal, bq, bkv, q_per_kv)
     return _fa.flash_attention(q, k, v, sm_scale=scale, causal=causal, block_q=bq,
                                block_kv=bkv, q_per_kv=q_per_kv)
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, bq, bkv, q_per_kv):
+        out, lse = _fa.flash_attention(q, k, v, sm_scale=scale, causal=causal, block_q=bq,
+                                       block_kv=bkv, q_per_kv=q_per_kv, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, causal, q_per_kv)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        scale, causal, q_per_kv = ctx.args
+        dq, dk, dv = _fab.flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                              sm_scale=scale, causal=causal,
+                                              q_per_kv=q_per_kv)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -119,7 +178,16 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Per-expert GEMM.  x: (E, cap, d_in), w: (E, d_in, d_out).  Blocks are
     planned for one expert's (cap, d_out, d_in) product, as the reference
-    does, and moved to a compiled tile by :func:`gemm_launch_block`."""
+    does, and moved to a compiled tile by :func:`gemm_launch_block`.
+    Differentiable: dX_e = dY_e W_e^T and dW_e = X_e^T dY_e, each a
+    :func:`grouped_matmul` on contiguous transposes that accumulates in
+    float32 and rounds once to its operand's dtype."""
+    if _records(x, w):
+        return _GroupedMatmul.apply(x, w, block, out_dtype)
+    return _grouped_matmul(x, w, block, out_dtype)
+
+
+def _grouped_matmul(x, w, block, out_dtype) -> torch.Tensor:
     _, cap, d_in = x.shape
     d_out = w.shape[-1]
     if block is None:
@@ -127,6 +195,24 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
         block = plan_gemm_blocks(cap, d_out, d_in, x.dtype)
     block = gemm_launch_block(cap, d_out, d_in, x.dtype, block)
     return _moe.grouped_matmul(x, w, block=block, out_dtype=out_dtype)
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, block, out_dtype):
+        ctx.save_for_backward(x, w)
+        return _grouped_matmul(x, w, block, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _grouped_matmul(dy, w.transpose(1, 2).contiguous(), None, x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _grouped_matmul(x.transpose(1, 2).contiguous(), dy, None, w.dtype)
+        return dx, dw, None, None
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,

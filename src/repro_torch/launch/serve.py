@@ -30,16 +30,16 @@ from __future__ import annotations
 
 import argparse
 import time
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import torch
 
 from repro_torch import kernels
-from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lower_torch
 from repro_torch.data import DataConfig, make_source
+from repro_torch.launch.common import launch_config
 from repro_torch.models import build_model
 from repro_torch.models import layers as L
 from repro_torch.models.api import ModelAPI, require_device
@@ -201,17 +201,6 @@ def profile_serve(api: ModelAPI, params, prompts: torch.Tensor, steps: int,
     return {"prefill": traced_prefill, "decode_step": _traced(decode, device, steps)}
 
 
-def serve_config(arch: str, *, reduced: bool = False,
-                 kernels_path: str = "cuda") -> ModelConfig:
-    """The served model's config: ``kernels_path`` is ``"cuda"`` (attention,
-    MoE experts and the RWKV6 prompt scan through ``repro_torch.kernels``) or
-    ``"plain"`` (dense PyTorch)."""
-    cfg = get_config(arch)
-    if reduced:
-        cfg = cfg.reduced()
-    return replace(cfg, kernels=kernels_path)
-
-
 def main(argv=None) -> ServeResult:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b")
@@ -229,7 +218,7 @@ def main(argv=None) -> ServeResult:
     args = ap.parse_args(argv)
 
     device = require_device(args.device)
-    cfg = serve_config(args.arch, reduced=args.reduced)
+    cfg = launch_config(args.arch, reduced=args.reduced)
     api = build_model(cfg)
     params = load_params(api, device, args.seed)
     prompts = make_prompts(cfg, args.batch, args.prompt_len, device)

@@ -2,8 +2,9 @@
 
 ``build_model(cfg)`` returns a :class:`ModelAPI` whose members close over the
 config: parameter spec (single source of truth for init / abstract shapes /
-axes), logits function, decode step, prefill and cache constructor, for all
-six families.  The VLM and the encoder-decoder also take a stubbed frontend
+axes), logits function, training loss, decode step, prefill and cache
+constructor, for all six families (RWKV6's loss raises until its kernel has a
+backward).  The VLM and the encoder-decoder also take a stubbed frontend
 input (image patches, audio frames): :meth:`ModelAPI.frontend_inputs` makes
 it, and ``prefill(params, tokens, cache, **inputs)`` and ``logits_fn``
 consume it.
@@ -11,7 +12,7 @@ consume it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -39,6 +40,8 @@ class ModelAPI:
     cfg: ModelConfig
     spec: Params
     logits_fn: Callable[[Params, Dict[str, torch.Tensor]], torch.Tensor]
+    loss_fn: Callable[[Params, Dict[str, torch.Tensor]],
+                      Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
     decode_step: Optional[Callable]
     prefill: Optional[Callable]
     init_cache: Optional[Callable]
@@ -93,6 +96,7 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
         return ModelAPI(
             cfg=cfg, spec=_cast(transformer.transformer_spec(cfg), cfg),
             logits_fn=lambda p, b: transformer.forward(p, b["tokens"], cfg),
+            loss_fn=lambda p, b: transformer.loss_fn(p, b, cfg),
             decode_step=lambda p, t, c: transformer.decode_step(p, t, c, cfg),
             prefill=lambda p, t, c: transformer.prefill(p, t, c, cfg),
             init_cache=transformer.init_cache)
@@ -100,6 +104,7 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
         return ModelAPI(
             cfg=cfg, spec=_cast(moe.moe_spec(cfg), cfg),
             logits_fn=lambda p, b: moe.forward(p, b["tokens"], cfg)[0],
+            loss_fn=lambda p, b: moe.loss_fn(p, b, cfg),
             decode_step=lambda p, t, c: moe.decode_step(p, t, c, cfg),
             prefill=lambda p, t, c: moe.prefill(p, t, c, cfg),
             init_cache=transformer.init_cache)
@@ -107,6 +112,7 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
         return ModelAPI(
             cfg=cfg, spec=_cast(rwkv6.rwkv6_spec(cfg), cfg),
             logits_fn=lambda p, b: rwkv6.forward(p, b["tokens"], cfg),
+            loss_fn=lambda p, b: rwkv6.loss_fn(p, b, cfg),
             decode_step=lambda p, t, c: rwkv6.decode_step(p, t, c, cfg),
             prefill=lambda p, t, c: rwkv6.prefill(p, t, c, cfg),
             init_cache=rwkv6.init_cache)
@@ -114,6 +120,7 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
         return ModelAPI(
             cfg=cfg, spec=_cast(zamba2.zamba2_spec(cfg), cfg),
             logits_fn=lambda p, b: zamba2.forward(p, b["tokens"], cfg),
+            loss_fn=lambda p, b: zamba2.loss_fn(p, b, cfg),
             decode_step=lambda p, t, c: zamba2.decode_step(p, t, c, cfg),
             prefill=lambda p, t, c: zamba2.prefill(p, t, c, cfg),
             init_cache=zamba2.init_cache)
@@ -121,6 +128,7 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
         return ModelAPI(
             cfg=cfg, spec=_cast(vlm.vlm_spec(cfg), cfg),
             logits_fn=lambda p, b: vlm.forward(p, b["tokens"], b["patches"], cfg),
+            loss_fn=lambda p, b: vlm.loss_fn(p, b, cfg),
             decode_step=lambda p, t, c: vlm.decode_step(p, t, c, cfg),
             prefill=lambda p, t, c, *, patches: vlm.prefill(p, t, c, cfg, patches=patches),
             init_cache=vlm.init_cache)
@@ -128,6 +136,7 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
         return ModelAPI(
             cfg=cfg, spec=_cast(encdec.encdec_spec(cfg), cfg),
             logits_fn=lambda p, b: encdec.forward(p, b["frames"], b["tokens"], cfg),
+            loss_fn=lambda p, b: encdec.loss_fn(p, b, cfg),
             decode_step=lambda p, t, c: encdec.decode_step(p, t, c, cfg),
             prefill=lambda p, t, c, *, frames: encdec.prefill(p, t, c, cfg, frames=frames),
             init_cache=encdec.init_cache)

@@ -3,7 +3,8 @@
 The port never sees a JAX object: the caller turns the reference's trees into
 nested dicts of **numpy arrays** first (``jax.tree.map(np.asarray, tree)``),
 and these functions return the port's trees: same keys, same shapes, same
-stacked ``layers`` leading dimension.
+stacked ``layers`` leading dimension.  Parameters and serving caches carry
+across here; the training state, in ``train/train_step.py``.
 """
 from __future__ import annotations
 

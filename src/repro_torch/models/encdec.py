@@ -7,8 +7,8 @@ a linear adapter projects them into the encoder's width.  Encoder blocks are
 bidirectional; decoder blocks are causal self-attention, cross-attention to
 the encoder memory and an MLP.  Serving projects the memory's cross K/V once
 per request (:func:`prepare_cross`) and keeps them in the cache beside the
-decoder's self-attention KV.  The cache is updated **in place**.  ``loss_fn``
-arrives with training.
+decoder's self-attention KV.  The cache is updated **in place**.  With
+``cfg.remat`` every encoder and decoder block is recomputed in the backward.
 """
 from __future__ import annotations
 
@@ -69,12 +69,15 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     dt = L.cdtype(cfg)
     x = frames.to(dt) @ params["frontend"]["w"].to(dt) + params["frontend"]["b"].to(dt)
     for i in range(cfg.n_encoder_layers or cfg.n_layers):
-        p = _blocks(params, "enc_blocks", i)
-        o, _ = L.attention(p["attn"], L.rmsnorm(p["attn_norm"], x, cfg.norm_eps), cfg,
-                           causal=False)
-        x = x + o
-        x = x + L.mlp(p["mlp"], L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg)
+        x = L.remat(cfg.remat, _enc_block, _blocks(params, "enc_blocks", i), x, cfg)
     return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _enc_block(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    o, _ = L.attention(p["attn"], L.rmsnorm(p["attn_norm"], x, cfg.norm_eps), cfg,
+                       causal=False)
+    x = x + o
+    return x + L.mlp(p["mlp"], L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps), cfg)
 
 
 def _dec_block(p: Params, x: torch.Tensor, memory: Optional[torch.Tensor],
@@ -102,14 +105,26 @@ def decode(params: Params, tokens: torch.Tensor, memory: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     x = L.embed(params["embed"], tokens, cfg)
     for i in range(cfg.n_layers):
-        x, _ = _dec_block(_blocks(params, "dec_blocks", i), x, memory, cfg)
+        x = L.remat(cfg.remat, _dec_block_out, _blocks(params, "dec_blocks", i), x, memory,
+                    cfg)
     return _head(params, x, cfg)
+
+
+def _dec_block_out(p: Params, x: torch.Tensor, memory: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    return _dec_block(p, x, memory, cfg)[0]
 
 
 def forward(params: Params, frames: torch.Tensor, tokens: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
     """frames: (B, F, frontend_dim), tokens: (B, S) -> logits (B, S, V)."""
     return decode(params, tokens, encode(params, frames, cfg), cfg)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    logits = forward(params, batch["frames"], batch["tokens"], cfg)
+    loss = L.softmax_xent(logits, batch["labels"])
+    return loss, {"loss": loss}
 
 
 # ----------------------------------------------------------------- serving

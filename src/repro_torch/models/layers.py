@@ -6,7 +6,9 @@ of ``repro_torch.kernels`` (FlashAttention for a prompt, flash-decode with a
 valid length for a cached step; on CPU tensors those wrappers run their
 plain versions), anything else takes the dense plain path below.
 Projections, the MLP and the LM head are ``torch.einsum``, as the reference
-leaves them to XLA.  Weights are cast to the activation dtype at every use,
+leaves them to XLA.  Training adds the losses (:func:`softmax_xent`,
+:func:`fused_head_xent`) and :func:`remat`, the port's ``jax.checkpoint``
+with ``nothing_saveable`` around a block.  Weights are cast to the activation dtype at every use,
 as in the reference; a caller that holds its weights in the compute dtype
 already (``launch.serve.load_params`` draws them in it) pays nothing for
 it.
@@ -17,6 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from .param import LeafSpec
@@ -281,3 +284,59 @@ def lm_head(p: Params, x: torch.Tensor, cfg: ModelConfig,
     else:
         w = p["w"].to(x.dtype)
     return torch.einsum("bsd,dv->bsv", x, w)
+
+
+# ------------------------------------------------------------------ losses
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy, numerically stable in float32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
+
+
+# tokens x vocab above this fuses head+loss.  Disabled by default, as in the
+# reference (its measurement found the fused form worse); opt in by lowering
+# it.
+FUSED_XENT_THRESHOLD = 1 << 60
+
+
+def _chunk_xent_sum(xs: torch.Tensor, w: torch.Tensor, ls: torch.Tensor,
+                    eq: str) -> torch.Tensor:
+    logits = torch.einsum(eq, xs, w.to(xs.dtype)).float()
+    gold = torch.gather(logits, -1, ls[..., None].long())[..., 0]
+    return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+
+
+def fused_head_xent(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, *,
+                    chunk: int = 2048, w_is_vd: bool = False) -> torch.Tensor:
+    """LM head + cross-entropy over sequence chunks: each chunk's float32
+    logits exist only inside its own step (recomputed in the backward, as
+    the reference's scan step is), so (tokens x vocab) float32 logits are
+    never held whole.
+
+    x: (B, S, d); w: (d, V), or (V, d) with ``w_is_vd``; labels: (B, S) ->
+    scalar mean xent.  A sequence that ``chunk`` does not divide takes the
+    unfused path, as in the reference."""
+    B, S, _ = x.shape
+    eq = "bsd,vd->bsv" if w_is_vd else "bsd,dv->bsv"
+    c = min(chunk, S)
+    if S % c:
+        return softmax_xent(torch.einsum(eq, x, w.to(x.dtype)), labels)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(S // c):
+        xs, ls = x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        total = total + remat(True, _chunk_xent_sum, xs, w, ls, eq)
+    return total / (B * S)
+
+
+# -------------------------------------------------------------------- remat
+def remat(enabled: bool, fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    kept when ``enabled`` and autograd records (``torch.utils.checkpoint``,
+    non-reentrant: the reference's ``jax.checkpoint`` with
+    ``nothing_saveable``).  Every kernel ``fn`` launches runs twice a
+    training step."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)

@@ -27,7 +27,10 @@ reference's ``moe.forward`` over the prompt, not as the token-by-token loop.
 Only the single-device path is ported.  The reference's expert-parallel
 ``shard_map`` branch (``_ep_axes``) waits for ``parallel/sharding``
 (ROADMAP.md, Queue 1); :func:`_dispatch_ffn_combine` keeps its expert-slice
-arguments for it.  ``loss_fn`` arrives with training.
+arguments for it.  :func:`loss_fn` is the reference's: cross-entropy plus the
+load-balancing loss, which reaches the router only through the mean router
+probabilities (the chosen-expert share is a count).  With ``cfg.remat`` each
+block is recomputed in the backward, its router and expert products too.
 """
 from __future__ import annotations
 
@@ -188,15 +191,28 @@ def _serve_block(p: Params, x: torch.Tensor, cfg: ModelConfig, **cache_args):
     return x, new_cache
 
 
+def _train_block(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    x, aux, _ = _moe_block_apply(p, x, cfg)
+    return x, aux
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) -> (logits (B, S, V), total aux loss)."""
     x = L.embed(params["embed"], tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, a, _ = _moe_block_apply(transformer._layer(params, i), x, cfg)
+        x, a = L.remat(cfg.remat, _train_block, transformer._layer(params, i), x, cfg)
         aux = aux + a
     return transformer._head(params, x, cfg), aux
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Cross-entropy + the load-balancing loss; the metrics hold both."""
+    logits, aux = forward(params, batch["tokens"], cfg)
+    xent = L.softmax_xent(logits, batch["labels"])
+    return xent + aux, {"loss": xent, "aux_loss": aux}
 
 
 # ----------------------------------------------------------------- serving

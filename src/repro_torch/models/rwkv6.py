@@ -19,7 +19,9 @@ than the full 5-way data-dependent lerp; the decay LoRA is kept faithful.
 
 The reference has no multi-token prefill for this family (its serve loop
 feeds the prompt token by token); :func:`prefill` is the port's, and equals
-that loop.  ``loss_fn`` arrives with training.
+that loop.  Training waits for a backward of the chunked-WKV kernel:
+:func:`loss_fn` raises on every device (ROADMAP.md, Queue 1), so that no
+test passes on a path the card lacks.
 """
 from __future__ import annotations
 
@@ -201,6 +203,12 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     for i in range(cfg.n_layers):
         x, _ = block_apply(transformer._layer(params, i), x, cfg)
     return transformer._head(params, x, cfg)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    raise NotImplementedError(
+        f"{cfg.name}: training RWKV6 needs a backward of the chunked-WKV kernel (K5), "
+        f"which is not written yet (ROADMAP.md, Queue 1: rwkv6.loss_fn with K5's backward)")
 
 
 # ----------------------------------------------------------------- serving

@@ -4,9 +4,10 @@ deepseek-67b).
 Pre-norm blocks, GQA + RoPE attention, SwiGLU/GeGLU MLP.  Layer parameters
 are stacked along a leading ``layers`` dimension, as in the reference, and
 executed by a Python loop over that dimension (the reference's
-``jax.lax.scan``).  The serving cache is updated **in place**: ``decode_step``
-and ``prefill`` write into the tensors of the cache they are given and return
-a dict that shares them.  ``loss_fn`` arrives with training.
+``jax.lax.scan``), each block recomputed in the backward when ``cfg.remat``
+(:func:`layers.remat`).  The serving cache is updated **in place**:
+``decode_step`` and ``prefill`` write into the tensors of the cache they are
+given and return a dict that shares them.
 """
 from __future__ import annotations
 
@@ -71,13 +72,42 @@ def _head(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                      embed_params=params["embed"])
 
 
+def _block_out(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return block_apply(p, x, cfg)[0]
+
+
+def layers(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Every block over embeddings ``x`` without a cache, each recomputed in
+    the backward when ``cfg.remat``."""
+    for i in range(cfg.n_layers):
+        x = L.remat(cfg.remat, _block_out, _layer(params, i), x, cfg)
+    return x
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig
             ) -> torch.Tensor:
     """tokens: (B, S) -> logits (B, S, V)."""
-    x = _embed(params, tokens, cfg)
-    for i in range(cfg.n_layers):
-        x, _ = block_apply(_layer(params, i), x, cfg)
-    return _head(params, x, cfg)
+    return _head(params, layers(params, _embed(params, tokens, cfg), cfg), cfg)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]``, as the reference's ``loss_fn``: through the fused
+    head + loss above :data:`layers.FUSED_XENT_THRESHOLD` tokens x vocab."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = layers(params, _embed(params, tokens, cfg), cfg)
+    if B * S * cfg.padded_vocab > L.FUSED_XENT_THRESHOLD:
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        if cfg.tie_embeddings:
+            loss = L.fused_head_xent(x, params["embed"]["table"], batch["labels"],
+                                     w_is_vd=True)
+        else:
+            loss = L.fused_head_xent(x, params["lm_head"]["w"], batch["labels"])
+    else:
+        loss = L.softmax_xent(_head(params, x, cfg), batch["labels"])
+    return loss, {"loss": loss}
 
 
 # ----------------------------------------------------------------- serving

@@ -7,8 +7,8 @@ a linear connector projects them into the LM's embedding space and they are
 prepended to the token embeddings (the InternVL "LLM-as-decoder" wiring).
 Logits are over the text positions only.  Serving runs the image prefix and
 the prompt through one cached causal pass (:func:`prefill`); a decode step
-is the dense transformer's, its positions counting the prefix.  ``loss_fn``
-arrives with training.
+is the dense transformer's, its positions counting the prefix.  The loss
+is over the text positions.
 """
 from __future__ import annotations
 
@@ -45,12 +45,16 @@ def forward(params: Params, tokens: torch.Tensor, patches: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
     """tokens: (B, S_text); patches: (B, P, frontend_dim) -> logits over the
     text positions (B, S_text, V)."""
-    x = _prefix(params, tokens, patches, cfg)
-    for i in range(cfg.n_layers):
-        x, _ = TF.block_apply(TF._layer(params, i), x, cfg)
+    x = TF.layers(params, _prefix(params, tokens, patches, cfg), cfg)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     x = x[:, patches.shape[1]:]                  # text positions only
     return L.lm_head(params.get("lm_head", {}), x, cfg, embed_params=params["embed"])
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    logits = forward(params, batch["tokens"], batch["patches"], cfg)
+    loss = L.softmax_xent(logits, batch["labels"])
+    return loss, {"loss": loss}
 
 
 # ----------------------------------------------------------------- serving

@@ -6,7 +6,7 @@ are reused at every application site, never copied per site; the Mamba2
 layers are stacked ``(G, A, ...)`` (G groups of ``attn_every`` layers, one
 site after each group) and walked by a Python loop.  During decode each site
 has its own KV slot ``(G, B, T, nkv, hd)``.  The serving cache is updated
-**in place**, as the other families' are.  ``loss_fn`` arrives with training.
+**in place**, as the other families' are.
 """
 from __future__ import annotations
 
@@ -74,15 +74,26 @@ def _mamba_block(p: Params, x: torch.Tensor, cfg: ModelConfig, **state):
     return x + o, new_state
 
 
+def _group(params: Params, g: int, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Group ``g``: its Mamba2 layers, then the shared attention block."""
+    for a in range(_groups(cfg)[1]):
+        x, _ = _mamba_block(_mamba_layer(params, g, a), x, cfg)
+    return _shared_attn_apply(params["shared_attn"], x, cfg)[0]
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V)."""
-    G, A = _groups(cfg)
+    """tokens: (B, S) -> logits (B, S, V).  With ``cfg.remat`` each group is
+    recomputed in the backward, as the reference checkpoints its group
+    body."""
     x = L.embed(params["embed"], tokens, cfg)
-    for g in range(G):
-        for a in range(A):
-            x, _ = _mamba_block(_mamba_layer(params, g, a), x, cfg)
-        x, _ = _shared_attn_apply(params["shared_attn"], x, cfg)
+    for g in range(_groups(cfg)[0]):
+        x = L.remat(cfg.remat, _group, params, g, x, cfg)
     return _head(params, x, cfg)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    loss = L.softmax_xent(forward(params, batch["tokens"], cfg), batch["labels"])
+    return loss, {"loss": loss}
 
 
 # ----------------------------------------------------------------- serving

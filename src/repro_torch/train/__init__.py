@@ -1,4 +1,5 @@
-# Serving / training substrate of the port: the serve-step factory so far.
-from . import serve_step
+# Serving / training substrate of the port: the serve-step factory, the
+# optimizers, int8 gradient compression and the train step.
+from . import grad_compress, optimizer, serve_step, train_step
 
-__all__ = ["serve_step"]
+__all__ = ["grad_compress", "optimizer", "serve_step", "train_step"]

@@ -272,9 +272,9 @@ def test_flash_decode_refuses_more_splits_than_a_cluster(cuda):
 def test_serve_reduced_on_the_card_matches_the_plain_path(cuda):
     from dataclasses import replace
     from repro_torch import kernels
-    from repro_torch.launch import serve
+    from repro_torch.launch import common, serve
     from repro_torch.models import build_model
-    cfg = serve.serve_config("qwen2.5-3b", reduced=True)
+    cfg = common.launch_config("qwen2.5-3b", reduced=True)
     api = build_model(cfg)
     params = serve.load_params(api, cuda, seed=0)
     prompts = serve.make_prompts(cfg, 2, 64, cuda)
@@ -319,9 +319,9 @@ def test_serve_moe_reduced_on_the_card_matches_the_plain_path(cuda, monkeypatch)
     from dataclasses import replace
     from repro_torch import kernels
     from repro_torch.kernels import moe_gmm
-    from repro_torch.launch import serve
+    from repro_torch.launch import common, serve
     from repro_torch.models import build_model, moe
-    cfg = serve.serve_config("qwen3-moe-30b-a3b", reduced=True)
+    cfg = common.launch_config("qwen3-moe-30b-a3b", reduced=True)
     api = build_model(cfg)
     params = serve.load_params(api, cuda, seed=0)
     prompts = serve.make_prompts(cfg, 2, 64, cuda)
@@ -441,9 +441,9 @@ def test_serve_rwkv6_reduced_on_the_card_is_as_close_to_float32_as_plain(cuda, m
     from dataclasses import replace
     from repro_torch import kernels
     from repro_torch.kernels import rwkv6 as K
-    from repro_torch.launch import serve
+    from repro_torch.launch import common, serve
     from repro_torch.models import build_model
-    cfg = serve.serve_config("rwkv6-3b", reduced=True)
+    cfg = common.launch_config("rwkv6-3b", reduced=True)
     api = build_model(cfg)
     params = serve.load_params(api, cuda, seed=0)
     prompts = serve.make_prompts(cfg, 2, 64, cuda)
@@ -604,9 +604,9 @@ def test_serve_new_families_reduced_on_the_card(cuda, arch):
     the plain path (largest difference plus 2e-2, and RMS)."""
     from dataclasses import replace
     from repro_torch import kernels
-    from repro_torch.launch import serve
+    from repro_torch.launch import common, serve
     from repro_torch.models import build_model
-    cfg = serve.serve_config(arch, reduced=True)
+    cfg = common.launch_config(arch, reduced=True)
     api = build_model(cfg)
     params = serve.load_params(api, cuda, seed=0)
     prompts = serve.make_prompts(cfg, 2, 64, cuda)
@@ -631,3 +631,110 @@ def test_serve_new_families_reduced_on_the_card(cuda, arch):
     diff, base = got - exact, plain - exact
     assert diff.abs().max() <= 1.25 * base.abs().max() + 2e-2
     assert diff.square().mean().sqrt() <= 1.25 * base.square().mean().sqrt()
+
+
+# ---------------------------------------------------------------- training
+BWD_CASES = [  # BH, q_per_kv, Sq, Skv, d, causal, offset of the k/v storage
+    (4, 1, 64, 64, 32, True, 0),
+    (16, 8, 512, 512, 128, True, 0),        # qwen2.5-3b's training pass, one sequence
+    (14, 7, 384, 384, 64, True, 0),         # internvl2's group of 7
+    (8, 4, 200, 136, 128, True, 1),         # Sq > Skv, unaligned k/v
+    (8, 8, 512, 1024, 64, False, 0),        # seamless's cross pass
+    (6, 3, 77, 150, 64, False, 1),          # ragged, not causal
+    (2, 1, 37, 53, 32, True, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_attention_bwd_kernel(cuda, case, dtype):
+    """K2-bwd against its plain version from the forward kernel's output and
+    log-sum-exp (itself held against the plain forward's), and the same
+    result bit for bit on a second call (no atomics)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as FA, flash_attention_bwd as FAB
+    BH, g, Sq, Skv, d, causal, offset = case
+    q = torch.randn(BH, Sq, d, device=cuda).to(dtype)
+    k = _kv_view(BH // g, Skv, d, dtype, cuda, offset)
+    v = _kv_view(BH // g, Skv, d, dtype, cuda, offset)
+    dout = torch.randn(BH, Sq, d, device=cuda).to(dtype)
+    out, lse = FA.flash_attention(q, k, v, causal=causal, block_q=64, block_kv=64,
+                                  q_per_kv=g, return_lse=True)
+    _, plse = FA.flash_attention_plain(q, k, v, causal=causal, q_per_kv=g, return_lse=True)
+    torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-4)
+    kernels.reset_launch_counts()
+    got = FAB.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, q_per_kv=g)
+    again = FAB.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, q_per_kv=g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_bwd"] == 2
+    want = FAB.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal, q_per_kv=g)
+    for a, b, c in zip(got, want, again):
+        assert a.shape == b.shape and a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), **_tol(dtype))
+        assert torch.equal(a, c)
+
+
+def test_flash_attention_bwd_refuses_what_is_not_compiled(cuda):
+    from repro_torch.kernels import flash_attention_bwd as FAB
+    q = torch.randn(2, 16, 48, device=cuda)
+    lse = torch.zeros(2, 16, device=cuda)
+    with pytest.raises(ValueError, match="not compiled"):
+        FAB.flash_attention_bwd(q, q, q, q, lse, q)
+    q = torch.randn(2, 16, 64, device=cuda).half()
+    with pytest.raises(TypeError):
+        FAB.flash_attention_bwd(q, q, q, q, torch.zeros(2, 16, device=cuda), q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_and_grouped_matmul_backward_launch_their_kernels(cuda, dtype):
+    """K1-bwd and K4-bwd: two launches of their kernel each, against the
+    plain products; K4's dW (K = cap) on the body the counters report."""
+    from repro_torch import kernels
+    from repro_torch.kernels import gemm as G, moe_gmm, ops
+    a = torch.randn(96, 160, device=cuda).to(dtype).requires_grad_()
+    b = torch.randn(160, 64, device=cuda).to(dtype).requires_grad_()
+    dc = torch.randn(96, 64, device=cuda).to(dtype)
+    out = ops.matmul(a, b)
+    kernels.reset_launch_counts()
+    da, db = torch.autograd.grad(out, (a, b), dc)
+    assert kernels.launch_counts()["gemm"] == 2
+    torch.testing.assert_close(da.float(), G.gemm_plain(dc, b.detach().t()).float(), **_tol(dtype))
+    torch.testing.assert_close(db.float(), G.gemm_plain(a.detach().t(), dc).float(), **_tol(dtype))
+    x = torch.randn(8, 160, 128, device=cuda).to(dtype).requires_grad_()
+    w = (torch.randn(8, 128, 96, device=cuda) * 0.1).to(dtype).requires_grad_()
+    dy = torch.randn(8, 160, 96, device=cuda).to(dtype)
+    out = ops.grouped_matmul(x, w)
+    kernels.reset_launch_counts()
+    dx, dw = torch.autograd.grad(out, (x, w), dy)
+    assert kernels.launch_counts()["grouped_matmul"] == 2
+    body = kernels.launches_by_body()["grouped_matmul"]
+    assert sum(body.values()) == 2 and (body["tma"] == 2) == (dtype == torch.bfloat16)
+    plain = moe_gmm.grouped_matmul_plain
+    torch.testing.assert_close(dx.float(), plain(dy, w.detach().transpose(1, 2)).float(),
+                               **_tol(dtype))
+    torch.testing.assert_close(
+        dw.float(), plain(x.detach().transpose(1, 2), dy, out_dtype=torch.float32),
+        **_tol(dtype))
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-30b-a3b"])
+def test_train_step_reduced_on_the_card_launches_exactly(cuda, arch):
+    """One reduced train step through ``launch/train.py``'s loop: with remat
+    K2 runs twice a layer and K2-bwd once; the MoE's expert products three
+    times forward, three times again in the recompute and six times in the
+    backward.  Finite loss and gradient norm."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import train as TL
+    from repro_torch.launch.common import launch_config
+    from repro_torch.models import build_model
+    cfg = launch_config(arch, reduced=True)
+    api = build_model(cfg)
+    tcfg = TrainConfig(total_steps=1, warmup_steps=1)
+    res = TL.run(api, tcfg, 1, 2, 64, cuda, log=lambda line: None)
+    L = cfg.n_layers
+    assert res.launches["flash_attention"] == 2 * L
+    assert res.launches["flash_attention_bwd"] == L
+    assert res.launches["grouped_matmul"] == (12 * L if cfg.family == "moe" else 0)
+    assert all(torch.isfinite(torch.tensor(h["loss"])) for h in res.history)
+    assert torch.isfinite(torch.tensor(res.history[0]["grad_norm"]))
+

@@ -429,3 +429,154 @@ def test_launch_counts_carry_the_one_launch_decode():
     FD.launches = 3
     kernels.reset_launch_counts()
     assert kernels.launch_counts()["flash_decode"] == 0 == FD.launches
+
+
+# ------------------------------------------------------ backward (training)
+# The reference cannot differentiate its Pallas kernels (jax.grad through
+# ops.matmul / ops.attention / ops.grouped_matmul raises), so the oracle of
+# every gradient here is jax.grad of the kernel's ref.py function.
+import jax  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as FAB  # noqa: E402
+from repro_torch.kernels import moe_gmm  # noqa: E402
+
+
+def _attention_grads_ref(qj, kj, vj, dj, g, causal):
+    """jax.grad of <attention_ref(q, repeat(k), repeat(v)), dout>: the
+    query heads of a group share (and sum into) one kv head."""
+    def f(q, k, v):
+        out = jref.attention_ref(q, jnp.repeat(k, g, axis=0), jnp.repeat(v, g, axis=0),
+                                 causal=causal)
+        return jnp.sum(out.astype(jnp.float32) * dj.astype(jnp.float32))
+    return jax.grad(f, argnums=(0, 1, 2))(qj, kj, vj)
+
+
+ATTN_BWD_CASES = [
+    # BH, q_per_kv, Sq, Skv, d, causal
+    (4, 1, 64, 64, 32, True),          # no grouping
+    (14, 7, 48, 48, 64, True),         # internvl2's 7 query heads a kv head
+    (16, 8, 64, 64, 32, True),         # qwen2.5-3b's 8
+    (16, 8, 40, 72, 32, False),        # Sq != Skv, not causal (cross-attention)
+    (4, 2, 72, 40, 32, True),          # Sq > Skv, causal by absolute position
+    (2, 1, 37, 53, 64, True),          # ragged: no tile divides either length
+    (6, 3, 100, 100, 32, False),       # ragged, not causal
+]
+
+
+@pytest.mark.parametrize("case", ATTN_BWD_CASES)
+def test_attention_bwd_plain_matches_jax_grad_of_reference(case):
+    BH, g, Sq, Skv, d, causal = case
+    rng = np.random.default_rng(11)
+    qj, qt = _pair(rng, (BH, Sq, d), "float32")
+    kj, kt = _pair(rng, (BH // g, Skv, d), "float32")
+    vj, vt = _pair(rng, (BH // g, Skv, d), "float32")
+    dj, dt = _pair(rng, (BH, Sq, d), "float32")
+    want = _attention_grads_ref(qj, kj, vj, dj, g, causal)
+    out, lse = FA.flash_attention_plain(qt, kt, vt, causal=causal, q_per_kv=g,
+                                        return_lse=True)
+    got = FAB.flash_attention_bwd(qt, kt, vt, out, lse, dt, causal=causal, q_per_kv=g)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == tuple(b.shape), name
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_ops_attention_gradient_through_strided_kv_matches_reference(dtype, causal):
+    """``ops.attention`` is an autograd Function: k/v as the (B, Hkv, T, d)
+    view of a (B, T, Hkv, d) projection, as the layers hand them over."""
+    B, H, Hkv, S, d = 2, 8, 2, 48, 32
+    g = H // Hkv
+    rng = np.random.default_rng(12)
+    qj, qt = _pair(rng, (B * H, S, d), dtype)
+    kj, kt = _pair(rng, (B, S, Hkv, d), dtype)
+    vj, vt = _pair(rng, (B, S, Hkv, d), dtype)
+    dj, dt = _pair(rng, (B * H, S, d), dtype)
+    to3 = lambda x: jnp.transpose(x, (0, 2, 1, 3)).reshape(B * Hkv, S, d)
+    want = _attention_grads_ref(qj, to3(kj), to3(vj), dj, g, causal)
+    leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+    q, k, v = leaves
+    out = ops.attention(q, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), causal=causal,
+                        q_per_kv=g)
+    got = torch.autograd.grad(out, leaves, dt)
+    back = lambda t: t.permute(0, 2, 1, 3).reshape(B * Hkv, S, d)
+    for name, a, b in zip(("dq", "dk", "dv"), (got[0], back(got[1]), back(got[2])), want):
+        assert a.dtype == qt.dtype
+        np.testing.assert_allclose(_np(a), _np(b), **_tol(dtype), err_msg=name)
+
+
+def test_attention_bwd_row_with_every_key_masked_has_zero_gradient():
+    """A row whose scores all fall at or below the -1e30 sentinel is a fully
+    masked row to the forward (output 0, log-sum-exp +1e30).  Its gradient
+    is 0 and nothing is NaN; the rest is the gradient of the forward's own
+    function (autograd through the plain forward).  The reference's
+    ``attention_ref`` masks with -inf and has no such row, so it is not the
+    oracle here."""
+    BH, S, d = 2, 16, 32
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn(BH, S, d, generator=gen)
+    k = torch.randn(BH, S, d, generator=gen)
+    v = torch.randn(BH, S, d, generator=gen)
+    dout = torch.randn(BH, S, d, generator=gen)
+    q[:, :, 0] = 0.0
+    k[:, :, 0] = 1e16
+    q[:, 5, 0] = -1e16                  # row 5: every score about -1e32 * scale
+    out, lse = FA.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    assert torch.all(out[:, 5] == 0) and torch.all(lse[:, 5] == FA.LSE_MASKED)
+    dq, dk, dv = FAB.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    assert all(torch.isfinite(t).all() for t in (dq, dk, dv))
+    assert torch.all(dq[:, 5] == 0)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(FA.flash_attention_plain(*leaves, causal=True), leaves, dout)
+    # dq[..., 0] is 1e16 * scale * sum_j dS_ij, a sum that is 0 up to rounding:
+    # both sides are finite there, and compared everywhere else
+    torch.testing.assert_close(dq[..., 1:], want[0][..., 1:], rtol=1e-4, atol=1e-4)
+    for a, b in zip((dk, dv), want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(96, 64, 160), (128, 256, 128)])
+def test_matmul_gradient_matches_jax_grad_of_reference(dtype, shape):
+    M, N, K = shape
+    rng = np.random.default_rng(13)
+    aj, at = _pair(rng, (M, K), dtype)
+    bj, bt = _pair(rng, (K, N), dtype)
+    cj, ct = _pair(rng, (M, N), dtype)
+    want = jax.grad(lambda a, b: jnp.sum(jref.gemm_ref(a, b).astype(jnp.float32)
+                                         * cj.astype(jnp.float32)), argnums=(0, 1))(aj, bj)
+    a, b = at.clone().requires_grad_(), bt.clone().requires_grad_()
+    got = torch.autograd.grad(ops.matmul(a, b), (a, b), ct)
+    for x, y in zip(got, want):
+        assert x.dtype == at.dtype
+        np.testing.assert_allclose(_np(x), _np(y), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_grouped_matmul_gradient_matches_jax_grad_of_reference(dtype):
+    E, cap, d_in, d_out = 4, 24, 64, 96
+    rng = np.random.default_rng(14)
+    xj, xt = _pair(rng, (E, cap, d_in), dtype)
+    wj, wt = _pair(rng, (E, d_in, d_out), dtype)
+    yj, yt = _pair(rng, (E, cap, d_out), dtype)
+    want = jax.grad(lambda x, w: jnp.sum(jref.grouped_matmul_ref(x, w).astype(jnp.float32)
+                                         * yj.astype(jnp.float32)), argnums=(0, 1))(xj, wj)
+    x, w = xt.clone().requires_grad_(), wt.clone().requires_grad_()
+    before = moe_gmm.launches
+    got = torch.autograd.grad(ops.grouped_matmul(x, w), (x, w), yt)
+    assert moe_gmm.launches == before            # the CPU runs the plain versions
+    for a, b in zip(got, want):
+        assert a.dtype == xt.dtype
+        np.testing.assert_allclose(_np(a), _np(b), **_tol(dtype))
+
+
+def test_serving_attention_records_nothing_and_keeps_no_lse():
+    """Under ``torch.no_grad`` (the serving path) ``ops.attention`` is the
+    plain forward call: no autograd node, no log-sum-exp."""
+    q, k, v = (torch.randn(4, 32, 32, requires_grad=True) for _ in range(3))
+    with torch.no_grad():
+        out = ops.attention(q, k, v, causal=True)
+    assert out.grad_fn is None and isinstance(out, torch.Tensor)
+    out = ops.attention(q, k, v, causal=True)
+    assert type(out.grad_fn).__name__ == "_AttentionBackward"

@@ -22,7 +22,7 @@ from repro.models import build_model as ref_build_model
 from repro.models import moe as ref_moe
 from repro_torch.configs import get_config
 from repro_torch.kernels import moe_gmm, ops, ref
-from repro_torch.launch import serve
+from repro_torch.launch import common, serve
 from repro_torch.models import build_model, moe
 from repro_torch.models import param as P
 from repro_torch.models.convert import from_reference
@@ -404,7 +404,7 @@ def test_load_params_draws_every_leaf_in_the_compute_dtype(arch, monkeypatch):
         return real(generator, spec, device)
 
     monkeypatch.setattr(P, "_init_leaf", spy)
-    cfg = serve.serve_config(arch, reduced=True)
+    cfg = common.launch_config(arch, reduced=True)
     api = build_model(cfg)
     params = serve.load_params(api, "cpu", seed=0)
     leaves = P.tree_leaves(params, is_leaf=lambda x: isinstance(x, torch.Tensor))

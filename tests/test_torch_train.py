@@ -1,0 +1,350 @@
+"""The port's training substrate against the reference's, on the CPU: the
+optimizers and the int8 compression on identical inputs, the train step
+(1 and 2 microbatches, int8 compression, AdamW and Adafactor) against the
+reference's unsharded ``make_train_step`` from the same carried-across
+state, the data pipeline, and the training driver.
+
+The reference's sharded step fails on this tree (ROADMAP.md, Queue 3), so
+its unsharded step is the oracle.  At the first AdamW step the update is
+about lr * sign(g): an entry whose gradient is near zero can move by up to
+2 lr between two correct paths.  Parameters are therefore held at 1e-5 of
+their leaf's largest entry where the reference's gradient is above 1e-3 of
+its leaf's largest, and within 2 lr + 1e-5 elsewhere; moments, losses,
+gradient norms and learning rates at 1e-4 relative.
+"""
+from dataclasses import replace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.configs.base import ShapeConfig as RefShapeConfig
+from repro.configs.base import TrainConfig as RefTrainConfig
+from repro.data import pipeline as ref_pipeline
+from repro.models import build_model as ref_build_model
+from repro.train import grad_compress as ref_gc
+from repro.train import optimizer as ref_opt
+from repro.train import train_step as ref_ts
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig, TrainConfig
+from repro_torch.data import pipeline
+from repro_torch.launch import train as train_launch
+from repro_torch.models import build_model
+from repro_torch.train import grad_compress, optimizer as opt, train_step as TS
+
+ARCH = "qwen2.5-3b"
+B, S = 4, 16
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, prefix + (k,)))
+        return out
+    return {prefix: tree}
+
+
+def _np(x):
+    return x.detach().float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _close(got, want, rel=1e-4, what=""):
+    for path, w in _flat(want).items():
+        g = _np(_flat(got)[path])
+        w = np.asarray(w, np.float32)
+        assert g.shape == w.shape, (what, path)
+        scale = max(float(np.abs(w).max()), 1e-30)
+        np.testing.assert_allclose(g, w, rtol=rel, atol=rel * scale, err_msg=f"{what} {path}")
+
+
+def _tree(rng, shapes):
+    return {k: (rng.standard_normal(s) * 0.1).astype(np.float32) for k, s in shapes.items()}
+
+
+SHAPES = {"stack": (3, 8, 6), "mat": (8, 5), "vec": (7,), "scalar_like": (1,)}
+
+
+# ---------------------------------------------------------------- optimizers
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+def test_optimizer_matches_reference_on_identical_gradients(optimizer):
+    """Three steps fed the same numpy gradients: parameters, state and
+    metrics at 1e-5 (the two frameworks round the same float32 formulas)."""
+    _optimizer_steps(optimizer, "float32")
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+def test_optimizer_with_bf16_state_matches_reference(optimizer):
+    """As above with ``opt_state_dtype="bfloat16"``: both compute the update
+    in float32 and round the state once, so the same 1e-5 holds."""
+    _optimizer_steps(optimizer, "bfloat16")
+
+
+def _optimizer_steps(optimizer, state_dtype):
+    tc = dict(learning_rate=1e-2, warmup_steps=2, total_steps=10, optimizer=optimizer,
+              grad_clip=0.5, opt_state_dtype=state_dtype)
+    ref_tcfg, tcfg = RefTrainConfig(**tc), TrainConfig(**tc)
+    rng = np.random.default_rng(0)
+    p0 = _tree(rng, SHAPES)
+    ref_params = jax.tree.map(jnp.asarray, p0)
+    ref_state = ref_opt.opt_init(ref_params, ref_tcfg)
+    params = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    state = opt.opt_init(params, tcfg)
+    for _ in range(3):
+        g = _tree(rng, SHAPES)
+        ref_params, ref_state, ref_m = ref_opt.opt_update(
+            jax.tree.map(jnp.asarray, g), ref_state, ref_params, ref_tcfg)
+        params, state, m = opt.opt_update({k: torch.from_numpy(v.copy()) for k, v in g.items()},
+                                          state, params, tcfg)
+        for k in ("grad_norm", "lr"):
+            assert float(m[k]) == pytest.approx(float(ref_m[k]), rel=1e-5)
+    _close(params, jax.tree.map(np.asarray, ref_params), 1e-5, "params")
+    assert int(state.step) == int(ref_state.step) == 3
+    for name in state._fields[1:]:
+        _close(getattr(state, name), jax.tree.map(np.asarray, getattr(ref_state, name)),
+               1e-5, name)
+
+
+def test_lr_schedule_and_clipping_match_reference():
+    tcfg, ref_tcfg = TrainConfig(warmup_steps=5, total_steps=20), \
+        RefTrainConfig(warmup_steps=5, total_steps=20)
+    for step in range(0, 25):
+        want = float(ref_opt.lr_schedule(ref_tcfg)(jnp.asarray(step, jnp.int32)))
+        got = float(opt.lr_schedule(tcfg)(torch.tensor(step, dtype=torch.int32)))
+        assert got == pytest.approx(want, rel=1e-6)
+    g = _tree(np.random.default_rng(1), SHAPES)
+    want, wnorm = ref_opt.clip_by_global_norm(jax.tree.map(jnp.asarray, g), 0.3)
+    got, norm = opt.clip_by_global_norm({k: torch.from_numpy(v.copy()) for k, v in g.items()},
+                                        0.3)
+    assert float(norm) == pytest.approx(float(wnorm), rel=1e-6)
+    _close(got, jax.tree.map(np.asarray, want), 1e-6, "clipped")
+
+
+def test_opt_state_axes_mirror_reference():
+    axes = {"w": ("layers", "embed", "ffn"), "b": ("embed",)}
+    for optimizer in ("adamw", "adafactor"):
+        want = ref_opt.opt_state_axes(axes, RefTrainConfig(optimizer=optimizer))
+        got = opt.opt_state_axes(axes, TrainConfig(optimizer=optimizer))
+        assert tuple(got) == tuple(want)
+
+
+def test_int8_roundtrip_matches_reference_and_rounds_half_to_even():
+    rng = np.random.default_rng(2)
+    g = _tree(rng, SHAPES)
+    g["exact"] = np.array([127.0, 0.5, 1.5, 2.5, -0.5, -1.5], np.float32)
+    r = _tree(rng, SHAPES)
+    r["exact"] = np.zeros(6, np.float32)
+    c_ref, res_ref = ref_gc.compress(jax.tree.map(jnp.asarray, g), jax.tree.map(jnp.asarray, r))
+    tg = {k: torch.from_numpy(v.copy()) for k, v in g.items()}
+    tr = {k: torch.from_numpy(v.copy()) for k, v in r.items()}
+    c, res = grad_compress.compress(tg, tr)
+    for k in g:
+        np.testing.assert_array_equal(c.q[k].numpy(), np.asarray(c_ref.q[k]))
+        assert float(c.scale[k]) == pytest.approx(float(c_ref.scale[k]), rel=1e-7)
+        np.testing.assert_allclose(res[k].numpy(), np.asarray(res_ref[k]), atol=1e-7)
+    assert c.q["exact"].tolist() == [127, 0, 2, 2, 0, -2]          # half to even
+    deq, new_res = grad_compress.roundtrip(tg, tr)
+    deq_ref, _ = ref_gc.roundtrip(jax.tree.map(jnp.asarray, g), jax.tree.map(jnp.asarray, r))
+    _close(deq, jax.tree.map(np.asarray, deq_ref), 1e-6, "roundtrip")
+    assert all(t.dtype == torch.float32 for t in grad_compress.init_residual(tg).values())
+
+
+# ---------------------------------------------------------------- train step
+class StepPair:
+    """A reduced model computing in float32 in both packages (its parameters
+    in the config's dtype), one carried-across initial state, and the
+    reference's jitted unsharded step."""
+
+    def __init__(self, arch=ARCH, **tc):
+        self.ref_cfg = replace(ref_get_config(arch).reduced(), compute_dtype="float32")
+        self.cfg = replace(get_config(arch).reduced(), compute_dtype="float32",
+                           kernels="cuda")
+        tc = dict(dict(learning_rate=1e-2, warmup_steps=1, total_steps=10), **tc)
+        self.ref_tcfg, self.tcfg = RefTrainConfig(**tc), TrainConfig(**tc)
+        self.ref_api, self.api = ref_build_model(self.ref_cfg), build_model(self.cfg)
+        self.ref_state = ref_ts.init_state(self.ref_api, self.ref_tcfg, jax.random.PRNGKey(0))
+        opt_np = {k: jax.tree.map(np.asarray, v)
+                  for k, v in self.ref_state.opt_state._asdict().items()}
+        residual = (None if self.ref_state.residual is None
+                    else jax.tree.map(np.asarray, self.ref_state.residual))
+        self.state = TS.train_state_from_reference(
+            jax.tree.map(np.asarray, self.ref_state.params), opt_np, residual, "cpu")
+        self.ref_step = jax.jit(ref_ts.make_train_step(self.ref_api, self.ref_tcfg))
+        self.step = TS.make_train_step(self.api, self.tcfg)
+        self.source = pipeline.SyntheticLM(pipeline.DataConfig(vocab_size=self.cfg.vocab_size),
+                                           self.cfg)
+
+    def batch(self, i):
+        return self.source.batch_at(i, B, S)
+
+    def ref_grads(self, batch):
+        grads = jax.grad(lambda p: self.ref_api.loss_fn(p, batch)[0])(self.ref_state.params)
+        return _flat(jax.tree.map(np.asarray, grads))
+
+
+CASES = {
+    "adamw": {},
+    "adamw_2_microbatches": {"microbatches": 2},
+    "adamw_int8": {"grad_compression": "int8"},
+    "adafactor": {"optimizer": "adafactor"},
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_train_step_matches_reference_unsharded_step(case):
+    pair = StepPair(**CASES[case])
+    batch0 = {k: jnp.asarray(v) for k, v in pair.batch(0).items()}
+    g0 = pair.ref_grads(batch0)
+    state = pair.state
+    ref_state = pair.ref_state
+    for i in range(2):
+        nb = pair.batch(i)
+        ref_state, ref_m = pair.ref_step(ref_state, {k: jnp.asarray(v) for k, v in nb.items()})
+        state, m = pair.step(state, train_launch.to_device(nb, "cpu"))
+        for k in ("loss", "grad_norm", "lr"):
+            assert float(m[k]) == pytest.approx(float(ref_m[k]), rel=1e-4), (i, k)
+        if i == 0:
+            lr = float(ref_m["lr"])
+            want = _flat(jax.tree.map(np.asarray, ref_state.params))
+            for path, w in want.items():
+                got = _np(_flat(state.params)[path])
+                scale = max(float(np.abs(w).max()), 1e-30)
+                big = np.abs(g0[path]) > 1e-3 * np.abs(g0[path]).max()
+                np.testing.assert_allclose(got[big], w[big], rtol=0, atol=1e-5 * scale,
+                                           err_msg=str(path))
+                assert np.all(np.abs(got - w) <= 2 * lr + 1e-5 * scale), path
+    assert int(state.opt_state.step) == int(ref_state.opt_state.step) == 2
+    if case in ("adamw", "adamw_2_microbatches"):
+        _close(state.opt_state.mu, jax.tree.map(np.asarray, ref_state.opt_state.mu), 1e-3,
+               "mu")
+    if case == "adamw_int8":
+        # a value at a rounding boundary of the int8 grid may land one quantum
+        # (max |g| / 127) apart on the two sides: such flips stay rare.  The
+        # residual is at most half a quantum, so it is held at 1e-4 of the
+        # gradient's scale (254 x its own largest entry), mu at 1e-4 of its own
+        for name, got, want, scale in (
+                ("mu", state.opt_state.mu, ref_state.opt_state.mu, 1.0),
+                ("residual", state.residual, ref_state.residual, 254.0)):
+            for path, w in _flat(jax.tree.map(np.asarray, want)).items():
+                g = _np(_flat(got)[path])
+                far = np.abs(g - w) > 1e-4 * scale * max(float(np.abs(w).max()), 1e-30)
+                assert far.sum() <= max(1, 1e-3 * far.size), (name, path, int(far.sum()))
+
+
+def test_train_step_accumulates_bf16_parameters_in_float32():
+    """deepseek-67b keeps its parameters in bf16, reduced too: with two
+    microbatches each one's bf16 gradient is added into a float32 buffer, as
+    the reference's scan adds it cast to float32.  The model computes in
+    float32, so only the bf16 gradients and parameters round.  After one
+    step: loss, gradient norm and lr at 1e-4; the moments (0.1 g and
+    0.001 g^2 of the accumulated gradient) within two bf16 roundings of
+    their leaf's largest entry (2^-7 for mu, 2^-6 for nu: an embedding row's
+    gradient is a sum in bf16 whose order differs between the frameworks);
+    parameters within one bf16 rounding (2^-8) of their leaf's largest entry
+    where the gradient is above 1e-3 of its leaf's largest, within 2 lr more
+    elsewhere."""
+    pair = StepPair("deepseek-67b", microbatches=2)
+    assert pair.cfg.param_dtype == pair.ref_cfg.param_dtype == "bfloat16"
+    nb = pair.batch(0)
+    g0 = pair.ref_grads({k: jnp.asarray(v) for k, v in nb.items()})
+    ref_state, ref_m = pair.ref_step(pair.ref_state, {k: jnp.asarray(v) for k, v in nb.items()})
+    state, m = pair.step(pair.state, train_launch.to_device(nb, "cpu"))
+    for k in ("loss", "grad_norm", "lr"):
+        assert float(m[k]) == pytest.approx(float(ref_m[k]), rel=1e-4), k
+    for name, rel in (("mu", 2.0 ** -7), ("nu", 2.0 ** -6)):
+        want = jax.tree.map(np.asarray, getattr(ref_state.opt_state, name))
+        for path, w in _flat(want).items():
+            got = _flat(getattr(state.opt_state, name))[path]
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(_np(got), w, rtol=0, atol=rel * float(np.abs(w).max()),
+                                       err_msg=f"{name} {path}")
+    lr = float(ref_m["lr"])
+    for path, w in _flat(jax.tree.map(lambda a: np.asarray(a, np.float32),
+                                      ref_state.params)).items():
+        got = _flat(state.params)[path]
+        assert got.dtype == torch.bfloat16, path
+        d = np.abs(_np(got) - w)
+        ulp = 2.0 ** -8 * float(np.abs(w).max())
+        g = np.abs(g0[path].astype(np.float32))
+        big = g > 1e-3 * g.max()
+        assert np.all(d[big] <= ulp), path
+        assert np.all(d <= 2 * lr + ulp), path
+
+
+def test_train_state_carries_adafactor_and_residual_across():
+    pair = StepPair(optimizer="adafactor", grad_compression="int8")
+    st = pair.state
+    assert isinstance(st.opt_state, opt.AdafactorState)
+    assert st.opt_state.step.dtype == torch.int32 and st.residual is not None
+    ref_vr = _flat(jax.tree.map(np.asarray, pair.ref_state.opt_state.vr))
+    for path, w in ref_vr.items():
+        assert tuple(_flat(st.opt_state.vr)[path].shape) == w.shape
+    # the port's own init gives the same tree shapes
+    own = opt.opt_init(st.params, pair.tcfg)
+    for name in ("vr", "vc", "v"):
+        for path, t in _flat(getattr(own, name)).items():
+            assert t.shape == _flat(getattr(st.opt_state, name))[path].shape
+
+
+# ---------------------------------------------------------------- data
+def test_file_tokens_batches_and_host_slices_match_reference(tmp_path):
+    path = tmp_path / "tokens.bin"
+    np.random.default_rng(3).integers(0, 60000, size=5000).astype(np.uint16).tofile(path)
+    cfg, ref_cfg = get_config(ARCH).reduced(), ref_get_config(ARCH).reduced()
+    dcfg = pipeline.DataConfig(source="file", path=str(path), seed=7)
+    ref_dcfg = ref_pipeline.DataConfig(source="file", path=str(path), seed=7)
+    src, ref_src = pipeline.make_source(dcfg, cfg), ref_pipeline.make_source(ref_dcfg, ref_cfg)
+    assert isinstance(src, pipeline.FileTokens)
+    for step, host in ((0, 0), (3, 1)):
+        got, want = src.batch_at(step, 3, 32, host), ref_src.batch_at(step, 3, 32, host)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+    it = pipeline.batches(pipeline.SyntheticLM(pipeline.DataConfig(), cfg),
+                          ShapeConfig("t", seq_len=8, global_batch=2, kind="train"),
+                          start_step=2)
+    ref_it = ref_pipeline.batches(ref_pipeline.SyntheticLM(ref_pipeline.DataConfig(), ref_cfg),
+                                  RefShapeConfig("t", seq_len=8, global_batch=2, kind="train"),
+                                  start_step=2)
+    for _ in range(3):
+        got, want = next(it), next(ref_it)
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    for gb, hosts in ((8, 3), (5, 5), (7, 2), (1, 1)):
+        for h in range(hosts):
+            assert pipeline.host_batch_slice(gb, hosts, h) == \
+                ref_pipeline.host_batch_slice(gb, hosts, h)
+    with pytest.raises(ValueError, match="path"):
+        pipeline.FileTokens(pipeline.DataConfig(source="file"), cfg)
+
+
+# ---------------------------------------------------------------- driver
+def test_train_main_on_cpu_prints_the_reference_step_lines(capsys):
+    res = train_launch.main(["--reduced", "--device", "cpu", "--steps", "3", "--batch", "2",
+                             "--seq", "16", "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert out.count("[train] step ") == 3 and "gnorm=" in out and "tok/s" in out
+    assert "[train] done: 3 steps" in out and "flash_attention=0" in out
+    assert len(res.history) == 3 and all(np.isfinite(h["loss"]) for h in res.history)
+    assert int(res.state.opt_state.step) == 3
+
+
+def test_train_main_trains_the_moe_family_on_cpu(capsys):
+    res = train_launch.main(["--arch", "qwen3-moe-30b-a3b", "--reduced", "--device", "cpu",
+                             "--steps", "2", "--batch", "2", "--seq", "16"])
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["aux_loss"]) for h in res.history)
+    assert "grouped_matmul=0" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flag", [["--ckpt-dir", "/nowhere"], ["--save-every", "5"]])
+def test_train_main_rejects_the_flags_it_does_not_honour(flag):
+    with pytest.raises(SystemExit):
+        train_launch.main(["--reduced", "--device", "cpu", "--steps", "1", *flag])
+
+
+def test_train_main_without_a_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_launch.main(["--reduced", "--steps", "1"])

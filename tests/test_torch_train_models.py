@@ -1,0 +1,188 @@
+"""Training losses and gradients of the port's model families against
+``jax.value_and_grad`` of the reference's ``loss_fn``, on the CPU.
+
+The reference cannot differentiate its Pallas kernels (jax 0.9.0 raises in
+``jax.grad`` through them), so its side runs ``kernels="xla"``; the port's
+runs ``kernels="cuda"``, which on CPU tensors takes every kernel's plain
+forward *and* backward through ``kernels.ops``' autograd Functions (K2-bwd's
+plain version for attention, K4's for the MoE experts).  Weights come from
+the reference's ``api.init`` through numpy, batches from a numpy seed; both
+sides remat their blocks (``cfg.remat``).  Gradients are compared leaf by
+leaf, by parameter path.
+
+float32 compute: every gradient within 1e-4 relative to its leaf's largest
+entry (measured: at most 2e-5), the loss at 1e-5.  bfloat16 compute: the two
+frameworks round at other places, so each leaf's relative RMS difference is
+held at 5e-2 (measured 0.010-0.029) and the loss at 2e-2.  zamba2's SSD scan
+in bf16 moves its dt_bias gradient by 12 % between the two correct paths, so
+zamba2 is held in float32 only.
+"""
+from dataclasses import replace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.models import build_model as ref_build_model
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.models.convert import from_reference
+from repro_torch.train.train_step import value_and_grad
+
+B, S = 2, 32
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, prefix + (k,)))
+        return out
+    return {prefix: tree}
+
+
+def _batch(cfg, seed=0):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, cfg.vocab_size, size=(B, S + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    front = {"vlm": "patches", "audio": "frames"}.get(cfg.family)
+    if front:
+        batch[front] = (rng.standard_normal((B, cfg.frontend_len, cfg.frontend_dim))
+                        * 0.02).astype(np.float32)
+    return batch
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(v).long() if v.dtype.kind in "iu" else torch.from_numpy(v)
+            for k, v in batch.items()}
+
+
+def both(arch, compute):
+    """(reference loss, metrics, grads) and the port's, same weights and batch."""
+    ref_cfg = replace(ref_get_config(arch).reduced(), kernels="xla", compute_dtype=compute)
+    cfg = replace(get_config(arch).reduced(), kernels="cuda", compute_dtype=compute)
+    ref_api, api = ref_build_model(ref_cfg), build_model(cfg)
+    weights = jax.tree.map(np.asarray, ref_api.init(jax.random.PRNGKey(0)))
+    batch = _batch(cfg)
+    (ref_loss, ref_metrics), ref_grads = jax.value_and_grad(ref_api.loss_fn, has_aux=True)(
+        jax.tree.map(jnp.asarray, weights), {k: jnp.asarray(v) for k, v in batch.items()})
+    params = from_reference(weights, "cpu")
+    loss, metrics, grads = value_and_grad(api, params, _torch_batch(batch))
+    return ((float(ref_loss), {k: float(v) for k, v in ref_metrics.items()},
+             _flat(jax.tree.map(np.asarray, ref_grads))),
+            (float(loss), {k: float(v) for k, v in metrics.items()}, _flat(grads), params))
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-30b-a3b", "zamba2-1.2b",
+                                  "internvl2-1b", "seamless-m4t-medium"])
+def test_float32_loss_and_gradients_match_reference(arch):
+    (ref_loss, ref_metrics, ref_grads), (loss, metrics, grads, params) = both(arch, "float32")
+    assert loss == pytest.approx(ref_loss, rel=1e-5, abs=1e-5)
+    assert metrics.keys() == ref_metrics.keys()
+    for k in metrics:
+        assert metrics[k] == pytest.approx(ref_metrics[k], rel=1e-5, abs=1e-6), k
+    assert grads.keys() == ref_grads.keys()
+    for path, want in ref_grads.items():
+        got = grads[path]
+        assert got.dtype == torch.float32 and got.shape == want.shape, path
+        scale = max(float(np.abs(want).max()), 1e-30)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4 * scale,
+                                   err_msg=str(path))
+    # the master parameters are untouched by a gradient computation
+    assert all(not p.requires_grad for p in _flat(params).values())
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-30b-a3b", "internvl2-1b",
+                                  "seamless-m4t-medium"])
+def test_bfloat16_loss_and_gradients_near_reference(arch):
+    (ref_loss, _, ref_grads), (loss, _, grads, _) = both(arch, "bfloat16")
+    assert loss == pytest.approx(ref_loss, abs=2e-2)
+    for path, want in ref_grads.items():
+        got = grads[path].numpy()
+        rms = np.sqrt(np.mean(want.astype(np.float64) ** 2))
+        if rms == 0:
+            assert np.all(got == 0), path
+            continue
+        rel = np.sqrt(np.mean((got.astype(np.float64) - want) ** 2)) / rms
+        assert rel <= 5e-2, (path, rel)
+
+
+def test_tied_embedding_gets_gather_and_head_gradients():
+    """qwen2.5-3b ties its embedding: the table's gradient is the gather's
+    (rows of the input tokens only) plus the head's (every row)."""
+    cfg = replace(get_config("qwen2.5-3b").reduced(), compute_dtype="float32")
+    assert cfg.tie_embeddings
+    api = build_model(cfg)
+    params = api.init(torch.Generator().manual_seed(0), "cpu")
+    batch = _torch_batch(_batch(cfg))
+    _, _, grads = value_and_grad(api, params, batch)
+    g = grads["embed"]["table"]
+    unused = torch.ones(cfg.padded_vocab, dtype=torch.bool)
+    unused[batch["tokens"].flatten()] = False
+    assert torch.all(g[~unused].abs().sum(-1) > 0)
+    assert torch.all(g[unused].abs().sum(-1) > 0)        # the head reaches every row
+
+
+def test_rwkv6_loss_raises_naming_the_queue():
+    cfg = get_config("rwkv6-3b").reduced()
+    api = build_model(cfg)
+    params = api.init(torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        api.loss_fn(params, _torch_batch(_batch(cfg)))
+
+
+def test_fused_head_xent_equals_softmax_xent():
+    """The chunked head + loss (off by default, as in the reference) is the
+    same mean cross-entropy, with the same gradients."""
+    from repro.models import layers as ref_layers
+    from repro_torch.models import layers as L
+    assert L.FUSED_XENT_THRESHOLD == ref_layers.FUSED_XENT_THRESHOLD == 1 << 60
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 24)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((24, 50)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 50, size=(2, 16)))
+    want = ref_layers.fused_head_xent(jnp.asarray(x.numpy()), jnp.asarray(w.numpy()),
+                                      jnp.asarray(labels.numpy()), chunk=4)
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+    got = L.fused_head_xent(xs, ws, labels, chunk=4)
+    assert got.item() == pytest.approx(float(want), rel=1e-5)
+    plain = L.softmax_xent(torch.einsum("bsd,dv->bsv", x, w), labels)
+    assert got.item() == pytest.approx(float(plain), rel=1e-5)
+    gx, gw = torch.autograd.grad(got, (xs, ws))
+    xs2, ws2 = x.clone().requires_grad_(), w.clone().requires_grad_()
+    wx, ww = torch.autograd.grad(L.softmax_xent(torch.einsum("bsd,dv->bsv", xs2, ws2),
+                                                labels), (xs2, ws2))
+    torch.testing.assert_close(gx, wx, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gw, ww, rtol=1e-5, atol=1e-6)
+    vd = L.fused_head_xent(x, w.t().contiguous(), labels, chunk=4, w_is_vd=True)
+    assert float(vd) == pytest.approx(float(plain), rel=1e-5)
+
+
+def test_remat_recomputes_each_block_and_keeps_the_gradient():
+    """With ``cfg.remat`` every attention call runs twice a step (forward
+    and recompute); the gradient equals the one without remat."""
+    from repro_torch.kernels import ops
+    cfg = replace(get_config("qwen2.5-3b").reduced(), compute_dtype="float32", kernels="cuda")
+    params = build_model(cfg).init(torch.Generator().manual_seed(1), "cpu")
+    batch = _torch_batch(_batch(cfg))
+    calls, attention = [], ops.attention
+
+    def counting(*a, **k):
+        calls.append(1)
+        return attention(*a, **k)
+
+    grads = {}
+    for remat in (True, False):
+        calls.clear()
+        ops.attention = counting
+        try:
+            _, _, grads[remat] = value_and_grad(build_model(replace(cfg, remat=remat)),
+                                                params, batch)
+        finally:
+            ops.attention = attention
+        assert len(calls) == (2 if remat else 1) * cfg.n_layers
+    for path, g in _flat(grads[True]).items():
+        torch.testing.assert_close(g, _flat(grads[False])[path], rtol=1e-5, atol=1e-7)

@@ -1,18 +1,20 @@
 # Hand-written Hopper kernels for the compute hot-spots the planner blocks
 # (GEMM, FlashAttention forward and backward, flash-decode, the MoE grouped
-# GEMM) and for the RWKV6 chunked WKV scan.  Each kernel module holds its wrapper, its
-# launch counter and its plain PyTorch version; the CUDA sources are under
-# csrc/ and are built at first use by _build.py; ops.py holds the public
-# wrappers with planner-chosen tile shapes; ref.py the oracles.
+# GEMM) and for the RWKV6 chunked WKV scan, forward and backward.  Each
+# kernel module holds its wrapper, its launch counter and its plain PyTorch
+# version; the CUDA sources are under csrc/ and are built at first use by
+# _build.py; ops.py holds the public wrappers with planner-chosen tile
+# shapes; ref.py the oracles.
 #
 # The kernel functions are reached through their modules
 # (``kernels.gemm.gemm``, ``kernels.moe_gmm.grouped_matmul``, ...):
 # re-exporting them here would shadow the modules of the same name.
 from . import (flash_attention, flash_attention_bwd, flash_decode, gemm, moe_gmm, ops, ref,
-               rwkv6)
+               rwkv6, rwkv6_bwd)
 
 __all__ = ["ops", "ref", "gemm", "flash_attention", "flash_attention_bwd", "flash_decode",
-           "moe_gmm", "rwkv6", "launch_counts", "launches_by_body", "reset_launch_counts"]
+           "moe_gmm", "rwkv6", "rwkv6_bwd", "launch_counts", "launches_by_body",
+           "reset_launch_counts"]
 
 
 def launch_counts() -> dict:
@@ -22,7 +24,8 @@ def launch_counts() -> dict:
             "flash_decode": flash_decode.launches,
             "flash_decode_partials": flash_decode.partials_launches,
             "flash_decode_combine": flash_decode.combine_launches,
-            "grouped_matmul": moe_gmm.launches, "wkv6": rwkv6.launches}
+            "grouped_matmul": moe_gmm.launches, "wkv6": rwkv6.launches,
+            "wkv6_bwd": rwkv6_bwd.launches}
 
 
 def launches_by_body() -> dict:
@@ -43,3 +46,4 @@ def reset_launch_counts() -> None:
     flash_decode.combine_launches = 0
     moe_gmm.launches = 0
     rwkv6.launches = 0
+    rwkv6_bwd.launches = 0

@@ -159,6 +159,10 @@ _SIGNATURES = {
     # r, k, v, log_w, u, o, state, BH, T, d, chunk, is_bf16, stream
     "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_wkv6_smem_bytes": [_I, _I],
+    # r, k, v, log_w, u, dout, dr, dk, dv, dlog_w, du, scratch, BH, T, d, chunk,
+    # is_bf16, stream
+    "repro_wkv6_bwd": [_P] * 12 + [_I] * 5 + [_P],
+    "repro_wkv6_bwd_smem_bytes": [_I, _I],
 }
 
 

@@ -10,14 +10,15 @@ Responsibilities:
 * send a tensor that lies on the CPU to the kernel's plain PyTorch version
   and a CUDA tensor to the kernel.  Nothing else decides: there is no
   interpret flag, and on a CUDA tensor a kernel launches or raises;
-* give :func:`attention`, :func:`matmul` and :func:`grouped_matmul` a
-  gradient.  Where autograd records (grad mode on and an operand that
-  requires a gradient) each is a ``torch.autograd.Function`` whose backward
-  runs kernels too: K2's backward (``flash_attention_bwd``) from the
-  log-sum-exp the forward kept, and K1's and K4's backward as products of
-  the same kernel on contiguous transposes.  Otherwise (serving runs under
-  ``torch.no_grad``) the forward launches exactly as before.  On CPU
-  tensors forward and backward are the plain versions.
+* give :func:`attention`, :func:`matmul`, :func:`grouped_matmul` and
+  :func:`wkv6` a gradient.  Where autograd records (grad mode on and an
+  operand that requires a gradient) each is a ``torch.autograd.Function``
+  whose backward runs kernels too: K2's backward (``flash_attention_bwd``)
+  from the log-sum-exp the forward kept, K1's and K4's backward as products
+  of the same kernel on contiguous transposes, and K5's backward
+  (``rwkv6_bwd.wkv6_bwd``) from the forward's operands.  Otherwise
+  (serving runs under ``torch.no_grad``) the forward launches exactly as
+  before.  On CPU tensors forward and backward are the plain versions.
 
 Model code calls these through ``repro_torch.models.layers`` (and
 ``models/rwkv6.py`` for ``wkv6``) with ``cfg.kernels == "cuda"``.
@@ -35,6 +36,7 @@ from . import gemm as _gemm
 from . import moe_gmm as _moe
 from . import ref as ref
 from . import rwkv6 as _rwkv
+from . import rwkv6_bwd as _rwkvb
 
 
 def fit_block(n: int, desired: int, minimum: int = 8) -> int:
@@ -223,6 +225,29 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
 
     The chunk is the largest power of two that divides T and is at most
     ``chunk``, as in the reference, and at most the kernel's longest chunk;
-    nothing pads, so a prompt of odd length runs at chunk 1."""
+    nothing pads, so a prompt of odd length runs at chunk 1.
+    Differentiable in r, k, v, log_w and u: where autograd records, the
+    backward is K5-bwd at the same chunk.  The final state is marked
+    non-differentiable (the reference's loss never reads it): it never
+    requires a gradient."""
     c = fit_block(r.shape[1], min(chunk, _rwkv.MAX_CHUNK))
+    if _records(r, k, v, log_w, u):
+        return _Wkv6.apply(r, k, v, log_w, u, c)
     return _rwkv.wkv6(r, k, v, log_w, u, chunk=c)
+
+
+class _Wkv6(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, log_w, u, chunk):
+        o, state = _rwkv.wkv6(r, k, v, log_w, u, chunk=chunk)
+        ctx.save_for_backward(r, k, v, log_w, u)
+        ctx.chunk = chunk
+        ctx.mark_non_differentiable(state)
+        return o, state
+
+    @staticmethod
+    def backward(ctx, do, _dstate):
+        r, k, v, log_w, u = ctx.saved_tensors
+        grads = _rwkvb.wkv6_bwd(r, k, v, log_w, u, do.to(r.dtype).contiguous(),
+                                chunk=ctx.chunk)
+        return (*grads, None)

@@ -100,6 +100,23 @@ def _check(r, k, v, log_w, u) -> None:
         raise ValueError("wkv6's operands lie on different devices")
 
 
+def _check_compiled(name: str, xs, d: int, T: int, c: int) -> None:
+    """Raise unless the kernel was compiled for these CUDA operands: d in
+    :data:`COMPILED_HEAD_DIMS`, a chunk of 1 to :data:`MAX_CHUNK`, float32
+    or bfloat16 of one type, contiguous."""
+    if d not in COMPILED_HEAD_DIMS:
+        raise ValueError(f"head dimension {d} is not compiled; choose from "
+                         f"{COMPILED_HEAD_DIMS}")
+    if T and not 1 <= c <= MAX_CHUNK:
+        raise ValueError(f"chunk {c} is not compiled; the kernel takes 1 to {MAX_CHUNK}")
+    if xs[0].dtype not in (torch.float32, torch.bfloat16) \
+            or any(x.dtype != xs[0].dtype for x in xs):
+        raise TypeError(f"{name} takes float32 or bfloat16 operands of one type, got "
+                        f"{[x.dtype for x in xs]}")
+    if not all(x.is_contiguous() for x in xs):
+        raise ValueError(f"{name} takes contiguous operands")
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
          u: torch.Tensor, *, chunk: int = DEFAULT_CHUNK
          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -118,17 +135,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
         raise ValueError(f"wkv6 runs on cpu or cuda tensors, not {r.device}")
     BH, T, d = r.shape
     c = _chunk_of(T, chunk)
-    if d not in COMPILED_HEAD_DIMS:
-        raise ValueError(f"head dimension {d} is not compiled; choose from "
-                         f"{COMPILED_HEAD_DIMS}")
-    if T and not 1 <= c <= MAX_CHUNK:
-        raise ValueError(f"chunk {c} is not compiled; the kernel takes 1 to {MAX_CHUNK}")
-    if r.dtype not in (torch.float32, torch.bfloat16) \
-            or any(x.dtype != r.dtype for x in (k, v, log_w, u)):
-        raise TypeError(f"wkv6 takes float32 or bfloat16 operands of one type, got "
-                        f"{[x.dtype for x in (r, k, v, log_w, u)]}")
-    if not all(x.is_contiguous() for x in (r, k, v, log_w, u)):
-        raise ValueError("wkv6 takes contiguous operands")
+    _check_compiled("wkv6", (r, k, v, log_w, u), d, T, c)
     o = torch.empty_like(r)
     state = torch.empty((BH, d, d), dtype=torch.float32, device=r.device)
     if BH == 0:

@@ -1,0 +1,166 @@
+"""Backward of the chunked RWKV6 WKV scan (K5-bwd): wrapper, launch counter
+and plain version.
+
+The reference has no counterpart: ``jax.grad`` cannot go through its Pallas
+kernel ``repro/kernels/rwkv6.py``, and it trains on its XLA path
+(``wkv6_chunked_jnp``).  The port sends every prompt-length WKV scan through
+K5, so training needs K5's gradient.  Per head, with the forward's
+recurrence ``S_t = diag(w_t) S_{t-1} + k_t v_t^T`` and
+``o_t = r_t^T S_{t-1} + (sum_i r_t u k_t) v_t``, the gradient of the state
+``G_{t-1} = diag(w_t) G_t + r_t dO_t^T`` runs backward from ``G_T = 0`` (the
+final state is not differentiated) and, with ``db_t = dO_t . v_t``:
+
+    dr_t = S_{t-1} dO_t + u k_t db_t        dk_t = G_t v_t + u r_t db_t
+    dv_t = G_t^T k_t + (sum_i r_t u k_t) dO_t
+    du   = sum_t r_t k_t db_t
+
+With the bonus terms taken out, ``dr' = dr - u k db`` and
+``dk' = dk - u r db``, the log-decay's gradient is a plain suffix sum over
+the whole sequence, exclusive on r and inclusive on k:
+
+    dlog_w[s] = sum_{t > s} r_t dr'_t - sum_{t >= s} k_t dk'_t.
+
+Chunk by chunk, in the forward's notation (``A = r e^{cum_excl}``,
+``RS = r e^{cum_excl - c}``, ``KS = k e^{c - cum}``,
+``KC = k e^{last - cum}``, ``P = tril(RS KS^T, -1)``) and with
+``dP = tril(dO v^T, -1)``, a chunk with start state S0 and end-state
+gradient G1 gives
+
+    dr = (dO S0^T) e^{cum_excl} + (dP KS) e^{cum_excl - c} + u k db
+    dk = (v G1^T) e^{last - cum} + (dP^T RS) e^{c - cum} + u r db
+    dv = KC G1 + P^T dO + (sum_i r u k) dO
+    G0 = e^{last} G1 + A^T dO
+
+The midpoint c cancels in every product, as in the forward.  The CUDA
+kernel (``csrc/wkv6_bwd.cu``) computes this; a tensor on the CPU goes to
+:func:`wkv6_bwd_plain`, a CUDA tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _build
+from .rwkv6 import DEFAULT_CHUNK, _check, _check_compiled, _chunk_of
+
+launches = 0                        # kernel launches made by wkv6_bwd()
+
+Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def wkv6_bwd_smem_bytes(d: int, chunk: int) -> int:
+    """Dynamic shared memory of one block of the kernel (mirrors
+    ``wkv6_bwd_smem_floats`` in ``csrc/wkv6_bwd.cu``), rows padded to d + 4
+    floats: the state (or its gradient) in two buffers; fourteen chunk-sized
+    arrays (r, k, v, dO, the four decay factors, A, RS, KS, KC, r dr' and
+    k dk'); the scores and dO v^T below the diagonal; db and the bonus sums;
+    e^{last} and u."""
+    ld = d + 4
+    return 4 * (2 * d * ld + 14 * chunk * ld + 2 * chunk * chunk + 2 * chunk + 2 * d)
+
+
+def wkv6_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
+                   u: torch.Tensor, do: torch.Tensor, *, chunk: int = DEFAULT_CHUNK
+                   ) -> Grads:
+    """The kernel's chunked backward math in plain PyTorch, float32 inside,
+    with the chunk and midpoint offsets of ``wkv6_plain`` (not autograd of
+    it).  r/k/v/log_w/do: (BH, T, d); u: (BH, d) -> (dr, dk, dv, dlog_w, du),
+    each in its operand's dtype.  A masked entry of P or dP is selected
+    away, never multiplied by 0."""
+    _check(r, k, v, log_w, u)
+    if do.shape != r.shape:
+        raise ValueError(f"do must be shaped like r {tuple(r.shape)}, got {tuple(do.shape)}")
+    BH, T, d = r.shape
+    c = _chunk_of(T, chunk)
+    rf, kf, vf, wf, dof = (x.float() for x in (r, k, v, log_w, do))
+    uf = u.float()[:, None, :]
+    if T == 0:
+        return (torch.zeros_like(r), torch.zeros_like(k), torch.zeros_like(v),
+                torch.zeros_like(log_w), torch.zeros_like(u))
+    lower = torch.tril(torch.ones(c, c, dtype=torch.bool, device=r.device), -1)
+    zero = torch.zeros((), device=r.device)
+    db = (dof * vf).sum(-1, keepdim=True)               # dO_t . v_t, (BH, T, 1)
+
+    def chunk_terms(t0):
+        rr, kk, vv, ww, dd = (x[:, t0:t0 + c] for x in (rf, kf, vf, wf, dof))
+        cum = torch.cumsum(ww, dim=1)
+        cum_excl = cum - ww
+        last = cum[:, -1:]
+        mid = 0.5 * last
+        dp = torch.where(lower, torch.einsum("btj,bsj->bts", dd, vv), zero)
+        return rr, kk, vv, dd, cum, cum_excl, last, mid, dp
+
+    # forward over the chunks: recompute the state entering each, write dr
+    dr = torch.empty_like(rf)
+    S = torch.zeros((BH, d, d), dtype=torch.float32, device=r.device)
+    for t0 in range(0, T, c):
+        rr, kk, vv, dd, cum, cum_excl, last, mid, dp = chunk_terms(t0)
+        dr[:, t0:t0 + c] = (torch.einsum("btj,bij->bti", dd, S) * torch.exp(cum_excl)
+                            + torch.einsum("bts,bsi->bti", dp, kk * torch.exp(mid - cum))
+                            * torch.exp(cum_excl - mid))
+        S = S * torch.exp(last).transpose(1, 2) \
+            + torch.einsum("bsi,bsj->bij", kk * torch.exp(last - cum), vv)
+    # backward over the chunks: carry the state's gradient, write dk and dv
+    dk, dv = torch.empty_like(rf), torch.empty_like(rf)
+    G = torch.zeros((BH, d, d), dtype=torch.float32, device=r.device)
+    for t0 in reversed(range(0, T, c)):
+        rr, kk, vv, dd, cum, cum_excl, last, mid, dp = chunk_terms(t0)
+        rs = rr * torch.exp(cum_excl - mid)
+        p = torch.where(lower, torch.einsum("bti,bsi->bts", rs, kk * torch.exp(mid - cum)),
+                        zero)
+        bonus = (rr * uf * kk).sum(-1, keepdim=True)
+        dk[:, t0:t0 + c] = (torch.einsum("bsj,bij->bsi", vv, G) * torch.exp(last - cum)
+                            + torch.einsum("bts,bti->bsi", dp, rs) * torch.exp(mid - cum))
+        dv[:, t0:t0 + c] = (torch.einsum("bsi,bij->bsj", kk * torch.exp(last - cum), G)
+                            + torch.einsum("bts,btj->bsj", p, dd) + bonus * dd)
+        G = G * torch.exp(last).transpose(1, 2) \
+            + torch.einsum("bti,btj->bij", rr * torch.exp(cum_excl), dd)
+    # dr and dk above lack their bonus terms: they are dr' and dk'
+    a, b = rf * dr, kf * dk
+    suffix = torch.flip(torch.cumsum(torch.flip(a - b, dims=[1]), dim=1), dims=[1])
+    dlog_w = suffix - a                                 # exclusive on r, inclusive on k
+    du = (rf * kf * db).sum(1)
+    dr = dr + uf * kf * db
+    dk = dk + uf * rf * db
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dlog_w.to(log_w.dtype),
+            du.to(u.dtype))
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
+             u: torch.Tensor, do: torch.Tensor, *, chunk: int = DEFAULT_CHUNK) -> Grads:
+    """r/k/v/log_w/do: (BH, T, d); u: (BH, d) -> (dr, dk, dv, dlog_w, du),
+    the gradients of ``sum(o * do)`` for ``o`` = ``wkv6(r, k, v, log_w, u,
+    chunk=chunk)[0]``, each in its operand's dtype (du per row: an expanded
+    u sums it over the batch).  ``min(chunk, T)`` must divide T.  On a CUDA
+    tensor all six operands are float32 or bfloat16 of one type and
+    contiguous, with d in ``rwkv6.COMPILED_HEAD_DIMS`` and a chunk of at
+    most ``rwkv6.MAX_CHUNK``, as K5 takes them."""
+    global launches
+    _check(r, k, v, log_w, u)
+    if do.shape != r.shape or do.device != r.device:
+        raise ValueError(f"do must be shaped like r {tuple(r.shape)} on {r.device}, got "
+                         f"{tuple(do.shape)} on {do.device}")
+    if r.device.type == "cpu":
+        return wkv6_bwd_plain(r, k, v, log_w, u, do, chunk=chunk)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6_bwd runs on cpu or cuda tensors, not {r.device}")
+    BH, T, d = r.shape
+    c = _chunk_of(T, chunk)
+    xs = (r, k, v, log_w, u, do)
+    _check_compiled("wkv6_bwd", xs, d, T, c)
+    if BH == 0 or T == 0:
+        return (torch.zeros_like(r), torch.zeros_like(k), torch.zeros_like(v),
+                torch.zeros_like(log_w), torch.zeros_like(u))
+    dr, dk, dv, dlog_w = (torch.empty_like(x) for x in (r, k, v, log_w))
+    du = torch.empty_like(u)
+    scratch = torch.empty((BH, T, d), dtype=torch.float32, device=r.device)   # r dr'
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _build.lib().repro_wkv6_bwd(
+            *(x.data_ptr() for x in (*xs, dr, dk, dv, dlog_w, du, scratch)),
+            BH, T, d, c, int(r.dtype == torch.bfloat16), stream)
+    _build.check(code, f"wkv6_bwd BH={BH} T={T} d={d} chunk={c}")
+    launches += 1
+    return dr, dk, dv, dlog_w, du
+

@@ -3,11 +3,14 @@
 ``python -m repro_torch.launch.train --arch qwen2.5-3b --steps 3 --batch 4
 --seq 512`` trains the full config from random float32 weights made from
 ``TrainConfig.seed``, computing in the config's dtype (bf16), with AdamW
-(float32 state), remat as the config says, and batches from ``SyntheticLM``.  Every
-prompt-length attention goes through the FlashAttention kernel and its
-backward (K2, K2-bwd), an MoE's expert products through the grouped GEMM
-forward and backward (K4); the rest is PyTorch.  It prints the reference's
-per-step line: loss, gradient norm, learning rate and tokens a second.
+(float32 state), remat as the config says, and batches from
+``SyntheticLM``; every model family trains (``--arch rwkv6-3b`` too).
+Every prompt-length attention goes through the FlashAttention kernel and
+its backward (K2, K2-bwd), an MoE's expert products through the grouped
+GEMM forward and backward (K4), RWKV6's WKV scan through the chunked-WKV
+kernel and its backward (K5, K5-bwd); the rest is PyTorch.  It prints the
+reference's per-step line: loss, gradient norm, learning rate and tokens a
+second.
 ``--device cpu --reduced`` runs the same code on the kernels' plain versions
 (the tests do); without a GPU and without ``--device cpu`` it raises.
 

@@ -3,11 +3,10 @@
 ``build_model(cfg)`` returns a :class:`ModelAPI` whose members close over the
 config: parameter spec (single source of truth for init / abstract shapes /
 axes), logits function, training loss, decode step, prefill and cache
-constructor, for all six families (RWKV6's loss raises until its kernel has a
-backward).  The VLM and the encoder-decoder also take a stubbed frontend
-input (image patches, audio frames): :meth:`ModelAPI.frontend_inputs` makes
-it, and ``prefill(params, tokens, cache, **inputs)`` and ``logits_fn``
-consume it.
+constructor, for all six families, each of which trains.  The VLM and the
+encoder-decoder also take a stubbed frontend input (image patches, audio
+frames): :meth:`ModelAPI.frontend_inputs` makes it, and ``prefill(params,
+tokens, cache, **inputs)`` and ``logits_fn`` consume it.
 """
 from __future__ import annotations
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import fit_block
 from .param import LeafSpec
 
 Params = Dict[str, Any]
@@ -124,6 +125,60 @@ def _sdpa_plain_dense(q, k, v, causal: bool, sm_scale: float,
     return out.to(q.dtype)
 
 
+CHUNKED_ATTN_THRESHOLD = 8192     # dense S x T scores above this use chunking
+
+
+def _sdpa_plain_chunked(q, k, v, causal: bool, sm_scale: float,
+                        kv_block: int = 1024) -> torch.Tensor:
+    """The reference's ``_sdpa_xla_chunked``: online-softmax attention in
+    plain PyTorch, a loop over KV blocks, so the scores held at once are
+    (B, S, kv_block, H) instead of (B, H, S, T).  q: (B,S,H,D), k/v:
+    (B,T,H,D) -> (B,S,H,D).  The queries are not blocked, as in the
+    reference; a T without a power-of-two block of at least 8 goes dense."""
+    B, S, H, D = q.shape
+    T = k.shape[1]
+    kb = fit_block(T, min(kv_block, T))
+    if kb < 8:
+        return _sdpa_plain_dense(q, k, v, causal, sm_scale)
+    qf = q.float()
+    m = torch.full((B, S, H), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, S, H), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, S, H, D), dtype=torch.float32, device=q.device)
+    qpos = torch.arange(S, device=q.device)[:, None] + (T - S)     # align ends
+    for t0 in range(0, T, kb):
+        s = torch.einsum("bqhd,bthd->bqth", qf, k[:, t0:t0 + kb].float()) * sm_scale
+        if causal:
+            kpos = t0 + torch.arange(kb, device=q.device)[None, :]
+            s = torch.where((qpos >= kpos)[None, :, :, None], s,
+                            torch.full((), -1e30, device=q.device))
+        m_new = torch.maximum(m, s.amax(dim=2))
+        p = torch.exp(s - m_new[:, :, None, :])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=2)
+        acc = acc * alpha[..., None] + torch.einsum("bqth,bthd->bqhd", p,
+                                                    v[:, t0:t0 + kb].float())
+        m = m_new
+    l = torch.where(l == 0.0, torch.ones((), device=q.device), l)
+    return (acc / l[..., None]).to(q.dtype)
+
+
+def _sdpa_plain(q, k, v, causal: bool, sm_scale: float,
+                kv_valid_len: Optional[int] = None) -> torch.Tensor:
+    """The reference's ``_sdpa_xla`` dispatch: dense scores, or the chunked
+    form for a multi-token pass over all keys whose S x T exceeds
+    :data:`CHUNKED_ATTN_THRESHOLD` squared, with the reference's adaptive
+    kv block (the (B, S, kv_block, H) float32 scores kept under 64 GB)."""
+    B, S, H = q.shape[:3]
+    T = k.shape[1]
+    if S > 1 and kv_valid_len is None and S * T > CHUNKED_ATTN_THRESHOLD ** 2:
+        row = B * S * H * 4
+        kb = 1024
+        while kb > 8 and row * kb > 64e9:
+            kb //= 2
+        return _sdpa_plain_chunked(q, k, v, causal, sm_scale, kv_block=kb)
+    return _sdpa_plain_dense(q, k, v, causal, sm_scale, kv_valid_len=kv_valid_len)
+
+
 def _sdpa_kernel(q, k, v, causal: bool, sm_scale: float, q_per_kv: int,
                  kv_valid_len: Optional[int] = None) -> torch.Tensor:
     """Attention through the kernels of ``repro_torch.kernels.ops``.
@@ -151,7 +206,8 @@ def _sdpa_kernel(q, k, v, causal: bool, sm_scale: float, q_per_kv: int,
 def _attend(q, k, v, causal: bool, cfg: ModelConfig,
             kv_valid_len: Optional[int] = None) -> torch.Tensor:
     """q: (B,S,H,D) against k/v: (B,T,Hkv,D), not repeated: through the
-    kernels when ``cfg.kernels == "cuda"``, else the dense plain path."""
+    kernels when ``cfg.kernels == "cuda"``, else the plain path (dense, or
+    chunked over the keys for long sequences, as the reference's XLA path)."""
     sm_scale = cfg.head_dim_ ** -0.5
     if cfg.kernels == "cuda":
         if q.dtype != k.dtype:
@@ -160,7 +216,7 @@ def _attend(q, k, v, causal: bool, cfg: ModelConfig,
                             kv_valid_len=kv_valid_len)
     kr = _repeat_kv(k, cfg.q_per_kv)
     vr = _repeat_kv(v, cfg.q_per_kv)
-    return _sdpa_plain_dense(q, kr, vr, causal, sm_scale, kv_valid_len=kv_valid_len)
+    return _sdpa_plain(q, kr, vr, causal, sm_scale, kv_valid_len=kv_valid_len)
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,

@@ -7,9 +7,10 @@ r/k/v/g projections + the RWKV6 signature *data-dependent decay*
 squared-ReLU FFN gated by sigmoid receptance).
 
 The WKV core of a multi-token pass runs chunked: through
-``kernels.ops.wkv6`` (the CUDA kernel on the card) with ``cfg.kernels ==
-"cuda"``, through :func:`wkv6_chunked` (the same chunked math in plain
-PyTorch) otherwise.  Decode carries the per-layer state (S, shift buffers)
+``kernels.ops.wkv6`` (the CUDA kernel on the card, K5, and its backward
+K5-bwd when autograd records) with ``cfg.kernels == "cuda"``, through
+:func:`wkv6_chunked` (the same chunked math in plain PyTorch, differentiated
+by autograd) otherwise.  Decode carries the per-layer state (S, shift buffers)
 instead of a KV cache, and a single token goes through the plain
 recurrence, as in the reference.  The cache is updated **in place**.
 
@@ -19,9 +20,9 @@ than the full 5-way data-dependent lerp; the decay LoRA is kept faithful.
 
 The reference has no multi-token prefill for this family (its serve loop
 feeds the prompt token by token); :func:`prefill` is the port's, and equals
-that loop.  Training waits for a backward of the chunked-WKV kernel:
-:func:`loss_fn` raises on every device (ROADMAP.md, Queue 1), so that no
-test passes on a path the card lacks.
+that loop.  :func:`loss_fn` is the reference's: the mean cross-entropy of
+:func:`forward`, whose blocks are recomputed in the backward when
+``cfg.remat`` (so K5 runs twice a layer a training step, K5-bwd once).
 """
 from __future__ import annotations
 
@@ -197,18 +198,26 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 # ------------------------------------------------------------------- model
+def _block_out(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return block_apply(p, x, cfg)[0]
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V)."""
+    """tokens: (B, S) -> logits (B, S, V); each block recomputed in the
+    backward when ``cfg.remat`` (the reference's ``jax.checkpoint`` with
+    ``nothing_saveable``)."""
     x = L.embed(params["embed"], tokens, cfg)
     for i in range(cfg.n_layers):
-        x, _ = block_apply(transformer._layer(params, i), x, cfg)
+        x = L.remat(cfg.remat, _block_out, transformer._layer(params, i), x, cfg)
     return transformer._head(params, x, cfg)
 
 
-def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    raise NotImplementedError(
-        f"{cfg.name}: training RWKV6 needs a backward of the chunked-WKV kernel (K5), "
-        f"which is not written yet (ROADMAP.md, Queue 1: rwkv6.loss_fn with K5's backward)")
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]``, as the reference's ``loss_fn``."""
+    loss = L.softmax_xent(forward(params, batch["tokens"], cfg), batch["labels"])
+    return loss, {"loss": loss}
 
 
 # ----------------------------------------------------------------- serving

@@ -427,6 +427,96 @@ def test_wkv6_kernel_refuses_what_is_not_compiled(cuda):
     assert o.shape == xs[0].shape
 
 
+def _wkv_bwd_inputs(BH, T, d, dtype, device, floor=False):
+    """The forward's inputs and an output gradient ``do`` ~ N(0, 1)."""
+    gen = torch.Generator(device=device).manual_seed(BH * 1000 + T + d + 1)
+    do = torch.randn(BH, T, d, generator=gen, device=device).to(dtype)
+    return _wkv_inputs(BH, T, d, dtype, device, floor) + [do]
+
+
+def _within_share_of_largest(got, want, rel):
+    for name, g, w in zip(("dr", "dk", "dv", "dlog_w", "du"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.isfinite(g.float()).all(), name
+        scale = w.float().abs().max().item()
+        torch.testing.assert_close(g.float(), w.float(), rtol=rel, atol=rel * scale,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [1, 8, 16, 32])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_wkv6_bwd_kernel(cuda, d, chunk, dtype):
+    """K5-bwd against its plain version on the same inputs, every compiled
+    head dim at chunks 1 / 8 / 16 / 32 (chunk 1 at an odd T): each gradient
+    within 2e-3 (float32) or 2e-2 (bfloat16) of its largest entry, and the
+    same bits on a second call (no atomics)."""
+    from repro_torch.kernels import rwkv6_bwd as KB
+    T = 37 if chunk == 1 else 96
+    xs = _wkv_bwd_inputs(6, T, d, dtype, cuda)
+    before = KB.launches
+    got = KB.wkv6_bwd(*xs, chunk=chunk)
+    again = KB.wkv6_bwd(*xs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert KB.launches == before + 2
+    _within_share_of_largest(got, KB.wkv6_bwd_plain(*xs, chunk=chunk),
+                             2e-3 if dtype == torch.float32 else 2e-2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(160, 512, 64, 16, False), (5, 96, 64, 32, True),
+                                  (160, 512, 64, 32, True), (4, 100, 64, 4, False)])
+def test_wkv6_bwd_kernel_at_the_training_shape_and_the_decay_floor(cuda, case, dtype):
+    """rwkv6-3b's training shape (160 rows, T 512, d 64, chunk 16), decays
+    at the model's floor with chunk 32 (a masked product's factors past
+    float32's range) and a ragged chunk of 4."""
+    from repro_torch.kernels import rwkv6_bwd as KB
+    BH, T, d, chunk, floor = case
+    xs = _wkv_bwd_inputs(BH, T, d, dtype, cuda, floor)
+    got = KB.wkv6_bwd(*xs, chunk=chunk)
+    torch.cuda.synchronize()
+    _within_share_of_largest(got, KB.wkv6_bwd_plain(*xs, chunk=chunk),
+                             2e-3 if dtype == torch.float32 else 2e-2)
+
+
+def test_wkv6_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import rwkv6_bwd as KB
+    xs = _wkv_bwd_inputs(2, 64, 128, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dimension 128 is not compiled"):
+        KB.wkv6_bwd(*xs, chunk=16)
+    xs = _wkv_bwd_inputs(2, 128, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="chunk 64 is not compiled"):
+        KB.wkv6_bwd(*xs, chunk=64)
+    with pytest.raises(TypeError, match="one type"):
+        KB.wkv6_bwd(*xs[:5], xs[5].to(torch.bfloat16), chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        KB.wkv6_bwd(xs[0].transpose(1, 2).contiguous().transpose(1, 2), *xs[1:], chunk=16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ops_wkv6_gradient_on_the_card_matches_the_cpu(cuda, dtype):
+    """``ops.wkv6`` under autograd on the card (K5 once, K5-bwd once) against
+    the same call on CPU copies (the plain forward and backward)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    xs = _wkv_bwd_inputs(8, 128, 64, dtype, cuda)
+
+    def grads(device):
+        leaves = [x.detach().to(device).requires_grad_() for x in xs[:5]]
+        o, state = ops.wkv6(*leaves, chunk=16)
+        assert not state.requires_grad
+        return torch.autograd.grad(o, leaves, xs[5].to(device))
+
+    kernels.reset_launch_counts()
+    got = grads(cuda)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["wkv6"] == 1 and counts["wkv6_bwd"] == 1 and sum(counts.values()) == 2
+    want = [g.to(cuda) for g in grads("cpu")]
+    _within_share_of_largest(got, want, 2e-3 if dtype == torch.float32 else 2e-2)
+
+
 def test_serve_rwkv6_reduced_on_the_card_is_as_close_to_float32_as_plain(cuda, monkeypatch):
     """rwkv6-3b reduced: K5 once per layer in prefill.  The plain run is the
     same bf16 loop with the kernel's plain version in its place, fed the
@@ -499,9 +589,9 @@ def test_serve_rwkv6_reduced_on_the_card_is_as_close_to_float32_as_plain(cuda, m
 def test_python_footprints_mirror_the_compiled_kernels(cuda):
     """The shared-memory formulas the planner prunes with are the kernels'
     own, for the TMA body's tiles and the staged body's alike; so are the
-    decode bodies' and the WKV scan's."""
+    decode bodies' and the WKV scan's, forward and backward."""
     from repro_torch.kernels import _build, flash_attention as FA, flash_decode as FD, gemm as G
-    from repro_torch.kernels import rwkv6 as K
+    from repro_torch.kernels import rwkv6 as K, rwkv6_bwd as KB
     lib = _build.lib()
     for d in FA.COMPILED_HEAD_DIMS:
         assert lib.repro_flash_decode_smem_bytes(d, 1) == FD.decode_smem_bytes(d, 2)
@@ -509,6 +599,7 @@ def test_python_footprints_mirror_the_compiled_kernels(cuda):
     for d in K.COMPILED_HEAD_DIMS:
         for chunk in (1, 16, 24, 32):
             assert lib.repro_wkv6_smem_bytes(d, chunk) == K.wkv6_smem_bytes(d, chunk)
+            assert lib.repro_wkv6_bwd_smem_bytes(d, chunk) == KB.wkv6_bwd_smem_bytes(d, chunk)
     for tile in G.COMPILED_TILES:
         assert lib.repro_gemm_smem_bytes(*tile, 1) == G.gemm_smem_bytes(*tile, 2)
         assert lib.repro_gemm_smem_bytes(*tile, 0) == G.gemm_smem_bytes(*tile, 4)
@@ -717,12 +808,13 @@ def test_matmul_and_grouped_matmul_backward_launch_their_kernels(cuda, dtype):
         **_tol(dtype))
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-30b-a3b", "rwkv6-3b"])
 def test_train_step_reduced_on_the_card_launches_exactly(cuda, arch):
     """One reduced train step through ``launch/train.py``'s loop: with remat
     K2 runs twice a layer and K2-bwd once; the MoE's expert products three
     times forward, three times again in the recompute and six times in the
-    backward.  Finite loss and gradient norm."""
+    backward; RWKV6's WKV scan (K5) twice a layer and K5-bwd once.  Finite
+    loss and gradient norm."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch import train as TL
     from repro_torch.launch.common import launch_config
@@ -732,9 +824,12 @@ def test_train_step_reduced_on_the_card_launches_exactly(cuda, arch):
     tcfg = TrainConfig(total_steps=1, warmup_steps=1)
     res = TL.run(api, tcfg, 1, 2, 64, cuda, log=lambda line: None)
     L = cfg.n_layers
-    assert res.launches["flash_attention"] == 2 * L
-    assert res.launches["flash_attention_bwd"] == L
+    rwkv = cfg.family == "ssm"
+    assert res.launches["flash_attention"] == (0 if rwkv else 2 * L)
+    assert res.launches["flash_attention_bwd"] == (0 if rwkv else L)
     assert res.launches["grouped_matmul"] == (12 * L if cfg.family == "moe" else 0)
+    assert res.launches["wkv6"] == (2 * L if rwkv else 0)
+    assert res.launches["wkv6_bwd"] == (L if rwkv else 0)
     assert all(torch.isfinite(torch.tensor(h["loss"])) for h in res.history)
     assert torch.isfinite(torch.tensor(res.history[0]["grad_norm"]))
 

@@ -56,7 +56,7 @@ def test_importing_every_module_loads_neither_jax_nor_reference(tmp_path):
         "        'repro_torch.kernels.flash_attention_bwd', 'repro_torch.train.optimizer',\n"
         "        'repro_torch.train.grad_compress', 'repro_torch.train.train_step',\n"
         "        'repro_torch.launch.train', 'repro_torch.launch.common',\n"
-        "        'repro_torch.data.pipeline'} <= set(names)\n")
+        "        'repro_torch.data.pipeline', 'repro_torch.kernels.rwkv6_bwd'} <= set(names)\n")
     env = {"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin", "HOME": str(tmp_path)}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=300)

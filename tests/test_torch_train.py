@@ -1,6 +1,7 @@
 """The port's training substrate against the reference's, on the CPU: the
 optimizers and the int8 compression on identical inputs, the train step
-(1 and 2 microbatches, int8 compression, AdamW and Adafactor) against the
+(1 and 2 microbatches, int8 compression, AdamW and Adafactor; and RWKV6
+with AdamW) against the
 reference's unsharded ``make_train_step`` from the same carried-across
 state, the data pipeline, and the training driver.
 
@@ -190,7 +191,20 @@ CASES = {
     "adamw_2_microbatches": {"microbatches": 2},
     "adamw_int8": {"grad_compression": "int8"},
     "adafactor": {"optimizer": "adafactor"},
+    "rwkv6_adamw": {"arch": "rwkv6-3b", "learning_rate": 1e-3},
 }
+# Where a parameter is held at 1e-5 of its leaf's largest entry: where the
+# reference's first gradient is above this share of its leaf's largest.  The
+# reduced rwkv6-3b is ill-conditioned in float32: its per-head group norm
+# leaves the scan's output gradient dO nearly orthogonal to v, so the bonus
+# term's dO . v cancels.  On this batch the two frameworks' first gradients
+# differ by up to 1e-4 of each leaf's largest entry, so an entry at 1e-3 of
+# the largest carries a 10 % gradient difference, which AdamW's first step
+# turns into more than 1e-5 of the leaf.  For the same reason its case steps
+# at lr 1e-3: at 1e-2 the entries that the first step moves by up to 2 lr
+# between two correct paths shift the second step's gradient norm by 1.2e-4
+# relative (1.1e-5 at 1e-3).
+BIG_GRADIENT = {"rwkv6_adamw": 1e-2}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -212,7 +226,7 @@ def test_train_step_matches_reference_unsharded_step(case):
             for path, w in want.items():
                 got = _np(_flat(state.params)[path])
                 scale = max(float(np.abs(w).max()), 1e-30)
-                big = np.abs(g0[path]) > 1e-3 * np.abs(g0[path]).max()
+                big = np.abs(g0[path]) > BIG_GRADIENT.get(case, 1e-3) * np.abs(g0[path]).max()
                 np.testing.assert_allclose(got[big], w[big], rtol=0, atol=1e-5 * scale,
                                            err_msg=str(path))
                 assert np.all(np.abs(got - w) <= 2 * lr + 1e-5 * scale), path
@@ -335,6 +349,18 @@ def test_train_main_trains_the_moe_family_on_cpu(capsys):
                              "--steps", "2", "--batch", "2", "--seq", "16"])
     assert all(np.isfinite(h["loss"]) and np.isfinite(h["aux_loss"]) for h in res.history)
     assert "grouped_matmul=0" in capsys.readouterr().out
+
+
+def test_train_main_trains_rwkv6_on_cpu(capsys):
+    """``--arch rwkv6-3b``: the WKV scan's plain forward and backward on the
+    CPU, the reference's step lines."""
+    res = train_launch.main(["--arch", "rwkv6-3b", "--reduced", "--device", "cpu", "--steps",
+                             "2", "--batch", "2", "--seq", "16", "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert out.count("[train] step ") == 2 and "gnorm=" in out and "tok/s" in out
+    assert "wkv6=0" in out and "wkv6_bwd=0" in out
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in res.history)
+    assert int(res.state.opt_state.step) == 2
 
 
 @pytest.mark.parametrize("flag", [["--ckpt-dir", "/nowhere"], ["--save-every", "5"]])

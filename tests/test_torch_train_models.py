@@ -15,7 +15,8 @@ entry (measured: at most 2e-5), the loss at 1e-5.  bfloat16 compute: the two
 frameworks round at other places, so each leaf's relative RMS difference is
 held at 5e-2 (measured 0.010-0.029) and the loss at 2e-2.  zamba2's SSD scan
 in bf16 moves its dt_bias gradient by 12 % between the two correct paths, so
-zamba2 is held in float32 only.
+zamba2 is held in float32 only.  RWKV6's bf16 oracle makes its kernel
+path's casts (see its test).
 """
 from dataclasses import replace
 
@@ -77,7 +78,7 @@ def both(arch, compute):
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-30b-a3b", "zamba2-1.2b",
-                                  "internvl2-1b", "seamless-m4t-medium"])
+                                  "internvl2-1b", "seamless-m4t-medium", "rwkv6-3b"])
 def test_float32_loss_and_gradients_match_reference(arch):
     (ref_loss, ref_metrics, ref_grads), (loss, metrics, grads, params) = both(arch, "float32")
     assert loss == pytest.approx(ref_loss, rel=1e-5, abs=1e-5)
@@ -100,6 +101,10 @@ def test_float32_loss_and_gradients_match_reference(arch):
 def test_bfloat16_loss_and_gradients_near_reference(arch):
     (ref_loss, _, ref_grads), (loss, _, grads, _) = both(arch, "bfloat16")
     assert loss == pytest.approx(ref_loss, abs=2e-2)
+    _relative_rms_within(ref_grads, grads, 5e-2)
+
+
+def _relative_rms_within(ref_grads, grads, bound):
     for path, want in ref_grads.items():
         got = grads[path].numpy()
         rms = np.sqrt(np.mean(want.astype(np.float64) ** 2))
@@ -107,7 +112,28 @@ def test_bfloat16_loss_and_gradients_near_reference(arch):
             assert np.all(got == 0), path
             continue
         rel = np.sqrt(np.mean((got.astype(np.float64) - want) ** 2)) / rms
-        assert rel <= 5e-2, (path, rel)
+        assert rel <= bound, (path, rel)
+
+
+def test_rwkv6_bfloat16_gradients_near_reference_with_its_kernel_casts(monkeypatch):
+    """The port's kernel path casts the decays and the bonus to bf16 before
+    the WKV scan, as the reference's Pallas path does (``models/rwkv6.py``
+    of both packages).  The reference trains on its XLA path, which does
+    not: against that path the port's worst leaf reads 0.050 relative RMS,
+    the whole 5e-2 bound.  So the oracle is the reference's XLA loss with
+    ``wkv6_chunked_jnp`` made to round ``log_w`` and ``u`` to bf16 first, as
+    its Pallas path does (patched here; the reference is unchanged), held at
+    the bound of the other families (measured 0.0455)."""
+    from repro.models import rwkv6 as ref_rwkv6
+    scan = ref_rwkv6.wkv6_chunked_jnp
+
+    def cast_like_the_kernel_path(r, k, v, log_w, u, chunk=ref_rwkv6.WKV_CHUNK):
+        return scan(r, k, v, log_w.astype(jnp.bfloat16), u.astype(jnp.bfloat16), chunk)
+
+    monkeypatch.setattr(ref_rwkv6, "wkv6_chunked_jnp", cast_like_the_kernel_path)
+    (ref_loss, _, ref_grads), (loss, _, grads, _) = both("rwkv6-3b", "bfloat16")
+    assert loss == pytest.approx(ref_loss, abs=2e-2)
+    _relative_rms_within(ref_grads, grads, 5e-2)
 
 
 def test_tied_embedding_gets_gather_and_head_gradients():
@@ -124,14 +150,6 @@ def test_tied_embedding_gets_gather_and_head_gradients():
     unused[batch["tokens"].flatten()] = False
     assert torch.all(g[~unused].abs().sum(-1) > 0)
     assert torch.all(g[unused].abs().sum(-1) > 0)        # the head reaches every row
-
-
-def test_rwkv6_loss_raises_naming_the_queue():
-    cfg = get_config("rwkv6-3b").reduced()
-    api = build_model(cfg)
-    params = api.init(torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        api.loss_fn(params, _torch_batch(_batch(cfg)))
 
 
 def test_fused_head_xent_equals_softmax_xent():

@@ -29,8 +29,9 @@ these phases, each printing one JSON line; any failure raises:
             hit, no fallback; every compiled bf16 GEMM tile (both bodies)
             and flash tile timed at the served shape (d 128, and d 64 at
             zamba2's prefill and seamless's encoder), and every TMA tile at
-            the MoE's two K4 prefill shapes, with the rank of the planner's
-            tiles and their time over the fastest tile's;
+            the MoE's two K4 prefill shapes (forward, and the backward's dX
+            and dW products), with the rank of the planner's tiles and their
+            time over the fastest tile's;
 5. serve    ``qwen2.5-3b`` at full width and depth with random weights:
             batch 4, prompt 512, 32 greedy tokens through
             ``repro_torch.launch.serve``, compared step by step with the same
@@ -73,7 +74,8 @@ these phases, each printing one JSON line; any failure raises:
             one gradient step, every expert product forward, recomputed and
             backward through K4 (its backward launches counted inside
             ``ops.grouped_matmul``'s backward, split by body), the float32
-            rule on gradients with the kernel run's experts replayed;
+            rule on gradients with the kernel run's experts replayed, and
+            one traced gradient step;
 13. rwkv_train ``rwkv6-3b`` trained at full width and depth (as ``train``):
             the first step's gradient through K5 and K5-bwd, through the
             plain path (both patched to their plain versions, the bf16 casts
@@ -85,10 +87,14 @@ these phases, each printing one JSON line; any failure raises:
             time, tok/s and one traced step.
 
 The kernels phase also holds the backward kernels against their plain
-versions: K2-bwd (dq, dk, dv; the forward kernel's log-sum-exp too) at the
+versions: K2-bwd (dq, dk, dv; the forward kernel's log-sum-exp too; bf16 on
+the tensor cores, its dK/dV launch one cluster per kv-head group) at the
 training passes of every attention family and one ragged shape, K1-bwd at
-qwen2.5-3b's projection and K4-bwd at the MoE's prefill, each beside the
-library's backward (SDPA's, two ``torch.matmul`` / ``torch.bmm``), and
+qwen2.5-3b's projection and K4-bwd at the MoE's prefill (its pieces read
+from a ``torch.profiler`` trace of one backward: the dX and dW launches,
+which read ``w`` and ``x`` as stored, dW at K = cap on the short-K ring,
+and any other kernel it launches, such as a transposing copy), each beside
+the library's backward (SDPA's, two ``torch.matmul`` / ``torch.bmm``), and
 K5-bwd (dr, dk, dv, dlog_w, du) at rwkv6-3b's training pass in bf16 and
 float32, at head dims 16 and 32, at an odd T (chunk 1) and at the decay
 floor with chunk 32 (no library call computes a WKV backward).
@@ -538,12 +544,41 @@ def gemm_bwd_case(timer, gen, M, N, K, dtype, serving):
     return res
 
 
+def launched_kernels(timer, fn, n: int = 10) -> list:
+    """The kernels one call of ``fn`` launches, in launch order, each with
+    its median device time (ms) over ``n`` calls traced by ``torch.profiler``,
+    the L2 flushed before each: what a wrapper's call is made of, whatever
+    the checkout's design."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    runs = []
+    for _ in range(n):
+        timer.flush.zero_()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = sorted((ev for ev in prof.events()
+                          if "cuda" in str(getattr(ev, "device_type", "")).lower()
+                          and ev.device_time_total > 0), key=lambda ev: ev.time_range.start)
+        runs.append([(ev.name, ev.device_time_total / 1e3) for ev in kernels])
+    names = [name for name, _ in runs[0]]
+    if any([name for name, _ in run] != names for run in runs):
+        raise AssertionError(f"one call launched different kernels from call to call: {runs}")
+    return [{"name": name, "ms": statistics.median(run[i][1] for run in runs)}
+            for i, name in enumerate(names)]
+
+
 def grouped_bwd_case(timer, gen, E, cap, d_in, d_out, dtype, serving):
     """K4-bwd: dX_e = dY_e W_e^T and dW_e = X_e^T dY_e, each rounded once to
     the operands' dtype, through ``ops.grouped_matmul``'s backward, against
     the plain products; library: two ``torch.bmm``.  The dW product has
     K = cap; which body it runs on is read from the launch counters, not
-    assumed."""
+    assumed.  The backward's pieces are read from a trace of its call
+    (:func:`launched_kernels`): ``dx_ms`` and ``dw_ms`` the first and second
+    product it launches, ``copy_ms`` every other kernel, such as a
+    transposing copy of an operand (none where the TMA body reads ``w`` and
+    ``x`` as they are stored)."""
     from repro_torch import kernels
     from repro_torch.kernels import moe_gmm, ops
     dev = timer.flush.device
@@ -563,10 +598,18 @@ def grouped_bwd_case(timer, gen, E, cap, d_in, d_out, dtype, serving):
     err = max(compare(f"grouped_matmul_bwd {n} {label} {dname(dtype)}", a, b, dtype)
               for n, a, b in zip(("dx", "dw"), got, plain()))
     lib = lambda: (torch.bmm(dy, wt), torch.bmm(xt, dy))
+    launched = launched_kernels(timer, run)
+    products = [k["ms"] for k in launched if "gemm" in k["name"]]
+    if len(products) != 2:
+        raise AssertionError(f"K4-bwd {label}: {len(products)} products launched, not 2: "
+                             f"{launched}")
     res = {"name": "grouped_matmul_bwd", "shape": label, "dtype": dname(dtype),
            "serving": serving, "launches_by_body": {k: after[k] - before[k] for k in after},
-           "max_abs_err": err, "kernel_ms": timer.ms(run), "plain_ms": timer.ms(plain),
-           "library_ms": timer.ms(lib)}
+           "max_abs_err": err, "kernel_ms": timer.ms(run), "dx_ms": products[0],
+           "dw_ms": products[1],
+           "copy_ms": sum((k["ms"] for k in launched if "gemm" not in k["name"]), 0.0),
+           "launched": [k["name"][:96] for k in launched],
+           "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib)}
     res.update(bound(2 * 2.0 * E * cap * d_in * d_out,
                      nbytes(x, w, dy) + nbytes(x, w), dtype))
     return res
@@ -763,26 +806,35 @@ def phase_planner(timer, gen):
     tiles = {str(t): timer.ms(lambda t=t: G.gemm_on_body(a, b, G.tile_body(t), block=t), n=10)
              for t in G.COMPILED_TILES}
     gemm_ranked = sorted(tiles, key=tiles.get)
-    # and K4's: every TMA tile at the MoE's two prefill shapes, against the
-    # tile the planner gives one expert's product
+    # and K4's: every TMA tile at the MoE's two prefill shapes, forward and
+    # the backward's dX = dY W^T and dW = X^T dY (operands as the backward
+    # hands them over), against the tile the planner gives each product
     from repro_torch.kernels import moe_gmm
     from repro_torch.models import moe
     mcfg = get_config(MOE_ARCH)
     cap = moe._capacity(BATCH * PROMPT, mcfg)
+
+    def tile_ranks(product, M, N, K):
+        chosen = ops.gemm_launch_block(M, N, K, dtype,
+                                       lower_torch.plan_gemm_blocks(M, N, K, dtype))
+        times = {str(t): timer.ms(lambda t=t: product(t), n=10) for t in G.TMA_TILES}
+        order = sorted(times, key=times.get)
+        return {"blocks": list(chosen), "tile_ms": times,
+                "blocks_rank": order.index(str(chosen)) + 1,
+                "blocks_vs_fastest": times[str(chosen)] / times[order[0]]}
+
     grouped = {}
     for d_in, d_out in ((mcfg.d_model, mcfg.moe_d_ff), (mcfg.moe_d_ff, mcfg.d_model)):
         x = torch.randn(mcfg.n_experts, cap, d_in, generator=gen, device=dev).to(dtype)
         w = torch.randn(mcfg.n_experts, d_in, d_out, generator=gen, device=dev).to(dtype)
-        chosen = ops.gemm_launch_block(cap, d_out, d_in, dtype,
-                                       lower_torch.plan_gemm_blocks(cap, d_out, d_in, dtype))
-        times = {str(t): timer.ms(lambda t=t: moe_gmm.grouped_matmul(x, w, block=t), n=10)
-                 for t in G.TMA_TILES}
-        order = sorted(times, key=times.get)
-        grouped[f"E={mcfg.n_experts} cap={cap} {d_in}->{d_out}"] = {
-            "blocks": list(chosen), "tile_ms": times,
-            "blocks_rank": order.index(str(chosen)) + 1,
-            "blocks_vs_fastest": times[str(chosen)] / times[order[0]]}
-        del x, w
+        dy = torch.randn(mcfg.n_experts, cap, d_out, generator=gen, device=dev).to(dtype)
+        xt, wt = x.transpose(1, 2), w.transpose(1, 2)
+        res = tile_ranks(lambda t: moe_gmm.grouped_matmul(x, w, block=t), cap, d_out, d_in)
+        res["backward"] = {
+            "dx": tile_ranks(lambda t: moe_gmm.grouped_matmul(dy, wt, block=t), cap, d_in, d_out),
+            "dw": tile_ranks(lambda t: moe_gmm.grouped_matmul(xt, dy, block=t), d_in, d_out, cap)}
+        grouped[f"E={mcfg.n_experts} cap={cap} {d_in}->{d_out}"] = res
+        del x, w, dy, xt, wt
     H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q, k4, v4 = _qkv(gen, dev, BATCH, H, Hkv, PROMPT, PROMPT, d, dtype)
     flash_blocks = lower_torch.plan_flash_blocks(PROMPT, PROMPT, d, dtype)
@@ -1521,20 +1573,22 @@ def bwd_per_call(stats: list, kernel, plain, bits: int = 5, of_largest: bool = F
     of its largest entry when ``of_largest``; the relative RMS, which
     :func:`summarize_per_call` bounds) and how far a control, the kernel's
     outputs rounded to ``bits`` mantissa bits, is from the same plain
-    outputs."""
+    outputs.  The relative RMS of each output is kept too, in the order the
+    kernel returns them."""
 
     def call(*args, **kw):
         outs = kernel(*args, **kw)
         wants = plain(*args, **kw)
         row = {"max_abs_err": 0.0, "max_rel_rms": 0.0, "within_2e-2": True,
-               "control_max_rel_rms": 0.0}
+               "control_max_rel_rms": 0.0, "rel_rms": []}
         for out, want in zip(outs, wants):
             w = want.float()
             diff = out.float() - w
             norm = w.norm().clamp(min=1e-30)
             atol = 2e-2 * (w.abs().max().item() if of_largest else 1.0)
             row["max_abs_err"] = max(row["max_abs_err"], diff.abs().max().item())
-            row["max_rel_rms"] = max(row["max_rel_rms"], (diff.norm() / norm).item())
+            row["rel_rms"].append((diff.norm() / norm).item())
+            row["max_rel_rms"] = max(row["max_rel_rms"], row["rel_rms"][-1])
             row["within_2e-2"] &= bool(torch.allclose(out.float(), w, rtol=2e-2, atol=atol))
             row["control_max_rel_rms"] = max(
                 row["control_max_rel_rms"],
@@ -1547,7 +1601,10 @@ def bwd_per_call(stats: list, kernel, plain, bits: int = 5, of_largest: bool = F
 
 def summarize_per_call(stats: list, rel_rms: float = ATTN_REL_RMS) -> dict:
     return {"calls": len(stats), "max_abs_err": max(r["max_abs_err"] for r in stats),
-            "max_rel_rms": max(r["max_rel_rms"] for r in stats), "rel_rms_bound": rel_rms,
+            "max_rel_rms": max(r["max_rel_rms"] for r in stats),
+            "max_rel_rms_by_output": [max(r["rel_rms"][i] for r in stats)
+                                      for i in range(len(stats[0]["rel_rms"]))],
+            "rel_rms_bound": rel_rms,
             "within": all(r["within_2e-2"] and r["max_rel_rms"] <= rel_rms for r in stats),
             "control_5_bits_max_rel_rms": max(r["control_max_rel_rms"] for r in stats),
             "control_5_bits_rejected": any(r["control_max_rel_rms"] > rel_rms
@@ -1712,10 +1769,11 @@ def phase_moe_train(device):
     product forward (and its remat recompute) and backward through K4, K4's
     backward launches counted inside ``ops.grouped_matmul``'s backward and
     split by GEMM body.  The kernel run's expert choices are replayed in the
-    plain and float32 runs; the float32 rule on gradients."""
+    plain and float32 runs; the float32 rule on gradients; one traced
+    gradient step for the device's busy time."""
     from repro_torch import kernels
     from repro_torch.data import DataConfig, make_source
-    from repro_torch.launch import common, train as TL
+    from repro_torch.launch import common, serve, train as TL
     from repro_torch.models import build_model, moe
     from repro_torch.train import train_step as TS
     cfg = replace(common.launch_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
@@ -1759,6 +1817,8 @@ def phase_moe_train(device):
     plain = leaf_distances(grads, exact)
     del grads, exact
     rule = gradient_rule(kern, plain)
+    # one traced gradient step (the model's own routing) for the device's busy time
+    traced = serve._traced(lambda: TS.value_and_grad(api, params, batch), device, 1)
     emit({"phase": "moe_train", "arch": cfg.name, "n_layers": L, "of_layers": 48,
           "d_model": cfg.d_model, "n_experts": cfg.n_experts, "n_params": api.n_params(),
           "batch": BATCH, "seq": PROMPT, "remat": cfg.remat,
@@ -1771,7 +1831,7 @@ def phase_moe_train(device):
                             "each leaf's RMS) at most 1.25 x the plain path's, in the worst "
                             "leaf and over all leaves; the kernel run's expert choices "
                             "replayed in both",
-          "gradients": rule})
+          "gradients": rule, "traced_step": traced})
     if launches != want or bwd["grouped_matmul_bwd"] != 6 * L:
         raise AssertionError(f"moe_train: kernel launches {launches} (backward {bwd}), "
                              f"expected {want} and {6 * L} in the backward")
@@ -1966,8 +2026,17 @@ SOURCES = {
 # served path: ``ops.flash_decode`` computes both in one launch
 OFF_MAIN_PATH = ("flash_decode_partials", "flash_decode_combine")
 # the bodies redesigned last: their registers and spills go in the build line
-REDESIGNED = ("decode_mma_kernel", "decode_f32_kernel", "wkv6_kernel", "flash_bwd_dq_kernel",
-              "flash_bwd_dkv_kernel", "wkv6_bwd_kernel")
+REDESIGNED = ("decode_mma_kernel", "decode_f32_kernel", "wkv6_kernel", "flash_bwd_dq_mma_kernel",
+              "flash_bwd_dkv_mma_kernel", "wkv6_bwd_kernel")
+# the TMA GEMM core's instantiations end their mangled template arguments with
+# MINB: 1 the deep ring, 2 the short-K ring
+RING = re.compile(r"ELi([12])EEEv")
+
+
+def ring_of(name: str) -> str:
+    found = RING.search(name)
+    return {"1": "deep", "2": "short_k"}[found.group(1)] if found else "?"
+
 
 
 def main() -> int:
@@ -1990,6 +2059,8 @@ def main() -> int:
     info = _build.build_info()
     ptxas = ptxas_usage(str(info.get("compiler_output", "")))
     redesigned = {k: v for k, v in ptxas.items() if any(b in k for b in REDESIGNED)}
+    redesigned.update({k: dict(v, ring=ring_of(k)) for k, v in ptxas.items()
+                       if "gemm_tma_kernel" in k and ring_of(k) == "short_k"})
     # float32 products in full float32, as the reference's tolerances assume
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2001,8 +2072,11 @@ def main() -> int:
                if "gemm_tma_kernel" in k and v.get("spill_bytes")}
     if info.get("built") and (spilled or not any("gemm_tma_kernel" in k for k in ptxas)
                               or not all(any(b in k for k in ptxas) for b in REDESIGNED)):
-        raise AssertionError(f"the TMA GEMM instantiations spill, or a GEMM, decode or WKV "
-                             f"instantiation is missing: {spilled}")
+        raise AssertionError(f"the TMA GEMM instantiations spill, or a GEMM, decode, WKV or "
+                             f"K2-bwd instantiation is missing: {spilled}")
+    if info.get("built") and not any(ring_of(k) == "short_k" for k in ptxas
+                                     if "gemm_tma_kernel" in k):
+        raise AssertionError("no short-K instantiation of the TMA GEMM core was compiled")
 
     timer = Timer(device)
     gen = torch.Generator(device=device).manual_seed(0)

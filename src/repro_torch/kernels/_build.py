@@ -128,12 +128,14 @@ _SIGNATURES = {
     "repro_gemm_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # a, b, c, M, N, K, out_bf16, bm, bn, stream (the TMA + wgmma body)
     "repro_gemm_tma_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "repro_gemm_smem_bytes": [_I, _I, _I, _I],
+    # bm, bn, bk, in_bf16, K (<= 0: the deepest footprint)
+    "repro_gemm_smem_bytes": [_I, _I, _I, _I, _I],
     # x, w, out, E, cap, d_out, d_in, out_bf16, bm, bn, bk, vec_ok, stream
     "repro_grouped_gemm_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "repro_grouped_gemm_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, w, out, E, cap, d_out, d_in, out_bf16, bm, bn, stream (the TMA + wgmma body)
-    "repro_grouped_gemm_tma_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, out, E, cap, d_out, d_in, out_bf16, bm, bn, a_t, b_t, stream (the TMA +
+    # wgmma body; a_t: x stored (E, d_in, cap), b_t: w stored (E, d_out, d_in))
+    "repro_grouped_gemm_tma_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, lse (NULL: not written), BH, Sq, Skv, d, H, q_per_kv, 6 strides,
     # sm_scale, causal, bq, bkv, vec_ok, stream
     "repro_flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_STRIDES,
@@ -141,9 +143,13 @@ _SIGNATURES = {
     "repro_flash_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_STRIDES,
                                   _F, _I, _I, _I, _I, _P],
     # q, k, v, o, dout, lse, delta, dq, dk, dv, BH, Sq, Skv, d, H, q_per_kv,
-    # 6 strides, sm_scale, causal, stream (two launches: dQ and delta, then dK/dV)
+    # 6 strides, sm_scale, causal, stream (two launches: dQ and delta, then dK/dV;
+    # the bf16 dK/dV launch runs each group's query heads as one cluster)
     "repro_flash_attention_bwd_bf16": [_P] * 10 + [_I] * 6 + [*_STRIDES, _F, _I, _P],
     "repro_flash_attention_bwd_f32": [_P] * 10 + [_I] * 6 + [*_STRIDES, _F, _I, _P],
+    # d, kernel (0 dQ, 1 dK/dV), is_bf16; q_per_kv
+    "repro_flash_bwd_smem_bytes": [_I, _I, _I],
+    "repro_flash_bwd_cluster": [_I],
     "repro_flash_smem_bytes_bf16": [_I, _I, _I],
     "repro_flash_smem_bytes_f32": [_I, _I, _I],
     # q, k, v, out, n_groups, G, hkv, d, kv_len, splits, 6 strides, sm_scale,

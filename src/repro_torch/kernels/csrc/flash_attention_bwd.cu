@@ -13,31 +13,66 @@
 // With P = exp(sm_scale * q k^T - lse) (masked entries 0), dP = dO v^T,
 // delta = rowsum(dO o) and dS = P (dP - delta):
 //   dV = P^T dO,  dK = sm_scale dS^T q,  dQ = sm_scale dS k.
-// Two launches, no float atomics, so the result repeats bit for bit:
-//  * flash_bwd_dq_kernel: one block per (query head, 64-row query tile); it
-//    first writes delta for its rows, then walks the key tiles the rows can
-//    see and accumulates dQ in registers.
-//  * flash_bwd_dkv_kernel: one block per (batch, kv head, 32-key tile); it
-//    walks the query tiles of every query head of its group (q_per_kv heads
-//    share one kv head), so the grouped-query sum of dK and dV happens in
-//    registers inside the block.  It reads the delta the first launch wrote.
+// Two launches, no float atomics, so the result repeats bit for bit.
 // K and V come as strided (batch, kv head, key) views, as in the forward;
 // dK and dV are written contiguous as (batch * kv heads, Skv, d).
 //
 // What bounds it on an H100: at qwen2.5-3b's training shape (64 query heads
 // on 8 kv heads, 512 x 512 causal, d 128, bf16) the five S^2 d products
 // over the visible half are about 10.7 GFLOP (0.011 ms of tensor-core time)
-// and the inputs and outputs about 37 MB (0.011 ms).  This first version is
-// simple: every product is a float32 FMA on the CUDA cores over tiles held
-// in shared memory as float32 (each thread a 4-column register tile), so it
-// is bound by the CUDA cores' float32 rate and shared-memory traffic, far
-// above that bound.  Tensor cores (`mma.sync` / `wgmma`), TMA loads and a
-// fused dQ are later work.
+// and the inputs and outputs about 37 MB (0.011 ms).  Two kernels that do
+// not share their S and dP recompute seven products, not five, and at 4096
+// FLOP an `mma.sync` with 16-row warp tiles rereads each B operand from
+// shared memory for every warp; at this size the design aims first at
+// keeping all 132 SMs busy to the end without atomics.
+//
+// bf16 design (flash_bwd_dq_mma_kernel, flash_bwd_dkv_mma_kernel):
+//  * every product is `mma.sync.m16n8k16` (bf16 in, float32 accumulate) with
+//    K2's fragment helpers (mma.cuh).  Tiles stay bf16 in shared memory, rows
+//    padded by 16 bytes for conflict-free `ldmatrix`.  P is recomputed from
+//    the float32 log-sum-exp with exp2 and sm_scale * log2 e folded in, as the
+//    forward does.  P and dS become the A operand of the next product in
+//    registers, without touching shared memory, each as two bf16 parts (the
+//    pair and the pair of what it leaves out), one `mma` each: about 16
+//    significant bits.  Rounded to one bf16, dS put dQ 3.3e-3 relative RMS
+//    from the float32 formula at qwen2.5-3b's first training step, near the
+//    2^-8 that the train phase allows; split, P and dS cost 8 % more time.
+//  * dQ (also writes delta): one 4-warp block per (query head, 64-row query
+//    tile), heaviest causal tiles first; each warp owns 16 query rows, keeps
+//    S, dP and its dQ rows in registers and reads K/V tiles that `cp.async`
+//    brings in two stages.
+//  * dK/dV: one 4-warp block per (query head, 64-key tile), each warp 16
+//    keys.  It computes S^T = K Q^T and dP^T = V dO^T directly, so P^T and
+//    dS^T land in the accumulator layout that the A operand of P^T dO and
+//    dS^T Q needs (the FlashAttention-2 arrangement); Q, dO and their
+//    rows' lse and delta come by `cp.async` in two stages.  The query heads
+//    of one kv head's group form a thread-block cluster (at most 8 blocks,
+//    the portable size: G 8 at qwen2.5-3b and the MoE, 7 at internvl2, 1 at
+//    zamba2; a larger group gives each block G / cluster heads in turn).
+//    After its loop each block leaves its float32 dK/dV partial in shared
+//    memory, and block r of the cluster folds its share of the key rows
+//    through distributed shared memory in rank order, as K3's splits fold
+//    (flash_decode.cu).  So the grid is BH x key tiles (512 blocks of 105 KB
+//    at the training shape, two an SM), the heaviest key tiles (the first
+//    under a causal mask) launch first, and no block sums a whole group.
+//  * where a pointer or stride is not 16-byte aligned, the same stages are
+//    filled with scalar loads (`vec_ok == 0`), as in the forward.
+//
+// float32 inputs keep the first design (flash_bwd_dq_kernel,
+// flash_bwd_dkv_kernel): true float32 FMAs on the CUDA cores over float32
+// tiles in shared memory, one dK/dV block per (batch, kv head, 32-key tile)
+// that loops over its group's query heads.  Nothing trained runs it.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace repro {
 namespace fa_bwd {
 
+namespace cg = cooperative_groups;
+
+// ----------------------------------------------------------------- float32
 constexpr int NT = 256;                    // threads a block
 constexpr float LSE_MASKED = 1e30f;        // log-sum-exp of a row with no visible key
 
@@ -305,7 +340,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 }
 
 template <typename T, int D>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o, const void* dout,
                const float* lse, float* delta, void* dq, void* dk, void* dv, int BH, int Sq,
                int Skv, int H, int q_per_kv, long long k_sb, long long k_sh, long long k_st,
                long long v_sb, long long v_sh, long long v_st, float sm_scale, int causal,
@@ -337,6 +372,522 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
   return (int)cudaGetLastError();
 }
 
+// -------------------------------------------------------------------- bf16
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_NT = 32 * MMA_WARPS;     // threads of a bf16 block
+constexpr int MMA_BQ = 64;                 // query rows: a dQ block, a dK/dV stage
+constexpr int MMA_BKV = 64;                // key rows: a dK/dV block, a dQ stage
+constexpr int MAX_CLUSTER = 8;             // the portable cluster size
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The dK/dV cluster: the largest divisor of the group that is at most 8.
+__host__ __device__ constexpr int cluster_size(int q_per_kv) {
+  int c = q_per_kv < MAX_CLUSTER ? q_per_kv : MAX_CLUSTER;
+  while (c > 1 && q_per_kv % c) --c;
+  return c < 1 ? 1 : c;
+}
+
+// dQ block: the Q and dO tiles and two stages of K and V, bf16 rows padded
+// by 16 bytes.  Mirrored by flash_attention_bwd.bwd_smem_bytes().
+template <int D>
+struct MmaDqLayout {
+  static constexpr int LD = D + 8;
+  static constexpr int TILE = 64 * LD * 2;           // bytes of one 64-row tile
+  static constexpr int BYTES = 2 * TILE + 2 * 2 * TILE;
+};
+
+// dK/dV block: the K and V tiles, then two stages of (Q, dO, lse, delta).
+// After the loop the stages hold the block's float32 dK and dV partials.
+template <int D>
+struct MmaDkvLayout {
+  static constexpr int LD = D + 8;
+  static constexpr int TILE = 64 * LD * 2;
+  static constexpr int KV_BYTES = 2 * TILE;
+  static constexpr int STAGE_BYTES = 2 * TILE + 2 * MMA_BQ * 4;
+  static constexpr int BYTES = KV_BYTES + 2 * STAGE_BYTES;
+  static constexpr int LDP = D + 4;                  // float row of a partial
+  static constexpr int FOLD_BYTES = 2 * MMA_BKV * LDP * 4;
+  static_assert(FOLD_BYTES <= 2 * STAGE_BYTES, "the partials reuse the stages");
+};
+
+static_assert(MMA_NT == 2 * MMA_BQ, "a dK/dV stage's lse and delta: one thread a row");
+
+// 4 bytes by `cp.async` (zero-filled when !ok)
+__device__ __forceinline__ void cp_async4(float* s, const float* g, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(s)), "l"(g),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// The bf16 pair of (x, y) as an mma A register, and the pair of what it
+// leaves out: hi + lo carries x and y to about 16 significant bits.
+__device__ __forceinline__ void split_pack(float x, float y, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = *reinterpret_cast<const unsigned*>(&l);
+}
+
+// The A registers of a k16 step from two n8 accumulator tiles: high parts
+// and low parts, each an mma of its own.
+__device__ __forceinline__ void a_from_acc(const float (&c0)[4], const float (&c1)[4],
+                                           unsigned (&hi)[4], unsigned (&lo)[4]) {
+  split_pack(c0[0], c0[1], hi[0], lo[0]);
+  split_pack(c0[2], c0[3], hi[1], lo[1]);
+  split_pack(c1[0], c1[1], hi[2], lo[2]);
+  split_pack(c1[2], c1[3], hi[3], lo[3]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_NT, 2)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+                        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                        float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int Sq,
+                        int Skv, int H, int q_per_kv, long long k_sb, long long k_sh,
+                        long long k_st, long long v_sb, long long v_sh, long long v_st,
+                        float sm_scale, int causal, int vec_ok) {
+  using bf16 = __nv_bfloat16;
+  using L = MmaDqLayout<D>;
+  constexpr int LD = L::LD, BQ = MMA_BQ, BKV = MMA_BKV;
+  constexpr int NS = BKV / 8;               // n8 tiles of S and dP
+  constexpr int NO = D / 8;                 // n8 tiles of dQ
+  constexpr int VPL = D / 32;               // elements of a row per lane (delta)
+  constexpr unsigned FULL = 0xffffffffu;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + BQ * LD;
+  bf16* Ks = dOs + BQ * LD;                 // [stage][BKV][LD]
+  bf16* Vs = Ks + 2 * BKV * LD;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;                  // accumulator rows g and g + 8
+  const int tq = lane & 3;                  // accumulator columns 2 tq, 2 tq + 1
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest causal tiles first
+  const long long row_off = (long long)bh * Sq * D;
+  const long long kv_b = bh / H;
+  const long long kv_h = (bh % H) / q_per_kv;
+  const bf16* kb = k + kv_b * k_sb + kv_h * k_sh;
+  const bf16* vb = v + kv_b * v_sb + kv_h * v_sh;
+  int kv_end = Skv;
+  if (causal && q0 + BQ < kv_end) kv_end = q0 + BQ;   // tiles above the diagonal
+  const int n_tiles = (kv_end + BKV - 1) / BKV;
+
+  flash_copy<BQ, D, LD, MMA_NT>(Qs, q + row_off, q0, Sq, D, vec_ok, tid);
+  flash_copy<BQ, D, LD, MMA_NT>(dOs, dout + row_off, q0, Sq, D, vec_ok, tid);
+  flash_copy<BKV, D, LD, MMA_NT>(Ks, kb, 0, Skv, k_st, vec_ok, tid);
+  flash_copy<BKV, D, LD, MMA_NT>(Vs, vb, 0, Skv, v_st, vec_ok, tid);
+  cp_async_commit();
+
+  // delta = rowsum(dO o) of the warp's 16 rows while the tiles arrive; the
+  // thread keeps its two rows' delta and log-sum-exp (log2 domain)
+  const int wq0 = q0 + warp * 16;
+  const int row_a = wq0 + g;
+  const int row_b = row_a + 8;
+  float d_a = 0.f, d_b = 0.f;
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int gr = wq0 + r;
+    float s = 0.f;
+    if (gr < Sq) {
+      const long long base = row_off + (long long)gr * D + lane * VPL;
+#pragma unroll
+      for (int e = 0; e < VPL; ++e) s += to_float(dout[base + e]) * to_float(o[base + e]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+    if (r == g) d_a = s;
+    if (r == g + 8) d_b = s;
+    if (lane == 0 && gr < Sq) delta[(long long)bh * Sq + gr] = s;
+  }
+  const float l_a = row_a < Sq ? lse[(long long)bh * Sq + row_a] * LOG2E : LSE_MASKED;
+  const float l_b = row_b < Sq ? lse[(long long)bh * Sq + row_b] * LOG2E : LSE_MASKED;
+  const float scale_log2 = sm_scale * LOG2E;
+
+  cp_async_wait<0>();
+  __syncthreads();                          // Q, dO and the first K/V tile landed
+  const bf16* Qw = Qs + warp * 16 * LD;
+  const bf16* dOw = dOs + warp * 16 * LD;
+
+  float dqa[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t > 0) {
+      cp_async_wait<0>();
+      __syncthreads();                      // tile t landed; every warp is done with t - 1
+    }
+    if (t + 1 < n_tiles) {                  // into the stage tile t - 1 used
+      const int st = (t + 1) & 1;
+      flash_copy<BKV, D, LD, MMA_NT>(Ks + st * BKV * LD, kb, (t + 1) * BKV, Skv, k_st, vec_ok,
+                                     tid);
+      flash_copy<BKV, D, LD, MMA_NT>(Vs + st * BKV * LD, vb, (t + 1) * BKV, Skv, v_st, vec_ok,
+                                     tid);
+    }
+    cp_async_commit();
+    const int kv0 = t * BKV;
+    if (causal && kv0 > wq0 + 15) continue;           // nothing visible to this warp
+    const bf16* Kt = Ks + (t & 1) * BKV * LD;
+    const bf16* Vt = Vs + (t & 1) * BKV * LD;
+
+    // ---- S = Q K^T and dP = dO V^T: 16 rows x BKV keys per warp ---------------
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      unsigned a[4], ao[4];
+      const int a_off = (lane & 15) * LD + kk * 16 + (lane >> 4) * 8;
+      ldmatrix_x4(a, smem_addr(Qw + a_off));
+      ldmatrix_x4(ao, smem_addr(dOw + a_off));
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {    // 16 keys: two n8 tiles
+        const int b_off = (j * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                          ((lane >> 3) & 1) * 8;
+        unsigned b[4];
+        ldmatrix_x4(b, smem_addr(Kt + b_off));
+        mma_bf16(s[2 * j], a, b[0], b[1]);
+        mma_bf16(s[2 * j + 1], a, b[2], b[3]);
+        ldmatrix_x4(b, smem_addr(Vt + b_off));
+        mma_bf16(dp[2 * j], ao, b[0], b[1]);
+        mma_bf16(dp[2 * j + 1], ao, b[2], b[3]);
+      }
+    }
+
+    // ---- P from the log-sum-exp, dS = P (dP - delta), in place of S -------------
+    const bool need_mask = kv0 + BKV > Skv || (causal && kv0 + BKV - 1 > wq0);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e] * scale_log2;
+        bool ok = x > 0.5f * NEG_INF;
+        if (need_mask) {
+          const int kp = kv0 + j * 8 + 2 * tq + (e & 1);
+          const int qp = e < 2 ? row_a : row_b;
+          ok = ok && kp < Skv && !(causal && qp < kp);
+        }
+        const float p = ok ? exp2f(x - (e < 2 ? l_a : l_b)) : 0.f;
+        s[j][e] = p * (dp[j][e] - (e < 2 ? d_a : d_b));
+      }
+    }
+
+    // ---- dQ += dS K: dS straight from the registers, high and low parts -----------
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      unsigned a[4], a_lo[4];
+      a_from_acc(s[2 * kk], s[2 * kk + 1], a, a_lo);
+#pragma unroll
+      for (int n = 0; n < NO / 2; ++n) {    // 16 columns of d: two n8 tiles
+        unsigned b[4];
+        ldmatrix_x4_trans(b, smem_addr(Kt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                       n * 16 + (lane >> 4) * 8));
+        mma_bf16(dqa[2 * n], a, b[0], b[1]);
+        mma_bf16(dqa[2 * n + 1], a, b[2], b[3]);
+        mma_bf16(dqa[2 * n], a_lo, b[0], b[1]);
+        mma_bf16(dqa[2 * n + 1], a_lo, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();                       // no copy outlives the block
+
+  bf16* dqb = dq + row_off;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int c = n * 8 + 2 * tq;
+    if (row_a < Sq)
+      *reinterpret_cast<unsigned*>(dqb + (long long)row_a * D + c) =
+          pack_bf16(dqa[n][0] * sm_scale, dqa[n][1] * sm_scale);
+    if (row_b < Sq)
+      *reinterpret_cast<unsigned*>(dqb + (long long)row_b * D + c) =
+          pack_bf16(dqa[n][2] * sm_scale, dqa[n][3] * sm_scale);
+  }
+}
+
+// One block per (query head, 64-key tile); the blocks of one kv head's
+// group and key tile form a cluster along x and fold dK/dV through
+// distributed shared memory.  Each block takes `heads` (G / cluster size)
+// consecutive query heads of the group in turn.
+template <int D>
+__global__ void __launch_bounds__(MMA_NT, 2)
+flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                         const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H, int q_per_kv,
+                         int heads, long long k_sb, long long k_sh, long long k_st,
+                         long long v_sb, long long v_sh, long long v_st, float sm_scale,
+                         int causal, int vec_ok) {
+  using bf16 = __nv_bfloat16;
+  using L = MmaDkvLayout<D>;
+  constexpr int LD = L::LD, BQ = MMA_BQ, BKV = MMA_BKV, LDP = L::LDP;
+  constexpr int NS = BQ / 8;                // n8 tiles of S^T and dP^T
+  constexpr int NO = D / 8;                 // n8 tiles of dK and dV
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + BKV * LD;
+  auto stage_q = [&](int st) {
+    return reinterpret_cast<bf16*>(smem_raw + L::KV_BYTES + st * L::STAGE_BYTES);
+  };
+  auto stage_f = [&](int st) {              // lse[BQ], then delta[BQ]
+    return reinterpret_cast<float*>(smem_raw + L::KV_BYTES + st * L::STAGE_BYTES + 2 * L::TILE);
+  };
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_cl = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int Hkv = H / q_per_kv;
+  const int grp = blockIdx.x / n_cl;        // batch * Hkv + kv head
+  const int b = grp / Hkv;
+  const int kvh = grp % Hkv;
+  const long long h_first = (long long)b * H + (long long)kvh * q_per_kv + rank * heads;
+  const int kv0 = blockIdx.y * BKV;         // the first key tiles see most queries: launched first
+  const bf16* kb = k + (long long)b * k_sb + (long long)kvh * k_sh;
+  const bf16* vb = v + (long long)b * v_sb + (long long)kvh * v_sh;
+  const int q_first = causal ? (kv0 / BQ) * BQ : 0;   // earlier rows see none of these keys
+  const int n_qt = q_first < Sq ? (Sq - q_first + BQ - 1) / BQ : 0;
+  const int n_steps = heads * n_qt;
+
+  // step i: query tile i % n_qt of head h_first + i / n_qt, into stage i & 1
+  auto load_step = [&](int i) {
+    const long long bhh = h_first + i / n_qt;
+    const int qs = q_first + (i % n_qt) * BQ;
+    bf16* Qst = stage_q(i & 1);
+    float* Fst = stage_f(i & 1);
+    flash_copy<BQ, D, LD, MMA_NT>(Qst, q + bhh * Sq * D, qs, Sq, D, vec_ok, tid);
+    flash_copy<BQ, D, LD, MMA_NT>(Qst + BQ * LD, dout + bhh * Sq * D, qs, Sq, D, vec_ok, tid);
+    const int r = tid % BQ;
+    const bool ok = qs + r < Sq;
+    const float* src = (tid < BQ ? lse : delta) + bhh * Sq + (ok ? qs + r : 0);
+    cp_async4(Fst + (tid < BQ ? 0 : BQ) + r, src, ok);
+  };
+  flash_copy<BKV, D, LD, MMA_NT>(Ks, kb, kv0, Skv, k_st, vec_ok, tid);
+  flash_copy<BKV, D, LD, MMA_NT>(Vs, vb, kv0, Skv, v_st, vec_ok, tid);
+  if (n_steps > 0) load_step(0);
+  cp_async_commit();
+
+  const float scale_log2 = sm_scale * LOG2E;
+  const int kw0 = kv0 + warp * 16;          // first key of this warp
+  const int key_a = kw0 + g;                // the thread's two keys
+  const int key_b = key_a + 8;
+  const bf16* Kw = Ks + warp * 16 * LD;
+  const bf16* Vw = Vs + warp * 16 * LD;
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();                        // step i landed; every warp is done with i - 1
+    if (i + 1 < n_steps) load_step(i + 1);  // into the stage step i - 1 used
+    cp_async_commit();
+    const int q0 = q_first + (i % n_qt) * BQ;
+    if (causal && q0 + BQ - 1 < kw0) continue;        // every query precedes the warp's keys
+    const bf16* Qt = stage_q(i & 1);
+    const bf16* dOt = Qt + BQ * LD;
+    const float* Lt = stage_f(i & 1);
+    const float* Dt = Lt + BQ;
+
+    // ---- S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ queries per warp -----------
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      unsigned a[4], av[4];
+      const int a_off = (lane & 15) * LD + kk * 16 + (lane >> 4) * 8;
+      ldmatrix_x4(a, smem_addr(Kw + a_off));
+      ldmatrix_x4(av, smem_addr(Vw + a_off));
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {    // 16 queries: two n8 tiles
+        const int b_off = (j * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                          ((lane >> 3) & 1) * 8;
+        unsigned bq[4];
+        ldmatrix_x4(bq, smem_addr(Qt + b_off));
+        mma_bf16(s[2 * j], a, bq[0], bq[1]);
+        mma_bf16(s[2 * j + 1], a, bq[2], bq[3]);
+        ldmatrix_x4(bq, smem_addr(dOt + b_off));
+        mma_bf16(dp[2 * j], av, bq[0], bq[1]);
+        mma_bf16(dp[2 * j + 1], av, bq[2], bq[3]);
+      }
+    }
+
+    // ---- P^T in place of S^T, dS^T = P^T (dP^T - delta) in place of dP^T ---------
+    const bool need_mask = (causal && q0 < kw0 + 15) || q0 + BQ > Sq || kw0 + 16 > Skv;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int c = j * 8 + 2 * tq;
+      const float2 l2 = *reinterpret_cast<const float2*>(Lt + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(Dt + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e] * scale_log2;
+        bool ok = x > 0.5f * NEG_INF;
+        if (need_mask) {
+          const int qp = q0 + c + (e & 1);
+          const int kp = e < 2 ? key_a : key_b;
+          ok = ok && qp < Sq && kp < Skv && !(causal && qp < kp);
+        }
+        const float p = ok ? exp2f(x - ((e & 1) ? l2.y : l2.x) * LOG2E) : 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - ((e & 1) ? d2.y : d2.x));
+      }
+    }
+
+    // ---- dV += P^T dO, then dK += dS^T Q: the A operands from the registers -------
+    // (two passes, so that P^T's registers are free before the second)
+    const int b_lane = (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      unsigned a[4], a_lo[4];
+      a_from_acc(s[2 * kk], s[2 * kk + 1], a, a_lo);
+#pragma unroll
+      for (int n = 0; n < NO / 2; ++n) {    // 16 columns of d: two n8 tiles
+        unsigned bt[4];
+        ldmatrix_x4_trans(bt, smem_addr(dOt + (kk * 16 + b_lane) * LD + n * 16 + (lane >> 4) * 8));
+        mma_bf16(dva[2 * n], a, bt[0], bt[1]);
+        mma_bf16(dva[2 * n + 1], a, bt[2], bt[3]);
+        mma_bf16(dva[2 * n], a_lo, bt[0], bt[1]);
+        mma_bf16(dva[2 * n + 1], a_lo, bt[2], bt[3]);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      unsigned a[4], a_lo[4];
+      a_from_acc(dp[2 * kk], dp[2 * kk + 1], a, a_lo);
+#pragma unroll
+      for (int n = 0; n < NO / 2; ++n) {
+        unsigned bt[4];
+        ldmatrix_x4_trans(bt, smem_addr(Qt + (kk * 16 + b_lane) * LD + n * 16 + (lane >> 4) * 8));
+        mma_bf16(dka[2 * n], a, bt[0], bt[1]);
+        mma_bf16(dka[2 * n + 1], a, bt[2], bt[3]);
+        mma_bf16(dka[2 * n], a_lo, bt[0], bt[1]);
+        mma_bf16(dka[2 * n + 1], a_lo, bt[2], bt[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                          // every warp is done with the stages
+
+  // ---- the block's float32 partials into the stages, then the cluster's fold -------
+  float* Pk = reinterpret_cast<float*>(smem_raw + L::KV_BYTES);
+  float* Pv = Pk + BKV * LDP;
+  {
+    const int ra = warp * 16 + g;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = n * 8 + 2 * tq;
+      *reinterpret_cast<float2*>(Pk + ra * LDP + c) = make_float2(dka[n][0], dka[n][1]);
+      *reinterpret_cast<float2*>(Pk + (ra + 8) * LDP + c) = make_float2(dka[n][2], dka[n][3]);
+      *reinterpret_cast<float2*>(Pv + ra * LDP + c) = make_float2(dva[n][0], dva[n][1]);
+      *reinterpret_cast<float2*>(Pv + (ra + 8) * LDP + c) = make_float2(dva[n][2], dva[n][3]);
+    }
+  }
+  cluster.sync();                           // every block's partial is final
+  // block `rank` sums rows [r0, r1) of the tile over the cluster in rank order
+  const int per = (BKV + n_cl - 1) / n_cl;
+  const int r0 = rank * per;
+  const int rows = max(0, min(BKV, r0 + per) - r0);
+  constexpr int V4 = D / 4;
+  for (int e = tid; e < 2 * rows * V4; e += MMA_NT) {
+    const bool is_v = e >= rows * V4;
+    const int f = is_v ? e - rows * V4 : e;
+    const int r = r0 + f / V4;
+    const int c = (f % V4) * 4;
+    float* src = (is_v ? Pv : Pk) + r * LDP + c;
+    float4 acc = *reinterpret_cast<const float4*>(cluster.map_shared_rank(src, 0));
+    for (int peer = 1; peer < n_cl; ++peer) {
+      const float4 x = *reinterpret_cast<const float4*>(cluster.map_shared_rank(src, peer));
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    const int key = kv0 + r;
+    if (key < Skv) {
+      const float sc = is_v ? 1.f : sm_scale;
+      uint2 packed;
+      packed.x = pack_bf16(acc.x * sc, acc.y * sc);
+      packed.y = pack_bf16(acc.z * sc, acc.w * sc);
+      *reinterpret_cast<uint2*>((is_v ? dv : dk) + ((long long)grp * Skv + key) * D + c) =
+          packed;
+    }
+  }
+  cluster.sync();                           // no block leaves while a peer reads its partial
+}
+
+template <int D>
+int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                   void* dv, int BH, int Sq, int Skv, int H, int q_per_kv, long long k_sb,
+                   long long k_sh, long long k_st, long long v_sb, long long v_sh,
+                   long long v_st, float sm_scale, int causal, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  using LQ = MmaDqLayout<D>;
+  using LKV = MmaDkvLayout<D>;
+  const int nq = (Sq + MMA_BQ - 1) / MMA_BQ;
+  const int nkv = (Skv + MMA_BKV - 1) / MMA_BKV;
+  if (nq > 65535 || nkv > 65535 || H % q_per_kv || BH % H) return -1;
+  const int n_cl = cluster_size(q_per_kv);
+  const int heads = q_per_kv / n_cl;
+  const bool aligned = ((reinterpret_cast<size_t>(q) | reinterpret_cast<size_t>(k) |
+                         reinterpret_cast<size_t>(v) | reinterpret_cast<size_t>(dout)) %
+                        16) == 0;
+  const int vec_ok = aligned && (k_sb | k_sh | k_st | v_sb | v_sh | v_st) % 8 == 0;
+  auto kq = flash_bwd_dq_mma_kernel<D>;
+  auto kkv = flash_bwd_dkv_mma_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize, LQ::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, LKV::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* dot = static_cast<const bf16*>(dout);
+  kq<<<dim3(BH, nq), MMA_NT, LQ::BYTES, s>>>(qt, kt, vt, static_cast<const bf16*>(o), dot, lse,
+                                              delta, static_cast<bf16*>(dq), Sq, Skv, H,
+                                              q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
+                                              sm_scale, causal, vec_ok);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(BH / q_per_kv * n_cl, nkv);
+  cfg.blockDim = dim3(MMA_NT);
+  cfg.dynamicSmemBytes = LKV::BYTES;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kkv, qt, kt, vt, dot, static_cast<const float*>(lse),
+                           static_cast<const float*>(delta), static_cast<bf16*>(dk),
+                           static_cast<bf16*>(dv), Sq, Skv, H, q_per_kv, heads, k_sb, k_sh,
+                           k_st, v_sb, v_sh, v_st, sm_scale, causal, vec_ok);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd_any(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -347,9 +898,16 @@ int launch_bwd_any(const void* q, const void* k, const void* v, const void* o,
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
 #define REPRO_FA_BWD_CASE(D_)                                                               \
-  if (d == D_)                                                                              \
-    return launch_bwd<T, D_>(q, k, v, o, dout, l, dl, dq, dk, dv, BH, Sq, Skv, H, q_per_kv, \
-                             k_sb, k_sh, k_st, v_sb, v_sh, v_st, sm_scale, causal, s);
+  if (d == D_) {                                                                            \
+    if constexpr (is_bf16<T>::value)                                                        \
+      return launch_bwd_mma<D_>(q, k, v, o, dout, l, dl, dq, dk, dv, BH, Sq, Skv, H,        \
+                                q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st, sm_scale,     \
+                                causal, s);                                                 \
+    else                                                                                    \
+      return launch_bwd_f32<T, D_>(q, k, v, o, dout, l, dl, dq, dk, dv, BH, Sq, Skv, H,     \
+                                   q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st, sm_scale,  \
+                                   causal, s);                                              \
+  }
   REPRO_FA_BWD_CASE(32)
   REPRO_FA_BWD_CASE(64)
   REPRO_FA_BWD_CASE(128)
@@ -380,4 +938,26 @@ extern "C" int repro_flash_attention_bwd_f32(
   return repro::fa_bwd::launch_bwd_any<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH,
                                               Sq, Skv, d, H, q_per_kv, k_sb, k_sh, k_st, v_sb,
                                               v_sh, v_st, sm_scale, causal, stream);
+}
+
+// Shared memory of one block: kernel 0 the dQ launch, 1 the dK/dV launch, of
+// the bf16 (tensor-core) or float32 body; -1 for a head dim that is not
+// compiled.  Mirrored by flash_attention_bwd.bwd_smem_bytes().
+extern "C" int repro_flash_bwd_smem_bytes(int d, int kernel, int is_bf16) {
+  using namespace repro::fa_bwd;
+#define REPRO_FA_BWD_SMEM(D_)                                                             \
+  if (d == D_) {                                                                          \
+    if (is_bf16) return kernel == 0 ? MmaDqLayout<D_>::BYTES : MmaDkvLayout<D_>::BYTES;   \
+    return kernel == 0 ? DqLayout<D_>::BYTES : DkvLayout<D_>::BYTES;                      \
+  }
+  REPRO_FA_BWD_SMEM(32)
+  REPRO_FA_BWD_SMEM(64)
+  REPRO_FA_BWD_SMEM(128)
+#undef REPRO_FA_BWD_SMEM
+  return -1;
+}
+
+// Blocks of one dK/dV cluster for a group of q_per_kv query heads (bf16).
+extern "C" int repro_flash_bwd_cluster(int q_per_kv) {
+  return repro::fa_bwd::cluster_size(q_per_kv);
 }

@@ -14,13 +14,15 @@ extern "C" int repro_gemm_bf16(const void* a, const void* b, void* c, int M, int
 
 extern "C" int repro_gemm_tma_bf16(const void* a, const void* b, void* c, int M, int N, int K,
                                    int out_bf16, int bm, int bn, void* stream) {
-  return repro::sm90::launch_gemm_tma<false>(a, b, c, 1, M, N, K, out_bf16, bm, bn, stream);
+  return repro::sm90::launch_gemm_tma<false, false, false>(a, b, c, 1, M, N, K, out_bf16, bm, bn,
+                                                          stream);
 }
 
 // Shared memory of one block of the body that owns the tile: BK 64 in bf16
-// is the TMA core's (dynamic), the rest gemm.cuh's (static).
-extern "C" int repro_gemm_smem_bytes(int bm, int bn, int bk, int in_bf16) {
-  if (in_bf16 && bk == repro::sm90::BK) return repro::sm90::smem_bytes(bm, bn);
+// is the TMA core's (dynamic; for a product of depth K, or K <= 0 the deep
+// ring, the most any K takes), the rest gemm.cuh's (static).
+extern "C" int repro_gemm_smem_bytes(int bm, int bn, int bk, int in_bf16, int K) {
+  if (in_bf16 && bk == repro::sm90::BK) return repro::sm90::smem_bytes(bm, bn, K);
   return in_bf16 ? repro::gemm_smem_bytes<__nv_bfloat16>(bm, bn, bk)
                  : repro::gemm_smem_bytes<float>(bm, bn, bk);
 }

@@ -10,14 +10,18 @@ semantics: causal masking by absolute position, Sq != Skv, grouped-query
 k/v (un-repeated, or the strided (batch, kv_heads, Skv, d) view the layers
 hand over) and zero gradient for a row whose keys are all masked.
 
-The CUDA kernel (``csrc/flash_attention_bwd.cu``) is two launches: dQ (which
-also writes delta = rowsum(dO o)) with one block per (query head, query
-tile), then dK and dV with one block per (batch, kv head, key tile) that
-sums over the query heads of its group itself.  No float atomics: the
-result repeats exactly.  :data:`launches` counts calls of the wrapper that
-reached the card; one call is those two kernel launches.  A tensor on the
-CPU goes to :func:`flash_attention_bwd_plain`; a CUDA tensor launches or
-raises.
+The CUDA kernel (``csrc/flash_attention_bwd.cu``) is two launches.  In bf16
+both run their products on the tensor cores (``mma.sync``): dQ (which also
+writes delta = rowsum(dO o)) with one block per (query head, 64-row query
+tile), then dK and dV with one block per (query head, 64-key tile), the
+blocks of one kv head's group a thread-block cluster that folds their
+partial dK/dV through distributed shared memory (:func:`bwd_geometry`
+mirrors the grids, the cluster and the shared memory).  float32 keeps the
+first scalar body, whose dK/dV block loops over its group's query heads.
+No float atomics: the result repeats exactly.  :data:`launches` counts calls
+of the wrapper that reached the card; one call is those two kernel launches.
+A tensor on the CPU goes to :func:`flash_attention_bwd_plain`; a CUDA tensor
+launches or raises.
 """
 from __future__ import annotations
 
@@ -27,8 +31,73 @@ import torch
 
 from . import _build
 from .flash_attention import COMPILED_HEAD_DIMS, NEG_INF, _kv_4d
+from .gemm import SM_SMEM
 
 launches = 0                        # calls of flash_attention_bwd() on the card (2 kernels each)
+
+BWD_ROWS = 64                       # bf16: query rows of a dQ block, key rows of a dK/dV block
+MAX_CLUSTER = 8                     # the portable cluster size
+
+
+def bwd_smem_bytes(d: int, kernel: str, elem_size: int) -> int:
+    """Shared memory one block of the ``"dq"`` or ``"dkv"`` launch takes
+    (mirrors ``repro_flash_bwd_smem_bytes``).  bf16: 64-row tiles with rows
+    padded by 16 bytes, the dQ block's Q and dO and two stages of K and V,
+    the dK/dV block's K and V and two stages of Q, dO and their rows' float32
+    lse and delta.  float32 (the scalar body): float32 tiles with rows padded
+    by one float, 64-row dQ and 32-row dK/dV blocks."""
+    if elem_size == 2:
+        tile = BWD_ROWS * (d + 8) * 2
+        return 6 * tile if kernel == "dq" else 6 * tile + 2 * 2 * BWD_ROWS * 4
+    ld = d + 1
+    if kernel == "dq":
+        return (4 * 64 * ld + 64 * 65 + 2 * 64) * 4
+    return (2 * 32 * ld + 2 * 64 * ld + 2 * 64 * 33 + 2 * 64) * 4
+
+
+def bwd_cluster(q_per_kv: int) -> int:
+    """Blocks of one bf16 dK/dV cluster: the largest divisor of the group
+    that is at most :data:`MAX_CLUSTER` (each block then takes
+    ``q_per_kv // bwd_cluster(q_per_kv)`` of the group's query heads)."""
+    c = min(q_per_kv, MAX_CLUSTER)
+    while c > 1 and q_per_kv % c:
+        c -= 1
+    return max(c, 1)
+
+
+def bwd_geometry(BH: int, Sq: int, Skv: int, d: int, q_per_kv: int = 1,
+                 causal: bool = True) -> dict:
+    """The two bf16 launches of one call: for each, the grid, the cluster,
+    the shared memory of a block, the blocks one SM holds (by shared memory
+    and the two blocks ``__launch_bounds__`` asks for) and each block's work
+    in (64 x 64)-tile products, in the order the blocks launch."""
+    n = BWD_ROWS
+    nq, nkv = -(-Sq // n), -(-Skv // n)
+    cl = bwd_cluster(q_per_kv)
+    heads = q_per_kv // cl
+
+    def per_sm(smem: int) -> int:
+        return min(2, SM_SMEM // (smem + 1024))
+
+    # dQ: query tiles heaviest first (gridDim.y reversed), key tiles a row sees
+    dq_work = []
+    for y in range(nq):
+        q0 = (nq - 1 - y) * n
+        end = min(Skv, q0 + n) if causal else Skv
+        dq_work += [-(-end // n)] * BH
+    # dK/dV: key tiles in order (the first sees most queries), query tiles
+    # from the first row that can see the tile, for each of the block's heads
+    dkv_work = []
+    for y in range(nkv):
+        first = y * n if causal else 0
+        tiles = -(-(Sq - first) // n) if first < Sq else 0
+        dkv_work += [heads * tiles] * (BH // q_per_kv * cl)
+    smem_q, smem_kv = bwd_smem_bytes(d, "dq", 2), bwd_smem_bytes(d, "dkv", 2)
+    return {"dq": {"grid": (BH, nq), "cluster": 1, "smem": smem_q,
+                   "blocks_per_sm": per_sm(smem_q), "work": dq_work},
+            "dkv": {"grid": (BH // q_per_kv * cl, nkv), "cluster": cl,
+                    "heads_per_block": heads, "smem": smem_kv,
+                    "blocks_per_sm": per_sm(smem_kv), "work": dkv_work}}
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -5,7 +5,9 @@ Counterpart of ``repro/kernels/gemm.py``.  Two CUDA bodies compute it:
 * ``"tma"`` (``csrc/gemm_sm90.cuh``): bf16 only.  A producer warp keeps a
   ring of shared-memory stages filled by TMA and one or two consumer
   warpgroups multiply with ``wgmma``; tiles :data:`TMA_TILES` (BK 64), in
-  dynamic shared memory up to :data:`MAX_DYNAMIC_SMEM`.
+  dynamic shared memory up to :data:`MAX_DYNAMIC_SMEM`.  A product with few
+  k-steps takes the short-K ring (one stage a k-step, two blocks an SM;
+  :func:`tma_shallow`), any other the deepest ring that fits.
 * ``"staged"`` (``csrc/gemm.cuh``): float32 on the CUDA cores, and bf16
   operands that TMA cannot take; tiles :data:`STAGED_TILES`, in static
   shared memory up to :data:`MAX_STATIC_SMEM`.
@@ -36,6 +38,7 @@ BODIES = ("tma", "staged")
 DEFAULT_BLOCK = (128, 128, 32)
 MAX_STATIC_SMEM = 48 * 1024         # the staged body's shared memory is static
 MAX_DYNAMIC_SMEM = 232448           # what one block may take on sm_90
+SM_SMEM = 233472                    # an SM's shared memory, 1 KB of it kept per block
 _THREADS = 256                      # the staged body's block
 _ALIGN = 1024                       # the TMA body aligns its ring to the swizzle atom
 
@@ -58,23 +61,36 @@ def smem_limit(tile: Sequence[int]) -> int:
     return MAX_DYNAMIC_SMEM if tile_body(tile) == "tma" else MAX_STATIC_SMEM
 
 
-def tma_stages(bm: int, bn: int) -> int:
-    """Stages of the TMA body's ring: as many as fit, each with its A and B
-    tiles and two 8-byte mbarriers (``sm90::stages``)."""
-    return (MAX_DYNAMIC_SMEM - _ALIGN) // ((bm + bn) * TMA_BK * 2 + 16)
+def tma_stages(bm: int, bn: int, blocks_per_sm: int = 1) -> int:
+    """Stages of the TMA body's deepest ring when ``blocks_per_sm`` blocks
+    share an SM: as many as fit, each with its A and B tiles and two 8-byte
+    mbarriers (``sm90::stages``)."""
+    limit = MAX_DYNAMIC_SMEM if blocks_per_sm == 1 else SM_SMEM // blocks_per_sm - 1024
+    return (limit - _ALIGN) // ((bm + bn) * TMA_BK * 2 + 16)
 
 
-def gemm_smem_bytes(bm: int, bn: int, bk: int, elem_size: int) -> int:
+def tma_shallow(bm: int, bn: int, K: int) -> bool:
+    """Whether a TMA product of depth ``K`` runs the short-K ring
+    (``sm90::shallow``): one stage a k-step, two blocks an SM, for every tile
+    but (128, 256), when its k-steps fit the two-block ring."""
+    return K > 0 and (bm, bn) != (128, 256) and -(-K // TMA_BK) <= tma_stages(bm, bn, 2)
+
+
+def gemm_smem_bytes(bm: int, bn: int, bk: int, elem_size: int, K: int = 0) -> int:
     """Shared memory one block takes, mirroring ``repro_gemm_smem_bytes``.
 
-    A bf16 tile with BK 64 is the TMA body's: the alignment slack and
-    :func:`tma_stages` stages of the A and B tiles and their two mbarriers
-    (``sm90::smem_bytes`` in ``csrc/gemm_sm90.cuh``).  Any other tile is the
-    staged body's (``gemm_smem_bytes`` in ``csrc/gemm.cuh``): the padded A
-    and B tiles, two stages of them for bf16, and for bf16 one 16 x 16 float
-    staging tile per warp for the epilogue."""
+    A bf16 tile with BK 64 is the TMA body's: the alignment slack and the
+    ring's stages of A and B tiles and their two mbarriers
+    (``sm90::smem_bytes`` in ``csrc/gemm_sm90.cuh``), for a product of depth
+    ``K``: the short-K ring's one stage a k-step where :func:`tma_shallow`
+    says so, else (and for ``K`` <= 0, the most any depth takes)
+    :func:`tma_stages` stages.  Any other tile is the staged body's
+    (``gemm_smem_bytes`` in ``csrc/gemm.cuh``): the padded A and B tiles,
+    two stages of them for bf16, and for bf16 one 16 x 16 float staging
+    tile per warp for the epilogue."""
     if elem_size == 2 and bk == TMA_BK:
-        return _ALIGN + tma_stages(bm, bn) * ((bm + bn) * TMA_BK * 2 + 16)
+        n = -(-K // TMA_BK) if tma_shallow(bm, bn, K) else tma_stages(bm, bn)
+        return _ALIGN + n * ((bm + bn) * TMA_BK * 2 + 16)
     pad = 16 // elem_size
     ab = (bm * (bk + pad) + bk * (bn + pad)) * elem_size
     if elem_size == 2:

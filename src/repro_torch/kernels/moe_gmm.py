@@ -13,6 +13,12 @@ unaligned bf16; the body is chosen as
 GEMM's (:data:`repro_torch.kernels.gemm.COMPILED_TILES`).  A
 tensor on the CPU goes to :func:`grouped_matmul_plain`; a CUDA tensor
 launches a kernel or raises.
+
+Either operand may also come as the transpose of a contiguous tensor
+(``t.transpose(1, 2)``), as the backward hands them over: dX = dY W^T takes
+``w.transpose(1, 2)`` and dW = X^T dY takes ``x.transpose(1, 2)``.  The TMA
+body reads such an operand as it is stored (:func:`operand_layouts`); the
+staged body copies it to row-major first.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .gemm import BODIES, COMPILED_TILES, DEFAULT_BLOCK, gemm_body, nearest_tile
+from .gemm import BODIES, COMPILED_TILES, DEFAULT_BLOCK, nearest_tile
 
 launches = 0                        # kernel launches made by grouped_matmul()
 launches_by_body = {b: 0 for b in BODIES}
@@ -37,6 +43,37 @@ def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
     return torch.einsum("eci,eio->eco", x.float(), w.float()).to(out_dtype)
 
 
+def _transposed(t: torch.Tensor) -> bool:
+    """Whether a 3-D operand is the transpose of a contiguous tensor rather
+    than contiguous itself; raises for any other layout."""
+    if t.is_contiguous():
+        return False
+    if t.transpose(1, 2).is_contiguous():
+        return True
+    raise ValueError("grouped_matmul takes contiguous operands or transposes "
+                     "(t.transpose(1, 2)) of contiguous ones")
+
+
+def operand_layouts(x: torch.Tensor, w: torch.Tensor) -> Tuple[bool, bool]:
+    """(a_t, b_t): whether ``x`` is stored (E, d_in, cap) and ``w`` (E, d_out,
+    d_in), each the transpose of a contiguous tensor, rather than row-major."""
+    return _transposed(x), _transposed(w)
+
+
+def grouped_body(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The body that computes ``x @ w`` from these operands as they lie:
+    ``"tma"`` for bf16 whose rows as stored are whole 16-byte pieces (d_in
+    and d_out multiples of 8, and cap too when ``x`` is stored transposed)
+    at 16-byte-aligned bases, else ``"staged"``.  At most one operand may be
+    stored transposed on the TMA body."""
+    a_t, b_t = operand_layouts(x, w)
+    cap, d_in, d_out = x.shape[1], x.shape[2], w.shape[2]
+    ok = (x.dtype == torch.bfloat16 and d_in % 8 == 0 and d_out % 8 == 0
+          and (not a_t or cap % 8 == 0) and not (a_t and b_t)
+          and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    return "tma" if ok else "staged"
+
+
 def _check(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> None:
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
             or x.shape[2] != w.shape[1]:
@@ -49,8 +86,7 @@ def _check(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> None:
         raise TypeError(f"grouped_matmul writes float32 or bfloat16, not {out_dtype}")
     if x.device != w.device:
         raise ValueError(f"operands on different devices: {x.device}, {w.device}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("grouped_matmul takes contiguous row-major operands")
+    operand_layouts(x, w)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
@@ -59,16 +95,14 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
     """x: (E, cap, d_in), w: (E, d_in, d_out) -> (E, cap, d_out).
 
     ``block`` = (rows of cap, columns of d_out, depth of d_in) must be one of
-    the compiled tiles; the body comes from
-    :func:`repro_torch.kernels.gemm.gemm_body` and runs at its tile nearest
-    ``block``.  Shapes the tile does not divide are masked inside the
-    kernel."""
+    the compiled tiles; the body comes from :func:`grouped_body` and runs at
+    its tile nearest ``block``.  Shapes the tile does not divide are masked
+    inside the kernel."""
     out_dtype = out_dtype or x.dtype
     _check(x, w, out_dtype)
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w, block=block, out_dtype=out_dtype)
-    body = gemm_body(x.dtype, x.shape[2], w.shape[2], x.data_ptr(), w.data_ptr())
-    return grouped_matmul_on_body(x, w, body, block=block, out_dtype=out_dtype)
+    return grouped_matmul_on_body(x, w, grouped_body(x, w), block=block, out_dtype=out_dtype)
 
 
 def grouped_matmul_on_body(x: torch.Tensor, w: torch.Tensor, body: str, *,
@@ -76,7 +110,8 @@ def grouped_matmul_on_body(x: torch.Tensor, w: torch.Tensor, body: str, *,
                            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """:func:`grouped_matmul` on the body named, at its tile nearest
     ``block``: the way to time the two bodies on one product.  The TMA body
-    refuses operands ``gemm_body`` would not give it."""
+    refuses operands :func:`grouped_body` would not give it; the staged body
+    copies a transposed operand to row-major first."""
     global launches
     out_dtype = out_dtype or x.dtype
     _check(x, w, out_dtype)
@@ -87,10 +122,10 @@ def grouped_matmul_on_body(x: torch.Tensor, w: torch.Tensor, body: str, *,
                          f"{COMPILED_TILES}")
     E, cap, d_in = x.shape
     d_out = w.shape[2]
-    if body == "tma" and gemm_body(x.dtype, d_in, d_out, x.data_ptr(),
-                                   w.data_ptr()) != "tma":
-        raise ValueError(f"the TMA body takes bf16 with d_in, d_out multiples of 8 and "
-                         f"16-byte aligned bases; got {x.dtype} {d_in}->{d_out}")
+    if body == "tma" and grouped_body(x, w) != "tma":
+        raise ValueError(f"the TMA body takes bf16 with d_in, d_out (and cap for a "
+                         f"transposed x) multiples of 8, at most one transposed operand and "
+                         f"16-byte aligned bases; got {x.dtype} cap={cap} {d_in}->{d_out}")
     bm, bn, bk = nearest_tile(block, body)
     out = torch.empty((E, cap, d_out), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
@@ -100,10 +135,12 @@ def grouped_matmul_on_body(x: torch.Tensor, w: torch.Tensor, body: str, *,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if body == "tma":
+            a_t, b_t = operand_layouts(x, w)
             code = lib.repro_grouped_gemm_tma_bf16(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                                                    E, cap, d_out, d_in, out_bf16, bm, bn,
-                                                   stream)
+                                                   int(a_t), int(b_t), stream)
         else:
+            x, w = x.contiguous(), w.contiguous()
             vec = 16 // x.element_size()
             vec_ok = int(d_in % vec == 0 and d_out % vec == 0 and x.data_ptr() % 16 == 0
                          and w.data_ptr() % 16 == 0)

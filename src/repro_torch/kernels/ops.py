@@ -14,8 +14,9 @@ Responsibilities:
   :func:`wkv6` a gradient.  Where autograd records (grad mode on and an
   operand that requires a gradient) each is a ``torch.autograd.Function``
   whose backward runs kernels too: K2's backward (``flash_attention_bwd``)
-  from the log-sum-exp the forward kept, K1's and K4's backward as products
-  of the same kernel on contiguous transposes, and K5's backward
+  from the log-sum-exp the forward kept, K1's backward as products of the
+  same kernel on contiguous transposes, K4's as products of the same kernel
+  that read the forward's operands as they are stored, and K5's backward
   (``rwkv6_bwd.wkv6_bwd``) from the forward's operands.  Otherwise
   (serving runs under ``torch.no_grad``) the forward launches exactly as
   before.  On CPU tensors forward and backward are the plain versions.
@@ -182,8 +183,9 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
     planned for one expert's (cap, d_out, d_in) product, as the reference
     does, and moved to a compiled tile by :func:`gemm_launch_block`.
     Differentiable: dX_e = dY_e W_e^T and dW_e = X_e^T dY_e, each a
-    :func:`grouped_matmul` on contiguous transposes that accumulates in
-    float32 and rounds once to its operand's dtype."""
+    :func:`grouped_matmul` that accumulates in float32 and rounds once to
+    its operand's dtype.  It hands ``w`` and ``x`` over as transposed views:
+    the TMA body reads them as they are stored, with no transposing copy."""
     if _records(x, w):
         return _GroupedMatmul.apply(x, w, block, out_dtype)
     return _grouped_matmul(x, w, block, out_dtype)
@@ -211,9 +213,9 @@ class _GroupedMatmul(torch.autograd.Function):
         dy = dy.to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _grouped_matmul(dy, w.transpose(1, 2).contiguous(), None, x.dtype)
+            dx = _grouped_matmul(dy, w.transpose(1, 2), None, x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = _grouped_matmul(x.transpose(1, 2).contiguous(), dy, None, w.dtype)
+            dw = _grouped_matmul(x.transpose(1, 2), dy, None, w.dtype)
         return dx, dw, None, None
 
 

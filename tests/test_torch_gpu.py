@@ -136,6 +136,33 @@ def test_grouped_gemm_tma_body_at_the_moe_shapes(cuda, cap, dims):
     assert moe_gmm.launches_by_body["tma"] == before + 2 * len(G.TMA_TILES)
 
 
+@pytest.mark.parametrize("layout", ["a_t", "b_t"])
+@pytest.mark.parametrize("K", [24, 160, 768])
+def test_grouped_gemm_tma_body_reads_transposed_operands(cuda, layout, K):
+    """The TMA body with A stored (E, K, M) (``x`` handed over as a
+    transposed view: the transpose-A descriptors) or B stored (E, N, K)
+    (``w`` transposed: K-major B), every tile, at depths that take the
+    short-K ring (24, 160) and the deep ring (768), against the plain
+    product; no operand is copied (the launch reads the views' storage)."""
+    from repro_torch.kernels import gemm as G, moe_gmm
+    gen = torch.Generator(device=cuda).manual_seed(K)
+    E, M, N = 6, 136, 200
+    x = torch.randn(E, M, K, generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(E, K, N, generator=gen, device=cuda) * K ** -0.5).to(torch.bfloat16)
+    if layout == "a_t":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        w = w.transpose(1, 2).contiguous().transpose(1, 2)
+    assert moe_gmm.operand_layouts(x, w) == (layout == "a_t", layout == "b_t")
+    want = moe_gmm.grouped_matmul_plain(x, w, out_dtype=torch.float32)
+    before = moe_gmm.launches_by_body["tma"]
+    for tile in G.TMA_TILES:
+        got = moe_gmm.grouped_matmul(x, w, block=tile, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **_tol(torch.bfloat16))
+    assert moe_gmm.launches_by_body["tma"] == before + len(G.TMA_TILES)
+
+
 def test_served_gemm_shapes_run_on_the_tma_body(cuda):
     """The planner's tiles at the served K1 shape and the MoE's four K4
     shapes launch the TMA body, and a misaligned expert buffer the staged
@@ -588,8 +615,9 @@ def test_serve_rwkv6_reduced_on_the_card_is_as_close_to_float32_as_plain(cuda, m
 
 def test_python_footprints_mirror_the_compiled_kernels(cuda):
     """The shared-memory formulas the planner prunes with are the kernels'
-    own, for the TMA body's tiles and the staged body's alike; so are the
-    decode bodies' and the WKV scan's, forward and backward."""
+    own, for the TMA body's tiles (deep and short-K rings) and the staged
+    body's alike; so are the decode bodies' and the WKV scan's, forward and
+    backward, and K2-bwd's blocks and dK/dV cluster."""
     from repro_torch.kernels import _build, flash_attention as FA, flash_decode as FD, gemm as G
     from repro_torch.kernels import rwkv6 as K, rwkv6_bwd as KB
     lib = _build.lib()
@@ -601,8 +629,16 @@ def test_python_footprints_mirror_the_compiled_kernels(cuda):
             assert lib.repro_wkv6_smem_bytes(d, chunk) == K.wkv6_smem_bytes(d, chunk)
             assert lib.repro_wkv6_bwd_smem_bytes(d, chunk) == KB.wkv6_bwd_smem_bytes(d, chunk)
     for tile in G.COMPILED_TILES:
-        assert lib.repro_gemm_smem_bytes(*tile, 1) == G.gemm_smem_bytes(*tile, 2)
-        assert lib.repro_gemm_smem_bytes(*tile, 0) == G.gemm_smem_bytes(*tile, 4)
+        for K in (0, 24, 160, 384, 2048):
+            assert lib.repro_gemm_smem_bytes(*tile, 1, K) == G.gemm_smem_bytes(*tile, 2, K=K)
+            assert lib.repro_gemm_smem_bytes(*tile, 0, K) == G.gemm_smem_bytes(*tile, 4, K=K)
+    from repro_torch.kernels import flash_attention_bwd as FAB
+    for d in FA.COMPILED_HEAD_DIMS:
+        for i, kernel in enumerate(("dq", "dkv")):
+            assert lib.repro_flash_bwd_smem_bytes(d, i, 1) == FAB.bwd_smem_bytes(d, kernel, 2)
+            assert lib.repro_flash_bwd_smem_bytes(d, i, 0) == FAB.bwd_smem_bytes(d, kernel, 4)
+    for g in range(1, 33):
+        assert lib.repro_flash_bwd_cluster(g) == FAB.bwd_cluster(g)
     for d in FA.COMPILED_HEAD_DIMS:
         for tile in FA.COMPILED_TILES:
             assert lib.repro_flash_smem_bytes_bf16(*tile, d) == FA.flash_smem_bytes(*tile, d, 2)
@@ -733,6 +769,8 @@ BWD_CASES = [  # BH, q_per_kv, Sq, Skv, d, causal, offset of the k/v storage
     (8, 8, 512, 1024, 64, False, 0),        # seamless's cross pass
     (6, 3, 77, 150, 64, False, 1),          # ragged, not causal
     (2, 1, 37, 53, 32, True, 0),
+    (128, 8, 512, 512, 128, True, 0),       # the MoE's training pass (4 sequences)
+    (32, 16, 130, 160, 64, True, 0),        # G 16: clusters of 8, two heads a block
 ]
 
 
@@ -791,21 +829,24 @@ def test_matmul_and_grouped_matmul_backward_launch_their_kernels(cuda, dtype):
     assert kernels.launch_counts()["gemm"] == 2
     torch.testing.assert_close(da.float(), G.gemm_plain(dc, b.detach().t()).float(), **_tol(dtype))
     torch.testing.assert_close(db.float(), G.gemm_plain(a.detach().t(), dc).float(), **_tol(dtype))
-    x = torch.randn(8, 160, 128, device=cuda).to(dtype).requires_grad_()
-    w = (torch.randn(8, 128, 96, device=cuda) * 0.1).to(dtype).requires_grad_()
-    dy = torch.randn(8, 160, 96, device=cuda).to(dtype)
-    out = ops.grouped_matmul(x, w)
-    kernels.reset_launch_counts()
-    dx, dw = torch.autograd.grad(out, (x, w), dy)
-    assert kernels.launch_counts()["grouped_matmul"] == 2
-    body = kernels.launches_by_body()["grouped_matmul"]
-    assert sum(body.values()) == 2 and (body["tma"] == 2) == (dtype == torch.bfloat16)
-    plain = moe_gmm.grouped_matmul_plain
-    torch.testing.assert_close(dx.float(), plain(dy, w.detach().transpose(1, 2)).float(),
-                               **_tol(dtype))
-    torch.testing.assert_close(
-        dw.float(), plain(x.detach().transpose(1, 2), dy, out_dtype=torch.float32),
-        **_tol(dtype))
+    # the MoE's prefill cap (dW at K 160: the short-K ring), and a ragged cap
+    # of 24 with d_in 96 (dX rows and dW rows not multiples of 64)
+    for cap, d_in, d_out in ((160, 128, 96), (24, 96, 160)):
+        x = torch.randn(8, cap, d_in, device=cuda).to(dtype).requires_grad_()
+        w = (torch.randn(8, d_in, d_out, device=cuda) * 0.1).to(dtype).requires_grad_()
+        dy = torch.randn(8, cap, d_out, device=cuda).to(dtype)
+        out = ops.grouped_matmul(x, w)
+        kernels.reset_launch_counts()
+        dx, dw = torch.autograd.grad(out, (x, w), dy)
+        assert kernels.launch_counts()["grouped_matmul"] == 2
+        body = kernels.launches_by_body()["grouped_matmul"]
+        assert sum(body.values()) == 2 and (body["tma"] == 2) == (dtype == torch.bfloat16)
+        plain = moe_gmm.grouped_matmul_plain
+        torch.testing.assert_close(dx.float(), plain(dy, w.detach().transpose(1, 2)).float(),
+                                   **_tol(dtype))
+        torch.testing.assert_close(
+            dw.float(), plain(x.detach().transpose(1, 2), dy, out_dtype=torch.float32),
+            **_tol(dtype))
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-30b-a3b", "rwkv6-3b"])

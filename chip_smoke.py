@@ -30,8 +30,9 @@ these phases, each printing one JSON line; any failure raises:
             and flash tile timed at the served shape (d 128, and d 64 at
             zamba2's prefill and seamless's encoder), and every TMA tile at
             the MoE's two K4 prefill shapes (forward, and the backward's dX
-            and dW products), with the rank of the planner's tiles and their
-            time over the fastest tile's;
+            and dW products) and at K1's backward products (dA = dC B^T and
+            dB = A^T dC, each reading its operand as stored), with the rank
+            of the planner's tiles and their time over the fastest tile's;
 5. serve    ``qwen2.5-3b`` at full width and depth with random weights:
             batch 4, prompt 512, 32 greedy tokens through
             ``repro_torch.launch.serve``, compared step by step with the same
@@ -475,7 +476,41 @@ def wkv6_bwd_case(timer, gen, BH, T, d, chunk, dtype, serving, floor=False):
            "kernel_ms": timer.ms(run), "plain_ms": timer.ms(plain, n=5), "library_ms": None,
            "library": "none: no PyTorch call computes a WKV backward"}
     res.update(bound(wkv6_bwd_flops(BH, T, d, c), nbytes(*xs, *got), torch.float32))
+    res.update(wkv6_bwd_residency(BH, d, c, dtype))
     return res
+
+
+def wkv6_bwd_cases(timer, gen) -> list:
+    """K5-bwd at rwkv6-3b's training pass (bf16 first: the shape the kernels
+    line reports), the other head dims, an odd T (chunk 1) and decays at the
+    floor with chunk 32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rwkv6
+    rcfg = get_config(RWKV_ARCH)
+    rH, rd = rwkv6._n_heads(rcfg), rwkv6._head_dim(rcfg)
+    cases = [wkv6_bwd_case(timer, gen, BATCH * rH, PROMPT, rd, rwkv6.WKV_CHUNK, dtype,
+                           serving=dtype == torch.bfloat16)
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [wkv6_bwd_case(timer, gen, 8, 128, d_, 16, torch.float32, False) for d_ in (16, 32)]
+    cases += [wkv6_bwd_case(timer, gen, 8, 101, rd, rwkv6.WKV_CHUNK, dtype, False)
+              for dtype in (torch.bfloat16, torch.float32)]
+    cases.append(wkv6_bwd_case(timer, gen, 16, 256, rd, 32, torch.float32, False, floor=True))
+    return cases
+
+
+def wkv6_bwd_residency(BH: int, d: int, c: int, dtype) -> dict:
+    """K5-bwd's launch as its Python mirror gives it (blocks a row, shared
+    memory, blocks an SM, waves on this card's SMs) and the clusters the
+    card holds at once (cudaOccupancyMaxActiveClusters); empty for a
+    checkout without them."""
+    from repro_torch.kernels import _build, rwkv6_bwd as KB
+    if not hasattr(KB, "wkv6_bwd_geometry"):
+        return {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    geo = KB.wkv6_bwd_geometry(BH, d, c, torch.empty((), dtype=dtype).element_size(), sms=sms)
+    clusters = _build.lib().repro_wkv6_bwd_max_clusters(d, c, int(dtype == torch.bfloat16))
+    return {"geometry": geo, "max_active_clusters": clusters,
+            "resident_at_once": clusters >= BH}
 
 
 def flash_bwd_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving, model=None):
@@ -521,8 +556,16 @@ def flash_bwd_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving, mo
 
 def gemm_bwd_case(timer, gen, M, N, K, dtype, serving):
     """K1-bwd: dA = dC B^T and dB = A^T dC through ``ops.matmul``'s
-    backward (two planner-blocked K1 launches on contiguous transposes),
-    against the plain products; library: two ``torch.matmul``."""
+    backward (two planner-blocked K1 launches that read ``b`` and ``a`` as
+    stored: dA with B stored (N, K), dB with A stored (K, M), on the TMA
+    body in bf16), against the plain products; library: two
+    ``torch.matmul``.  The backward's pieces are read from a trace of its
+    call (:func:`launched_kernels`): ``dA_ms`` and ``dB_ms`` the first and
+    second product it launches, ``copy_ms`` every other kernel, such as a
+    transposing copy of an operand (none where both are read in place).
+    ``body`` names each product's body and operand layouts as
+    ``gemm.operand_body`` / ``operand_layouts`` give them for the views the
+    backward hands over."""
     from repro_torch.kernels import gemm as G, ops
     dev = timer.flush.device
     a = (torch.randn(M, K, generator=gen, device=dev) * K ** -0.5).to(dtype).requires_grad_()
@@ -536,10 +579,20 @@ def gemm_bwd_case(timer, gen, M, N, K, dtype, serving):
     err = max(compare(f"gemm_bwd {n} {label} {dname(dtype)}", x, y, dtype)
               for n, x, y in zip(("da", "db"), run(), plain()))
     lib = lambda: (torch.matmul(dc, bt), torch.matmul(at, dc))
+    launched = launched_kernels(timer, run)
+    products = [k["ms"] for k in launched if "gemm" in k["name"]]
+    if len(products) != 2:
+        raise AssertionError(f"K1-bwd {label}: {len(products)} products launched, not 2: "
+                             f"{launched}")
+    body = {name: {"body": G.operand_body(x, y), "transposed": G.operand_layouts(x, y)}
+            for name, x, y in (("dA", dc, bt), ("dB", at, dc))
+            if hasattr(G, "operand_body")}             # a checkout before the layout rule: none
     res = {"name": "gemm_bwd", "shape": label, "dtype": dname(dtype), "serving": serving,
-           "body": G.gemm_body(dtype, N, K, dc.data_ptr(), b.data_ptr()),
-           "max_abs_err": err, "kernel_ms": timer.ms(run), "plain_ms": timer.ms(plain),
-           "library_ms": timer.ms(lib)}
+           "body": body, "max_abs_err": err, "kernel_ms": timer.ms(run),
+           "dA_ms": products[0], "dB_ms": products[1],
+           "copy_ms": sum((k["ms"] for k in launched if "gemm" not in k["name"]), 0.0),
+           "launched": [k["name"][:96] for k in launched],
+           "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib)}
     res.update(bound(2 * 2.0 * M * N * K, nbytes(a, b, dc) + nbytes(a, b), dtype))
     return res
 
@@ -548,11 +601,16 @@ def launched_kernels(timer, fn, n: int = 10) -> list:
     """The kernels one call of ``fn`` launches, in launch order, each with
     its median device time (ms) over ``n`` calls traced by ``torch.profiler``,
     the L2 flushed before each: what a wrapper's call is made of, whatever
-    the checkout's design."""
+    the checkout's design.  A trace now and then misses some of the call's
+    kernels, so up to 3 n calls are traced and the launch sequence that most
+    traces agree on (the longest, between two as common) is the call's; at
+    least n traces must agree on it."""
+    from collections import Counter
+
     from torch.profiler import ProfilerActivity, profile
     fn()
     runs = []
-    for _ in range(n):
+    for _ in range(3 * n):
         timer.flush.zero_()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -562,10 +620,18 @@ def launched_kernels(timer, fn, n: int = 10) -> list:
                           if "cuda" in str(getattr(ev, "device_type", "")).lower()
                           and ev.device_time_total > 0), key=lambda ev: ev.time_range.start)
         runs.append([(ev.name, ev.device_time_total / 1e3) for ev in kernels])
-    names = [name for name, _ in runs[0]]
-    if any([name for name, _ in run] != names for run in runs):
-        raise AssertionError(f"one call launched different kernels from call to call: {runs}")
-    return [{"name": name, "ms": statistics.median(run[i][1] for run in runs)}
+        seqs = Counter(tuple(name for name, _ in run) for run in runs if run)
+        if seqs and seqs.most_common(1)[0][1] >= n:
+            break
+    seqs = Counter(tuple(name for name, _ in run) for run in runs if run)
+    if not seqs:
+        raise AssertionError(f"no trace of {len(runs)} recorded any kernel")
+    names, count = max(seqs.items(), key=lambda kv: (kv[1], len(kv[0])))
+    if count < n:
+        raise AssertionError(f"one call launched different kernels from call to call: "
+                             f"{dict(seqs)}")
+    agree = [run for run in runs if tuple(name for name, _ in run) == names]
+    return [{"name": name, "ms": statistics.median(run[i][1] for run in agree)}
             for i, name in enumerate(names)]
 
 
@@ -679,17 +745,7 @@ def phase_kernels(timer, gen):
     for dtype in (torch.bfloat16, torch.float32):
         cases.append(wkv6_case(timer, gen, 8, 100, rd, rwkv6.WKV_CHUNK, dtype, False))
     cases.append(wkv6_case(timer, gen, 16, 256, rd, 32, torch.float32, False, floor=True))
-    # K5-bwd at rwkv6-3b's training pass (bf16 first: the shape the kernels
-    # line reports), the other head dims, an odd T (chunk 1) and decays at
-    # the floor with chunk 32
-    for dtype in (torch.bfloat16, torch.float32):
-        cases.append(wkv6_bwd_case(timer, gen, BATCH * rH, PROMPT, rd, rwkv6.WKV_CHUNK, dtype,
-                                   serving=dtype == torch.bfloat16))
-    for d_ in (16, 32):
-        cases.append(wkv6_bwd_case(timer, gen, 8, 128, d_, 16, torch.float32, False))
-    for dtype in (torch.bfloat16, torch.float32):
-        cases.append(wkv6_bwd_case(timer, gen, 8, 101, rd, rwkv6.WKV_CHUNK, dtype, False))
-    cases.append(wkv6_bwd_case(timer, gen, 16, 256, rd, 32, torch.float32, False, floor=True))
+    cases += wkv6_bwd_cases(timer, gen)
     # the backward kernels: K2-bwd at the prompt passes training runs (d 128:
     # qwen2.5-3b first, the shape with the most launches, then the MoE; d 64:
     # zamba2, internvl2, seamless's encoder and cross pass) and one ragged
@@ -856,9 +912,12 @@ def phase_planner(timer, gen):
                             "tile_ms": times, "blocks_rank": order.index(planned) + 1,
                             "blocks_vs_fastest": times[planned] / times[order[0]]}
     # the second entry point's gradient: ops.matmul's backward, two
-    # planner-blocked K1 launches on contiguous transposes
+    # planner-blocked K1 launches that read b and a as stored
     a_, b_ = a.detach().requires_grad_(), b.detach().requires_grad_()
     dc = torch.randn(M, N, generator=gen, device=dev).to(dtype)
+    gemm_bwd_tiles = {
+        "dA": tile_ranks(lambda t: G.gemm(dc, b.t(), block=t), M, K, N),
+        "dB": tile_ranks(lambda t: G.gemm(a.t(), dc, block=t), K, N, M)}
     with backward_launches() as bwd:
         ops.matmul(a_, b_).backward(dc)
     bwd_err = max(compare("planner -> gemm backward dA", a_.grad, G.gemm_plain(dc, b.t()), dtype),
@@ -867,6 +926,7 @@ def phase_planner(timer, gen):
         raise AssertionError(f"planner phase: ops.matmul's backward made {bwd} launches")
     emit({"phase": "planner", "gemm_shape": list(shape), "gemm_blocks": list(blocks),
           "gemm_bwd_launches": bwd["gemm_bwd"], "gemm_bwd_max_abs_err": bwd_err,
+          "gemm_bwd_tiles": gemm_bwd_tiles,
           "first": first_source, "second": source, "planner_fallbacks": fallbacks,
           "gemm_launches": launches, "gemm_launches_by_body": by_body, "max_abs_err": err,
           "gemm_tile_ms": tiles, "gemm_blocks_rank": gemm_ranked.index(str(tuple(blocks))) + 1,
@@ -2029,13 +2089,32 @@ OFF_MAIN_PATH = ("flash_decode_partials", "flash_decode_combine")
 REDESIGNED = ("decode_mma_kernel", "decode_f32_kernel", "wkv6_kernel", "flash_bwd_dq_mma_kernel",
               "flash_bwd_dkv_mma_kernel", "wkv6_bwd_kernel")
 # the TMA GEMM core's instantiations end their mangled template arguments with
-# MINB: 1 the deep ring, 2 the short-K ring
+# GROUPED, A_T, B_T and MINB: MINB 1 the deep ring, 2 the short-K ring
 RING = re.compile(r"ELi([12])EEEv")
+LAYOUT = re.compile(r"Lb([01])ELb([01])ELb([01])ELi[12]EEEv")
 
 
 def ring_of(name: str) -> str:
     found = RING.search(name)
     return {"1": "deep", "2": "short_k"}[found.group(1)] if found else "?"
+
+
+def layout_of(name: str) -> str:
+    """The product a TMA GEMM instantiation computes: K1 or K4, and which
+    operand it reads as stored transposed."""
+    found = LAYOUT.search(name)
+    if not found:
+        return "?"
+    grouped, a_t, b_t = found.groups()
+    return ("K4" if grouped == "1" else "K1") + {"00": "", "10": " a_t", "01": " b_t"}.get(
+        a_t + b_t, " ?")
+
+
+def build_failure(err: Exception) -> None:
+    """The last 40 lines of what the compiler printed, on a JSON line, when
+    the kernel library cannot be built or loaded."""
+    emit({"phase": "build", "error": type(err).__name__,
+          "compiler_tail": str(err).splitlines()[-40:]})
 
 
 
@@ -2055,12 +2134,17 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    _build.lib()
+    try:
+        _build.lib()
+    except Exception as err:
+        build_failure(err)
+        raise
     info = _build.build_info()
     ptxas = ptxas_usage(str(info.get("compiler_output", "")))
     redesigned = {k: v for k, v in ptxas.items() if any(b in k for b in REDESIGNED)}
-    redesigned.update({k: dict(v, ring=ring_of(k)) for k, v in ptxas.items()
-                       if "gemm_tma_kernel" in k and ring_of(k) == "short_k"})
+    redesigned.update({k: dict(v, ring=ring_of(k), layout=layout_of(k))
+                       for k, v in ptxas.items() if "gemm_tma_kernel" in k
+                       and (ring_of(k) == "short_k" or layout_of(k) in ("K1 a_t", "K1 b_t"))})
     # float32 products in full float32, as the reference's tolerances assume
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2077,6 +2161,8 @@ def main() -> int:
     if info.get("built") and not any(ring_of(k) == "short_k" for k in ptxas
                                      if "gemm_tma_kernel" in k):
         raise AssertionError("no short-K instantiation of the TMA GEMM core was compiled")
+    if info.get("built") and not {"K1 a_t", "K1 b_t"} <= {layout_of(k) for k in ptxas}:
+        raise AssertionError("K1's transposed-operand instantiations were not compiled")
 
     timer = Timer(device)
     gen = torch.Generator(device=device).manual_seed(0)

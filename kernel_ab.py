@@ -13,10 +13,13 @@ prints one JSON line of kernel times; the script prints the card's name and
 power limit last.  Name the trees as parent, change, change, parent to see
 the drift across the call.  Needs one NVIDIA GPU.
 
-The rows, bf16 throughout: K2-bwd at the training passes of every attention
+The rows, bf16 unless marked: K2-bwd at the training passes of every attention
 family, K4-bwd at the MoE's prefill (with its dX, dW and copy pieces as that
-checkout's backward launches them), K1-bwd and K1 at qwen2.5-3b's
-projection, K4 at the MoE's four served shapes.
+checkout's backward launches them), K1-bwd (with its dA, dB and copy pieces
+likewise) and K1 at qwen2.5-3b's projection, K4 at the MoE's four served
+shapes, and K5-bwd at every shape ``chip_smoke.py`` times it (rwkv6-3b's
+training pass, 160 rows x T 512 x d 64 at chunk 16, in bf16 and float32;
+head dims 16 and 32; an odd T at chunk 1; decays at the floor at chunk 32).
 """
 from __future__ import annotations
 
@@ -62,8 +65,10 @@ def one(tree: str) -> dict:
                              lower_torch.plan_gemm_blocks(M, N, K, bf16), True))
     cases += [S.grouped_case(timer, gen, E, cap, a, b, bf16, True)
               for cap in caps for a, b in ((d, f), (f, d))]
-    keep = ("kernel_ms", "dx_ms", "dw_ms", "copy_ms", "launched", "library_ms", "bound_ms")
-    rows = {f"{c['name']} {c.get('model') or ''} {c['shape']}".replace("  ", " "):
+    cases += S.wkv6_bwd_cases(timer, gen)
+    keep = ("kernel_ms", "dx_ms", "dw_ms", "dA_ms", "dB_ms", "copy_ms", "launched",
+            "library_ms", "bound_ms", "max_active_clusters")
+    rows = {f"{c['name']} {c.get('model') or ''} {c['shape']} {c['dtype']}".replace("  ", " "):
             {k: c[k] for k in keep if k in c} for c in cases}
     return {"tree": tree, "rows": rows}
 

@@ -126,8 +126,9 @@ _SIGNATURES = {
     # a, b, c, M, N, K, out_bf16, bm, bn, bk, vec_ok, stream
     "repro_gemm_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "repro_gemm_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # a, b, c, M, N, K, out_bf16, bm, bn, stream (the TMA + wgmma body)
-    "repro_gemm_tma_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # a, b, c, M, N, K, out_bf16, bm, bn, a_t, b_t, stream (the TMA + wgmma body;
+    # a_t: a stored (K, M), b_t: b stored (N, K))
+    "repro_gemm_tma_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # bm, bn, bk, in_bf16, K (<= 0: the deepest footprint)
     "repro_gemm_smem_bytes": [_I, _I, _I, _I, _I],
     # x, w, out, E, cap, d_out, d_in, out_bf16, bm, bn, bk, vec_ok, stream
@@ -168,7 +169,12 @@ _SIGNATURES = {
     # r, k, v, log_w, u, dout, dr, dk, dv, dlog_w, du, scratch, BH, T, d, chunk,
     # is_bf16, stream
     "repro_wkv6_bwd": [_P] * 12 + [_I] * 5 + [_P],
-    "repro_wkv6_bwd_smem_bytes": [_I, _I],
+    # d, chunk, is_bf16: a block's shared memory, the blocks an SM its launch
+    # bounds ask for, the most clusters the device holds at once; d: blocks a row
+    "repro_wkv6_bwd_smem_bytes": [_I, _I, _I],
+    "repro_wkv6_bwd_min_blocks": [_I, _I, _I],
+    "repro_wkv6_bwd_max_clusters": [_I, _I, _I],
+    "repro_wkv6_bwd_split": [_I],
 }
 
 

@@ -54,8 +54,12 @@
 //   The backward reads the forward's operands as they are stored, with no
 //   transposing copy: A_T takes A stored (K, M) (MN-major, the transpose-A
 //   immediate, BM / 64 boxes laid out as B's), B_T takes B stored (N, K)
-//   (K-major, laid out and described as A, transpose-B 0).  So dW reads X
-//   and dY, dX reads dY and W, each once.
+//   (K-major, laid out and described as A, transpose-B 0).  So K4's dW reads
+//   X and dY, its dX reads dY and W, each once; K1's backward is the same
+//   pair ungrouped (Z = 1): dA = dC B^T on B_T, dB = A^T dC on A_T.  At
+//   qwen2.5-3b's projection the transposing copies they replace moved about
+//   106 MB (B is 45 MB, A 8 MB, each read and written), more than the two
+//   products' own operands; what is left of K1-bwd is K1's own rate.
 // * Tensor maps are 3-D, (inner, rows, Z): Z is the expert for K4 and 1 for
 //   K1, so an expert's zero-fill stops at its own capacity.  One block per
 //   output tile.  K4's grid puts the row tile in blockIdx.x, so the row
@@ -590,6 +594,12 @@ int grouped_gemm_tma_a_t(const void* a, const void* b, void* c, int Z, int M, in
                          int out_bf16, int bm, int bn, void* stream);
 int grouped_gemm_tma_b_t(const void* a, const void* b, void* c, int Z, int M, int N, int K,
                          int out_bf16, int bm, int bn, void* stream);
+// K1's product with A stored (K, M) (gemm_at_bf16.cu: dB = A^T dC reads A as
+// stored) and with B stored (N, K) (gemm_bt_bf16.cu: dA = dC B^T reads B as stored).
+int gemm_tma_a_t(const void* a, const void* b, void* c, int M, int N, int K, int out_bf16,
+                 int bm, int bn, void* stream);
+int gemm_tma_b_t(const void* a, const void* b, void* c, int M, int N, int K, int out_bf16,
+                 int bm, int bn, void* stream);
 
 }  // namespace sm90
 }  // namespace repro

@@ -12,10 +12,21 @@ Counterpart of ``repro/kernels/gemm.py``.  Two CUDA bodies compute it:
   operands that TMA cannot take; tiles :data:`STAGED_TILES`, in static
   shared memory up to :data:`MAX_STATIC_SMEM`.
 
-:func:`gemm_body` picks one from the dtype, the shapes and the pointers
-before the launch; :func:`nearest_tile` moves a requested tile to that body's
-closest compiled one.  A tensor on the CPU goes to :func:`gemm_plain`; a CUDA
-tensor launches a kernel or raises.
+Either operand may also come as the ``.t()`` of a contiguous tensor, as the
+backward hands them over: dA = dC B^T takes ``b.t()`` and dB = A^T dC takes
+``a.t()`` (:func:`operand_layouts`).  The TMA body reads such an operand as
+it is stored, A as (K, M) or B as (N, K), so the backward makes no
+transposing copy; its rows as stored must be whole 16-byte pieces (M a
+multiple of 8 for a transposed A), and at most one operand may be
+transposed.  The staged body copies a transposed operand to row-major
+first.  What bounds the backward is then K1's own rate: its two products
+run at the forward's speed, and the copies of A and B (about 106 MB of
+device memory traffic at qwen2.5-3b's projection) are gone.
+
+:func:`operand_body` picks the body from the dtype, the shapes, the layouts
+and the pointers before the launch; :func:`nearest_tile` moves a requested
+tile to that body's closest compiled one.  A tensor on the CPU goes to
+:func:`gemm_plain`; a CUDA tensor launches a kernel or raises.
 """
 from __future__ import annotations
 
@@ -104,13 +115,44 @@ def shape_body(dtype: torch.dtype, K: int, N: int) -> str:
     return "tma" if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0 else "staged"
 
 
-def gemm_body(dtype: torch.dtype, K: int, N: int, *data_ptrs: int) -> str:
-    """The body that computes a product of this type and shape from operands
-    at these addresses: ``"tma"`` when :func:`shape_body` says so and every
-    base is 16-byte aligned, else ``"staged"``."""
-    if shape_body(dtype, K, N) == "tma" and all(p % 16 == 0 for p in data_ptrs):
+def gemm_body(dtype: torch.dtype, K: int, N: int, *data_ptrs: int, M: int = 0,
+              a_t: bool = False, b_t: bool = False) -> str:
+    """The body that computes a (M, K) @ (K, N) product of this type from
+    operands at these addresses, A stored (K, M) when ``a_t`` and B stored
+    (N, K) when ``b_t``: ``"tma"`` when :func:`shape_body` says so, every
+    base is 16-byte aligned, at most one operand is transposed and, for a
+    transposed A, M is a multiple of 8 (its rows as stored); else
+    ``"staged"``."""
+    if (shape_body(dtype, K, N) == "tma" and all(p % 16 == 0 for p in data_ptrs)
+            and not (a_t and b_t) and not (a_t and M % 8)):
         return "tma"
     return "staged"
+
+
+def stored_transposed(t: torch.Tensor, op: str) -> bool:
+    """Whether an operand is a contiguous tensor with its last two dimensions
+    swapped (``.t()``, ``.transpose(1, 2)``) rather than contiguous itself;
+    raises for any other layout.  The K1 and K4 wrappers share this rule."""
+    if t.is_contiguous():
+        return False
+    if t.transpose(-2, -1).is_contiguous():
+        return True
+    raise ValueError(f"{op} takes contiguous operands or transposes of contiguous ones "
+                     f"(the last two dimensions swapped)")
+
+
+def operand_layouts(a: torch.Tensor, b: torch.Tensor) -> Tuple[bool, bool]:
+    """(a_t, b_t): whether ``a`` is stored (K, M) and ``b`` (N, K), each the
+    ``.t()`` of a contiguous tensor, rather than row-major."""
+    return stored_transposed(a, "gemm"), stored_transposed(b, "gemm")
+
+
+def operand_body(a: torch.Tensor, b: torch.Tensor) -> str:
+    """:func:`gemm_body` for these operands as they lie: their dtype,
+    shapes, layouts and addresses."""
+    a_t, b_t = operand_layouts(a, b)
+    return gemm_body(a.dtype, a.shape[1], b.shape[1], a.data_ptr(), b.data_ptr(),
+                     M=a.shape[0], a_t=a_t, b_t=b_t)
 
 
 def snap_tile(b: int, options: Sequence[int]) -> int:
@@ -149,8 +191,7 @@ def _check(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> None:
         raise TypeError(f"gemm writes float32 or bfloat16, not {out_dtype}")
     if a.device != b.device:
         raise ValueError(f"operands on different devices: {a.device}, {b.device}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("gemm takes contiguous row-major operands")
+    operand_layouts(a, b)
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *,
@@ -158,15 +199,15 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *,
          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``a @ b`` with an explicit tile shape.  a: (M, K), b: (K, N) -> (M, N).
 
-    ``block`` must be one of :data:`COMPILED_TILES`; the body comes from
-    :func:`gemm_body` and runs at the tile :func:`nearest_tile` gives for it.
-    Shapes that the tile does not divide are masked inside the kernel."""
+    Either operand may be the ``.t()`` of a contiguous tensor.  ``block``
+    must be one of :data:`COMPILED_TILES`; the body comes from
+    :func:`operand_body` and runs at the tile :func:`nearest_tile` gives for
+    it.  Shapes that the tile does not divide are masked inside the kernel."""
     out_dtype = out_dtype or a.dtype
     _check(a, b, out_dtype)
     if a.device.type == "cpu":
         return gemm_plain(a, b, block=block, out_dtype=out_dtype)
-    body = gemm_body(a.dtype, a.shape[1], b.shape[1], a.data_ptr(), b.data_ptr())
-    return gemm_on_body(a, b, body, block=block, out_dtype=out_dtype)
+    return gemm_on_body(a, b, operand_body(a, b), block=block, out_dtype=out_dtype)
 
 
 def gemm_on_body(a: torch.Tensor, b: torch.Tensor, body: str, *,
@@ -174,7 +215,8 @@ def gemm_on_body(a: torch.Tensor, b: torch.Tensor, body: str, *,
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """:func:`gemm` on the body named, at its tile nearest ``block``: the
     way to time the two bodies on one product.  The TMA body refuses
-    operands :func:`gemm_body` would not give it."""
+    operands :func:`operand_body` would not give it; the staged body copies
+    a transposed operand to row-major first."""
     global launches
     out_dtype = out_dtype or a.dtype
     _check(a, b, out_dtype)
@@ -185,9 +227,12 @@ def gemm_on_body(a: torch.Tensor, b: torch.Tensor, body: str, *,
                          f"{COMPILED_TILES}")
     M, K = a.shape
     N = b.shape[1]
-    if body == "tma" and gemm_body(a.dtype, K, N, a.data_ptr(), b.data_ptr()) != "tma":
-        raise ValueError(f"the TMA body takes bf16 with K, N multiples of 8 and 16-byte "
-                         f"aligned bases; got {a.dtype} K={K} N={N}")
+    a_t, b_t = operand_layouts(a, b)
+    if body == "tma" and operand_body(a, b) != "tma":
+        raise ValueError(f"the TMA body takes bf16 with K, N (and M for a transposed a) "
+                         f"multiples of 8, at most one transposed operand and 16-byte "
+                         f"aligned bases; got {a.dtype} M={M} K={K} N={N} "
+                         f"transposed {(a_t, b_t)}")
     bm, bn, bk = nearest_tile(block, body)
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
     if M == 0 or N == 0:
@@ -198,8 +243,9 @@ def gemm_on_body(a: torch.Tensor, b: torch.Tensor, body: str, *,
         stream = torch.cuda.current_stream().cuda_stream
         if body == "tma":
             code = lib.repro_gemm_tma_bf16(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N,
-                                           K, out_bf16, bm, bn, stream)
+                                           K, out_bf16, bm, bn, int(a_t), int(b_t), stream)
         else:
+            a, b = a.contiguous(), b.contiguous()
             vec = 16 // a.element_size()
             vec_ok = int(K % vec == 0 and N % vec == 0 and a.data_ptr() % 16 == 0
                          and b.data_ptr() % 16 == 0)

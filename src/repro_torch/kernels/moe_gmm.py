@@ -27,7 +27,8 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .gemm import BODIES, COMPILED_TILES, DEFAULT_BLOCK, nearest_tile
+from .gemm import BODIES, COMPILED_TILES, DEFAULT_BLOCK, gemm_body, nearest_tile, \
+    stored_transposed
 
 launches = 0                        # kernel launches made by grouped_matmul()
 launches_by_body = {b: 0 for b in BODIES}
@@ -43,21 +44,10 @@ def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
     return torch.einsum("eci,eio->eco", x.float(), w.float()).to(out_dtype)
 
 
-def _transposed(t: torch.Tensor) -> bool:
-    """Whether a 3-D operand is the transpose of a contiguous tensor rather
-    than contiguous itself; raises for any other layout."""
-    if t.is_contiguous():
-        return False
-    if t.transpose(1, 2).is_contiguous():
-        return True
-    raise ValueError("grouped_matmul takes contiguous operands or transposes "
-                     "(t.transpose(1, 2)) of contiguous ones")
-
-
 def operand_layouts(x: torch.Tensor, w: torch.Tensor) -> Tuple[bool, bool]:
     """(a_t, b_t): whether ``x`` is stored (E, d_in, cap) and ``w`` (E, d_out,
     d_in), each the transpose of a contiguous tensor, rather than row-major."""
-    return _transposed(x), _transposed(w)
+    return stored_transposed(x, "grouped_matmul"), stored_transposed(w, "grouped_matmul")
 
 
 def grouped_body(x: torch.Tensor, w: torch.Tensor) -> str:
@@ -65,13 +55,11 @@ def grouped_body(x: torch.Tensor, w: torch.Tensor) -> str:
     ``"tma"`` for bf16 whose rows as stored are whole 16-byte pieces (d_in
     and d_out multiples of 8, and cap too when ``x`` is stored transposed)
     at 16-byte-aligned bases, else ``"staged"``.  At most one operand may be
-    stored transposed on the TMA body."""
+    stored transposed on the TMA body: K1's rule (``gemm.gemm_body``) for one
+    expert's (cap, d_in) @ (d_in, d_out) product."""
     a_t, b_t = operand_layouts(x, w)
-    cap, d_in, d_out = x.shape[1], x.shape[2], w.shape[2]
-    ok = (x.dtype == torch.bfloat16 and d_in % 8 == 0 and d_out % 8 == 0
-          and (not a_t or cap % 8 == 0) and not (a_t and b_t)
-          and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
-    return "tma" if ok else "staged"
+    return gemm_body(x.dtype, x.shape[2], w.shape[2], x.data_ptr(), w.data_ptr(),
+                     M=x.shape[1], a_t=a_t, b_t=b_t)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> None:

@@ -14,9 +14,8 @@ Responsibilities:
   :func:`wkv6` a gradient.  Where autograd records (grad mode on and an
   operand that requires a gradient) each is a ``torch.autograd.Function``
   whose backward runs kernels too: K2's backward (``flash_attention_bwd``)
-  from the log-sum-exp the forward kept, K1's backward as products of the
-  same kernel on contiguous transposes, K4's as products of the same kernel
-  that read the forward's operands as they are stored, and K5's backward
+  from the log-sum-exp the forward kept, K1's and K4's as products of the
+  same kernel that read the forward's operands as they are stored, and K5's backward
   (``rwkv6_bwd.wkv6_bwd``) from the forward's operands.  Otherwise
   (serving runs under ``torch.no_grad``) the forward launches exactly as
   before.  On CPU tensors forward and backward are the plain versions.
@@ -59,7 +58,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Planner-blocked GEMM.  Fits blocks to the shape when not given.
     Differentiable: dA = dC B^T and dB = A^T dC, each a planner-blocked
-    :func:`matmul` on contiguous transposes."""
+    :func:`matmul` that hands ``b`` and ``a`` over as ``.t()`` views: the TMA
+    body reads them as they are stored, with no transposing copy."""
     if _records(a, b):
         return _Matmul.apply(a, b, block, out_dtype)
     return _matmul(a, b, block, out_dtype)
@@ -85,8 +85,8 @@ class _Matmul(torch.autograd.Function):
     def backward(ctx, dc):
         a, b = ctx.saved_tensors
         dc = dc.to(a.dtype).contiguous()
-        da = _matmul(dc, b.t().contiguous(), None, a.dtype) if ctx.needs_input_grad[0] else None
-        db = _matmul(a.t().contiguous(), dc, None, b.dtype) if ctx.needs_input_grad[1] else None
+        da = _matmul(dc, b.t(), None, a.dtype) if ctx.needs_input_grad[0] else None
+        db = _matmul(a.t(), dc, None, b.dtype) if ctx.needs_input_grad[1] else None
         return da, db, None, None
 
 
@@ -98,7 +98,7 @@ def gemm_launch_block(M: int, N: int, K: int, dtype: torch.dtype,
     not cut to a power-of-two divisor of M (cap 160 keeps BM 128).  The
     staged body keeps the reference's ``fit_block`` rule, snapped to its
     tiles; ``gemm`` moves a tile to the staged body's nearest if the
-    operands' addresses send a TMA-shaped product there."""
+    operands' addresses or layouts send a TMA-shaped product there."""
     if _gemm.shape_body(dtype, K, N) == "tma":
         return _gemm.nearest_tile(block, "tma")
     return (_gemm.snap_tile(fit_block(M, block[0]), _gemm.TILE_M),

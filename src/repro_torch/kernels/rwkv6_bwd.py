@@ -34,30 +34,89 @@ gradient G1 gives
 The midpoint c cancels in every product, as in the forward.  The CUDA
 kernel (``csrc/wkv6_bwd.cu``) computes this; a tensor on the CPU goes to
 :func:`wkv6_bwd_plain`, a CUDA tensor launches the kernel or raises.
+
+The kernel's design (:func:`wkv6_bwd_geometry` mirrors it).  No row's work
+is large: a row walks its chunks twice, and each chunk step is a short chain
+of small products and barriers, so one block a row (the first kernel: 160
+blocks on 132 SMs) is bound by one block's latency.  The recurrence
+separates by value column, so each row's state is split by column over a
+thread-block cluster of ``d / 16`` blocks, each holding 16 columns of S and
+of G in registers and owning 16 key channels; what sums over columns or
+channels (dr', dk', the pair products dP, P and db, the bonus sums) is
+folded through distributed shared memory in rank order, one cluster barrier
+a chunk, without atomics, so the result repeats bit for bit.  At
+rwkv6-3b's training shape (160 rows, d 64, chunk 16, bf16) the 640 blocks
+of 128 threads take 37,440 bytes each, six an SM: the whole grid is
+resident at once (at five an SM the card held 154 of the 160 clusters, a
+cluster's blocks having to share a GPC).  A chunk below 16 runs at 16 with a
+ragged last chunk: the same gradient in fewer chunk steps, each of which has
+a fixed cost (an odd T, which the forward runs at chunk 1, takes T / 16
+steps a sweep instead of T).  The wrapper allocates the float32 ``r dr'`` scratch
+(BH, T, d) that the kernel writes in its forward sweep and reads back in
+its backward sweep.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from . import _build
-from .rwkv6 import DEFAULT_CHUNK, _check, _check_compiled, _chunk_of
+from .gemm import SM_SMEM
+from .rwkv6 import DEFAULT_CHUNK, MAX_CHUNK, _check, _check_compiled, _chunk_of
 
 launches = 0                        # kernel launches made by wkv6_bwd()
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
+THREADS = 128                       # one block of the kernel per (row, 16 value columns)
+SLICE = 16                          # value columns a block holds, key channels it owns
+MAX_BLOCKS_PER_SM = 6               # the launch bounds ask for at most this many
 
-def wkv6_bwd_smem_bytes(d: int, chunk: int) -> int:
-    """Dynamic shared memory of one block of the kernel (mirrors
-    ``wkv6_bwd_smem_floats`` in ``csrc/wkv6_bwd.cu``), rows padded to d + 4
-    floats: the state (or its gradient) in two buffers; fourteen chunk-sized
-    arrays (r, k, v, dO, the four decay factors, A, RS, KS, KC, r dr' and
-    k dk'); the scores and dO v^T below the diagonal; db and the bonus sums;
-    e^{last} and u."""
-    ld = d + 4
-    return 4 * (2 * d * ld + 14 * chunk * ld + 2 * chunk * chunk + 2 * chunk + 2 * d)
+
+def _round4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def _chunk_bound(chunk: int) -> int:
+    """The chunk bound of the instantiation a chunk runs on (16 or 32)."""
+    return 16 if chunk <= 16 else MAX_CHUNK
+
+
+def wkv6_bwd_smem_bytes(d: int, chunk: int, elem_size: int = 2) -> int:
+    """Dynamic shared memory of one block of the kernel for head dimension
+    ``d``, a chunk of ``chunk`` steps and inputs of ``elem_size`` bytes
+    (mirrors ``WkvbGeo::BYTES`` in ``csrc/wkv6_bwd.cu``), at the chunk bound
+    CM of its instantiation: KC and A for every channel (rows d + 4 floats);
+    v and dO of the block's 16 columns, and r, k, the two midpoint-scaled
+    copies and the cumulative log-decay of its 16 channels (rows 20); their
+    last cumulative log-decay and u; two exchange buffers (the (d x CM)
+    products, the pair sums and the bonus sums; the idle one also holds the
+    block's (d x 16) slice of G for dv); the folded pair sums; and, for
+    bf16 inputs, the raw stage the next chunk is fetched into (r, k, log w,
+    the block's v and dO in bf16, r dr' in float32; float32 inputs are read
+    from device memory directly)."""
+    cm, w = _chunk_bound(chunk), SLICE
+    floats = (2 * cm * (d + 4) + 7 * cm * (w + 4) + 2 * w
+              + 2 * _round4(d * cm + cm * cm + cm) + _round4(cm * cm + cm))
+    stage = 3 * cm * d * elem_size + 2 * cm * w * elem_size + w * cm * 4
+    return 4 * floats + (stage if elem_size == 2 else 0)
+
+
+def wkv6_bwd_geometry(BH: int, d: int, chunk: int, elem_size: int = 2,
+                      sms: int = 132) -> Dict[str, int]:
+    """The launch of the kernel (mirrors ``csrc/wkv6_bwd.cu``): ``split``
+    blocks a row, one cluster; ``threads`` a block; its shared memory;
+    ``blocks_per_sm`` that its shared memory and the launch bounds allow
+    (the bounds cap the registers so that many fit); the grid; and the waves
+    the grid takes on ``sms`` SMs (1: every block resident at once)."""
+    split = d // SLICE
+    smem = wkv6_bwd_smem_bytes(d, chunk, elem_size)
+    per_sm = min(SM_SMEM // (smem + 1024), MAX_BLOCKS_PER_SM)
+    grid = BH * split
+    return {"split": split, "cluster": split, "threads": THREADS, "smem_bytes": smem,
+            "blocks_per_sm": per_sm, "grid": grid,
+            "waves": -(-grid // (sms * per_sm)) if grid else 0}
 
 
 def wkv6_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
@@ -154,7 +213,8 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Ten
                 torch.zeros_like(log_w), torch.zeros_like(u))
     dr, dk, dv, dlog_w = (torch.empty_like(x) for x in (r, k, v, log_w))
     du = torch.empty_like(u)
-    scratch = torch.empty((BH, T, d), dtype=torch.float32, device=r.device)   # r dr'
+    # r dr', written by the kernel's forward sweep and read back by its backward
+    scratch = torch.empty((BH, T, d), dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _build.lib().repro_wkv6_bwd(

@@ -8,7 +8,9 @@ K4-bwd hands the forward's operands to the grouped GEMM as transposed views,
 which the TMA body reads as they are stored: the hand-over is recorded, and
 the gradient is held against ``jax.grad`` of the reference's
 ``grouped_matmul_ref`` (float32 1e-4, bfloat16 2e-2, the tolerances of
-tests/test_kernels.py)."""
+tests/test_kernels.py).  K1-bwd does the same with ``.t()`` views of the
+forward's 2-D operands (``gemm.operand_layouts``), held against ``jax.grad``
+of ``gemm_ref``."""
 import heapq
 
 import jax
@@ -193,3 +195,108 @@ def test_short_k_ring_lets_two_blocks_share_an_sm(tile):
     else:
         assert G.tma_shallow(bm, bn, 160)
         assert short == 1024 + 3 * ((bm + bn) * 64 * 2 + 16) <= G.SM_SMEM // 2 - 1024
+
+
+# ------------------------------------------------------------------- K1-bwd
+def test_matmul_backward_reads_the_forward_operands_in_place(monkeypatch):
+    """The backward hands ``gemm.gemm`` the saved ``b`` and ``a`` as ``.t()``
+    views of their own storage (no copy), and the TMA body takes both as
+    they lie: dA = dC B^T with B stored (N, K), dB = A^T dC with A stored
+    (K, M)."""
+    a = torch.randn(96, 160, dtype=torch.bfloat16, requires_grad=True)
+    b = torch.randn(160, 64, dtype=torch.bfloat16, requires_grad=True)
+    dc = torch.randn(96, 64, dtype=torch.bfloat16)
+    calls, real = [], G.gemm
+
+    def recording(x, y, **kw):
+        calls.append((x, y))
+        return real(x, y, **kw)
+
+    out = ops.matmul(a, b)
+    monkeypatch.setattr(G, "gemm", recording)
+    torch.autograd.grad(out, (a, b), dc)
+    (da_a, da_b), (db_a, db_b) = calls
+    assert da_b.data_ptr() == b.data_ptr() and da_b.shape == (64, 160) \
+        and da_b.stride() == (1, 64)
+    assert db_a.data_ptr() == a.data_ptr() and db_a.shape == (160, 96) \
+        and db_a.stride() == (1, 160)
+    assert da_a.is_contiguous() and db_b.is_contiguous()
+    assert G.operand_layouts(da_a, da_b) == (False, True)
+    assert G.operand_layouts(db_a, db_b) == (True, False)
+    assert G.operand_body(da_a, da_b) == G.operand_body(db_a, db_b) == "tma"
+
+
+def _stored(shape, transposed, dtype=torch.bfloat16, offset=0):
+    """A 2-D operand of logical ``shape``: row-major, or the ``.t()`` of a
+    row-major tensor; ``offset`` elements into its storage."""
+    rows, cols = shape[::-1] if transposed else shape
+    t = torch.zeros(offset + rows * cols, dtype=dtype)[offset:].view(rows, cols)
+    return t.t() if transposed else t
+
+
+@pytest.mark.parametrize("case", [
+    # (M, K, N, a_t, b_t, dtype, a's offset, body)
+    (96, 160, 64, False, False, torch.bfloat16, 0, "tma"),
+    (96, 160, 64, True, False, torch.bfloat16, 0, "tma"),     # dB = A^T dC
+    (96, 160, 64, False, True, torch.bfloat16, 0, "tma"),     # dA = dC B^T
+    (2048, 2048, 11008, True, False, torch.bfloat16, 0, "tma"),
+    (2048, 11008, 2048, False, True, torch.bfloat16, 0, "tma"),
+    (100, 160, 64, True, False, torch.bfloat16, 0, "staged"),  # A's rows as stored: M % 8
+    (100, 160, 64, False, True, torch.bfloat16, 0, "tma"),     # B's rows are K: fine
+    (96, 160, 64, True, True, torch.bfloat16, 0, "staged"),   # one transposed operand at most
+    (96, 160, 64, True, False, torch.bfloat16, 8, "tma"),     # 16 bytes in: aligned
+    (96, 160, 64, True, False, torch.bfloat16, 1, "staged"),  # 2 bytes off
+    (96, 164, 64, False, True, torch.bfloat16, 0, "staged"),  # K % 8
+    (96, 160, 64, True, False, torch.float32, 0, "staged")])
+def test_gemm_operand_layout_rule(case):
+    """Which 2-D layouts go to which body: the TMA body reads a transposed
+    operand as stored when its rows as stored are whole 16-byte pieces at an
+    aligned base, and at most one operand is transposed; everything else
+    runs the staged body (which copies a transposed operand first)."""
+    M, K, N, a_t, b_t, dtype, offset, body = case
+    a = _stored((M, K), a_t, dtype, offset)
+    b = _stored((K, N), b_t, dtype)
+    assert a.shape == (M, K) and b.shape == (K, N)
+    assert G.operand_layouts(a, b) == (a_t, b_t)
+    assert G.operand_body(a, b) == body
+    assert G.gemm_body(dtype, K, N, a.data_ptr(), b.data_ptr(), M=M, a_t=a_t,
+                       b_t=b_t) == body
+
+
+def test_gemm_refuses_other_strides():
+    """A slice with a row step, or a column-sliced view, is neither
+    row-major nor the ``.t()`` of a row-major tensor: ``gemm`` raises
+    before any body is chosen, on the CPU as on the card."""
+    a = torch.zeros(64, 64, dtype=torch.bfloat16)
+    b = torch.zeros(64, 32, dtype=torch.bfloat16)
+    for bad_a, bad_b in ((a[::2], b), (a, torch.zeros(64, 64, dtype=torch.bfloat16)[:, :32]),
+                         (torch.zeros(64, 128, dtype=torch.bfloat16)[:, ::2], b)):
+        with pytest.raises(ValueError, match="transposes of contiguous ones"):
+            G.gemm(bad_a, bad_b)
+        with pytest.raises(ValueError, match="transposes of contiguous ones"):
+            G.operand_layouts(bad_a, bad_b)
+    assert G.gemm(a.t().contiguous().t(), b).shape == (64, 32)     # a .t() view is fine
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("layout", ["row-major", "a transposed", "b transposed"])
+def test_matmul_backward_matches_jax_grad_with_transposed_operands(layout, dtype):
+    """K1-bwd through ``ops.matmul`` (its plain version on the CPU) against
+    ``jax.grad`` of the reference's ``gemm_ref``, at a ragged shape (M 100,
+    K 72, N 40), with the forward's operands row-major or one of them a
+    ``.t()`` view: the backward then hands a row-major operand to the
+    product that reads the transposed one's storage."""
+    M, K, N = 100, 72, 40
+    rng = np.random.default_rng(M + K + N)
+    aj, at = _pair(rng, (M, K), dtype)
+    bj, bt = _pair(rng, (K, N), dtype)
+    cj, ct = _pair(rng, (M, N), dtype)
+    want = jax.grad(lambda a, b: jnp.sum(jref.gemm_ref(a, b).astype(jnp.float32)
+                                         * cj.astype(jnp.float32)), argnums=(0, 1))(aj, bj)
+    a = (at.t().contiguous().t() if layout == "a transposed" else at.clone()).requires_grad_()
+    b = (bt.t().contiguous().t() if layout == "b transposed" else bt.clone()).requires_grad_()
+    assert G.operand_layouts(a, b) == (layout == "a transposed", layout == "b transposed")
+    got = torch.autograd.grad(ops.matmul(a, b), (a, b), ct)
+    for x, y in zip(got, want):
+        assert x.dtype == at.dtype
+        np.testing.assert_allclose(_np(x), np.asarray(y.astype(jnp.float32)), **_tol(dtype))

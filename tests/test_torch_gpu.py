@@ -163,6 +163,52 @@ def test_grouped_gemm_tma_body_reads_transposed_operands(cuda, layout, K):
     assert moe_gmm.launches_by_body["tma"] == before + len(G.TMA_TILES)
 
 
+@pytest.mark.parametrize("layout", ["a_t", "b_t"])
+@pytest.mark.parametrize("K", [24, 160, 768])
+def test_gemm_tma_body_reads_transposed_operands(cuda, layout, K):
+    """K1's TMA body with A stored (K, M) (``a`` handed over as ``.t()`` of a
+    contiguous tensor: the transpose-A descriptors) or B stored (N, K)
+    (``b`` transposed: K-major B), every tile, both output types, at ragged
+    M (136) and N (200) and at depths that take the short-K ring (24, 160)
+    and the deep ring (768), against the plain product; no operand is
+    copied (the launch reads the views' storage).  The staged body takes
+    the same views (float32), and a transposed A whose rows as stored are
+    not 16-byte pieces (M 100)."""
+    from repro_torch.kernels import gemm as G
+    gen = torch.Generator(device=cuda).manual_seed(K)
+    M, N = 136, 200
+    a = (torch.randn(M, K, generator=gen, device=cuda) * K ** -0.5).to(torch.bfloat16)
+    b = torch.randn(K, N, generator=gen, device=cuda).to(torch.bfloat16)
+    if layout == "a_t":
+        a = a.t().contiguous().t()
+    else:
+        b = b.t().contiguous().t()
+    assert G.operand_layouts(a, b) == (layout == "a_t", layout == "b_t")
+    assert G.operand_body(a, b) == "tma"
+    want = G.gemm_plain(a, b, out_dtype=torch.float32)
+    before = G.launches_by_body["tma"]
+    for tile in G.TMA_TILES:
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = G.gemm(a, b, block=tile, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            assert got.dtype == out_dtype
+            torch.testing.assert_close(got.float(), want, **_tol(out_dtype))
+    assert G.launches_by_body["tma"] == before + 2 * len(G.TMA_TILES)
+    before = dict(G.launches_by_body)
+    af, bf = a.float(), b.float()
+    af, bf = (af.t().contiguous().t(), bf) if layout == "a_t" else (af, bf.t().contiguous().t())
+    torch.testing.assert_close(G.gemm(af, bf, block=(128, 128, 32)),
+                               G.gemm_plain(af, bf), **_tol(torch.float32))
+    ragged = a[:100] if layout == "b_t" else \
+        torch.randn(K, 100, generator=gen, device=cuda).to(torch.bfloat16).t()
+    assert G.operand_body(ragged, b) == ("tma" if layout == "b_t" else "staged")
+    torch.testing.assert_close(G.gemm(ragged, b, block=(64, 64, 64), out_dtype=torch.float32),
+                               G.gemm_plain(ragged, b, out_dtype=torch.float32),
+                               **_tol(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert G.launches_by_body["staged"] == before["staged"] + 1 + (layout == "a_t")
+
+
 def test_served_gemm_shapes_run_on_the_tma_body(cuda):
     """The planner's tiles at the served K1 shape and the MoE's four K4
     shapes launch the TMA body, and a misaligned expert buffer the staged
@@ -507,6 +553,46 @@ def test_wkv6_bwd_kernel_at_the_training_shape_and_the_decay_floor(cuda, case, d
                              2e-3 if dtype == torch.float32 else 2e-2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_bwd_kernel_reads_unaligned_operands(cuda, dtype):
+    """Operands that start one element past a 16-byte boundary (contiguous
+    views into a larger buffer) take the kernel's plain-load path instead
+    of ``cp.async`` (bf16) or the L2 prefetch (float32): the same gradients,
+    bit for bit across two calls, within the kernel's tolerance of its
+    plain version."""
+    from repro_torch.kernels import rwkv6_bwd as KB
+    xs = _wkv_bwd_inputs(4, 48, 64, dtype, cuda)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    ys = [shifted(x) for x in xs]
+    assert all(y.is_contiguous() and y.data_ptr() % 16 for y in ys)
+    got = KB.wkv6_bwd(*ys, chunk=16)
+    again = KB.wkv6_bwd(*ys, chunk=16)
+    torch.cuda.synchronize()
+    _within_share_of_largest(got, KB.wkv6_bwd_plain(*xs, chunk=16),
+                             2e-3 if dtype == torch.float32 else 2e-2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    aligned = KB.wkv6_bwd(*xs, chunk=16)
+    _within_share_of_largest(got, aligned, 2e-3 if dtype == torch.float32 else 2e-2)
+
+
+def test_wkv6_bwd_training_grid_is_resident_on_the_card(cuda):
+    """The card holds every cluster of the training shape's launch at once
+    (cudaOccupancyMaxActiveClusters: 160 rows of 4 blocks at d 64, chunk
+    16, bf16), as the mirror's one wave says for 132 SMs."""
+    from repro_torch.kernels import _build, rwkv6_bwd as KB
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    geo = KB.wkv6_bwd_geometry(160, 64, 16, 2, sms=sms)
+    clusters = _build.lib().repro_wkv6_bwd_max_clusters(64, 16, 1)
+    assert geo["waves"] == 1
+    assert clusters >= 160, f"the card holds {clusters} clusters of 4 at once, not 160"
+
+
 def test_wkv6_bwd_kernel_refuses_what_it_does_not_take(cuda):
     from repro_torch.kernels import rwkv6_bwd as KB
     xs = _wkv_bwd_inputs(2, 64, 128, torch.float32, cuda)
@@ -627,7 +713,12 @@ def test_python_footprints_mirror_the_compiled_kernels(cuda):
     for d in K.COMPILED_HEAD_DIMS:
         for chunk in (1, 16, 24, 32):
             assert lib.repro_wkv6_smem_bytes(d, chunk) == K.wkv6_smem_bytes(d, chunk)
-            assert lib.repro_wkv6_bwd_smem_bytes(d, chunk) == KB.wkv6_bwd_smem_bytes(d, chunk)
+            for is_bf16, elem in ((1, 2), (0, 4)):
+                assert lib.repro_wkv6_bwd_smem_bytes(d, chunk, is_bf16) == \
+                    KB.wkv6_bwd_smem_bytes(d, chunk, elem)
+                geo = KB.wkv6_bwd_geometry(1, d, chunk, elem)
+                assert lib.repro_wkv6_bwd_min_blocks(d, chunk, is_bf16) == geo["blocks_per_sm"]
+        assert lib.repro_wkv6_bwd_split(d) == KB.wkv6_bwd_geometry(1, d, 16)["split"]
     for tile in G.COMPILED_TILES:
         for K in (0, 24, 160, 384, 2048):
             assert lib.repro_gemm_smem_bytes(*tile, 1, K) == G.gemm_smem_bytes(*tile, 2, K=K)

@@ -165,14 +165,45 @@ def test_wkv6_bwd_checks_its_operands():
         KB.wkv6_bwd(*(x.to("meta") for x in xs))
 
 
-def test_wkv6_bwd_footprint_puts_two_training_blocks_on_an_sm():
-    """One block of 256 threads per head (mirrored from csrc/wkv6_bwd.cu):
-    at the training shape (d 64, chunk 16) two blocks, each with the 1 KB
-    the runtime reserves, share an H100 SM's 228 KB; chunk 32 fits one."""
-    train = KB.wkv6_bwd_smem_bytes(64, 16)
-    assert train == 98432 and 2 * (train + 1024) <= 228 * 1024
+def test_wkv6_bwd_footprint_puts_six_training_blocks_on_an_sm():
+    """Four blocks of 128 threads per head at d 64, one cluster, each with
+    16 of the state's value columns (mirrored from csrc/wkv6_bwd.cu): at
+    the training shape (d 64, chunk 16, bf16) six blocks, each with the
+    1 KB the runtime reserves, share an H100 SM's 228 KB, so the 640 blocks
+    of 160 rows are resident at once on 132 SMs, with room for the clusters
+    that a GPC cannot place (at five an SM the card held 154 of the 160);
+    chunk 32 and float32 fit at fewer blocks an SM."""
+    train = KB.wkv6_bwd_smem_bytes(64, 16, 2)
+    assert train == 37440 and 6 * (train + 1024) <= 228 * 1024
+    geo = KB.wkv6_bwd_geometry(160, 64, 16, 2)
+    assert geo == {"split": 4, "cluster": 4, "threads": 128, "smem_bytes": train,
+                   "blocks_per_sm": 6, "grid": 640, "waves": 1}
+    assert geo["grid"] <= 132 * (geo["blocks_per_sm"] - 1) < 132 * geo["blocks_per_sm"]
+    assert KB.wkv6_bwd_smem_bytes(64, 16, 4) == 29248             # float32: no raw stage
+    assert KB.wkv6_bwd_geometry(160, 64, 16, 4)["blocks_per_sm"] == 6
     for d in K.COMPILED_HEAD_DIMS:
-        assert KB.wkv6_bwd_smem_bytes(d, K.MAX_CHUNK) <= 232448
+        for elem in (2, 4):
+            assert KB.wkv6_bwd_smem_bytes(d, K.MAX_CHUNK, elem) <= 232448
+            assert KB.wkv6_bwd_geometry(8, d, K.MAX_CHUNK, elem)["blocks_per_sm"] >= 2
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("chunk", [1, 7, 16, 17, 32])
+def test_wkv6_bwd_geometry_splits_each_row_by_value_column(d, chunk):
+    """One block per 16 value columns (a cluster of d / 16 per row); every
+    chunk up to 16 shares the chunk-16 instantiation's footprint, every
+    longer one the chunk-32 one's; the float32 footprint is the bf16 one
+    less bf16's raw stage (r, k, log w over d channels, v and dO over 16
+    columns, r dr' of 16 channels in float32)."""
+    geo = KB.wkv6_bwd_geometry(10, d, chunk, 2)
+    assert geo["split"] == geo["cluster"] == d // 16
+    assert geo["grid"] == 10 * (d // 16) and geo["threads"] == 128
+    cm = 16 if chunk <= 16 else 32
+    assert geo["smem_bytes"] == KB.wkv6_bwd_smem_bytes(d, cm, 2)
+    assert geo["smem_bytes"] - KB.wkv6_bwd_smem_bytes(d, chunk, 4) == cm * (6 * d + 128)
+    assert 1 <= geo["blocks_per_sm"] <= 6
+    assert (geo["blocks_per_sm"] + 1) * (geo["smem_bytes"] + 1024) > 233472 \
+        or geo["blocks_per_sm"] == 6
 
 
 # ------------------------------------------------ ops.wkv6 under autograd

@@ -33,10 +33,22 @@ these phases, each printing one JSON line; any failure raises:
             and dW products) and at K1's backward products (dA = dC B^T and
             dB = A^T dC, each reading its operand as stored), with the rank
             of the planner's tiles and their time over the fastest tile's;
+            and (line ``plan_service``) the plan service on the served GEMM
+            and flash programs on the H100 model: a full-budget resolve,
+            then one at the default deadline that must answer from the
+            registry, each with its rung, seconds and blocks;
 5. serve    ``qwen2.5-3b`` at full width and depth with random weights:
             batch 4, prompt 512, 32 greedy tokens through
             ``repro_torch.launch.serve``, compared step by step with the same
             loop run on the plain PyTorch attention;
+   serve_obs the same model and run through ``serve.main`` with
+            ``--introspect-port 0 --introspect-hold 5 --flightrec PATH
+            --plan-budget-ms 10``: ids, launches and blocks equal the serve
+            phase's; ``/metrics`` (validated exposition, the plan service's
+            fallback/error request, the planner's counters), ``/healthz``,
+            ``/slo``, ``/plans`` (the registry hits of the served blocks) and
+            ``/tenants`` scraped from a thread during the hold; the
+            flight-recorder dump loads and renders its mesh ``plan_request``;
 6. rwkv     ``rwkv6-3b`` at full width and depth, the prompt's WKV scan
             through the chunked-WKV kernel once per layer; the kernel run and
             the plain run (the kernel's plain version in its place, the
@@ -111,6 +123,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -118,7 +131,9 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from dataclasses import replace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -899,6 +914,8 @@ def phase_planner(timer, gen):
         for t in lower_torch.flash_tile_options(d, 2)}
     ranked = sorted(flash_tiles, key=flash_tiles.get)
     chosen = str(tuple(flash_blocks))
+    plan_service_line(lower_torch.gemm_programs(M, N, K, dtype),
+                      lower_torch.flash_programs(PROMPT, PROMPT, d, dtype), blocks, flash_blocks)
     # and at head dim 64: zamba2's causal prefill and seamless's encoder
     flash_d64 = {}
     for model, B_, H_, Hkv_, Sq, Skv, causal in served_flash_d64()[::2]:
@@ -937,6 +954,186 @@ def phase_planner(timer, gen):
           "flash_blocks_vs_fastest": flash_tiles[chosen] / flash_tiles[ranked[0]],
           "flash_d64": flash_d64})
     return launches, by_body, bwd["gemm_bwd"]
+
+
+def plan_service_line(gemm_progs, flash_progs, gemm_blocks, flash_blocks) -> None:
+    """The plan service on the served programs and the H100 model: one
+    full-budget resolve to warm its registry key (bit-identical to
+    ``plan_kernel_multi``), then one at the default deadline, with the rung,
+    seconds and blocks of each beside the block tables' choice."""
+    from repro_torch.core import lower_torch
+    from repro_torch.planservice import PlanRequest, PlanService
+    hw, svc = lower_torch.h100_sm(), PlanService()
+    line = {"phase": "plan_service", "hw": hw.name}
+    for name, progs, blocks_of, planned in (
+            ("gemm", gemm_progs, lower_torch.gemm_blocks_of, gemm_blocks),
+            ("flash", flash_progs, lower_torch.flash_blocks_of, flash_blocks)):
+        row = {"n_programs": len(progs), "planned_blocks": list(planned)}
+        for step, budget_ms in (("full", float("inf")), ("deadline", None)):
+            resp = svc.resolve(PlanRequest(progs, hw, budget=lower_torch.chip_budget(),
+                                           budget_ms=budget_ms, profile=False,
+                                           background=False))
+            if not resp.ok:
+                raise AssertionError(f"plan service: {name} {step} answered {resp.outcome}")
+            row[step] = {"rung": resp.rung, "outcome": resp.outcome, "seconds": resp.seconds,
+                         "deadline_ms": resp.deadline_ms,
+                         "blocks": list(blocks_of(resp.result))}
+        if row["deadline"]["rung"] != "cache":
+            raise AssertionError(f"plan service: the warm {name} request answered from "
+                                 f"{row['deadline']['rung']}, not the registry")
+        row["blocks_equal_planned"] = row["deadline"]["blocks"] == list(planned)
+        line[name] = row
+    emit(line)
+
+
+class WatchedStdout(io.TextIOBase):
+    """Standard output passed through unchanged and kept line by line;
+    :attr:`seen` is set when a printed line first matches ``pattern``."""
+
+    def __init__(self, out, pattern: str):
+        self.out, self.pattern = out, re.compile(pattern)
+        self.lines, self.match, self.seen = [], None, threading.Event()
+
+    def write(self, text: str) -> int:
+        self.out.write(text)
+        self.lines.append(text)
+        if self.match is None:
+            self.match = self.pattern.search(text)
+            if self.match is not None:
+                self.seen.set()
+        return len(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+SCRAPED = ("/metrics", "/healthz", "/slo", "/plans", "/tenants")
+OBS_HOLD_S = 5.0
+
+
+def scrape(url: str, path: str) -> dict:
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url + path, timeout=10) as r:
+        body = r.read().decode()
+        return {"code": r.status, "type": r.headers.get("Content-Type"), "body": body,
+                "ms": (time.perf_counter() - t0) * 1e3}
+
+
+def phase_serve_obs(served: dict) -> dict:
+    """``serve`` again through ``serve.main`` with the four observation
+    flags; the endpoint is scraped from a thread during the hold.  Ids,
+    launches and blocks must equal the ``serve`` phase's, every scrape must
+    answer and validate, and the flight-recorder dump must load and render."""
+    from repro_torch import kernels, plancache
+    from repro_torch.core import lower_torch
+    from repro_torch.launch import serve
+    from repro_torch.obs import expo, flightrec, slo
+    dump = os.path.join(ROOT, "build", f"flightrec-{os.getpid()}.json")
+    # a fresh process's in-process tiers: the served blocks come from the
+    # plan registry on disk, as /plans must show
+    lower_torch.clear_block_caches()
+    store = plancache.get_store()
+    store.clear_memory()
+    hits_before = store.stats.hits_disk
+    out = WatchedStdout(sys.stdout, r"holding introspection open \S+ at (http://\S+)")
+    scraped, failed = {}, []
+
+    def scraper():
+        out.seen.wait()
+        if out.match is None:                # serve.main raised before its hold
+            return
+        try:
+            for path in SCRAPED:
+                scraped[path] = scrape(out.match.group(1), path)
+        except Exception as err:  # noqa: BLE001 - reported below as a failure
+            failed.append(repr(err))
+
+    thread = threading.Thread(target=scraper, name="serve_obs-scraper")
+    thread.start()
+    kernels.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(out):
+            res = serve.main(["--arch", ARCH, "--batch", str(BATCH), "--prompt-len", str(PROMPT),
+                              "--tokens", str(NEW_TOKENS), "--seed", "0",
+                              "--introspect-port", "0", "--introspect-hold", str(OBS_HOLD_S),
+                              "--flightrec", dump, "--plan-budget-ms", "10"])
+        launches = kernels.launch_counts()
+    finally:
+        out.seen.set()
+        thread.join()
+        flightrec.disable()
+        slo.disable()
+    if failed or set(scraped) != set(SCRAPED):
+        raise AssertionError(f"serve_obs: scrapes failed: {failed}, answered {sorted(scraped)}")
+
+    if not torch.equal(res.generated.cpu(), served["ids"]):
+        raise AssertionError("serve_obs: the ids differ from the serve phase's")
+    if launches != served["launches"] or res.launches != launches:
+        raise AssertionError(f"serve_obs: launches {launches} ({res.launches} inside the run), "
+                             f"serve phase {served['launches']}")
+    blocks = {k: list(b) for k, (b, _) in res.blocks.items()}
+    sources = {src for _, src in res.blocks.values()}
+    if not blocks or sources != {"cache"} or any(
+            served["blocks"].get(k) != tuple(b) for k, b in blocks.items()):
+        raise AssertionError(f"serve_obs: blocks {res.blocks}, serve phase {served['blocks']}")
+
+    metrics_ = scraped["/metrics"]
+    samples = metrics_["body"].splitlines()
+    problems = expo.validate_exposition(metrics_["body"])
+    wanted = {
+        "planservice fallback/error": lambda l: l.startswith("planservice_requests_total{")
+        and 'rung="fallback"' in l and 'outcome="error"' in l,
+        "plancache hit_disk": lambda l: l.startswith("plancache_get_total{")
+        and 'result="hit_disk"' in l,
+        "planner searches": lambda l: l.startswith("planner_searches_total")}
+    missing = [k for k, f in wanted.items() if not any(f(l) for l in samples)]
+    if metrics_["code"] != 200 or metrics_["type"] != expo.CONTENT_TYPE or problems or missing:
+        raise AssertionError(f"serve_obs: /metrics {metrics_['code']} {metrics_['type']}: "
+                             f"{problems} missing {missing}")
+    health = scraped["/healthz"]
+    if health["code"] != 200 or json.loads(health["body"])["ok"] is not True:
+        raise AssertionError(f"serve_obs: /healthz {health}")
+    slo_rep = json.loads(scraped["/slo"]["body"])
+    if not slo_rep["enabled"] or slo_rep["rungs"].get("fallback", 0) < 1:
+        raise AssertionError(f"serve_obs: /slo {slo_rep}")
+    plans = json.loads(scraped["/plans"]["body"])
+    hits = plans["process"]["hits_disk"] - hits_before
+    shown = {(e["template"], tuple(e["request"])): e["blocks"] for e in plans["resolved"]
+             if e["source"] == "cache"}
+    if hits < len(blocks) or shown != blocks:
+        raise AssertionError(f"serve_obs: /plans shows {hits} registry hits and {shown}, "
+                             f"served {blocks}")
+    tenants = json.loads(scraped["/tenants"]["body"])
+    if tenants != {"mode": "model", "tenants": []}:
+        raise AssertionError(f"serve_obs: /tenants {tenants}")
+
+    doc = flightrec.load_dump(dump)
+    mesh = [e for e in doc["events"] if e["kind"] == "plan_request" and e.get("mode") == "mesh"]
+    rendered = flightrec.render_incident(doc)
+    if not mesh or "plan_request" not in rendered:
+        raise AssertionError(f"serve_obs: the dump holds {doc['meta']}, no mesh plan_request")
+    printed = "".join(out.lines)
+    ranking = re.search(rf"\[serve\] {re.escape(ARCH)}: decode plan ranking "
+                        rf"\(rung=(\w+) ([0-9.]+)ms\)", printed)
+    if ranking is None:
+        raise AssertionError("serve_obs: no ranking line")
+    emit({"phase": "serve_obs", "arch": ARCH, "batch": BATCH, "prompt_len": PROMPT,
+          "new_tokens": NEW_TOKENS, "flags": ["--introspect-port 0",
+                                              f"--introspect-hold {OBS_HOLD_S}",
+                                              "--flightrec", "--plan-budget-ms 10"],
+          "prefill_ms": res.prefill_s * 1e3,
+          "decode_ms_per_token": res.decode_s * 1e3 / NEW_TOKENS,
+          "tok_per_s": BATCH * NEW_TOKENS / res.decode_s,
+          "serve_prefill_ms": served["prefill_ms"],
+          "serve_decode_ms_per_token": served["decode_ms_per_token"],
+          "serve_tok_per_s": served["tok_per_s"],
+          "ranking": {"rung": ranking.group(1), "printed_ms": float(ranking.group(2)),
+                      "seconds": mesh[0]["seconds"], "outcome": mesh[0]["outcome"]},
+          "scrape_ms": {p: scraped[p]["ms"] for p in SCRAPED},
+          "metrics_bytes": len(metrics_["body"]), "plans_registry_hits": hits,
+          "dump_events": len(doc["events"]), "ids_equal": True, "launches": launches,
+          "blocks": {f"{t}{list(r)}": b for (t, r), b in blocks.items()}})
+    return launches
 
 
 def phase_serve(device):
@@ -984,7 +1181,11 @@ def phase_serve(device):
           **agreement, "first_ids": res.generated[0, :16].tolist(),
           "blocks": {f"{t}{list(s)}": [list(b), src]
                      for (t, s), (b, src) in res.blocks.items()}})
-    return launches
+    return launches, {"ids": res.generated.cpu(), "launches": launches,
+                      "blocks": {k: b for k, (b, _) in res.blocks.items()},
+                      "prefill_ms": res.prefill_s * 1e3,
+                      "decode_ms_per_token": res.decode_s * 1e3 / NEW_TOKENS,
+                      "tok_per_s": BATCH * NEW_TOKENS / res.decode_s}
 
 
 def against_plain(phase: str, res, ref) -> dict:
@@ -2179,8 +2380,12 @@ def main() -> int:
     lap("planner")
     del timer
     torch.cuda.empty_cache()
-    serve_launches = phase_serve(device)
+    serve_launches, served = phase_serve(device)
     lap("serve")
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_obs_launches = phase_serve_obs(served)
+    lap("serve_obs")
     gc.collect()
     torch.cuda.empty_cache()                # the dense model's weights go first
     rwkv_launches = phase_rwkv(device)
@@ -2189,7 +2394,8 @@ def main() -> int:
     # attentions through K3 (zamba2: 19 shared-attention sites; internvl2:
     # 24 layers; seamless: 12 encoder + 12 decoder self + 12 cross passes,
     # 12 self + 12 cross a step)
-    by_path = {"serve": serve_launches, "rwkv": rwkv_launches}
+    by_path = {"serve": serve_launches, "serve_obs": serve_obs_launches,
+               "rwkv": rwkv_launches}
     for phase, arch, passes, per_step in (("hybrid", HYBRID_ARCH, 19, 19),
                                           ("vlm", VLM_ARCH, 24, 24),
                                           ("encdec", ENCDEC_ARCH, 36, 24)):

@@ -16,14 +16,16 @@ fresh process resolves repeat shapes without invoking the planner at all.
 The hardware digest of the H100 description forks the registry's keys from
 every other target's.
 
-``fused_pipeline_spec`` and ``splitk_pallas_spec`` of the reference wait for
-``pipeline/``.
+:func:`fused_pipeline_spec` and :func:`splitk_pallas_spec` lower the
+co-planner's graph plans and the spatial-reduction plans to their CUDA
+realization plans, under the reference's names; no kernel realizes a fused
+segment yet.
 """
 from __future__ import annotations
 
 import functools
 import logging
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -176,7 +178,7 @@ def _cached_blocks(template: str, params: dict, shape: Tuple[int, ...],
     """
     hw, hw_dig = _chip()
     request = (template, tuple(params.values()))
-    budget = effective_budget(_CHIP_BUDGET)
+    budget = chip_budget()
     store = plancache.get_store()
     key = plancache.request_key(template, params, hw, budget, extra={"tiles": tiles})
     ent = store.get(key)
@@ -253,25 +255,53 @@ def plan_gemm_blocks(M: int, N: int, K: int, dtype=torch.bfloat16
     return _gemm_blocks_memo(M, N, K, dtype, fast_search_enabled())
 
 
+def chip_budget() -> SearchBudget:
+    """The search budget the block tables plan with (``REPRO_FAST_SEARCH``
+    shrinks it)."""
+    return effective_budget(_CHIP_BUDGET)
+
+
+def gemm_programs(M: int, N: int, K: int, dtype=torch.bfloat16) -> list:
+    """The tile programs :func:`plan_gemm_blocks` ranks: one per compiled
+    tile of the body the request takes that fits its shared memory."""
+    dbytes = dtype_bytes(dtype)
+    return [matmul_program(max(M, bm), max(N, bn), max(K, bk),
+                           bm=bm, bn=bn, bk=bk, dtype_bytes=dbytes)
+            for bm, bn, bk in gemm_tile_options(dbytes, _gemm.shape_body(dtype, K, N))]
+
+
+def flash_programs(Sq: int, Skv: int, d: int, dtype=torch.bfloat16) -> list:
+    """The tile programs :func:`plan_flash_blocks` ranks."""
+    dbytes = dtype_bytes(dtype)
+    return [flash_attention_program(8, max(Sq, bq), max(Skv, bkv), d,
+                                    bq=bq, bkv=bkv, dtype_bytes=dbytes)
+            for bq, bkv in flash_tile_options(d, dbytes)]
+
+
+def gemm_blocks_of(res) -> Tuple[int, int, int]:
+    """(bm, bn, bk) of the best plan of a GEMM search."""
+    loads = {c.access.tensor.name: c for c in res.best.plan.loads}
+    bm, bk = loads["A"].access.tile_shape
+    _, bn = loads["B"].access.tile_shape
+    return (bm, bn, bk)
+
+
+def flash_blocks_of(res) -> Tuple[int, int]:
+    """(block_q, block_kv) of the best plan of a FlashAttention search."""
+    loads = {c.access.tensor.name: c for c in res.best.plan.loads}
+    return (loads["Q"].access.tile_shape[1], loads["K"].access.tile_shape[1])
+
+
 @functools.lru_cache(maxsize=512)
 def _gemm_blocks_memo(M: int, N: int, K: int, dtype, _fast: bool
                       ) -> Tuple[int, int, int]:
     dbytes = dtype_bytes(dtype)
     body = _gemm.shape_body(dtype, K, N)
     options = gemm_tile_options(dbytes, body)
-    progs = [matmul_program(max(M, bm), max(N, bn), max(K, bk),
-                            bm=bm, bn=bn, bk=bk, dtype_bytes=dbytes)
-             for bm, bn, bk in options]
-
-    def pick(res) -> Tuple[int, int, int]:
-        loads = {c.access.tensor.name: c for c in res.best.plan.loads}
-        bm, bk = loads["A"].access.tile_shape
-        _, bn = loads["B"].access.tile_shape
-        return (bm, bn, bk)
-
     return _cached_blocks("gemm_blocks",
                           {"M": M, "N": N, "K": K, "dbytes": dbytes},
-                          (M, N, K), progs, GEMM_FALLBACK[body], pick,
+                          (M, N, K), gemm_programs(M, N, K, dtype), GEMM_FALLBACK[body],
+                          gemm_blocks_of,
                           [[*t, _gemm.gemm_smem_bytes(*t, dbytes)] for t in options])
 
 
@@ -286,19 +316,10 @@ def _flash_blocks_memo(Sq: int, Skv: int, d: int, dtype, _fast: bool
                        ) -> Tuple[int, int]:
     dbytes = dtype_bytes(dtype)
     options = flash_tile_options(d, dbytes)
-    progs = [flash_attention_program(8, max(Sq, bq), max(Skv, bkv), d,
-                                     bq=bq, bkv=bkv, dtype_bytes=dbytes)
-             for bq, bkv in options]
-
-    def pick(res) -> Tuple[int, int]:
-        loads = {c.access.tensor.name: c for c in res.best.plan.loads}
-        bq = loads["Q"].access.tile_shape[1]
-        bkv = loads["K"].access.tile_shape[1]
-        return (bq, bkv)
-
     return _cached_blocks("flash_blocks",
                           {"Sq": Sq, "Skv": Skv, "d": d, "dbytes": dbytes},
-                          (Sq, Skv, d), progs, FLASH_FALLBACK, pick,
+                          (Sq, Skv, d), flash_programs(Sq, Skv, d, dtype), FLASH_FALLBACK,
+                          flash_blocks_of,
                           [[*t, _fa.flash_smem_bytes(*t, d, dbytes)] for t in options])
 
 
@@ -322,3 +343,95 @@ def reset_planner_fallbacks() -> None:
     """
     clear_block_caches()
     plancache.get_store().clear_memory()
+
+
+def fused_pipeline_spec(graph_plan) -> Dict[str, object]:
+    """Lower a co-planned kernel graph (:class:`repro_torch.pipeline.GraphPlan`)
+    to its CUDA realization plan.
+
+    Consecutive nodes joined by *forwarded* edges collapse into one
+    **fused segment, one kernel launch**: the chain's kernels run as phases
+    of a single launch whose blocks compute the producer's tile and then
+    the consumer's, and each forwarded intermediate stays in the block's
+    shared memory instead of being written to HBM; the consumer phase reads
+    the shared-memory tile the producer phase wrote (the on-chip residency
+    the mesh plan prices).  A *spilled* edge is a segment boundary: the
+    intermediate is written to HBM as an ordinary output and the next
+    segment is a separate launch.
+
+    Returns::
+
+        {"segments": [{"nodes": [...],          # fused chain, in order
+                       "scratch": [tensor...],  # intermediates kept on-chip
+                       "shuffle": {tensor: axes}},  # re-shuffle legs
+                      ...],
+         "materialized": [tensor...]}           # spilled intermediates
+    """
+    order = list(graph_plan.nodes)
+    fwd_edges = {(d.src, d.dst): d for d in graph_plan.decisions
+                 if d.forwarded}
+    segments: list = []
+    current = {"nodes": [order[0]], "scratch": [], "shuffle": {}}
+    for prev, node in zip(order, order[1:]):
+        d = fwd_edges.get((prev, node))
+        if d is not None:
+            current["nodes"].append(node)
+            current["scratch"].append(d.tensor)
+            if d.shuffle_axes:
+                current["shuffle"][d.tensor] = list(d.shuffle_axes)
+        else:
+            segments.append(current)
+            current = {"nodes": [node], "scratch": [], "shuffle": {}}
+    segments.append(current)
+    # forwarded skip-edges (src and dst non-adjacent but fused into the same
+    # segment by the chain in between) keep their intermediate on-chip too
+    for d in graph_plan.decisions:
+        if not d.forwarded:
+            continue
+        for seg in segments:
+            if d.src in seg["nodes"] and d.dst in seg["nodes"] \
+                    and d.tensor not in seg["scratch"]:
+                seg["scratch"].append(d.tensor)
+                if d.shuffle_axes:
+                    seg["shuffle"][d.tensor] = list(d.shuffle_axes)
+    # a forwarded edge whose endpoints land in *different* segments (its
+    # chain was cut by a spilled edge in between) cannot stay in shared
+    # memory across launches: it is written to HBM like a spill
+    in_scratch = {t for seg in segments for t in seg["scratch"]}
+    return {
+        "segments": segments,
+        "materialized": [d.tensor for d in graph_plan.decisions
+                         if not d.forwarded or d.tensor not in in_scratch],
+    }
+
+
+def splitk_pallas_spec(plan) -> Optional[Dict[str, object]]:
+    """Lower a spatial-reduction plan to its CUDA realization.
+
+    A ``reduce=True`` bind splits the reduction into ``n_split`` parts of
+    ``steps_per_split`` steps each:
+
+    * ``accum``: every split revisits the same output tile and accumulates
+      into it in place;
+    * ``tree``/``chain``: every split writes its own partials and the
+      partials are combined after the kernel (a sum, or a log-sum-exp for
+      attention statistics), as K3's ``flash_decode_partials`` and
+      ``combine_partials`` do over its splits.
+
+    The name is the reference's, so that both packages are called alike.
+    Returns ``None`` for plans without reduce binds.
+    """
+    m = plan.mapping
+    binds = m.reduce_binds()
+    if not binds:
+        return None
+    b = binds[0]
+    n_split = m.active_reduce_factor()
+    return {
+        "grid_dim": b.grid_dim,
+        "n_split": int(n_split),
+        "steps_per_split": int(m.seq_extent(b.grid_dim)),
+        "style": m.reduce_style,
+        "revisit_output": m.reduce_style == "accum",
+        "combine": "add" if m.reduce_style == "accum" else "partials",
+    }

@@ -23,8 +23,18 @@ head are ``torch.einsum``.  ``--device cpu`` runs the same code with the
 kernels' plain versions (tests do); without a GPU and without that flag the
 launcher raises.
 
-Not ported yet (ROADMAP.md, Queue 1): the mesh-plan ranking, ``--tenants``
-mode and the ``--introspect-port`` / ``--flightrec`` flags of the reference.
+Before the weights load, the deadline-bounded plan service
+(``--plan-budget-ms``) is asked for the mesh-parallel decode plan and the
+launcher prints its ranking line with the rung that answered.  Serving-layer
+observability (DESIGN_OBS.md): ``--introspect-port`` starts a read-only HTTP
+endpoint (``/metrics`` Prometheus text, ``/healthz``, ``/slo``, ``/plans``,
+``/tenants``) before any planning happens; ``--flightrec PATH`` (or
+``REPRO_FLIGHTREC``) dumps the structured event ring buffer at exit for
+``python -m repro_torch.obs incident PATH``.  Observation changes nothing
+that is served: the ids, the kernel launches and the planned blocks are the
+same with and without these flags.
+
+Not ported yet (ROADMAP.md, Queue 1): the reference's ``--tenants`` mode.
 """
 from __future__ import annotations
 
@@ -35,8 +45,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch import kernels
-from repro_torch.configs.base import ModelConfig
+from repro_torch import kernels, plancache
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.core import lower_torch
 from repro_torch.data import DataConfig, make_source
 from repro_torch.launch.common import launch_config
@@ -44,7 +54,8 @@ from repro_torch.models import build_model
 from repro_torch.models import layers as L
 from repro_torch.models.api import ModelAPI, require_device
 from repro_torch.models import param as P
-from repro_torch.obs import metrics
+from repro_torch.obs import expo, flightrec, metrics, slo
+from repro_torch.planservice import PlanService
 from repro_torch.train.serve_step import make_serve_step
 
 
@@ -201,6 +212,64 @@ def profile_serve(api: ModelAPI, params, prompts: torch.Tensor, steps: int,
     return {"prefill": traced_prefill, "decode_step": _traced(decode, device, steps)}
 
 
+def _plans_view() -> dict:
+    """``/plans`` payload: the registry's cross-process stats blob, this
+    serving process's live lookup counters, and the H100 block requests
+    :mod:`repro_torch.core.lower_torch` resolved (blocks and source)."""
+    store = plancache.get_store()
+    s = store.stats
+    blob = plancache.stats_blob(store)
+    blob["process"] = {"hits_mem": s.hits_mem, "hits_disk": s.hits_disk,
+                       "misses": s.misses, "puts": s.puts}
+    blob["resolved"] = [
+        {"template": template, "request": list(request), "blocks": list(blocks),
+         "source": source}
+        for (template, request), (blocks, source) in sorted(lower_torch.resolved_blocks().items())]
+    return blob
+
+
+def _tenants_view() -> dict:
+    """``/tenants`` payload: empty in single-model mode (the only mode of
+    this launcher until ``--tenants`` is ported)."""
+    return {"mode": "model", "tenants": []}
+
+
+def _setup_observability(args) -> Optional[expo.IntrospectionServer]:
+    """Arm the flight recorder / SLO tracker and (with
+    ``--introspect-port``) start the read-only HTTP endpoint *before* any
+    planning happens, so the earliest rung decisions are observable.
+    Returns the started endpoint, if any."""
+    flightrec.refresh_from_env()             # REPRO_FLIGHTREC=<path>
+    if args.flightrec:
+        flightrec.enable(args.flightrec)
+    if args.introspect_port is None and not flightrec.enabled():
+        return None
+    slo.enable()                             # honors REPRO_SLO_* knobs
+    if args.introspect_port is None:
+        return None
+    server = expo.IntrospectionServer(port=args.introspect_port)
+    server.add_provider("/plans", _plans_view)
+    server.add_provider("/tenants", _tenants_view)
+    server.start()
+    # scrapers parse this line for the bound (ephemeral) port
+    print(f"[serve] introspection at {server.url} "
+          f"(/metrics /healthz /slo /plans /tenants)", flush=True)
+    return server
+
+
+def _finish_observability(args, server: Optional[expo.IntrospectionServer]) -> None:
+    if flightrec.enabled():
+        path = flightrec.dump(reason="serve_done")
+        if path:
+            print(f"[serve] flight recorder dump: {path}")
+    if server is not None:
+        if args.introspect_hold > 0:
+            print(f"[serve] holding introspection open "
+                  f"{args.introspect_hold:.1f}s at {server.url}", flush=True)
+            time.sleep(args.introspect_hold)
+        server.stop()
+
+
 def main(argv=None) -> ServeResult:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b")
@@ -215,11 +284,52 @@ def main(argv=None) -> ServeResult:
                     help="after the run, trace one prefill and STEPS decode steps with "
                          "torch.profiler and print the device's busy time, idle share "
                          "and top kernels for each")
+    ap.add_argument("--plan-budget-ms", type=float, default=None,
+                    help="plan-service deadline (default "
+                         "$REPRO_PLAN_DEADLINE_MS / 10ms)")
+    ap.add_argument("--introspect-port", type=int, default=None,
+                    metavar="PORT",
+                    help="serve read-only introspection HTTP on PORT "
+                         "(0 = ephemeral; prints the bound URL): /metrics "
+                         "(Prometheus text), /healthz, /slo, /plans, "
+                         "/tenants")
+    ap.add_argument("--introspect-hold", type=float, default=0.0,
+                    metavar="SECONDS",
+                    help="keep the introspection endpoint up SECONDS after "
+                         "the run finishes (scrape window for smoke tests)")
+    ap.add_argument("--flightrec", default="",
+                    metavar="PATH",
+                    help="arm the flight recorder and dump its ring buffer "
+                         "to PATH at exit (same as REPRO_FLIGHTREC=PATH); "
+                         "render with `python -m repro_torch.obs incident PATH`")
     args = ap.parse_args(argv)
 
+    server = _setup_observability(args)
+    try:
+        res = _serve(args)
+        _finish_observability(args, server)
+    finally:
+        if server is not None:
+            server.stop()                    # also when serving raised
+    return res
+
+
+def _serve(args) -> ServeResult:
     device = require_device(args.device)
     cfg = launch_config(args.arch, reduced=args.reduced)
     api = build_model(cfg)
+    shape = ShapeConfig("serve", seq_len=args.prompt_len + args.tokens,
+                        global_batch=args.batch, kind="decode")
+    # the serving loop never stalls on planning: the deadline-bounded
+    # service answers from cache / family / bounded search / fallback
+    resp = PlanService().resolve_mesh(api, shape, TrainConfig(),
+                                      budget_ms=args.plan_budget_ms)
+    ranking = resp.ranking or []
+    print(f"[serve] {cfg.name}: decode plan ranking "
+          f"(rung={resp.rung} {resp.seconds * 1e3:.1f}ms): "
+          + ", ".join(r.plan.name for r in ranking[:3]))
+    plancache.get_store().flush_stats()
+
     params = load_params(api, device, args.seed)
     prompts = make_prompts(cfg, args.batch, args.prompt_len, device)
     inputs = api.frontend_inputs(args.batch,

@@ -363,6 +363,34 @@ def test_serve_reduced_on_the_card_matches_the_plain_path(cuda):
         torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2)
 
 
+def test_serve_with_observation_on_the_card_serves_the_same(cuda, tmp_path, monkeypatch):
+    """The four observation flags change nothing served on the card: the
+    same ids, kernel launches and planned blocks as without them."""
+    from repro_torch import kernels
+    from repro_torch.core import lower_torch
+    from repro_torch.launch import serve
+    from repro_torch.obs import flightrec, slo
+    monkeypatch.delenv(flightrec.FLIGHTREC_ENV, raising=False)
+    monkeypatch.setattr(flightrec.RECORDER, "on", False)
+    monkeypatch.setattr(flightrec.RECORDER, "path", None)
+    monkeypatch.setattr(slo.TRACKER, "on", False)
+    dump = tmp_path / "fr.json"
+    argv = ["--arch", "qwen2.5-3b", "--reduced", "--batch", "2", "--prompt-len", "64",
+            "--tokens", "8"]
+    runs = []
+    for extra in ([], ["--introspect-port", "0", "--introspect-hold", "0",
+                       "--flightrec", str(dump), "--plan-budget-ms", "10"]):
+        lower_torch.clear_block_caches()
+        kernels.reset_launch_counts()
+        res = serve.main(argv + extra)
+        runs.append((res.generated.cpu(), kernels.launch_counts(),
+                     {k: b for k, (b, _) in res.blocks.items()}))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert runs[0][1] == runs[1][1] and runs[0][1]["flash_attention"] > 0
+    assert runs[0][2] == runs[1][2] and runs[0][2]
+    assert any(e["kind"] == "plan_request" for e in flightrec.load_dump(str(dump))["events"])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(4, 128, 128, 128), (8, 256, 128, 256), (128, 8, 256, 192),
                                    (3, 24, 96, 160), (5, 13, 45, 51), (2, 160, 768, 256)])

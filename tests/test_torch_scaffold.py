@@ -15,18 +15,22 @@ SRC = ROOT / "src"
 
 COPIED = (
     [f"configs/{p.name}" for p in sorted((SRC / "repro" / "configs").glob("*.py"))]
-    + [f"obs/{n}.py" for n in ("context", "metrics", "trace", "flightrec")]
+    + [f"obs/{n}.py" for n in ("context", "metrics", "trace", "flightrec", "slo", "expo",
+                               "explain", "__main__", "__init__")]
     + [f"core/{n}.py" for n in ("affine", "hw", "program", "mapping", "reuse", "plan",
                                 "perfmodel", "simulator", "batch_cost", "planner",
                                 "templates", "__init__")]
     + ["parallel/search_exec.py"]
     + [f"plancache/{n}.py" for n in ("serialize", "keying", "store", "validate",
                                      "cache", "warmstart", "__init__")]
+    + [f"pipeline/{n}.py" for n in ("__init__", "graph", "forwarding", "cost", "planner")]
+    + [f"runtime/{n}.py" for n in ("__init__", "faults", "replan")]
+    + [f"planservice/{n}.py" for n in ("__init__", "fallback", "family", "service")]
 )
 
 
 def test_copied_module_list_is_complete():
-    assert len(COPIED) == 38 and len([c for c in COPIED if c.startswith("configs/")]) == 14
+    assert len(COPIED) == 55 and len([c for c in COPIED if c.startswith("configs/")]) == 14
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -56,11 +60,15 @@ def test_importing_every_module_loads_neither_jax_nor_reference(tmp_path):
         "        'repro_torch.kernels.flash_attention_bwd', 'repro_torch.train.optimizer',\n"
         "        'repro_torch.train.grad_compress', 'repro_torch.train.train_step',\n"
         "        'repro_torch.launch.train', 'repro_torch.launch.common',\n"
-        "        'repro_torch.data.pipeline', 'repro_torch.kernels.rwkv6_bwd'} <= set(names)\n")
+        "        'repro_torch.data.pipeline', 'repro_torch.kernels.rwkv6_bwd',\n"
+        "        'repro_torch.pipeline.planner', 'repro_torch.planservice.service',\n"
+        "        'repro_torch.obs.expo', 'repro_torch.obs.explain',\n"
+        "        'repro_torch.obs.__main__', 'repro_torch.runtime.replan'} <= set(names)\n")
     env = {"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin", "HOME": str(tmp_path)}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+    assert "usage:" not in out.stdout + out.stderr      # importing obs.__main__ ran no CLI
 
 
 def test_no_source_line_imports_jax_or_reference():

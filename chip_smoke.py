@@ -49,6 +49,13 @@ these phases, each printing one JSON line; any failure raises:
             ``/slo``, ``/plans`` (the registry hits of the served blocks) and
             ``/tenants`` scraped from a thread during the hold; the
             flight-recorder dump loads and renders its mesh ``plan_request``;
+   tenants  ``serve.main --tenants 2 --tenant-kill 0,0`` (the reference's
+            multi-tenant mode: kernel tenants planned onto disjoint
+            partitions of a wormhole_8x8 fabric, a core killed, containment
+            asserted; no kernel launched) under ``REPRO_FAST_SEARCH=1`` and
+            the reference smoke's 5 s plan deadline, with ``/tenants``
+            scraped during the hold: both tenants, their QoS and rectangles,
+            and the kill's owner, rung, blast radius and seconds;
 6. rwkv     ``rwkv6-3b`` at full width and depth, the prompt's WKV scan
             through the chunked-WKV kernel once per layer; the kernel run and
             the plain run (the kernel's plain version in its place, the
@@ -83,6 +90,19 @@ these phases, each printing one JSON line; any failure raises:
             steps through ``repro_torch.launch.train`` with exact launch
             counts (K2 twice a layer with remat, K2-bwd once), finite losses,
             peak memory, step time, tok/s and one traced step;
+   resilient the same model and setup through ``launch.train.main`` with
+            ``--save-every 2 --ckpt-dir`` a fresh directory under ``build/``:
+            the third step runs in full, updating the state in place, then
+            raises once; the driver restores the step-2 checkpoint into the
+            live tensors and replays.  One ``restart`` event, the step-2
+            checkpoint on disk (37 GB: float32 weights and two AdamW
+            moments), every restored leaf bit-equal (by digest) to the
+            ``train`` run's state after step 2, the three losses within 1e-5
+            relative of the ``train`` run's (bit-equality reported); a second
+            ``main`` resumes from step 2 by itself and runs step 3 alone, to
+            the same loss.  Checkpoint bytes and shards, snapshot, write and
+            restore seconds, peak device memory across each restore, free
+            disk and host memory before, the card's name and power limit;
 12. moe_train ``qwen3-moe-30b-a3b`` at full width and 2 of its 48 layers:
             one gradient step, every expert product forward, recomputed and
             backward through K4 (its backward launches counted inside
@@ -1886,7 +1906,9 @@ def phase_train(device):
     ``launch/train.py``'s loop with exact launch counts (K2 forward twice a
     layer a step with remat, K2-bwd once: the counter counts calls, each two
     kernel launches), finite losses and gradient norms, and one traced step
-    for the device's busy time."""
+    for the device's busy time.  Returns the launches and, for the
+    ``resilient`` phase, the three losses and a digest of every leaf of the
+    state after step 2."""
     from repro_torch import kernels
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data import DataConfig, make_source
@@ -1930,10 +1952,17 @@ def phase_train(device):
     tcfg = TrainConfig(learning_rate=1e-3, total_steps=steps, warmup_steps=max(1, steps // 20))
     state = TS.TrainState(params, opt.opt_init(params, tcfg))
     lines = []
+    record = {}
+
+    def after_step(step, state, metrics, dt):
+        if step == RESUME_STEP:
+            record["digests"] = state_digests(state)
+
     kernels.reset_launch_counts()
     res = TL.run(api, tcfg, steps, BATCH, PROMPT, device, state=state, log_every=1,
-                 log=lines.append)
+                 log=lines.append, on_step=after_step)
     launches = res.launches
+    record["losses"] = [h["loss"] for h in res.history]
     want = {"gemm": 0, "flash_attention": 2 * L * steps, "flash_attention_bwd": L * steps,
             "flash_decode": 0, "flash_decode_partials": 0, "flash_decode_combine": 0,
             "grouped_matmul": 0, "wkv6": 0, "wkv6_bwd": 0}
@@ -1998,7 +2027,304 @@ def phase_train(device):
     if not per_call["control_5_bits_rejected"]:
         raise AssertionError("train: the per-call check did not reject the 5-bit control")
     del holder, res, state, params
-    return launches
+    return launches, record
+
+
+RESUME_STEP = 2                 # the resilient phase's checkpoint: after step 2 of 3
+DIGEST_CHUNK = 1 << 26
+BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def leaf_digest(t: torch.Tensor) -> list:
+    """Two sums of a leaf's bits read as integers, on the card: a plain one
+    and one weighted by a hash of each position.  Equal digests of two
+    leaves mean equal bits, short of a collision."""
+    bits = t.detach().reshape(-1).view(BITS[t.element_size()])
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    weighted = torch.zeros((), dtype=torch.int64, device=t.device)
+    for start in range(0, bits.numel(), DIGEST_CHUNK):
+        x = bits[start:start + DIGEST_CHUNK].to(torch.int64)
+        pos = torch.arange(start, start + x.numel(), dtype=torch.int64, device=t.device)
+        total += x.sum()
+        weighted += (x * ((pos * 2654435761) % 2147483647 + 1)).sum()
+    return [int(total), int(weighted)]
+
+
+def state_digests(state) -> list:
+    from repro_torch.ckpt.checkpoint import leaves
+    return [leaf_digest(t) for t in leaves(state)]
+
+
+def host_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return -1
+
+
+def phase_resilient(device, uninterrupted: dict) -> dict:
+    """qwen2.5-3b trained at full width and depth through
+    ``launch.train.main`` with ``--save-every 2`` (the ``train`` phase's
+    setup): the third step runs in full, updating the state in place, and
+    then raises once, so only a real restore makes its replay right.  One
+    ``restart`` event, the step-2 checkpoint on disk, every leaf the driver
+    restored bit-equal (by digest) to the state after step 2 of the
+    ``train`` phase's uninterrupted run, and the three losses within 1e-5
+    relative of that run's (bit-equality reported).  Then a second ``main``
+    with the same arguments resumes from step 2 by itself and runs step 3
+    alone, to the same loss.  The snapshot, the file write and each restore
+    are timed (the write on the manager's thread), with the peak device
+    memory across each restore."""
+    import shutil
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.ckpt import checkpoint as C, manager as M
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import common, train as TL
+    from repro_torch.models import build_model
+    from repro_torch.train import train_step as TS
+    cfg = common.launch_config(ARCH)
+    api = build_model(cfg)
+    L = cfg.n_layers
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in C.leaves(TS.abstract_state(api, TrainConfig())))
+    work = tempfile.mkdtemp(prefix=f"resilient-{os.getpid()}-",
+                            dir=os.path.join(ROOT, "build"))
+    timings = {"snapshot_s": [], "write_s": [], "wait_s": [], "restores": []}
+    calls = {"n": 0}
+    real_step = TS.make_train_step
+    real_snapshot, real_save = M.snapshot, C.save
+    real_wait, real_restore = M.CheckpointManager.wait, M.CheckpointManager.restore_latest
+
+    def failing_step(api_, tcfg_):
+        step = real_step(api_, tcfg_)
+
+        def run_then_fail(state, batch):
+            out = step(state, batch)
+            calls["n"] += 1
+            if calls["n"] == 3:
+                raise RuntimeError("injected failure after the in-place update")
+            return out
+        return run_then_fail
+
+    def timed_snapshot(tree):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = real_snapshot(tree)
+        timings["snapshot_s"].append(time.perf_counter() - t0)
+        return snap
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_save(*args, **kw)
+        timings["write_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_wait(self):
+        pending = self._thread is not None
+        t0 = time.perf_counter()
+        real_wait(self)
+        if pending:
+            timings["wait_s"].append(time.perf_counter() - t0)
+
+    def timed_restore(self, target_tree=None, shardings=None, device="cuda"):
+        into = "meta" if all(t.device.type == "meta" for t in C.leaves(target_tree)) \
+            else "live"
+        ptrs = [t.data_ptr() for t in C.leaves(target_tree)]
+        self.wait()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tree, step = real_restore(self, target_tree, shardings, device)
+        torch.cuda.synchronize()
+        rec = {"into": into, "step": step, "seconds": time.perf_counter() - t0,
+               "held_before_bytes": held, "peak_bytes": torch.cuda.max_memory_allocated()}
+        if tree is not None:
+            rec["digests"] = state_digests(tree)
+            rec["in_place"] = into == "live" and ptrs == [t.data_ptr() for t in C.leaves(tree)]
+        timings["restores"].append(rec)
+        return tree, step
+
+    args = ["--arch", ARCH, "--steps", "3", "--batch", str(BATCH), "--seq", str(PROMPT),
+            "--save-every", str(RESUME_STEP), "--ckpt-dir", work, "--log-every", "1"]
+    free_before = shutil.disk_usage(work).free
+    host_before = host_available_bytes()
+    try:
+        if free_before < 1.5 * state_bytes:
+            raise AssertionError(f"resilient: {free_before} bytes free under {work}, less than "
+                                 f"1.5 x the checkpoint's {state_bytes} bytes")
+        out = WatchedStdout(sys.stdout, r"\[train\] resumed from step (\d+)")
+        launches = []
+        with patched(M, "snapshot", timed_snapshot), patched(C, "save", timed_save), \
+                patched(M.CheckpointManager, "wait", timed_wait), \
+                patched(M.CheckpointManager, "restore_latest", timed_restore), \
+                contextlib.redirect_stdout(out):
+            with patched(TS, "make_train_step", failing_step):
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                first = TL.main(args)
+                first_s = time.perf_counter() - t0
+                launches.append(kernels.launch_counts())
+            failed_run = {"losses": [h["loss"] for h in first.history],
+                          "events": [(e.step, e.kind, e.detail) for e in first.events],
+                          "peak_bytes": first.peak_bytes, "seconds": first_s}
+            where = os.path.join(work, cfg.name)
+            steps_on_disk = C.list_steps(where)
+            manifest = C.load_manifest(C.latest(where))
+            shard_bytes = sum(os.path.getsize(os.path.join(C.latest(where), name))
+                              for name in manifest["shards"])
+            del first
+            gc.collect()
+            torch.cuda.empty_cache()
+            resumed_line_before = out.match
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            second = TL.main(args)
+            second_s = time.perf_counter() - t0
+            launches.append(kernels.launch_counts())
+            resumed = {"losses": [h["loss"] for h in second.history],
+                       "events": [(e.step, e.kind) for e in second.events],
+                       "resumed_from": int(out.match.group(1)) if out.match else None,
+                       "seconds": second_s}
+            del second
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    want_losses = uninterrupted["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(failed_run["losses"], want_losses)]
+    resumed_rel = [abs(a - b) / abs(b) for a, b in zip(resumed["losses"], want_losses[2:])]
+    restarts = [e for e in failed_run["events"] if e[1] == "restart"]
+    live = [r for r in timings["restores"] if r["into"] == "live" and "digests" in r]
+    meta = [r for r in timings["restores"] if r["into"] == "meta" and "digests" in r]
+    want_digests = uninterrupted["digests"]
+    mismatched = {kind: [list(manifest["leaves"])[i] for i, (a, b) in
+                         enumerate(zip(r["digests"], want_digests)) if a != b]
+                  for kind, r in (("live", live[0] if live else None),
+                                  ("meta", meta[0] if meta else None)) if r}
+    per_call = {name: sum(c[name] for c in launches) for name in launches[0]}
+    want_launches = {name: 0 for name in per_call}
+    want_launches.update(flash_attention=2 * L * 5, flash_attention_bwd=L * 5)
+    emit({"phase": "resilient", "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
+          "batch": BATCH, "seq": PROMPT, "save_every": RESUME_STEP,
+          "card": smi_line(), "state_bytes": state_bytes,
+          "checkpoint": {"steps_on_disk": steps_on_disk, "bytes": shard_bytes,
+                         "shards": len(manifest["shards"]), "leaves": len(manifest["leaves"])},
+          "disk_free_before_bytes": free_before, "host_available_before_bytes": host_before,
+          "snapshot_s": timings["snapshot_s"], "write_s": timings["write_s"],
+          "wait_for_write_s": timings["wait_s"],
+          "restores": [{k: v for k, v in r.items() if k != "digests"}
+                       for r in timings["restores"]],
+          "failed_run": failed_run, "restarts": len(restarts),
+          "restored_state_bit_equal": {k: not v for k, v in mismatched.items()},
+          "mismatched_leaves": mismatched,
+          "losses": {"uninterrupted": want_losses, "failed_and_replayed": failed_run["losses"],
+                     "rel": rel, "bit_equal": [a == b for a, b in
+                                               zip(failed_run["losses"], want_losses)],
+                     "resumed": resumed["losses"], "resumed_rel": resumed_rel,
+                     "resumed_bit_equal": [a == b for a, b in
+                                           zip(resumed["losses"], want_losses[2:])]},
+          "resumed": resumed, "launches": per_call})
+    if len(restarts) != 1 or len(failed_run["losses"]) != 3:
+        raise AssertionError(f"resilient: events {failed_run['events']}, "
+                             f"losses {failed_run['losses']}")
+    if steps_on_disk != [RESUME_STEP] or manifest["step"] != RESUME_STEP:
+        raise AssertionError(f"resilient: checkpoints on disk {steps_on_disk}")
+    if not live or not live[0]["in_place"] or live[0]["step"] != RESUME_STEP or not meta:
+        raise AssertionError(f"resilient: restores {timings['restores']}")
+    if any(mismatched.values()):
+        raise AssertionError(f"resilient: restored leaves differ from the state after step "
+                             f"{RESUME_STEP}: {mismatched}")
+    if max(rel) > 1e-5 or resumed["resumed_from"] != RESUME_STEP \
+            or len(resumed["losses"]) != 1 or max(resumed_rel) > 1e-5 or resumed["events"]:
+        raise AssertionError(f"resilient: losses {failed_run['losses']} / {resumed} against "
+                             f"{want_losses}")
+    if per_call != want_launches:
+        raise AssertionError(f"resilient: kernel launches {per_call}, expected {want_launches}")
+    if resumed_line_before is not None:
+        raise AssertionError("resilient: the first call printed a resume line")
+    return per_call
+
+
+TENANT_HOLD_S = 3.0
+
+
+def phase_tenants() -> None:
+    """``serve.main --tenants 2 --tenant-kill 0,0``: two kernel tenants
+    planned onto disjoint partitions of a wormhole_8x8 fabric, a core of
+    the first killed, the containment asserted; ``/tenants`` scraped during
+    the hold.  Under ``REPRO_FAST_SEARCH=1`` and the 5 s plan deadline the
+    reference's own smoke (``benchmarks/obs_serve_smoke.py``) runs this mode
+    with.  No kernel is launched."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.obs import flightrec, slo
+    out = WatchedStdout(sys.stdout, r"holding introspection open \S+ at (http://\S+)")
+    scraped, failed = {}, []
+
+    def scraper():
+        out.seen.wait()
+        if out.match is None:
+            return
+        try:
+            scraped["/tenants"] = scrape(out.match.group(1), "/tenants")
+        except Exception as err:  # noqa: BLE001 - reported below as a failure
+            failed.append(repr(err))
+
+    env = {"REPRO_FAST_SEARCH": "1", "REPRO_PLAN_DEADLINE_MS": "5000"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    thread = threading.Thread(target=scraper, name="tenants-scraper")
+    thread.start()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            try:
+                serve.main(["--tenants", "2", "--tenant-kill", "0,0", "--plan-budget-ms", "5000",
+                            "--introspect-port", "0", "--introspect-hold", str(TENANT_HOLD_S)])
+            except SystemExit as err:
+                raise AssertionError(f"tenants: serve.main exited: {err}") from None
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        out.seen.set()
+        thread.join()
+        flightrec.disable()
+        slo.disable()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    printed = "".join(out.lines)
+    kill = re.search(r"core_kill \(0, 0\): owner=(\S+) rung=(\S+) blast_radius=(\d+) "
+                     r"seconds=([0-9.]+)ms within_budget=(\w+)", printed)
+    view = json.loads(scraped["/tenants"]["body"]) if "/tenants" in scraped else {}
+    tenants = [{k: t[k] for k in ("tenant", "qos", "rect", "rung")}
+               for t in view.get("tenants", [])]
+    emit({"phase": "tenants", "flags": ["--tenants 2", "--tenant-kill 0,0",
+                                        "--plan-budget-ms 5000", "--introspect-port 0",
+                                        f"--introspect-hold {TENANT_HOLD_S}"],
+          "env": env, "seconds": seconds, "containment_ok": "containment ok" in printed,
+          "kill": (None if kill is None else
+                   {"owner": kill.group(1), "rung": kill.group(2),
+                    "blast_radius": int(kill.group(3)), "seconds": float(kill.group(4)) / 1e3,
+                    "within_budget": kill.group(5) == "True"}),
+          "scrape": {"hw": view.get("hw"), "tenants": tenants,
+                     "incidents": view.get("incidents"), "failed": failed},
+          "launches": {k: v for k, v in launches.items() if v}})
+    if "containment ok" not in printed or kill is None:
+        raise AssertionError("tenants: no containment line or no core_kill line")
+    if failed or [(t["tenant"], t["qos"]) for t in tenants] \
+            != [("tenant0", "guaranteed"), ("tenant1", "best_effort")] \
+            or not all(re.fullmatch(r"\d+x\d+@\(\d+,\d+\)", t["rect"]) for t in tenants):
+        raise AssertionError(f"tenants: /tenants {view}, failed {failed}")
+    if any(launches.values()):
+        raise AssertionError(f"tenants: the tenancy mode launched kernels: {launches}")
 
 
 def replaying_router(recorded):
@@ -2386,6 +2712,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_obs_launches = phase_serve_obs(served)
     lap("serve_obs")
+    phase_tenants()
+    lap("tenants")
     gc.collect()
     torch.cuda.empty_cache()                # the dense model's weights go first
     rwkv_launches = phase_rwkv(device)
@@ -2411,8 +2739,12 @@ def main() -> int:
     # training last: every served model's weights go first
     gc.collect()
     torch.cuda.empty_cache()
-    by_path["train"] = phase_train(device)
+    by_path["train"], uninterrupted = phase_train(device)
     lap("train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["resilient"] = phase_resilient(device, uninterrupted)
+    lap("resilient")
     gc.collect()
     torch.cuda.empty_cache()
     by_path["moe_train"] = phase_moe_train(device)

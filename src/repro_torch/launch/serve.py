@@ -34,7 +34,12 @@ endpoint (``/metrics`` Prometheus text, ``/healthz``, ``/slo``, ``/plans``,
 that is served: the ids, the kernel launches and the planned blocks are the
 same with and without these flags.
 
-Not ported yet (ROADMAP.md, Queue 1): the reference's ``--tenants`` mode.
+``--tenants k`` is the reference's multi-tenant mode: k kernel tenants
+planned onto disjoint partitions of one fabric (``--tenant-hw``, default
+``wormhole_8x8``) through the tenancy layer, the plan checked for isolation,
+optionally a core killed (``--tenant-kill R,C``) and the containment contract
+asserted; ``/tenants`` then serves the live plan.  This mode plans and
+launches no kernel, so it needs no device.
 """
 from __future__ import annotations
 
@@ -228,40 +233,55 @@ def _plans_view() -> dict:
     return blob
 
 
-def _tenants_view() -> dict:
-    """``/tenants`` payload: empty in single-model mode (the only mode of
-    this launcher until ``--tenants`` is ported)."""
-    return {"mode": "model", "tenants": []}
+def _tenants_view(state: dict) -> dict:
+    """``/tenants`` payload from the live :class:`TenancyPlan` (filled in
+    by :func:`_run_tenants`; empty in single-model mode)."""
+    plan = state.get("plan")
+    if plan is None:
+        return {"mode": "model", "tenants": []}
+    return {
+        "hw": plan.hw.name,
+        "layout_score": plan.layout_score,
+        "n_layouts": plan.n_layouts,
+        "free_cells": sorted(plan.free_cells()),
+        "tenants": [{
+            "tenant": p.tenant.name, "qos": p.tenant.qos,
+            "rect": p.rect.describe(), "hw": p.hw.name, "rung": p.rung,
+            "digest": p.digest, "sim_us": p.sim_s * 1e6,
+        } for p in plan.placements],
+        "incidents": list(state.get("incidents", [])),
+    }
 
 
-def _setup_observability(args) -> Optional[expo.IntrospectionServer]:
+def _setup_observability(args) -> dict:
     """Arm the flight recorder / SLO tracker and (with
     ``--introspect-port``) start the read-only HTTP endpoint *before* any
-    planning happens, so the earliest rung decisions are observable.
-    Returns the started endpoint, if any."""
+    planning happens, so the earliest rung decisions are observable."""
     flightrec.refresh_from_env()             # REPRO_FLIGHTREC=<path>
     if args.flightrec:
         flightrec.enable(args.flightrec)
+    obs = {"server": None, "plan": None, "incidents": []}
     if args.introspect_port is None and not flightrec.enabled():
-        return None
+        return obs
     slo.enable()                             # honors REPRO_SLO_* knobs
-    if args.introspect_port is None:
-        return None
-    server = expo.IntrospectionServer(port=args.introspect_port)
-    server.add_provider("/plans", _plans_view)
-    server.add_provider("/tenants", _tenants_view)
-    server.start()
-    # scrapers parse this line for the bound (ephemeral) port
-    print(f"[serve] introspection at {server.url} "
-          f"(/metrics /healthz /slo /plans /tenants)", flush=True)
-    return server
+    if args.introspect_port is not None:
+        server = expo.IntrospectionServer(port=args.introspect_port)
+        server.add_provider("/plans", _plans_view)
+        server.add_provider("/tenants", lambda: _tenants_view(obs))
+        server.start()
+        obs["server"] = server
+        # scrapers parse this line for the bound (ephemeral) port
+        print(f"[serve] introspection at {server.url} "
+              f"(/metrics /healthz /slo /plans /tenants)", flush=True)
+    return obs
 
 
-def _finish_observability(args, server: Optional[expo.IntrospectionServer]) -> None:
+def _finish_observability(args, obs: dict) -> None:
     if flightrec.enabled():
         path = flightrec.dump(reason="serve_done")
         if path:
             print(f"[serve] flight recorder dump: {path}")
+    server = obs.get("server")
     if server is not None:
         if args.introspect_hold > 0:
             print(f"[serve] holding introspection open "
@@ -270,7 +290,88 @@ def _finish_observability(args, server: Optional[expo.IntrospectionServer]) -> N
         server.stop()
 
 
-def main(argv=None) -> ServeResult:
+def _run_tenants(args, obs) -> None:
+    """Multi-tenant serving mode (``--tenants k``): plan k concurrent
+    kernel tenants onto disjoint partitions of one fabric through the
+    tenancy layer, optionally inject a core kill, and *assert* the
+    containment contract.  It plans and launches no kernel, as in the
+    reference, so it needs no device.
+    """
+    from repro_torch.core import (block_shape_candidates, get_hw, matmul_program)
+    from repro_torch.core.planner import SearchBudget
+    from repro_torch.tenancy import (IsolationValidator, MeshPartitioner,
+                                     TenantAdmission, TenantRuntime, TenantSpec)
+
+    hw = get_hw(args.tenant_hw)
+    shapes = [(256, 256, 256), (128, 512, 256), (512, 128, 256),
+              (256, 512, 128)]
+    tenants = []
+    for i in range(args.tenants):
+        m, n, k = shapes[i % len(shapes)]
+        progs = [matmul_program(m, n, k, bm=bm, bn=bn, bk=bk)
+                 for bm, bn, bk in block_shape_candidates(m, n, k)][:6]
+        qos = "guaranteed" if i % 2 == 0 else "best_effort"
+        tenants.append(TenantSpec(f"tenant{i}", progs, qos=qos))
+
+    service = PlanService()
+    budget = SearchBudget(top_k=3, max_mappings=16,
+                          max_plans_per_mapping=10, max_candidates=500)
+    admission = TenantAdmission()
+    partitioner = MeshPartitioner(plan_layouts=2)
+    # admission gates each tenant's resolve deadline; the joint search
+    # receives the per-tenant outcome as its budget override
+    tenant_ms = {}
+    for t in tenants:
+        with admission.admit(t, args.plan_budget_ms) as ms:
+            if ms is not None:
+                tenant_ms[t.name] = ms
+    plan = partitioner.plan(hw, tenants, service=service, budget=budget,
+                            budget_ms=float("inf"),
+                            tenant_budget_ms=tenant_ms or None)
+    bad = IsolationValidator().validate(plan)
+    if bad:
+        raise SystemExit(f"[serve] isolation validation failed: {bad}")
+    obs["plan"] = plan                   # /tenants now serves the live view
+    print(f"[serve] {args.tenants} tenants on {hw.name}: "
+          f"{plan.describe()}")
+
+    if args.tenant_kill:
+        core = tuple(int(v) for v in args.tenant_kill.split(","))
+        runtime = TenantRuntime(plan, service=service, cache=service.cache,
+                                budget=budget, partitioner=partitioner)
+        ev = runtime.kill_core(core)
+        obs["plan"] = runtime.plan       # containment may repartition
+        obs["incidents"].append({
+            "cause": ev.cause, "cell": core, "owner": ev.owner,
+            "rung": ev.rung, "blast_radius": ev.blast_radius,
+            "seconds": ev.seconds, "within_budget": ev.within_budget,
+        })
+        print(f"[serve] core_kill {core}: owner={ev.owner} rung={ev.rung} "
+              f"blast_radius={ev.blast_radius} "
+              f"seconds={ev.seconds * 1e3:.1f}ms "
+              f"within_budget={ev.within_budget}")
+        for line in ev.log:
+            print(f"[serve]   {line}")
+        if not ev.contained():
+            raise SystemExit("[serve] CONTAINMENT VIOLATED: an untouched "
+                             "tenant's plan digest changed")
+        if ev.owner is not None and not ev.within_budget:
+            raise SystemExit("[serve] deadline exceeded: the degraded "
+                             "tenant did not resolve within its budget")
+        print(f"[serve] containment ok: untouched={list(ev.untouched)} "
+              f"digests unchanged")
+    plancache.get_store().flush_stats()
+    counts = metrics.counter_totals(metrics.snapshot())
+    if counts:
+        print("[serve] metrics: " + " ".join(
+            f"{k}={v:g}" for k, v in sorted(counts.items())
+            if k.startswith(("tenancy", "replan", "planservice"))))
+    dumped = metrics.dump()              # honors REPRO_METRICS=<path>
+    if dumped:
+        print(f"[serve] metrics snapshot written to {dumped}")
+
+
+def main(argv=None) -> Optional[ServeResult]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--batch", type=int, default=4)
@@ -287,6 +388,15 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--plan-budget-ms", type=float, default=None,
                     help="plan-service deadline (default "
                          "$REPRO_PLAN_DEADLINE_MS / 10ms)")
+    ap.add_argument("--tenants", type=int, default=0,
+                    help="multi-tenant mode: partition the fabric for k "
+                         "concurrent kernel tenants instead of serving "
+                         "one model")
+    ap.add_argument("--tenant-hw", default="wormhole_8x8",
+                    help="fabric preset for --tenants mode")
+    ap.add_argument("--tenant-kill", default="",
+                    help="inject a core kill at mesh coords 'R,C' after "
+                         "partitioning and assert containment")
     ap.add_argument("--introspect-port", type=int, default=None,
                     metavar="PORT",
                     help="serve read-only introspection HTTP on PORT "
@@ -304,13 +414,17 @@ def main(argv=None) -> ServeResult:
                          "render with `python -m repro_torch.obs incident PATH`")
     args = ap.parse_args(argv)
 
-    server = _setup_observability(args)
+    obs = _setup_observability(args)
     try:
-        res = _serve(args)
-        _finish_observability(args, server)
+        if args.tenants > 0:
+            _run_tenants(args, obs)
+            res = None
+        else:
+            res = _serve(args)
+        _finish_observability(args, obs)
     finally:
-        if server is not None:
-            server.stop()                    # also when serving raised
+        if obs["server"] is not None:
+            obs["server"].stop()             # also when serving raised
     return res
 
 

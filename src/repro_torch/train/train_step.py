@@ -56,6 +56,14 @@ def init_state(api: ModelAPI, tcfg: TrainConfig, generator: Optional[torch.Gener
     return TrainState(params, opt.opt_init(params, tcfg), res)
 
 
+def abstract_state(api: ModelAPI, tcfg: TrainConfig) -> TrainState:
+    """The train state's shapes and dtypes as ``meta`` tensors (no
+    allocation): what a checkpoint is restored into at start-up."""
+    params = api.abstract_params()
+    res = grad_compress.init_residual(params) if tcfg.grad_compression == "int8" else None
+    return TrainState(params, opt.opt_init(params, tcfg), res)
+
+
 def train_state_from_reference(params_numpy: Dict[str, Any], opt_state_numpy: Dict[str, Any],
                                residual_numpy=None, device="cuda") -> TrainState:
     """The reference's train state as the port's, on ``device``.

@@ -993,3 +993,53 @@ def test_train_step_reduced_on_the_card_launches_exactly(cuda, arch):
     assert all(torch.isfinite(torch.tensor(h["loss"])) for h in res.history)
     assert torch.isfinite(torch.tensor(res.history[0]["grad_norm"]))
 
+
+
+def test_train_main_on_the_card_restores_in_place_and_replays(cuda, tmp_path, monkeypatch):
+    """The reduced model trained on the card through ``launch.train.main``:
+    a checkpoint at step 2, the third step fails after its in-place update,
+    the driver restores the checkpoint into the live tensors (on the card,
+    at the same addresses) and replays; the losses match the uninterrupted
+    run at 1e-5 relative, and a second ``main`` resumes from step 2."""
+    from repro_torch.ckpt import checkpoint as C, manager as M
+    from repro_torch.launch import train as TL
+    from repro_torch.train import train_step as TS
+    args = ["--reduced", "--steps", "3", "--batch", "2", "--seq", "64", "--save-every", "2"]
+    whole = TL.main(args + ["--ckpt-dir", str(tmp_path / "whole")])
+    real_step, real_restore = TS.make_train_step, M.CheckpointManager.restore_latest
+    calls, restored = {"n": 0}, []
+
+    def make(api, tcfg):
+        step = real_step(api, tcfg)
+
+        def failing(state, batch):
+            out = step(state, batch)
+            calls["n"] += 1
+            if calls["n"] == 3:
+                raise RuntimeError("injected failure after the update")
+            return out
+        return failing
+
+    def restore_latest(self, target_tree=None, shardings=None, device="cuda"):
+        ptrs = [t.data_ptr() for t in C.leaves(target_tree)]
+        tree, step = real_restore(self, target_tree, shardings, device)
+        if tree is not None:
+            restored.append((ptrs, [(t.data_ptr(), t.device.type) for t in C.leaves(tree)]))
+        return tree, step
+
+    monkeypatch.setattr(TS, "make_train_step", make)
+    monkeypatch.setattr(M.CheckpointManager, "restore_latest", restore_latest)
+    res = TL.main(args + ["--ckpt-dir", str(tmp_path / "failed")])
+    assert [e.kind for e in res.events] == ["restart"]
+    assert C.list_steps(tmp_path / "failed" / "qwen2.5-3b-reduced") == [2]
+    assert len(restored) == 1
+    ptrs, after = restored[0]
+    assert [p for p, _ in after] == ptrs and {d for _, d in after} == {"cuda"}
+    torch.testing.assert_close(torch.tensor([h["loss"] for h in res.history]),
+                               torch.tensor([h["loss"] for h in whole.history]),
+                               rtol=1e-5, atol=0)
+    monkeypatch.setattr(TS, "make_train_step", real_step)
+    again = TL.main(args + ["--ckpt-dir", str(tmp_path / "failed")])
+    assert len(again.history) == 1 and int(again.state.opt_state.step) == 3
+    torch.testing.assert_close(again.history[0]["loss"], whole.history[2]["loss"],
+                               rtol=1e-5, atol=0)

@@ -274,11 +274,14 @@ def test_plan_degraded_and_best_submesh_match_reference(fast_search, isolated_st
 
 
 def test_runtime_resolves_the_planner_names_and_not_elastic_yet():
-    """``runtime`` resolves its exports lazily: the copied fault-injection
-    and re-plan names load, ``elastic``'s raise until it is ported
-    (ROADMAP.md Queue 1 item 5)."""
+    """``runtime`` resolves its exports lazily: the copied fault-injection,
+    re-plan and fault-tolerance names load, ``elastic``'s raise until it is
+    ported (ROADMAP.md Queue 1 item 5)."""
     import repro_torch.runtime as runtime
+    from repro_torch.runtime import fault_tolerance as port_ft
     assert runtime.plan_degraded is port_replan.plan_degraded
+    for name in ("HeartbeatRegistry", "StragglerTracker", "RecoveryEvent", "ResilientDriver"):
+        assert getattr(runtime, name) is getattr(port_ft, name)
     text = "core:3,5;link:noc_h:0.5@2"
     assert [f.describe() for f in runtime.parse_faults(text)] \
         == [f.describe() for f in ref_faults.parse_faults(text)]

@@ -24,13 +24,14 @@ COPIED = (
     + [f"plancache/{n}.py" for n in ("serialize", "keying", "store", "validate",
                                      "cache", "warmstart", "__init__")]
     + [f"pipeline/{n}.py" for n in ("__init__", "graph", "forwarding", "cost", "planner")]
-    + [f"runtime/{n}.py" for n in ("__init__", "faults", "replan")]
+    + [f"runtime/{n}.py" for n in ("__init__", "faults", "replan", "fault_tolerance")]
     + [f"planservice/{n}.py" for n in ("__init__", "fallback", "family", "service")]
+    + [f"tenancy/{n}.py" for n in ("__init__", "partition", "qos", "validator", "runtime")]
 )
 
 
 def test_copied_module_list_is_complete():
-    assert len(COPIED) == 55 and len([c for c in COPIED if c.startswith("configs/")]) == 14
+    assert len(COPIED) == 61 and len([c for c in COPIED if c.startswith("configs/")]) == 14
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -49,7 +50,8 @@ def test_importing_every_module_loads_neither_jax_nor_reference(tmp_path):
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.') or m == 'triton')\n"
+        " or m == 'repro' or m.startswith('repro.') or m == 'triton'"
+        " or m == 'ml_dtypes' or m.startswith('ml_dtypes.'))\n"
         "print(len(names)); print(bad)\n"
         "assert not bad, bad\n"
         "assert len(names) > 60, names\n"
@@ -63,7 +65,11 @@ def test_importing_every_module_loads_neither_jax_nor_reference(tmp_path):
         "        'repro_torch.data.pipeline', 'repro_torch.kernels.rwkv6_bwd',\n"
         "        'repro_torch.pipeline.planner', 'repro_torch.planservice.service',\n"
         "        'repro_torch.obs.expo', 'repro_torch.obs.explain',\n"
-        "        'repro_torch.obs.__main__', 'repro_torch.runtime.replan'} <= set(names)\n")
+        "        'repro_torch.obs.__main__', 'repro_torch.runtime.replan',\n"
+        "        'repro_torch.runtime.fault_tolerance', 'repro_torch.ckpt.checkpoint',\n"
+        "        'repro_torch.ckpt.manager', 'repro_torch.tenancy.partition',\n"
+        "        'repro_torch.tenancy.qos', 'repro_torch.tenancy.validator',\n"
+        "        'repro_torch.tenancy.runtime'} <= set(names)\n")
     env = {"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin", "HOME": str(tmp_path)}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=300)

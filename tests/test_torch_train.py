@@ -32,6 +32,7 @@ from repro.train import train_step as ref_ts
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig, TrainConfig
 from repro_torch.data import pipeline
+from repro_torch.ckpt.checkpoint import leaves
 from repro_torch.launch import train as train_launch
 from repro_torch.models import build_model
 from repro_torch.train import grad_compress, optimizer as opt, train_step as TS
@@ -334,28 +335,36 @@ def test_file_tokens_batches_and_host_slices_match_reference(tmp_path):
 
 
 # ---------------------------------------------------------------- driver
-def test_train_main_on_cpu_prints_the_reference_step_lines(capsys):
-    res = train_launch.main(["--reduced", "--device", "cpu", "--steps", "3", "--batch", "2",
-                             "--seq", "16", "--log-every", "1"])
+def _main_args(tmp_path, *extra, steps="3"):
+    return ["--reduced", "--device", "cpu", "--steps", steps, "--batch", "2", "--seq", "16",
+            "--log-every", "1", "--ckpt-dir", str(tmp_path), *extra]
+
+
+def test_train_main_on_cpu_prints_the_reference_step_lines(capsys, tmp_path):
+    res = train_launch.main(_main_args(tmp_path))
     out = capsys.readouterr().out
     assert out.count("[train] step ") == 3 and "gnorm=" in out and "tok/s" in out
-    assert "[train] done: 3 steps" in out and "flash_attention=0" in out
+    assert "[train] fresh start" in out and "[train] done: 3 steps" in out
+    assert "stragglers=[]" in out and "flash_attention=0" in out
+    assert "recovery:" not in out and "injected faults" not in out
     assert len(res.history) == 3 and all(np.isfinite(h["loss"]) for h in res.history)
-    assert int(res.state.opt_state.step) == 3
+    assert int(res.state.opt_state.step) == 3 and res.events == []
 
 
-def test_train_main_trains_the_moe_family_on_cpu(capsys):
+def test_train_main_trains_the_moe_family_on_cpu(capsys, tmp_path):
     res = train_launch.main(["--arch", "qwen3-moe-30b-a3b", "--reduced", "--device", "cpu",
-                             "--steps", "2", "--batch", "2", "--seq", "16"])
+                             "--steps", "2", "--batch", "2", "--seq", "16",
+                             "--ckpt-dir", str(tmp_path)])
     assert all(np.isfinite(h["loss"]) and np.isfinite(h["aux_loss"]) for h in res.history)
     assert "grouped_matmul=0" in capsys.readouterr().out
 
 
-def test_train_main_trains_rwkv6_on_cpu(capsys):
+def test_train_main_trains_rwkv6_on_cpu(capsys, tmp_path):
     """``--arch rwkv6-3b``: the WKV scan's plain forward and backward on the
     CPU, the reference's step lines."""
     res = train_launch.main(["--arch", "rwkv6-3b", "--reduced", "--device", "cpu", "--steps",
-                             "2", "--batch", "2", "--seq", "16", "--log-every", "1"])
+                             "2", "--batch", "2", "--seq", "16", "--log-every", "1",
+                             "--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert out.count("[train] step ") == 2 and "gnorm=" in out and "tok/s" in out
     assert "wkv6=0" in out and "wkv6_bwd=0" in out
@@ -363,10 +372,82 @@ def test_train_main_trains_rwkv6_on_cpu(capsys):
     assert int(res.state.opt_state.step) == 2
 
 
-@pytest.mark.parametrize("flag", [["--ckpt-dir", "/nowhere"], ["--save-every", "5"]])
-def test_train_main_rejects_the_flags_it_does_not_honour(flag):
-    with pytest.raises(SystemExit):
-        train_launch.main(["--reduced", "--device", "cpu", "--steps", "1", *flag])
+def _losses(res):
+    return [h["loss"] for h in res.history]
+
+
+def test_train_main_saves_every_save_every_steps(tmp_path, capsys):
+    from repro_torch.ckpt import checkpoint as C
+    train_launch.main(_main_args(tmp_path, "--save-every", "2", steps="5"))
+    where = tmp_path / "qwen2.5-3b-reduced"
+    assert C.list_steps(where) == [2, 4]
+    manifest = C.load_manifest(C.latest(where))
+    assert manifest["step"] == 4 and manifest["leaves"]["1/step"]["dtype"] == "int32"
+    assert not list(where.glob(".tmp_step_*"))
+
+
+def test_train_main_resumes_from_its_newest_checkpoint(tmp_path, capsys):
+    """A second ``main`` with the same arguments resumes from step 2, runs
+    only step 3 and ends at the uninterrupted run's loss, bit for bit."""
+    whole = train_launch.main(_main_args(tmp_path / "whole"))
+    train_launch.main(_main_args(tmp_path / "cut", "--save-every", "2", steps="2"))
+    capsys.readouterr()
+    again = train_launch.main(_main_args(tmp_path / "cut", "--save-every", "2"))
+    out = capsys.readouterr().out
+    assert "[train] resumed from step 2" in out and "fresh start" not in out
+    assert out.count("[train] step ") == 1 and "[train] done: 1 steps" in out
+    assert _losses(again) == _losses(whole)[2:]
+    assert int(again.state.opt_state.step) == 3
+    for got, want in zip(leaves(again.state), leaves(whole.state)):
+        assert torch.equal(got, want)
+
+
+def _failing_once(at_call):
+    """``make_train_step`` whose step number ``at_call`` runs in full (the
+    state updated in place) and then raises, once."""
+    real = TS.make_train_step
+
+    def make(api, tcfg):
+        step = real(api, tcfg)
+        calls = {"n": 0}
+
+        def failing(state, batch):
+            out = step(state, batch)
+            calls["n"] += 1
+            if calls["n"] == at_call:
+                raise RuntimeError("injected failure after the update")
+            return out
+        return failing
+    return make
+
+
+@pytest.mark.parametrize("save_every", ["2", "50"])
+def test_train_main_restores_and_replays_a_failed_step(tmp_path, capsys, monkeypatch,
+                                                       save_every):
+    """The third step fails after its in-place update: the driver restores
+    the step-2 checkpoint into the live state (or, with no checkpoint yet,
+    resets it to the seed's initial state) and replays, to the uninterrupted
+    run's losses and state, bit for bit on the CPU."""
+    whole = train_launch.main(_main_args(tmp_path / "whole"))
+    monkeypatch.setattr(TS, "make_train_step", _failing_once(3))
+    capsys.readouterr()
+    res = train_launch.main(_main_args(tmp_path / "failed", "--save-every", save_every))
+    out = capsys.readouterr().out
+    recovery = [line for line in out.splitlines() if "[train] recovery:" in line]
+    assert recovery == ["[train] recovery: step 2 restart: "
+                        "RuntimeError('injected failure after the update')"]
+    assert [(e.step, e.kind) for e in res.events] == [(2, "restart")]
+    assert _losses(res) == _losses(whole) and len(res.step_s) == 3
+    for got, want in zip(leaves(res.state), leaves(whole.state)):
+        assert torch.equal(got, want)
+
+
+def test_train_main_prints_the_injected_faults(tmp_path, capsys, monkeypatch):
+    monkeypatch.setenv("REPRO_FAULTS", "straggler:0:3@1")
+    train_launch.main(_main_args(tmp_path, steps="2"))
+    out = capsys.readouterr().out
+    assert "[train] injected faults: straggler:host0x3@1" in out
+    assert "stragglers=[]" in out                # one host: nobody to compare with
 
 
 def test_train_main_without_a_gpu_raises():

@@ -45,7 +45,8 @@ these phases, each printing one JSON line; any failure raises:
             ``--introspect-port 0 --introspect-hold 5 --flightrec PATH
             --plan-budget-ms 10``: ids, launches and blocks equal the serve
             phase's; ``/metrics`` (validated exposition, the plan service's
-            fallback/error request, the planner's counters), ``/healthz``,
+            mesh request answered ok by the mesh planner, the planner's
+            counters), ``/healthz``,
             ``/slo``, ``/plans`` (the registry hits of the served blocks) and
             ``/tenants`` scraped from a thread during the hold; the
             flight-recorder dump loads and renders its mesh ``plan_request``;
@@ -117,7 +118,18 @@ these phases, each printing one JSON line; any failure raises:
             plain version on the same inputs, with a 5-bit control that must
             be rejected; three AdamW steps with exact launch counts (K5
             twice a layer, K5-bwd once), finite losses, peak memory, step
-            time, tok/s and one traced step.
+            time, tok/s and one traced step;
+14. mesh_train plan-sharded training through ``train_step.jit_train_step`` on
+            a 1x1 ``launch.mesh.make_host_mesh`` over a world-1 NCCL process
+            group: ``qwen2.5-3b`` as in ``train``, three steps under
+            megatron_tp and three under zero3, each plan's losses within
+            1e-6 relative of the ``train`` phase's, exact K2 / K2-bwd counts,
+            step time, tok/s, peak memory beside the mesh planner's
+            ``hbm_per_chip`` on a one-card ``h100_cluster(1, 1)``, the
+            ranking line; then ``qwen3-moe-30b-a3b`` (2 layers) three steps
+            under expert_parallel through the expert-parallel branch (all
+            128 experts on the one rank), its first loss within 1e-6 of
+            ``moe_train``'s, K4's backward launches per step equal to its.
 
 The kernels phase also holds the backward kernels against their plain
 versions: K2-bwd (dq, dk, dv; the forward kernel's log-sum-exp too; bf16 on
@@ -1101,8 +1113,8 @@ def phase_serve_obs(served: dict) -> dict:
     samples = metrics_["body"].splitlines()
     problems = expo.validate_exposition(metrics_["body"])
     wanted = {
-        "planservice fallback/error": lambda l: l.startswith("planservice_requests_total{")
-        and 'rung="fallback"' in l and 'outcome="error"' in l,
+        "planservice mesh ranking ok": lambda l: l.startswith("planservice_requests_total{")
+        and ('rung="search"' in l or 'rung="cache"' in l) and 'outcome="ok"' in l,
         "plancache hit_disk": lambda l: l.startswith("plancache_get_total{")
         and 'result="hit_disk"' in l,
         "planner searches": lambda l: l.startswith("planner_searches_total")}
@@ -1114,7 +1126,8 @@ def phase_serve_obs(served: dict) -> dict:
     if health["code"] != 200 or json.loads(health["body"])["ok"] is not True:
         raise AssertionError(f"serve_obs: /healthz {health}")
     slo_rep = json.loads(scraped["/slo"]["body"])
-    if not slo_rep["enabled"] or slo_rep["rungs"].get("fallback", 0) < 1:
+    if not slo_rep["enabled"] or slo_rep["rungs"].get("search", 0) \
+            + slo_rep["rungs"].get("cache", 0) < 1:
         raise AssertionError(f"serve_obs: /slo {slo_rep}")
     plans = json.loads(scraped["/plans"]["body"])
     hits = plans["process"]["hits_disk"] - hits_before
@@ -1134,9 +1147,10 @@ def phase_serve_obs(served: dict) -> dict:
         raise AssertionError(f"serve_obs: the dump holds {doc['meta']}, no mesh plan_request")
     printed = "".join(out.lines)
     ranking = re.search(rf"\[serve\] {re.escape(ARCH)}: decode plan ranking "
-                        rf"\(rung=(\w+) ([0-9.]+)ms\)", printed)
-    if ranking is None:
-        raise AssertionError("serve_obs: no ranking line")
+                        rf"\(rung=(search|cache) ([0-9.]+)ms\): (\w+(, \w+)*)", printed)
+    if ranking is None or mesh[0]["outcome"] != "ok":
+        raise AssertionError(f"serve_obs: no ranking line from the mesh planner, or its "
+                             f"request did not answer ok: {mesh}")
     emit({"phase": "serve_obs", "arch": ARCH, "batch": BATCH, "prompt_len": PROMPT,
           "new_tokens": NEW_TOKENS, "flags": ["--introspect-port 0",
                                               f"--introspect-hold {OBS_HOLD_S}",
@@ -1148,6 +1162,7 @@ def phase_serve_obs(served: dict) -> dict:
           "serve_decode_ms_per_token": served["decode_ms_per_token"],
           "serve_tok_per_s": served["tok_per_s"],
           "ranking": {"rung": ranking.group(1), "printed_ms": float(ranking.group(2)),
+                      "plans": ranking.group(3).split(", "),
                       "seconds": mesh[0]["seconds"], "outcome": mesh[0]["outcome"]},
           "scrape_ms": {p: scraped[p]["ms"] for p in SCRAPED},
           "metrics_bytes": len(metrics_["body"]), "plans_registry_hits": hits,
@@ -2427,7 +2442,164 @@ def phase_moe_train(device):
                              f"gradients are further from float32 than the plain path "
                              f"allows: {rule}")
     del params
-    return dict(launches, grouped_matmul_bwd=bwd["grouped_matmul_bwd"])
+    return dict(launches, grouped_matmul_bwd=bwd["grouped_matmul_bwd"]), float(loss)
+
+
+MESH_TRAIN_STEPS = 3
+
+
+@contextlib.contextmanager
+def world_1_nccl():
+    """A world-1 NCCL process group (a ``file://`` store under ``build/``, no
+    port), destroyed on the way out."""
+    import datetime
+
+    import torch.distributed as dist
+    store = os.path.join(ROOT, "build", f"nccl-store-{os.getpid()}")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", init_method="file://" + store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        yield dist
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_steps(api, tcfg, plan, mesh, device, source, steps):
+    """``steps`` steps of ``jit_train_step`` from the seed-0 state placed by
+    the plan, on SyntheticLM batches 0 .. steps - 1: the history, the step
+    times, the launches (counters reset just before the steps), K4's
+    backward launches and the peak device memory."""
+    from repro_torch import kernels
+    from repro_torch.launch import train as TL
+    from repro_torch.train import train_step as TS
+    state = TS.init_state(api, tcfg, device=device,
+                          shardings=TS.state_shardings(api, tcfg, plan, mesh))
+    batches = [TL.to_device(source.batch_at(s, BATCH, PROMPT), device) for s in range(steps)]
+    step = TS.jit_train_step(api, tcfg, plan, mesh, batches[0])
+    history, step_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    with backward_launches() as bwd:
+        for data in batches:
+            t0 = time.perf_counter()
+            state, metrics = step(state, data)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            history.append({k: float(v) for k, v in metrics.items()})
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    del state, step
+    return history, step_s, dict(launches, grouped_matmul_bwd=bwd["grouped_matmul_bwd"]), peak
+
+
+def phase_mesh_train(device, train_losses, moe_loss, moe_bwd_per_step):
+    """Plan-sharded training through ``train_step.jit_train_step`` on a 1x1
+    ``make_host_mesh`` over a world-1 NCCL process group (one card: NCCL
+    refuses two ranks on one device).  qwen2.5-3b at full width and depth
+    (the ``train`` phase's setup) three steps under megatron_tp, then three
+    under zero3: each plan's losses equal to the ``train`` phase's within
+    1e-6 relative, exact K2 / K2-bwd launch counts; step ms, tok/s, peak
+    memory beside the mesh planner's ``hbm_per_chip`` for a one-card
+    ``h100_cluster(1, 1)``, and the ranking line ``launch/train.py`` prints.
+    Then qwen3-moe-30b-a3b at MOE_TRAIN_LAYERS layers under expert_parallel:
+    the expert-parallel branch taken with the whole expert range (e_lo 0,
+    n_local 128), the first loss equal to ``moe_train``'s within 1e-6
+    relative, K4's backward launches per step equal to its."""
+    from repro_torch import plancache
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.core import lower_torch
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.launch import common
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model, moe
+    from repro_torch.parallel import planner_bridge as PB, sharding as SH
+    steps = MESH_TRAIN_STEPS
+    tcfg = TrainConfig(learning_rate=1e-3, total_steps=steps, warmup_steps=max(1, steps // 20))
+    cfg = common.launch_config(ARCH)
+    api = build_model(cfg)
+    L = cfg.n_layers
+    shape = ShapeConfig("mesh_train", PROMPT, BATCH, "train")
+    store = plancache.get_store()
+    with plancache.lookup_source(store) as probe:
+        ranking = PB.plan_mesh(api, shape, tcfg)
+    ranking_line = (f"[train] {cfg.name}: {api.n_params():,} params; planner ranking "
+                    f"({probe['source']}): "
+                    + ", ".join(f"{r.plan.name}({r.cost.dominant})" for r in ranking[:3]))
+    one_card = lower_torch.h100_cluster(1, 1)
+    source = make_source(DataConfig(vocab_size=cfg.vocab_size), cfg)
+    runs, total = {}, {}
+    with world_1_nccl() as dist:
+        mesh = make_host_mesh(1, 1)
+        backend = dist.get_backend()
+        for plan in (SH.megatron_tp_plan(), PB._zero3()):
+            history, step_s, launches, peak = mesh_steps(api, tcfg, plan, mesh, device,
+                                                         source, steps)
+            est = PB.estimate_plan(api, shape, plan, tcfg, hw=one_card)
+            losses = [h["loss"] for h in history]
+            runs[plan.name] = {
+                "history": history, "step_ms": [t * 1e3 for t in step_s],
+                "tok_per_s": [BATCH * PROMPT / t for t in step_s], "peak_bytes": peak,
+                "planner_hbm_per_chip": est.hbm_bytes_per_chip,
+                "planner_feasible": est.feasible, "planner_total_s": est.total_s,
+                "launches": launches,
+                "loss_rel_diff_vs_train": [abs(a - b) / abs(b)
+                                           for a, b in zip(losses, train_losses)]}
+            want = {"flash_attention": 2 * L * steps, "flash_attention_bwd": L * steps,
+                    "grouped_matmul": 0, "grouped_matmul_bwd": 0}
+            if any(launches[k] != n for k, n in want.items()):
+                raise AssertionError(f"mesh_train {plan.name}: launches {launches}, "
+                                     f"expected {want}")
+            if max(runs[plan.name]["loss_rel_diff_vs_train"]) > 1e-6 or not all(
+                    math.isfinite(h["grad_norm"]) for h in history):
+                raise AssertionError(f"mesh_train {plan.name}: losses {losses}, the train "
+                                     f"phase's {train_losses}")
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+            gc.collect()
+            torch.cuda.empty_cache()
+        del api
+        moe_cfg = replace(common.launch_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+        moe_api = build_model(moe_cfg)
+        moe.EP_TRACE = []
+        try:
+            history, step_s, launches, peak = mesh_steps(
+                moe_api, tcfg, SH.expert_parallel_plan(), mesh, device,
+                make_source(DataConfig(vocab_size=moe_cfg.vocab_size), moe_cfg), steps)
+            trace = moe.EP_TRACE
+        finally:
+            moe.EP_TRACE = None
+        ml = moe_cfg.n_layers
+        runs["expert_parallel"] = {
+            "arch": moe_cfg.name, "n_layers": ml, "history": history,
+            "step_ms": [t * 1e3 for t in step_s],
+            "tok_per_s": [BATCH * PROMPT / t for t in step_s], "peak_bytes": peak,
+            "launches": launches, "ep_dispatches": len(trace),
+            "ep_slices": sorted(set(trace)),
+            "first_loss_rel_diff_vs_moe_train": abs(history[0]["loss"] - moe_loss) / abs(moe_loss)}
+        want = {"flash_attention": 2 * ml * steps, "flash_attention_bwd": ml * steps,
+                "grouped_matmul": 12 * ml * steps,
+                "grouped_matmul_bwd": moe_bwd_per_step * steps}
+        if any(launches[k] != n for k, n in want.items()) \
+                or set(trace) != {(0, moe_cfg.n_experts)} or len(trace) != 2 * ml * steps:
+            raise AssertionError(f"mesh_train expert_parallel: launches {launches} (expected "
+                                 f"{want}), expert-parallel dispatches {sorted(set(trace))} x "
+                                 f"{len(trace)}")
+        if runs["expert_parallel"]["first_loss_rel_diff_vs_moe_train"] > 1e-6:
+            raise AssertionError(f"mesh_train expert_parallel: first loss "
+                                 f"{history[0]['loss']}, moe_train's {moe_loss}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        del moe_api
+    emit({"phase": "mesh_train", "backend": backend,
+          "mesh": {"axes": list(mesh.axis_names), "sizes": list(mesh.sizes),
+                   "device_mesh": str(mesh.device_mesh)},
+          "arch": cfg.name, "n_layers": L, "batch": BATCH, "seq": PROMPT, "steps": steps,
+          "train_losses": train_losses, "moe_train_loss": moe_loss,
+          "ranking_line": ranking_line, "runs": runs, "card": smi_line()})
+    return total
 
 
 # relative RMS difference a K5-bwd output may show from its plain version on
@@ -2747,12 +2919,17 @@ def main() -> int:
     lap("resilient")
     gc.collect()
     torch.cuda.empty_cache()
-    by_path["moe_train"] = phase_moe_train(device)
+    by_path["moe_train"], moe_train_loss = phase_moe_train(device)
     lap("moe_train")
     gc.collect()
     torch.cuda.empty_cache()
     by_path["rwkv_train"] = phase_rwkv_train(device)
     lap("rwkv_train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["mesh_train"] = phase_mesh_train(device, uninterrupted["losses"], moe_train_loss,
+                                             by_path["moe_train"]["grouped_matmul_bwd"])
+    lap("mesh_train")
     emit({"phase_seconds": seconds})
     by_path["planner"] = {"gemm_bwd": gemm_bwd_launches}
 

@@ -20,13 +20,16 @@ reference's own ``restore`` cannot place such a leaf; ROADMAP.md Queue 3).
 
 Durability: writes go to ``.tmp_step_*`` and are atomically renamed — a
 crash mid-save never corrupts the latest checkpoint (the restore path simply
-sees the previous step).  On one host the leaves are saved fully gathered.
+sees the previous step).  The leaves are saved fully gathered: a sharded
+state is gathered to rank 0, which writes (``CheckpointManager.save_sharded``).
 
 Restoring into a target tree checks every leaf's presence and shape before
 any data is read, then reads one shard at a time: a leaf whose target is a
 real tensor is copied into it in place (the train state on the card stays
 where it is, with no second copy beside it), a ``meta`` target is allocated
-on the device the caller names.
+on the device the caller names.  With ``shardings`` each rank keeps its
+slice of every stored leaf (the elastic-rescale path: the mesh at restore
+time may differ from the mesh at save time).
 """
 from __future__ import annotations
 
@@ -40,6 +43,8 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.sharding import is_sharding_leaf
 
 FORMAT_VERSION = 2
 BF16_DESCR = "<V2"          # what numpy writes for the reference's bfloat16 arrays
@@ -66,13 +71,14 @@ def _children(tree) -> Optional[List[Tuple[str, Any]]]:
     return None
 
 
-def _flatten_with_paths(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
-    kids = _children(tree)
+def _flatten_with_paths(tree, prefix: Tuple[str, ...] = (),
+                        is_leaf: Optional[Callable] = None) -> List[Tuple[str, Any]]:
+    kids = None if is_leaf is not None and is_leaf(tree) else _children(tree)
     if kids is None:
         return [("/".join(prefix), tree)]
     out = []
     for key, child in kids:
-        out.extend(_flatten_with_paths(child, prefix + (key,)))
+        out.extend(_flatten_with_paths(child, prefix + (key,), is_leaf))
     return out
 
 
@@ -212,16 +218,16 @@ def restore(ckpt_dir: str | Path, target_tree=None, shardings=None, *,
     a tensor of the stored dtype on ``device``.  Every leaf's presence and
     shape are checked before any data is read.
 
-    ``shardings`` (the reference's elastic-rescale path, each leaf placed
-    sharded over a mesh) raises: the port's meshes are ROADMAP.md Queue 1
-    item 5."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) places each leaf sharded over a mesh, which "
-            "waits for the port's parallel/ (ROADMAP.md Queue 1 item 5)")
+    With ``shardings`` (a tree of ``parallel.sharding.Sharding`` matching
+    ``target_tree``; a None entry keeps its leaf whole) every rank reads each
+    fully gathered stored leaf and keeps its slice: a target leaf may have
+    the stored shape or the slice's, and a real target of the slice's shape
+    is filled in place."""
     ckpt_dir = Path(ckpt_dir)
     manifest = load_manifest(ckpt_dir)
     stored = manifest["leaves"]
+    by_path = {} if shardings is None else dict(_flatten_with_paths(
+        shardings, is_leaf=is_sharding_leaf))
 
     if target_tree is None:
         flat: List[Tuple[str, Any]] = [(key, None) for key in stored]
@@ -232,7 +238,8 @@ def restore(ckpt_dir: str | Path, target_tree=None, shardings=None, *,
                 raise KeyError(f"checkpoint missing leaf {key!r}")
             have = tuple(stored[key]["shape"])
             want_shape = tuple(getattr(leaf, "shape", have))
-            if have != want_shape:
+            sh = by_path.get(key)
+            if have != want_shape and (sh is None or sh.local_shape(have) != want_shape):
                 raise ValueError(f"{key}: checkpoint shape {have} != "
                                  f"target {want_shape}")
 
@@ -246,6 +253,8 @@ def restore(ckpt_dir: str | Path, target_tree=None, shardings=None, *,
                 key, leaf = flat[i]
                 meta = stored[key]
                 host = _host_tensor(z[meta["npz_key"]], meta["dtype"])
+                if key in by_path and by_path[key] is not None:
+                    host = by_path[key].local(host)
                 placed[i] = host if target_tree is None else _place(leaf, host, device)
     if target_tree is None:
         return {key: t for (key, _), t in zip(flat, placed)}, manifest
@@ -253,11 +262,12 @@ def restore(ckpt_dir: str | Path, target_tree=None, shardings=None, *,
 
 
 def _place(target, host: torch.Tensor, device) -> torch.Tensor:
-    if isinstance(target, torch.Tensor) and target.device.type != "meta":
+    if isinstance(target, torch.Tensor) and target.device.type != "meta" \
+            and target.shape == host.shape:
         with torch.no_grad():
             target.copy_(host)
         return target
-    return host.to(device)
+    return host.contiguous().to(device)
 
 
 def list_steps(directory: str | Path) -> List[int]:

@@ -23,6 +23,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.parallel.sharding import is_sharding_leaf
+
 from . import checkpoint as C
 
 
@@ -63,6 +65,33 @@ class CheckpointManager:
             self._thread.start()
         else:
             _do()
+
+    def save_sharded(self, tree, shardings, step: int, extra: Optional[Dict] = None) -> None:
+        """Save a plan-sharded tree in the reference's format, fully gathered:
+        every rank calls this (each leaf is gathered over the ranks that
+        split it, one leaf at a time), rank 0 writes, and every rank returns
+        once the checkpoint is published.  ``shardings`` is the matching
+        tree of ``parallel.sharding.Sharding`` (None: the leaf is whole)."""
+        import torch.distributed as dist
+        from repro_torch.parallel import spmd
+        sh_by_key = dict(C._flatten_with_paths(shardings,
+                                               is_leaf=is_sharding_leaf))
+        rank = dist.get_rank() if dist.is_initialized() else 0
+
+        def gathered(key, x):
+            sh = sh_by_key.get(key)
+            if sh is None or not isinstance(x, torch.Tensor):
+                return x
+            full = tuple(n * k for n, k in zip(x.shape, sh.shard_counts(x.dim())))
+            out = spmd.gather_blocks(x, sh.mesh, sh.spec, full, sh.mesh_axes())
+            return out.detach().to("cpu", copy=True) if rank == 0 else None
+
+        flat = C._flatten_with_paths(tree)
+        host = [gathered(key, x) for key, x in flat]
+        if rank == 0:
+            self.save(C._rebuild(tree, iter(host)), step, extra, block=True)
+        if dist.is_initialized():
+            dist.barrier()
 
     def wait(self) -> None:
         if self._thread is not None:

@@ -36,8 +36,8 @@ from repro_torch.obs import metrics
 from repro_torch.plancache import warmstart
 
 from .affine import AffineExpr, AffineMap
-from .hw import (GB, Core, HardwareModel, MatUnit, Memory, Mux, ScalarUnit,
-                 SpatialDim, VecUnit)
+from .hw import (GB, Core, HardwareModel, Interconnect, MatUnit, Memory, Mux,
+                 ScalarUnit, SpatialDim, VecUnit, _ring_map)
 from .planner import (SearchBudget, effective_budget, fast_search_enabled,
                       plan_kernel_multi)
 from .program import flash_attention_program, matmul_program
@@ -107,7 +107,65 @@ def h100_sm() -> HardwareModel:
         notes="one H100 SXM, SM granularity, data-sheet figures")
 
 
+H100_NVLINK_GBPS = 450.0            # NVLink 4: 900 GB/s a card, both directions
+H100_IB_GBPS = 50.0                 # one 400 Gb/s InfiniBand NDR port a card
+H100_CLUSTER_LINK_GBPS = 25.0       # between clusters: an assumption, no data sheet
+H100_HOST_GBPS = 64.0               # PCIe Gen5 x16, one direction
+H100_NODE_HOST_BYTES = 2000 * GB    # a DGX H100 node's system memory
+H100_CARDS_PER_NODE = 8
+
+
+def h100_cluster(data: int = 32, model: int = 8, pods: int = 1) -> HardwareModel:
+    """H100 SXM cards at mesh granularity, the planner's description of a
+    cluster (what ``tpu_v5e_pod`` is to a TPU pod): each card is one
+    ``df.core``, its HBM the local memory, the hosts' memory the global
+    level, and one interconnect per mesh axis:
+
+    * ``model``: the 8 cards of a node on NVLink 4, 450 GB/s a card each way;
+    * ``data``: the nodes, on InfiniBand NDR, 50 GB/s a card each way;
+    * ``pod``: a second such cluster, at 25 GB/s a card — an assumption:
+      no data sheet fixes the link between two clusters.
+
+    Each card: 80 GB of HBM at 3.35 TB/s and 989 TFLOP/s dense bf16 (the
+    H100 SXM data sheet, 700 W); the clock and tile are :func:`h100_sm`'s,
+    with the tensor-core rate of all 132 SMs on the one core.  None of these
+    figures was measured here."""
+    dims, core_dims = [], []
+    if pods > 1:
+        dims.append(SpatialDim("pod", pods)); core_dims.append("pod")
+    dims.append(SpatialDim("data", data)); core_dims.append("data")
+    dims.append(SpatialDim("model", model)); core_dims.append("model")
+    clock = H100_PEAK_F32 / (H100_SMS * H100_CUDA_CORES_PER_SM * 2) / 1e9
+    m, k, n = MMA_TILE
+    r = H100_PEAK_BF16 / (2 * m * k * n * clock * 1e9)
+    tc = MatUnit("TC", MMA_TILE, intrinsics_per_cycle=r)
+    fp32 = VecUnit("FP32", width=H100_SMS * H100_CUDA_CORES_PER_SM, intrinsics_per_cycle=1.0)
+    core = Core("cards", tuple(core_dims), mat=tc, vec=fp32, scalar=ScalarUnit("SC", 1.0))
+    hbm = Memory("hbm", tuple(core_dims), size_bytes=H100_HBM_BYTES,
+                 bandwidth_gbps=H100_HBM_GBPS, level="local")
+    mux = Mux("card_to_hbm", "cards", "hbm", AffineMap.identity(list(core_dims)),
+              H100_HBM_GBPS)
+    cards = data * model * pods
+    host_idx = SpatialDim("host_idx", max(1, cards // H100_CARDS_PER_NODE))
+    host = Memory("hostmem", ("host_idx",), size_bytes=H100_NODE_HOST_BYTES,
+                  bandwidth_gbps=H100_HOST_GBPS, level="global")
+    to_host = Mux("to_host", "hbm", "hostmem",
+                  AffineMap((AffineExpr.var(core_dims[-1]).with_floordiv(H100_CARDS_PER_NODE),)),
+                  H100_HOST_GBPS)
+    pairs = [(d.name, d.size) for d in dims]
+    rate = {"model": H100_NVLINK_GBPS, "data": H100_IB_GBPS, "pod": H100_CLUSTER_LINK_GBPS}
+    ics = tuple(Interconnect(f"link_{axis}", "hbm", "hbm", _ring_map(pairs, axis), rate[axis])
+                for axis, size in pairs if size > 1)
+    return HardwareModel(
+        name=f"h100_{'x'.join(str(s) for _, s in pairs)}", clock_ghz=clock,
+        spatial_dims=tuple(dims) + (host_idx,), core=core, local_mem=hbm,
+        core_to_local=mux, global_mem=host, to_global=to_host, interconnects=ics,
+        notes="H100 SXM cluster at mesh granularity, data-sheet figures")
+
+
 def dtype_bytes(dtype) -> int:
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
     try:
         return _DTYPE_BYTES[dtype]
     except KeyError:

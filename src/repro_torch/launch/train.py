@@ -25,8 +25,12 @@ train step updates the state in place, so a failed step may have changed
 it).  ``REPRO_FAULTS`` straggler factors scale the step times reported to
 the registry.
 
-Not ported yet (ROADMAP.md, Queue 1, item 5): the mesh-plan ranking
-(``parallel/planner_bridge.plan_mesh``).
+Before the first step it prints the reference's ranking line: the TileLoom
+mesh planner's candidate plans for this model and batch on the planner's
+H100 cluster (``parallel/planner_bridge.plan_mesh``), with ``(cache)`` or
+``(search)`` for where the ranking came from.  Plan-sharded training over
+a mesh is ``train_step.jit_train_step`` (``chip_smoke.py``'s ``mesh_train``
+phase drives it).
 """
 from __future__ import annotations
 
@@ -41,15 +45,16 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import kernels
+from repro_torch import kernels, plancache
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.ckpt.checkpoint import leaves
-from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.base import ShapeConfig, TrainConfig
 from repro_torch.data import DataConfig, make_source
 from repro_torch.launch.common import launch_config
 from repro_torch.models import build_model
 from repro_torch.models.api import ModelAPI, require_device
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.parallel.planner_bridge import plan_mesh
 from repro_torch.runtime import HeartbeatRegistry, ResilientDriver, StragglerTracker
 from repro_torch.runtime.fault_tolerance import RecoveryEvent
 from repro_torch.runtime.faults import env_schedule
@@ -192,6 +197,16 @@ def main(argv=None) -> TrainResult:
     api = build_model(cfg)
     print(f"[train] {cfg.name}: {api.n_params():,} params on {device} "
           f"(kernels={cfg.kernels}, compute {cfg.compute_dtype}, remat={cfg.remat})")
+    shape = ShapeConfig("cli", seq_len=args.seq, global_batch=args.batch, kind="train")
+    # TileLoom mesh planning (informational on one card; resolves from the
+    # persistent plan registry when the same cell was ranked before)
+    store = plancache.get_store()
+    with plancache.lookup_source(store) as probe:
+        ranking = plan_mesh(api, shape, tcfg)
+    print(f"[train] {cfg.name}: {api.n_params():,} params; planner ranking "
+          f"({probe['source']}): "
+          + ", ".join(f"{r.plan.name}({r.cost.dominant})" for r in ranking[:3]))
+    store.flush_stats()
 
     mgr = CheckpointManager(Path(args.ckpt_dir) / cfg.name,
                             save_every=args.save_every, keep=3)

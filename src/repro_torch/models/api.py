@@ -44,12 +44,14 @@ class ModelAPI:
     decode_step: Optional[Callable]
     prefill: Optional[Callable]
     init_cache: Optional[Callable]
+    cache_axes: Optional[Callable] = None     # () -> logical axes of the cache's leaves
 
     # -- params -------------------------------------------------------------
-    def init(self, generator: torch.Generator, device="cuda") -> Params:
+    def init(self, generator: torch.Generator, device="cuda", shardings=None) -> Params:
         """Random parameters from ``generator`` on ``device``, in the spec's
-        parameter dtype."""
-        return P.materialize(generator, self.spec, require_device(device))
+        parameter dtype; with ``shardings`` (``train_step.state_shardings``'
+        ``params``) each rank keeps its slice of the same parameters."""
+        return P.materialize(generator, self.spec, require_device(device), shardings)
 
     def abstract_params(self) -> Params:
         return P.abstract(self.spec)
@@ -59,6 +61,22 @@ class ModelAPI:
 
     def n_params(self) -> int:
         return P.count_params(self.spec)
+
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE: only routed experts count)."""
+        cfg = self.cfg
+        if not cfg.n_experts:
+            return self.n_params()
+        total = 0
+        for leaf in P.tree_leaves(self.spec):
+            size = 1
+            for s in leaf.shape:
+                size *= s
+            if "experts" in leaf.axes:
+                frac = (cfg.experts_per_token or cfg.n_experts) / cfg.n_experts
+                size = int(size * frac)
+            total += size
+        return total
 
     # -- the stubbed modality frontend ------------------------------------------
     def frontend_inputs(self, batch: int, generator: torch.Generator,
@@ -98,7 +116,7 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             loss_fn=lambda p, b: transformer.loss_fn(p, b, cfg),
             decode_step=lambda p, t, c: transformer.decode_step(p, t, c, cfg),
             prefill=lambda p, t, c: transformer.prefill(p, t, c, cfg),
-            init_cache=transformer.init_cache)
+            init_cache=transformer.init_cache, cache_axes=transformer.cache_logical_axes)
     if fam == "moe":
         return ModelAPI(
             cfg=cfg, spec=_cast(moe.moe_spec(cfg), cfg),
@@ -106,7 +124,7 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             loss_fn=lambda p, b: moe.loss_fn(p, b, cfg),
             decode_step=lambda p, t, c: moe.decode_step(p, t, c, cfg),
             prefill=lambda p, t, c: moe.prefill(p, t, c, cfg),
-            init_cache=transformer.init_cache)
+            init_cache=transformer.init_cache, cache_axes=transformer.cache_logical_axes)
     if fam == "ssm":
         return ModelAPI(
             cfg=cfg, spec=_cast(rwkv6.rwkv6_spec(cfg), cfg),
@@ -114,7 +132,7 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             loss_fn=lambda p, b: rwkv6.loss_fn(p, b, cfg),
             decode_step=lambda p, t, c: rwkv6.decode_step(p, t, c, cfg),
             prefill=lambda p, t, c: rwkv6.prefill(p, t, c, cfg),
-            init_cache=rwkv6.init_cache)
+            init_cache=rwkv6.init_cache, cache_axes=rwkv6.cache_logical_axes)
     if fam == "hybrid":
         return ModelAPI(
             cfg=cfg, spec=_cast(zamba2.zamba2_spec(cfg), cfg),
@@ -122,7 +140,7 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             loss_fn=lambda p, b: zamba2.loss_fn(p, b, cfg),
             decode_step=lambda p, t, c: zamba2.decode_step(p, t, c, cfg),
             prefill=lambda p, t, c: zamba2.prefill(p, t, c, cfg),
-            init_cache=zamba2.init_cache)
+            init_cache=zamba2.init_cache, cache_axes=zamba2.cache_logical_axes)
     if fam == "vlm":
         return ModelAPI(
             cfg=cfg, spec=_cast(vlm.vlm_spec(cfg), cfg),
@@ -130,7 +148,7 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             loss_fn=lambda p, b: vlm.loss_fn(p, b, cfg),
             decode_step=lambda p, t, c: vlm.decode_step(p, t, c, cfg),
             prefill=lambda p, t, c, *, patches: vlm.prefill(p, t, c, cfg, patches=patches),
-            init_cache=vlm.init_cache)
+            init_cache=vlm.init_cache, cache_axes=transformer.cache_logical_axes)
     if fam == "audio":
         return ModelAPI(
             cfg=cfg, spec=_cast(encdec.encdec_spec(cfg), cfg),
@@ -138,5 +156,5 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             loss_fn=lambda p, b: encdec.loss_fn(p, b, cfg),
             decode_step=lambda p, t, c: encdec.decode_step(p, t, c, cfg),
             prefill=lambda p, t, c, *, frames: encdec.prefill(p, t, c, cfg, frames=frames),
-            init_cache=encdec.init_cache)
+            init_cache=encdec.init_cache, cache_axes=encdec.cache_logical_axes)
     raise ValueError(f"unknown family {fam!r}")

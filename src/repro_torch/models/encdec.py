@@ -176,6 +176,12 @@ def _cached_pass(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
     return _head(params, x, cfg), dict(cache, index=idx + tokens.shape[1])
 
 
+def cache_logical_axes() -> Dict[str, Tuple]:
+    """Logical axes of :func:`init_cache`'s leaves (the reference's)."""
+    ax = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    return {"k": ax, "v": ax, "cross_k": ax, "cross_v": ax, "index": ()}
+
+
 def decode_step(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decoder step against the cached self-attention KV and cross K/V.

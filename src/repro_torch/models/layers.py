@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import fit_block
+from repro_torch.parallel import spmd
 from .param import LeafSpec
 
 Params = Dict[str, Any]
@@ -393,6 +394,17 @@ def remat(enabled: bool, fn, *args):
     non-reentrant: the reference's ``jax.checkpoint`` with
     ``nothing_saveable``).  Every kernel ``fn`` launches runs twice a
     training step."""
+    step = spmd.current()
     if enabled and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+        return checkpoint(_gathered, step, fn, *args, use_reentrant=False)
+    return _gathered(step, fn, *args)
+
+
+def _gathered(step, fn, *args):
+    """``fn`` on its arguments as the plan-sharded ``step`` uses them (None:
+    outside one): each sharded parameter gathered (``parallel.spmd.
+    for_use``).  Inside ``remat``'s checkpoint, so the recomputation, which
+    the autograd engine may run on another thread, enters the step again
+    and gathers again instead of keeping the gathered weights."""
+    with spmd.step_context(step):
+        return fn(*spmd.for_use(args))

@@ -24,10 +24,24 @@ Capacity depends on how many tokens go through together
 same prompt fed token by token would keep.  :func:`prefill` is defined as the
 reference's ``moe.forward`` over the prompt, not as the token-by-token loop.
 
-Only the single-device path is ported.  The reference's expert-parallel
-``shard_map`` branch (``_ep_axes``) waits for ``parallel/sharding``
-(ROADMAP.md, Queue 1); :func:`_dispatch_ffn_combine` keeps its expert-slice
-arguments for it.  :func:`loss_fn` is the reference's: cross-entropy plus the
+Two execution paths, as in the reference's ``moe_mlp``:
+
+* **expert-parallel** (a plan-sharded train step whose plan maps
+  ``experts`` to one mesh axis, :func:`_ep_axes`): each rank holds only its
+  ``E / ep`` experts (the step keeps the grouped expert weights sharded along
+  that axis), routes its own tokens with capacity ``_capacity`` of the local
+  token count, runs :func:`_dispatch_ffn_combine` for its expert slice and
+  sums the partial outputs over the expert axis (``spmd.psum``); the
+  load-balancing loss is averaged over it (``spmd.pmean``).  Its average
+  over the batch axes is the step's: each rank's loss is its local mean,
+  and the step averages losses and gradients over the batch shards;
+* **single-shard** (serving, tests, a step whose plan does not map the
+  experts): the same dispatch over all ``E`` experts, on the global batch
+  as the reference computes it: a plan-sharded step gathers the tokens of
+  every rank along the batch axes first (capacity and load-balancing loss
+  of all of them) and keeps its own rows of the result.
+
+:func:`loss_fn` is the reference's: cross-entropy plus the
 load-balancing loss, which reaches the router only through the mean router
 probabilities (the chosen-expert share is a count).  With ``cfg.remat`` each
 block is recomputed in the backward, its router and expert products too.
@@ -42,6 +56,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import moe_gmm, ops
+from repro_torch.parallel import spmd
+from repro_torch.parallel.sharding import constrain
 from . import layers as L
 from . import transformer
 from .param import LeafSpec, stack_specs
@@ -139,20 +155,56 @@ def _router(xf: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig):
     return gate_vals, expert_idx, aux
 
 
+# (e_lo, n_local) of every expert-parallel dispatch, in call order, when a
+# caller sets it to a list (the tests and chip_smoke.py's mesh_train read it)
+EP_TRACE = None
+
+
+def _ep_axes(cfg: ModelConfig):
+    """The expert mesh axis of the running plan-sharded step, when the
+    expert-parallel path applies to ``cfg`` (the plan maps ``experts`` to
+    one axis of the mesh that divides ``n_experts``, and the batch is split
+    over the plan's batch axes), else None."""
+    step = spmd.current()
+    if step is None or step.expert_axis is None:
+        return None
+    if cfg.n_experts % step.mesh.shape[step.expert_axis]:
+        return None
+    return step.expert_axis
+
+
 def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out, aux_loss), all B * S tokens dispatched together
-    with capacity ``_capacity(B * S)``."""
+    """x: (B, S, d) -> (out, aux_loss).  Outside the expert-parallel path all
+    B * S tokens are dispatched together with capacity ``_capacity(B * S)``."""
     B, S, d = x.shape
-    xf = x.reshape(B * S, d)
-    gate_vals, expert_idx, aux = _router(xf, p["router"], cfg)
-    yf = _dispatch_ffn_combine(xf, p["w_gate"], p["w_up"], p["w_down"], gate_vals,
-                               expert_idx, cfg, 0, cfg.n_experts,
-                               _capacity(B * S, cfg))
-    y = yf.reshape(B, S, d)
+    e_ax = _ep_axes(cfg)
+    if e_ax is not None:
+        step = spmd.current()
+        ep = step.mesh.shape[e_ax]
+        n_local = cfg.n_experts // ep
+        e_lo = step.mesh.coords()[e_ax] * n_local
+        if EP_TRACE is not None:
+            EP_TRACE.append((e_lo, n_local))
+        xf = spmd.enter(x.reshape(B * S, d), e_ax)
+        gate_vals, expert_idx, aux = _router(xf, spmd.enter(p["router"], e_ax), cfg)
+        yf = _dispatch_ffn_combine(xf, p["w_gate"], p["w_up"], p["w_down"], gate_vals,
+                                   expert_idx, cfg, e_lo, n_local, _capacity(B * S, cfg))
+        yf = spmd.psum(yf, e_ax)
+        aux = spmd.pmean(aux, e_ax)
+        y = yf.reshape(B, S, d)
+    else:
+        xg, own_rows = spmd.gather_batch(x)
+        Bg = xg.shape[0]
+        xf = xg.reshape(Bg * S, d)
+        gate_vals, expert_idx, aux = _router(xf, p["router"], cfg)
+        yf = _dispatch_ffn_combine(xf, p["w_gate"], p["w_up"], p["w_down"], gate_vals,
+                                   expert_idx, cfg, 0, cfg.n_experts,
+                                   _capacity(Bg * S, cfg))
+        y = own_rows(yf.reshape(Bg, S, d))
     if "shared" in p:
         y = y + L.mlp(p["shared"], x, cfg)
-    return y, aux
+    return constrain(y, ("batch", "seq", "embed")), aux
 
 
 # ------------------------------------------------------------------- model

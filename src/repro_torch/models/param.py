@@ -78,10 +78,21 @@ def _init_leaf(generator: torch.Generator, spec: LeafSpec, device) -> torch.Tens
     return out.normal_(0.0, std, generator=generator)
 
 
-def materialize(generator: torch.Generator, spec, device="cuda") -> Any:
+def materialize(generator: torch.Generator, spec, device="cuda", shardings=None) -> Any:
     """Initialise every leaf on ``device`` from ``generator`` (which must
-    live on the same device)."""
-    return tree_map(lambda s: _init_leaf(generator, s, device), spec)
+    live on the same device).  With ``shardings`` (a matching tree of
+    ``parallel.sharding.Sharding``) every leaf is still drawn whole, in the
+    same order, and only this rank's slice is kept: every rank of a mesh
+    holds its part of the same parameters."""
+    if shardings is None:
+        return tree_map(lambda s: _init_leaf(generator, s, device), spec)
+    return tree_map(lambda s, sh: _keep_local(_init_leaf(generator, s, device), sh),
+                    spec, shardings)
+
+
+def _keep_local(x: torch.Tensor, sharding) -> torch.Tensor:
+    local = sharding.local(x)
+    return local if local.shape == x.shape else local.clone()
 
 
 def abstract(spec) -> Any:

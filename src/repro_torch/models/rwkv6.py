@@ -236,6 +236,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     }
 
 
+def cache_logical_axes() -> Dict[str, Tuple]:
+    """Logical axes of :func:`init_cache`'s leaves (the reference's)."""
+    return {
+        "state": ("layers", "batch", "q_heads", "head_dim", None),
+        "shift_tm": ("layers", "batch", "embed"),
+        "shift_cm": ("layers", "batch", "embed"),
+        "index": (),
+    }
+
+
 def _store(cache: Dict[str, Any], i: int, carry) -> None:
     """Write layer ``i``'s (shift_tm, state, shift_cm) into the cache."""
     shift_tm, state, shift_cm = carry

@@ -123,6 +123,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
+def cache_logical_axes() -> Dict[str, Tuple]:
+    """Logical axes of :func:`init_cache`'s leaves (the reference's)."""
+    ax = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    return {"k": ax, "v": ax, "index": ()}
+
+
 def _cached_pass(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
                  cfg: ModelConfig, last_only: bool, block=block_apply
                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:

@@ -142,6 +142,17 @@ def _cached_pass(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
     return _head(params, x, cfg), dict(cache, index=idx + tokens.shape[1])
 
 
+def cache_logical_axes() -> Dict[str, Tuple]:
+    """Logical axes of :func:`init_cache`'s leaves (the reference's)."""
+    return {
+        "ssd": ("layers", None, "batch", "ssm_heads", None, None),
+        "conv": ("layers", None, "batch", None, "ffn"),
+        "attn_k": ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+        "attn_v": ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+        "index": (),
+    }
+
+
 def decode_step(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step.  tokens: (B, 1); the cache is written in place."""

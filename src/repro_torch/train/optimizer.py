@@ -17,7 +17,7 @@ back to the host.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -72,10 +72,13 @@ def global_norm(grads: Params) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
-def clip_by_global_norm(grads: Params, max_norm: float) -> Tuple[Params, torch.Tensor]:
+def clip_by_global_norm(grads: Params, max_norm: float,
+                        norm_fn: Optional[Callable] = None) -> Tuple[Params, torch.Tensor]:
     """Scale every gradient by min(1, max_norm / (norm + 1e-9)), in place;
-    returns the same tree and the norm before clipping."""
-    gnorm = global_norm(grads)
+    returns the same tree and the norm before clipping.  ``norm_fn(grads)``
+    computes the norm instead of :func:`global_norm` (a sharded step's
+    norm over every rank's shards)."""
+    gnorm = (norm_fn or global_norm)(grads)
     scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
     for g in _leaves(grads):
         if g.dtype == torch.float32:
@@ -103,14 +106,15 @@ def _fused_adamw(p, g, m, v, step: torch.Tensor, lr: torch.Tensor, tcfg: TrainCo
 
 
 def adamw_update(grads: Params, state: AdamWState, params: Params,
-                 tcfg: TrainConfig) -> Tuple[Params, AdamWState, Dict]:
+                 tcfg: TrainConfig, norm_fn: Optional[Callable] = None
+                 ) -> Tuple[Params, AdamWState, Dict]:
     """One AdamW step, in place on ``params``, ``state`` and ``grads``: one
     fused pass over every leaf whose parameter, gradient and moments are
     float32.  A leaf stored in another dtype (bf16 parameters or state) is
     updated on float32 copies and rounded back once, as the reference
     computes in float32 and casts."""
     lr = lr_schedule(tcfg)(state.step)
-    grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+    grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, norm_fn)
     step = state.step + 1
     f32, other = [], []
     for leaf in zip(_leaves(params), _leaves(grads), _leaves(state.mu), _leaves(state.nu)):
@@ -142,10 +146,11 @@ def adafactor_init(params: Params, tcfg: TrainConfig) -> AdafactorState:
 
 
 def adafactor_update(grads: Params, state: AdafactorState, params: Params,
-                     tcfg: TrainConfig) -> Tuple[Params, AdafactorState, Dict]:
+                     tcfg: TrainConfig, norm_fn: Optional[Callable] = None
+                     ) -> Tuple[Params, AdafactorState, Dict]:
     """One Adafactor step, in place on ``params``, ``state`` and ``grads``."""
     lr = lr_schedule(tcfg)(state.step)
-    grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+    grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, norm_fn)
     step = state.step + 1
     b2 = 1.0 - (step.float() + 1.0) ** -0.8
 
@@ -179,9 +184,10 @@ def opt_init(params: Params, tcfg: TrainConfig):
     return (adafactor_init if tcfg.optimizer == "adafactor" else adamw_init)(params, tcfg)
 
 
-def opt_update(grads: Params, state, params: Params, tcfg: TrainConfig):
+def opt_update(grads: Params, state, params: Params, tcfg: TrainConfig,
+               norm_fn: Optional[Callable] = None):
     return (adafactor_update if tcfg.optimizer == "adafactor"
-            else adamw_update)(grads, state, params, tcfg)
+            else adamw_update)(grads, state, params, tcfg, norm_fn)
 
 
 def opt_state_axes(param_axes: Params, tcfg: TrainConfig):

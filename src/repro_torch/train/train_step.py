@@ -17,8 +17,14 @@ parameter's (bf16 parameters accumulated in float32), the leaf keeps its own
 gradient in its dtype and it is added into the buffer after the backward,
 as the reference adds each microbatch's gradient cast to float32.
 
-The shardings of the reference (``state_shardings``, ``batch_shardings``,
-``jit_train_step``) wait for ``parallel/sharding`` (ROADMAP.md, Queue 1).
+Plan-sharded training keeps the reference's names: ``state_logical_axes``,
+``state_shardings``, ``batch_shardings``, ``make_train_step(api, tcfg, plan,
+mesh)`` and ``jit_train_step``.  Nothing is compiled: the step runs eagerly
+on every rank, on the rank's shards of the state and rows of the batch, as
+``parallel/spmd.py`` describes (each parameter gathered where a layer uses
+it, its gradient summed over the batch axes and sliced to the rank's shard,
+the global clip norm, AdamW on the shards).  On a mesh of one rank it is the
+unsharded step's arithmetic.
 """
 from __future__ import annotations
 
@@ -32,6 +38,9 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.models.api import ModelAPI
 from repro_torch.models.convert import from_reference
 from repro_torch.models.param import tree_map
+from repro_torch.parallel import spmd
+from repro_torch.parallel.sharding import (P, Mesh, Sharding, ShardingPlan,
+                                           is_sharding_leaf, tree_map_axes)
 from . import grad_compress, optimizer as opt
 
 Params = Any
@@ -45,13 +54,16 @@ class TrainState:
 
 
 def init_state(api: ModelAPI, tcfg: TrainConfig, generator: Optional[torch.Generator] = None,
-               device="cuda") -> TrainState:
+               device="cuda", shardings: Optional[TrainState] = None) -> TrainState:
     """Parameters drawn from ``generator`` (seeded with ``tcfg.seed`` when
     not given) in the spec's dtype, a zero optimizer state and, with int8
-    gradient compression, a zero residual."""
+    gradient compression, a zero residual.  With ``shardings``
+    (:func:`state_shardings`) every rank draws the same parameters and keeps
+    its shards."""
     if generator is None:
         generator = torch.Generator(device=torch.device(device)).manual_seed(tcfg.seed)
-    params = api.init(generator, device)
+    params = api.init(generator, device,
+                      shardings=None if shardings is None else shardings.params)
     res = grad_compress.init_residual(params) if tcfg.grad_compression == "int8" else None
     return TrainState(params, opt.opt_init(params, tcfg), res)
 
@@ -95,6 +107,20 @@ class LayerLeaves:
     def __getitem__(self, idx) -> torch.Tensor:
         return self._leaves[idx if isinstance(idx, tuple) else (idx,)]
 
+    def for_use(self) -> "_UsedLayers":
+        """What a plan-sharded step's ``layers.remat`` hands the model when
+        the whole tree goes in (zamba2's groups): each layer gathered as it
+        is indexed."""
+        return _UsedLayers(self)
+
+
+class _UsedLayers:
+    def __init__(self, leaves: LayerLeaves):
+        self._leaves = leaves
+
+    def __getitem__(self, idx) -> torch.Tensor:
+        return spmd.for_use(self._leaves[idx])
+
 
 def _tmap(fn: Callable, tree, *rest):
     return tree_map(fn, tree, *rest, is_leaf=lambda x: isinstance(x, torch.Tensor))
@@ -106,10 +132,16 @@ def zero_grads(params: Params, dtype: Optional[torch.dtype] = None) -> Params:
 
 
 def accumulate_grad(api: ModelAPI, params: Params, batch: Dict[str, torch.Tensor],
-                    grads: Params) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                    grads: Params, placements: Optional[Params] = None,
+                    loss_scale: float = 1.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Run ``api.loss_fn(params, batch)`` and its backward, adding the
     gradient of every parameter into ``grads`` (a tree of buffers shaped
-    like ``params``) in place.  Returns the loss and metrics, detached."""
+    like ``params``) in place.  Returns the loss and metrics, detached.
+
+    Inside a plan-sharded step, ``params`` are the rank's shards and
+    ``placements`` their ``spmd.Placement``s: the model sees each parameter
+    gathered for use (a layer's inside ``layers.remat``), and the backward
+    runs on the loss times ``loss_scale``."""
     unbound = []            # (leaf, buffer) whose dtypes differ
 
     def bind(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -120,17 +152,22 @@ def accumulate_grad(api: ModelAPI, params: Params, batch: Dict[str, torch.Tensor
             unbound.append((leaf, g))
         return leaf
 
-    def leaf_of(p: torch.Tensor, g: torch.Tensor, axes) -> Any:
+    def leaf_of(p: torch.Tensor, g: torch.Tensor, axes, pl=None) -> Any:
         lead = 0
         while lead < len(axes) and axes[lead] == "layers":
             lead += 1
-        return LayerLeaves(p, g, lead, bind) if lead else bind(p, g)
+        if pl is None:
+            return LayerLeaves(p, g, lead, bind) if lead else bind(p, g)
+        if lead:
+            per = pl.per_layer(lead)
+            return LayerLeaves(p, g, lead, lambda a, b: spmd.tag(bind(a, b), per))
+        return spmd.for_use(spmd.tag(bind(p, g), pl))
 
-    model_params = tree_map(leaf_of, params, grads, api.param_axes(),
-                            is_leaf=lambda x: isinstance(x, torch.Tensor))
+    trees = (params, grads, api.param_axes()) + (() if placements is None else (placements,))
+    model_params = tree_map(leaf_of, *trees, is_leaf=lambda x: isinstance(x, torch.Tensor))
     with torch.enable_grad():
         loss, metrics = api.loss_fn(model_params, batch)
-        loss.backward()
+        (loss if loss_scale == 1.0 else loss * loss_scale).backward()
     for leaf, g in unbound:
         if leaf.grad is not None:
             g.add_(leaf.grad)
@@ -151,35 +188,162 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], n: int):
              for k, v in batch.items()} for i in range(n)]
 
 
-def make_train_step(api: ModelAPI, tcfg: TrainConfig) -> Callable:
+def _step(api: ModelAPI, tcfg: TrainConfig, state: TrainState,
+          batch: Dict[str, torch.Tensor], sharded: Optional[spmd.Step] = None,
+          placements: Optional[Params] = None):
+    """One step on ``state`` in place: the loss and gradients (averaged in
+    float32 over ``tcfg.microbatches``), the int8 error-feedback round trip
+    when asked for, then the optimizer.  ``sharded`` runs it as one rank of
+    a plan-sharded step (``state`` and ``batch`` the rank's shards)."""
+    scale = 1.0 if sharded is None else 1.0 / sharded.batch_shards
+    norm_fn = None if sharded is None else (lambda g: sharded.global_norm(g, placements))
+    if tcfg.microbatches <= 1:
+        grads = zero_grads(state.params)
+        loss, metrics = accumulate_grad(api, state.params, batch, grads, placements, scale)
+    else:
+        grads = zero_grads(state.params, torch.float32)
+        loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+        for mb in _split_microbatches(batch, tcfg.microbatches):
+            mb_loss, _ = accumulate_grad(api, state.params, mb, grads, placements, scale)
+            loss = loss + mb_loss
+        n = float(tcfg.microbatches)
+        for g in opt._leaves(grads):
+            g.div_(n)
+        loss = loss / n
+        metrics = {"loss": loss}
+    residual = state.residual
+    if tcfg.grad_compression == "int8" and residual is not None:
+        grads, residual = grad_compress.roundtrip(grads, residual)
+    params, opt_state, opt_metrics = opt.opt_update(grads, state.opt_state,
+                                                    state.params, tcfg, norm_fn=norm_fn)
+    metrics = dict(metrics)
+    metrics["loss"] = loss
+    if sharded is not None:
+        metrics = {k: sharded.batch_mean(v) for k, v in metrics.items()}
+    metrics.update(opt_metrics)
+    return TrainState(params, opt_state, residual), metrics
+
+
+def make_train_step(api: ModelAPI, tcfg: TrainConfig,
+                    plan: Optional[ShardingPlan] = None,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``: the loss and
     gradients (averaged in float32 over ``tcfg.microbatches``), the int8
     error-feedback round trip when asked for, then the optimizer.  The state
-    is updated in place and returned."""
+    is updated in place and returned.
+
+    With ``plan`` and ``mesh`` the step is one rank's part of the
+    plan-sharded step: ``state`` holds the rank's shards
+    (:func:`state_shardings`) and ``batch`` is the global batch, which
+    every rank passes alike (:func:`jit_train_step` also takes the rank's
+    rows); the metrics are the global step's."""
+    if plan is None or mesh is None:
+        return lambda state, batch: _step(api, tcfg, state, batch)
+    return _planned_step(api, tcfg, plan, mesh)
+
+
+def param_placements(api: ModelAPI, plan: ShardingPlan, mesh: Mesh) -> Params:
+    """``spmd.Placement`` of every parameter under ``plan`` on ``mesh``."""
+    shapes = api.abstract_params()
+    return tree_map_axes(
+        lambda ax, s: spmd.Placement(Sharding(mesh, plan.spec(ax, tuple(s.shape), mesh)),
+                                     tuple(s.shape), ax),
+        api.param_axes(), shapes)
+
+
+def _planned_step(api: ModelAPI, tcfg: TrainConfig, plan: ShardingPlan, mesh: Mesh,
+                  batch_specs: Optional[Dict[str, Any]] = None) -> Callable:
+    placements = param_placements(api, plan, mesh)
+    st_sh = state_shardings(api, tcfg, plan, mesh)
+    abstract = abstract_state(api, tcfg)
+    split = [p for p in spmd.placement_leaves(placements) if p.split()]
+    if split and (tcfg.optimizer != "adamw" or tcfg.grad_compression != "none"):
+        raise NotImplementedError(
+            f"{plan.name} splits parameters over the mesh: the sharded step runs AdamW "
+            f"without gradient compression (Adafactor's factored moments and int8's "
+            f"per-tensor scale span whole leaves)")
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        if tcfg.microbatches <= 1:
-            grads = zero_grads(state.params)
-            loss, metrics = accumulate_grad(api, state.params, batch, grads)
-        else:
-            grads = zero_grads(state.params, torch.float32)
-            loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
-            for mb in _split_microbatches(batch, tcfg.microbatches):
-                mb_loss, _ = accumulate_grad(api, state.params, mb, grads)
-                loss = loss + mb_loss
-            n = float(tcfg.microbatches)
-            for g in opt._leaves(grads):
-                g.div_(n)
-            loss = loss / n
-            metrics = {"loss": loss}
-        residual = state.residual
-        if tcfg.grad_compression == "int8" and residual is not None:
-            grads, residual = grad_compress.roundtrip(grads, residual)
-        params, opt_state, opt_metrics = opt.opt_update(grads, state.opt_state,
-                                                        state.params, tcfg)
-        metrics = dict(metrics)
-        metrics.update(opt_metrics)
-        metrics["loss"] = loss
-        return TrainState(params, opt_state, residual), metrics
+        state = place_tree(state, st_sh, abstract)
+        specs = batch_specs if batch_specs is not None else batch
+        b_sh = batch_shardings(specs, plan, mesh)
+        batch_part = b_sh["tokens"].spec[0]
+        local = {}
+        for k, x in batch.items():
+            x = place_leaf(x, b_sh[k], tuple(specs[k].shape))
+            # the rows stay this rank's; a split over any other axis (seq) is
+            # gathered for use
+            use = P(None, *b_sh[k].spec[1:])
+            shape = tuple(x.shape[:1]) + tuple(specs[k].shape[1:])
+            local[k] = spmd.gather_blocks(x, mesh, use, shape, Sharding(mesh, use).mesh_axes())
+        step = spmd.Step(plan, mesh, batch_part, local["tokens"].shape[0])
+        with spmd.step_context(step):
+            return _step(api, tcfg, state, local, step, placements)
 
     return train_step
+
+
+def place_leaf(x: torch.Tensor, sharding: Sharding, shape: Tuple[int, ...]) -> torch.Tensor:
+    """``x`` as this rank holds it under ``sharding``: as it is when it has
+    the local shape, its slice when it has the global ``shape`` (what
+    ``jax.jit``'s in_shardings do to a global array)."""
+    want = sharding.local_shape(shape)
+    if tuple(x.shape) == want:
+        return x
+    if tuple(x.shape) == tuple(shape):
+        return sharding.local(x).clone()
+    raise ValueError(f"a leaf of shape {tuple(x.shape)} is neither the global {tuple(shape)} "
+                     f"nor the local {want} under {sharding.spec}")
+
+
+def place_tree(tree: Any, shardings: Any, shapes: Any) -> Any:
+    """:func:`place_leaf` over a tree (a TrainState; None stays None)."""
+    return tree_map_axes(lambda sh, x, s: x if sh is None else place_leaf(x, sh, tuple(s.shape)),
+                         shardings, tree, shapes, is_leaf=is_sharding_leaf)
+
+
+def state_logical_axes(api: ModelAPI, tcfg: TrainConfig) -> TrainState:
+    paxes = api.param_axes()
+    res = paxes if tcfg.grad_compression == "int8" else None
+    return TrainState(paxes, opt.opt_state_axes(paxes, tcfg), res)
+
+
+def state_shardings(api: ModelAPI, tcfg: TrainConfig, plan: ShardingPlan,
+                    mesh: Mesh) -> TrainState:
+    """Sharding tree for the TrainState under a plan."""
+    def one(ax, shaped):
+        if shaped is None:
+            return None
+        if ax is None or not isinstance(ax, tuple):
+            ax = ()
+        spec = plan.spec(ax, tuple(shaped.shape), mesh) \
+            if len(ax) == len(shaped.shape) else P()
+        return Sharding(mesh, spec)
+
+    return tree_map_axes(one, state_logical_axes(api, tcfg), abstract_state(api, tcfg))
+
+
+def batch_shardings(batch_specs: Dict[str, Any], plan: ShardingPlan,
+                    mesh: Mesh) -> Dict[str, Any]:
+    """tokens/labels (B, S) over ("batch", "seq"); frames/patches (B, L, D)
+    over ("batch", "seq", None); a scalar replicated."""
+    def one(shaped):
+        nd = len(shaped.shape)
+        if nd == 0:
+            return Sharding(mesh, P())
+        axes = ("batch",) + (None,) * (nd - 1)
+        if nd >= 2:
+            axes = ("batch", "seq") + (None,) * (nd - 2)
+        return Sharding(mesh, plan.spec(axes, tuple(shaped.shape), mesh))
+    return {k: one(v) for k, v in batch_specs.items()}
+
+
+def jit_train_step(api: ModelAPI, tcfg: TrainConfig, plan: ShardingPlan,
+                   mesh: Mesh, batch_specs: Dict[str, Any]) -> Callable:
+    """The reference's jitted step with in/out shardings and donation, run
+    eagerly: ``step(state, batch)`` takes the state as this rank's shards
+    (or whole, and slices it) and the batch whole or as this rank's rows
+    under :func:`batch_shardings` of ``batch_specs`` (anything with a
+    ``shape``); it updates the state in place (the donation) and returns it
+    with the global step's metrics.  Nothing is compiled."""
+    return _planned_step(api, tcfg, plan, mesh, batch_specs)

@@ -329,12 +329,33 @@ def test_in_place_restore_keeps_every_tensor(tmp_path):
     assert sum(a != b for a, b in zip(ptrs, moved)) == 1 + len(C.leaves(state.residual))
 
 
-def test_restore_with_shardings_raises_naming_roadmap_item_5(tmp_path):
-    save({"w": torch.zeros(2)}, tmp_path, step=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        restore(latest(tmp_path), target_tree={"w": torch.zeros(2)}, shardings={"w": None})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        CheckpointManager(tmp_path).restore_latest(shardings={"w": None})
+def test_restore_with_shardings_places_each_leafs_slice(tmp_path):
+    """``restore(shardings=)`` reads each fully gathered stored leaf and
+    keeps the slice the sharding names, bit-equal, for every rank of a 2x2
+    mesh (planned only: no process group); a target of the slice's shape is
+    filled in place, a None sharding keeps its leaf whole; the manager
+    passes the shardings on."""
+    from repro_torch.parallel.sharding import P, Mesh, Sharding
+    gen = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn(4, 6, generator=gen), "b": torch.randn(8, generator=gen),
+            "n": torch.arange(8, dtype=torch.int32)}
+    save(tree, tmp_path, step=3)
+    for rank in range(4):
+        mesh = Mesh(("data", "model"), (2, 2), rank=rank)
+        sh = {"w": Sharding(mesh, P("data", "model")), "b": Sharding(mesh, P(("data", "model"))),
+              "n": None}
+        live = {"w": torch.zeros(2, 3), "b": torch.zeros(2), "n": torch.zeros(8, dtype=torch.int32)}
+        out, _ = restore(latest(tmp_path), target_tree=live, shardings=sh, device="cpu")
+        d, m = divmod(rank, 2)
+        assert all(out[k] is live[k] for k in live)
+        assert torch.equal(out["w"], tree["w"][2 * d:2 * d + 2, 3 * m:3 * m + 3])
+        # one dim over two mesh axes: the block is row-major over (data, model)
+        assert torch.equal(out["b"], tree["b"][2 * rank:2 * rank + 2])
+        assert torch.equal(out["n"], tree["n"])
+        meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in tree.items()}
+        got, step = CheckpointManager(tmp_path).restore_latest(target_tree=meta, shardings=sh,
+                                                               device="cpu")
+        assert step == 3 and torch.equal(got["w"], out["w"]) and got["w"].is_contiguous()
 
 
 def test_manager_api_mirrors_the_reference():

@@ -1043,3 +1043,119 @@ def test_train_main_on_the_card_restores_in_place_and_replays(cuda, tmp_path, mo
     assert len(again.history) == 1 and int(again.state.opt_state.step) == 3
     torch.testing.assert_close(again.history[0]["loss"], whole.history[2]["loss"],
                                rtol=1e-5, atol=0)
+
+
+def test_mesh_train_step_over_a_world_1_nccl_group_equals_the_unsharded_step(cuda, tmp_path):
+    """``jit_train_step`` on a 1x1 mesh over a world-1 NCCL process group
+    (``file://`` store): two reduced qwen2.5-3b steps under megatron_tp, the
+    same losses and parameters, bit for bit, as the unsharded step from the
+    same seed, with K2 twice a layer and K2-bwd once a layer each step."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.launch import train as TL
+    from repro_torch.launch.common import launch_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel.sharding import megatron_tp_plan
+    from repro_torch.train import train_step as TS
+    cfg = launch_config("qwen2.5-3b", reduced=True)
+    api, tcfg = build_model(cfg), TrainConfig(total_steps=2, warmup_steps=1)
+    source = make_source(DataConfig(vocab_size=cfg.vocab_size), cfg)
+    batches = [TL.to_device(source.batch_at(i, 2, 64), cuda) for i in range(2)]
+    plain, want = TS.init_state(api, tcfg, device=cuda), []
+    step = TS.make_train_step(api, tcfg)
+    for b in batches:
+        plain, m = step(plain, b)
+        want.append(float(m["loss"]))
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_host_mesh(1, 1)
+        assert mesh.device_mesh.device_type == "cuda"
+        sh = TS.state_shardings(api, tcfg, megatron_tp_plan(), mesh)
+        state = TS.init_state(api, tcfg, device=cuda, shardings=sh)
+        sharded = TS.jit_train_step(api, tcfg, megatron_tp_plan(), mesh, batches[0])
+        kernels.reset_launch_counts()
+        got = []
+        for b in batches:
+            state, m = sharded(state, b)
+            got.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    assert got == want
+    from repro_torch.ckpt.checkpoint import leaves
+    for a, b in zip(leaves(state.params), leaves(plain.params)):
+        assert torch.equal(a, b)
+    L = cfg.n_layers
+    assert launches["flash_attention"] == 2 * 2 * L
+    assert launches["flash_attention_bwd"] == 2 * L
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 1), (1, 2)])
+def test_mesh_train_step_over_two_gloo_ranks_on_the_card(cuda, tmp_path, mesh_shape):
+    """Two ranks on the one card over ``gloo`` (which carries CUDA tensors;
+    NCCL refuses two ranks on one device): reduced models in float32
+    through ``jit_train_step`` with the card's kernels, two steps, each
+    rank's losses within 1e-5 relative of the unsharded step on the card;
+    K2 / K2-bwd launched on each rank; the MoE through its expert-parallel
+    branch with 4 of 8 experts a rank on 1x2; shards within 1e-5 of the
+    matching slices of the unsharded state."""
+    from dataclasses import replace
+
+    from repro_torch.ckpt import checkpoint as C
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.launch import train as TL
+    from repro_torch.models import build_model
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import train_step as TS
+    from torch_mesh_worker import plan_named, spawn
+    tc = dict(learning_rate=1e-4, warmup_steps=1, total_steps=10)
+    cases = [("qwen2.5-3b", "megatron_tp"), ("qwen2.5-3b", "zero3")]
+    if mesh_shape == (1, 2):
+        cases.append(("qwen3-moe-30b-a3b", "expert_parallel"))
+    want, jobs = {}, []
+    for arch, plan in cases:
+        cfg = replace(get_config(arch).reduced(), compute_dtype="float32", kernels="cuda")
+        api, tcfg = build_model(cfg), TrainConfig(**tc)
+        source = make_source(DataConfig(vocab_size=cfg.vocab_size), cfg)
+        batches = [TL.to_device(source.batch_at(i, 4, 64), cuda) for i in range(2)]
+        state = TS.init_state(api, tcfg, device=cuda)
+        torch.save(C.map_leaves(lambda t: t.cpu(), state), tmp_path / f"state-{arch}.pt")
+        torch.save([{k: v.cpu() for k, v in b.items()} for b in batches], tmp_path / "batches.pt")
+        step, losses = TS.make_train_step(api, tcfg), []
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+        want[arch, plan] = (api, tcfg, losses, state)
+        jobs.append({"name": f"{arch}-{plan}", "arch": arch, "plan": plan,
+                     "state": f"state-{arch}.pt", "steps": 2})
+    spawn({"mode": "train", "mesh": list(mesh_shape), "cases": jobs, "tcfg": tc,
+           "device": "cuda", "kernels": "cuda"}, tmp_path)
+    for arch, plan in cases:
+        api, tcfg, losses, state = want[arch, plan]
+        L = api.cfg.n_layers
+        for rank in range(2):
+            got = torch.load(tmp_path / f"{arch}-{plan}.rank{rank}.pt", weights_only=False,
+                             map_location="cpu")
+            assert [h["loss"] for h in got["history"]] == pytest.approx(losses, rel=1e-5)
+            assert got["launches"]["flash_attention"] == 2 * 2 * L
+            assert got["launches"]["flash_attention_bwd"] == 2 * L
+            mesh = SH.Mesh(("data", "model"), mesh_shape, rank=rank)
+            sh = dict(C._flatten_with_paths(TS.state_shardings(api, tcfg, plan_named(plan), mesh),
+                                            is_leaf=lambda x: isinstance(x, SH.Sharding)))
+            mine = dict(C._flatten_with_paths(got["state"]))
+            for k, w in C._flatten_with_paths(state.params):
+                torch.testing.assert_close(mine["0/" + k], sh["0/" + k].local(w.cpu()),
+                                           rtol=0, atol=1e-5, msg=lambda m: f"{plan} {k}: {m}")
+            if arch.startswith("qwen3-moe"):
+                E = api.cfg.n_experts
+                assert set(got["ep_trace"]) == {(rank * E // 2, E // 2)}
+                assert got["launches"]["grouped_matmul"] == 2 * 12 * L

@@ -228,21 +228,29 @@ def test_full_budget_resolve_of_the_served_gemm_on_h100(tmp_path, fast_search):
     assert lower_torch.gemm_blocks_of(resp.result) == lower_torch.gemm_blocks_of(direct)
 
 
-def test_resolve_mesh_answers_fallback_until_the_mesh_planner_is_ported():
-    """``resolve_mesh`` reaches ``parallel.planner_bridge.plan_mesh``, which
-    the port does not have yet (ROADMAP.md Queue 1 item 5): the service takes
-    its own never-raise branch and answers fallback / error with no ranking.
-    Porting the mesh planner changes this answer."""
+def test_resolve_mesh_answers_search_then_cache_with_the_plan_mesh_ranking(isolated_stores):
+    """``resolve_mesh`` reaches the port's mesh planner
+    (``parallel.planner_bridge.plan_mesh`` on the H100 cluster): the first
+    request is ranked (rung ``search``), the second is read back from the
+    plan registry (rung ``cache``), both ``ok`` and both the ranking
+    ``plan_mesh`` itself returns."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig, TrainConfig
     from repro_torch.models import build_model
-    with pytest.raises(ModuleNotFoundError):
-        import repro_torch.parallel.planner_bridge  # noqa: F401
+    from repro_torch.parallel import planner_bridge as PB
     api = build_model(get_config("qwen2.5-3b").reduced())
     shape = ShapeConfig("serve", seq_len=12, global_batch=2, kind="decode")
-    resp = port_ps.PlanService().resolve_mesh(api, shape, TrainConfig(), budget_ms=10.0)
-    assert (resp.rung, resp.outcome, resp.ranking) == ("fallback", "error", None)
-    assert resp.seconds >= 0
+    svc = port_ps.PlanService()
+    first = svc.resolve_mesh(api, shape, TrainConfig(), budget_ms=float("inf"))
+    again = svc.resolve_mesh(api, shape, TrainConfig(), budget_ms=float("inf"))
+    direct = PB.plan_mesh(api, shape, TrainConfig(), cache=False)
+    assert (first.rung, first.outcome) == ("search", "ok")
+    assert (again.rung, again.outcome) == ("cache", "ok")
+    for resp in (first, again):
+        assert [r.plan.name for r in resp.ranking] == [r.plan.name for r in direct]
+        assert [r.cost.total_s for r in resp.ranking] \
+            == pytest.approx([r.cost.total_s for r in direct], rel=1e-12)
+    assert first.seconds >= 0 and again.seconds >= 0
 
 
 # --------------------------------------------------------------- re-planning
@@ -273,11 +281,12 @@ def test_plan_degraded_and_best_submesh_match_reference(fast_search, isolated_st
     assert out["port"][1] == 56
 
 
-def test_runtime_resolves_the_planner_names_and_not_elastic_yet():
+def test_runtime_resolves_the_planner_and_elastic_names():
     """``runtime`` resolves its exports lazily: the copied fault-injection,
-    re-plan and fault-tolerance names load, ``elastic``'s raise until it is
-    ported (ROADMAP.md Queue 1 item 5)."""
+    re-plan and fault-tolerance names load, and so do the ported
+    ``elastic``'s."""
     import repro_torch.runtime as runtime
+    from repro_torch.runtime import elastic as port_elastic
     from repro_torch.runtime import fault_tolerance as port_ft
     assert runtime.plan_degraded is port_replan.plan_degraded
     for name in ("HeartbeatRegistry", "StragglerTracker", "RecoveryEvent", "ResilientDriver"):
@@ -285,8 +294,8 @@ def test_runtime_resolves_the_planner_names_and_not_elastic_yet():
     text = "core:3,5;link:noc_h:0.5@2"
     assert [f.describe() for f in runtime.parse_faults(text)] \
         == [f.describe() for f in ref_faults.parse_faults(text)]
-    with pytest.raises(ModuleNotFoundError):
-        runtime.RescalePlan
+    for name in ("RescalePlan", "apply_rescale", "plan_rescale", "viable_mesh_shapes"):
+        assert getattr(runtime, name) is getattr(port_elastic, name)
     with pytest.raises(AttributeError):
         runtime.no_such_name
 

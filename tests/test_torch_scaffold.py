@@ -69,7 +69,9 @@ def test_importing_every_module_loads_neither_jax_nor_reference(tmp_path):
         "        'repro_torch.runtime.fault_tolerance', 'repro_torch.ckpt.checkpoint',\n"
         "        'repro_torch.ckpt.manager', 'repro_torch.tenancy.partition',\n"
         "        'repro_torch.tenancy.qos', 'repro_torch.tenancy.validator',\n"
-        "        'repro_torch.tenancy.runtime'} <= set(names)\n")
+        "        'repro_torch.tenancy.runtime', 'repro_torch.parallel.sharding',\n"
+        "        'repro_torch.parallel.planner_bridge', 'repro_torch.parallel.spmd',\n"
+        "        'repro_torch.launch.mesh', 'repro_torch.runtime.elastic'} <= set(names)\n")
     env = {"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin", "HOME": str(tmp_path)}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=300)

@@ -1,0 +1,174 @@
+"""One rank of a multi-rank CPU run of the port's plan-sharded training
+(``tests/test_torch_mesh_train.py`` starts one process per rank):
+
+    python tests/torch_mesh_worker.py JOB.json RANK
+
+It joins a ``gloo`` process group through a ``file://`` store (no network,
+no port), builds the job's host mesh on the job's device (the CPU, or with
+``"device": "cuda"`` every rank on card 0: ``gloo`` carries CUDA tensors,
+NCCL refuses two ranks on one card) and runs the job's cases:
+
+* ``train``: each case's initial state (``state.pt``, whole) through
+  ``train_step.jit_train_step`` over the job's batches; writes the losses,
+  gradient norms, the MoE's expert-parallel dispatches and this rank's
+  shards to ``<out>/<case>.rank<r>.pt``; then checks DTensor's placement
+  of a few leaves against the port's slices;
+* ``save``: one step of the first case, then ``CheckpointManager.save_sharded``;
+* ``restore``: ``restore(shardings=)`` of that checkpoint onto this mesh.
+
+Only ``repro_torch`` is imported: the test holds the results against the
+reference and the unsharded step.
+"""
+import datetime
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
+
+from repro_torch.ckpt import CheckpointManager  # noqa: E402
+from repro_torch.ckpt import checkpoint as C  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models import build_model, moe  # noqa: E402
+from repro_torch.parallel import sharding as SH  # noqa: E402
+from repro_torch.train import train_step as TS  # noqa: E402
+
+
+JOIN_S = 240
+
+
+def spawn(job: dict, tmp_path: Path) -> None:
+    """Start one process per rank of ``job["mesh"]`` and join them with a
+    timeout (a hang fails the caller); raises with a rank's output when one
+    fails.  The job's files go to ``tmp_path``."""
+    job = dict(job, dir=str(tmp_path), store=str(tmp_path / f"store-{job['mode']}"),
+               world=math.prod(job["mesh"]))
+    path = tmp_path / f"job-{job['mode']}.json"
+    path.write_text(json.dumps(job))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(path), str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env) for r in range(job["world"])]
+    try:
+        outs = [p.communicate(timeout=JOIN_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+
+
+def plan_named(name: str) -> SH.ShardingPlan:
+    from repro_torch.parallel import planner_bridge as PB
+    if name in SH.FIXED_PLANS:
+        return SH.FIXED_PLANS[name]()
+    derived = {
+        "zero3": PB._zero3,
+        "zero3_sp": lambda: PB._rename(PB._zero3().with_rule("seq", "model")
+                                       .with_rule("kv_seq", "model"), "zero3_sp"),
+        "tp2d": PB._tp2d,
+        "expert_parallel_zero3": lambda: PB._rename(
+            SH.expert_parallel_plan().with_rule("embed", "data"), "expert_parallel_zero3"),
+    }
+    return derived[name]()
+
+
+def model(arch: str, kernels=None):
+    """The reduced config computing in float32 (``kernels`` as the job
+    says: ``cuda`` for the card's kernels, else the config's own)."""
+    from dataclasses import replace
+    cfg = replace(get_config(arch).reduced(), compute_dtype="float32")
+    return build_model(replace(cfg, kernels=kernels) if kernels else cfg)
+
+
+def run_case(job, case, mesh):
+    api = model(case["arch"], job.get("kernels"))
+    tcfg = TrainConfig(**job["tcfg"])
+    plan = plan_named(case["plan"])
+    device = job.get("device", "cpu")
+    state = torch.load(os.path.join(job["dir"], case["state"]), weights_only=False,
+                       map_location=device)
+    batches = torch.load(os.path.join(job["dir"], "batches.pt"), map_location=device)
+    step = TS.jit_train_step(api, tcfg, plan, mesh, batches[0])
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    moe.EP_TRACE = []
+    history = []
+    for b in batches[:case["steps"]]:
+        state, m = step(state, b)
+        history.append({k: float(v) for k, v in m.items()})
+    trace, moe.EP_TRACE = moe.EP_TRACE, None
+    return api, tcfg, plan, state, history, trace
+
+
+def check_dtensor(mesh, api, tcfg, plan):
+    """DTensor's local chunk equals the port's slice wherever placements
+    exist (every spec of this plan's state on this mesh)."""
+    from torch.distributed.tensor import distribute_tensor
+    sh = TS.state_shardings(api, tcfg, plan, mesh)
+    shapes = dict(C._flatten_with_paths(TS.abstract_state(api, tcfg)))
+    device = mesh.device_mesh.device_type
+    n = 0
+    for k, s in C._flatten_with_paths(sh, is_leaf=lambda x: isinstance(x, SH.Sharding)):
+        placements = s.placements()
+        if placements is None:
+            continue
+        full = torch.arange(shapes[k].numel(), dtype=torch.float32,
+                            device=device).view(shapes[k].shape)
+        local = distribute_tensor(full, mesh.device_mesh, placements).to_local()
+        assert torch.equal(local, s.local(full)), (k, s.spec)
+        n += 1
+    return n
+
+
+def main():
+    job = json.load(open(sys.argv[1]))
+    rank = int(sys.argv[2])
+    torch.manual_seed(0)
+    dist.init_process_group("gloo", init_method="file://" + job["store"], rank=rank,
+                            world_size=job["world"], timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_host_mesh(*job["mesh"], device_type=job.get("device", "cpu"))
+        out = job["dir"]
+        if job["mode"] == "train":
+            for case in job["cases"]:
+                api, tcfg, plan, state, history, trace = run_case(job, case, mesh)
+                from repro_torch import kernels
+                launches = kernels.launch_counts()
+                checked = check_dtensor(mesh, api, tcfg, plan)
+                torch.save({"history": history, "ep_trace": trace, "state": state,
+                            "launches": launches,
+                            "coords": mesh.coords(), "dtensor_checked": checked},
+                           os.path.join(out, f"{case['name']}.rank{rank}.pt"))
+        elif job["mode"] == "save":
+            case = job["cases"][0]
+            api, tcfg, plan, state, history, _ = run_case(job, case, mesh)
+            mgr = CheckpointManager(job["ckpt"], async_save=False)
+            mgr.save_sharded(state, TS.state_shardings(api, tcfg, plan, mesh), step=1)
+            torch.save({"state": state, "coords": mesh.coords()},
+                       os.path.join(out, f"saved.rank{rank}.pt"))
+        elif job["mode"] == "restore":
+            case = job["cases"][0]
+            api, tcfg = model(case["arch"]), TrainConfig(**job["tcfg"])
+            sh = TS.state_shardings(api, tcfg, plan_named(case["plan"]), mesh)
+            state, step = CheckpointManager(job["ckpt"]).restore_latest(
+                target_tree=TS.abstract_state(api, tcfg), shardings=sh, device="cpu")
+            torch.save({"state": state, "step": step, "coords": mesh.coords()},
+                       os.path.join(out, f"restored.rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

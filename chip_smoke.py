@@ -129,7 +129,25 @@ these phases, each printing one JSON line; any failure raises:
             ranking line; then ``qwen3-moe-30b-a3b`` (2 layers) three steps
             under expert_parallel through the expert-parallel branch (all
             128 experts on the one rank), its first loss within 1e-6 of
-            ``moe_train``'s, K4's backward launches per step equal to its.
+            ``moe_train``'s, K4's backward launches per step equal to its;
+15. mesh_serve the plan-sharded serve step (``serve_step.jit_serve_step``) on
+            two ``gloo`` ranks of the one card, a 1x2 mesh, each rank a
+            process (``chip_smoke.py --mesh-serve-rank``): ``qwen2.5-3b`` at
+            full width and depth under kv_sequence_split, its cache filled
+            by the unsharded prefill and placed by ``cache_shardings``, 32
+            steps in a buffer of 1024 keys (rank 0 holds the prompt, rank 1
+            the new tokens) and one in a buffer of 2048 (rank 1 holds no
+            valid key), teacher-forced on the ``serve`` phase's ids: every
+            step's logits within 2e-2 of the unsharded step's, K3's partials
+            kernel and K3' 36 x 33 = 1,188 launches a rank and the one-launch
+            K3 none, the first step's partials and combines within their
+            per-call bound of their plain versions; ms per token, peak
+            memory per rank, the ranking line;
+16. dryrun  ``python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape
+            {train_4k,prefill_32k,decode_32k} --mesh single``, three
+            processes, each rank 0 of a 256-rank no-op world at full width
+            and depth: each row's plan, per-device bytes, roofline terms,
+            measured ms and collective bytes; a failed cell fails the phase.
 
 The kernels phase also holds the backward kernels against their plain
 versions: K2-bwd (dq, dk, dv; the forward kernel's log-sum-exp too; bf16 on
@@ -145,11 +163,10 @@ float32, at head dims 16 and 32, at an odd T (chunk 1) and at the decay
 floor with chunk 32 (no library call computes a WKV backward).
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the main
-path and its measured times (the reference's two decode functions,
-``flash_decode_partials`` and ``combine_partials``, are checked and timed
-but marked off the main path: ``ops.flash_decode`` computes both in one
-launch), the card's name and power limit, and as the
-last line ``{"ok": true, "device": {...}}``.
+path (the reference's two decode functions, ``flash_decode_partials`` and
+``combine_partials``, on ``mesh_serve``'s: ``ops.flash_decode`` computes
+both in one launch on the unsplit paths) and its measured times, the card's
+name and power limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -238,8 +255,15 @@ def ptxas_usage(compiler_output: str) -> dict:
     return usage
 
 
+def work():
+    """``repro_torch.kernels.work``: each kernel's operations and bytes, the
+    formulas the kernel wrappers count launches with."""
+    from repro_torch.kernels import work as W
+    return W
+
+
 def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+    return work().nbytes(*tensors)
 
 
 def bound(flops: float, byts: float, dtype) -> dict:
@@ -283,7 +307,7 @@ def gemm_case(timer, gen, M, N, K, dtype, block, serving):
            "max_abs_err": err, "kernel_ms": timer.ms(run),
            "plain_ms": timer.ms(lambda: G.gemm_plain(a, b)),
            "library_ms": timer.ms(lambda: torch.matmul(a, b))}
-    res.update(bound(2.0 * M * N * K, nbytes(a, b, out), dtype))
+    res.update(bound(work().gemm_flops(M, N, K), nbytes(a, b, out), dtype))
     if serving and body == "tma":
         on_body = lambda body, t: G.gemm_on_body(a, b, body, block=t)
         res.update(staged_body(timer, on_body, G.gemm_plain(a, b), dtype, block))
@@ -340,12 +364,12 @@ def flash_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving, model=
     lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
                                                  enable_gqa=g > 1)
     compare("library attention", lib().reshape(B * H, Sq, d), plain(), dtype, tol=2e-2)
-    visible = Sq * (Sq + 1) // 2 if causal else Sq * Skv
     res = {"name": "flash_attention", "shape": f"BH={B * H} kv_heads={B * Hkv} "
            f"Sq={Sq} Skv={Skv} d={d} causal={causal}", "dtype": dname(dtype),
            "serving": serving, "model": model, "max_abs_err": err, "kernel_ms": timer.ms(run),
            "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib)}
-    res.update(bound(4.0 * B * H * visible * d, nbytes(q, k4, v4, out), dtype))
+    res.update(bound(work().attention_flops(B * H, Sq, Skv, d, causal),
+                     nbytes(q, k4, v4, out), dtype))
     return res
 
 
@@ -375,11 +399,11 @@ def decode_cases(timer, gen, B, H, Hkv, Skv, valid, d, dtype, serving, splits=No
     lib = lambda: F.scaled_dot_product_attention(q4, k4[:, :, :n], v4[:, :, :n],
                                                  enable_gqa=g > 1)
     compare("library decode", lib().reshape(B * H, 1, d), plain(), dtype, tol=2e-2)
-    kv_bytes = 2 * B * Hkv * n * d * q.element_size()
+    kv_bytes = work().decode_kv_bytes(B * Hkv, n, d, q.element_size())
     both = {"name": "flash_decode", "shape": label, "dtype": dname(dtype),
             "serving": serving, "model": model, "max_abs_err": err,
             "kernel_ms": timer.ms(run), "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib)}
-    both.update(bound(4.0 * B * H * n * d, kv_bytes + nbytes(q, out), dtype))
+    both.update(bound(work().decode_flops(B * H, n, d), kv_bytes + nbytes(q, out), dtype))
     if not stages:
         return [both]
 
@@ -399,7 +423,8 @@ def decode_cases(timer, gen, B, H, Hkv, Skv, valid, d, dtype, serving, splits=No
     partials = {"name": "flash_decode_partials", "shape": label, "dtype": dname(dtype),
                 "serving": serving, "max_abs_err": err_p, "kernel_ms": timer.ms(part),
                 "plain_ms": timer.ms(part_plain), "library_ms": None}
-    partials.update(bound(4.0 * B * H * n * d, kv_bytes + nbytes(q, m, l, acc), dtype))
+    partials.update(bound(work().decode_flops(B * H, n, d), kv_bytes + nbytes(q, m, l, acc),
+                          dtype))
 
     comb = lambda: FD.combine_partials(mp, lp, accp, out_dtype=dtype)
     comb_plain = lambda: FD.combine_partials_plain(mp, lp, accp, out_dtype=dtype)
@@ -407,7 +432,8 @@ def decode_cases(timer, gen, B, H, Hkv, Skv, valid, d, dtype, serving, splits=No
     combine = {"name": "flash_decode_combine", "shape": label, "dtype": dname(dtype),
                "serving": serving, "max_abs_err": err_c, "kernel_ms": timer.ms(comb),
                "plain_ms": timer.ms(comb_plain), "library_ms": None}
-    combine.update(bound(3.0 * B * H * s * d, nbytes(mp, lp, accp, out), torch.float32))
+    combine.update(bound(work().combine_flops(B * H, s, d), nbytes(mp, lp, accp, out),
+                         torch.float32))
     return [both, partials, combine]
 
 
@@ -430,7 +456,7 @@ def grouped_case(timer, gen, E, cap, d_in, d_out, dtype, serving):
            "body": body, "max_abs_err": err, "kernel_ms": timer.ms(run),
            "plain_ms": timer.ms(lambda: moe_gmm.grouped_matmul_plain(x, w)),
            "library_ms": timer.ms(lambda: torch.bmm(x, w))}
-    res.update(bound(2.0 * E * cap * d_in * d_out, nbytes(x, w, out), dtype))
+    res.update(bound(work().gemm_flops(cap, d_out, d_in, E), nbytes(x, w, out), dtype))
     if serving and body == "tma":
         on_body = lambda body, t: moe_gmm.grouped_matmul_on_body(x, w, body, block=t)
         res.update(staged_body(timer, on_body, want, dtype, tuple(res["block"])))
@@ -483,17 +509,8 @@ def wkv6_case(timer, gen, BH, T, d, chunk, dtype, serving, floor=False):
     res = {"name": "wkv6", "shape": label, "dtype": dname(dtype), "serving": serving,
            "max_abs_err": err, "state_rel_err": state_err, "kernel_ms": timer.ms(run),
            "plain_ms": timer.ms(plain), "library_ms": None}
-    flops = 2.0 * BH * (T // c) * (2 * c * d * d + c * (c - 1) * d)
-    res.update(bound(flops, nbytes(*xs, o, state), torch.float32))
+    res.update(bound(work().wkv6_flops(BH, T, d, c), nbytes(*xs, o, state), torch.float32))
     return res
-
-
-def wkv6_bwd_flops(BH: int, T: int, d: int, c: int) -> float:
-    """Float32 operations the chunked backward needs, per chunk of c steps:
-    five (c x d) by (d x d) products (the state recomputed, dO S0^T,
-    v G1^T, KC G1, A^T dO) and five over the strictly lower triangle of the
-    pairs (dP, P, dP KS, dP^T RS, P^T dO), two operations a multiply-add."""
-    return 2.0 * BH * (T // c) * (5 * c * d * d + 5 * (c * (c - 1) // 2) * d)
 
 
 def wkv6_bwd_case(timer, gen, BH, T, d, chunk, dtype, serving, floor=False):
@@ -502,7 +519,7 @@ def wkv6_bwd_case(timer, gen, BH, T, d, chunk, dtype, serving, floor=False):
     (bf16) of its largest entry.  No PyTorch call computes a WKV backward,
     so there is no library time.  The bound counts the bytes of the six
     inputs and five outputs (the kernel's float32 scratch row is its own)
-    and :func:`wkv6_bwd_flops` at the float32 rate."""
+    and ``kernels.work.wkv6_bwd_flops`` at the float32 rate."""
     from repro_torch.kernels import ops, rwkv6_bwd as KB
     dev = timer.flush.device
     xs = wkv6_inputs(gen, dev, BH, T, d, dtype, floor)
@@ -522,7 +539,7 @@ def wkv6_bwd_case(timer, gen, BH, T, d, chunk, dtype, serving, floor=False):
            "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
            "kernel_ms": timer.ms(run), "plain_ms": timer.ms(plain, n=5), "library_ms": None,
            "library": "none: no PyTorch call computes a WKV backward"}
-    res.update(bound(wkv6_bwd_flops(BH, T, d, c), nbytes(*xs, *got), torch.float32))
+    res.update(bound(work().wkv6_bwd_flops(BH, T, d, c), nbytes(*xs, *got), torch.float32))
     res.update(wkv6_bwd_residency(BH, d, c, dtype))
     return res
 
@@ -590,13 +607,10 @@ def flash_bwd_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving, mo
     lib_out = F.scaled_dot_product_attention(q4, kl, vl, is_causal=causal, enable_gqa=g > 1)
     dout4 = dout.reshape(B, H, Sq, d)
     lib = lambda: torch.autograd.grad(lib_out, (q4, kl, vl), dout4, retain_graph=True)
-    visible = Sq * (Sq + 1) // 2 if causal and Sq <= Skv else Sq * Skv
-    if causal and Sq > Skv:
-        visible = Skv * (Skv + 1) // 2 + (Sq - Skv) * Skv
     res = {"name": "flash_attention_bwd", "shape": label, "dtype": dname(dtype),
            "serving": serving, "model": model, "max_abs_err": err, "lse_max_abs_err": lse_err,
            "kernel_ms": timer.ms(run), "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib)}
-    res.update(bound(5 * 2.0 * B * H * visible * d,
+    res.update(bound(work().attention_bwd_flops(B * H, Sq, Skv, d, causal),
                      nbytes(q, k4, v4, out, lse, dout) + nbytes(q, k4, v4), dtype))
     return res
 
@@ -640,7 +654,7 @@ def gemm_bwd_case(timer, gen, M, N, K, dtype, serving):
            "copy_ms": sum((k["ms"] for k in launched if "gemm" not in k["name"]), 0.0),
            "launched": [k["name"][:96] for k in launched],
            "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib)}
-    res.update(bound(2 * 2.0 * M * N * K, nbytes(a, b, dc) + nbytes(a, b), dtype))
+    res.update(bound(2 * work().gemm_flops(M, N, K), nbytes(a, b, dc) + nbytes(a, b), dtype))
     return res
 
 
@@ -723,7 +737,7 @@ def grouped_bwd_case(timer, gen, E, cap, d_in, d_out, dtype, serving):
            "copy_ms": sum((k["ms"] for k in launched if "gemm" not in k["name"]), 0.0),
            "launched": [k["name"][:96] for k in launched],
            "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib)}
-    res.update(bound(2 * 2.0 * E * cap * d_in * d_out,
+    res.update(bound(2 * work().gemm_flops(cap, d_out, d_in, E),
                      nbytes(x, w, dy) + nbytes(x, w), dtype))
     return res
 
@@ -2602,6 +2616,296 @@ def phase_mesh_train(device, train_losses, moe_loss, moe_bwd_per_step):
     return total
 
 
+MESH_SERVE_BUFFER, MESH_SERVE_EMPTY_BUFFER = 1024, 2048
+MESH_SERVE_TIMEOUT_S = 600
+
+
+def mesh_serve_rank(job_path: str, rank: int) -> None:
+    """One rank of ``mesh_serve`` (``chip_smoke.py --mesh-serve-rank JOB R``):
+    a ``gloo`` rank on card 0 of a 1x2 mesh, qwen2.5-3b at full size.  The
+    unsharded loop first (the oracle, its logits kept on the host), then the
+    counts set to 0 and the plan-sharded steps through ``jit_serve_step``
+    under kv_sequence_split, teacher-forced on the serve phase's ids: 32
+    steps in a buffer of MESH_SERVE_BUFFER keys and one in a buffer of
+    MESH_SERVE_EMPTY_BUFFER, where rank 1 holds no valid key.  The first
+    sharded step holds every partials call (through the exact float32
+    combine) and every combine against their plain versions.  Writes its
+    results to ``JOB.rank<R>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_decode as FD, ops
+    from repro_torch.launch import common, serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel import planner_bridge as PB
+    from repro_torch.train import serve_step as SS, train_step as TS
+    job = json.load(open(job_path))
+    dist.init_process_group("gloo", init_method="file://" + job["store"], rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=300))
+    out = {"rank": rank}
+    try:
+        mesh = make_host_mesh(1, 2)
+        device = torch.device("cuda", 0)
+        cfg = common.launch_config(ARCH)
+        api = build_model(cfg)
+        plan = PB.candidate_plans(cfg, mesh_serve_shape(MESH_SERVE_BUFFER))[0]
+        if plan.name != "kv_sequence_split":
+            raise AssertionError(f"the first decode candidate is {plan.name}")
+        params = serve.load_params(api, device, seed=0)
+        prompts = serve.make_prompts(cfg, BATCH, PROMPT, device)
+        ids = torch.load(job["ids"]).to(device)
+        p_local = TS.place_tree(params, SS.param_shardings(api, plan, mesh),
+                                api.abstract_params())
+        runs = []
+        for buffer, steps in ((MESH_SERVE_BUFFER, ids.shape[1]), (MESH_SERVE_EMPTY_BUFFER, 1)):
+            cache = api.init_cache(cfg, BATCH, buffer, device=device)
+            with torch.no_grad():
+                api.prefill(params, prompts, cache)
+            cache["index"] = PROMPT
+            c_sh = SS.cache_shardings(api, cache, plan, mesh)
+            local = {k: (v if k == "index" else c_sh[k].local(v).clone())
+                     for k, v in cache.items()}
+            shapes = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                      for k, v in cache.items() if k != "index"}
+            offset = c_sh["k"].index(cache["k"].shape)[2].start
+            want = []
+            with torch.no_grad():
+                for t in range(steps):
+                    logits, cache = api.decode_step(params, ids[:, t:t + 1], cache)
+                    want.append(logits.float().cpu())
+            del cache
+            step = SS.jit_serve_step(api, plan, mesh, shapes, tokens_shape=(BATCH, 1))
+            runs.append((buffer, steps, local, want, offset, step))
+        per_call = {"partials": [], "combine": []}
+        partials, combine = ops.flash_decode_partials, FD.combine_partials
+
+        def checked_partials(q, k, v, **kw):
+            m, l, acc = partials(q, k, v, **kw)
+            pm, pl, pacc = FD.flash_decode_partials_plain(
+                q, k, v, kv_splits=m.shape[1], sm_scale=kw.get("sm_scale"),
+                kv_valid_len=kw.get("kv_valid_len"), q_per_kv=kw.get("q_per_kv", 1))
+            got = FD.combine_partials_plain(m, l, acc)
+            w = FD.combine_partials_plain(pm, pl, pacc)
+            per_call["partials"].append(_per_call_row(got, w))
+            return m, l, acc
+
+        def checked_combine(m, l, acc, out_dtype=torch.float32):
+            got = combine(m, l, acc, out_dtype=out_dtype)
+            w = FD.combine_partials_plain(m, l, acc, out_dtype=torch.float32)
+            per_call["combine"].append(_per_call_row(got, w))
+            return got
+
+        rows, step_s = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        kernels.reset_launch_counts()
+        for buffer, steps, local, want, off, step in runs:
+            for t in range(steps):
+                first = not rows
+                ctx = contextlib.ExitStack()
+                if first:
+                    ctx.enter_context(patched(ops, "flash_decode_partials", checked_partials))
+                    ctx.enter_context(patched(FD, "combine_partials", checked_combine))
+                t0 = time.perf_counter()
+                with ctx:
+                    logits, local = step(p_local, ids[:, t:t + 1], local)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                logit_err = (logits.float().cpu() - want[t]).abs().max().item()
+                valid = min(max(PROMPT + t + 1 - off, 0), local["k"].shape[2])
+                rows.append({"buffer": buffer, "step": t, "max_abs_err": logit_err,
+                             "finite": bool(torch.isfinite(logits).all()),
+                             "local_valid_keys": valid})
+        out.update(
+            ok=True, plan=plan.name, rows=rows, launches=kernels.launch_counts(),
+            step_ms=[x * 1e3 for x in step_s],
+            peak_bytes=torch.cuda.max_memory_allocated(device),
+            per_call={k: {"calls": len(v), "max_abs_err": max(r[0] for r in v),
+                          "max_rel_rms": max(r[1] for r in v),
+                          "within": all(r[2] and r[1] <= ATTN_REL_RMS for r in v)}
+                      for k, v in per_call.items()},
+            coords=mesh.coords(), backend=dist.get_backend())
+    except Exception as err:  # noqa: BLE001 - reported to the parent, which fails
+        import traceback
+        out.update(ok=False, error=traceback.format_exc()[-3000:])
+    finally:
+        with open(f"{job_path}.rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+
+
+def mesh_serve_shape(buffer: int):
+    """The decode cell of the mesh_serve phase (batch 4, a cache of
+    ``buffer``), whose first candidate plan the phase runs."""
+    from repro_torch.configs.base import ShapeConfig
+    return ShapeConfig("mesh_serve", buffer, BATCH, "decode")
+
+
+def _per_call_row(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(max abs error, relative RMS, within 2e-2) of one call's output
+    against its plain version's (a zero-key call's combined output is 0)."""
+    diff = got.float() - want.float()
+    rel = (diff.norm() / want.float().norm().clamp(min=1e-30)).item() \
+        if want.float().norm() > 0 else diff.norm().item()
+    return (diff.abs().max().item(), rel,
+            bool(torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2)))
+
+
+def phase_mesh_serve(device, served: dict) -> dict:
+    """The plan-sharded serve step on two ``gloo`` ranks of the one card (a
+    1x2 mesh; NCCL refuses two ranks on one device): qwen2.5-3b at full
+    width and depth under kv_sequence_split (the planner's first decode
+    candidate), each rank a process of its own (:func:`mesh_serve_rank`).
+    Every step's logits within 2e-2 of the unsharded step's on the same ids;
+    on each rank K3's partials kernel and K3' launched 36 x 33 = 1,188 times
+    and the one-launch K3 never; the zero-valid-key step passes; the first
+    step's per-call checks pass.  Reports decode ms per token, peak memory
+    per rank and the ranking line."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import lower_torch
+    from repro_torch.launch import common
+    from repro_torch.models import build_model
+    from repro_torch.parallel import planner_bridge as PB
+    cfg = common.launch_config(ARCH)
+    api = build_model(cfg)
+    L = cfg.n_layers
+    shape = mesh_serve_shape(MESH_SERVE_BUFFER)
+    ranking = PB.plan_mesh(api, shape, TrainConfig(), hw=lower_torch.h100_cluster(1, 2),
+                           cache=False)
+    ranking_line = (f"[serve] {cfg.name}: planner ranking on h100_cluster(1, 2): "
+                    + ", ".join(f"{r.plan.name}({r.cost.dominant})" for r in ranking[:3]))
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    job_path = os.path.join(build, f"mesh-serve-{os.getpid()}.json")
+    ids_path = job_path + ".ids.pt"
+    torch.save(served["ids"].cpu(), ids_path)
+    store = os.path.join(build, f"mesh-serve-store-{os.getpid()}")
+    for f in [store] + [f"{job_path}.rank{r}.json" for r in range(2)]:
+        if os.path.exists(f):
+            os.remove(f)
+    with open(job_path, "w") as f:
+        json.dump({"ids": ids_path, "store": store}, f)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-serve-rank",
+                               job_path, str(r)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=MESH_SERVE_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    results, failed = [], []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        path = f"{job_path}.rank{r}.json"
+        res = json.load(open(path)) if os.path.exists(path) else {"ok": False}
+        if p.returncode != 0 or not res.get("ok"):
+            failed.append(f"rank {r} (exit {p.returncode}): {res.get('error', '')}\n"
+                          f"{log[-2000:]}")
+        results.append(res)
+    if failed:
+        raise AssertionError("mesh_serve failed on " + "\n".join(failed))
+    steps = served["ids"].shape[1] + 1
+    summary = []
+    for res in results:
+        errs = [row["max_abs_err"] for row in res["rows"]]
+        zero = [row for row in res["rows"] if row["local_valid_keys"] == 0]
+        dec = res["step_ms"][1:served["ids"].shape[1]]
+        summary.append({
+            "rank": res["rank"], "coords": res["coords"], "backend": res["backend"],
+            "plan": res["plan"], "steps": len(res["rows"]),
+            "max_logit_err_vs_unsharded": max(errs),
+            "zero_valid_key_steps": len(zero),
+            "zero_valid_key_step_err": [row["max_abs_err"] for row in zero],
+            "local_valid_keys": [row["local_valid_keys"] for row in res["rows"]],
+            "decode_ms_per_token": statistics.median(dec),
+            "decode_ms_per_token_mean": sum(dec) / len(dec),
+            "peak_bytes": res["peak_bytes"], "launches": res["launches"],
+            "per_call": res["per_call"]})
+        want = {"flash_decode_partials": L * steps, "flash_decode_combine": L * steps,
+                "flash_decode": 0}
+        if any(res["launches"][k] != n for k, n in want.items()):
+            raise AssertionError(f"mesh_serve rank {res['rank']}: launches {res['launches']}, "
+                                 f"expected {want}")
+        if max(errs) > TOL[torch.bfloat16] or not all(r["finite"] for r in res["rows"]):
+            raise AssertionError(f"mesh_serve rank {res['rank']}: logits {max(errs)} from the "
+                                 f"unsharded step's (tolerance {TOL[torch.bfloat16]})")
+        pc = res["per_call"]
+        if not (pc["partials"]["within"] and pc["combine"]["within"]
+                and pc["partials"]["calls"] == L and pc["combine"]["calls"] == L):
+            raise AssertionError(f"mesh_serve rank {res['rank']}: per-call check {pc}")
+    if not any(s["zero_valid_key_steps"] for s in summary):
+        raise AssertionError("mesh_serve: no step ran with a rank holding zero valid keys")
+    emit({"phase": "mesh_serve", "arch": cfg.name, "n_layers": L, "batch": BATCH,
+          "prompt_len": PROMPT, "buffers": [MESH_SERVE_BUFFER, MESH_SERVE_EMPTY_BUFFER],
+          "mesh": [1, 2], "ranks": summary, "wall_s": wall_s,
+          "serve_decode_ms_per_token": served["decode_ms_per_token"],
+          "ranking_line": ranking_line,
+          "check": "logits within 2e-2 of the unsharded step; per call: partials through "
+                   "the exact float32 combine and the combine within 2e-2 and "
+                   f"{ATTN_REL_RMS} relative rms of their plain versions",
+          "card": smi_line()})
+    return results[0]["launches"]
+
+
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_TIMEOUT_S = 420
+
+
+def phase_dryrun() -> dict:
+    """``python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape S
+    --mesh single`` for each of DRYRUN_SHAPES, each in its own process:
+    rank 0 of a 256-rank no-op world at full width and depth.  Prints each
+    row's plan, per-device bytes, roofline terms, measured ms and
+    collective bytes by kind; fails if a cell fails (an out-of-memory with
+    its measured bytes).  Returns the kernels launched in the counted
+    steps, summed over the cells."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cells, total = [], {}
+    report_dir = os.path.join(ROOT, "reports", "dryrun_torch")
+    for shape in DRYRUN_SHAPES:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
+                            "--shape", shape, "--mesh", "single"], env=env,
+                           capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+        path = os.path.join(report_dir, f"{ARCH}_{shape}_32x8.json")
+        row = json.load(open(path)) if os.path.exists(path) else {}
+        if r.returncode != 0:
+            emit({"phase": "dryrun", "cell": shape, "failed": r.returncode,
+                  "per_device_bytes": row.get("per_device_bytes"), "error": row.get("error"),
+                  "tail": (r.stdout + r.stderr).strip().splitlines()[-20:]})
+            raise AssertionError(f"dryrun {shape} failed (exit {r.returncode})")
+        rf = row["roofline"]
+        for k, v in row["counted"]["by_kernel"].items():
+            total[k] = total.get(k, 0) + v["launches"]
+        cells.append({
+            "shape": shape, "plan": row["plan"], "seconds": time.perf_counter() - t0,
+            "per_device_bytes": row["per_device_bytes"], "fits_hbm": row["fits_hbm"],
+            "memory_analysis": row["memory_analysis"],
+            "compute_s": rf["compute_s"], "memory_s": rf["memory_s"],
+            "collective_s": rf["collective_s"], "dominant": rf["dominant"],
+            "bound_ms": rf["bound_s"] * 1e3, "measured_ms": row["measured_ms"],
+            "roofline_fraction": rf["roofline_fraction"],
+            "coll_bytes_by_kind_per_device": {k: v / row["chips"]
+                                              for k, v in rf["coll_by_kind"].items()},
+            "coll_bytes_by_axis_per_device": {k: v / row["chips"]
+                                              for k, v in rf.get("coll_by_axis", {}).items()},
+            "counted": {k: row["counted"][k] for k in ("torch_flops", "torch_bytes",
+                                                       "kernel_flops", "kernel_bytes")},
+            "launches": {k: v["launches"] for k, v in row["counted"]["by_kernel"].items()},
+            "bw_fraction": rf.get("bw_fraction"), "min_stream_bytes": rf.get("min_stream_bytes"),
+            "planner_ranking": [(x["plan"], x["dominant"], x["hbm_gb"])
+                                for x in row["planner_ranking"]][:3]})
+    emit({"phase": "dryrun", "arch": ARCH, "mesh": "32x8", "world": 256, "cells": cells,
+          "card": smi_line()})
+    return total
+
+
 # relative RMS difference a K5-bwd output may show from its plain version on
 # the same inputs: both compute in float32 and round to bf16 once (1.6e-4 at
 # rwkv6-3b's first step on an H100); an output with 5 mantissa bits is 9.6e-3
@@ -2781,9 +3085,10 @@ SOURCES = {
     # Pallas call fails)
     "wkv6_bwd": ("src/repro_torch/kernels/csrc/wkv6_bwd.cu", "src/repro/kernels/rwkv6.py:39"),
 }
-# the reference's two decode functions, kept and checked, but no longer on the
-# served path: ``ops.flash_decode`` computes both in one launch
-OFF_MAIN_PATH = ("flash_decode_partials", "flash_decode_combine")
+# every kernel is on a main path: the reference's two decode functions run
+# where a cache is split over ranks (mesh_serve), ``ops.flash_decode``
+# computes both in one launch elsewhere
+OFF_MAIN_PATH = ()
 # the bodies redesigned last: their registers and spills go in the build line
 REDESIGNED = ("decode_mma_kernel", "decode_f32_kernel", "wkv6_kernel", "flash_bwd_dq_mma_kernel",
               "flash_bwd_dkv_mma_kernel", "wkv6_bwd_kernel")
@@ -2930,10 +3235,18 @@ def main() -> int:
     by_path["mesh_train"] = phase_mesh_train(device, uninterrupted["losses"], moe_train_loss,
                                              by_path["moe_train"]["grouped_matmul_bwd"])
     lap("mesh_train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["mesh_serve"] = phase_mesh_serve(device, served)
+    lap("mesh_serve")
+    by_path["dryrun"] = phase_dryrun()
+    lap("dryrun")
     emit({"phase_seconds": seconds})
     by_path["planner"] = {"gemm_bwd": gemm_bwd_launches}
 
     launches = dict(serve_launches, gemm=gemm_launches,
+                    flash_decode_partials=by_path["mesh_serve"]["flash_decode_partials"],
+                    flash_decode_combine=by_path["mesh_serve"]["flash_decode_combine"],
                     grouped_matmul=moe_launches["grouped_matmul"],
                     wkv6=rwkv_launches["wkv6"],
                     flash_attention_bwd=by_path["train"]["flash_attention_bwd"],
@@ -2981,4 +3294,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--mesh-serve-rank":
+        mesh_serve_rank(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
     sys.exit(main())

@@ -4,16 +4,16 @@
 # kernel module holds its wrapper, its launch counter and its plain PyTorch
 # version; the CUDA sources are under csrc/ and are built at first use by
 # _build.py; ops.py holds the public wrappers with planner-chosen tile
-# shapes; ref.py the oracles.
+# shapes; ref.py the oracles; work.py each launch's operations and bytes.
 #
 # The kernel functions are reached through their modules
 # (``kernels.gemm.gemm``, ``kernels.moe_gmm.grouped_matmul``, ...):
 # re-exporting them here would shadow the modules of the same name.
 from . import (flash_attention, flash_attention_bwd, flash_decode, gemm, moe_gmm, ops, ref,
-               rwkv6, rwkv6_bwd)
+               rwkv6, rwkv6_bwd, work)
 
 __all__ = ["ops", "ref", "gemm", "flash_attention", "flash_attention_bwd", "flash_decode",
-           "moe_gmm", "rwkv6", "rwkv6_bwd", "launch_counts", "launches_by_body",
+           "moe_gmm", "rwkv6", "rwkv6_bwd", "work", "launch_counts", "launches_by_body",
            "reset_launch_counts"]
 
 

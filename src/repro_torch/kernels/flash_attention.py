@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from . import work as _work
 
 NEG_INF = -1e30
 LSE_MASKED = 1e30                   # log-sum-exp of a row with no visible key
@@ -169,4 +170,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check(code, f"flash_attention BH={BH} Sq={Sq} Skv={Skv} d={d} tile "
                        f"{(block_q, block_kv)}")
     launches += 1
+    _work.add("flash_attention", _work.attention_flops(BH, Sq, Skv, d, causal),
+              _work.nbytes(q, k4, v4, out))
     return (out, lse) if return_lse else out

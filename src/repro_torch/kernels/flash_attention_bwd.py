@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from . import work as _work
 from .flash_attention import COMPILED_HEAD_DIMS, NEG_INF, _kv_4d
 from .gemm import SM_SMEM
 
@@ -198,4 +199,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                   sm_scale, int(causal), stream)
     _build.check(code, f"flash_attention_bwd BH={BH} Sq={Sq} Skv={Skv} d={d}")
     launches += 1
+    _work.add("flash_attention_bwd", _work.attention_bwd_flops(BH, Sq, Skv, d, causal),
+              _work.nbytes(q, k4, v4, o, lse, dout, dq, dk, dv))
     return dq, dk.reshape(k.shape), dv.reshape(v.shape)

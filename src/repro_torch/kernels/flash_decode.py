@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from . import work as _work
 from .flash_attention import COMPILED_HEAD_DIMS, NEG_INF, _kv_4d
 
 MAX_Q_PER_KV = 16                   # query heads one block of the kernel serves
@@ -208,6 +209,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check(code, f"flash_decode BH={q.shape[0]} Skv={k4.shape[2]} valid={args[4]} "
                        f"d={args[3]} splits={kv_splits}")
     launches += 1
+    _work.add("flash_decode", _work.decode_flops(q.shape[0], args[4], args[3]),
+              _work.decode_kv_bytes(args[0], args[4], args[3], q.element_size())
+              + _work.nbytes(q, out))
     return out
 
 
@@ -238,6 +242,9 @@ def flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check(code, f"flash_decode_partials BH={BH} Skv={k4.shape[2]} valid={args[4]} "
                        f"d={d} splits={kv_splits}")
     partials_launches += 1
+    _work.add("flash_decode_partials", _work.decode_flops(BH, args[4], d),
+              _work.decode_kv_bytes(args[0], args[4], d, q.element_size())
+              + _work.nbytes(q, m, l, acc))
     return m, l, acc
 
 
@@ -267,4 +274,6 @@ def combine_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
             int(out_dtype == torch.bfloat16), stream)
     _build.check(code, f"combine_partials BH={BH} splits={splits} d={d}")
     combine_launches += 1
+    _work.add("flash_decode_combine", _work.combine_flops(BH, splits, d),
+              _work.nbytes(m, l, acc, out))
     return out

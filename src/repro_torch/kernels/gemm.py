@@ -35,6 +35,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import _build
+from . import work as _work
 
 TILE_M = (64, 128)                  # the staged body's tile sizes
 TILE_N = (64, 128)
@@ -255,4 +256,5 @@ def gemm_on_body(a: torch.Tensor, b: torch.Tensor, body: str, *,
     _build.check(code, f"gemm {M}x{N}x{K} {body} tile {(bm, bn, bk)}")
     launches += 1
     launches_by_body[body] += 1
+    _work.add("gemm", _work.gemm_flops(M, N, K), _work.nbytes(a, b, out))
     return out

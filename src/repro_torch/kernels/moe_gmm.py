@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from . import work as _work
 from .gemm import BODIES, COMPILED_TILES, DEFAULT_BLOCK, gemm_body, nearest_tile, \
     stored_transposed
 
@@ -140,4 +141,5 @@ def grouped_matmul_on_body(x: torch.Tensor, w: torch.Tensor, body: str, *,
                        f"{(bm, bn, bk)}")
     launches += 1
     launches_by_body[body] += 1
+    _work.add("grouped_matmul", _work.gemm_flops(cap, d_out, d_in, E), _work.nbytes(x, w, out))
     return out

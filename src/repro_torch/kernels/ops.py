@@ -10,6 +10,9 @@ Responsibilities:
 * send a tensor that lies on the CPU to the kernel's plain PyTorch version
   and a CUDA tensor to the kernel.  Nothing else decides: there is no
   interpret flag, and on a CUDA tensor a kernel launches or raises;
+* expose K3's partials kernel (:func:`flash_decode_partials`) for a cache
+  split over ranks, whose partials ``flash_decode.combine_partials`` (K3')
+  folds across them;
 * give :func:`attention`, :func:`matmul`, :func:`grouped_matmul` and
   :func:`wkv6` a gradient.  Where autograd records (grad mode on and an
   operand that requires a gradient) each is a ``torch.autograd.Function``
@@ -174,6 +177,30 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = sm_scale if sm_scale is not None else d ** -0.5
     return _fd.flash_decode(q, k, v, kv_splits=kv_splits, sm_scale=scale,
                             kv_valid_len=kv_valid_len, q_per_kv=q_per_kv)
+
+
+def flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          sm_scale: Optional[float] = None, kv_splits: Optional[int] = None,
+                          kv_valid_len: Optional[int] = None, q_per_kv: int = 1
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's partials kernel with :func:`flash_decode`'s arguments: the
+    float32 (m, l, acc) of each split of the first ``kv_valid_len`` keys,
+    shaped (BH, splits, 1, 1), (BH, splits, 1, 1), (BH, splits, 1, d), for
+    ``flash_decode.combine_partials`` to fold, possibly with other ranks' partials
+    of other keys.  A split with no valid key (``kv_valid_len`` 0 makes
+    every split such) gives (-1e30, 0, 0), which the combine ignores.  The
+    split count comes from the valid length when ``kv_splits`` is not given.
+    Partials that other ranks' partials join must come in one shape on
+    every rank: pass ``kv_splits``."""
+    BH, _, d = q.shape
+    Skv = k.shape[-2]
+    valid = Skv if kv_valid_len is None else int(kv_valid_len)
+    if kv_splits is None:
+        kv_splits = _fd.choose_splits(valid, max(1, BH // q_per_kv),
+                                       _fd.sm_count(q.device))
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    return _fd.flash_decode_partials(q, k, v, kv_splits=kv_splits, sm_scale=scale,
+                                     kv_valid_len=kv_valid_len, q_per_kv=q_per_kv)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,

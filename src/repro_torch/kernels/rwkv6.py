@@ -23,6 +23,7 @@ from typing import Tuple
 import torch
 
 from . import _build
+from . import work as _work
 
 DEFAULT_CHUNK = 32
 COMPILED_HEAD_DIMS = (16, 32, 64)
@@ -150,4 +151,5 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
             int(r.dtype == torch.bfloat16), stream)
     _build.check(code, f"wkv6 BH={BH} T={T} d={d} chunk={c}")
     launches += 1
+    _work.add("wkv6", _work.wkv6_flops(BH, T, d, c), _work.nbytes(r, k, v, log_w, u, o, state))
     return o, state

@@ -62,6 +62,7 @@ from typing import Dict, Tuple
 import torch
 
 from . import _build
+from . import work as _work
 from .gemm import SM_SMEM
 from .rwkv6 import DEFAULT_CHUNK, MAX_CHUNK, _check, _check_compiled, _chunk_of
 
@@ -222,5 +223,7 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Ten
             BH, T, d, c, int(r.dtype == torch.bfloat16), stream)
     _build.check(code, f"wkv6_bwd BH={BH} T={T} d={d} chunk={c}")
     launches += 1
+    _work.add("wkv6_bwd", _work.wkv6_bwd_flops(BH, T, d, c),
+              _work.nbytes(*xs, dr, dk, dv, dlog_w, du))
     return dr, dk, dv, dlog_w, du
 

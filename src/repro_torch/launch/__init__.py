@@ -1,1 +1,2 @@
-# Launchers of the port: the serving launcher so far.
+# Launchers of the port: cluster meshes, the serving and training drivers, the
+# cluster dry run with its roofline terms and report tables.

@@ -15,7 +15,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from . import layers as L
 from . import param as P
 from . import encdec, moe, rwkv6, transformer, vlm, zamba2
@@ -77,6 +77,31 @@ class ModelAPI:
                 size = int(size * frac)
             total += size
         return total
+
+    # -- input specs (meta tensors: no allocation) -----------------------------
+    def input_specs(self, shape: ShapeConfig,
+                    batch_override: Optional[int] = None) -> Dict[str, Any]:
+        """The reference's ``input_specs``: a ``meta`` tensor wherever it
+        returns a ``jax.ShapeDtypeStruct`` (same shapes and dtypes).  For
+        decode, the cache is ``init_cache(cfg, B, S, device="meta")``, its
+        ``index`` a Python int."""
+        cfg = self.cfg
+        B = batch_override or shape.global_batch
+        S = shape.seq_len
+        meta = lambda s, dt: torch.empty(s, dtype=dt, device="meta")
+        if shape.kind in ("train", "prefill"):
+            specs: Dict[str, Any] = {"tokens": meta((B, S), torch.int32),
+                                     "labels": meta((B, S), torch.int32)}
+            name = _FRONTEND.get(cfg.family)
+            if name is not None:
+                specs[name] = meta((B, cfg.frontend_len, cfg.frontend_dim), torch.bfloat16)
+            return specs
+        if shape.kind == "decode":
+            if self.init_cache is None:
+                raise ValueError(f"{cfg.name} has no decode step")
+            return {"tokens": meta((B, 1), torch.int32),
+                    "cache": self.init_cache(cfg, B, S, device="meta")}
+        raise ValueError(shape.kind)
 
     # -- the stubbed modality frontend ------------------------------------------
     def frontend_inputs(self, batch: int, generator: torch.Generator,

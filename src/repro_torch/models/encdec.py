@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import spmd
 from . import layers as L
 from .param import LeafSpec, stack_specs
 from .transformer import _layer
@@ -163,14 +164,15 @@ def prepare_cross(params: Params, memory: torch.Tensor, cfg: ModelConfig,
 def _cached_pass(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
                  cfg: ModelConfig, last_only: bool) -> Tuple[torch.Tensor, Dict[str, Any]]:
     idx = int(cache["index"])
-    if idx + tokens.shape[1] > cache["k"].shape[2]:
-        raise ValueError(f"cache of {cache['k'].shape[2]} keys cannot take "
-                         f"{tokens.shape[1]} more at index {idx}")
+    length = spmd.cache_length(cache["k"], 2)
+    if idx + tokens.shape[1] > length:
+        raise ValueError(f"cache of {length} keys cannot take {tokens.shape[1]} more at "
+                         f"index {idx}")
     x = L.embed(params["embed"], tokens, cfg)
     for i in range(cfg.n_layers):
-        x, _ = _dec_block(_blocks(params, "dec_blocks", i), x, None, cfg,
-                          kv_cache=(cache["k"][i], cache["v"][i]), cache_index=idx,
-                          cross_kv=(cache["cross_k"][i], cache["cross_v"][i]))
+        x, _ = L.remat(False, _dec_block, _blocks(params, "dec_blocks", i), x, None, cfg,
+                       kv_cache=(cache["k"][i], cache["v"][i]), cache_index=idx,
+                       cross_kv=(cache["cross_k"][i], cache["cross_v"][i]))
     if last_only:
         x = x[:, -1:]
     return _head(params, x, cfg), dict(cache, index=idx + tokens.shape[1])

@@ -15,6 +15,7 @@ it.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -192,7 +193,9 @@ def _sdpa_kernel(q, k, v, causal: bool, sm_scale: float, q_per_kv: int,
     """
     from repro_torch.kernels import ops
     B, S, H, D = q.shape
-    qf = q.permute(0, 2, 1, 3).reshape(B * H, S, D)
+    # with one sequence the reshape is a view of the permuted q: the kernels
+    # take q contiguous
+    qf = q.permute(0, 2, 1, 3).reshape(B * H, S, D).contiguous()
     kf = k.permute(0, 2, 1, 3)
     vf = v.permute(0, 2, 1, 3)
     if S == 1:
@@ -257,6 +260,14 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
             if "bq" in p:
                 q = q + p["bq"].to(x.dtype)
+            split = spmd.cache_split(precomputed_kv[0])
+            if split is not None and split.split_dims():
+                if S != 1:
+                    raise NotImplementedError(
+                        "a multi-token cross-attention pass over a cross K/V the plan "
+                        "splits is not supported: prefill unsharded")
+                out = _decode_split(q, None, None, *precomputed_kv, None, split, cfg)
+                return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), None
             k, v = (t.to(x.dtype) for t in precomputed_kv)
         else:
             q, k, v = _project_qkv(p, x, cfg, kv_input)
@@ -278,6 +289,15 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     is_causal = causal and kv_cache is None
     if kv_cache is not None:
         ck, cv = kv_cache
+        split = spmd.cache_split(ck) if cached else None
+        if split is not None and split.split_dims():
+            if S > 1:
+                raise NotImplementedError(
+                    "a multi-token pass into a cache the plan splits (a prompt or a "
+                    "chunked prefill) is not supported: prefill unsharded, then place "
+                    "the cache by serve_step.cache_shardings")
+            out = _decode_split(q, k, v, ck, cv, cache_index, split, cfg)
+            return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), (ck, cv)
         if cached:
             if S > 1 and cache_index != 0:
                 raise NotImplementedError(
@@ -298,6 +318,83 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     out = _attend(q, k, v, is_causal, cfg, kv_valid_len=valid)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return out, new_cache
+
+
+def _decode_split(q, k, v, ck, cv, cache_index: Optional[int], split, cfg: ModelConfig
+                  ) -> torch.Tensor:
+    """One decode token against a cache leaf the serving step's plan splits
+    (``split``: its ``spmd.CacheSplit``).  q: (B, 1, H, D) over every head;
+    k/v: the token's (B, 1, nkv, D), or None for cross-attention, whose keys
+    are all valid; ck/cv: this rank's (B, T_local, nkv_local, D).
+
+    * Split over ``kv_heads``: only the query heads of the local kv heads
+      are decoded here, and their outputs are gathered over that axis.
+    * The new token's k/v go only to the rank whose block holds global
+      position ``cache_index``; the local valid length is
+      ``clamp(cache_index + 1 - offset, 0, T_local)``, possibly 0.
+    * Split over ``kv_seq``: each rank's partials of its own keys (K3's
+      partials kernel), gathered over the kv_seq axes, folded by K3'.  Not
+      split: the one-launch K3 over the local heads.
+    No cache leaf is gathered."""
+    heads = split.mesh_axes_of("kv_heads")
+    kv_axes = split.mesh_axes_of("kv_seq")
+    G = cfg.q_per_kv
+    if heads:
+        h0, hn = split.block("kv_heads")
+        q = q[:, :, h0 * G:(h0 + hn) * G]
+        if k is not None:
+            k, v = k[:, :, h0:h0 + hn], v[:, :, h0:h0 + hn]
+    off, t_local = split.block("kv_seq")
+    if k is None:
+        valid = t_local
+    else:
+        at = cache_index - off
+        if 0 <= at < t_local:
+            ck[:, at] = k[:, 0].to(ck.dtype)
+            cv[:, at] = v[:, 0].to(cv.dtype)
+        valid = min(max(cache_index + 1 - off, 0), t_local)
+    if kv_axes:
+        out = _partials_over_ranks(q, ck, cv, valid, kv_axes, cfg)
+    else:
+        out = _attend(q, ck, cv, False, cfg, kv_valid_len=valid)
+    return spmd.gather_over(out, heads, 2) if heads else out
+
+
+def _partials_over_ranks(q, k, v, valid: int, kv_axes, cfg: ModelConfig) -> torch.Tensor:
+    """q: (B, 1, H, D) against this rank's keys k/v: (B, T_local, Hkv, D),
+    the first ``valid`` of them, combined with the other ranks' along
+    ``kv_axes``: the partials of the local keys, gathered along the split
+    dim in rank order, then one log-sum-exp combine in q's dtype.  The split
+    count follows the local buffer's length, not the valid length, so every
+    rank gathers partials of one shape; at most MAX_SPLITS / ranks, so the
+    combine takes at most MAX_SPLITS.  Through K3's partials kernel and K3'
+    when ``cfg.kernels == "cuda"``, else their plain versions."""
+    from repro_torch.kernels import flash_decode as FD, ops
+    B, S, H, D = q.shape
+    sm_scale = cfg.head_dim_ ** -0.5
+    g = H // k.shape[2]
+    ranks = math.prod(spmd.current().mesh.shape[a] for a in kv_axes)
+    if ranks > FD.MAX_SPLITS:
+        raise ValueError(f"{ranks} ranks along {kv_axes} exceed the combine's "
+                         f"{FD.MAX_SPLITS} splits")
+    qf = q.permute(0, 2, 1, 3).reshape(B * H, S, D).contiguous()
+    splits = FD.choose_splits(k.shape[1], B * k.shape[2], FD.sm_count(q.device),
+                              FD.MAX_SPLITS // ranks)
+    if cfg.kernels == "cuda":
+        if k.dtype != q.dtype:
+            k, v = k.to(q.dtype), v.to(q.dtype)
+        m, l, acc = ops.flash_decode_partials(
+            qf, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), sm_scale=sm_scale,
+            kv_splits=splits, kv_valid_len=valid, q_per_kv=g)
+        combine = FD.combine_partials
+    else:
+        m, l, acc = FD.flash_decode_partials_plain(
+            qf, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), kv_splits=splits,
+            sm_scale=sm_scale, kv_valid_len=valid, q_per_kv=g)
+        combine = FD.combine_partials_plain
+    m, l, acc = (spmd.gather_over(t, kv_axes, 1) for t in (m, l, acc))
+    out = combine(m, l, acc, out_dtype=q.dtype)
+    return out.reshape(B, H, S, D).permute(0, 2, 1, 3)
 
 
 # -------------------------------------------------------------------- MLP
@@ -388,23 +485,25 @@ def fused_head_xent(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, *,
 
 
 # -------------------------------------------------------------------- remat
-def remat(enabled: bool, fn, *args):
-    """``fn(*args)``, its activations recomputed in the backward instead of
-    kept when ``enabled`` and autograd records (``torch.utils.checkpoint``,
-    non-reentrant: the reference's ``jax.checkpoint`` with
-    ``nothing_saveable``).  Every kernel ``fn`` launches runs twice a
-    training step."""
+def remat(enabled: bool, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its activations recomputed in the backward
+    instead of kept when ``enabled`` and autograd records
+    (``torch.utils.checkpoint``, non-reentrant: the reference's
+    ``jax.checkpoint`` with ``nothing_saveable``).  Every kernel ``fn``
+    launches runs twice a training step.  Under a plan-sharded step the
+    parameters among ``args`` are gathered for the call; ``kwargs`` (a
+    decode step's cache slices) go in as they are."""
     step = spmd.current()
     if enabled and torch.is_grad_enabled():
-        return checkpoint(_gathered, step, fn, *args, use_reentrant=False)
-    return _gathered(step, fn, *args)
+        return checkpoint(_gathered, step, fn, *args, use_reentrant=False, **kwargs)
+    return _gathered(step, fn, *args, **kwargs)
 
 
-def _gathered(step, fn, *args):
+def _gathered(step, fn, *args, **kwargs):
     """``fn`` on its arguments as the plan-sharded ``step`` uses them (None:
     outside one): each sharded parameter gathered (``parallel.spmd.
     for_use``).  Inside ``remat``'s checkpoint, so the recomputation, which
     the autograd engine may run on another thread, enters the step again
     and gathers again instead of keeping the gathered weights."""
     with spmd.step_context(step):
-        return fn(*spmd.for_use(args))
+        return fn(*spmd.for_use(args), **kwargs)

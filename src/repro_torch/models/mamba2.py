@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import spmd
 from .param import LeafSpec
 
 Params = Dict[str, Any]
@@ -46,6 +47,20 @@ def mamba2_spec(cfg: ModelConfig) -> Params:
         "norm_scale": LeafSpec((d_inner,), ("ffn",), init="ones"),
         "out_proj": LeafSpec((d_inner, d), ("ffn", "embed")),
     }
+
+
+def _block_of(state: Optional[torch.Tensor], logical: str, n: int):
+    """(mesh axes, offset, length) of this rank's block of the ``logical``
+    dim (of size ``n``) of a recurrent cache leaf: all of it, or its block
+    under a serving plan that splits the leaf there."""
+    split = None if state is None else spmd.cache_split(state)
+    if split is None or not split.split_dims():
+        return (), 0, n
+    if set(split.split_dims()) != {logical}:
+        raise NotImplementedError(f"a Mamba2 state split over {split.split_dims()} is "
+                                  f"not decoded: only a split over {logical} is")
+    off, length = split.block(logical)
+    return split.mesh_axes_of(logical), off, length
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -122,8 +137,15 @@ def mamba2_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     proj = x @ p["in_proj"].to(x.dtype)
     z, xin, Bm, Cm, dt = torch.split(proj, [d_inner, d_inner, ds, ds, H], dim=-1)
     conv_in = torch.cat([xin, Bm, Cm], dim=-1)
-    conv_out, new_conv = _causal_conv(conv_in, p["conv_w"].to(x.dtype),
-                                      p["conv_b"].to(x.dtype), conv_state)
+    # a serving plan may split the conv state over its channels (``ffn``) and
+    # the SSD state over heads: each rank convolves its channels and runs
+    # its heads, and the results are gathered
+    ch, c0, cn = _block_of(conv_state, "ffn", conv_in.shape[-1])
+    conv_out, new_conv = _causal_conv(conv_in[..., c0:c0 + cn],
+                                      p["conv_w"][:, c0:c0 + cn].to(x.dtype),
+                                      p["conv_b"][c0:c0 + cn].to(x.dtype), conv_state)
+    if ch:
+        conv_out = spmd.gather_over(conv_out, ch, 2)
     xin, Bm, Cm = torch.split(conv_out, [d_inner, ds, ds], dim=-1)
     dt = F.softplus(dt.float() + p["dt_bias"].float()[None, None, :])
     A = -torch.exp(p["A_log"].float())
@@ -131,12 +153,16 @@ def mamba2_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if ssd_state is None:
         y, new_state = ssd_chunked(xh, dt, A, Bm, Cm)
     else:
-        # single-token recurrence (decode)
-        da = torch.exp(dt[:, 0] * A[None, :])                         # (B,H)
-        xr = (xh[:, 0] * dt[:, 0][..., None]).float()
+        # single-token recurrence (decode), over this rank's heads
+        heads, h0, hn = _block_of(ssd_state, "ssm_heads", H)
+        dt0 = dt[:, 0, h0:h0 + hn]
+        da = torch.exp(dt0 * A[None, h0:h0 + hn])                      # (B,hn)
+        xr = (xh[:, 0, h0:h0 + hn] * dt0[..., None]).float()
         upd = torch.einsum("bhd,bs->bhds", xr, Bm[:, 0].float())
         new_state = ssd_state * da[:, :, None, None] + upd
         y = torch.einsum("bs,bhds->bhd", Cm[:, 0].float(), new_state)[:, None]
+        if heads:
+            y = spmd.gather_over(y, heads, 2)
     y = y.to(x.dtype).reshape(B, T, d_inner) \
         + xin * torch.repeat_interleave(p["D"].to(x.dtype), dh)[None, None, :]
     # gated RMS norm, in float32

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, rwkv6 as _rwkv
+from repro_torch.parallel import spmd
 from . import layers as L
 from . import transformer
 from .param import LeafSpec, stack_specs
@@ -159,14 +160,23 @@ def time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *, shift_prev=None, s
             o, S = wkv6_chunked(to_heads(r), to_heads(k), to_heads(v), to_heads(lw), u)
         new_state = S.reshape(B, H, hd, hd)
     else:
-        # single-token recurrence (decode): T == 1, float32 decay and state
-        rh, kh, vh = (to_heads(t)[:, 0].float() for t in (r, k, v))
-        wh = torch.exp(to_heads(lw)[:, 0])
-        S = state.reshape(B * H, hd, hd)
+        # single-token recurrence (decode): T == 1, float32 decay and state;
+        # a state the serving plan splits over heads runs its own heads, and
+        # their outputs are gathered before the group norm
+        heads, h0, hn = _state_heads(state, H)
+
+        def local(t):                   # (B*H, hd) -> this rank's (B*hn, hd)
+            return t.reshape(B, H, -1)[:, h0:h0 + hn].reshape(B * hn, -1)
+
+        rh, kh, vh = (local(to_heads(t)[:, 0].float()) for t in (r, k, v))
+        wh = local(torch.exp(to_heads(lw)[:, 0]))
+        S = state.reshape(B * hn, hd, hd)
         kv = kh[:, :, None] * vh[:, None, :]
-        o = torch.einsum("bi,bij->bj", rh, S + u[:, :, None] * kv)[:, None, :]
-        new_state = (wh[:, :, None] * S + kv).reshape(B, H, hd, hd)
-        o = o.to(x.dtype)
+        o = torch.einsum("bi,bij->bj", rh, S + local(u)[:, :, None] * kv)[:, None, :]
+        new_state = (wh[:, :, None] * S + kv).reshape(B, hn, hd, hd)
+        o = o.to(x.dtype).reshape(B, hn, T, hd)
+        if heads:
+            o = spmd.gather_over(o, heads, 1)
     o = o.reshape(B, H, T, hd).transpose(1, 2)
     # per-head group norm, population variance
     oh = o.float()
@@ -176,6 +186,21 @@ def time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *, shift_prev=None, s
     o = (oh.reshape(B, T, d) * p["ln_x"].float()).to(x.dtype)
     o = o * F.silu(g)
     return _mm(o, p["wo"]), (x[:, -1], new_state)
+
+
+def _state_heads(state: torch.Tensor, H: int):
+    """(mesh axes, first head, heads) of the recurrent state this rank
+    holds: all H heads, or under a serving plan that splits the state over
+    ``q_heads`` its block of them."""
+    split = spmd.cache_split(state)
+    if split is None or not split.split_dims():
+        return (), 0, H
+    if set(split.split_dims()) != {"q_heads"}:
+        raise NotImplementedError(
+            f"a recurrent state split over {split.split_dims()} is not decoded: only a "
+            f"split over q_heads is")
+    h0, hn = split.block("q_heads")
+    return split.mesh_axes_of("q_heads"), h0, hn
 
 
 def channel_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *, shift_prev=None):
@@ -261,11 +286,12 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
     if tokens.shape[1] != 1:
         raise ValueError("decode_step takes one token per sequence; use prefill "
                          "for a prompt")
+    spmd.require_whole(cache, ("shift_tm", "shift_cm"), cfg.name)
     x = L.embed(params["embed"], tokens, cfg)
     for i in range(cfg.n_layers):
-        x, carry = block_apply(transformer._layer(params, i), x, cfg,
-                               shift_tm=cache["shift_tm"][i], state=cache["state"][i],
-                               shift_cm=cache["shift_cm"][i])
+        x, carry = L.remat(False, block_apply, transformer._layer(params, i), x, cfg,
+                           shift_tm=cache["shift_tm"][i], state=cache["state"][i],
+                           shift_cm=cache["shift_cm"][i])
         _store(cache, i, carry)
     return transformer._head(params, x, cfg), dict(cache, index=int(cache["index"]) + 1)
 

@@ -16,6 +16,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import spmd
 from . import layers as L
 from .param import stack_specs, tree_map
 
@@ -144,12 +145,14 @@ def cached_layers(params: Params, x: torch.Tensor, cache: Dict[str, Any],
     """:func:`_cached_pass` on embeddings ``x`` (B, S, d) already made (the
     VLM prepends its image prefix to the text's)."""
     idx, n = int(cache["index"]), x.shape[1]
-    if idx + n > cache["k"].shape[2]:
-        raise ValueError(f"cache of {cache['k'].shape[2]} keys cannot take "
-                         f"{n} more at index {idx}")
+    length = spmd.cache_length(cache["k"], 2)
+    if idx + n > length:
+        raise ValueError(f"cache of {length} keys cannot take {n} more at index {idx}")
     for i in range(cfg.n_layers):
-        x, _ = block(_layer(params, i), x, cfg,
-                     kv_cache=(cache["k"][i], cache["v"][i]), cache_index=idx)
+        # through remat's gather: under a plan-sharded serving step each
+        # layer's parameters are gathered where the layer runs
+        x, _ = L.remat(False, block, _layer(params, i), x, cfg,
+                       kv_cache=(cache["k"][i], cache["v"][i]), cache_index=idx)
     if last_only:
         x = x[:, -1:]
     logits = _head(params, x, cfg)

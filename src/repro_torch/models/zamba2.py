@@ -15,6 +15,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import spmd
 from . import layers as L
 from .mamba2 import dims as mamba_dims, mamba2_apply, mamba2_spec
 from .param import stack_specs, tree_map
@@ -123,20 +124,21 @@ def _cached_pass(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
     recurrence from the stored pair."""
     G, A = _groups(cfg)
     idx = int(cache["index"])
-    if idx + tokens.shape[1] > cache["attn_k"].shape[2]:
-        raise ValueError(f"cache of {cache['attn_k'].shape[2]} keys cannot take "
-                         f"{tokens.shape[1]} more at index {idx}")
+    length = spmd.cache_length(cache["attn_k"], 2)
+    if idx + tokens.shape[1] > length:
+        raise ValueError(f"cache of {length} keys cannot take {tokens.shape[1]} more at "
+                         f"index {idx}")
     x = L.embed(params["embed"], tokens, cfg)
     for g in range(G):
         for a in range(A):
             state = {} if prompt else {"ssd_state": cache["ssd"][g, a],
                                        "conv_state": cache["conv"][g, a]}
-            x, (ssd, conv) = _mamba_block(_mamba_layer(params, g, a), x, cfg, **state)
+            x, (ssd, conv) = L.remat(False, _mamba_block, _mamba_layer(params, g, a), x,
+                                     cfg, **state)
             cache["ssd"][g, a] = ssd
             cache["conv"][g, a] = conv
-        x, _ = _shared_attn_apply(params["shared_attn"], x, cfg,
-                                  kv_cache=(cache["attn_k"][g], cache["attn_v"][g]),
-                                  cache_index=idx)
+        x, _ = L.remat(False, _shared_attn_apply, params["shared_attn"], x, cfg,
+                       kv_cache=(cache["attn_k"][g], cache["attn_v"][g]), cache_index=idx)
     if prompt:
         x = x[:, -1:]
     return _head(params, x, cfg), dict(cache, index=idx + tokens.shape[1])

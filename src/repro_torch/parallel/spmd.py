@@ -31,8 +31,21 @@ process groups of :class:`~repro_torch.parallel.sharding.Mesh`.
   element counted once (:meth:`Step.global_norm`); the loss and metrics are
   means over the global batch (:meth:`Step.batch_mean`).
 
-A collective over a group of one rank is skipped, so on a 1x1 mesh the step
-runs the unsharded step's arithmetic exactly.
+* **Serving.** A serve step's :class:`Step` also knows its cache leaves
+  (:class:`CacheSplit`: each leaf's Sharding, global shape and logical
+  axes), which ``models/layers.py`` looks up by storage
+  (:func:`cache_split`) to decode a cache split over ``kv_seq`` or
+  ``kv_heads`` without gathering it; :func:`serving_params` hands the model
+  its parameters to be gathered a layer at a time; :func:`gather_over`
+  concatenates every rank's piece along one dim in :class:`Sharding`'s
+  block order.
+* **Accounting.** Every collective issued here records its kind (the
+  reference's names: all-gather, all-reduce, ...) and its output bytes on
+  each mesh axis it ran over in the open :class:`CollectiveTally`
+  (:func:`counting_collectives`; ``launch/dryrun.py`` reads it).
+
+A collective over a group of one rank is skipped and records nothing, so
+on a 1x1 mesh the step runs the unsharded step's arithmetic exactly.
 """
 from __future__ import annotations
 
@@ -48,15 +61,76 @@ from .sharding import P, Mesh, Sharding, ShardingPlan, part_axes, use_plan
 
 
 # ---------------------------------------------------------------- collectives
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """Sum of ``x`` over ``group`` (a new tensor), or ``x`` itself when the
-    group is None (one rank)."""
+# the reference's names for the collectives (``launch/roofline.py``)
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
+
+
+class CollectiveTally:
+    """What the collectives issued while it is open moved: per kind, the
+    output bytes on each mesh axis the collective ran over (a collective over
+    two axes counts its bytes on both), and how many of each kind ran."""
+
+    def __init__(self):
+        self.bytes = {k: {} for k in KINDS}
+        self.counts = {k: 0 for k in KINDS}
+
+    def add(self, kind: str, out_bytes: int, axes: Sequence[str]) -> None:
+        self.counts[kind] += 1
+        for a in axes:
+            self.bytes[kind][a] = self.bytes[kind].get(a, 0.0) + float(out_bytes)
+
+    def by_kind(self) -> dict:
+        """Bytes per kind, summed over the axes."""
+        return {k: sum(v.values()) for k, v in self.bytes.items()}
+
+    def by_axis(self) -> dict:
+        """Bytes per mesh axis, summed over the kinds."""
+        out: dict = {}
+        for per in self.bytes.values():
+            for a, b in per.items():
+                out[a] = out.get(a, 0.0) + b
+        return out
+
+
+_TALLY: Optional[CollectiveTally] = None
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """A :class:`CollectiveTally` of every collective issued inside."""
+    global _TALLY
+    prev, _TALLY = _TALLY, CollectiveTally()
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = prev
+
+
+def _record(kind: str, out: torch.Tensor, axes: Sequence[str]) -> None:
+    if _TALLY is not None:
+        _TALLY.add(kind, out.numel() * out.element_size(), axes)
+
+
+def all_reduce(x: torch.Tensor, group, axes: Sequence[str] = (), op: str = "sum"
+               ) -> torch.Tensor:
+    """Sum (or ``op="max"``) of ``x`` over ``group``, the ranks along mesh
+    ``axes`` (a new tensor), or ``x`` itself when the group is None (one
+    rank)."""
     if group is None:
         return x
     import torch.distributed as dist
     x = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(x, group=group)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                    group=group)
+    _record("all-reduce", x, axes)
     return x
+
+
+def reduce_over(x: torch.Tensor, mesh: Mesh, axes: Sequence[str], op: str = "sum"
+                ) -> torch.Tensor:
+    """:func:`all_reduce` over this rank's peers along ``axes`` of ``mesh``."""
+    key = tuple(a for a in mesh.axis_names if a in axes)
+    return all_reduce(x, mesh.group(key), key, op)
 
 
 def gather_blocks(local: torch.Tensor, mesh: Mesh, spec: P, shape: Sequence[int],
@@ -71,10 +145,27 @@ def gather_blocks(local: torch.Tensor, mesh: Mesh, spec: P, shape: Sequence[int]
     parts = [torch.empty_like(local) for _ in peers]
     dist.all_gather(parts, local.contiguous(), group=group)
     full = local.new_empty(tuple(shape))
+    _record("all-gather", full, tuple(a for a in mesh.axis_names if a in axes))
     sh = Sharding(mesh, spec)
     for r, part in zip(peers, parts):
         full[sh.index(shape, r)] = part
     return full
+
+
+def gather_over(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` along mesh ``axes`` (a name or names, in the order
+    a spec lists them) concatenated along ``dim``, in the block order
+    :class:`Sharding` gives a dim split over those axes (row-major over
+    ``axes``), under the current step's mesh.  ``x`` itself where the axes
+    hold one rank."""
+    mesh = current().mesh
+    axes = part_axes(axes)
+    if mesh.group(axes) is None:
+        return x
+    spec = P(*([None] * dim + [axes if len(axes) > 1 else axes[0]]))
+    shape = list(x.shape)
+    shape[dim] *= math.prod(mesh.shape[a] for a in axes)
+    return gather_blocks(x, mesh, spec, shape, tuple(a for a in mesh.axis_names if a in axes))
 
 
 # ----------------------------------------------------------------- placement
@@ -107,14 +198,14 @@ class _ForUse(torch.autograd.Function):
     block."""
 
     @staticmethod
-    def forward(ctx, local, mesh, spec, shape, axes, batch_group):
-        ctx.mesh, ctx.spec, ctx.shape, ctx.batch_group = mesh, spec, shape, batch_group
+    def forward(ctx, local, mesh, spec, shape, axes, batch_axes):
+        ctx.mesh, ctx.spec, ctx.shape, ctx.batch_axes = mesh, spec, shape, batch_axes
         full = gather_blocks(local, mesh, spec, shape, axes)
         return full.view_as(full) if full is local else full
 
     @staticmethod
     def backward(ctx, grad):
-        grad = all_reduce(grad, ctx.batch_group)
+        grad = reduce_over(grad, ctx.mesh, ctx.batch_axes)
         return (grad[Sharding(ctx.mesh, ctx.spec).index(ctx.shape)].contiguous(),
                 None, None, None, None, None)
 
@@ -125,13 +216,13 @@ class _Enter(torch.autograd.Function):
     ranks along it each hold part of it (each ran its own experts)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_reduce(grad, ctx.group), None
+        return all_reduce(grad, ctx.group, (ctx.axis,)), None, None
 
 
 class _Psum(torch.autograd.Function):
@@ -139,14 +230,14 @@ class _Psum(torch.autograd.Function):
     each rank's part gets the (replicated) gradient of the sum as it is."""
 
     @staticmethod
-    def forward(ctx, x, group, scale):
+    def forward(ctx, x, group, axis, scale):
         ctx.scale = scale
-        out = all_reduce(x, group)
+        out = all_reduce(x, group, (axis,))
         return out * scale if scale != 1.0 else out
 
     @staticmethod
     def backward(ctx, grad):
-        return (grad * ctx.scale if ctx.scale != 1.0 else grad), None, None
+        return (grad * ctx.scale if ctx.scale != 1.0 else grad), None, None, None
 
 
 def gather_batch(x: torch.Tensor):
@@ -161,7 +252,7 @@ def gather_batch(x: torch.Tensor):
     spec = P(step.batch_part)
     shape = (x.shape[0] * step.batch_shards,) + tuple(x.shape[1:])
     rows = Sharding(step.mesh, spec).index(shape)[0]
-    full = _ForUse.apply(x, step.mesh, spec, shape, step.batch_axes, step.batch_group)
+    full = _ForUse.apply(x, step.mesh, spec, shape, step.batch_axes, step.batch_axes)
     return full, lambda y: y[rows]
 
 
@@ -169,13 +260,13 @@ def enter(x: torch.Tensor, axis: str) -> torch.Tensor:
     """``x`` entering code whose ranks along ``axis`` compute different
     parts of its gradient (the reference's replicated ``shard_map`` input)."""
     group = current().mesh.group((axis,))
-    return x if group is None else _Enter.apply(x, group)
+    return x if group is None else _Enter.apply(x, group, axis)
 
 
 def psum(x: torch.Tensor, axis: str) -> torch.Tensor:
     """``jax.lax.psum(x, axis)`` of per-rank partial results."""
     group = current().mesh.group((axis,))
-    return x if group is None else _Psum.apply(x, group, 1.0)
+    return x if group is None else _Psum.apply(x, group, axis, 1.0)
 
 
 def pmean(x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -183,7 +274,7 @@ def pmean(x: torch.Tensor, axis: str) -> torch.Tensor:
     computed alike."""
     mesh = current().mesh
     group = mesh.group((axis,))
-    return x if group is None else _Psum.apply(x, group, 1.0 / mesh.shape[axis])
+    return x if group is None else _Psum.apply(x, group, axis, 1.0 / mesh.shape[axis])
 
 
 # -------------------------------------------------------------- step context
@@ -191,12 +282,17 @@ class Step:
     """One rank's view of a plan-sharded step: the plan, the mesh, the mesh
     axes the batch is split over and the expert axis, if any."""
 
-    def __init__(self, plan: ShardingPlan, mesh: Mesh, batch_part, local_batch: int):
+    def __init__(self, plan: ShardingPlan, mesh: Mesh, batch_part, local_batch: int,
+                 cache: Optional[dict] = None):
         """``batch_part``: the batch dim's entry of the batch's spec (None,
         an axis, or axes in the order the rows are blocked);
-        ``local_batch``: the rows this rank holds."""
+        ``local_batch``: the rows this rank holds; ``cache``: a serving
+        step's cache leaves (name -> (this rank's tensor, its
+        :class:`CacheSplit`))."""
         self.plan, self.mesh, self.batch_part = plan, mesh, batch_part
         self.local_batch = local_batch
+        self._cache = {t.untyped_storage().data_ptr(): split
+                       for t, split in (cache or {}).values()}
         batch_axes = part_axes(batch_part)
         self.batch_axes = tuple(a for a in mesh.axis_names if a in batch_axes)
         self.batch_shards = math.prod(mesh.shape[a] for a in self.batch_axes)
@@ -224,13 +320,19 @@ class Step:
         axes = Sharding(self.mesh, spec).mesh_axes()
         if self.mesh.group(axes) is None and self.batch_group is None:
             return leaf
-        return _ForUse.apply(leaf, self.mesh, spec, shape, axes, self.batch_group)
+        return _ForUse.apply(leaf, self.mesh, spec, shape, axes, self.batch_axes)
+
+    def cache_split(self, t: torch.Tensor) -> Optional["CacheSplit"]:
+        """The :class:`CacheSplit` of the serving cache leaf ``t`` is (a view
+        of), or None."""
+        return self._cache.get(t.untyped_storage().data_ptr()) if self._cache else None
 
     def batch_mean(self, x: torch.Tensor) -> torch.Tensor:
         """Mean over the batch shards of a per-rank mean."""
         if self.batch_group is None:
             return x
-        return all_reduce(x.detach().float(), self.batch_group) / self.batch_shards
+        return all_reduce(x.detach().float(), self.batch_group, self.batch_axes) \
+            / self.batch_shards
 
     def global_norm(self, grads, placements) -> torch.Tensor:
         """The unsharded gradient's global norm from every rank's shards:
@@ -243,8 +345,66 @@ class Step:
         reps = [p.replication() for p in placement_leaves(placements)]
         sq = [torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 / r
               for g, r in zip(leaves, reps)]
-        total = all_reduce(torch.stack(sq).sum(), self.mesh.group(self.mesh.axis_names))
+        total = reduce_over(torch.stack(sq).sum(), self.mesh, self.mesh.axis_names)
         return torch.sqrt(total)
+
+
+# ---------------------------------------------------------- serving cache
+@dataclass(frozen=True)
+class CacheSplit:
+    """How this rank holds one leaf of a plan-sharded serving cache: its
+    Sharding, global shape and logical axes."""
+    sharding: Sharding
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+
+    def mesh_axes_of(self, logical: str) -> Tuple[str, ...]:
+        """The mesh axes that split the leaf's ``logical`` dim, in the order
+        its spec lists them (() when that dim is whole or absent)."""
+        if logical not in self.axes:
+            return ()
+        part = self.sharding.spec[self.axes.index(logical)] \
+            if self.axes.index(logical) < len(self.sharding.spec) else None
+        return tuple(a for a in part_axes(part) if self.sharding.mesh.shape[a] > 1)
+
+    def block(self, logical: str) -> Tuple[int, int]:
+        """(offset, length) of this rank's block along ``logical``."""
+        i = self.axes.index(logical)
+        sl = self.sharding.index(self.shape)[i]
+        return sl.start, sl.stop - sl.start
+
+    def split_dims(self) -> Tuple[Optional[str], ...]:
+        """The logical axes of the dims this rank holds only a part of, but
+        the batch (the step's rows are split the same way)."""
+        counts = self.sharding.shard_counts(len(self.shape))
+        return tuple(a for a, n in zip(self.axes, counts) if n > 1 and a != "batch")
+
+
+def cache_split(t: torch.Tensor) -> Optional[CacheSplit]:
+    """The current serving step's split of the cache leaf ``t`` (or a view
+    of it), None outside one."""
+    step = current()
+    return None if step is None else step.cache_split(t)
+
+
+def cache_length(t: torch.Tensor, dim: int) -> int:
+    """The global length of dim ``dim`` of the cache leaf ``t``: its own
+    outside a serving step or where the leaf is whole along it."""
+    split = cache_split(t)
+    return t.shape[dim] if split is None else split.shape[dim]
+
+
+def require_whole(cache: dict, names: Sequence[str], family: str) -> None:
+    """Raise ``NotImplementedError`` where the current serving step splits
+    one of the cache leaves ``names`` (other than over the batch): the
+    decode step of ``family`` takes them whole."""
+    for name in names:
+        split = cache_split(cache[name])
+        if split is not None and split.split_dims():
+            raise NotImplementedError(
+                f"{family}: the plan splits the cache leaf {name!r} over "
+                f"{split.split_dims()} ({split.sharding.spec}); the decode step takes it "
+                f"whole")
 
 
 def placement_leaves(tree) -> list:
@@ -313,3 +473,52 @@ def _map_for_use(step: Step, x: Any) -> Any:
     if hasattr(x, "for_use"):
         return x.for_use()
     return x
+
+
+class Stacked:
+    """A parameter stacked along its first ``lead`` (``layers``) dims as a
+    plan-sharded serving step hands it to the model: ``self[i]`` (or
+    ``self[g, a]``) is that layer's local view, tagged with its per-layer
+    placement, so :func:`for_use` (``layers.remat``) gathers it where the
+    layer runs."""
+
+    def __init__(self, local: torch.Tensor, placement: Placement):
+        self._local, self._placement = local, placement
+
+    def __getitem__(self, idx) -> torch.Tensor:
+        return tag(self._local[idx], self._placement)
+
+    def for_use(self) -> "UsedLayers":
+        """Handed whole to ``layers.remat`` (zamba2's groups): each layer is
+        gathered as it is indexed."""
+        return UsedLayers(self)
+
+
+class UsedLayers:
+    """Stacked layers (a :class:`Stacked`, or a train step's per-layer
+    autograd leaves) as ``layers.remat`` hands them to the model: each layer
+    gathered for use as it is indexed."""
+
+    def __init__(self, stacked):
+        self._stacked = stacked
+
+    def __getitem__(self, idx) -> torch.Tensor:
+        return for_use(self._stacked[idx])
+
+
+def serving_params(params: Any, axes: Any, placements: Any) -> Any:
+    """The tree a plan-sharded serving step hands the model, from this
+    rank's shards: a parameter stacked along ``layers`` as a
+    :class:`Stacked` (gathered a layer at a time where the layer runs), every
+    other one gathered once now.  Call it inside the step's context."""
+    from repro_torch.models.param import tree_map
+
+    def one(p: torch.Tensor, ax, pl: Placement):
+        lead = 0
+        while lead < len(ax) and ax[lead] == "layers":
+            lead += 1
+        if lead:
+            return Stacked(p, pl.per_layer(lead))
+        return for_use(tag(p.detach(), pl))
+
+    return tree_map(one, params, axes, placements, is_leaf=lambda x: isinstance(x, torch.Tensor))

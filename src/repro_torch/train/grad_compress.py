@@ -9,7 +9,7 @@ rounds half to even, as ``jnp.round`` does.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,16 +32,25 @@ def init_residual(params: Params) -> Params:
     return _map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
 
 
-def compress(grads: Params, residual: Params) -> Tuple[CompressedGrads, Params]:
+def compress(grads: Params, residual: Params, placements: Optional[Params] = None
+             ) -> Tuple[CompressedGrads, Params]:
     """Quantise grads + residual to int8; return the compressed gradients and
-    the new residual."""
-    def one(g, r):
+    the new residual.  In a plan-sharded step ``placements`` (a tree of
+    ``spmd.Placement`` like ``grads``) makes each scale the whole leaf's:
+    ``max |g + r|`` all-reduced (max) over the axes that split the leaf.  The
+    residual stays this rank's."""
+    def one(g, r, pl=None):
         g32 = g.float() + r
-        scale = torch.clamp(torch.max(torch.abs(g32)), min=1e-12) / 127.0
+        peak = torch.max(torch.abs(g32))
+        if pl is not None:
+            from repro_torch.parallel import spmd
+            peak = spmd.reduce_over(peak, pl.sharding.mesh, pl.sharding.mesh_axes(), "max")
+        scale = torch.clamp(peak, min=1e-12) / 127.0
         q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)
         return q, scale, g32 - q.float() * scale
 
-    out = _map(one, grads, residual)
+    out = _map(one, grads, residual) if placements is None else \
+        _map(one, grads, residual, placements)
     pick = lambda i: tree_map(lambda t: t[i], out, is_leaf=lambda t: isinstance(t, tuple))
     new_res = pick(2)
     return CompressedGrads(pick(0), pick(1), new_res), new_res
@@ -51,7 +60,8 @@ def decompress(c: CompressedGrads) -> Params:
     return _map(lambda q, s: q.float() * s, c.q, c.scale)
 
 
-def roundtrip(grads: Params, residual: Params) -> Tuple[Params, Params]:
+def roundtrip(grads: Params, residual: Params, placements: Optional[Params] = None
+              ) -> Tuple[Params, Params]:
     """compress -> decompress, carrying the error-feedback residual."""
-    c, new_res = compress(grads, residual)
+    c, new_res = compress(grads, residual, placements)
     return decompress(c), new_res

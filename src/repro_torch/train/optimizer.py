@@ -8,7 +8,8 @@ same tensors, which keeps one copy of each on the card: qwen2.5-3b's
 float32 parameters, gradients and two AdamW moments already take 49 GB.
 AdamW is torch's fused update: one pass over its operands, no
 temporaries.  Adafactor takes row/column means and a whole-leaf RMS and
-runs per leaf.
+runs per leaf; on a leaf split over a mesh those are the whole leaf's,
+all-reduced over the axes that split it.
 
 State trees mirror the parameter tree, as in the reference; ``step`` is a
 0-d int32 tensor on the parameters' device, so no step reads a device value
@@ -145,36 +146,119 @@ def adafactor_init(params: Params, tcfg: TrainConfig) -> AdafactorState:
         v=_map(lambda p: zeros(p.shape if p.dim() < 2 else (), p), params))
 
 
+class _WholeLeaf:
+    """A leaf held whole: its means are local means."""
+
+    @staticmethod
+    def mean(x: torch.Tensor, dim: int, leaf_dim: int) -> torch.Tensor:
+        return torch.mean(x, dim)
+
+    @staticmethod
+    def mean_all(x: torch.Tensor) -> torch.Tensor:
+        return torch.mean(x)
+
+    @staticmethod
+    def to_state(x: torch.Tensor, which: str) -> torch.Tensor:
+        return x
+
+    from_state = to_state
+
+
+class _SplitLeaf:
+    """A leaf this rank holds a block of (``placement``: its
+    ``spmd.Placement``): every mean is the whole leaf's, a local sum
+    all-reduced over the mesh axes that split the reduced dims and divided
+    by the global size; the factored moments move between the gradient's
+    layout and their own state placement where the two differ."""
+
+    def __init__(self, placement, state_specs):
+        self.pl, self.state_specs = placement, state_specs
+        self.mesh = placement.sharding.mesh
+        spec = tuple(placement.sharding.spec)
+        self.spec = spec + (None,) * (len(placement.shape) - len(spec))
+
+    def _axes(self, dims) -> tuple:
+        from repro_torch.parallel.sharding import part_axes
+        return tuple(a for d in dims for a in part_axes(self.spec[d]))
+
+    def mean(self, x: torch.Tensor, dim: int, leaf_dim: int) -> torch.Tensor:
+        from repro_torch.parallel import spmd
+        n = len(self.spec)
+        total = spmd.reduce_over(torch.sum(x, dim), self.mesh, self._axes([leaf_dim % n]))
+        return total / self.pl.shape[leaf_dim % n]
+
+    def mean_all(self, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.parallel import spmd
+        total = spmd.reduce_over(torch.sum(x), self.mesh, self.pl.sharding.mesh_axes())
+        return total / math.prod(self.pl.shape)
+
+    def _layout(self, which: str):
+        from repro_torch.parallel.sharding import P
+        s, shape = self.spec, self.pl.shape
+        if which == "vr":
+            return P(*s[:-1]), shape[:-1]
+        return P(*(s[:-2] + s[-1:])), shape[:-2] + shape[-1:]
+
+    def _move(self, x: torch.Tensor, src, dst, shape) -> torch.Tensor:
+        from repro_torch.parallel import spmd
+        from repro_torch.parallel.sharding import Sharding
+        norm = lambda sp: tuple(sp) + (None,) * (len(shape) - len(sp))
+        if norm(src) == norm(dst):
+            return x
+        full = spmd.gather_blocks(x, self.mesh, src, shape, Sharding(self.mesh, src).mesh_axes())
+        return Sharding(self.mesh, dst).local(full)
+
+    def to_state(self, x: torch.Tensor, which: str) -> torch.Tensor:
+        src, shape = self._layout(which)
+        return self._move(x, src, self.state_specs[which], shape)
+
+    def from_state(self, x: torch.Tensor, which: str) -> torch.Tensor:
+        dst, shape = self._layout(which)
+        return self._move(x, self.state_specs[which], dst, shape)
+
+
 def adafactor_update(grads: Params, state: AdafactorState, params: Params,
-                     tcfg: TrainConfig, norm_fn: Optional[Callable] = None
+                     tcfg: TrainConfig, norm_fn: Optional[Callable] = None,
+                     placements: Optional[list] = None, state_specs: Optional[list] = None
                      ) -> Tuple[Params, AdafactorState, Dict]:
-    """One Adafactor step, in place on ``params``, ``state`` and ``grads``."""
+    """One Adafactor step, in place on ``params``, ``state`` and ``grads``.
+
+    In a plan-sharded step ``placements`` lists each leaf's
+    ``spmd.Placement`` (in the parameters' leaf order) and ``state_specs``
+    each leaf's ``{"vr": spec, "vc": spec}`` under the state's placement:
+    the row and column means, the mean of ``vr`` and the update's RMS are
+    then the whole leaf's (a sum all-reduced over the axes that split the
+    reduced dims, over the global size), so every rank computes its block
+    of the unsharded step's update."""
     lr = lr_schedule(tcfg)(state.step)
     grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, norm_fn)
     step = state.step + 1
     b2 = 1.0 - (step.float() + 1.0) ** -0.8
 
-    def upd(g, vr, vc, v, p):
+    def upd(g, vr, vc, v, p, red):
         g32 = torch.square(g.float()) + 1e-30
         if p.dim() >= 2:
-            vr32 = vr.float() * b2 + torch.mean(g32, -1) * (1 - b2)
-            vc32 = vc.float() * b2 + torch.mean(g32, -2) * (1 - b2)
+            vr32 = red.from_state(vr.float(), "vr") * b2 + red.mean(g32, -1, -1) * (1 - b2)
+            vc32 = red.from_state(vc.float(), "vc") * b2 + red.mean(g32, -2, -2) * (1 - b2)
             denom = (vr32[..., None] * vc32[..., None, :]
-                     / (torch.mean(vr32, -1)[..., None, None] + 1e-30))
+                     / (red.mean(vr32, -1, -2)[..., None, None] + 1e-30))
             update = g.float() * torch.rsqrt(denom + 1e-30)
-            vr.copy_(vr32.to(vr.dtype))
-            vc.copy_(vc32.to(vc.dtype))
+            vr.copy_(red.to_state(vr32, "vr").to(vr.dtype))
+            vc.copy_(red.to_state(vc32, "vc").to(vc.dtype))
         else:
             v32 = v.float() * b2 + g32 * (1 - b2)
             update = g.float() * torch.rsqrt(v32 + 1e-30)
             v.copy_(v32.to(v.dtype))
-        update = update / torch.clamp(torch.sqrt(torch.mean(torch.square(update))), min=1.0)
+        update = update / torch.clamp(torch.sqrt(red.mean_all(torch.square(update))), min=1.0)
         p32 = p.float()
         p.copy_((p32 - lr * update - lr * tcfg.weight_decay * p32).to(p.dtype))
 
-    for g, vr, vc, v, p in zip(_leaves(grads), _leaves(state.vr), _leaves(state.vc),
-                               _leaves(state.v), _leaves(params)):
-        upd(g, vr, vc, v, p)
+    leaves = list(zip(_leaves(grads), _leaves(state.vr), _leaves(state.vc), _leaves(state.v),
+                      _leaves(params)))
+    reds = [_WholeLeaf] * len(leaves) if placements is None else \
+        [_SplitLeaf(pl, sp) for pl, sp in zip(placements, state_specs)]
+    for (g, vr, vc, v, p), red in zip(leaves, reds):
+        upd(g, vr, vc, v, p, red)
     return params, AdafactorState(step, state.vr, state.vc, state.v), \
         {"grad_norm": gnorm, "lr": lr}
 
@@ -185,9 +269,14 @@ def opt_init(params: Params, tcfg: TrainConfig):
 
 
 def opt_update(grads: Params, state, params: Params, tcfg: TrainConfig,
-               norm_fn: Optional[Callable] = None):
-    return (adafactor_update if tcfg.optimizer == "adafactor"
-            else adamw_update)(grads, state, params, tcfg, norm_fn)
+               norm_fn: Optional[Callable] = None, placements: Optional[list] = None,
+               state_specs: Optional[list] = None):
+    """One step of ``tcfg.optimizer``.  ``placements`` / ``state_specs``:
+    a plan-sharded step's (:func:`adafactor_update`; AdamW is elementwise
+    and needs only ``norm_fn``)."""
+    if tcfg.optimizer == "adafactor":
+        return adafactor_update(grads, state, params, tcfg, norm_fn, placements, state_specs)
+    return adamw_update(grads, state, params, tcfg, norm_fn)
 
 
 def opt_state_axes(param_axes: Params, tcfg: TrainConfig):

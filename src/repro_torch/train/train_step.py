@@ -23,7 +23,8 @@ mesh)`` and ``jit_train_step``.  Nothing is compiled: the step runs eagerly
 on every rank, on the rank's shards of the state and rows of the batch, as
 ``parallel/spmd.py`` describes (each parameter gathered where a layer uses
 it, its gradient summed over the batch axes and sliced to the rank's shard,
-the global clip norm, AdamW on the shards).  On a mesh of one rank it is the
+the global clip norm, the optimizer on the shards: AdamW elementwise,
+Adafactor's means and int8's scales over whole leaves).  On a mesh of one rank it is the
 unsharded step's arithmetic.
 """
 from __future__ import annotations
@@ -37,7 +38,7 @@ import torch
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models.api import ModelAPI
 from repro_torch.models.convert import from_reference
-from repro_torch.models.param import tree_map
+from repro_torch.models.param import tree_leaves, tree_map
 from repro_torch.parallel import spmd
 from repro_torch.parallel.sharding import (P, Mesh, Sharding, ShardingPlan,
                                            is_sharding_leaf, tree_map_axes)
@@ -107,19 +108,11 @@ class LayerLeaves:
     def __getitem__(self, idx) -> torch.Tensor:
         return self._leaves[idx if isinstance(idx, tuple) else (idx,)]
 
-    def for_use(self) -> "_UsedLayers":
+    def for_use(self) -> "spmd.UsedLayers":
         """What a plan-sharded step's ``layers.remat`` hands the model when
         the whole tree goes in (zamba2's groups): each layer gathered as it
         is indexed."""
-        return _UsedLayers(self)
-
-
-class _UsedLayers:
-    def __init__(self, leaves: LayerLeaves):
-        self._leaves = leaves
-
-    def __getitem__(self, idx) -> torch.Tensor:
-        return spmd.for_use(self._leaves[idx])
+        return spmd.UsedLayers(self)
 
 
 def _tmap(fn: Callable, tree, *rest):
@@ -190,11 +183,14 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], n: int):
 
 def _step(api: ModelAPI, tcfg: TrainConfig, state: TrainState,
           batch: Dict[str, torch.Tensor], sharded: Optional[spmd.Step] = None,
-          placements: Optional[Params] = None):
+          placements: Optional[Params] = None, opt_specs: Optional[list] = None):
     """One step on ``state`` in place: the loss and gradients (averaged in
     float32 over ``tcfg.microbatches``), the int8 error-feedback round trip
     when asked for, then the optimizer.  ``sharded`` runs it as one rank of
-    a plan-sharded step (``state`` and ``batch`` the rank's shards)."""
+    a plan-sharded step (``state`` and ``batch`` the rank's shards,
+    ``placements`` the parameters', ``opt_specs`` each leaf's Adafactor
+    ``vr`` / ``vc`` specs): int8's scales and Adafactor's means are then the
+    whole leaves'."""
     scale = 1.0 if sharded is None else 1.0 / sharded.batch_shards
     norm_fn = None if sharded is None else (lambda g: sharded.global_norm(g, placements))
     if tcfg.microbatches <= 1:
@@ -213,9 +209,11 @@ def _step(api: ModelAPI, tcfg: TrainConfig, state: TrainState,
         metrics = {"loss": loss}
     residual = state.residual
     if tcfg.grad_compression == "int8" and residual is not None:
-        grads, residual = grad_compress.roundtrip(grads, residual)
-    params, opt_state, opt_metrics = opt.opt_update(grads, state.opt_state,
-                                                    state.params, tcfg, norm_fn=norm_fn)
+        grads, residual = grad_compress.roundtrip(grads, residual, placements)
+    split = {} if sharded is None else {
+        "placements": spmd.placement_leaves(placements), "state_specs": opt_specs}
+    params, opt_state, opt_metrics = opt.opt_update(grads, state.opt_state, state.params,
+                                                    tcfg, norm_fn=norm_fn, **split)
     metrics = dict(metrics)
     metrics["loss"] = loss
     if sharded is not None:
@@ -256,31 +254,39 @@ def _planned_step(api: ModelAPI, tcfg: TrainConfig, plan: ShardingPlan, mesh: Me
     placements = param_placements(api, plan, mesh)
     st_sh = state_shardings(api, tcfg, plan, mesh)
     abstract = abstract_state(api, tcfg)
-    split = [p for p in spmd.placement_leaves(placements) if p.split()]
-    if split and (tcfg.optimizer != "adamw" or tcfg.grad_compression != "none"):
-        raise NotImplementedError(
-            f"{plan.name} splits parameters over the mesh: the sharded step runs AdamW "
-            f"without gradient compression (Adafactor's factored moments and int8's "
-            f"per-tensor scale span whole leaves)")
+    opt_specs = None
+    if tcfg.optimizer == "adafactor":
+        leaves = lambda t: tree_leaves(t, is_leaf=is_sharding_leaf)
+        opt_specs = [{"vr": r.spec, "vc": c.spec}
+                     for r, c in zip(leaves(st_sh.opt_state.vr), leaves(st_sh.opt_state.vc))]
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         state = place_tree(state, st_sh, abstract)
-        specs = batch_specs if batch_specs is not None else batch
-        b_sh = batch_shardings(specs, plan, mesh)
-        batch_part = b_sh["tokens"].spec[0]
-        local = {}
-        for k, x in batch.items():
-            x = place_leaf(x, b_sh[k], tuple(specs[k].shape))
-            # the rows stay this rank's; a split over any other axis (seq) is
-            # gathered for use
-            use = P(None, *b_sh[k].spec[1:])
-            shape = tuple(x.shape[:1]) + tuple(specs[k].shape[1:])
-            local[k] = spmd.gather_blocks(x, mesh, use, shape, Sharding(mesh, use).mesh_axes())
-        step = spmd.Step(plan, mesh, batch_part, local["tokens"].shape[0])
+        local, batch_part = local_batch(batch, batch_specs, plan, mesh)
+        # the model sees one microbatch's rows at a time
+        rows = local["tokens"].shape[0] // max(1, tcfg.microbatches)
+        step = spmd.Step(plan, mesh, batch_part, rows)
         with spmd.step_context(step):
-            return _step(api, tcfg, state, local, step, placements)
+            return _step(api, tcfg, state, local, step, placements, opt_specs)
 
     return train_step
+
+
+def local_batch(batch: Dict[str, torch.Tensor], batch_specs: Optional[Dict[str, Any]],
+                plan: ShardingPlan, mesh: Mesh) -> Tuple[Dict[str, torch.Tensor], Any]:
+    """The batch as this rank's step uses it (given whole, or as this rank's
+    rows under :func:`batch_shardings` of ``batch_specs``, None: the batch
+    is whole): the rows stay this rank's, a split over any other axis (seq)
+    is gathered.  Also the batch dim's entry of the tokens' spec."""
+    specs = batch_specs if batch_specs is not None else batch
+    b_sh = batch_shardings(specs, plan, mesh)
+    local = {}
+    for k, x in batch.items():
+        x = place_leaf(x, b_sh[k], tuple(specs[k].shape))
+        use = P(None, *b_sh[k].spec[1:])
+        shape = tuple(x.shape[:1]) + tuple(specs[k].shape[1:])
+        local[k] = spmd.gather_blocks(x, mesh, use, shape, Sharding(mesh, use).mesh_axes())
+    return local, b_sh["tokens"].spec[0]
 
 
 def place_leaf(x: torch.Tensor, sharding: Sharding, shape: Tuple[int, ...]) -> torch.Tensor:

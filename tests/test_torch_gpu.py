@@ -1159,3 +1159,120 @@ def test_mesh_train_step_over_two_gloo_ranks_on_the_card(cuda, tmp_path, mesh_sh
                 E = api.cfg.n_experts
                 assert set(got["ep_trace"]) == {(rank * E // 2, E // 2)}
                 assert got["launches"]["grouped_matmul"] == 2 * 12 * L
+
+
+def test_mesh_serve_over_two_gloo_ranks_on_the_card(cuda, tmp_path):
+    """Two ranks on the one card over ``gloo`` (a 1x2 mesh): reduced
+    qwen2.5-3b (2 kv heads) in float32 through ``jit_serve_step`` with the
+    card's kernels, four decode steps from a 3-token prompt in a 16-key
+    buffer, so rank 1's half of the cache holds no valid key.  Under
+    kv_sequence_split every layer of every step launches K3's partials
+    kernel and K3' on each rank and never the one-launch K3; under pure_dp
+    the reverse.  Each rank's logits within 1e-4 of the unsharded decode on
+    the card, its cache slice equal to the unsharded cache's."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import serve_step as SS
+    from torch_mesh_worker import plan_named, spawn
+    cfg = replace(get_config("qwen2.5-3b").reduced(n_kv_heads=2), compute_dtype="float32",
+                  kernels="cuda")
+    api = build_model(cfg)
+    params = api.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(1, cfg.vocab_size, (2, 7), generator=gen)
+    cache = api.init_cache(cfg, 2, 16, dtype=torch.float32, device=cuda)
+    with torch.no_grad():
+        _, cache = api.prefill(params, tokens[:, :3].to(cuda), cache)
+        start = {k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in cache.items()}
+        want = []
+        for t in range(3, 7):
+            out, cache = api.decode_step(params, tokens[:, t:t + 1].to(cuda), cache)
+            want.append(out)
+    to_cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t
+    torch.save({"params": {k: v for k, v in _tree_cpu(params).items()},
+                "cache": {k: to_cpu(v) for k, v in start.items()},
+                "ids": [tokens[:, t:t + 1] for t in range(3, 7)]}, tmp_path / "data.pt")
+    plans = ("kv_sequence_split", "pure_dp")
+    jobs = [{"name": p, "arch": "qwen2.5-3b", "plan": p, "data": "data.pt",
+             "reduced": {"n_kv_heads": 2}} for p in plans]
+    spawn({"mode": "serve", "mesh": [1, 2], "cases": jobs, "device": "cuda",
+           "kernels": "cuda"}, tmp_path)
+    n = cfg.n_layers * 4
+    for p in plans:
+        for rank in range(2):
+            got = torch.load(tmp_path / f"{p}.rank{rank}.pt", weights_only=False)
+            for s in range(4):
+                torch.testing.assert_close(got["logits"][s].cpu(), want[s].cpu(), rtol=0,
+                                           atol=1e-4)
+            mesh = SH.Mesh(("data", "model"), (1, 2), rank=rank)
+            c_sh = SS.cache_shardings(api, cache, plan_named(p), mesh)
+            for k, t in got["cache"].items():
+                torch.testing.assert_close(t.cpu(), c_sh[k].local(cache[k]).cpu(), rtol=0,
+                                           atol=1e-4)
+            launches = got["launches"]
+            split = p == "kv_sequence_split"
+            assert launches["flash_decode_partials"] == launches["flash_decode_combine"] \
+                == (n if split else 0), (p, launches)
+            assert launches["flash_decode"] == (0 if split else n), (p, launches)
+
+
+def _tree_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def test_dry_run_cell_runs_on_the_card(cuda, tmp_path):
+    """``launch.dryrun.run_cell`` as rank 0 of a 256-rank ``fake`` world on
+    the card: reduced qwen2.5-3b at a small decode cell; the row has a
+    measured time and peak, and the kernels launched are counted."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    script = (
+        "import sys\n"
+        "from pathlib import Path\n"
+        "from repro_torch.configs import registry\n"
+        "from repro_torch.configs.base import ShapeConfig\n"
+        "from repro_torch.launch import dryrun\n"
+        "registry.ARCHS['qwen2.5-3b'] = registry.ARCHS['qwen2.5-3b'].reduced()\n"
+        "registry.SHAPES['decode_32k'] = ShapeConfig('decode_32k', 256, 128, 'decode')\n"
+        "dryrun.run_cell('qwen2.5-3b', 'decode_32k', False, out_dir=Path(sys.argv[1]))\n")
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), REPRO_PLANNER_WORKERS="1",
+               REPRO_PLAN_CACHE_DIR=str(tmp_path / "plancache"))
+    r = subprocess.run([sys.executable, "-c", script, str(tmp_path)], capture_output=True,
+                       text=True, env=env, timeout=600)
+    assert r.returncode == 0, (r.stdout + r.stderr)[-4000:]
+    row = json.loads((tmp_path / "qwen2.5-3b_decode_32k_32x8.json").read_text())
+    assert row["device"].startswith("cuda") and row["measured_ms"] > 0
+    assert row["per_device_bytes"] > 0 and row["fits_hbm"] is True
+    assert row["counted"]["kernel_flops"] > 0 and row["counted"]["by_kernel"]
+
+
+def test_serve_one_sequence_on_the_card_matches_the_plain_path(cuda):
+    """Batch 1: the permuted query's reshape is a view, not a copy; the
+    kernel path still takes it (prefill through K2, decode through K3) and
+    matches the plain path."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = replace(get_config("qwen2.5-3b").reduced(), compute_dtype="float32", kernels="cuda")
+    api, plain = build_model(cfg), build_model(replace(cfg, kernels="plain"))
+    params = api.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    tokens = torch.randint(1, cfg.vocab_size, (1, 24), generator=torch.Generator().manual_seed(0))
+    outs = []
+    for a in (api, plain):
+        cache = a.init_cache(cfg, 1, 32, dtype=torch.float32, device=cuda)
+        with torch.no_grad():
+            first, cache = a.prefill(params, tokens[:, :20].to(cuda), cache)
+            step, _ = a.decode_step(params, tokens[:, 20:21].to(cuda), cache)
+        outs.append((first, step))
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -14,6 +14,9 @@ slices as ``jax.jit``'s in_shardings would.  The results are held here:
   state within 1e-5 (at learning rate 1e-4: an entry whose gradient is zero
   in exact arithmetic, such as the key bias under softmax's shift
   invariance, moves by lr x sign(rounding noise) under AdamW);
+* split leaves under Adafactor (float32 and bfloat16 state) and AdamW with
+  int8 compression on 2x2: every rank's shards of the whole state
+  (parameters, factored moments, residual) equal the unsharded step's;
 * the MoE's expert-parallel branch taken with each rank's expert slice,
   split exactly when the ``model`` axis holds more than one rank; under
   ``pure_dp`` (no expert axis) the MoE gathers the global batch and
@@ -230,4 +233,82 @@ def test_sharded_checkpoint_saved_on_one_mesh_restores_on_another(tmp_path):
             want = sh[k].local(stored[k])
             assert torch.equal(t, want) and t.is_contiguous(), (r, k)
             split += t.shape != stored[k].shape
+    assert split > 0
+
+
+# ------------------------------------------------- split-leaf optimizers
+# int8 at learning rate 1e-5: an entry whose gradient lies within rounding
+# noise of a quantisation boundary lands on either neighbouring step in the
+# sharded and the unsharded sum, and AdamW's first steps move it by about
+# lr x sign, so at 1e-4 one entry in 32,768 ends 1.3e-5 away
+SPLIT_OPT = {"adafactor": {"optimizer": "adafactor"},
+             "adafactor_bf16": {"optimizer": "adafactor", "opt_state_dtype": "bfloat16"},
+             "adamw_int8": {"grad_compression": "int8", "learning_rate": 1e-5}}
+
+
+@functools.lru_cache(maxsize=None)
+def _split_opt_oracle(name):
+    """The reference's initial state under ``SPLIT_OPT[name]`` and the port's
+    copy, the port's unsharded state after STEPS steps and its losses, and
+    the reference's losses (its XLA ``make_train_step``)."""
+    ref_api, api, _, batches = _pair(DENSE)
+    extra = SPLIT_OPT[name]
+    ref_tcfg, tcfg = RefTrainConfig(**dict(TCFG, **extra)), TrainConfig(**dict(TCFG, **extra))
+    ref_state = ref_ts.init_state(ref_api, ref_tcfg, jax.random.PRNGKey(0))
+    to_np = lambda t: jax.tree.map(np.asarray, t)
+    opt_np = {k: to_np(v) for k, v in ref_state.opt_state._asdict().items()}
+    res = None if ref_state.residual is None else to_np(ref_state.residual)
+    start = TS.train_state_from_reference(to_np(ref_state.params), opt_np, res, "cpu")
+    state = TS.train_state_from_reference(to_np(ref_state.params), opt_np, res, "cpu")
+    step, losses = TS.make_train_step(api, tcfg), []
+    ref_step, ref_losses = jax.jit(ref_ts.make_train_step(ref_api, ref_tcfg)), []
+    for b in batches:
+        state, m = step(state, train_launch.to_device(b, "cpu"))
+        losses.append(float(m["loss"]))
+        ref_state, rm = ref_step(ref_state, {k: jnp.asarray(v) for k, v in b.items()})
+        ref_losses.append(float(rm["loss"]))
+    return start, state, losses, ref_losses
+
+
+def test_split_leaf_adafactor_and_int8_match_the_unsharded_step_on_2x2(tmp_path):
+    """Reduced qwen2.5-3b on a 2x2 ``gloo`` mesh under megatron_tp and zero3
+    (both split leaves over ``model``, zero3 also over ``data``), two steps
+    with Adafactor, Adafactor with bfloat16 state and AdamW with int8
+    compression: the losses within 1e-5 relative of the port's unsharded
+    step and 1e-4 of the reference's, every rank's block of every state leaf
+    within 1e-5 of the unsharded state's."""
+    torch.save([train_launch.to_device(b, "cpu") for b in _pair(DENSE)[3]],
+               tmp_path / "batches.pt")
+    cases = []
+    for name, extra in SPLIT_OPT.items():
+        torch.save(_split_opt_oracle(name)[0], tmp_path / f"state-{name}.pt")
+        cases += [{"name": f"{name}-{plan}", "arch": DENSE, "plan": plan,
+                   "state": f"state-{name}.pt", "steps": STEPS, "tcfg": extra}
+                  for plan in ("megatron_tp", "zero3")]
+    _spawn({"mode": "train", "mesh": [2, 2], "cases": cases}, tmp_path)
+    api = _pair(DENSE)[1]
+    split = 0
+    for case in cases:
+        name = case["name"].rsplit("-", 1)[0]
+        _, want, want_losses, ref_losses = _split_opt_oracle(name)
+        tcfg = TrainConfig(**dict(TCFG, **SPLIT_OPT[name]))
+        for rank in range(4):
+            got = torch.load(tmp_path / f"{case['name']}.rank{rank}.pt", weights_only=False)
+            losses = [h["loss"] for h in got["history"]]
+            assert losses == pytest.approx(want_losses, rel=1e-5), (case, rank)
+            assert losses == pytest.approx(ref_losses, rel=1e-4, abs=1e-4), (case, rank)
+            mesh = SH.Mesh(("data", "model"), (2, 2), rank=rank)
+            sh = dict(C._flatten_with_paths(
+                TS.state_shardings(api, tcfg, plan_named(case["plan"]), mesh),
+                is_leaf=lambda x: isinstance(x, SH.Sharding)))
+            have = dict(C._flatten_with_paths(got["state"]))
+            for k, w in C._flatten_with_paths(want):
+                if k == "1/step":
+                    assert int(have[k]) == STEPS
+                    continue
+                assert have[k].shape == sh[k].local_shape(w.shape), (case, rank, k)
+                torch.testing.assert_close(have[k].float(), sh[k].local(w).float(), rtol=0,
+                                           atol=1e-5,
+                                           msg=lambda m: f"{case['name']} {rank} {k}: {m}")
+                split += have[k].shape != w.shape
     assert split > 0

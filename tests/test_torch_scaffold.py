@@ -71,7 +71,10 @@ def test_importing_every_module_loads_neither_jax_nor_reference(tmp_path):
         "        'repro_torch.tenancy.qos', 'repro_torch.tenancy.validator',\n"
         "        'repro_torch.tenancy.runtime', 'repro_torch.parallel.sharding',\n"
         "        'repro_torch.parallel.planner_bridge', 'repro_torch.parallel.spmd',\n"
-        "        'repro_torch.launch.mesh', 'repro_torch.runtime.elastic'} <= set(names)\n")
+        "        'repro_torch.launch.mesh', 'repro_torch.runtime.elastic',\n"
+        "        'repro_torch.launch.dryrun', 'repro_torch.launch.roofline',\n"
+        "        'repro_torch.launch.report', 'repro_torch.train.serve_step',\n"
+        "        'repro_torch.kernels.work'} <= set(names)\n")
     env = {"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin", "HOME": str(tmp_path)}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=300)
@@ -82,7 +85,8 @@ def test_importing_every_module_loads_neither_jax_nor_reference(tmp_path):
 def test_no_source_line_imports_jax_or_reference():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
     files = list((SRC / "repro_torch").rglob("*.py")) + [
-        ROOT / name for name in ("chip_smoke.py", "kernel_ab.py", "wkv6_bwd_profile.py")]
+        ROOT / name for name in ("chip_smoke.py", "kernel_ab.py", "wkv6_bwd_profile.py",
+                                 "mesh_probe.py")]
     hits = [f"{f}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1) if pat.match(line)]
     assert not hits, hits

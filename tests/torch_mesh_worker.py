@@ -14,7 +14,13 @@ NCCL refuses two ranks on one card) and runs the job's cases:
   shards to ``<out>/<case>.rank<r>.pt``; then checks DTensor's placement
   of a few leaves against the port's slices;
 * ``save``: one step of the first case, then ``CheckpointManager.save_sharded``;
-* ``restore``: ``restore(shardings=)`` of that checkpoint onto this mesh.
+* ``restore``: ``restore(shardings=)`` of that checkpoint onto this mesh;
+* ``serve``: each case's decode steps through ``serve_step.jit_serve_step``
+  from the job's prefilled cache (whole) and weights (whole), teacher-forced
+  on the job's ids; writes each step's logits, this rank's final cache slice
+  and how often each decode function ran (``ops.flash_decode``,
+  ``ops.flash_decode_partials``, ``flash_decode.combine_partials``) to
+  ``<out>/<case>.rank<r>.pt``.
 
 Only ``repro_torch`` is imported: the test holds the results against the
 reference and the unsharded step.
@@ -79,21 +85,33 @@ def plan_named(name: str) -> SH.ShardingPlan:
         "tp2d": PB._tp2d,
         "expert_parallel_zero3": lambda: PB._rename(
             SH.expert_parallel_plan().with_rule("embed", "data"), "expert_parallel_zero3"),
+        "kv_sequence_split": lambda: PB._rename(_kv_split(), "kv_sequence_split"),
+        "kv_split_zero3": lambda: PB._rename(_kv_split().with_rule("embed", "data"),
+                                             "kv_split_zero3"),
     }
     return derived[name]()
 
 
-def model(arch: str, kernels=None):
-    """The reduced config computing in float32 (``kernels`` as the job
-    says: ``cuda`` for the card's kernels, else the config's own)."""
+def _kv_split() -> SH.ShardingPlan:
+    """The decode candidates' sequence-split KV plan (``planner_bridge.
+    candidate_plans``): megatron TP, ``kv_seq`` over ``model``, no head
+    rules."""
+    return SH.megatron_tp_plan().with_rule("kv_seq", "model") \
+        .with_rule("kv_heads", None).with_rule("q_heads", None)
+
+
+def model(arch: str, kernels=None, **reduced):
+    """The reduced config (``reduced``: overrides of its sizes) computing in
+    float32 (``kernels`` as the job says: ``cuda`` for the card's kernels,
+    else the config's own)."""
     from dataclasses import replace
-    cfg = replace(get_config(arch).reduced(), compute_dtype="float32")
+    cfg = replace(get_config(arch).reduced(**reduced), compute_dtype="float32")
     return build_model(replace(cfg, kernels=kernels) if kernels else cfg)
 
 
 def run_case(job, case, mesh):
     api = model(case["arch"], job.get("kernels"))
-    tcfg = TrainConfig(**job["tcfg"])
+    tcfg = TrainConfig(**dict(job["tcfg"], **case.get("tcfg", {})))
     plan = plan_named(case["plan"])
     device = job.get("device", "cpu")
     state = torch.load(os.path.join(job["dir"], case["state"]), weights_only=False,
@@ -131,6 +149,54 @@ def check_dtensor(mesh, api, tcfg, plan):
     return n
 
 
+def run_serve_case(job, case, mesh):
+    from repro_torch.kernels import ops
+    from repro_torch.train import serve_step as SS
+    api = model(case["arch"], job.get("kernels"), **case.get("reduced", {}))
+    device = job.get("device", "cpu")
+    data = torch.load(os.path.join(job["dir"], case["data"]), weights_only=False,
+                      map_location=device)
+    from repro_torch.kernels import flash_decode as FD
+    where = {"flash_decode": ops, "flash_decode_partials": ops, "combine_partials": FD}
+    calls = {name: 0 for name in where}
+
+    def counted(name):
+        fn = getattr(where[name], name)
+
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    saved = {name: getattr(where[name], name) for name in calls}
+    for name in calls:
+        setattr(where[name], name, counted(name))
+    sm_count = FD.sm_count
+    if "sm_count" in job:
+        # split the local keys as a card with this many SMs would
+        FD.sm_count = lambda device: job["sm_count"]
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    try:
+        cache = data["cache"]
+        abstract = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                    for k, v in cache.items() if isinstance(v, torch.Tensor)}
+        step = SS.jit_serve_step(api, plan_named(case["plan"]), mesh, abstract,
+                                 tokens_shape=tuple(data["ids"][0].shape))
+        logits = []
+        for ids in data["ids"]:
+            out, cache = step(data["params"], ids, cache)
+            logits.append(out)
+    finally:
+        for name, fn in saved.items():
+            setattr(where[name], name, fn)
+        FD.sm_count = sm_count
+    return {"logits": logits, "cache": {k: v for k, v in cache.items()
+                                        if isinstance(v, torch.Tensor)},
+            "index": cache["index"], "calls": calls,
+            "launches": kernels.launch_counts(), "coords": mesh.coords()}
+
+
 def main():
     job = json.load(open(sys.argv[1]))
     rank = int(sys.argv[2])
@@ -149,6 +215,10 @@ def main():
                 torch.save({"history": history, "ep_trace": trace, "state": state,
                             "launches": launches,
                             "coords": mesh.coords(), "dtensor_checked": checked},
+                           os.path.join(out, f"{case['name']}.rank{rank}.pt"))
+        elif job["mode"] == "serve":
+            for case in job["cases"]:
+                torch.save(run_serve_case(job, case, mesh),
                            os.path.join(out, f"{case['name']}.rank{rank}.pt"))
         elif job["mode"] == "save":
             case = job["cases"][0]

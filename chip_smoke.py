@@ -15,7 +15,9 @@ these phases, each printing one JSON line; any failure raises:
             rwkv6-3b's prefill; at head dim 64 K2 at zamba2-1.2b's and
             internvl2-1b's prefill, seamless-m4t-medium's encoder and its
             cross prompt pass, K3 at zamba2's and internvl2's decode and
-            seamless's cross step) and at one ragged shape each, in
+            seamless's cross step; at head dim 256 K2, K3 (with the partials
+            kernel and K3') and K2-bwd at gemma-7b's prefill, decode and
+            training pass) and at one ragged shape each, in
             bf16 and float32 (tolerances 2e-2 and 1e-4, those of the
             reference's kernel tests; 2e-3 for the WKV scan in float32 and
             for its final state), each timed with CUDA events (median of 25
@@ -28,7 +30,7 @@ these phases, each printing one JSON line; any failure raises:
             planner -> GEMM kernel on the TMA body, search then registry
             hit, no fallback; every compiled bf16 GEMM tile (both bodies)
             and flash tile timed at the served shape (d 128, and d 64 at
-            zamba2's prefill and seamless's encoder), and every TMA tile at
+            zamba2's prefill and seamless's encoder, d 256 at gemma-7b's), and every TMA tile at
             the MoE's two K4 prefill shapes (forward, and the backward's dX
             and dW products) and at K1's backward products (dA = dC B^T and
             dB = A^T dC, each reading its operand as stored), with the rank
@@ -73,6 +75,13 @@ these phases, each printing one JSON line; any failure raises:
             of a prefill and a decode step against its plain version on the
             same inputs, and a control whose K2/K3 outputs keep 5 mantissa
             bits must fail;
+   gemma    ``gemma-7b`` (head dim 256, MHA, GeGLU) at full width and depth
+            (28 layers, 8.54 B parameters, 17.1 GB in bf16) as ``serve``
+            runs qwen2.5-3b: K2 28 and K3 28 x 32 launches exactly, no
+            planner fallback, every logit within 2e-2 of the plain path's,
+            every K2 and K3 call of a prefill and a decode step within its
+            per-call bound of its plain version, and a control whose K2/K3
+            outputs keep 5 mantissa bits rejected;
 10. moe     ``qwen3-moe-30b-a3b`` at full width and depth (30.5 B
             parameters, 61 GB in bf16), its experts through the grouped-GEMM
             kernel, every launch on the TMA body; the kernel run and the
@@ -119,11 +128,18 @@ these phases, each printing one JSON line; any failure raises:
             be rejected; three AdamW steps with exact launch counts (K5
             twice a layer, K5-bwd once), finite losses, peak memory, step
             time, tok/s and one traced step;
+   gemma_train ``gemma-7b`` at full width and 4 of its 28 layers (1.89 B
+            parameters; full depth needs about 137 GB of float32 weights,
+            gradients and AdamW state): as ``train``, the float32 rule on
+            the first gradient, every K2-bwd call (d 256) within its bound
+            with a 5-bit control rejected, three AdamW steps through
+            ``launch.train`` with exact counts (K2 24, K2-bwd 12);
 14. mesh_train plan-sharded training through ``train_step.jit_train_step`` on
             a 1x1 ``launch.mesh.make_host_mesh`` over a world-1 NCCL process
             group: ``qwen2.5-3b`` as in ``train``, three steps under
             megatron_tp and three under zero3, each plan's losses within
-            1e-6 relative of the ``train`` phase's, exact K2 / K2-bwd counts,
+            1e-6 relative of the ``train`` phase's (a 1x1 mesh has no local
+            axis, so the head-local layers are not entered), exact K2 / K2-bwd counts,
             step time, tok/s, peak memory beside the mesh planner's
             ``hbm_per_chip`` on a one-card ``h100_cluster(1, 1)``, the
             ranking line; then ``qwen3-moe-30b-a3b`` (2 layers) three steps
@@ -146,8 +162,11 @@ these phases, each printing one JSON line; any failure raises:
 16. dryrun  ``python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape
             {train_4k,prefill_32k,decode_32k} --mesh single``, three
             processes, each rank 0 of a 256-rank no-op world at full width
-            and depth: each row's plan, per-device bytes, roofline terms,
-            measured ms and collective bytes; a failed cell fails the phase.
+            and depth, heads, ffn columns and vocabulary computed locally
+            under megatron_tp: each row's plan, per-device bytes, roofline
+            terms, measured ms and collective bytes (train_4k's all-gather on
+            ``model`` must be 0: no head, ffn or vocabulary leaf is gathered);
+            a failed cell fails the phase.
 
 The kernels phase also holds the backward kernels against their plain
 versions: K2-bwd (dq, dk, dv; the forward kernel's log-sum-exp too; bf16 on
@@ -199,6 +218,8 @@ ARCH = "qwen2.5-3b"
 MOE_ARCH = "qwen3-moe-30b-a3b"
 RWKV_ARCH = "rwkv6-3b"
 HYBRID_ARCH, VLM_ARCH, ENCDEC_ARCH = "zamba2-1.2b", "internvl2-1b", "seamless-m4t-medium"
+GEMMA_ARCH = "gemma-7b"              # head dim 256
+GEMMA_TRAIN_LAYERS = 4
 BATCH, PROMPT, NEW_TOKENS = 4, 512, 32
 
 
@@ -589,8 +610,10 @@ def flash_bwd_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving, mo
     g = H // Hkv
     q, k4, v4 = _qkv(gen, dev, B, H, Hkv, Sq, Skv, d, dtype)
     dout = torch.randn(B * H, Sq, d, generator=gen, device=dev).to(dtype)
-    out, lse = FA.flash_attention(q, k4, v4, causal=causal, q_per_kv=g, block_q=64,
-                                  block_kv=64, return_lse=True)
+    tiles = FA.legal_tiles(d, q.element_size())
+    bq, bkv = (64, 64) if (64, 64) in tiles else tiles[0]     # float32 at d 256: (64, 32)
+    out, lse = FA.flash_attention(q, k4, v4, causal=causal, q_per_kv=g, block_q=bq,
+                                  block_kv=bkv, return_lse=True)
     pout, plse = FA.flash_attention_plain(q, k4, v4, causal=causal, q_per_kv=g,
                                           return_lse=True)
     lse_err = compare("flash_attention lse", lse, plse, torch.float32, tol=1e-4)
@@ -822,6 +845,19 @@ def phase_kernels(timer, gen):
     for model, B_, H_, Hkv_, Sq, Skv, causal in served_flash_d64():
         cases.append(flash_bwd_case(timer, gen, B_, H_, Hkv_, Sq, Skv, 64, causal,
                                     torch.bfloat16, serving=True, model=model))
+    # head dim 256 at gemma-7b's shapes: its prefill (16 heads, MHA), its
+    # decode (G 1) with the partials kernel and K3', its training pass
+    gcfg = get_config(GEMMA_ARCH)
+    gH, gHkv, gd = gcfg.n_heads, gcfg.n_kv_heads, gcfg.head_dim_
+    for dtype in (torch.bfloat16, torch.float32):
+        served = dtype == torch.bfloat16
+        cases.append(flash_case(timer, gen, BATCH, gH, gHkv, PROMPT, PROMPT, gd, True, dtype,
+                                serving=served, model=gcfg.name))
+        cases += decode_cases(timer, gen, BATCH, gH, gHkv, buffer_len, PROMPT + 1, gd, dtype,
+                              serving=served, model=gcfg.name)
+        cases.append(flash_bwd_case(timer, gen, BATCH, gH, gHkv, PROMPT, PROMPT, gd, True,
+                                    dtype, serving=served, model=gcfg.name))
+    cases.append(flash_bwd_case(timer, gen, 1, 6, 2, 100, 77, gd, True, torch.bfloat16, False))
     cases.append(gemm_bwd_case(timer, gen, M, N, K, torch.bfloat16, True))
     cases.append(gemm_bwd_case(timer, gen, 96, 64, 160, torch.float32, False))
     for d_in, d_out in ((d, f), (f, d)):
@@ -962,18 +998,23 @@ def phase_planner(timer, gen):
     chosen = str(tuple(flash_blocks))
     plan_service_line(lower_torch.gemm_programs(M, N, K, dtype),
                       lower_torch.flash_programs(PROMPT, PROMPT, d, dtype), blocks, flash_blocks)
-    # and at head dim 64: zamba2's causal prefill and seamless's encoder
-    flash_d64 = {}
-    for model, B_, H_, Hkv_, Sq, Skv, causal in served_flash_d64()[::2]:
-        q, k4, v4 = _qkv(gen, dev, B_, H_, Hkv_, Sq, Skv, 64, dtype)
-        planned = str(tuple(lower_torch.plan_flash_blocks(Sq, Skv, 64, dtype)))
+    # and at head dim 64 (zamba2's causal prefill and seamless's encoder) and
+    # 256 (gemma-7b's prefill)
+    gcfg = get_config(GEMMA_ARCH)
+    served = [(*c, 64) for c in served_flash_d64()[::2]]
+    served.append((gcfg.name, BATCH, gcfg.n_heads, gcfg.n_kv_heads, PROMPT, PROMPT, True,
+                   gcfg.head_dim_))
+    flash_other = {}
+    for model, B_, H_, Hkv_, Sq, Skv, causal, d_ in served:
+        q, k4, v4 = _qkv(gen, dev, B_, H_, Hkv_, Sq, Skv, d_, dtype)
+        planned = str(tuple(lower_torch.plan_flash_blocks(Sq, Skv, d_, dtype)))
         times = {str(t): timer.ms(lambda t=t: FA.flash_attention(
             q, k4, v4, causal=causal, block_q=t[0], block_kv=t[1], q_per_kv=H_ // Hkv_), n=10)
-            for t in lower_torch.flash_tile_options(64, 2)}
+            for t in lower_torch.flash_tile_options(d_, 2)}
         order = sorted(times, key=times.get)
-        flash_d64[model] = {"shape": [Sq, Skv, 64], "causal": causal, "blocks": planned,
-                            "tile_ms": times, "blocks_rank": order.index(planned) + 1,
-                            "blocks_vs_fastest": times[planned] / times[order[0]]}
+        flash_other[model] = {"shape": [Sq, Skv, d_], "causal": causal, "blocks": planned,
+                              "tile_ms": times, "blocks_rank": order.index(planned) + 1,
+                              "blocks_vs_fastest": times[planned] / times[order[0]]}
     # the second entry point's gradient: ops.matmul's backward, two
     # planner-blocked K1 launches that read b and a as stored
     a_, b_ = a.detach().requires_grad_(), b.detach().requires_grad_()
@@ -998,7 +1039,8 @@ def phase_planner(timer, gen):
           "flash_shape": [PROMPT, PROMPT, d], "flash_blocks": list(flash_blocks),
           "flash_tile_ms": flash_tiles, "flash_blocks_rank": ranked.index(chosen) + 1,
           "flash_blocks_vs_fastest": flash_tiles[chosen] / flash_tiles[ranked[0]],
-          "flash_d64": flash_d64})
+          "flash_d64": {m: r for m, r in flash_other.items() if r["shape"][2] == 64},
+          "flash_d256": {m: r for m, r in flash_other.items() if r["shape"][2] == 256}})
     return launches, by_body, bwd["gemm_bwd"]
 
 
@@ -1698,6 +1740,68 @@ def phase_attention_family(device, phase: str, arch: str, prompt_passes: int,
                              f"the calls were not counted: {per_call}")
     if not controls[5]["rejected"]:
         raise AssertionError(f"{phase}: the checks did not reject the 5-bit control")
+    return launches
+
+
+def phase_gemma(device) -> dict:
+    """gemma-7b served at full width and depth, the first head-dim-256
+    model: K2 on every layer's prompt pass and K3 on every decode-step
+    attention, launch counts exact, no planner fallback; judged as
+    ``serve`` judges qwen2.5-3b (every logit within 2e-2 of the plain
+    path's, :func:`against_plain`), and every K2 and K3 call of a prefill
+    and a decode step held against its plain version on the same inputs
+    (:func:`attention_per_call`), where a control with 5 mantissa bits
+    must be rejected."""
+    from repro_torch import kernels
+    from repro_torch.launch import common, serve
+    from repro_torch.models import build_model
+    cfg = common.launch_config(GEMMA_ARCH, kernels_path="cuda")
+    api = build_model(cfg)
+    t0 = time.perf_counter()
+    params = serve.load_params(api, device, seed=0)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    prompts = serve.make_prompts(cfg, BATCH, PROMPT, device)
+
+    serve.generate(api, params, prompts, 2)            # warm-up: planner, allocator
+    kernels.reset_launch_counts()
+    res = serve.generate(api, params, prompts, NEW_TOKENS, keep_step_logits=True)
+    launches = kernels.launch_counts()
+    L = cfg.n_layers
+    want = {"gemm": 0, "flash_attention": L, "flash_decode": L * NEW_TOKENS,
+            "flash_decode_partials": 0, "flash_decode_combine": 0, "grouped_matmul": 0,
+            "wkv6": 0, "flash_attention_bwd": 0, "wkv6_bwd": 0}
+    if launches != want:
+        raise AssertionError(f"gemma: kernel launches {launches}, expected {want}")
+    check_outputs("gemma", res, cfg)
+    fallbacks = check_planner("gemma", res)
+    plain_api = build_model(replace(cfg, kernels="plain"))
+    ref = serve.generate(plain_api, params, prompts, NEW_TOKENS, keep_step_logits=True,
+                         forced_ids=res.generated)
+    agreement = against_plain("gemma", res, ref)
+    per_call = attention_per_call(api, params, prompts, {})
+    control = attention_per_call(api, params, prompts, {}, coarse_attention(5))
+    emit({"phase": "gemma", "arch": cfg.name, "n_layers": L, "d_model": cfg.d_model,
+          "head_dim": cfg.head_dim_, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+          "n_params": api.n_params(), "batch": BATCH, "prompt_len": PROMPT,
+          "new_tokens": NEW_TOKENS, "compute_dtype": cfg.compute_dtype, "load_s": load_s,
+          "prefill_ms": res.prefill_s * 1e3,
+          "decode_ms_per_token": res.decode_s * 1e3 / NEW_TOKENS,
+          "tok_per_s": BATCH * NEW_TOKENS / res.decode_s,
+          "plain_prefill_ms": ref.prefill_s * 1e3,
+          "plain_decode_ms_per_token": ref.decode_s * 1e3 / NEW_TOKENS,
+          "peak_bytes": res.peak_bytes, "launches": launches, "planner_fallbacks": fallbacks,
+          **agreement, "per_call": per_call, "control_5_mantissa_bits": control,
+          "first_ids": res.generated[0, :16].tolist(),
+          "blocks": {f"{t}{list(s)}": [list(b), src]
+                     for (t, s), (b, src) in res.blocks.items()}})
+    if not per_call["within"] or per_call["attention"]["calls"] != L \
+            or per_call["flash_decode"]["calls"] != L:
+        raise AssertionError(f"gemma: a K2/K3 call disagrees with its plain version, or the "
+                             f"calls were not counted: {per_call}")
+    if control["within"]:
+        raise AssertionError("gemma: the per-call check did not reject the 5-bit control")
+    del params
     return launches
 
 
@@ -2883,6 +2987,12 @@ def phase_dryrun() -> dict:
         rf = row["roofline"]
         for k, v in row["counted"]["by_kernel"].items():
             total[k] = total.get(k, 0) + v["launches"]
+        # heads, ffn columns and vocabulary computed locally: no leaf is
+        # gathered over ``model`` in a train or prefill step under megatron_tp
+        gathered_model = row["collectives"]["bytes"]["all-gather"].get("model", 0.0)
+        if shape != "decode_32k" and row["plan"] == "megatron_tp" and gathered_model:
+            raise AssertionError(f"dryrun {shape}: {gathered_model} bytes all-gathered on "
+                                 f"model under megatron_tp")
         cells.append({
             "shape": shape, "plan": row["plan"], "seconds": time.perf_counter() - t0,
             "per_device_bytes": row["per_device_bytes"], "fits_hbm": row["fits_hbm"],
@@ -2895,6 +3005,7 @@ def phase_dryrun() -> dict:
                                               for k, v in rf["coll_by_kind"].items()},
             "coll_bytes_by_axis_per_device": {k: v / row["chips"]
                                               for k, v in rf.get("coll_by_axis", {}).items()},
+            "rank0_collective_bytes": row["collectives"]["bytes"],
             "counted": {k: row["counted"][k] for k in ("torch_flops", "torch_bytes",
                                                        "kernel_flops", "kernel_bytes")},
             "launches": {k: v["launches"] for k, v in row["counted"]["by_kernel"].items()},
@@ -3059,6 +3170,85 @@ def phase_rwkv_train(device):
     return launches
 
 
+def phase_gemma_train(device) -> dict:
+    """gemma-7b trained at full width and 4 of its 28 layers (full depth
+    needs about 137 GB of float32 weights, gradients and AdamW state): the
+    first step's gradient through the kernels (K2 and K2-bwd at head dim
+    256), the plain path and float32, the float32 rule on it; every K2-bwd
+    call of that step against its plain version on the same inputs with a
+    5-bit control that must be rejected; three AdamW steps through
+    ``launch.train.run`` with exact counts (K2 twice a layer a step with
+    remat, K2-bwd once), finite losses."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.kernels import flash_attention_bwd as FAB
+    from repro_torch.launch import common, train as TL
+    from repro_torch.models import build_model
+    from repro_torch.train import optimizer as opt, train_step as TS
+    cfg = replace(common.launch_config(GEMMA_ARCH), n_layers=GEMMA_TRAIN_LAYERS)
+    api = build_model(cfg)
+    L = cfg.n_layers
+    params = api.init(torch.Generator(device=device).manual_seed(0), device)
+    source = make_source(DataConfig(vocab_size=cfg.vocab_size), cfg)
+    batch = TL.to_device(source.batch_at(0, BATCH, PROMPT), device)
+    f32_loss, _, exact = TS.value_and_grad(
+        build_model(replace(cfg, kernels="plain", compute_dtype="float32")), params, batch)
+    stats = []
+    with patched(FAB, "flash_attention_bwd", bwd_per_call(stats, FAB.flash_attention_bwd,
+                                                           FAB.flash_attention_bwd_plain)):
+        kern_loss, _, grads = TS.value_and_grad(api, params, batch)
+    kern = leaf_distances(grads, exact)
+    del grads
+    plain_loss, _, grads = TS.value_and_grad(build_model(replace(cfg, kernels="plain")),
+                                             params, batch)
+    plain = leaf_distances(grads, exact)
+    del grads, exact
+    rule = gradient_rule(kern, plain)
+    per_call = summarize_per_call(stats)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    steps = 3
+    tcfg = TrainConfig(learning_rate=1e-3, total_steps=steps, warmup_steps=1)
+    state = TS.TrainState(params, opt.opt_init(params, tcfg))
+    kernels.reset_launch_counts()
+    res = TL.run(api, tcfg, steps, BATCH, PROMPT, device, state=state, log_every=1,
+                 log=lambda line: None)
+    launches = res.launches
+    want = {"gemm": 0, "flash_attention": 2 * L * steps, "flash_attention_bwd": L * steps,
+            "flash_decode": 0, "flash_decode_partials": 0, "flash_decode_combine": 0,
+            "grouped_matmul": 0, "wkv6": 0, "wkv6_bwd": 0}
+    finite = all(math.isfinite(h[k]) for h in res.history for k in ("loss", "grad_norm"))
+    emit({"phase": "gemma_train", "arch": cfg.name, "n_layers": L,
+          "full_depth_layers": common.launch_config(GEMMA_ARCH).n_layers,
+          "d_model": cfg.d_model, "head_dim": cfg.head_dim_, "n_params": api.n_params(),
+          "batch": BATCH, "seq": PROMPT, "compute_dtype": cfg.compute_dtype,
+          "remat": cfg.remat, "optimizer": tcfg.optimizer,
+          "first_step_loss": {"kernel": float(kern_loss), "plain": float(plain_loss),
+                              "float32": float(f32_loss)},
+          "gradients": rule, "per_call": per_call, "history": res.history,
+          "step_ms": [t * 1e3 for t in res.step_s],
+          "tok_per_s": [BATCH * PROMPT / t for t in res.step_s],
+          "peak_bytes": res.peak_bytes, "launches": launches})
+    if launches != want:
+        raise AssertionError(f"gemma_train: kernel launches {launches}, expected {want}")
+    if not finite:
+        raise AssertionError(f"gemma_train: a loss or gradient norm is not finite: "
+                             f"{res.history}")
+    if not rule["within"]:
+        raise AssertionError(f"gemma_train: the kernel path's gradients are further from "
+                             f"float32 than the plain path allows: {rule}")
+    if not per_call["within"] or per_call["calls"] != L:
+        raise AssertionError(f"gemma_train: a K2-bwd call disagrees with its plain version, "
+                             f"or the calls were not counted: {per_call}")
+    if not per_call["control_5_bits_rejected"]:
+        raise AssertionError("gemma_train: the per-call check did not reject the 5-bit "
+                             "control")
+    del res, state, params
+    return launches
+
+
 SOURCES = {
     "gemm": ("src/repro_torch/kernels/csrc/gemm_sm90.cuh", "src/repro/kernels/gemm.py:26"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cuh",
@@ -3089,6 +3279,10 @@ SOURCES = {
 # where a cache is split over ranks (mesh_serve), ``ops.flash_decode``
 # computes both in one launch elsewhere
 OFF_MAIN_PATH = ()
+# the bodies instantiated at head dim 256 (gemma-7b)
+D256_BODIES = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "decode_mma_kernel",
+               "decode_f32_kernel", "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel",
+               "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 # the bodies redesigned last: their registers and spills go in the build line
 REDESIGNED = ("decode_mma_kernel", "decode_f32_kernel", "wkv6_kernel", "flash_bwd_dq_mma_kernel",
               "flash_bwd_dkv_mma_kernel", "wkv6_bwd_kernel")
@@ -3152,10 +3346,15 @@ def main() -> int:
     # float32 products in full float32, as the reference's tolerances assume
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the head-dim-256 instantiations of K2, K3 (and its partials epilogue)
+    # and K2-bwd: registers and spilled bytes of each
+    d256 = {k: v for k, v in ptxas.items() if "Li256E" in k}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled_here": bool(info.get("built")), "library": info.get("path"),
           "sources": [p.name for p in _build.sources()], "ptxas": ptxas,
-          "redesigned": redesigned})
+          "redesigned": redesigned, "head_dim_256": d256})
+    if info.get("built") and not all(any(b in k for k in d256) for b in D256_BODIES):
+        raise AssertionError(f"a head-dim-256 body was not compiled: {sorted(d256)}")
     spilled = {k: v for k, v in ptxas.items()
                if "gemm_tma_kernel" in k and v.get("spill_bytes")}
     if info.get("built") and (spilled or not any("gemm_tma_kernel" in k for k in ptxas)
@@ -3210,6 +3409,10 @@ def main() -> int:
         lap(phase)
     gc.collect()
     torch.cuda.empty_cache()
+    by_path["gemma"] = phase_gemma(device)
+    lap("gemma")
+    gc.collect()
+    torch.cuda.empty_cache()
     moe_launches, moe_by_body = phase_moe(device)
     by_path["moe"] = moe_launches
     lap("moe")
@@ -3230,6 +3433,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["rwkv_train"] = phase_rwkv_train(device)
     lap("rwkv_train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["gemma_train"] = phase_gemma_train(device)
+    lap("gemma_train")
     gc.collect()
     torch.cuda.empty_cache()
     by_path["mesh_train"] = phase_mesh_train(device, uninterrupted["losses"], moe_train_loss,

@@ -286,7 +286,8 @@ def _cached_blocks(template: str, params: dict, shape: Tuple[int, ...],
 
 
 # What each request that went past the in-process memo resolved to, and
-# how: "search", "cache" (the plan registry) or "fallback".  A request is
+# how: "search", "cache" (the plan registry), "only" (a single tile compiles
+# and fits) or "fallback".  A request is
 # (template, (shape..., element bytes)).  The serve launcher prints it.
 _RESOLVED: dict = {}
 
@@ -374,6 +375,12 @@ def _flash_blocks_memo(Sq: int, Skv: int, d: int, dtype, _fast: bool
                        ) -> Tuple[int, int]:
     dbytes = dtype_bytes(dtype)
     options = flash_tile_options(d, dbytes)
+    if len(options) == 1:
+        # one compiled tile fits (float32 at d 256): nothing to rank, and the
+        # tile program's model, which double-buffers every load, must not
+        # veto the tile the kernel runs
+        _RESOLVED[("flash_blocks", (Sq, Skv, d, dbytes))] = (options[0], "only")
+        return options[0]
     return _cached_blocks("flash_blocks",
                           {"Sq": Sq, "Skv": Skv, "d": d, "dbytes": dbytes},
                           (Sq, Skv, d), flash_programs(Sq, Skv, d, dtype), FLASH_FALLBACK,

@@ -83,11 +83,14 @@ struct FlashLayout<__nv_bfloat16, D, BQ, BKV> {
   // blocks an SM should hold: as many as its 228 KB of shared memory take
   // (1 KB of each reserved), at most 2 of 8 warps (128 registers a thread)
   // or 3 of 4 warps (170); one where ptxas spilled under the 128-register
-  // cap ((128, 32) at d 128, (128, 64) at d 64)
+  // cap ((128, 32) at d 128, (128, 64) at d 64).  At d 256 a warp's 16 x 256
+  // float32 output accumulator alone is 128 registers a thread, so the cap
+  // is the hardware's 255: one block of 8 warps, or two of 4.
   static constexpr bool SPILLS_AT_2 = BQ == 128 && ((D == 128 && BKV == 32) ||
                                                     (D == 64 && BKV == 64));
   static constexpr int BY_SMEM = 233472 / (TOTAL + 1024);
-  static constexpr int BY_REGS = BQ == 128 ? (SPILLS_AT_2 ? 1 : 2) : 3;
+  static constexpr int BY_REGS = D >= 256 ? (BQ == 128 ? 1 : 2)
+                                          : BQ == 128 ? (SPILLS_AT_2 ? 1 : 2) : 3;
   static constexpr int MIN_BLOCKS = BY_SMEM < BY_REGS ? BY_SMEM : BY_REGS;
 };
 
@@ -473,8 +476,9 @@ int launch_flash_tile(const void* q, const void* k, const void* v, void* o, floa
                       long long k_st, long long v_sb, long long v_sh, long long v_st,
                       float sm_scale, int causal, int vec_ok, cudaStream_t stream) {
   using L = FlashLayout<T, D, BQ, BKV>;
-  if (L::TOTAL > FLASH_MAX_SMEM) return -2;
-  if constexpr (is_bf16<T>::value) {
+  if constexpr (L::TOTAL > FLASH_MAX_SMEM) {
+    return -2;                              // not instantiated: it could never launch
+  } else if constexpr (is_bf16<T>::value) {
     return launch_flash_bf16<D, BQ, BKV>(q, k, v, o, lse, BH, Sq, Skv, H, q_per_kv, k_sb, k_sh,
                                          k_st, v_sb, v_sh, v_st, sm_scale, causal, vec_ok,
                                          stream);
@@ -497,10 +501,12 @@ constexpr int flash_tile_smem() { return FlashLayout<T, D, BQ, BKV>::TOTAL; }
 
 #define REPRO_FLASH_TILES(X, D_)                                                          \
   X(D_, 64, 32) X(D_, 64, 64) X(D_, 128, 32) X(D_, 128, 64)
-#define REPRO_FLASH_ALL(X) REPRO_FLASH_TILES(X, 32) REPRO_FLASH_TILES(X, 64) REPRO_FLASH_TILES(X, 128)
+#define REPRO_FLASH_ALL(X)                                                                \
+  REPRO_FLASH_TILES(X, 32) REPRO_FLASH_TILES(X, 64) REPRO_FLASH_TILES(X, 128)               \
+  REPRO_FLASH_TILES(X, 256)
 
-// Dispatch over the compiled shapes: d in {32, 64, 128}, BQ in {64, 128},
-// BKV in {32, 64}.  Returns a cudaError_t, -1 for a shape that is not
+// Dispatch over the compiled shapes: d in {32, 64, 128, 256}, BQ in {64, 128},
+// BKV in {32, 64} (at d 256 in float32 only (64, 32) fits a block).  Returns a cudaError_t, -1 for a shape that is not
 // compiled, -2 for a tile whose shared memory does not fit one block.
 template <typename T>
 int launch_flash(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Sq,

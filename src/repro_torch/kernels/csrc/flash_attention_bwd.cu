@@ -58,10 +58,20 @@
 //  * where a pointer or stride is not 16-byte aligned, the same stages are
 //    filled with scalar loads (`vec_ok == 0`), as in the forward.
 //
+//  * at d 256 a warp cannot hold its output rows: 16 keys x 256 of dK and of
+//    dV are 256 float32 registers a thread, 16 query rows of dQ 128 beside
+//    S and dP.  So both launches split the output columns over the grid
+//    (gridDim.z = 2, BwdCols): a block computes S and dP over the whole d,
+//    then accumulates its half of the dQ (or dK/dV) columns.  S and dP are
+//    computed once per half, two of the five products twice; the registers
+//    a warp holds are those of d 128.  Shared memory (64-row tiles of 256)
+//    is about 200 KB a block, so one block an SM.
+//
 // float32 inputs keep the first design (flash_bwd_dq_kernel,
 // flash_bwd_dkv_kernel): true float32 FMAs on the CUDA cores over float32
 // tiles in shared memory, one dK/dV block per (batch, kv head, 32-key tile)
-// that loops over its group's query heads.  Nothing trained runs it.
+// that loops over its group's query heads; at d 256 the dQ block takes 32
+// query rows, not 64, so that its tiles fit.  Nothing trained runs it.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -126,7 +136,7 @@ __device__ __forceinline__ void load_rows(float* __restrict__ s, const T* __rest
 
 template <int D>
 struct DqLayout {
-  static constexpr int BQ = 64, BKV = 64, LD = D + 1, LDS = BKV + 1;
+  static constexpr int BQ = D > 128 ? 32 : 64, BKV = 64, LD = D + 1, LDS = BKV + 1;
   static constexpr int FLOATS = 2 * BQ * LD + 2 * BKV * LD + BQ * LDS + 2 * BQ;
   static constexpr int BYTES = FLOATS * 4;
 };
@@ -380,6 +390,14 @@ constexpr int MMA_BKV = 64;                // key rows: a dK/dV block, a dQ stag
 constexpr int MAX_CLUSTER = 8;             // the portable cluster size
 constexpr float LOG2E = 1.4426950408889634f;
 
+// Output columns one bf16 block accumulates: all of d up to 128, half of it
+// at d 256 (gridDim.z picks the half).
+template <int D>
+struct BwdCols {
+  static constexpr int N = D > 128 ? 128 : D;
+  static constexpr int SPLITS = D / N;
+};
+
 // The dK/dV cluster: the largest divisor of the group that is at most 8.
 __host__ __device__ constexpr int cluster_size(int q_per_kv) {
   int c = q_per_kv < MAX_CLUSTER ? q_per_kv : MAX_CLUSTER;
@@ -405,7 +423,7 @@ struct MmaDkvLayout {
   static constexpr int KV_BYTES = 2 * TILE;
   static constexpr int STAGE_BYTES = 2 * TILE + 2 * MMA_BQ * 4;
   static constexpr int BYTES = KV_BYTES + 2 * STAGE_BYTES;
-  static constexpr int LDP = D + 4;                  // float row of a partial
+  static constexpr int LDP = BwdCols<D>::N + 4;      // float row of a partial (its columns)
   static constexpr int FOLD_BYTES = 2 * MMA_BKV * LDP * 4;
   static_assert(FOLD_BYTES <= 2 * STAGE_BYTES, "the partials reuse the stages");
 };
@@ -452,7 +470,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   using L = MmaDqLayout<D>;
   constexpr int LD = L::LD, BQ = MMA_BQ, BKV = MMA_BKV;
   constexpr int NS = BKV / 8;               // n8 tiles of S and dP
-  constexpr int NO = D / 8;                 // n8 tiles of dQ
+  constexpr int NO = BwdCols<D>::N / 8;     // n8 tiles of this block's dQ columns
   constexpr int VPL = D / 32;               // elements of a row per lane (delta)
   constexpr unsigned FULL = 0xffffffffu;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -468,6 +486,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   const int tq = lane & 3;                  // accumulator columns 2 tq, 2 tq + 1
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest causal tiles first
+  const int c0 = blockIdx.z * BwdCols<D>::N;          // this block's first dQ column
   const long long row_off = (long long)bh * Sq * D;
   const long long kv_b = bh / H;
   const long long kv_h = (bh % H) / q_per_kv;
@@ -502,7 +521,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
     if (r == g) d_a = s;
     if (r == g + 8) d_b = s;
-    if (lane == 0 && gr < Sq) delta[(long long)bh * Sq + gr] = s;
+    if (lane == 0 && gr < Sq && blockIdx.z == 0) delta[(long long)bh * Sq + gr] = s;
   }
   const float l_a = row_a < Sq ? lse[(long long)bh * Sq + row_a] * LOG2E : LSE_MASKED;
   const float l_b = row_b < Sq ? lse[(long long)bh * Sq + row_b] * LOG2E : LSE_MASKED;
@@ -588,7 +607,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
       for (int n = 0; n < NO / 2; ++n) {    // 16 columns of d: two n8 tiles
         unsigned b[4];
         ldmatrix_x4_trans(b, smem_addr(Kt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                       n * 16 + (lane >> 4) * 8));
+                                       c0 + n * 16 + (lane >> 4) * 8));
         mma_bf16(dqa[2 * n], a, b[0], b[1]);
         mma_bf16(dqa[2 * n + 1], a, b[2], b[3]);
         mma_bf16(dqa[2 * n], a_lo, b[0], b[1]);
@@ -601,7 +620,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   bf16* dqb = dq + row_off;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
-    const int c = n * 8 + 2 * tq;
+    const int c = c0 + n * 8 + 2 * tq;
     if (row_a < Sq)
       *reinterpret_cast<unsigned*>(dqb + (long long)row_a * D + c) =
           pack_bf16(dqa[n][0] * sm_scale, dqa[n][1] * sm_scale);
@@ -630,7 +649,8 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   using L = MmaDkvLayout<D>;
   constexpr int LD = L::LD, BQ = MMA_BQ, BKV = MMA_BKV, LDP = L::LDP;
   constexpr int NS = BQ / 8;                // n8 tiles of S^T and dP^T
-  constexpr int NO = D / 8;                 // n8 tiles of dK and dV
+  constexpr int NC = BwdCols<D>::N;         // this block's dK and dV columns
+  constexpr int NO = NC / 8;                // n8 tiles of them
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = Ks + BKV * LD;
@@ -655,6 +675,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int kvh = grp % Hkv;
   const long long h_first = (long long)b * H + (long long)kvh * q_per_kv + rank * heads;
   const int kv0 = blockIdx.y * BKV;         // the first key tiles see most queries: launched first
+  const int c0 = blockIdx.z * NC;           // this block's first dK/dV column
   const bf16* kb = k + (long long)b * k_sb + (long long)kvh * k_sh;
   const bf16* vb = v + (long long)b * v_sb + (long long)kvh * v_sh;
   const int q_first = causal ? (kv0 / BQ) * BQ : 0;   // earlier rows see none of these keys
@@ -761,7 +782,8 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int n = 0; n < NO / 2; ++n) {    // 16 columns of d: two n8 tiles
         unsigned bt[4];
-        ldmatrix_x4_trans(bt, smem_addr(dOt + (kk * 16 + b_lane) * LD + n * 16 + (lane >> 4) * 8));
+        ldmatrix_x4_trans(bt, smem_addr(dOt + (kk * 16 + b_lane) * LD + c0 + n * 16 +
+                                        (lane >> 4) * 8));
         mma_bf16(dva[2 * n], a, bt[0], bt[1]);
         mma_bf16(dva[2 * n + 1], a, bt[2], bt[3]);
         mma_bf16(dva[2 * n], a_lo, bt[0], bt[1]);
@@ -775,7 +797,8 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int n = 0; n < NO / 2; ++n) {
         unsigned bt[4];
-        ldmatrix_x4_trans(bt, smem_addr(Qt + (kk * 16 + b_lane) * LD + n * 16 + (lane >> 4) * 8));
+        ldmatrix_x4_trans(bt, smem_addr(Qt + (kk * 16 + b_lane) * LD + c0 + n * 16 +
+                                        (lane >> 4) * 8));
         mma_bf16(dka[2 * n], a, bt[0], bt[1]);
         mma_bf16(dka[2 * n + 1], a, bt[2], bt[3]);
         mma_bf16(dka[2 * n], a_lo, bt[0], bt[1]);
@@ -805,7 +828,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int per = (BKV + n_cl - 1) / n_cl;
   const int r0 = rank * per;
   const int rows = max(0, min(BKV, r0 + per) - r0);
-  constexpr int V4 = D / 4;
+  constexpr int V4 = NC / 4;
   for (int e = tid; e < 2 * rows * V4; e += MMA_NT) {
     const bool is_v = e >= rows * V4;
     const int f = is_v ? e - rows * V4 : e;
@@ -826,7 +849,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
       uint2 packed;
       packed.x = pack_bf16(acc.x * sc, acc.y * sc);
       packed.y = pack_bf16(acc.z * sc, acc.w * sc);
-      *reinterpret_cast<uint2*>((is_v ? dv : dk) + ((long long)grp * Skv + key) * D + c) =
+      *reinterpret_cast<uint2*>((is_v ? dv : dk) + ((long long)grp * Skv + key) * D + c0 + c) =
           packed;
     }
   }
@@ -862,14 +885,14 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
   const bf16* kt = static_cast<const bf16*>(k);
   const bf16* vt = static_cast<const bf16*>(v);
   const bf16* dot = static_cast<const bf16*>(dout);
-  kq<<<dim3(BH, nq), MMA_NT, LQ::BYTES, s>>>(qt, kt, vt, static_cast<const bf16*>(o), dot, lse,
-                                              delta, static_cast<bf16*>(dq), Sq, Skv, H,
-                                              q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
-                                              sm_scale, causal, vec_ok);
+  constexpr int halves = BwdCols<D>::SPLITS;
+  kq<<<dim3(BH, nq, halves), MMA_NT, LQ::BYTES, s>>>(
+      qt, kt, vt, static_cast<const bf16*>(o), dot, lse, delta, static_cast<bf16*>(dq), Sq, Skv,
+      H, q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st, sm_scale, causal, vec_ok);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(BH / q_per_kv * n_cl, nkv);
+  cfg.gridDim = dim3(BH / q_per_kv * n_cl, nkv, halves);
   cfg.blockDim = dim3(MMA_NT);
   cfg.dynamicSmemBytes = LKV::BYTES;
   cfg.stream = s;
@@ -911,6 +934,7 @@ int launch_bwd_any(const void* q, const void* k, const void* v, const void* o,
   REPRO_FA_BWD_CASE(32)
   REPRO_FA_BWD_CASE(64)
   REPRO_FA_BWD_CASE(128)
+  REPRO_FA_BWD_CASE(256)
 #undef REPRO_FA_BWD_CASE
   return -1;
 }
@@ -953,6 +977,7 @@ extern "C" int repro_flash_bwd_smem_bytes(int d, int kernel, int is_bf16) {
   REPRO_FA_BWD_SMEM(32)
   REPRO_FA_BWD_SMEM(64)
   REPRO_FA_BWD_SMEM(128)
+  REPRO_FA_BWD_SMEM(256)
 #undef REPRO_FA_BWD_SMEM
   return -1;
 }

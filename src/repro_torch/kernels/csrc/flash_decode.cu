@@ -39,7 +39,8 @@
 //     a strip, at most 2 chunks a warp) the whole strip is in flight at once,
 //     one round trip sets the pace, and no barrier is needed until the warps
 //     merge.  Two stages keep a block at 82 KB (d 128), so two blocks fit
-//     an SM and 16 clusters of 8 (the MoE's decode) find room at once;
+//     an SM and 16 clusters of 8 (the MoE's decode) find room at once; at
+//     d 256 (gemma-7b) a block takes 160 KB, one an SM;
 //   * the G query heads of a kv head (padded to 16) are the rows of an
 //     `mma.sync.m16n8k16` tile: scores, probabilities and the output
 //     accumulator stay in registers, with K2's fragment helpers (mma.cuh);
@@ -64,6 +65,11 @@ constexpr int DEC_STAGES = 2;      // chunks each warp keeps in flight
 constexpr int DEC_MAX_CLUSTER = 8; // the portable cluster size: most splits COMBINE takes
 constexpr int DEC_TILE = 128;      // keys per inner tile of the float32 body: one a thread
 
+// Keys a tile of the float32 body holds: 128, or 64 at d 256, where two
+// 128-key tiles of K and V (266 KB) would not fit a block.
+template <int D>
+__host__ __device__ constexpr int dec_f32_tile() { return D > 128 ? 64 : DEC_TILE; }
+
 // A split's result in shared memory: m and l per query head, then acc (G x D).
 template <int D>
 constexpr int decode_result_bytes() { return (2 * DEC_GMAX + DEC_GMAX * D) * 4; }
@@ -82,12 +88,12 @@ struct DecodeLayout {
                 "the warps' merge scratch reuses Q and the ring");
 };
 
-// float32 body: one K and one V tile of DEC_TILE keys, rows padded by 16
-// bytes, then the result.  A tile of 128 keys holds a served strip (65 keys at
-// 8 splits) whole, so the body makes one pass.
+// float32 body: one K and one V tile of dec_f32_tile<D>() keys, rows padded
+// by 16 bytes, then the result.  A tile of 128 keys holds a served strip (65
+// keys at 8 splits) whole, so the body makes one pass.
 template <int D>
 constexpr int decode_f32_smem_bytes() {
-  return 2 * DEC_TILE * (D + 4) * 4 + decode_result_bytes<D>();
+  return 2 * dec_f32_tile<D>() * (D + 4) * 4 + decode_result_bytes<D>();
 }
 
 // ---- the two epilogues: `res` holds this split's m[16], l[16], acc[16][D] -----
@@ -192,10 +198,17 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   load_tile<bf16, DEC_GMAX, D, LD, DEC_THREADS>(Qs, q + (long long)group * G * D, 0, 0, G, D, D,
                                                 vec_ok, tid);
   __syncthreads();
-  unsigned qa[KD][4];
+  // Q's A fragments stay in registers up to d 128; at d 256 they would take
+  // 64 registers beside the 128 of the accumulator, so they are read from
+  // shared memory (untouched until the warps merge) at each step
+  constexpr bool Q_IN_REGS = D <= 128;
+  constexpr int KQ = Q_IN_REGS ? KD : 1;
+  unsigned qa[KQ][4];
+  if constexpr (Q_IN_REGS) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    ldmatrix_x4(qa[kk], smem_addr(Qs + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8));
+    for (int kk = 0; kk < KD; ++kk)
+      ldmatrix_x4(qa[kk], smem_addr(Qs + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8));
+  }
 
   float oacc[NO][4];
 #pragma unroll
@@ -217,8 +230,11 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       unsigned b[4];
       ldmatrix_x4(b, smem_addr(Kt + ((lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
                                ((lane >> 3) & 1) * 8));
-      mma_bf16(s[0], qa[kk], b[0], b[1]);
-      mma_bf16(s[1], qa[kk], b[2], b[3]);
+      if constexpr (!Q_IN_REGS)
+        ldmatrix_x4(qa[0], smem_addr(Qs + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8));
+      const unsigned (&a)[4] = qa[Q_IN_REGS ? kk : 0];
+      mma_bf16(s[0], a, b[0], b[1]);
+      mma_bf16(s[1], a, b[2], b[3]);
     }
 
     // ---- online softmax where the scores lie (natural-log domain, as the
@@ -330,8 +346,9 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 // ---- float32: scalar body ---------------------------------------------------------
 // The K and V tiles are staged in shared memory with 16-byte loads that all
 // threads start at once; every thread takes the whole q.k dot products of
-// one key, one warp per query head runs the online softmax, and a thread
-// owns an output column in P V.
+// one key (at d 256, whose tile holds 64 keys, two neighbouring threads take
+// half of one key's each), one warp per query head runs the online softmax,
+// and a thread owns an output column in P V (at d 256 two columns).
 template <int D, bool COMBINE>
 __global__ void __launch_bounds__(DEC_THREADS)
 decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -340,18 +357,22 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   float* __restrict__ acc_out, int G, int hkv, int kv_len, int splits,
                   long long k_sb, long long k_sh, long long k_st, long long v_sb,
                   long long v_sh, long long v_st, float sm_scale, int vec_ok) {
-  static_assert(DEC_THREADS == DEC_TILE, "the score phase maps a thread to a key");
+  constexpr int TILE = dec_f32_tile<D>();
+  constexpr int KPARTS = DEC_THREADS / TILE;     // threads sharing one key's dot products
+  static_assert(KPARTS * TILE == DEC_THREADS && (KPARTS == 1 || KPARTS == 2),
+                "the score phase maps one or two threads to a key");
   constexpr int LDK = D + 4;                     // padded row of the staged tiles
-  constexpr int PARTS = DEC_THREADS / D;         // threads sharing one output column
+  constexpr int PARTS = D < DEC_THREADS ? DEC_THREADS / D : 1;   // threads sharing a column
+  constexpr int CPT = D > DEC_THREADS ? D / DEC_THREADS : 1;     // columns a thread owns
   constexpr unsigned FULL = 0xffffffffu;
   __shared__ float qs[DEC_GMAX][D];
-  __shared__ float ss[DEC_GMAX][DEC_TILE];
+  __shared__ float ss[DEC_GMAX][TILE];
   __shared__ float red[DEC_GMAX * DEC_THREADS];
   __shared__ float m_s[DEC_GMAX], l_s[DEC_GMAX], alpha_s[DEC_GMAX];
   extern __shared__ __align__(128) unsigned char dec_smem[];
   float* Ks = reinterpret_cast<float*>(dec_smem);
-  float* Vs = Ks + DEC_TILE * LDK;
-  float* res = Vs + DEC_TILE * LDK;
+  float* Vs = Ks + TILE * LDK;
+  float* res = Vs + TILE * LDK;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -373,27 +394,31 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l_s[tid] = 0.f;
     alpha_s[tid] = 1.f;
   }
-  const int col = tid % D;
-  const int part = tid / D;
-  float acc[DEC_GMAX];
+  const int col = tid % (D < DEC_THREADS ? D : DEC_THREADS);
+  const int part = D < DEC_THREADS ? tid / D : 0;
+  float acc[CPT][DEC_GMAX];
 #pragma unroll
-  for (int g = 0; g < DEC_GMAX; ++g) acc[g] = 0.f;
+  for (int x = 0; x < CPT; ++x)
+#pragma unroll
+    for (int g = 0; g < DEC_GMAX; ++g) acc[x][g] = 0.f;
   __syncthreads();
 
-  for (int t0 = t_begin; t0 < t_end; t0 += DEC_TILE) {
-    const int tile_n = min(DEC_TILE, t_end - t0);
+  for (int t0 = t_begin; t0 < t_end; t0 += TILE) {
+    const int tile_n = min(TILE, t_end - t0);
     // rows at or beyond t_end are staged as zeros and masked below
-    load_tile<float, DEC_TILE, D, LDK, DEC_THREADS>(Ks, kb, t0, 0, t_end, D, k_st, vec_ok, tid);
-    load_tile<float, DEC_TILE, D, LDK, DEC_THREADS>(Vs, vb, t0, 0, t_end, D, v_st, vec_ok, tid);
+    load_tile<float, TILE, D, LDK, DEC_THREADS>(Ks, kb, t0, 0, t_end, D, k_st, vec_ok, tid);
+    load_tile<float, TILE, D, LDK, DEC_THREADS>(Vs, vb, t0, 0, t_end, D, v_st, vec_ok, tid);
     __syncthreads();
 
-    // ---- scores: a thread owns one key and every query head --------------------
+    // ---- scores: a thread (or two) owns one key and every query head -----------
     {
-      const float* krow = Ks + tid * LDK;
+      const int key = tid / KPARTS;
+      const int kpart = tid % KPARTS;
+      const float* krow = Ks + key * LDK;
       float s[DEC_GMAX];
 #pragma unroll
       for (int g = 0; g < DEC_GMAX; ++g) s[g] = 0.f;
-      for (int c = 0; c < D; c += 4) {
+      for (int c = kpart * (D / KPARTS); c < (kpart + 1) * (D / KPARTS); c += 4) {
         const float4 kf = *reinterpret_cast<const float4*>(krow + c);
 #pragma unroll
         for (int g = 0; g < DEC_GMAX; ++g) {
@@ -405,14 +430,18 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
           }
         }
       }
+      if constexpr (KPARTS > 1) {
+#pragma unroll
+        for (int g = 0; g < DEC_GMAX; ++g) s[g] += __shfl_xor_sync(FULL, s[g], 1);
+      }
 #pragma unroll
       for (int g = 0; g < DEC_GMAX; ++g)
-        if (g < G) ss[g][tid] = tid < tile_n ? s[g] * sm_scale : NEG_INF;   // ragged end
+        if (g < G && kpart == 0) ss[g][key] = key < tile_n ? s[g] * sm_scale : NEG_INF;
     }
     __syncthreads();
 
     // ---- online softmax per query head: one warp per head ---------------------
-    constexpr int PER_LANE = DEC_TILE / 32;
+    constexpr int PER_LANE = TILE / 32;
     for (int g = warp; g < G; g += DEC_WARPS) {
       float sv[PER_LANE];
       float mx = NEG_INF;
@@ -444,31 +473,42 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    // ---- acc += P V: a thread owns one output column, V reads run along d -----
+    // ---- acc += P V: a thread owns output columns, V reads run along d --------
 #pragma unroll
-    for (int g = 0; g < DEC_GMAX; ++g)
-      if (g < G) acc[g] *= alpha_s[g];
-    for (int j = part; j < tile_n; j += PARTS) {
-      const float vv = Vs[j * LDK + col];
+    for (int x = 0; x < CPT; ++x)
 #pragma unroll
       for (int g = 0; g < DEC_GMAX; ++g)
-        if (g < G) acc[g] = fmaf(ss[g][j], vv, acc[g]);
+        if (g < G) acc[x][g] *= alpha_s[g];
+    for (int j = part; j < tile_n; j += PARTS) {
+#pragma unroll
+      for (int x = 0; x < CPT; ++x) {
+        const float vv = Vs[j * LDK + col + x * DEC_THREADS];
+#pragma unroll
+        for (int g = 0; g < DEC_GMAX; ++g)
+          if (g < G) acc[x][g] = fmaf(ss[g][j], vv, acc[x][g]);
+      }
     }
     __syncthreads();                   // ss, Ks and Vs are rewritten by the next tile
   }
 
   // ---- fold the threads that share a column into the split's result -----------
+  if constexpr (PARTS > 1) {
 #pragma unroll
-  for (int g = 0; g < DEC_GMAX; ++g)
-    if (g < G) red[g * DEC_THREADS + tid] = acc[g];
-  __syncthreads();
-  if (part == 0) {
-    for (int g = 0; g < G; ++g) {
-      float a = 0.f;
+    for (int g = 0; g < DEC_GMAX; ++g)
+      if (g < G) red[g * DEC_THREADS + tid] = acc[0][g];
+    __syncthreads();
+    if (part == 0) {
+      for (int g = 0; g < G; ++g) {
+        float a = 0.f;
 #pragma unroll
-      for (int p = 0; p < PARTS; ++p) a += red[g * DEC_THREADS + p * D + col];
-      res[2 * DEC_GMAX + g * D + col] = a;
+        for (int p = 0; p < PARTS; ++p) a += red[g * DEC_THREADS + p * D + col];
+        res[2 * DEC_GMAX + g * D + col] = a;
+      }
     }
+  } else {
+#pragma unroll
+    for (int x = 0; x < CPT; ++x)
+      for (int g = 0; g < G; ++g) res[2 * DEC_GMAX + g * D + col + x * DEC_THREADS] = acc[x][g];
   }
   if (tid < G) {
     res[tid] = m_s[tid];
@@ -552,7 +592,7 @@ int launch_decode_body(void (*kern)(const T*, const T*, const T*, TO*, float*, f
 
 // The body follows the type: bf16 runs on the tensor cores, float32 on the
 // scalar body.  Both take any alignment (`vec_ok == 0` copies with scalar
-// loads), G <= 16 and d in {32, 64, 128}.
+// loads), G <= 16 and d in {32, 64, 128, 256}.
 template <bool COMBINE>
 int launch_decode(const DecodeArgs& a, int is_bf16, cudaStream_t s) {
   if (a.G < 1 || a.G > DEC_GMAX || a.splits < 1) return -1;
@@ -568,6 +608,7 @@ int launch_decode(const DecodeArgs& a, int is_bf16, cudaStream_t s) {
   REPRO_DEC_CASE(32)
   REPRO_DEC_CASE(64)
   REPRO_DEC_CASE(128)
+  REPRO_DEC_CASE(256)
 #undef REPRO_DEC_CASE
   return -1;
 }
@@ -577,7 +618,7 @@ int launch_decode(const DecodeArgs& a, int is_bf16, cudaStream_t s) {
 // Plain C interface: no allocation, no synchronisation; each function
 // launches on the stream it is handed and returns cudaGetLastError() (or
 // the launch's own error), or -1 for a shape that is not compiled (d not in
-// {32, 64, 128}, more than 16 query heads per kv head, more than 8 splits
+// {32, 64, 128, 256}, more than 16 query heads per kv head, more than 8 splits
 // for the one-launch decode).
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v, void* out,
                                   int n_groups, int G, int hkv, int d, int kv_len, int splits,
@@ -620,6 +661,7 @@ extern "C" int repro_flash_decode_smem_bytes(int d, int is_bf16) {
   REPRO_DEC_SMEM(32)
   REPRO_DEC_SMEM(64)
   REPRO_DEC_SMEM(128)
+  REPRO_DEC_SMEM(256)
 #undef REPRO_DEC_SMEM
   return -1;
 }

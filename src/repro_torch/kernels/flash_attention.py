@@ -33,7 +33,7 @@ from . import work as _work
 
 NEG_INF = -1e30
 LSE_MASKED = 1e30                   # log-sum-exp of a row with no visible key
-COMPILED_HEAD_DIMS = (32, 64, 128)
+COMPILED_HEAD_DIMS = (32, 64, 128, 256)
 TILE_Q = (64, 128)
 TILE_KV = (32, 64)
 COMPILED_TILES = tuple((bq, bkv) for bq in TILE_Q for bkv in TILE_KV)
@@ -49,7 +49,7 @@ def flash_smem_bytes(bq: int, bkv: int, d: int, elem_size: int) -> int:
     in ``csrc/flash_attention.cuh``).  bf16: the Q tile and two stages of K
     and V tiles, rows padded by 16 bytes; scores, probabilities and output
     stay in registers.  float32: the Q, K and V tiles, float32 scores and the
-    float32 output accumulator."""
+    float32 output accumulator (at d 256 only the (64, 32) tile fits)."""
     if elem_size == 2:
         return (bq + 2 * 2 * bkv) * (d + 8) * 2
     qkv = (bq + 2 * bkv) * (d + 4) * 4

@@ -16,7 +16,10 @@ writes delta = rowsum(dO o)) with one block per (query head, 64-row query
 tile), then dK and dV with one block per (query head, 64-key tile), the
 blocks of one kv head's group a thread-block cluster that folds their
 partial dK/dV through distributed shared memory (:func:`bwd_geometry`
-mirrors the grids, the cluster and the shared memory).  float32 keeps the
+mirrors the grids, the cluster and the shared memory).  At d 256 each
+launch cuts the output columns in two over ``gridDim.z``
+(:func:`bwd_column_splits`), so a warp holds the registers of d 128.
+float32 keeps the
 first scalar body, whose dK/dV block loops over its group's query heads.
 No float atomics: the result repeats exactly.  :data:`launches` counts calls
 of the wrapper that reached the card; one call is those two kernel launches.
@@ -46,14 +49,23 @@ def bwd_smem_bytes(d: int, kernel: str, elem_size: int) -> int:
     padded by 16 bytes, the dQ block's Q and dO and two stages of K and V,
     the dK/dV block's K and V and two stages of Q, dO and their rows' float32
     lse and delta.  float32 (the scalar body): float32 tiles with rows padded
-    by one float, 64-row dQ and 32-row dK/dV blocks."""
+    by one float, 64-row dQ blocks (32-row at d 256) and 32-row dK/dV blocks."""
     if elem_size == 2:
         tile = BWD_ROWS * (d + 8) * 2
         return 6 * tile if kernel == "dq" else 6 * tile + 2 * 2 * BWD_ROWS * 4
     ld = d + 1
     if kernel == "dq":
-        return (4 * 64 * ld + 64 * 65 + 2 * 64) * 4
+        bq = 32 if d > 128 else 64
+        return (2 * bq * ld + 2 * 64 * ld + bq * 65 + 2 * bq) * 4
     return (2 * 32 * ld + 2 * 64 * ld + 2 * 64 * 33 + 2 * 64) * 4
+
+
+def bwd_column_splits(d: int) -> int:
+    """Parts the bf16 launches cut the output columns into (``gridDim.z``):
+    1 up to d 128; 2 at d 256, where a warp's dK and dV rows over the whole
+    d would take 256 float32 registers a thread.  Each part computes S and
+    dP over the whole d again."""
+    return 1 if d <= 128 else d // 128
 
 
 def bwd_cluster(q_per_kv: int) -> int:
@@ -68,14 +80,17 @@ def bwd_cluster(q_per_kv: int) -> int:
 
 def bwd_geometry(BH: int, Sq: int, Skv: int, d: int, q_per_kv: int = 1,
                  causal: bool = True) -> dict:
-    """The two bf16 launches of one call: for each, the grid, the cluster,
-    the shared memory of a block, the blocks one SM holds (by shared memory
-    and the two blocks ``__launch_bounds__`` asks for) and each block's work
-    in (64 x 64)-tile products, in the order the blocks launch."""
+    """The two bf16 launches of one call: for each, the grid (with a third
+    axis, the column parts, at d 256), the cluster, the shared memory of a
+    block, the blocks one SM holds (by shared memory and the two blocks
+    ``__launch_bounds__`` asks for: one at d 256) and each block's work in
+    (64 x 64)-tile products, in the order the blocks launch."""
     n = BWD_ROWS
     nq, nkv = -(-Sq // n), -(-Skv // n)
     cl = bwd_cluster(q_per_kv)
     heads = q_per_kv // cl
+    parts = bwd_column_splits(d)
+    z = () if parts == 1 else (parts,)
 
     def per_sm(smem: int) -> int:
         return min(2, SM_SMEM // (smem + 1024))
@@ -93,10 +108,11 @@ def bwd_geometry(BH: int, Sq: int, Skv: int, d: int, q_per_kv: int = 1,
         first = y * n if causal else 0
         tiles = -(-(Sq - first) // n) if first < Sq else 0
         dkv_work += [heads * tiles] * (BH // q_per_kv * cl)
+    dq_work, dkv_work = dq_work * parts, dkv_work * parts
     smem_q, smem_kv = bwd_smem_bytes(d, "dq", 2), bwd_smem_bytes(d, "dkv", 2)
-    return {"dq": {"grid": (BH, nq), "cluster": 1, "smem": smem_q,
+    return {"dq": {"grid": (BH, nq, *z), "cluster": 1, "smem": smem_q,
                    "blocks_per_sm": per_sm(smem_q), "work": dq_work},
-            "dkv": {"grid": (BH // q_per_kv * cl, nkv), "cluster": cl,
+            "dkv": {"grid": (BH // q_per_kv * cl, nkv, *z), "cluster": cl,
                     "heads_per_block": heads, "smem": smem_kv,
                     "blocks_per_sm": per_sm(smem_kv), "work": dkv_work}}
 

@@ -35,7 +35,7 @@ MAX_SPLITS = 64
 MAX_CLUSTER_SPLITS = 8              # the portable cluster size: splits of one launch
 DECODE_STAGES = 2                   # 16-key chunks each warp of the bf16 body keeps in flight
 DECODE_WARPS = 4
-F32_TILE = 128                      # keys per inner tile of the float32 body
+F32_TILE = 128                      # keys per inner tile of the float32 body (64 at d 256)
 
 launches = 0                        # launches made by flash_decode()
 partials_launches = 0               # launches made by flash_decode_partials()
@@ -60,12 +60,18 @@ def decode_smem_bytes(d: int, elem_size: int) -> int:
     ``csrc/flash_decode.cu``): a split's float32 result (m and l for 16
     query rows, acc 16 x d) plus, in bf16, the 16 query rows and each warp's
     ring of K and V chunks (16 keys, rows padded by 16 bytes), in float32
-    one K and one V tile of 128 keys (rows padded by 16 bytes)."""
+    one K and one V tile of :func:`f32_tile` keys (rows padded by 16 bytes)."""
     result = (2 * MAX_Q_PER_KV + MAX_Q_PER_KV * d) * 4
     if elem_size == 2:
         ld = d + 8
         return MAX_Q_PER_KV * ld * 2 + DECODE_WARPS * DECODE_STAGES * 2 * 16 * ld * 2 + result
-    return 2 * F32_TILE * (d + 4) * 4 + result
+    return 2 * f32_tile(d) * (d + 4) * 4 + result
+
+
+def f32_tile(d: int) -> int:
+    """Keys a tile of the float32 body holds: :data:`F32_TILE`, or 64 at d
+    256, where two 128-key tiles of K and V would not fit one block."""
+    return F32_TILE if d <= 128 else F32_TILE // 2
 
 
 def sm_count(device: torch.device) -> int:

@@ -225,6 +225,7 @@ def _build_step(api, tcfg, shape, plan, mesh, gen, device):
     """The cell's step as a closure over rank 0's local inputs, with the
     bytes of its arguments, outputs and aliased outputs."""
     from repro_torch.parallel import spmd
+    from repro_torch.parallel.sharding import part_axes
     from repro_torch.train import serve_step as SS, train_step as TS
     cfg = api.cfg
     specs = api.input_specs(shape)
@@ -264,11 +265,19 @@ def _build_step(api, tcfg, shape, plan, mesh, gen, device):
         @torch.no_grad()
         def run():
             local, batch_part = TS.local_batch(batch, specs, plan, mesh)
-            step = spmd.Step(plan, mesh, batch_part, local["tokens"].shape[0])
+            step = spmd.Step(plan, mesh, batch_part, local["tokens"].shape[0],
+                             local=api.local_compute)
             with spmd.step_context(step):
                 return api.logits_fn(spmd.serving_params(params, axes, placements), local)
         B, S = batch["tokens"].shape
-        logits = B * S * cfg.padded_vocab * torch.empty((), dtype=_cdtype(cfg)).element_size()
+        # a vocabulary-local head leaves each rank its block of the logits
+        _, batch_part = TS.local_batch(batch, specs, plan, mesh)
+        tp = spmd.local_axis_of(plan, mesh, part_axes(batch_part)) \
+            if api.local_compute else None
+        head = p_sh["embed"]["table"].spec[:1] if cfg.tie_embeddings \
+            else p_sh["lm_head"]["w"].spec[1:2]
+        vocab = cfg.padded_vocab // (mesh.shape[tp] if tp and tuple(head) == (tp,) else 1)
+        logits = B * S * vocab * torch.empty((), dtype=_cdtype(cfg)).element_size()
         return run, _nbytes(params) + _nbytes(batch), logits, 0, tcfg
     # decode
     c_sh = SS.cache_shardings(api, specs["cache"], plan, mesh)

@@ -46,6 +46,15 @@ class ModelAPI:
     init_cache: Optional[Callable]
     cache_axes: Optional[Callable] = None     # () -> logical axes of the cache's leaves
 
+    @property
+    def local_compute(self) -> bool:
+        """Whether every layer of the family that holds a head, ffn or vocab
+        dim has a local rule (``models/layers.py``), so a plan-sharded step
+        may compute them in parts (``spmd.Step(local=True)``).  rwkv6's time
+        and channel mix, zamba2's Mamba2 block and the encoder-decoder's
+        cross-attention have none yet."""
+        return self.cfg.family in ("dense", "vlm", "moe")
+
     # -- params -------------------------------------------------------------
     def init(self, generator: torch.Generator, device="cuda", shardings=None) -> Params:
         """Random parameters from ``generator`` on ``device``, in the spec's

@@ -12,6 +12,16 @@ with ``nothing_saveable`` around a block.  Weights are cast to the activation dt
 as in the reference; a caller that holds its weights in the compute dtype
 already (``launch.serve.load_params`` draws them in it) pays nothing for
 it.
+
+Under a plan-sharded step with a local axis (``parallel/spmd.py``), a
+weight whose heads, ffn columns or vocabulary the step left split
+(``spmd.local_of``) is computed in parts, megatron style: attention over
+this rank's query heads and the kv heads they read, the MLP over its ffn
+columns, each entered through ``spmd.enter`` and summed by ``spmd.psum``
+after the row-parallel product; the embedding as a masked lookup into the
+local rows of the table; the LM head's logits over the local vocabulary,
+which :func:`softmax_xent` and :func:`fused_head_xent` reduce over the
+axis and :func:`whole_vocab` gathers for serving.
 """
 from __future__ import annotations
 
@@ -208,18 +218,20 @@ def _sdpa_kernel(q, k, v, causal: bool, sm_scale: float, q_per_kv: int,
 
 
 def _attend(q, k, v, causal: bool, cfg: ModelConfig,
-            kv_valid_len: Optional[int] = None) -> torch.Tensor:
-    """q: (B,S,H,D) against k/v: (B,T,Hkv,D), not repeated: through the
-    kernels when ``cfg.kernels == "cuda"``, else the plain path (dense, or
-    chunked over the keys for long sequences, as the reference's XLA path)."""
+            kv_valid_len: Optional[int] = None, q_per_kv: Optional[int] = None
+            ) -> torch.Tensor:
+    """q: (B,S,H,D) against k/v: (B,T,Hkv,D), not repeated (``q_per_kv``
+    query heads a kv head, the config's by default): through the kernels
+    when ``cfg.kernels == "cuda"``, else the plain path (dense, or chunked
+    over the keys for long sequences, as the reference's XLA path)."""
     sm_scale = cfg.head_dim_ ** -0.5
+    g = cfg.q_per_kv if q_per_kv is None else q_per_kv
     if cfg.kernels == "cuda":
         if q.dtype != k.dtype:
             k, v = k.to(q.dtype), v.to(q.dtype)
-        return _sdpa_kernel(q, k, v, causal, sm_scale, cfg.q_per_kv,
-                            kv_valid_len=kv_valid_len)
-    kr = _repeat_kv(k, cfg.q_per_kv)
-    vr = _repeat_kv(v, cfg.q_per_kv)
+        return _sdpa_kernel(q, k, v, causal, sm_scale, g, kv_valid_len=kv_valid_len)
+    kr = _repeat_kv(k, g)
+    vr = _repeat_kv(v, g)
     return _sdpa_plain(q, kr, vr, causal, sm_scale, kv_valid_len=kv_valid_len)
 
 
@@ -253,6 +265,11 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """
     B, S, d = x.shape
     hd = cfg.head_dim_
+    axis = spmd.local_of(p["wq"])
+    if axis is not None and kv_input is None and precomputed_kv is None:
+        return _attention_local(p, x, cfg, axis, causal=causal, positions=positions,
+                                kv_cache=kv_cache, cache_index=cache_index,
+                                use_rope=use_rope)
     if kv_input is not None or precomputed_kv is not None:
         if kv_cache is not None:
             raise ValueError("cross-attention (kv_input, precomputed_kv) takes no cache")
@@ -318,6 +335,87 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     out = _attend(q, k, v, is_causal, cfg, kv_valid_len=valid)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return out, new_cache
+
+
+def _local_kv_heads(h0: int, hl: int, G: int):
+    """The kv heads query heads ``[h0, h0 + hl)`` read (head h reads h // G):
+    ``(lo, hi, index, q_per_kv)`` with ``index`` None when every kv head of
+    ``[lo, hi)`` serves ``q_per_kv`` consecutive query heads, else the kv
+    head of each query head in turn (``q_per_kv`` 1)."""
+    lo, hi = h0 // G, (h0 + hl - 1) // G + 1
+    if h0 % G == 0 and hl % G == 0:
+        return lo, hi, None, G
+    if hi - lo == 1:
+        return lo, hi, None, hl
+    return lo, hi, [(h0 + j) // G - lo for j in range(hl)], 1
+
+
+def _attention_local(p: Params, x: torch.Tensor, cfg: ModelConfig, axis: str, *,
+                     causal: bool, positions, kv_cache, cache_index, use_rope: bool):
+    """:func:`attention` (self-attention) over this rank's query heads, whose
+    ``wq``/``bq``/``wo`` the step left split over ``axis``.
+
+    ``wk``/``wv`` are split alike when the plan could split ``kv_heads``
+    (this rank's kv heads are those its query heads read); otherwise they
+    are whole (GQA with fewer kv heads than ranks) and the rank projects
+    only the kv heads its query heads read (every kv head where a whole
+    cache must be filled), their gradient summed over ``axis``.  A cache
+    must be whole or split over ``kv_heads`` on ``axis``; its rank's heads
+    are written.  The output of the row-parallel ``wo`` product is summed
+    over ``axis``."""
+    B, S, _ = x.shape
+    G = cfg.q_per_kv
+    x = spmd.enter(x, axis)
+    hl = p["wq"].shape[1]
+    h0 = spmd.axis_index(axis) * hl
+    ck = cv = None
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        split = spmd.cache_split(ck)
+        dims = split.split_dims() if split is not None else ()
+        if set(dims) - {"kv_heads"} or (dims and split.mesh_axes_of("kv_heads") != (axis,)):
+            raise NotImplementedError(
+                f"head-local attention into a cache split over {dims} "
+                f"({split.sharding.spec}): only a split of kv_heads over {axis!r}")
+        if cache_index is None or (S > 1 and cache_index != 0):
+            raise NotImplementedError(
+                "a multi-token pass into a cache that already holds keys "
+                "(chunked prefill) is not supported: prefill from index 0")
+    p = dict(p)
+    if spmd.local_of(p["wk"]) is not None:
+        # the plan split kv_heads too: the rank's kv heads are its query heads'
+        sel, index, g = slice(None), None, G
+    else:
+        lo, hi, index, g = _local_kv_heads(h0, hl, G)
+        kv_leaves = [n for n in ("wk", "wv", "bk", "bv") if n in p]
+        p.update({n: spmd.enter(p[n], axis) for n in kv_leaves})
+        if ck is not None and ck.shape[2] == cfg.n_kv_heads:
+            sel = slice(lo, hi)           # a whole cache: project every kv head
+        else:
+            sel = slice(None)
+            p.update({n: p[n][:, lo:hi] if n[0] == "w" else p[n][lo:hi] for n in kv_leaves})
+    q, k, v = _project_qkv(p, x, cfg)
+    if use_rope:
+        pos = (cache_index + torch.arange(S, device=x.device) if ck is not None
+               else positions if positions is not None else torch.arange(S, device=x.device))
+        cos, sin = rope_frequencies(cfg.head_dim_, cfg.rope_theta, pos)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    valid, is_causal = None, causal
+    if ck is not None:
+        if ck.shape[2] != k.shape[2]:
+            raise ValueError(f"cache of {ck.shape[2]} kv heads for {k.shape[2]} projected")
+        ck[:, cache_index:cache_index + S] = k.to(ck.dtype)
+        cv[:, cache_index:cache_index + S] = v.to(cv.dtype)
+        if S > 1:
+            k, v = ck[:, :S], cv[:, :S]
+        else:
+            k, v, valid, is_causal = ck, cv, cache_index + 1, False
+    k, v = k[:, :, sel], v[:, :, sel]
+    if index is not None:
+        k, v = k[:, :, index], v[:, :, index]
+    out = _attend(q, k, v, is_causal, cfg, kv_valid_len=valid, q_per_kv=g)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return spmd.psum(out, axis), kv_cache
 
 
 def _decode_split(q, k, v, ck, cv, cache_index: Optional[int], split, cfg: ModelConfig
@@ -408,11 +506,17 @@ def mlp_spec(cfg: ModelConfig, d_ff: Optional[int] = None) -> Params:
 
 
 def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The gated MLP; over this rank's ffn columns where the step left them
+    split (column-parallel gate and up, row-parallel down, summed)."""
+    axis = spmd.local_of(p["w_gate"])
+    if axis is not None:
+        x = spmd.enter(x, axis)
     g = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(x.dtype))
     u = torch.einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype))
     # jax.nn.gelu defaults to the tanh approximation
     act = F.gelu(g, approximate="tanh") if cfg.mlp_activation == "gelu" else F.silu(g)
-    return torch.einsum("bsf,fd->bsd", act * u, p["w_down"].to(x.dtype))
+    out = torch.einsum("bsf,fd->bsd", act * u, p["w_down"].to(x.dtype))
+    return out if axis is None else spmd.psum(out, axis)
 
 
 # -------------------------------------------------------------- embeddings
@@ -422,7 +526,18 @@ def embedding_spec(cfg: ModelConfig) -> Params:
 
 
 def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return F.embedding(tokens, p["table"]).to(cdtype(cfg))
+    """Rows of the table; where the step left its vocabulary split, each
+    rank looks up the ids its rows hold (zeros elsewhere) and the ranks'
+    lookups are summed."""
+    table = p["table"]
+    axis = spmd.local_of(table)
+    if axis is None:
+        return F.embedding(tokens, table).to(cdtype(cfg))
+    n = table.shape[0]
+    at = tokens - spmd.axis_index(axis) * n
+    mine = ((at >= 0) & (at < n))[..., None]
+    x = F.embedding(at.clamp(0, n - 1), table).to(cdtype(cfg))
+    return spmd.psum(torch.where(mine, x, torch.zeros_like(x)), axis)
 
 
 def lm_head_spec(cfg: ModelConfig) -> Params:
@@ -433,16 +548,34 @@ def lm_head_spec(cfg: ModelConfig) -> Params:
 
 def lm_head(p: Params, x: torch.Tensor, cfg: ModelConfig,
             embed_params: Optional[Params] = None) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        w = embed_params["table"].to(x.dtype).T
-    else:
-        w = p["w"].to(x.dtype)
-    return torch.einsum("bsd,dv->bsv", x, w)
+    """Logits (B, S, V); over this rank's vocabulary block where the step
+    left the head's (or the tied table's) vocabulary split, marked so that
+    :func:`softmax_xent` reduces over the axis and :func:`whole_vocab`
+    gathers."""
+    src = embed_params["table"] if cfg.tie_embeddings else p["w"]
+    axis = spmd.local_of(src)
+    if axis is not None:
+        x = spmd.enter(x, axis)
+    w = src.to(x.dtype).T if cfg.tie_embeddings else src.to(x.dtype)
+    logits = torch.einsum("bsd,dv->bsv", x, w)
+    return logits if axis is None else spmd.mark_local(logits, axis)
+
+
+def whole_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """Logits over the whole vocabulary: ``logits`` itself, or the ranks'
+    blocks of a vocabulary-local head gathered in order."""
+    axis = spmd.local_of(logits)
+    return logits if axis is None else spmd.gather_over(logits, axis, logits.dim() - 1)
 
 
 # ------------------------------------------------------------------ losses
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy, numerically stable in float32."""
+    """Mean token cross-entropy, numerically stable in float32; over the
+    ranks' vocabulary blocks of a vocabulary-local head
+    (``spmd.vocab_xent_sum``)."""
+    axis = spmd.local_of(logits)
+    if axis is not None:
+        return spmd.vocab_xent_sum(logits, labels, axis) / labels.numel()
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
@@ -457,6 +590,9 @@ FUSED_XENT_THRESHOLD = 1 << 60
 
 def _chunk_xent_sum(xs: torch.Tensor, w: torch.Tensor, ls: torch.Tensor,
                     eq: str) -> torch.Tensor:
+    axis = spmd.local_of(w)
+    if axis is not None:
+        return spmd.vocab_xent_sum(torch.einsum(eq, xs, w.to(xs.dtype)), ls, axis)
     logits = torch.einsum(eq, xs, w.to(xs.dtype)).float()
     gold = torch.gather(logits, -1, ls[..., None].long())[..., 0]
     return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
@@ -474,9 +610,13 @@ def fused_head_xent(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, *,
     unfused path, as in the reference."""
     B, S, _ = x.shape
     eq = "bsd,vd->bsv" if w_is_vd else "bsd,dv->bsv"
+    axis = spmd.local_of(w)
+    if axis is not None:
+        x = spmd.enter(x, axis)            # each rank's vocabulary block: part of dx
     c = min(chunk, S)
     if S % c:
-        return softmax_xent(torch.einsum(eq, x, w.to(x.dtype)), labels)
+        logits = torch.einsum(eq, x, w.to(x.dtype))
+        return softmax_xent(logits if axis is None else spmd.mark_local(logits, axis), labels)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(S // c):
         xs, ls = x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]

@@ -155,7 +155,7 @@ def cached_layers(params: Params, x: torch.Tensor, cache: Dict[str, Any],
                        kv_cache=(cache["k"][i], cache["v"][i]), cache_index=idx)
     if last_only:
         x = x[:, -1:]
-    logits = _head(params, x, cfg)
+    logits = L.whole_vocab(_head(params, x, cfg))
     return logits, {"k": cache["k"], "v": cache["v"],
                     "index": idx + n}
 

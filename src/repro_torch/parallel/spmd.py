@@ -15,13 +15,32 @@ process groups of :class:`~repro_torch.parallel.sharding.Mesh`.
   under ``zero3_sp`` / ``tp2d``) is gathered for use.
 * **Gather for use.** A parameter is all-gathered where the model uses it:
   a layer's parameters inside ``layers.remat``, so again in the
-  recomputation, the others once a step (:func:`for_use`).  Activations are
-  computed whole on every rank.  The gather's backward turns the gradient
-  of the whole parameter into this rank's shard: it is **summed over the
-  batch axes** (their ranks saw other rows) and only **sliced** over the
-  others (their ranks saw the same rows and computed the same gradient).
+  recomputation, the others once a step (:func:`for_use`).  The gather's
+  backward turns the gradient of the whole parameter into this rank's
+  shard: it is **summed over the batch axes** (their ranks saw other rows)
+  and only **sliced** over the others (their ranks saw the same rows and
+  computed the same gradient).
   Each rank back-propagates its local mean loss divided by the batch
   shards, so the sum is the gradient of the global mean.
+* **Head-, ffn- and vocab-local compute** (megatron style, what GSPMD does
+  under the reference's logical-axis constraints).  A step built with
+  ``local=True`` under a plan that maps ``q_heads``, ``ffn`` and
+  ``vocab`` to one mesh axis that splits neither the batch nor the
+  sequence (``megatron_tp``, ``zero3``, ``expert_parallel``) has a
+  :attr:`Step.local_axis`.  :func:`for_use` then leaves a leaf's
+  ``q_heads`` / ``kv_heads`` / ``ffn`` / ``vocab`` dim split where the plan
+  splits it over that axis (it still gathers every other axis, such as
+  zero3's ``embed`` over ``data``) and marks the tensor (:func:`local_of`).
+  ``models/layers.py`` computes this rank's heads, ffn columns and
+  vocabulary slice: the input enters through :func:`enter` (its gradient
+  summed over the axis), the row-parallel product leaves through
+  :func:`psum`, the embedding is a masked lookup summed over the axis and
+  the cross-entropy reduces its log-sum-exp and label logit over it
+  (:func:`vocab_xent_sum`).  Such a leaf's gradient is the rank's own
+  block, summed over the batch axes only.  Activations outside those
+  layers (norms, residuals) stay whole on every rank, and families without
+  such layers (rwkv6, zamba2, the encoder-decoder) run with ``local=False``.
+  Without a local axis, activations are computed whole on every rank.
 * **Expert parallelism.** Under a plan that maps ``experts`` to one mesh
   axis, the grouped expert weights keep that axis sharded (each rank runs
   only its experts; ``models.moe``), and the rank's partial outputs are
@@ -277,18 +296,77 @@ def pmean(x: torch.Tensor, axis: str) -> torch.Tensor:
     return x if group is None else _Psum.apply(x, group, axis, 1.0 / mesh.shape[axis])
 
 
+# ------------------------------------------------ head-, ffn-, vocab-local compute
+# the logical axes a layer with a local rule computes in parts
+LOCAL_AXES = ("q_heads", "kv_heads", "ffn", "vocab")
+_LOCAL = "_spmd_local_axis"
+
+
+def local_axis_of(plan: ShardingPlan, mesh: Mesh, batch_axes: Sequence[str]) -> Optional[str]:
+    """The mesh axis a step computes heads, ffn columns and vocabulary
+    slices over: the one axis the plan maps ``q_heads``, ``ffn`` and
+    ``vocab`` to, when it has more than one rank, does not split the batch
+    and the plan splits no sequence over the mesh (``tp2d``, ``zero3_sp``:
+    sequence-parallel attention is not ported).  None otherwise."""
+    parts = {plan.mesh_axes(a) for a in ("q_heads", "ffn", "vocab")}
+    if len(parts) != 1:
+        return None
+    ax = parts.pop()
+    if not isinstance(ax, str) or mesh.shape.get(ax, 1) <= 1 or ax in batch_axes:
+        return None
+    if any(a in mesh.shape for a in part_axes(plan.mesh_axes("seq"))):
+        return None
+    return ax
+
+
+def mark_local(t: torch.Tensor, axis: str) -> torch.Tensor:
+    """Mark ``t`` as computed over this rank's block along ``axis`` (the
+    logits of a vocabulary-local head); returns ``t``."""
+    setattr(t, _LOCAL, axis)
+    return t
+
+
+def local_of(t: torch.Tensor) -> Optional[str]:
+    """The mesh axis ``t``'s head / ffn / vocab dim is split over, as
+    :meth:`Step.for_use` left it for local compute; None for a whole one."""
+    return getattr(t, _LOCAL, None)
+
+
+def axis_index(axis: str) -> int:
+    """This rank's coordinate along mesh ``axis`` of the current step."""
+    return current().mesh.coords()[axis]
+
+
+def vocab_xent_sum(logits: torch.Tensor, labels: torch.Tensor, axis: str) -> torch.Tensor:
+    """Summed token cross-entropy of logits split over ``axis`` along the
+    vocabulary (this rank's block, in rank order): the max and the sum of
+    exponentials, and the label's logit (on the rank that holds it), reduced
+    over the axis.  ``logits`` (..., V_local); labels (...) global ids."""
+    lf = logits.float()
+    n = lf.shape[-1]
+    v0 = axis_index(axis) * n
+    mx = reduce_over(lf.detach().amax(dim=-1), current().mesh, (axis,), op="max")
+    sumexp = psum(torch.exp(lf - mx[..., None]).sum(dim=-1), axis)
+    at = labels.long() - v0
+    mine = (at >= 0) & (at < n)
+    gold = torch.gather(lf, -1, at.clamp(0, n - 1)[..., None])[..., 0]
+    gold = psum(torch.where(mine, gold, torch.zeros_like(gold)), axis)
+    return torch.sum(torch.log(sumexp) + mx - gold)
+
+
 # -------------------------------------------------------------- step context
 class Step:
     """One rank's view of a plan-sharded step: the plan, the mesh, the mesh
     axes the batch is split over and the expert axis, if any."""
 
     def __init__(self, plan: ShardingPlan, mesh: Mesh, batch_part, local_batch: int,
-                 cache: Optional[dict] = None):
+                 cache: Optional[dict] = None, local: bool = False):
         """``batch_part``: the batch dim's entry of the batch's spec (None,
         an axis, or axes in the order the rows are blocked);
         ``local_batch``: the rows this rank holds; ``cache``: a serving
         step's cache leaves (name -> (this rank's tensor, its
-        :class:`CacheSplit`))."""
+        :class:`CacheSplit`)); ``local``: compute heads, ffn columns and
+        vocabulary locally where the plan allows it (:attr:`local_axis`)."""
         self.plan, self.mesh, self.batch_part = plan, mesh, batch_part
         self.local_batch = local_batch
         self._cache = {t.untyped_storage().data_ptr(): split
@@ -304,23 +382,31 @@ class Step:
         # batch split over exactly the plan's batch axes present in the mesh
         self.expert_axis = (e_ax if isinstance(e_ax, str) and e_ax in mesh.shape
                             and set(plan_batch) == set(self.batch_axes) else None)
+        self.local_axis = local_axis_of(plan, mesh, self.batch_axes) if local else None
 
     def for_use(self, leaf: torch.Tensor, placement: Placement) -> torch.Tensor:
         """``leaf`` (this rank's shard) gathered over every mesh axis its
         placement splits it over, but a grouped expert weight's ``experts``
-        dim under expert parallelism."""
+        dim under expert parallelism, and a head / ffn / vocab dim split over
+        :attr:`local_axis` (the result is then marked: :func:`local_of`)."""
         keep = set()
         if self.expert_axis is not None and placement.axes[:1] == ("experts",) \
                 and placement.sharding.spec[0] == self.expert_axis:
             keep.add(0)          # a grouped expert weight keeps its experts local
-        spec = P(*(None if i in keep else part
-                   for i, part in enumerate(placement.sharding.spec)))
+        spec = placement.sharding.spec
+        local = {i for i, ax in enumerate(placement.axes)
+                 if self.local_axis is not None and ax in LOCAL_AXES
+                 and i < len(spec) and spec[i] == self.local_axis}
+        keep |= local
+        spec = P(*(None if i in keep else part for i, part in enumerate(spec)))
         shape = tuple(leaf.shape[i] if i in keep else n
                       for i, n in enumerate(placement.shape))
         axes = Sharding(self.mesh, spec).mesh_axes()
         if self.mesh.group(axes) is None and self.batch_group is None:
-            return leaf
-        return _ForUse.apply(leaf, self.mesh, spec, shape, axes, self.batch_axes)
+            out = leaf
+        else:
+            out = _ForUse.apply(leaf, self.mesh, spec, shape, axes, self.batch_axes)
+        return mark_local(out, self.local_axis) if local else out
 
     def cache_split(self, t: torch.Tensor) -> Optional["CacheSplit"]:
         """The :class:`CacheSplit` of the serving cache leaf ``t`` is (a view

@@ -23,7 +23,14 @@ cache (``parallel/spmd.py``):
 * the logits come back whole on every rank (the reference's
   ``out_shardings=(None, c_sh)``) and the cache as this rank's slice,
   updated in place (the donation); its ``index`` is one Python int on
-  every rank.
+  every rank;
+* a call with more than one token a row is the multi-token prefill pass
+  (``api.prefill``, into an empty cache; the last token's logits): for
+  the families with local rules (``ModelAPI.local_compute``) each rank
+  computes its heads, ffn columns and vocabulary block under a plan with a
+  local axis (``spmd.Step(local=True)``), writing its kv heads into a
+  cache split over ``kv_heads`` on that axis (or every kv head into a
+  whole one).
 """
 from __future__ import annotations
 
@@ -116,7 +123,7 @@ def _planned_serve_step(api: ModelAPI, plan: ShardingPlan, mesh: Mesh,
         learn_cache(cache_abstract)
 
     @torch.no_grad()
-    def serve_step(params, tokens, cache):
+    def serve_step(params, tokens, cache, **inputs):
         if "cache" not in known:
             learn_cache(cache)
         if known["tokens"] is None:
@@ -124,17 +131,26 @@ def _planned_serve_step(api: ModelAPI, plan: ShardingPlan, mesh: Mesh,
         shapes, c_sh = known["cache"], known["c_sh"]
         params = place_tree(params, p_sh, abstract)
         t_sh = token_sharding(plan, mesh, known["tokens"])
-        tokens = place_leaf(tokens, t_sh, known["tokens"])
+        prompt = tokens.shape[1] > 1
+        tokens = place_leaf(tokens, t_sh, (known["tokens"][0], tokens.shape[1]))
+        # a prompt's frontend input (patches, frames) has the tokens' rows
+        rows = Sharding(mesh, P(t_sh.spec[0] if len(t_sh.spec) else None))
+        inputs = {k: place_leaf(v, rows, (known["tokens"][0],) + tuple(v.shape[1:]))
+                  for k, v in inputs.items()}
         local = dict(cache)
         splits = {}
         for k, shape in shapes.items():
             local[k] = place_leaf(cache[k], c_sh[k], shape)
             splits[k] = (local[k], spmd.CacheSplit(c_sh[k], shape, tuple(cache_axes[k])))
         batch_part = t_sh.spec[0] if len(t_sh.spec) else None
-        step = spmd.Step(plan, mesh, batch_part, tokens.shape[0], cache=splits)
+        step = spmd.Step(plan, mesh, batch_part, tokens.shape[0], cache=splits,
+                         local=prompt and api.local_compute)
         with spmd.step_context(step):
             model_params = spmd.serving_params(params, axes, placements)
-            logits, new_cache = api.decode_step(model_params, tokens, local)
+            if prompt:
+                logits, new_cache = api.prefill(model_params, tokens, local, **inputs)
+            else:
+                logits, new_cache = api.decode_step(model_params, tokens, local)
             whole = (known["tokens"][0],) + tuple(logits.shape[1:])
             logits = spmd.gather_blocks(logits, mesh, P(batch_part), whole, step.batch_axes)
         return logits, new_cache

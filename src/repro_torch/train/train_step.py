@@ -22,8 +22,9 @@ Plan-sharded training keeps the reference's names: ``state_logical_axes``,
 mesh)`` and ``jit_train_step``.  Nothing is compiled: the step runs eagerly
 on every rank, on the rank's shards of the state and rows of the batch, as
 ``parallel/spmd.py`` describes (each parameter gathered where a layer uses
-it, its gradient summed over the batch axes and sliced to the rank's shard,
-the global clip norm, the optimizer on the shards: AdamW elementwise,
+it, or left split where the layer computes its heads, ffn columns or
+vocabulary locally; its gradient summed over the batch axes and sliced to
+the rank's shard; the global clip norm; the optimizer on the shards: AdamW elementwise,
 Adafactor's means and int8's scales over whole leaves).  On a mesh of one rank it is the
 unsharded step's arithmetic.
 """
@@ -265,7 +266,7 @@ def _planned_step(api: ModelAPI, tcfg: TrainConfig, plan: ShardingPlan, mesh: Me
         local, batch_part = local_batch(batch, batch_specs, plan, mesh)
         # the model sees one microbatch's rows at a time
         rows = local["tokens"].shape[0] // max(1, tcfg.microbatches)
-        step = spmd.Step(plan, mesh, batch_part, rows)
+        step = spmd.Step(plan, mesh, batch_part, rows, local=api.local_compute)
         with spmd.step_context(step):
             return _step(api, tcfg, state, local, step, placements, opt_specs)
 

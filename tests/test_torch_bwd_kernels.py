@@ -106,6 +106,31 @@ def test_flash_bwd_blocks_fit_two_an_sm(d):
     assert FAB.bwd_smem_bytes(128, "dkv", 4) == 116480
 
 
+def test_flash_bwd_blocks_at_d256_fit_one_an_sm():
+    """Head dim 256: a bf16 block's 64-row tiles take about 200 KB, so one
+    block an SM, and both launches split the output columns in two over a
+    third grid axis; float32's dQ block takes 32 query rows so that it fits
+    (64 rows would take 280,320 bytes)."""
+    assert FAB.bwd_smem_bytes(256, "dq", 2) == 202752
+    assert FAB.bwd_smem_bytes(256, "dkv", 2) == 203776
+    assert FAB.bwd_smem_bytes(256, "dq", 4) == 205952
+    assert FAB.bwd_smem_bytes(256, "dkv", 4) == 214784
+    for kernel in ("dq", "dkv"):
+        for es in (2, 4):
+            assert FAB.SM_SMEM // 2 - 1024 < FAB.bwd_smem_bytes(256, kernel, es) <= 232448
+    assert FAB.bwd_column_splits(256) == 2
+    assert [FAB.bwd_column_splits(d) for d in (32, 64, 128)] == [1, 1, 1]
+    # gemma-7b's training pass: 64 heads (G 1), 512 x 512 causal
+    geo = FAB.bwd_geometry(64, 512, 512, 256, 1, causal=True)
+    for launch in ("dq", "dkv"):
+        info = geo[launch]
+        assert info["blocks_per_sm"] == 1
+        assert info["grid"][2] == 2
+        assert info["grid"][0] * info["grid"][1] * 2 == len(info["work"]) >= H100_SMS
+    assert geo["dq"]["grid"] == (64, 8, 2) and geo["dkv"]["grid"] == (64, 8, 2)
+    assert sum(geo["dq"]["work"]) == sum(geo["dkv"]["work"])
+
+
 def test_flash_bwd_geometry_of_a_causal_pass_with_more_keys_than_queries():
     """Keys past the last query see none under the causal mask: their
     blocks do no work (the kernel writes zero gradients there)."""

@@ -182,21 +182,25 @@ def test_dry_run_plan_is_the_mesh_planners_and_its_view_the_references(rows):
 
 def test_dry_run_train_flops_equal_the_hand_count(rows):
     """Reduced qwen2.5-3b (2 layers, d 128, 4 heads of 32 on 1 kv head, d_ff
-    256, vocab 512, tied head), 2 rows of 16 tokens a rank, remat.  Per row
-    (16 tokens) and layer: projections P = 2 x 16 x (128 x 128 q + 2 x 128 x
-    32 k, v + 128 x 128 o + 3 x 128 x 256 MLP), the plain attention
-    A = 4 x 4 heads x 16 x 16 x 32 (every pair: the CPU's plain version
-    masks after the product), the down projection D = 2 x 16 x 256 x 128.
-    Head H = 2 x 16 x 128 x 512.  A step: the forward (P + A per layer, H),
+    256, vocab 512, tied head), 2 rows of 16 tokens a rank, remat, under
+    megatron_tp on 32x8: the 8 ``model`` ranks split the ffn columns and the
+    vocabulary, which rank 0 computes locally (its 32 ffn columns, its 64
+    vocabulary rows); the 4 query heads do not divide over 8 ranks, so
+    attention stays whole.  Per row (16 tokens) and layer: projections P = 2
+    x 16 x (128 x 128 q + 2 x 128 x 32 k, v + 128 x 128 o + 3 x 128 x 256 / 8
+    MLP), the plain attention A = 4 x 4 heads x 16 x 16 x 32 (every pair:
+    the CPU's plain version masks after the product), the down projection
+    D = 2 x 16 x 256 / 8 x 128.  Head H = 2 x 16 x 128 x 512 / 8.  A step:
+    the forward (P + A per layer, H),
     the recomputation (P - D + A: torch's checkpoint stops after the last
     saved activation, so the block's down projection is not recomputed), the
     backward (2 P, 2.5 A: K2-bwd's plain version computes the scores again,
     five products for the forward's two; 2 H)."""
     _, got = rows
-    P = 2 * 16 * (128 * 128 + 2 * 128 * 32 + 128 * 128 + 3 * 128 * 256)
+    P = 2 * 16 * (128 * 128 + 2 * 128 * 32 + 128 * 128 + 3 * 128 * 256 / 8)
     A = 4 * 4 * 16 * 16 * 32
-    D = 2 * 16 * 256 * 128
-    H = 2 * 16 * 128 * 512
+    D = 2 * 16 * 256 / 8 * 128
+    H = 2 * 16 * 128 * 512 / 8
     layers = 2
     per_row = layers * ((P + A) + (P - D + A) + (2 * P + 2.5 * A)) + 3 * H
     want = 2 * per_row

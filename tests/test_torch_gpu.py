@@ -922,6 +922,109 @@ def test_flash_attention_bwd_kernel(cuda, case, dtype):
         assert torch.equal(a, c)
 
 
+# head dim 256 (gemma-7b: 16 heads, MHA): batch x heads, q_per_kv, Sq, Skv,
+# causal, offset of the k/v storage (1: not 16-byte aligned)
+D256_FLASH = [(64, 1, 512, 512, True, 0),         # gemma-7b's prefill, 4 sequences
+              (8, 4, 200, 136, True, 1),          # grouped, Sq > Skv, unaligned k/v
+              (6, 3, 77, 150, False, 0)]          # ragged, not causal
+D256_DECODE = [(64, 1, 545, 513, None),           # gemma-7b's decode step: G 1
+               (16, 8, 545, 513, None),           # a group of 8
+               (12, 3, 300, 7, 5), (16, 1, 545, 0, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", D256_FLASH)
+def test_flash_attention_kernel_at_d256(cuda, case, dtype):
+    """K2 at head dim 256 at every tile that fits a block (bf16 all four,
+    float32 (64, 32)) and through ``ops.attention``'s planned tile, against
+    its plain version, with the log-sum-exp the backward reads."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as FA, ops
+    BH, g, Sq, Skv, causal, offset = case
+    q = torch.randn(BH, Sq, 256, device=cuda).to(dtype)
+    k = _kv_view(BH // g, Skv, 256, dtype, cuda, offset)
+    v = _kv_view(BH // g, Skv, 256, dtype, cuda, offset)
+    want, plse = FA.flash_attention_plain(q, k, v, causal=causal, q_per_kv=g, return_lse=True)
+    tiles = FA.legal_tiles(256, q.element_size())
+    assert len(tiles) == (4 if dtype == torch.bfloat16 else 1)
+    for bq, bkv in tiles:
+        got, lse = FA.flash_attention(q, k, v, causal=causal, block_q=bq, block_kv=bkv,
+                                      q_per_kv=g, return_lse=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+        torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-4)
+    kernels.reset_launch_counts()
+    got = ops.attention(q, k, v, causal=causal, q_per_kv=g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", D256_DECODE)
+def test_flash_decode_kernels_at_d256(cuda, case, dtype):
+    """K3 at head dim 256: the one-launch decode (one launch a call) on the
+    serving cache's strided view, and the partials kernel with K3' over the
+    plain partials, each against its plain version."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_decode as FD, ops
+    BH, g, Skv, valid, splits = case
+    q = torch.randn(BH, 1, 256, device=cuda).to(dtype)
+    k = torch.randn(1, Skv, BH // g, 256, device=cuda).to(dtype).permute(0, 2, 1, 3)
+    v = torch.randn(1, Skv, BH // g, 256, device=cuda).to(dtype).permute(0, 2, 1, 3)
+    kernels.reset_launch_counts()
+    got = ops.flash_decode(q, k, v, kv_splits=splits, kv_valid_len=valid, q_per_kv=g)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_decode"] == 1 and sum(counts.values()) == 1
+    want = FD.flash_decode_plain(q, k, v, kv_valid_len=valid, q_per_kv=g)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    n = 9 if splits is None else splits
+    m, l, acc = FD.flash_decode_partials(q, k, v, kv_splits=n, kv_valid_len=valid, q_per_kv=g)
+    mp, lp, accp = FD.flash_decode_partials_plain(q, k, v, kv_splits=n, kv_valid_len=valid,
+                                                  q_per_kv=g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(FD.combine_partials_plain(m, l, acc),
+                               FD.combine_partials_plain(mp, lp, accp), **_tol(dtype))
+    torch.testing.assert_close(FD.combine_partials(mp, lp, accp, out_dtype=dtype).float(),
+                               FD.combine_partials_plain(mp, lp, accp, out_dtype=dtype).float(),
+                               **_tol(dtype))
+
+
+D256_BWD = [(16, 1, 512, 512, True, 0),           # gemma-7b's training pass, one sequence
+            (8, 4, 200, 136, True, 1),            # grouped, Sq > Skv, unaligned k/v
+            (6, 3, 77, 150, False, 0),            # ragged, not causal
+            (16, 16, 130, 160, True, 0)]          # G 16: clusters of 8, two heads a block
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", D256_BWD)
+def test_flash_attention_bwd_kernel_at_d256(cuda, case, dtype):
+    """K2-bwd at head dim 256 (bf16: the output columns split in two over
+    the grid; float32: 32-row dQ blocks) against its plain version from the
+    forward kernel's output and log-sum-exp, and bit-equal on a second call."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as FA, flash_attention_bwd as FAB
+    BH, g, Sq, Skv, causal, offset = case
+    q = torch.randn(BH, Sq, 256, device=cuda).to(dtype)
+    k = _kv_view(BH // g, Skv, 256, dtype, cuda, offset)
+    v = _kv_view(BH // g, Skv, 256, dtype, cuda, offset)
+    dout = torch.randn(BH, Sq, 256, device=cuda).to(dtype)
+    bq, bkv = FA.legal_tiles(256, q.element_size())[0]
+    out, lse = FA.flash_attention(q, k, v, causal=causal, block_q=bq, block_kv=bkv,
+                                  q_per_kv=g, return_lse=True)
+    kernels.reset_launch_counts()
+    got = FAB.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, q_per_kv=g)
+    again = FAB.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, q_per_kv=g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_bwd"] == 2
+    want = FAB.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal, q_per_kv=g)
+    for a, b, c in zip(got, want, again):
+        assert a.shape == b.shape and a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), **_tol(dtype))
+        assert torch.equal(a, c)
+
+
 def test_flash_attention_bwd_refuses_what_is_not_compiled(cuda):
     from repro_torch.kernels import flash_attention_bwd as FAB
     q = torch.randn(2, 16, 48, device=cuda)

@@ -97,6 +97,23 @@ def test_flash_attention_matches_reference_kernel(seq, blocks, causal, dtype):
                                _np(want), **_tol(dtype))
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_at_d256_matches_reference_kernel(causal, dtype):
+    """Head dim 256 (gemma-7b's): the reference kernel only blocks over d."""
+    BH, seq, d = 2, 128, 256
+    rng = np.random.default_rng(21)
+    qj, qt = _pair(rng, (BH, seq, d), dtype)
+    kj, kt = _pair(rng, (BH, seq, d), dtype)
+    vj, vt = _pair(rng, (BH, seq, d), dtype)
+    want = ref_flash_attention(qj, kj, vj, causal=causal, block_q=64, block_kv=64,
+                               interpret=True)
+    got = ops.attention(qt, kt, vt, causal=causal, block_q=64, block_kv=32)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+    np.testing.assert_allclose(_np(ref.attention_ref(qt, kt, vt, causal=causal)),
+                               _np(want), **_tol(dtype))
+
+
 def test_flash_attention_cross_attention_shapes():
     """Sq != Skv (encoder-decoder cross attention)."""
     rng = np.random.default_rng(3)
@@ -154,6 +171,24 @@ def test_flash_decode_matches_reference_kernel(skv, splits, dtype):
     got = ops.flash_decode(qt, kt, vt, kv_splits=splits)
     np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
     np.testing.assert_allclose(_np(ref.decode_ref(qt, kt, vt)), _np(want), **_tol(dtype))
+
+
+@pytest.mark.parametrize("skv,splits", [(512, 4), (256, 1)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_decode_at_d256_matches_reference_kernel(skv, splits, dtype):
+    """K3 at head dim 256, one launch and partials + combine, against the
+    reference's partials and combine."""
+    BH, d = 4, 256
+    rng = np.random.default_rng(22)
+    qj, qt = _pair(rng, (BH, 1, d), dtype)
+    kj, kt = _pair(rng, (BH, skv, d), dtype)
+    vj, vt = _pair(rng, (BH, skv, d), dtype)
+    m, l, acc = ref_partials(qj, kj, vj, kv_splits=splits, block_kv=128, interpret=True)
+    want = ref_combine(m, l, acc)
+    got = ops.flash_decode(qt, kt, vt, kv_splits=splits)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+    mt, lt, acct = FD.flash_decode_partials(qt, kt, vt, kv_splits=splits)
+    np.testing.assert_allclose(_np(FD.combine_partials(mt, lt, acct)), _np(want), **_tol(dtype))
 
 
 @pytest.mark.parametrize("skv,splits", [(1024, 4), (2048, 8), (512, 1)])
@@ -263,20 +298,27 @@ def test_capped_split_rule_at_the_served_decode_shapes(arch, n, want):
     np.testing.assert_allclose(_np(capped), _np(one), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_decode_footprints_fit_one_block(d):
     """The decode bodies' shared memory (mirrored from csrc/flash_decode.cu):
     bf16 holds 16 query rows, four warps' rings of two 16-key K and V
     chunks (rows padded by 16 bytes) and the split's float32 result; at d
-    128 that is 82,304 bytes, two blocks an SM.  float32 holds one 128-key
-    K and V tile and the result."""
+    128 that is 82,304 bytes, two blocks an SM; at d 256 160,128, one.
+    float32 holds one 128-key K and V tile (64-key at d 256, where 128 keys
+    would take 282,752 bytes) and the result."""
     result = (32 + 16 * d) * 4
+    tile = 128 if d <= 128 else 64
+    assert FD.f32_tile(d) == tile
     assert FD.decode_smem_bytes(d, 2) == 16 * (d + 8) * 2 + 4 * 2 * 2 * 16 * (d + 8) * 2 + result
-    assert FD.decode_smem_bytes(d, 4) == 2 * 128 * (d + 4) * 4 + result
+    assert FD.decode_smem_bytes(d, 4) == 2 * tile * (d + 4) * 4 + result
     assert max(FD.decode_smem_bytes(d, 2), FD.decode_smem_bytes(d, 4)) <= FA.MAX_SMEM
     if d == 128:
         assert FD.decode_smem_bytes(d, 2) == 82304
         assert 2 * (82304 + 1024) <= 228 * 1024
+    if d == 256:
+        assert (FD.decode_smem_bytes(d, 2), FD.decode_smem_bytes(d, 4)) == (160128, 149632)
+        assert 2 * (160128 + 1024) > 228 * 1024
+        assert 2 * 128 * (d + 4) * 4 + result == 282752 > FA.MAX_SMEM
 
 
 # ------------------------------------------------------------ the wrappers
@@ -376,7 +418,7 @@ def test_cpu_grouped_matmul_counts_no_body():
                                           "grouped_matmul": {"tma": 0, "staged": 0}}
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_bf16_flash_footprint_is_q_and_two_kv_stages(d):
     """bf16 keeps scores, probabilities and output in registers: a block
     holds the Q tile and two stages of K and V, rows padded by 16 bytes, and
@@ -385,6 +427,18 @@ def test_bf16_flash_footprint_is_q_and_two_kv_stages(d):
         assert FA.flash_smem_bytes(bq, bkv, d, 2) == (bq + 4 * bkv) * (d + 8) * 2
         assert FA.flash_smem_bytes(bq, bkv, d, 2) <= FA.MAX_SMEM
     assert FA.legal_tiles(d, 2) == FA.COMPILED_TILES
+
+
+def test_flash_footprints_at_d256():
+    """Head dim 256 (gemma-7b): every bf16 tile fits one block ((64, 32)
+    101,376 bytes, two an SM; (128, 64) 202,752, one), and in float32 only
+    (64, 32) does (208,896 bytes), so the planner's candidates are exactly
+    those."""
+    got = {t: FA.flash_smem_bytes(*t, 256, 2) for t in FA.COMPILED_TILES}
+    assert got == {(64, 32): 101376, (64, 64): 168960, (128, 32): 135168, (128, 64): 202752}
+    assert FA.flash_smem_bytes(64, 32, 256, 4) == 208896
+    assert FA.legal_tiles(256, 4) == ((64, 32),)
+    assert 256 in FA.COMPILED_HEAD_DIMS
 
 
 def test_served_bf16_flash_tile_fits_twice_on_an_sm():
@@ -461,6 +515,8 @@ ATTN_BWD_CASES = [
     (4, 2, 72, 40, 32, True),          # Sq > Skv, causal by absolute position
     (2, 1, 37, 53, 64, True),          # ragged: no tile divides either length
     (6, 3, 100, 100, 32, False),       # ragged, not causal
+    (4, 1, 48, 48, 256, True),         # gemma-7b's head dim 256, MHA
+    (4, 2, 40, 72, 256, False),        # d 256, grouped, Sq != Skv
 ]
 
 

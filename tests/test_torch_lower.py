@@ -57,13 +57,30 @@ def test_gemm_blocks_are_compiled_tiles_and_fit_shared_memory(store, fast_search
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(4096, 4096, 128), (512, 512, 128), (128, 384, 64),
-                                   (256, 256, 32)])
+                                   (256, 256, 32), (512, 512, 256)])
 def test_flash_blocks_are_compiled_tiles_and_fit_shared_memory(store, fast_search,
                                                                shape, dtype):
     bq, bkv = LT.plan_flash_blocks(*shape, dtype)
     es = LT.dtype_bytes(dtype)
     assert (bq, bkv) in FA.COMPILED_TILES
     assert FA.flash_smem_bytes(bq, bkv, shape[2], es) <= 227 * 1024
+    assert LT.planner_fallback_count() == 0
+
+
+def test_flash_blocks_at_d256(store, counting, fast_search):
+    """gemma-7b's head dim: in bf16 the planner ranks the four compiled tiles
+    (all fit a block) and answers one of them by search; in float32 only
+    (64, 32) fits, which is taken without a search (the tile program's
+    model double-buffers every load and finds no feasible plan for it), and
+    nothing counts as a fallback."""
+    assert LT.flash_tile_options(256, 2) == FA.COMPILED_TILES
+    assert LT.plan_flash_blocks(512, 512, 256, torch.bfloat16) in FA.COMPILED_TILES
+    assert counting["n"] == 1
+    assert LT.plan_flash_blocks(512, 512, 256, torch.float32) == (64, 32)
+    assert counting["n"] == 1
+    got = LT.resolved_blocks()
+    assert got[("flash_blocks", (512, 512, 256, 2))][1] == "search"
+    assert got[("flash_blocks", (512, 512, 256, 4))] == ((64, 32), "only")
     assert LT.planner_fallback_count() == 0
 
 

@@ -240,7 +240,12 @@ def test_sharded_checkpoint_saved_on_one_mesh_restores_on_another(tmp_path):
 # int8 at learning rate 1e-5: an entry whose gradient lies within rounding
 # noise of a quantisation boundary lands on either neighbouring step in the
 # sharded and the unsharded sum, and AdamW's first steps move it by about
-# lr x sign, so at 1e-4 one entry in 32,768 ends 1.3e-5 away
+# lr x sign, so at 1e-4 one entry in 32,768 ends 1.3e-5 away.  The int8
+# cases run the whole-activation path: head-, ffn- and vocabulary-local
+# compute sums each product in parts over the ranks, which moves a few
+# gradient entries of each step across a quantisation boundary (one residual
+# entry a quantisation step, 2.8e-4, away); tests/test_torch_local_compute.py
+# holds int8 under local compute to the unsharded step's losses
 SPLIT_OPT = {"adafactor": {"optimizer": "adafactor"},
              "adafactor_bf16": {"optimizer": "adafactor", "opt_state_dtype": "bfloat16"},
              "adamw_int8": {"grad_compression": "int8", "learning_rate": 1e-5}}
@@ -285,6 +290,11 @@ def test_split_leaf_adafactor_and_int8_match_the_unsharded_step_on_2x2(tmp_path)
         cases += [{"name": f"{name}-{plan}", "arch": DENSE, "plan": plan,
                    "state": f"state-{name}.pt", "steps": STEPS, "tcfg": extra}
                   for plan in ("megatron_tp", "zero3")]
+    # the int8 cases last: their worker turns local compute off for the rest
+    for case in cases:
+        if "grad_compression" in case["tcfg"]:
+            case["local_compute"] = False
+    cases.sort(key=lambda c: "local_compute" in c)
     _spawn({"mode": "train", "mesh": [2, 2], "cases": cases}, tmp_path)
     api = _pair(DENSE)[1]
     split = 0

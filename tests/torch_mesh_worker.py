@@ -15,6 +15,15 @@ NCCL refuses two ranks on one card) and runs the job's cases:
   of a few leaves against the port's slices;
 * ``save``: one step of the first case, then ``CheckpointManager.save_sharded``;
 * ``restore``: ``restore(shardings=)`` of that checkpoint onto this mesh;
+* a case with ``"local_compute": false`` runs the whole-activation path
+  (``ModelAPI.local_compute`` false for the rest of the process);
+* ``local``: each case's training steps as ``train`` does, with the
+  collectives counted (``spmd.counting_collectives``: bytes by kind and
+  mesh axis), then one multi-token prefill pass of the case's prompt (and its
+  frontend input) through ``serve_step.jit_serve_step`` into an empty cache
+  (the head-, ffn- and
+  vocab-local path); writes the losses, this rank's shards, the counts and
+  the prefill's logits and cache slice;
 * ``serve``: each case's decode steps through ``serve_step.jit_serve_step``
   from the job's prefilled cache (whole) and weights (whole), teacher-forced
   on the job's ids; writes each step's logits, this rank's final cache slice
@@ -110,13 +119,19 @@ def model(arch: str, kernels=None, **reduced):
 
 
 def run_case(job, case, mesh):
+    if case.get("local_compute") is False:
+        # the whole-activation path: every head, ffn and vocabulary leaf
+        # gathered for use, as in a family without local rules
+        from repro_torch.models.api import ModelAPI
+        ModelAPI.local_compute = property(lambda self: False)
     api = model(case["arch"], job.get("kernels"))
     tcfg = TrainConfig(**dict(job["tcfg"], **case.get("tcfg", {})))
     plan = plan_named(case["plan"])
     device = job.get("device", "cpu")
     state = torch.load(os.path.join(job["dir"], case["state"]), weights_only=False,
                        map_location=device)
-    batches = torch.load(os.path.join(job["dir"], "batches.pt"), map_location=device)
+    batches = torch.load(os.path.join(job["dir"], case.get("batches", "batches.pt")),
+                         map_location=device)
     step = TS.jit_train_step(api, tcfg, plan, mesh, batches[0])
     from repro_torch import kernels
     kernels.reset_launch_counts()
@@ -147,6 +162,31 @@ def check_dtensor(mesh, api, tcfg, plan):
         assert torch.equal(local, s.local(full)), (k, s.spec)
         n += 1
     return n
+
+
+def run_local_case(job, case, mesh):
+    """``case``'s train steps under a collective tally, then one prefill
+    pass of the job's prompt (whole) through the plan-sharded serve step."""
+    from repro_torch.parallel import spmd
+    from repro_torch.train import serve_step as SS
+    with spmd.counting_collectives() as tally:
+        api, tcfg, plan, state, history, _ = run_case(job, case, mesh)
+    device = job.get("device", "cpu")
+    inputs = dict(torch.load(os.path.join(job["dir"], case.get("prompt", "prompt.pt")),
+                             map_location=device))
+    prompt = inputs.pop("tokens")
+    params = torch.load(os.path.join(job["dir"], case["state"]), weights_only=False,
+                        map_location=device).params
+    cache = api.init_cache(api.cfg, prompt.shape[0], api.prefix_len() + prompt.shape[1] + 4,
+                           dtype=torch.float32, device=device)
+    abstract = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                for k, v in cache.items() if isinstance(v, torch.Tensor)}
+    step = SS.jit_serve_step(api, plan, mesh, abstract, tokens_shape=tuple(prompt.shape))
+    logits, cache = step(params, prompt, cache, **inputs)
+    return {"history": history, "state": state, "coords": mesh.coords(),
+            "gathered": tally.bytes["all-gather"], "reduced": tally.bytes["all-reduce"],
+            "prefill_logits": logits, "cache_index": cache["index"],
+            "cache": {k: v for k, v in cache.items() if isinstance(v, torch.Tensor)}}
 
 
 def run_serve_case(job, case, mesh):
@@ -215,6 +255,10 @@ def main():
                 torch.save({"history": history, "ep_trace": trace, "state": state,
                             "launches": launches,
                             "coords": mesh.coords(), "dtensor_checked": checked},
+                           os.path.join(out, f"{case['name']}.rank{rank}.pt"))
+        elif job["mode"] == "local":
+            for case in job["cases"]:
+                torch.save(run_local_case(job, case, mesh),
                            os.path.join(out, f"{case['name']}.rank{rank}.pt"))
         elif job["mode"] == "serve":
             for case in job["cases"]:

@@ -17,7 +17,11 @@ these phases, each printing one JSON line; any failure raises:
             cross prompt pass, K3 at zamba2's and internvl2's decode and
             seamless's cross step; at head dim 256 K2, K3 (with the partials
             kernel and K3') and K2-bwd at gemma-7b's prefill, decode and
-            training pass) and at one ragged shape each, in
+            training pass; K2 and K2-bwd with a query offset at
+            llama3-405b's context-parallel block, the last of 8 ranks at
+            train_4k: 4 x 128 heads on 8 kv heads, 512 queries at offset
+            3,584 against 4,096 keys, d 128, the library's time SDPA with
+            the offset's mask) and at one ragged shape each, in
             bf16 and float32 (tolerances 2e-2 and 1e-4, those of the
             reference's kernel tests; 2e-3 for the WKV scan in float32 and
             for its final state), each timed with CUDA events (median of 25
@@ -149,24 +153,44 @@ these phases, each printing one JSON line; any failure raises:
 15. mesh_serve the plan-sharded serve step (``serve_step.jit_serve_step``) on
             two ``gloo`` ranks of the one card, a 1x2 mesh, each rank a
             process (``chip_smoke.py --mesh-serve-rank``): ``qwen2.5-3b`` at
-            full width and depth under kv_sequence_split, its cache filled
-            by the unsharded prefill and placed by ``cache_shardings``, 32
-            steps in a buffer of 1024 keys (rank 0 holds the prompt, rank 1
-            the new tokens) and one in a buffer of 2048 (rank 1 holds no
-            valid key), teacher-forced on the ``serve`` phase's ids: every
-            step's logits within 2e-2 of the unsharded step's, K3's partials
-            kernel and K3' 36 x 33 = 1,188 launches a rank and the one-launch
-            K3 none, the first step's partials and combines within their
-            per-call bound of their plain versions; ms per token, peak
-            memory per rank, the ranking line;
+            full width and depth under kv_sequence_split, the prompt passed
+            through the step into each rank's block of an empty cache split
+            over ``kv_seq`` (logits and cache block within 2e-2 of the
+            unsharded prefill's, K2 once a layer), then 32 steps in a buffer
+            of 1024 keys (rank 0 holds the prompt, rank 1 the new tokens)
+            and one in a buffer of 2048 (rank 1 holds no valid key),
+            teacher-forced on the ``serve`` phase's ids: every step's logits
+            within 2e-2 of the unsharded step's, K3's partials kernel and K3'
+            36 x 33 launches a rank and the one-launch K3 none, the first
+            step's partials and combines within their per-call bound of
+            their plain versions; ms per token, peak memory per rank, the
+            ranking line;
+   seq_parallel the plans that split the sequence on two ``gloo`` ranks
+            (``chip_smoke.py --seq-parallel-rank``): ``qwen2.5-3b`` at full
+            width and depth under sequence_parallel, the 4 x 512 prompt
+            through ``jit_serve_step``, each rank's 256 tokens through K2 at
+            query offset 0 or 256 (every call within 2e-2 and 2^-8 relative
+            RMS of its plain version, a 5-bit control rejected), logits and
+            cache block within 2e-2 of the unsharded prefill's; then 4 of
+            its layers trained two steps under tp2d (the sequence over
+            ``model``), losses within 1e-3 relative of the one-rank step's,
+            K2 and K2-bwd counted exactly, every K2-bwd call of the first
+            step within its bound, a 5-bit control rejected;
 16. dryrun  ``python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape
-            {train_4k,prefill_32k,decode_32k} --mesh single``, three
-            processes, each rank 0 of a 256-rank no-op world at full width
-            and depth, heads, ffn columns and vocabulary computed locally
-            under megatron_tp: each row's plan, per-device bytes, roofline
-            terms, measured ms and collective bytes (train_4k's all-gather on
-            ``model`` must be 0: no head, ffn or vocabulary leaf is gathered);
-            a failed cell fails the phase.
+            {train_4k,prefill_32k,decode_32k} --mesh single`` and
+            ``--shape train_4k --plan tp2d --microbatches 8``, four
+            processes, each one rank of a 256-rank no-op world at full width
+            and depth (rank 0, or under a plan that splits the sequence the
+            last rank along it), heads, ffn columns and vocabulary computed
+            locally under megatron_tp, the embed dim split over ``data``
+            under tp2d: each row's plan, rank, per-device bytes, roofline
+            terms, measured ms and collective bytes (train_4k's all-gather
+            on ``model`` must be 0 under megatron_tp: no head, ffn or
+            vocabulary leaf is gathered; under tp2d nothing is gathered on
+            ``data`` and the partial products are summed there); a failed
+            cell fails the phase.  llama3-405b's tp2d cells take longer than
+            this script may (its prefill_32k 408 s):
+            run them with the same command on their own.
 
 The kernels phase also holds the backward kernels against their plain
 versions: K2-bwd (dq, dk, dv; the forward kernel's log-sum-exp too; bf16 on
@@ -221,6 +245,9 @@ HYBRID_ARCH, VLM_ARCH, ENCDEC_ARCH = "zamba2-1.2b", "internvl2-1b", "seamless-m4
 GEMMA_ARCH = "gemma-7b"              # head dim 256
 GEMMA_TRAIN_LAYERS = 4
 BATCH, PROMPT, NEW_TOKENS = 4, 512, 32
+# llama3-405b's context-parallel block at train_4k under tp2d on 32x8: the
+# last rank's 512 of 4096 tokens, 4 rows a microbatch
+CP_ARCH, CP_ROWS, CP_SEQ, CP_BLOCK = "llama3-405b", 4, 4096, 512
 
 
 def emit(obj) -> None:
@@ -372,24 +399,51 @@ def _qkv(gen, dev, B, H, Hkv, Sq, Skv, d, dtype):
     return q, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
 
 
-def flash_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving, model=None):
+def offset_mask(Sq: int, Skv: int, q_offset: int, device):
+    """The boolean causal mask of a query block at ``q_offset`` (row r sees
+    the keys up to position ``q_offset + r``), for the library's attention."""
+    qi = torch.arange(Sq, device=device)[:, None] + q_offset
+    return qi >= torch.arange(Skv, device=device)[None, :]
+
+
+def _library_attention(q4, k4, v4, causal, q_offset, g):
+    """``scaled_dot_product_attention`` as K2 computes it: causal from 0, or
+    with the query offset's mask."""
+    if causal and q_offset:
+        mask = offset_mask(q4.shape[2], k4.shape[2], q_offset, q4.device)
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=g > 1)
+    return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal, enable_gqa=g > 1)
+
+
+def _offset_kw(q_offset: int) -> dict:
+    """``q_offset`` as a keyword only where it is not 0, so that these cases
+    also run on a checkout whose K2 and K2-bwd take no offset
+    (``kernel_ab.py``)."""
+    return {"q_offset": q_offset} if q_offset else {}
+
+
+def flash_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving, model=None,
+               q_offset=0):
     from repro_torch.kernels import flash_attention as FA, ops
     dev = timer.flush.device
     g = H // Hkv
     q, k4, v4 = _qkv(gen, dev, B, H, Hkv, Sq, Skv, d, dtype)
-    run = lambda: ops.attention(q, k4, v4, causal=causal, q_per_kv=g)
-    plain = lambda: FA.flash_attention_plain(q, k4, v4, causal=causal, q_per_kv=g)
+    off = _offset_kw(q_offset)
+    run = lambda: ops.attention(q, k4, v4, causal=causal, q_per_kv=g, **off)
+    plain = lambda: FA.flash_attention_plain(q, k4, v4, causal=causal, q_per_kv=g, **off)
     out = run()
-    err = compare(f"flash_attention {Sq}x{Skv} d={d} {dname(dtype)}", out, plain(), dtype)
+    err = compare(f"flash_attention {Sq}x{Skv} d={d} q_offset={q_offset} {dname(dtype)}", out,
+                  plain(), dtype)
     q4 = q.reshape(B, H, Sq, d)
-    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
-                                                 enable_gqa=g > 1)
+    lib = lambda: _library_attention(q4, k4, v4, causal, q_offset, g)
     compare("library attention", lib().reshape(B * H, Sq, d), plain(), dtype, tol=2e-2)
     res = {"name": "flash_attention", "shape": f"BH={B * H} kv_heads={B * Hkv} "
-           f"Sq={Sq} Skv={Skv} d={d} causal={causal}", "dtype": dname(dtype),
+           f"Sq={Sq} Skv={Skv} d={d} causal={causal}" + (f" q_offset={q_offset}"
+                                                        if q_offset else ""),
+           "dtype": dname(dtype), "q_offset": q_offset,
            "serving": serving, "model": model, "max_abs_err": err, "kernel_ms": timer.ms(run),
            "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib)}
-    res.update(bound(work().attention_flops(B * H, Sq, Skv, d, causal),
+    res.update(bound(work().attention_flops(B * H, Sq, Skv, d, causal, **off),
                      nbytes(q, k4, v4, out), dtype))
     return res
 
@@ -598,42 +652,48 @@ def wkv6_bwd_residency(BH: int, d: int, c: int, dtype) -> dict:
             "resident_at_once": clusters >= BH}
 
 
-def flash_bwd_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving, model=None):
+def flash_bwd_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving, model=None,
+                   q_offset=0):
     """K2-bwd (dq, dk, dv) against its plain version, from the forward
     kernel's output and log-sum-exp (itself checked against the plain
-    forward's).  Library time: the backward alone of
-    scaled_dot_product_attention on the same inputs.  The bound counts the
-    five products over the visible (query, key) pairs (S and dP again, dV,
-    dQ, dK) and the bytes of q, k, v, o, dout, lse, dq, dk, dv."""
+    forward's), with the query offset ``q_offset``.  Library time: the
+    backward alone of scaled_dot_product_attention on the same inputs (with
+    the offset's mask).  The bound counts the five products over the
+    visible (query, key) pairs (S and dP again, dV, dQ, dK) and the bytes of
+    q, k, v, o, dout, lse, dq, dk, dv."""
     from repro_torch.kernels import flash_attention as FA, flash_attention_bwd as FAB
     dev = timer.flush.device
     g = H // Hkv
     q, k4, v4 = _qkv(gen, dev, B, H, Hkv, Sq, Skv, d, dtype)
     dout = torch.randn(B * H, Sq, d, generator=gen, device=dev).to(dtype)
+    off = _offset_kw(q_offset)
     tiles = FA.legal_tiles(d, q.element_size())
     bq, bkv = (64, 64) if (64, 64) in tiles else tiles[0]     # float32 at d 256: (64, 32)
     out, lse = FA.flash_attention(q, k4, v4, causal=causal, q_per_kv=g, block_q=bq,
-                                  block_kv=bkv, return_lse=True)
+                                  block_kv=bkv, return_lse=True, **off)
     pout, plse = FA.flash_attention_plain(q, k4, v4, causal=causal, q_per_kv=g,
-                                          return_lse=True)
+                                          return_lse=True, **off)
     lse_err = compare("flash_attention lse", lse, plse, torch.float32, tol=1e-4)
     compare("flash_attention with lse", out, pout, dtype)
+    del pout, plse
     run = lambda: FAB.flash_attention_bwd(q, k4, v4, out, lse, dout, causal=causal,
-                                          q_per_kv=g)
+                                          q_per_kv=g, **off)
     plain = lambda: FAB.flash_attention_bwd_plain(q, k4, v4, out, lse, dout, causal=causal,
-                                                  q_per_kv=g)
-    label = (f"BH={B * H} kv_heads={B * Hkv} Sq={Sq} Skv={Skv} d={d} causal={causal}")
+                                                  q_per_kv=g, **off)
+    label = (f"BH={B * H} kv_heads={B * Hkv} Sq={Sq} Skv={Skv} d={d} causal={causal}"
+             + (f" q_offset={q_offset}" if q_offset else ""))
     err = max(compare(f"flash_attention_bwd {name} {label} {dname(dtype)}", a, b, dtype)
               for name, a, b in zip(("dq", "dk", "dv"), run(), plain()))
     q4 = q.reshape(B, H, Sq, d).detach().requires_grad_()
     kl, vl = (t.detach().contiguous().requires_grad_() for t in (k4, v4))
-    lib_out = F.scaled_dot_product_attention(q4, kl, vl, is_causal=causal, enable_gqa=g > 1)
+    lib_out = _library_attention(q4, kl, vl, causal, q_offset, g)
     dout4 = dout.reshape(B, H, Sq, d)
     lib = lambda: torch.autograd.grad(lib_out, (q4, kl, vl), dout4, retain_graph=True)
     res = {"name": "flash_attention_bwd", "shape": label, "dtype": dname(dtype),
+           "q_offset": q_offset,
            "serving": serving, "model": model, "max_abs_err": err, "lse_max_abs_err": lse_err,
            "kernel_ms": timer.ms(run), "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib)}
-    res.update(bound(work().attention_bwd_flops(B * H, Sq, Skv, d, causal),
+    res.update(bound(work().attention_bwd_flops(B * H, Sq, Skv, d, causal, **off),
                      nbytes(q, k4, v4, out, lse, dout) + nbytes(q, k4, v4), dtype))
     return res
 
@@ -858,6 +918,19 @@ def phase_kernels(timer, gen):
         cases.append(flash_bwd_case(timer, gen, BATCH, gH, gHkv, PROMPT, PROMPT, gd, True,
                                     dtype, serving=served, model=gcfg.name))
     cases.append(flash_bwd_case(timer, gen, 1, 6, 2, 100, 77, gd, True, torch.bfloat16, False))
+    # K2 and K2-bwd with a query offset at llama3-405b's context-parallel
+    # block: the last of 8 ranks along `model` at train_4k (tp2d), 4 rows of
+    # 512 queries at positions 3584-4095 against the 4096 keys before them
+    lcfg = get_config(CP_ARCH)
+    for dtype in (torch.bfloat16, torch.float32):
+        for case in (flash_case, flash_bwd_case):
+            cases.append(case(timer, gen, CP_ROWS, lcfg.n_heads, lcfg.n_kv_heads, CP_BLOCK,
+                              CP_SEQ, lcfg.head_dim_, True, dtype,
+                              serving=dtype == torch.bfloat16,
+                              model=f"{lcfg.name} context-parallel block, last rank of 8",
+                              q_offset=CP_SEQ - CP_BLOCK))
+            gc.collect()
+            torch.cuda.empty_cache()
     cases.append(gemm_bwd_case(timer, gen, M, N, K, torch.bfloat16, True))
     cases.append(gemm_bwd_case(timer, gen, 96, 64, 160, torch.float32, False))
     for d_in, d_out in ((d, f), (f, d)):
@@ -2720,6 +2793,47 @@ def phase_mesh_train(device, train_losses, moe_loss, moe_bwd_per_step):
     return total
 
 
+def run_ranks(flag: str, name: str, job: dict, timeout: int) -> tuple:
+    """``chip_smoke.py FLAG JOB R`` for R in 0 and 1, two ``gloo`` ranks on
+    the one card (NCCL refuses two ranks on one device), with ``job`` and a
+    ``file://`` store under ``build/``; each writes ``JOB.rank<R>.json``.
+    Returns the two results with the wall seconds; raises with a rank's
+    error and output tail when one failed."""
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    job_path = os.path.join(build, f"{name}-{os.getpid()}.json")
+    store = os.path.join(build, f"{name}-store-{os.getpid()}")
+    for f in [store] + [f"{job_path}.rank{r}.json" for r in range(2)]:
+        if os.path.exists(f):
+            os.remove(f)
+    with open(job_path, "w") as f:
+        json.dump(dict(job, store=store), f)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, job_path,
+                               str(r)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    results, failed = [], []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        path = f"{job_path}.rank{r}.json"
+        res = json.load(open(path)) if os.path.exists(path) else {"ok": False}
+        if p.returncode != 0 or not res.get("ok"):
+            failed.append(f"rank {r} (exit {p.returncode}): {res.get('error', '')}\n"
+                          f"{log[-2000:]}")
+        results.append(res)
+    if failed:
+        raise AssertionError(f"{name} failed on " + "\n".join(failed))
+    return results, wall_s
+
+
 MESH_SERVE_BUFFER, MESH_SERVE_EMPTY_BUFFER = 1024, 2048
 MESH_SERVE_TIMEOUT_S = 600
 
@@ -2727,12 +2841,15 @@ MESH_SERVE_TIMEOUT_S = 600
 def mesh_serve_rank(job_path: str, rank: int) -> None:
     """One rank of ``mesh_serve`` (``chip_smoke.py --mesh-serve-rank JOB R``):
     a ``gloo`` rank on card 0 of a 1x2 mesh, qwen2.5-3b at full size.  The
-    unsharded loop first (the oracle, its logits kept on the host), then the
-    counts set to 0 and the plan-sharded steps through ``jit_serve_step``
-    under kv_sequence_split, teacher-forced on the serve phase's ids: 32
-    steps in a buffer of MESH_SERVE_BUFFER keys and one in a buffer of
+    unsharded prefill and loop first (the oracle, its logits and the rank's
+    block of its cache kept), then the counts set to 0 and the plan-sharded
+    steps through ``jit_serve_step`` under kv_sequence_split: in each buffer
+    the prompt pass into an empty cache split over ``kv_seq`` (each rank
+    writes the positions of its block), then the decode steps,
+    teacher-forced on the serve phase's ids:
+    32 steps in a buffer of MESH_SERVE_BUFFER keys and one in a buffer of
     MESH_SERVE_EMPTY_BUFFER, where rank 1 holds no valid key.  The first
-    sharded step holds every partials call (through the exact float32
+    sharded decode step holds every partials call (through the exact float32
     combine) and every combine against their plain versions.  Writes its
     results to ``JOB.rank<R>.json``."""
     import datetime
@@ -2766,10 +2883,11 @@ def mesh_serve_rank(job_path: str, rank: int) -> None:
         for buffer, steps in ((MESH_SERVE_BUFFER, ids.shape[1]), (MESH_SERVE_EMPTY_BUFFER, 1)):
             cache = api.init_cache(cfg, BATCH, buffer, device=device)
             with torch.no_grad():
-                api.prefill(params, prompts, cache)
-            cache["index"] = PROMPT
+                first, cache = api.prefill(params, prompts, cache)
             c_sh = SS.cache_shardings(api, cache, plan, mesh)
-            local = {k: (v if k == "index" else c_sh[k].local(v).clone())
+            prefilled = {k: c_sh[k].local(v).clone() for k, v in cache.items() if k != "index"}
+            empty = {k: (0 if k == "index" else
+                         torch.zeros(c_sh[k].local_shape(v.shape), dtype=v.dtype, device=device))
                      for k, v in cache.items()}
             shapes = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
                       for k, v in cache.items() if k != "index"}
@@ -2781,7 +2899,8 @@ def mesh_serve_rank(job_path: str, rank: int) -> None:
                     want.append(logits.float().cpu())
             del cache
             step = SS.jit_serve_step(api, plan, mesh, shapes, tokens_shape=(BATCH, 1))
-            runs.append((buffer, steps, local, want, offset, step))
+            runs.append((buffer, steps, empty, prefilled, first.float().cpu(), want, offset,
+                         step))
         per_call = {"partials": [], "combine": []}
         partials, combine = ops.flash_decode_partials, FD.combine_partials
 
@@ -2801,11 +2920,24 @@ def mesh_serve_rank(job_path: str, rank: int) -> None:
             per_call["combine"].append(_per_call_row(got, w))
             return got
 
-        rows, step_s = [], []
+        rows, prefills, step_s = [], [], []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         kernels.reset_launch_counts()
-        for buffer, steps, local, want, off, step in runs:
+        for buffer, steps, local, prefilled, first, want, off, step in runs:
+            # the prompt pass into this rank's block of an empty split cache
+            t0 = time.perf_counter()
+            logits, local = step(p_local, prompts, local)
+            torch.cuda.synchronize()
+            prefills.append({
+                "buffer": buffer, "ms": (time.perf_counter() - t0) * 1e3,
+                "index": local["index"],
+                "max_abs_err": (logits.float().cpu() - first).abs().max().item(),
+                "finite": bool(torch.isfinite(logits).all()),
+                "cache_block_max_abs_err": max((local[k].float() - prefilled[k].float())
+                                               .abs().max().item() for k in prefilled),
+                "cache_block_bit_equal": all(torch.equal(local[k], prefilled[k])
+                                             for k in prefilled)})
             for t in range(steps):
                 first = not rows
                 ctx = contextlib.ExitStack()
@@ -2823,7 +2955,8 @@ def mesh_serve_rank(job_path: str, rank: int) -> None:
                              "finite": bool(torch.isfinite(logits).all()),
                              "local_valid_keys": valid})
         out.update(
-            ok=True, plan=plan.name, rows=rows, launches=kernels.launch_counts(),
+            ok=True, plan=plan.name, rows=rows, prefills=prefills,
+            launches=kernels.launch_counts(),
             step_ms=[x * 1e3 for x in step_s],
             peak_bytes=torch.cuda.max_memory_allocated(device),
             per_call={k: {"calls": len(v), "max_abs_err": max(r[0] for r in v),
@@ -2860,13 +2993,18 @@ def _per_call_row(got: torch.Tensor, want: torch.Tensor) -> tuple:
 def phase_mesh_serve(device, served: dict) -> dict:
     """The plan-sharded serve step on two ``gloo`` ranks of the one card (a
     1x2 mesh; NCCL refuses two ranks on one device): qwen2.5-3b at full
-    width and depth under kv_sequence_split (the planner's first decode
-    candidate), each rank a process of its own (:func:`mesh_serve_rank`).
-    Every step's logits within 2e-2 of the unsharded step's on the same ids;
-    on each rank K3's partials kernel and K3' launched 36 x 33 = 1,188 times
-    and the one-launch K3 never; the zero-valid-key step passes; the first
-    step's per-call checks pass.  Reports decode ms per token, peak memory
-    per rank and the ranking line."""
+    width and depth under kv_sequence_split (the
+    planner's first decode candidate), each rank a process of its own
+    (:func:`mesh_serve_rank`).  Each buffer's prompt pass runs through the
+    step into the rank's block of an empty cache: its last-token logits
+    within 2e-2 of the unsharded prefill's, the rank's cache block equal to
+    its block of the unsharded prefill's cache (within 2e-2; bit-equality
+    reported), K2 once a layer.  Every decode step's logits within 2e-2 of
+    the unsharded step's on the same ids; on each rank K3's partials kernel
+    and K3' launched 36 x 33 = 1,188 times and the one-launch K3 never; the
+    zero-valid-key step passes; the first decode step's per-call checks
+    pass.  Reports prefill ms, decode ms per token, peak memory per rank and
+    the ranking line."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import lower_torch
     from repro_torch.launch import common
@@ -2880,40 +3018,11 @@ def phase_mesh_serve(device, served: dict) -> dict:
                            cache=False)
     ranking_line = (f"[serve] {cfg.name}: planner ranking on h100_cluster(1, 2): "
                     + ", ".join(f"{r.plan.name}({r.cost.dominant})" for r in ranking[:3]))
-    build = os.path.join(ROOT, "build")
-    os.makedirs(build, exist_ok=True)
-    job_path = os.path.join(build, f"mesh-serve-{os.getpid()}.json")
-    ids_path = job_path + ".ids.pt"
+    ids_path = os.path.join(ROOT, "build", f"mesh-serve-{os.getpid()}.ids.pt")
+    os.makedirs(os.path.dirname(ids_path), exist_ok=True)
     torch.save(served["ids"].cpu(), ids_path)
-    store = os.path.join(build, f"mesh-serve-store-{os.getpid()}")
-    for f in [store] + [f"{job_path}.rank{r}.json" for r in range(2)]:
-        if os.path.exists(f):
-            os.remove(f)
-    with open(job_path, "w") as f:
-        json.dump({"ids": ids_path, "store": store}, f)
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-serve-rank",
-                               job_path, str(r)], env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
-    try:
-        logs = [p.communicate(timeout=MESH_SERVE_TIMEOUT_S)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    wall_s = time.perf_counter() - t0
-    results, failed = [], []
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        path = f"{job_path}.rank{r}.json"
-        res = json.load(open(path)) if os.path.exists(path) else {"ok": False}
-        if p.returncode != 0 or not res.get("ok"):
-            failed.append(f"rank {r} (exit {p.returncode}): {res.get('error', '')}\n"
-                          f"{log[-2000:]}")
-        results.append(res)
-    if failed:
-        raise AssertionError("mesh_serve failed on " + "\n".join(failed))
+    results, wall_s = run_ranks("--mesh-serve-rank", "mesh-serve", {"ids": ids_path},
+                                MESH_SERVE_TIMEOUT_S)
     steps = served["ids"].shape[1] + 1
     summary = []
     for res in results:
@@ -2930,9 +3039,16 @@ def phase_mesh_serve(device, served: dict) -> dict:
             "decode_ms_per_token": statistics.median(dec),
             "decode_ms_per_token_mean": sum(dec) / len(dec),
             "peak_bytes": res["peak_bytes"], "launches": res["launches"],
-            "per_call": res["per_call"]})
+            "prefills": res["prefills"], "per_call": res["per_call"]})
         want = {"flash_decode_partials": L * steps, "flash_decode_combine": L * steps,
-                "flash_decode": 0}
+                "flash_decode": 0, "flash_attention": 2 * L}
+        for pre in res["prefills"]:
+            if not (pre["max_abs_err"] <= TOL[torch.bfloat16] and pre["finite"]
+                    and pre["cache_block_max_abs_err"] <= TOL[torch.bfloat16]
+                    and pre["index"] == PROMPT):
+                raise AssertionError(f"mesh_serve rank {res['rank']}: the prompt pass into "
+                                     f"the split cache disagrees with the unsharded "
+                                     f"prefill: {pre}")
         if any(res["launches"][k] != n for k, n in want.items()):
             raise AssertionError(f"mesh_serve rank {res['rank']}: launches {res['launches']}, "
                                  f"expected {want}")
@@ -2950,40 +3066,286 @@ def phase_mesh_serve(device, served: dict) -> dict:
           "mesh": [1, 2], "ranks": summary, "wall_s": wall_s,
           "serve_decode_ms_per_token": served["decode_ms_per_token"],
           "ranking_line": ranking_line,
-          "check": "logits within 2e-2 of the unsharded step; per call: partials through "
-                   "the exact float32 combine and the combine within 2e-2 and "
-                   f"{ATTN_REL_RMS} relative rms of their plain versions",
+          "check": "prefill through the step: logits and the rank's cache block within "
+                   "2e-2 of the unsharded prefill's; logits within 2e-2 of the unsharded "
+                   "step; per call: partials through the exact float32 combine and the "
+                   f"combine within 2e-2 and {ATTN_REL_RMS} relative rms of their plain "
+                   "versions",
           "card": smi_line()})
     return results[0]["launches"]
 
+# the seq_parallel phase: qwen2.5-3b's prompt at full depth under
+# sequence_parallel, and its training at SEQ_TRAIN_LAYERS layers under tp2d
+SEQ_TRAIN_LAYERS, SEQ_TRAIN_STEPS = 4, 2
+SEQ_PARALLEL_TIMEOUT_S = 600
 
-DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+
+def seq_train_setup(device):
+    """qwen2.5-3b at full width and SEQ_TRAIN_LAYERS layers (kernel path,
+    bf16 compute, remat), its seed-0 train state, AdamW and the batches."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.launch import common, train as TL
+    from repro_torch.models import build_model
+    from repro_torch.train import train_step as TS
+    cfg = replace(common.launch_config(ARCH), n_layers=SEQ_TRAIN_LAYERS)
+    api = build_model(cfg)
+    tcfg = TrainConfig(learning_rate=1e-3, total_steps=SEQ_TRAIN_STEPS, warmup_steps=1)
+    state = TS.init_state(api, tcfg, device=device)
+    source = make_source(DataConfig(vocab_size=cfg.vocab_size), cfg)
+    batches = [TL.to_device(source.batch_at(i, BATCH, PROMPT), device)
+               for i in range(SEQ_TRAIN_STEPS)]
+    return api, tcfg, state, batches
+
+
+def seq_parallel_rank(job_path: str, rank: int) -> None:
+    """One rank of ``seq_parallel`` (``chip_smoke.py --seq-parallel-rank JOB
+    R``): a ``gloo`` rank on card 0 of a 1x2 mesh.
+
+    1. qwen2.5-3b at full width and depth, random bf16 weights from seed 0:
+       the unsharded prefill of the serve prompts (4 x 512) first (its
+       last-token logits and the rank's block of its cache kept), then, with
+       the counts set to 0, the prompt through ``jit_serve_step`` under
+       sequence_parallel into an empty cache split over ``kv_seq``: this
+       rank's 256 tokens, every K2 call (with its query offset) held against
+       K2's plain version on the same inputs, with a 5-bit control.
+    2. qwen2.5-3b at full width and SEQ_TRAIN_LAYERS layers under tp2d (the
+       sequence over ``model``, heads, ffn and vocabulary gathered for use):
+       SEQ_TRAIN_STEPS steps through ``jit_train_step`` from the seed-0
+       state, every K2-bwd call of the first step against its plain
+       version, with a 5-bit control.
+    Writes its results to ``JOB.rank<R>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as FA, flash_attention_bwd as FAB, ops
+    from repro_torch.launch import common, serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel import planner_bridge as PB, sharding as SH
+    from repro_torch.train import serve_step as SS, train_step as TS
+    job = json.load(open(job_path))
+    dist.init_process_group("gloo", init_method="file://" + job["store"], rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=300))
+    out = {"rank": rank}
+    try:
+        mesh = make_host_mesh(1, 2)
+        device = torch.device("cuda", 0)
+        cfg = common.launch_config(ARCH)
+        api = build_model(cfg)
+        plan = SH.sequence_parallel_plan()
+        params = serve.load_params(api, device, seed=0)
+        prompts = serve.make_prompts(cfg, BATCH, PROMPT, device)
+        cache = api.init_cache(cfg, BATCH, PROMPT + NEW_TOKENS, device=device)
+        with torch.no_grad():
+            want, cache = api.prefill(params, prompts, cache)
+        c_sh = SS.cache_shardings(api, cache, plan, mesh)
+        want_block = {k: c_sh[k].local(cache[k]).clone() for k in ("k", "v")}
+        empty = {k: (0 if k == "index" else torch.zeros_like(v)) for k, v in cache.items()}
+        shapes = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                  for k, v in cache.items() if k != "index"}
+        del cache
+        step = SS.jit_serve_step(api, plan, mesh, shapes, tokens_shape=(BATCH, PROMPT))
+        calls, attention = [], ops.attention
+
+        def checked(q, k, v, **kw):
+            got = attention(q, k, v, **kw)
+            w = FA.flash_attention_plain(q, k, v, **kw).float()
+            norm = w.norm().clamp(min=1e-30)
+            diff = got.float() - w
+            calls.append({"q_offset": kw.get("q_offset", 0), "Sq": q.shape[1],
+                          "Skv": k.shape[-2], "max_abs_err": diff.abs().max().item(),
+                          "rel_rms": (diff.norm() / norm).item(),
+                          "within_2e-2": bool(torch.allclose(got.float(), w, rtol=2e-2,
+                                                             atol=2e-2)),
+                          "control_rel_rms": ((coarse(got, 5).float() - w).norm()
+                                              / norm).item()})
+            return got
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with patched(ops, "attention", checked):
+            logits, local = step(params, prompts, empty)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_launches = kernels.launch_counts()
+        prefill = {
+            "launches": prefill_launches, "ms_with_per_call_checks": prefill_ms,
+            "index": local["index"], "finite": bool(torch.isfinite(logits).all()),
+            "max_abs_err": (logits.float() - want.float()).abs().max().item(),
+            "cache_block_max_abs_err": max((local[k].float() - want_block[k].float())
+                                           .abs().max().item() for k in want_block),
+            "q_offsets": sorted({c["q_offset"] for c in calls}),
+            "per_call": {"calls": len(calls),
+                         "max_abs_err": max(c["max_abs_err"] for c in calls),
+                         "max_rel_rms": max(c["rel_rms"] for c in calls),
+                         "within": all(c["within_2e-2"] and c["rel_rms"] <= ATTN_REL_RMS
+                                       for c in calls),
+                         "control_5_bits_max_rel_rms": max(c["control_rel_rms"]
+                                                           for c in calls),
+                         "control_5_bits_rejected": any(c["control_rel_rms"] > ATTN_REL_RMS
+                                                        for c in calls)},
+            "peak_bytes": torch.cuda.max_memory_allocated(device)}
+        del params, local, logits, want, want_block, empty, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        api, tcfg, state, batches = seq_train_setup(device)
+        plan = PB._tp2d()
+        step = TS.jit_train_step(api, tcfg, plan, mesh, batches[0])
+        stats, history, step_s = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        kernels.reset_launch_counts()
+        for i, b in enumerate(batches):
+            ctx = contextlib.ExitStack()
+            if i == 0:
+                ctx.enter_context(patched(FAB, "flash_attention_bwd", bwd_per_call(
+                    stats, FAB.flash_attention_bwd, FAB.flash_attention_bwd_plain)))
+            t0 = time.perf_counter()
+            with ctx:
+                state, m = step(state, b)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            history.append({k: float(v) for k, v in m.items()})
+        out.update(
+            ok=True, prefill=prefill, coords=mesh.coords(), backend=dist.get_backend(),
+            train={"plan": plan.name, "n_layers": api.cfg.n_layers, "history": history,
+                   "step_ms": [x * 1e3 for x in step_s],
+                   "launches": kernels.launch_counts(),
+                   "per_call": summarize_per_call(stats),
+                   "peak_bytes": torch.cuda.max_memory_allocated(device)})
+    except Exception as err:  # noqa: BLE001 - reported to the parent, which fails
+        import traceback
+        out.update(ok=False, error=traceback.format_exc()[-3000:])
+    finally:
+        with open(f"{job_path}.rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+
+
+def phase_seq_parallel(device) -> dict:
+    """Plans that split the sequence, on two ``gloo`` ranks of the one card
+    (a 1x2 mesh, :func:`seq_parallel_rank`).  First, here, the one-rank
+    training oracle: SEQ_TRAIN_STEPS steps of qwen2.5-3b at
+    SEQ_TRAIN_LAYERS layers, unsharded.  Then on each rank: the
+    sequence_parallel prompt pass at full depth, its logits within 2e-2 of
+    the unsharded prefill's and its cache block within 2e-2 of the unsharded
+    cache's, K2 launched once a layer and nothing else, at query offset 0 on
+    rank 0 and 256 on rank 1, every call within 2e-2 and ATTN_REL_RMS of
+    its plain version and the 5-bit control rejected; then the tp2d steps,
+    losses within 1e-3 relative of the one-rank steps', K2 2 x L and K2-bwd
+    L a step, every K2-bwd call of the first step within its bound, the
+    control rejected.  Returns rank 1's launches (prefill and training)."""
+    from repro_torch.train import train_step as TS
+    api, tcfg, state, batches = seq_train_setup(device)
+    step = TS.make_train_step(api, tcfg)
+    losses = []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    L_train = api.cfg.n_layers
+    del api, state, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    results, wall_s = run_ranks("--seq-parallel-rank", "seq-parallel", {},
+                                SEQ_PARALLEL_TIMEOUT_S)
+    from repro_torch.launch import common
+    L = common.launch_config(ARCH).n_layers
+    zero = {k: 0 for k in results[0]["prefill"]["launches"]}
+    ranks = []
+    for res in results:
+        pre, tr = res["prefill"], res["train"]
+        r = res["coords"]["model"]
+        got = [h["loss"] for h in tr["history"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, losses))
+        ranks.append({"rank": res["rank"], "coords": res["coords"], "backend": res["backend"],
+                      "prefill": pre, "train": dict(tr, loss_rel_err_vs_one_rank=rel)})
+        if pre["launches"] != dict(zero, flash_attention=L):
+            raise AssertionError(f"seq_parallel rank {r}: prefill launches {pre['launches']}")
+        if pre["q_offsets"] != [r * PROMPT // 2] or pre["per_call"]["calls"] != L:
+            raise AssertionError(f"seq_parallel rank {r}: K2's query offsets "
+                                 f"{pre['q_offsets']} over {pre['per_call']['calls']} calls")
+        if not (pre["max_abs_err"] <= TOL[torch.bfloat16] and pre["finite"]
+                and pre["cache_block_max_abs_err"] <= TOL[torch.bfloat16]
+                and pre["index"] == PROMPT):
+            raise AssertionError(f"seq_parallel rank {r}: the sequence-split prefill "
+                                 f"disagrees with the unsharded one: {pre}")
+        if not pre["per_call"]["within"] or not pre["per_call"]["control_5_bits_rejected"]:
+            raise AssertionError(f"seq_parallel rank {r}: per-call K2 check {pre['per_call']}")
+        want = dict(zero, flash_attention=2 * L_train * SEQ_TRAIN_STEPS,
+                    flash_attention_bwd=L_train * SEQ_TRAIN_STEPS)
+        if tr["launches"] != want:
+            raise AssertionError(f"seq_parallel rank {r}: train launches {tr['launches']}, "
+                                 f"expected {want}")
+        if rel > 1e-3 or not all(math.isfinite(x) for x in got):
+            raise AssertionError(f"seq_parallel rank {r}: tp2d losses {got} against the "
+                                 f"one-rank step's {losses}")
+        pc = tr["per_call"]
+        if not pc["within"] or pc["calls"] != L_train or not pc["control_5_bits_rejected"]:
+            raise AssertionError(f"seq_parallel rank {r}: per-call K2-bwd check {pc}")
+    emit({"phase": "seq_parallel", "arch": ARCH, "mesh": [1, 2], "batch": BATCH,
+          "prompt_len": PROMPT, "prefill_plan": "sequence_parallel", "prefill_layers": L,
+          "train_plan": "tp2d", "train_layers": L_train, "train_steps": SEQ_TRAIN_STEPS,
+          "one_rank_losses": losses, "ranks": ranks, "wall_s": wall_s,
+          "check": "prefill logits and cache block within 2e-2 of the unsharded prefill's; "
+                   f"each K2 call within 2e-2 and {ATTN_REL_RMS} relative rms of its plain "
+                   "version, a 5-bit control rejected; tp2d losses within 1e-3 relative of "
+                   "the one-rank step's; each K2-bwd call of the first step within its bound",
+          "card": smi_line()})
+    last = results[-1]
+    return {k: last["prefill"]["launches"][k] + last["train"]["launches"][k]
+            for k in last["prefill"]["launches"]}
+
+
+# (arch, shape, plan, microbatches) of the dry-run cells: qwen2.5-3b's three
+# under the planner's choice (megatron_tp and kv_sequence_split), and its
+# train_4k under tp2d, whose products over the embed blocks are summed over
+# `data`.  tp2d splits no batch, so each rank takes all 256 rows: in the
+# default 4 microbatches a microbatch's float32 logits (64 x 512 x 151,936)
+# do not fit the H100 beside the rest; in 8 they do, and take half the host
+# work of 16 (the step is bound by the operations the host issues).  llama3-405b's tp2d
+# cells run through the same command on their own: on an H100 its
+# prefill_32k took 408 s (192 s a step), more than this script's time allows
+DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", "auto", 0),
+                ("qwen2.5-3b", "prefill_32k", "auto", 0),
+                ("qwen2.5-3b", "decode_32k", "auto", 0),
+                ("qwen2.5-3b", "train_4k", "tp2d", 8))
 DRYRUN_TIMEOUT_S = 420
 
 
 def phase_dryrun() -> dict:
-    """``python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape S
-    --mesh single`` for each of DRYRUN_SHAPES, each in its own process:
-    rank 0 of a 256-rank no-op world at full width and depth.  Prints each
-    row's plan, per-device bytes, roofline terms, measured ms and
-    collective bytes by kind; fails if a cell fails (an out-of-memory with
-    its measured bytes).  Returns the kernels launched in the counted
+    """``python -m repro_torch.launch.dryrun --arch A --shape S --mesh
+    single [--plan P --microbatches M]`` for each of DRYRUN_CELLS, each in
+    its own process: one rank of a 256-rank no-op world at full width and
+    depth (rank 0, or under a plan that splits the sequence the last rank
+    along it).  Prints each row's plan, rank, per-device bytes, roofline
+    terms, measured ms and collective bytes by kind; fails if a cell fails
+    (an out-of-memory with its measured bytes), if a megatron_tp train or
+    prefill cell gathers on ``model``, or if a tp2d cell gathers on ``data``
+    or sums nothing there.  Returns the kernels launched in the counted
     steps, summed over the cells."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     cells, total = [], {}
     report_dir = os.path.join(ROOT, "reports", "dryrun_torch")
-    for shape in DRYRUN_SHAPES:
+    for arch, shape, plan, microbatches in DRYRUN_CELLS:
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
-                            "--shape", shape, "--mesh", "single"], env=env,
+        tag = [] if plan == "auto" else ["--plan", plan, "--tag", plan]
+        tag += ["--microbatches", str(microbatches)] if microbatches else []
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                            "--shape", shape, "--mesh", "single"] + tag, env=env,
                            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
-        path = os.path.join(report_dir, f"{ARCH}_{shape}_32x8.json")
+        path = os.path.join(report_dir, f"{arch}_{shape}_32x8"
+                            + ("" if plan == "auto" else f"_{plan}") + ".json")
         row = json.load(open(path)) if os.path.exists(path) else {}
         if r.returncode != 0:
-            emit({"phase": "dryrun", "cell": shape, "failed": r.returncode,
+            emit({"phase": "dryrun", "arch": arch, "cell": shape, "failed": r.returncode,
                   "per_device_bytes": row.get("per_device_bytes"), "error": row.get("error"),
                   "tail": (r.stdout + r.stderr).strip().splitlines()[-20:]})
-            raise AssertionError(f"dryrun {shape} failed (exit {r.returncode})")
+            raise AssertionError(f"dryrun {arch} {shape} failed (exit {r.returncode})")
         rf = row["roofline"]
         for k, v in row["counted"]["by_kernel"].items():
             total[k] = total.get(k, 0) + v["launches"]
@@ -2993,8 +3355,15 @@ def phase_dryrun() -> dict:
         if shape != "decode_32k" and row["plan"] == "megatron_tp" and gathered_model:
             raise AssertionError(f"dryrun {shape}: {gathered_model} bytes all-gathered on "
                                  f"model under megatron_tp")
+        # tp2d sums the products over the embed blocks: nothing is gathered on data
+        gathered_data = row["collectives"]["bytes"]["all-gather"].get("data", 0.0)
+        summed_data = row["collectives"]["bytes"]["all-reduce"].get("data", 0.0)
+        if row["plan"] == "tp2d" and (gathered_data or not summed_data):
+            raise AssertionError(f"dryrun {arch} {shape}: under tp2d {gathered_data} bytes "
+                                 f"all-gathered and {summed_data} all-reduced on data")
         cells.append({
-            "shape": shape, "plan": row["plan"], "seconds": time.perf_counter() - t0,
+            "arch": arch, "shape": shape, "plan": row["plan"], "rank": row.get("rank"),
+            "coords": row.get("coords"), "seconds": time.perf_counter() - t0,
             "per_device_bytes": row["per_device_bytes"], "fits_hbm": row["fits_hbm"],
             "memory_analysis": row["memory_analysis"],
             "compute_s": rf["compute_s"], "memory_s": rf["memory_s"],
@@ -3005,14 +3374,15 @@ def phase_dryrun() -> dict:
                                               for k, v in rf["coll_by_kind"].items()},
             "coll_bytes_by_axis_per_device": {k: v / row["chips"]
                                               for k, v in rf.get("coll_by_axis", {}).items()},
-            "rank0_collective_bytes": row["collectives"]["bytes"],
+            "rank_collective_bytes": row["collectives"]["bytes"],
             "counted": {k: row["counted"][k] for k in ("torch_flops", "torch_bytes",
                                                        "kernel_flops", "kernel_bytes")},
             "launches": {k: v["launches"] for k, v in row["counted"]["by_kernel"].items()},
             "bw_fraction": rf.get("bw_fraction"), "min_stream_bytes": rf.get("min_stream_bytes"),
             "planner_ranking": [(x["plan"], x["dominant"], x["hbm_gb"])
                                 for x in row["planner_ranking"]][:3]})
-    emit({"phase": "dryrun", "arch": ARCH, "mesh": "32x8", "world": 256, "cells": cells,
+    emit({"phase": "dryrun", "mesh": "32x8", "world": 256, "cells": cells,
+          "this_process_reserved_bytes": torch.cuda.memory_reserved(),
           "card": smi_line()})
     return total
 
@@ -3446,6 +3816,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["mesh_serve"] = phase_mesh_serve(device, served)
     lap("mesh_serve")
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["seq_parallel"] = phase_seq_parallel(device)
+    lap("seq_parallel")
+    # the dry run's processes share the card with this one
+    gc.collect()
+    torch.cuda.empty_cache()
     by_path["dryrun"] = phase_dryrun()
     lap("dryrun")
     emit({"phase_seconds": seconds})
@@ -3486,9 +3863,10 @@ def main() -> int:
                   and x["dtype"] == "bfloat16"]
         if len(served) > 1:
             kernels_line[-1]["served_shapes"] = [
-                {k: x[k] for k in ("model", "shape", "block", "body", "kernel_ms", "staged_ms",
-                                   "plain_ms", "library_ms", "bound_ms", "bound_by",
-                                   "max_abs_err", "host_us", "staged_host_us") if k in x}
+                {k: x[k] for k in ("model", "shape", "q_offset", "block", "body", "kernel_ms",
+                                   "staged_ms", "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by", "max_abs_err", "host_us", "staged_host_us")
+                 if k in x}
                 for x in served]
     if len(kernels_line) != len(SOURCES):
         raise AssertionError("a kernel of the main path is missing from the report")
@@ -3503,5 +3881,8 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--mesh-serve-rank":
         mesh_serve_rank(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
+    if len(sys.argv) == 4 and sys.argv[1] == "--seq-parallel-rank":
+        seq_parallel_rank(sys.argv[2], int(sys.argv[3]))
         sys.exit(0)
     sys.exit(main())

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the backward kernels, and the forward GEMMs that share K4's core, of
-several checkouts in turns on one card.
+several checkouts in turns on one card; or, with ``--digests``, compare
+their K2 and K2-bwd outputs bit for bit.
 
-    python3 kernel_ab.py TREE [TREE ...]
+    python3 kernel_ab.py [--digests] TREE [TREE ...]
 
 Each TREE is a checkout of this repository (``.`` is this one; an older
 commit unpacked with ``git archive`` into ``_parent/`` is another).  Each
@@ -20,15 +21,29 @@ likewise) and K1 at qwen2.5-3b's projection, K4 at the MoE's four served
 shapes, and K5-bwd at every shape ``chip_smoke.py`` times it (rwkv6-3b's
 training pass, 160 rows x T 512 x d 64 at chunk 16, in bf16 and float32;
 head dims 16 and 32; an odd T at chunk 1; decays at the floor at chunk 32).
+
+With ``--digests`` each checkout instead runs its own K2 (``flash_attention``:
+bf16 and float32, every compiled head dim, causal and not, at every tile
+that fits a block) and K2-bwd on inputs made from one seed, without a query
+offset (the argument an older checkout does not have), into a fresh build
+directory ``TREE/build/ab-digests-<i>``.  Each tree's line then gives
+``outputs_equal`` (every output's SHA-256 equal to the first tree's, with
+the ones that differ) and, apart from it, ``spill_growth``: the K2 and
+K2-bwd kernels whose ``ptxas`` spilled bytes exceed the first tree's (keyed
+by kernel and template arguments: the parameter lists may differ).  The
+script exits 1 when an output differs.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# the --digests inputs: batch x heads, q_per_kv, Sq, Skv
+DIGEST_SHAPES = [(16, 4, 320, 320), (8, 2, 200, 136), (4, 1, 77, 150)]
 
 
 def one(tree: str) -> dict:
@@ -73,32 +88,112 @@ def one(tree: str) -> dict:
     return {"tree": tree, "rows": rows}
 
 
-def main(argv) -> int:
-    if len(argv) >= 2 and argv[0] == "--one":
-        print(json.dumps(one(os.path.abspath(argv[1]))), flush=True)
-        return 0
+def _digest(t) -> str:
     import torch
-    if not torch.cuda.is_available() or not argv:
+    raw = t.detach().contiguous().cpu().view(-1).view(torch.uint8)
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()[:16]
+
+
+def one_digests(tree: str) -> dict:
+    """The SHA-256 of every K2 / K2-bwd output of checkout ``tree`` on the
+    DIGEST_SHAPES inputs, and the registers and spilled bytes ``ptxas``
+    reported for its K2 and K2-bwd kernels."""
+    sys.path.insert(0, HERE)
+    from chip_smoke import ptxas_usage
+    sys.path.insert(0, os.path.join(tree, "src"))
+    import torch
+
+    from repro_torch.kernels import _build, flash_attention as FA, flash_attention_bwd as FAB
+    if not os.path.samefile(FA.__file__, os.path.join(tree, "src", "repro_torch", "kernels",
+                                                      "flash_attention.py")):
+        raise RuntimeError(f"repro_torch came from {FA.__file__}, not from {tree}")
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in FA.COMPILED_HEAD_DIMS:
+            for BH, g, Sq, Skv in DIGEST_SHAPES:
+                gen = torch.Generator(device=dev).manual_seed(BH + Sq + Skv + d)
+                q = torch.randn(BH, Sq, d, generator=gen, device=dev).to(dtype)
+                k = torch.randn(BH // g, Skv, d, generator=gen, device=dev).to(dtype)
+                v = torch.randn(BH // g, Skv, d, generator=gen, device=dev).to(dtype)
+                dout = torch.randn(BH, Sq, d, generator=gen, device=dev).to(dtype)
+                for causal in (True, False):
+                    tag = f"{str(dtype)[6:]} d{d} BH{BH} g{g} {Sq}x{Skv} causal={causal}"
+                    for bq, bkv in FA.legal_tiles(d, q.element_size()):
+                        o, lse = FA.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                                    block_kv=bkv, q_per_kv=g, return_lse=True)
+                        out[f"fwd {tag} tile {bq}x{bkv}"] = _digest(o) + _digest(lse)
+                    grads = FAB.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal,
+                                                    q_per_kv=g)
+                    out[f"bwd {tag}"] = "".join(_digest(x) for x in grads)
+    torch.cuda.synchronize()
+    usage = ptxas_usage(_build.build_info().get("compiler_output", ""))
+    flash = {n.split("Ev")[0]: u for n, u in usage.items()
+             if "flash_fwd" in n or "flash_bwd" in n}
+    if not flash:
+        raise RuntimeError(f"{tree}: no K2 / K2-bwd kernel in this process's build")
+    return {"tree": tree, "digests": out, "ptxas": flash}
+
+
+def compare_digests(rows) -> bool:
+    """One line a tree: its outputs against the first tree's, and apart from
+    that its K2 / K2-bwd kernels that spill more than the first tree's.
+    True when every output is equal."""
+    base, base_ptxas = rows[0]["digests"], rows[0]["ptxas"]
+    equal = True
+    for row in rows:
+        differ = sorted(k for k in base if row["digests"].get(k) != base[k])
+        growth = {n: {"spill_bytes": u.get("spill_bytes", 0),
+                      "first_tree": base_ptxas.get(n, {}).get("spill_bytes", 0)}
+                  for n, u in row["ptxas"].items()
+                  if u.get("spill_bytes", 0) > base_ptxas.get(n, {}).get("spill_bytes", 0)}
+        print(json.dumps({"tree": row["tree"], "order": row["order"],
+                          "outputs": len(row["digests"]), "outputs_equal": not differ,
+                          "differ_from_first": differ, "flash_kernels": len(row["ptxas"]),
+                          "spill_growth": growth,
+                          "max_registers": max(u.get("registers", 0)
+                                               for u in row["ptxas"].values())}), flush=True)
+        equal = equal and not differ
+    return equal
+
+
+def main(argv) -> int:
+    if len(argv) >= 2 and argv[0] in ("--one", "--one-digests"):
+        run = one if argv[0] == "--one" else one_digests
+        print(json.dumps(run(os.path.abspath(argv[1]))), flush=True)
+        return 0
+    digests = bool(argv) and argv[0] == "--digests"
+    trees = argv[1:] if digests else argv
+    import torch
+    if not torch.cuda.is_available() or not trees:
         print("kernel_ab: needs one NVIDIA GPU and at least one checkout", file=sys.stderr)
         return 1
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
-    for i, tree in enumerate(argv):
+    rows = []
+    for i, tree in enumerate(trees):
         tree = os.path.abspath(tree)
+        build = f"ab-digests-{i}" if digests else "ab-kernels"
         env = dict(os.environ,
-                   REPRO_TORCH_BUILD_DIR=os.path.join(tree, "build", "ab-kernels"),
+                   REPRO_TORCH_BUILD_DIR=os.path.join(tree, "build", build),
                    REPRO_PLAN_CACHE_DIR=os.path.join(tree, "build", f"ab-plancache-{i}"),
                    REPRO_PLANNER_WORKERS="1")
-        done = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
+        done = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--one-digests" if digests else "--one", tree],
                               env=env, capture_output=True, text=True, timeout=1200)
         if done.returncode != 0:
             print(done.stdout + done.stderr, file=sys.stderr)
             return done.returncode
         run = dict(json.loads(done.stdout.strip().splitlines()[-1]), order=i)
-        print(json.dumps(run), flush=True)
+        if digests:
+            rows.append(run)
+        else:
+            print(json.dumps(run), flush=True)
+    equal = compare_digests(rows) if digests else True
     print(card, flush=True)
-    return 0
+    return 0 if equal else 1
 
 
 if __name__ == "__main__":

@@ -366,7 +366,10 @@ def _gemm_blocks_memo(M: int, N: int, K: int, dtype, _fast: bool
 
 def plan_flash_blocks(Sq: int, Skv: int, d: int, dtype=torch.bfloat16
                       ) -> Tuple[int, int]:
-    """Choose (block_q, block_kv) for the FlashAttention kernel."""
+    """Choose (block_q, block_kv) for the FlashAttention kernel.  A query
+    offset (context-parallel attention: Sq a rank's block, Skv the prefix
+    it sees) changes no tile's footprint, only which tiles are visible, so
+    the plan is that of (Sq, Skv) and the offset adds no candidate."""
     return _flash_blocks_memo(Sq, Skv, d, dtype, fast_search_enabled())
 
 

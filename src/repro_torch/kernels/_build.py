@@ -138,16 +138,16 @@ _SIGNATURES = {
     # wgmma body; a_t: x stored (E, d_in, cap), b_t: w stored (E, d_out, d_in))
     "repro_grouped_gemm_tma_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, lse (NULL: not written), BH, Sq, Skv, d, H, q_per_kv, 6 strides,
-    # sm_scale, causal, bq, bkv, vec_ok, stream
+    # sm_scale, causal, q_off (position of query row 0), bq, bkv, vec_ok, stream
     "repro_flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_STRIDES,
-                                   _F, _I, _I, _I, _I, _P],
+                                   _F, _I, _I, _I, _I, _I, _P],
     "repro_flash_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_STRIDES,
-                                  _F, _I, _I, _I, _I, _P],
+                                  _F, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, dout, lse, delta, dq, dk, dv, BH, Sq, Skv, d, H, q_per_kv,
-    # 6 strides, sm_scale, causal, stream (two launches: dQ and delta, then dK/dV;
-    # the bf16 dK/dV launch runs each group's query heads as one cluster)
-    "repro_flash_attention_bwd_bf16": [_P] * 10 + [_I] * 6 + [*_STRIDES, _F, _I, _P],
-    "repro_flash_attention_bwd_f32": [_P] * 10 + [_I] * 6 + [*_STRIDES, _F, _I, _P],
+    # 6 strides, sm_scale, causal, q_off, stream (two launches: dQ and delta, then
+    # dK/dV; the bf16 dK/dV launch runs each group's query heads as one cluster)
+    "repro_flash_attention_bwd_bf16": [_P] * 10 + [_I] * 6 + [*_STRIDES, _F, _I, _I, _P],
+    "repro_flash_attention_bwd_f32": [_P] * 10 + [_I] * 6 + [*_STRIDES, _F, _I, _I, _P],
     # d, kernel (0 dQ, 1 dK/dV), is_bf16; q_per_kv
     "repro_flash_bwd_smem_bytes": [_I, _I, _I],
     "repro_flash_bwd_cluster": [_I],

@@ -10,7 +10,12 @@
 // reference: the finite -1e30 mask sentinel (a masked score never adds
 // exp(0)), causal masking by absolute position (q_pos >= k_pos, no end
 // alignment), Sq != Skv allowed, and a row whose keys are all masked gives 0
-// (l == 0 -> 1) rather than NaN.  Given a pointer, the kernels also write each
+// (l == 0 -> 1) rather than NaN.  `q_off` is the position of query row 0
+// (0 for a whole sequence; a rank's first token under context-parallel
+// attention, whose queries are a block of the sequence and whose keys are
+// the sequence's prefix): row r masks as position q_off + r, so the
+// diagonal tile bound, the per-warp skip and the per-element mask all move
+// by q_off, and key tiles after a block's last position are never read.  Given a pointer, the kernels also write each
 // row's float32 log-sum-exp of the scaled scores, (BH, Sq), for the backward
 // (flash_attention_bwd.cu); a fully masked row's is +1e30, so that the
 // backward's exp(s - lse) is 0 there.  The serving path passes no pointer.
@@ -134,7 +139,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
                       float* __restrict__ lse, int Sq, int Skv, int H, int q_per_kv,
                       long long k_sb, long long k_sh,
                       long long k_st, long long v_sb, long long v_sh, long long v_st,
-                      float scale_log2, int causal, int vec_ok) {
+                      float scale_log2, int causal, int q_off, int vec_ok) {
   using L = FlashLayout<__nv_bfloat16, D, BQ, BKV>;
   using bf16 = __nv_bfloat16;
   constexpr int NT = BQ * 2;                // one warp per 16 query rows
@@ -164,7 +169,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   const bf16* vb = v + kv_b * v_sb + kv_h * v_sh;
 
   int kv_end = Skv;
-  if (causal && q0 + BQ < kv_end) kv_end = q0 + BQ;   // tiles above the diagonal
+  if (causal && q_off + q0 + BQ < kv_end) kv_end = q_off + q0 + BQ;   // tiles above the diagonal
   const int n_tiles = (kv_end + BKV - 1) / BKV;
 
   flash_copy<BQ, D, LD, NT>(Qs, qb, q0, Sq, D, vec_ok, tid);
@@ -174,8 +179,10 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   cp_async_wait<0>();
   __syncthreads();                          // Q and the first K/V tile landed
 
-  const int wq0 = q0 + warp * 16;           // first query row of this warp
-  const int row_a = wq0 + g;                // the thread's two rows
+  // positions, not rows: row r of q sits at q_off + r (the rows of the store
+  // are read again from the special registers below)
+  const int wq0 = q_off + q0 + warp * 16;   // position of this warp's first query row
+  const int row_a = wq0 + g;                // the thread's two rows' positions
   const int row_b = row_a + 8;
   const bf16* Qw = Qs + warp * 16 * LD;
 
@@ -328,7 +335,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float* __restrict__ lse, int Sq, int Skv, int H,
                      int q_per_kv, long long k_sb, long long k_sh, long long k_st,
                      long long v_sb, long long v_sh, long long v_st, float sm_scale,
-                     int causal, int vec_ok) {
+                     int causal, int q_off, int vec_ok) {
   using L = FlashLayout<float, D, BQ, BKV>;
   constexpr int NT = BQ * 2;                // one warp per 16 query rows
   constexpr int LDQ = L::LDQ, LDS = L::LDS, LDO = L::LDO;
@@ -367,11 +374,11 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   float m_run = NEG_INF;
   float l_run = 0.f;
-  const int q_pos = q0 + warp * 16 + row;
-  const int warp_last_q = q0 + warp * 16 + 15;
+  const int q_abs = q_off + q0 + warp * 16 + row;   // the row's position
+  const int warp_last_q = q_off + q0 + warp * 16 + 15;
 
   int kv_end = Skv;
-  if (causal && q0 + BQ < kv_end) kv_end = q0 + BQ;   // tiles above the diagonal
+  if (causal && q_off + q0 + BQ < kv_end) kv_end = q_off + q0 + BQ;   // tiles above the diagonal
   const int n_tiles = (kv_end + BKV - 1) / BKV;
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -400,7 +407,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < BKV / 2; ++j) {
       const int c = 2 * j + half;
       const int k_pos = kv0 + c;
-      const bool ok = k_pos < Skv && (!causal || q_pos >= k_pos);
+      const bool ok = k_pos < Skv && (!causal || q_abs >= k_pos);
       const float s = ok ? srow[c] * sm_scale : NEG_INF;
       sv[j] = s;
       mx = fmaxf(mx, s);
@@ -433,6 +440,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // ---- normalise and write this warp's 16 rows ---------------------------------
+  const int q_pos = q_abs - q_off;          // the row
   const float inv = 1.f / (l_run == 0.f ? 1.f : l_run);
   if (lse != nullptr && half == 0 && q_pos < Sq)
     lse[(long long)bh * Sq + q_pos] = l_run == 0.f ? -NEG_INF : m_run + logf(l_run);
@@ -452,7 +460,7 @@ int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, floa
                       int Sq,
                       int Skv, int H, int q_per_kv, long long k_sb, long long k_sh,
                       long long k_st, long long v_sb, long long v_sh, long long v_st,
-                      float sm_scale, int causal, int vec_ok, cudaStream_t stream) {
+                      float sm_scale, int causal, int q_off, int vec_ok, cudaStream_t stream) {
   using L = FlashLayout<__nv_bfloat16, D, BQ, BKV>;
   using bf16 = __nv_bfloat16;
   constexpr float LOG2E = 1.4426950408889634f;
@@ -465,7 +473,7 @@ int launch_flash_bf16(const void* q, const void* k, const void* v, void* o, floa
   kern<<<dim3(BH, nq), BQ * 2, L::TOTAL, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), lse, Sq, Skv, H, q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
-      sm_scale * LOG2E, causal, vec_ok);
+      sm_scale * LOG2E, causal, q_off, vec_ok);
   return (int)cudaGetLastError();
 }
 
@@ -474,14 +482,14 @@ int launch_flash_tile(const void* q, const void* k, const void* v, void* o, floa
                       int Sq,
                       int Skv, int H, int q_per_kv, long long k_sb, long long k_sh,
                       long long k_st, long long v_sb, long long v_sh, long long v_st,
-                      float sm_scale, int causal, int vec_ok, cudaStream_t stream) {
+                      float sm_scale, int causal, int q_off, int vec_ok, cudaStream_t stream) {
   using L = FlashLayout<T, D, BQ, BKV>;
   if constexpr (L::TOTAL > FLASH_MAX_SMEM) {
     return -2;                              // not instantiated: it could never launch
   } else if constexpr (is_bf16<T>::value) {
     return launch_flash_bf16<D, BQ, BKV>(q, k, v, o, lse, BH, Sq, Skv, H, q_per_kv, k_sb, k_sh,
-                                         k_st, v_sb, v_sh, v_st, sm_scale, causal, vec_ok,
-                                         stream);
+                                         k_st, v_sb, v_sh, v_st, sm_scale, causal, q_off,
+                                         vec_ok, stream);
   } else {
     auto kern = flash_fwd_f32_kernel<D, BQ, BKV>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -491,7 +499,7 @@ int launch_flash_tile(const void* q, const void* k, const void* v, void* o, floa
     kern<<<grid, BQ * 2, L::TOTAL, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), lse, Sq, Skv, H, q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
-        sm_scale, causal, vec_ok);
+        sm_scale, causal, q_off, vec_ok);
     return (int)cudaGetLastError();
   }
 }
@@ -512,13 +520,14 @@ template <typename T>
 int launch_flash(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Sq,
                  int Skv, int d, int H, int q_per_kv, long long k_sb, long long k_sh, long long k_st,
                  long long v_sb, long long v_sh, long long v_st, float sm_scale, int causal,
-                 int bq, int bkv, int vec_ok, void* stream) {
+                 int q_off, int bq, int bkv, int vec_ok, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_CASE(D_, BQ_, BKV_)                                                   \
   if (d == D_ && bq == BQ_ && bkv == BKV_)                                                \
     return launch_flash_tile<T, D_, BQ_, BKV_>(q, k, v, o, static_cast<float*>(lse), BH, Sq, \
                                                Skv, H, q_per_kv, k_sb, k_sh, k_st, v_sb,  \
-                                               v_sh, v_st, sm_scale, causal, vec_ok, s);
+                                               v_sh, v_st, sm_scale, causal, q_off,       \
+                                               vec_ok, s);
   REPRO_FLASH_ALL(REPRO_FLASH_CASE)
 #undef REPRO_FLASH_CASE
   return -1;

@@ -8,7 +8,11 @@
 // gradient of the port's K2, with the forward's semantics: causal masking by
 // absolute position (q_pos >= k_pos, Sq != Skv allowed), the finite -1e30
 // sentinel, and a row whose keys are all masked (its log-sum-exp is written
-// as +1e30) has zero gradient.
+// as +1e30) has zero gradient.  `q_off` is the position of query row 0, as
+// in the forward (context-parallel attention: a rank's query block against
+// the sequence's prefix): it moves the dQ blocks' diagonal tile bound, warp
+// skip and mask, and the dK/dV blocks' first query tile (a key tile no
+// query of the block can see reads no query tile and writes zeros).
 //
 // With P = exp(sm_scale * q k^T - lse) (masked entries 0), dP = dO v^T,
 // delta = rowsum(dO o) and dS = P (dP - delta):
@@ -155,7 +159,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const float* __restrict__ lse, float* __restrict__ delta,
                     T* __restrict__ dq, int Sq, int Skv, int H, int q_per_kv, long long k_sb,
                     long long k_sh, long long k_st, long long v_sb, long long v_sh,
-                    long long v_st, float sm_scale, int causal) {
+                    long long v_st, float sm_scale, int causal, int q_off) {
   using L = DqLayout<D>;
   constexpr int BQ = L::BQ, BKV = L::BKV, LD = L::LD, LDS = L::LDS;
   using US = Micro<BQ, BKV>;
@@ -200,7 +204,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const T* kb = k + kv_b * k_sb + kv_h * k_sh;
   const T* vb = v + kv_b * v_sb + kv_h * v_sh;
   int kv_end = Skv;
-  if (causal && q0 + BQ < kv_end) kv_end = q0 + BQ;       // tiles above the diagonal
+  if (causal && q_off + q0 + BQ < kv_end) kv_end = q_off + q0 + BQ;   // tiles above the diagonal
   const int n_tiles = (kv_end + BKV - 1) / BKV;
 
   float dqacc[UQ::TM][4];
@@ -230,7 +234,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       for (int j = 0; j < 4; ++j) {
         const int c = stx + j * US::TX;
         const int kp = kv0 + c;
-        const bool ok = qp < Sq && kp < Skv && (!causal || qp >= kp);
+        const bool ok = qp < Sq && kp < Skv && (!causal || q_off + qp >= kp);
         const float p = ok ? expf(s[i][j] * sm_scale - Ls[r]) : 0.f;
         dSs[r * LDS + c] = p * (dp[i][j] - Dl[r]);
       }
@@ -258,7 +262,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      int Sq, int Skv, int H, int q_per_kv, long long k_sb, long long k_sh,
                      long long k_st, long long v_sb, long long v_sh, long long v_st,
-                     float sm_scale, int causal) {
+                     float sm_scale, int causal, int q_off) {
   using L = DkvLayout<D>;
   constexpr int BQ = L::BQ, BKV = L::BKV, LD = L::LD, LDS = L::LDS;
   using US = Micro<BQ, BKV>;
@@ -291,7 +295,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int j = 0; j < 4; ++j) dkacc[i][j] = dvacc[i][j] = 0.f;
   const int stx = tid % US::TX;
   const int sty = tid / US::TX;
-  const int q_first = causal ? (kv0 / BQ) * BQ : 0;        // earlier rows see none of these keys
+  // earlier rows (positions q_off + row) see none of these keys
+  const int q_first = causal && kv0 > q_off ? ((kv0 - q_off) / BQ) * BQ : 0;
 
   for (int hq = 0; hq < q_per_kv; ++hq) {
     const long long bh = (long long)b * H + (long long)kvh * q_per_kv + hq;
@@ -321,7 +326,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         for (int j = 0; j < 4; ++j) {
           const int c = stx + j * US::TX;
           const int kp = kv0 + c;
-          const bool ok = qp < Sq && kp < Skv && (!causal || qp >= kp);
+          const bool ok = qp < Sq && kp < Skv && (!causal || q_off + qp >= kp);
           const float p = ok ? expf(s[i][j] * sm_scale - Ls[r]) : 0.f;
           Ps[r * LDS + c] = p;
           dSs[r * LDS + c] = p * (dp[i][j] - Dl[r]);
@@ -354,7 +359,7 @@ int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o, c
                const float* lse, float* delta, void* dq, void* dk, void* dv, int BH, int Sq,
                int Skv, int H, int q_per_kv, long long k_sb, long long k_sh, long long k_st,
                long long v_sb, long long v_sh, long long v_st, float sm_scale, int causal,
-               cudaStream_t s) {
+               int q_off, cudaStream_t s) {
   using LQ = DqLayout<D>;
   using LKV = DkvLayout<D>;
   const int nq = (Sq + LQ::BQ - 1) / LQ::BQ;
@@ -373,12 +378,13 @@ int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o, c
   const T* dot = static_cast<const T*>(dout);
   kq<<<dim3(BH, nq), NT, LQ::BYTES, s>>>(qt, kt, vt, static_cast<const T*>(o), dot, lse, delta,
                                           static_cast<T*>(dq), Sq, Skv, H, q_per_kv, k_sb,
-                                          k_sh, k_st, v_sb, v_sh, v_st, sm_scale, causal);
+                                          k_sh, k_st, v_sb, v_sh, v_st, sm_scale, causal,
+                                          q_off);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   kkv<<<dim3(BH / q_per_kv, nkv), NT, LKV::BYTES, s>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv, H,
-      q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st, sm_scale, causal);
+      q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st, sm_scale, causal, q_off);
   return (int)cudaGetLastError();
 }
 
@@ -465,7 +471,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
                         float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int Sq,
                         int Skv, int H, int q_per_kv, long long k_sb, long long k_sh,
                         long long k_st, long long v_sb, long long v_sh, long long v_st,
-                        float sm_scale, int causal, int vec_ok) {
+                        float sm_scale, int causal, int q_off, int vec_ok) {
   using bf16 = __nv_bfloat16;
   using L = MmaDqLayout<D>;
   constexpr int LD = L::LD, BQ = MMA_BQ, BKV = MMA_BKV;
@@ -493,7 +499,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   const bf16* kb = k + kv_b * k_sb + kv_h * k_sh;
   const bf16* vb = v + kv_b * v_sb + kv_h * v_sh;
   int kv_end = Skv;
-  if (causal && q0 + BQ < kv_end) kv_end = q0 + BQ;   // tiles above the diagonal
+  if (causal && q_off + q0 + BQ < kv_end) kv_end = q_off + q0 + BQ;   // tiles above the diagonal
   const int n_tiles = (kv_end + BKV - 1) / BKV;
 
   flash_copy<BQ, D, LD, MMA_NT>(Qs, q + row_off, q0, Sq, D, vec_ok, tid);
@@ -550,7 +556,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     }
     cp_async_commit();
     const int kv0 = t * BKV;
-    if (causal && kv0 > wq0 + 15) continue;           // nothing visible to this warp
+    if (causal && kv0 > q_off + wq0 + 15) continue;   // nothing visible to this warp
     const bf16* Kt = Ks + (t & 1) * BKV * LD;
     const bf16* Vt = Vs + (t & 1) * BKV * LD;
 
@@ -581,7 +587,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     }
 
     // ---- P from the log-sum-exp, dS = P (dP - delta), in place of S -------------
-    const bool need_mask = kv0 + BKV > Skv || (causal && kv0 + BKV - 1 > wq0);
+    const bool need_mask = kv0 + BKV > Skv || (causal && kv0 + BKV - 1 > q_off + wq0);
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
 #pragma unroll
@@ -590,7 +596,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
         bool ok = x > 0.5f * NEG_INF;
         if (need_mask) {
           const int kp = kv0 + j * 8 + 2 * tq + (e & 1);
-          const int qp = e < 2 ? row_a : row_b;
+          const int qp = q_off + (e < 2 ? row_a : row_b);
           ok = ok && kp < Skv && !(causal && qp < kp);
         }
         const float p = ok ? exp2f(x - (e < 2 ? l_a : l_b)) : 0.f;
@@ -644,7 +650,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H, int q_per_kv,
                          int heads, long long k_sb, long long k_sh, long long k_st,
                          long long v_sb, long long v_sh, long long v_st, float sm_scale,
-                         int causal, int vec_ok) {
+                         int causal, int q_off, int vec_ok) {
   using bf16 = __nv_bfloat16;
   using L = MmaDkvLayout<D>;
   constexpr int LD = L::LD, BQ = MMA_BQ, BKV = MMA_BKV, LDP = L::LDP;
@@ -678,7 +684,9 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int c0 = blockIdx.z * NC;           // this block's first dK/dV column
   const bf16* kb = k + (long long)b * k_sb + (long long)kvh * k_sh;
   const bf16* vb = v + (long long)b * v_sb + (long long)kvh * v_sh;
-  const int q_first = causal ? (kv0 / BQ) * BQ : 0;   // earlier rows see none of these keys
+  // earlier rows (positions q_off + row) see none of these keys; the key
+  // tiles still launch in order, each seeing no more queries than the one before
+  const int q_first = causal && kv0 > q_off ? ((kv0 - q_off) / BQ) * BQ : 0;
   const int n_qt = q_first < Sq ? (Sq - q_first + BQ - 1) / BQ : 0;
   const int n_steps = heads * n_qt;
 
@@ -701,9 +709,14 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   cp_async_commit();
 
   const float scale_log2 = sm_scale * LOG2E;
-  const int kw0 = kv0 + warp * 16;          // first key of this warp
-  const int key_a = kw0 + g;                // the thread's two keys
+  // the warp's keys as query rows (key position - q_off), so that the loop
+  // compares rows with rows and keeps no more registers than without an
+  // offset; whether each key exists is decided once
+  const int kw0 = kv0 + warp * 16 - q_off;  // first key of this warp, as a row
+  const int key_a = kw0 + g;                // the thread's two keys, as rows
   const int key_b = key_a + 8;
+  const bool edge = kv0 + warp * 16 + 16 > Skv;
+  const bool has_a = key_a + q_off < Skv, has_b = key_b + q_off < Skv;
   const bf16* Kw = Ks + warp * 16 * LD;
   const bf16* Vw = Vs + warp * 16 * LD;
   float dka[NO][4], dva[NO][4];
@@ -751,7 +764,7 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // ---- P^T in place of S^T, dS^T = P^T (dP^T - delta) in place of dP^T ---------
-    const bool need_mask = (causal && q0 < kw0 + 15) || q0 + BQ > Sq || kw0 + 16 > Skv;
+    const bool need_mask = (causal && q0 < kw0 + 15) || q0 + BQ > Sq || edge;
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
       const int c = j * 8 + 2 * tq;
@@ -763,8 +776,8 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
         bool ok = x > 0.5f * NEG_INF;
         if (need_mask) {
           const int qp = q0 + c + (e & 1);
-          const int kp = e < 2 ? key_a : key_b;
-          ok = ok && qp < Sq && kp < Skv && !(causal && qp < kp);
+          const int kp = e < 2 ? key_a : key_b;   // as a row
+          ok = ok && qp < Sq && (e < 2 ? has_a : has_b) && !(causal && qp < kp);
         }
         const float p = ok ? exp2f(x - ((e & 1) ? l2.y : l2.x) * LOG2E) : 0.f;
         s[j][e] = p;
@@ -861,7 +874,7 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, float* delta, void* dq, void* dk,
                    void* dv, int BH, int Sq, int Skv, int H, int q_per_kv, long long k_sb,
                    long long k_sh, long long k_st, long long v_sb, long long v_sh,
-                   long long v_st, float sm_scale, int causal, cudaStream_t s) {
+                   long long v_st, float sm_scale, int causal, int q_off, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
   using LQ = MmaDqLayout<D>;
   using LKV = MmaDkvLayout<D>;
@@ -888,7 +901,7 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
   constexpr int halves = BwdCols<D>::SPLITS;
   kq<<<dim3(BH, nq, halves), MMA_NT, LQ::BYTES, s>>>(
       qt, kt, vt, static_cast<const bf16*>(o), dot, lse, delta, static_cast<bf16*>(dq), Sq, Skv,
-      H, q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st, sm_scale, causal, vec_ok);
+      H, q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st, sm_scale, causal, q_off, vec_ok);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
@@ -906,7 +919,7 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
   err = cudaLaunchKernelEx(&cfg, kkv, qt, kt, vt, dot, static_cast<const float*>(lse),
                            static_cast<const float*>(delta), static_cast<bf16*>(dk),
                            static_cast<bf16*>(dv), Sq, Skv, H, q_per_kv, heads, k_sb, k_sh,
-                           k_st, v_sb, v_sh, v_st, sm_scale, causal, vec_ok);
+                           k_st, v_sb, v_sh, v_st, sm_scale, causal, q_off, vec_ok);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -916,7 +929,8 @@ int launch_bwd_any(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const void* lse, void* delta, void* dq, void* dk,
                    void* dv, int BH, int Sq, int Skv, int d, int H, int q_per_kv,
                    long long k_sb, long long k_sh, long long k_st, long long v_sb,
-                   long long v_sh, long long v_st, float sm_scale, int causal, void* stream) {
+                   long long v_sh, long long v_st, float sm_scale, int causal, int q_off,
+                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
@@ -925,11 +939,11 @@ int launch_bwd_any(const void* q, const void* k, const void* v, const void* o,
     if constexpr (is_bf16<T>::value)                                                        \
       return launch_bwd_mma<D_>(q, k, v, o, dout, l, dl, dq, dk, dv, BH, Sq, Skv, H,        \
                                 q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st, sm_scale,     \
-                                causal, s);                                                 \
+                                causal, q_off, s);                                          \
     else                                                                                    \
       return launch_bwd_f32<T, D_>(q, k, v, o, dout, l, dl, dq, dk, dv, BH, Sq, Skv, H,     \
                                    q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st, sm_scale,  \
-                                   causal, s);                                              \
+                                   causal, q_off, s);                                       \
   }
   REPRO_FA_BWD_CASE(32)
   REPRO_FA_BWD_CASE(64)
@@ -948,20 +962,20 @@ extern "C" int repro_flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* delta, void* dq, void* dk, void* dv, int BH, int Sq, int Skv, int d,
     int H, int q_per_kv, long long k_sb, long long k_sh, long long k_st, long long v_sb,
-    long long v_sh, long long v_st, float sm_scale, int causal, void* stream) {
+    long long v_sh, long long v_st, float sm_scale, int causal, int q_off, void* stream) {
   return repro::fa_bwd::launch_bwd_any<__nv_bfloat16>(
       q, k, v, o, dout, lse, delta, dq, dk, dv, BH, Sq, Skv, d, H, q_per_kv, k_sb, k_sh, k_st,
-      v_sb, v_sh, v_st, sm_scale, causal, stream);
+      v_sb, v_sh, v_st, sm_scale, causal, q_off, stream);
 }
 
 extern "C" int repro_flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* delta, void* dq, void* dk, void* dv, int BH, int Sq, int Skv, int d,
     int H, int q_per_kv, long long k_sb, long long k_sh, long long k_st, long long v_sb,
-    long long v_sh, long long v_st, float sm_scale, int causal, void* stream) {
+    long long v_sh, long long v_st, float sm_scale, int causal, int q_off, void* stream) {
   return repro::fa_bwd::launch_bwd_any<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH,
                                               Sq, Skv, d, H, q_per_kv, k_sb, k_sh, k_st, v_sb,
-                                              v_sh, v_st, sm_scale, causal, stream);
+                                              v_sh, v_st, sm_scale, causal, q_off, stream);
 }
 
 // Shared memory of one block: kernel 0 the dQ launch, 1 the dK/dV launch, of

@@ -21,6 +21,12 @@ log-sum-exp of the scaled, masked scores, (BH, Sq), which the backward
 (:mod:`repro_torch.kernels.flash_attention_bwd`) reads; a row whose keys are
 all masked gets :data:`LSE_MASKED`.  Without it (the serving path) no
 pointer is passed and the launch is the same as before.
+
+``q_offset`` is the causal position of query row 0: row r masks as position
+``q_offset + r`` against key positions from 0.  Context-parallel attention
+(``models/layers.py`` under a plan that splits the sequence) hands a rank's
+query block with the prefix of keys it may see; ``q_offset=0`` is the
+whole-sequence kernel, bit for bit.
 """
 from __future__ import annotations
 
@@ -79,10 +85,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           sm_scale: Optional[float] = None, causal: bool = False,
                           block_q: Optional[int] = None,
                           block_kv: Optional[int] = None,
-                          q_per_kv: int = 1, return_lse: bool = False):
+                          q_per_kv: int = 1, return_lse: bool = False,
+                          q_offset: int = 0):
     """The kernel's function in plain PyTorch, float32 throughout: the
-    -1e30 sentinel, causal masking by absolute position, and 0 for a row
-    whose keys are all masked.  ``block_q``/``block_kv`` change nothing.
+    -1e30 sentinel, causal masking by absolute position (row r at
+    ``q_offset + r``), and 0 for a row whose keys are all masked.
+    ``block_q``/``block_kv`` change nothing.
     With ``return_lse`` also each row's float32 log-sum-exp (BH, Sq)."""
     BH, Sq, d = q.shape
     k4 = _kv_4d(k, BH, q_per_kv, "k")
@@ -93,7 +101,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sm_scale = sm_scale if sm_scale is not None else d ** -0.5
     s = torch.einsum("hqd,hkd->hqk", q.float(), kf) * sm_scale
     if causal:
-        qi = torch.arange(Sq, device=q.device)[:, None]
+        qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
         ki = torch.arange(Skv, device=q.device)[None, :]
         s = torch.where(qi >= ki, s, torch.full_like(s, NEG_INF))
     m = s.max(dim=-1, keepdim=True).values
@@ -111,10 +119,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sm_scale: Optional[float] = None, causal: bool = False,
                     block_q: int = DEFAULT_BLOCK_Q,
                     block_kv: int = DEFAULT_BLOCK_KV,
-                    q_per_kv: int = 1, return_lse: bool = False):
+                    q_per_kv: int = 1, return_lse: bool = False, q_offset: int = 0):
     """q: (BH, Sq, d); k/v: (BH / q_per_kv, Skv, d) or a 4-D strided view
     (batch, kv_heads, Skv, d) -> (BH, Sq, d), and with ``return_lse`` also
-    the float32 log-sum-exp (BH, Sq).
+    the float32 log-sum-exp (BH, Sq).  ``q_offset`` (>= 0): the causal
+    position of query row 0.
 
     On a CUDA tensor ``(block_q, block_kv)`` must be one of
     :data:`COMPILED_TILES` that fits shared memory for this ``d`` and type;
@@ -123,9 +132,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dim() != 3:
         raise ValueError(f"q must be (BH, Sq, d), got {tuple(q.shape)}")
     BH, Sq, d = q.shape
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, sm_scale=sm_scale, causal=causal,
-                                     q_per_kv=q_per_kv, return_lse=return_lse)
+                                     q_per_kv=q_per_kv, return_lse=return_lse,
+                                     q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, not {q.device}")
     k4 = _kv_4d(k, BH, q_per_kv, "k")
@@ -166,10 +179,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(q.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
                   lse.data_ptr() if return_lse else None, BH, Sq, Skv, d, heads_per_batch,
-                  q_per_kv, *strides, sm_scale, int(causal), block_q, block_kv, vec_ok, stream)
+                  q_per_kv, *strides, sm_scale, int(causal), q_offset, block_q, block_kv,
+                  vec_ok, stream)
     _build.check(code, f"flash_attention BH={BH} Sq={Sq} Skv={Skv} d={d} tile "
                        f"{(block_q, block_kv)}")
     launches += 1
-    _work.add("flash_attention", _work.attention_flops(BH, Sq, Skv, d, causal),
+    _work.add("flash_attention", _work.attention_flops(BH, Sq, Skv, d, causal, q_offset),
               _work.nbytes(q, k4, v4, out))
     return (out, lse) if return_lse else out

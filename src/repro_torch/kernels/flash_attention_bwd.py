@@ -8,7 +8,8 @@ output ``o``, its float32 log-sum-exp ``lse`` (``flash_attention(...,
 return_lse=True)``) and ``dout``, and returns dq, dk, dv with the forward's
 semantics: causal masking by absolute position, Sq != Skv, grouped-query
 k/v (un-repeated, or the strided (batch, kv_heads, Skv, d) view the layers
-hand over) and zero gradient for a row whose keys are all masked.
+hand over), the query offset (``q_offset``: row r masks as position
+``q_offset + r``) and zero gradient for a row whose keys are all masked.
 
 The CUDA kernel (``csrc/flash_attention_bwd.cu``) is two launches.  In bf16
 both run their products on the tensor cores (``mma.sync``): dQ (which also
@@ -79,7 +80,7 @@ def bwd_cluster(q_per_kv: int) -> int:
 
 
 def bwd_geometry(BH: int, Sq: int, Skv: int, d: int, q_per_kv: int = 1,
-                 causal: bool = True) -> dict:
+                 causal: bool = True, q_offset: int = 0) -> dict:
     """The two bf16 launches of one call: for each, the grid (with a third
     axis, the column parts, at d 256), the cluster, the shared memory of a
     block, the blocks one SM holds (by shared memory and the two blocks
@@ -99,13 +100,13 @@ def bwd_geometry(BH: int, Sq: int, Skv: int, d: int, q_per_kv: int = 1,
     dq_work = []
     for y in range(nq):
         q0 = (nq - 1 - y) * n
-        end = min(Skv, q0 + n) if causal else Skv
+        end = min(Skv, q_offset + q0 + n) if causal else Skv
         dq_work += [-(-end // n)] * BH
     # dK/dV: key tiles in order (the first sees most queries), query tiles
     # from the first row that can see the tile, for each of the block's heads
     dkv_work = []
     for y in range(nkv):
-        first = y * n if causal else 0
+        first = (max(0, y * n - q_offset) // n) * n if causal else 0
         tiles = -(-(Sq - first) // n) if first < Sq else 0
         dkv_work += [heads * tiles] * (BH // q_per_kv * cl)
     dq_work, dkv_work = dq_work * parts, dkv_work * parts
@@ -120,11 +121,12 @@ def bwd_geometry(BH: int, Sq: int, Skv: int, d: int, q_per_kv: int = 1,
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
                               sm_scale: Optional[float] = None, causal: bool = False,
-                              q_per_kv: int = 1
+                              q_per_kv: int = 1, q_offset: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, written from the formula in
     float32 (no autograd): P = exp(sm_scale q k^T - lse), 0 where masked
-    (by position, or at or below the -1e30 sentinel as in the forward);
+    (by position, row r at ``q_offset + r``, or at or below the -1e30
+    sentinel as in the forward);
     dV = P^T dO; dS = P (dO v^T - rowsum(dO o)); dQ = sm_scale dS k;
     dK = sm_scale dS^T q, the query heads of a group summed.  dk/dv come back
     contiguous in the shape ``k``/``v`` were given in, in their dtype."""
@@ -139,7 +141,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("hqd,hkd->hqk", qf, kf) * sm_scale
     visible = s > 0.5 * NEG_INF
     if causal:
-        qi = torch.arange(Sq, device=q.device)[:, None]
+        qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
         ki = torch.arange(Skv, device=q.device)[None, :]
         visible = visible & (qi >= ki)
     p = torch.where(visible, torch.exp(s - lse.float()[..., None]), torch.zeros_like(s))
@@ -159,11 +161,12 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         lse: torch.Tensor, dout: torch.Tensor, *,
                         sm_scale: Optional[float] = None, causal: bool = False,
-                        q_per_kv: int = 1
+                        q_per_kv: int = 1, q_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q, o, dout: (BH, Sq, d); k/v: (BH / q_per_kv, Skv, d) or a strided
     (batch, kv_heads, Skv, d) view; lse: (BH, Sq) float32 from the forward
-    -> (dq like q, dk and dv contiguous in the shape of k and v)."""
+    (given the same ``q_offset``) -> (dq like q, dk and dv contiguous in the
+    shape of k and v)."""
     global launches
     if q.dim() != 3:
         raise ValueError(f"q must be (BH, Sq, d), got {tuple(q.shape)}")
@@ -171,9 +174,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     if o.shape != q.shape or dout.shape != q.shape or lse.shape != (BH, Sq):
         raise ValueError(f"o {tuple(o.shape)}, dout {tuple(dout.shape)} and lse "
                          f"{tuple(lse.shape)} must match q {tuple(q.shape)}")
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, dout, sm_scale=sm_scale,
-                                         causal=causal, q_per_kv=q_per_kv)
+                                         causal=causal, q_per_kv=q_per_kv,
+                                         q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cpu or cuda tensors, not {q.device}")
     k4 = _kv_4d(k, BH, q_per_kv, "k")
@@ -212,9 +219,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         code = fn(q.data_ptr(), k4.data_ptr(), v4.data_ptr(), o.data_ptr(), dout.data_ptr(),
                   lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                   dv.data_ptr(), BH, Sq, Skv, d, heads_per_batch, q_per_kv, *strides,
-                  sm_scale, int(causal), stream)
+                  sm_scale, int(causal), q_offset, stream)
     _build.check(code, f"flash_attention_bwd BH={BH} Sq={Sq} Skv={Skv} d={d}")
     launches += 1
-    _work.add("flash_attention_bwd", _work.attention_bwd_flops(BH, Sq, Skv, d, causal),
+    _work.add("flash_attention_bwd", _work.attention_bwd_flops(BH, Sq, Skv, d, causal, q_offset),
               _work.nbytes(q, k4, v4, o, lse, dout, dq, dk, dv))
     return dq, dk.reshape(k.shape), dv.reshape(v.shape)

@@ -112,11 +112,13 @@ def gemm_launch_block(M: int, N: int, K: int, dtype: torch.dtype,
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               sm_scale: Optional[float] = None, causal: bool = False,
               block_q: Optional[int] = None, block_kv: Optional[int] = None,
-              q_per_kv: int = 1) -> torch.Tensor:
+              q_per_kv: int = 1, q_offset: int = 0) -> torch.Tensor:
     """FlashAttention fwd.  q: (BH, Sq, d); k/v: (BH, Skv, d), or with
     ``q_per_kv`` > 1 the un-repeated (BH / q_per_kv, Skv, d) or a strided
-    (batch, kv_heads, Skv, d) view.  Differentiable: where autograd records,
-    the forward also keeps its log-sum-exp and the backward is K2-bwd."""
+    (batch, kv_heads, Skv, d) view; ``q_offset``: the causal position of
+    query row 0.  Differentiable: where autograd records, the forward also
+    keeps its log-sum-exp and the backward is K2-bwd (with the same
+    offset)."""
     BH, Sq, d = q.shape
     Skv = k.shape[-2]
     if block_q is None or block_kv is None:
@@ -134,28 +136,29 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         bq, bkv = max(under or legal, key=lambda t: (t[0] * t[1], t[0]))
     scale = sm_scale if sm_scale is not None else d ** -0.5
     if _records(q, k, v):
-        return _Attention.apply(q, k, v, scale, causal, bq, bkv, q_per_kv)
+        return _Attention.apply(q, k, v, scale, causal, bq, bkv, q_per_kv, q_offset)
     return _fa.flash_attention(q, k, v, sm_scale=scale, causal=causal, block_q=bq,
-                               block_kv=bkv, q_per_kv=q_per_kv)
+                               block_kv=bkv, q_per_kv=q_per_kv, q_offset=q_offset)
 
 
 class _Attention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, bq, bkv, q_per_kv):
+    def forward(ctx, q, k, v, scale, causal, bq, bkv, q_per_kv, q_offset):
         out, lse = _fa.flash_attention(q, k, v, sm_scale=scale, causal=causal, block_q=bq,
-                                       block_kv=bkv, q_per_kv=q_per_kv, return_lse=True)
+                                       block_kv=bkv, q_per_kv=q_per_kv, return_lse=True,
+                                       q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (scale, causal, q_per_kv)
+        ctx.args = (scale, causal, q_per_kv, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        scale, causal, q_per_kv = ctx.args
+        scale, causal, q_per_kv, q_offset = ctx.args
         dq, dk, dv = _fab.flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
                                               sm_scale=scale, causal=causal,
-                                              q_per_kv=q_per_kv)
-        return dq, dk, dv, None, None, None, None, None
+                                              q_per_kv=q_per_kv, q_offset=q_offset)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -22,14 +22,14 @@ def nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def visible_pairs(Sq: int, Skv: int, causal: bool) -> int:
+def visible_pairs(Sq: int, Skv: int, causal: bool, q_offset: int = 0) -> int:
     """(query, key) pairs attention computes: all of them, or under the
-    causal mask (ends aligned when Sq > Skv) the lower triangle."""
+    causal mask by absolute position (query row r at ``q_offset + r`` sees
+    keys ``0 .. min(Skv, q_offset + r + 1)``) the visible part."""
     if not causal:
         return Sq * Skv
-    if Sq <= Skv:
-        return Sq * (Sq + 1) // 2
-    return Skv * (Skv + 1) // 2 + (Sq - Skv) * Skv
+    r0 = min(Sq, max(0, Skv - q_offset - 1))     # rows that see fewer than Skv keys
+    return r0 * (q_offset + 1) + r0 * (r0 - 1) // 2 + (Sq - r0) * Skv
 
 
 def gemm_flops(M: int, N: int, K: int, groups: int = 1) -> float:
@@ -37,14 +37,16 @@ def gemm_flops(M: int, N: int, K: int, groups: int = 1) -> float:
     return 2.0 * groups * M * N * K
 
 
-def attention_flops(BH: int, Sq: int, Skv: int, d: int, causal: bool) -> float:
+def attention_flops(BH: int, Sq: int, Skv: int, d: int, causal: bool,
+                    q_offset: int = 0) -> float:
     """QK^T and PV over the visible pairs."""
-    return 4.0 * BH * visible_pairs(Sq, Skv, causal) * d
+    return 4.0 * BH * visible_pairs(Sq, Skv, causal, q_offset) * d
 
 
-def attention_bwd_flops(BH: int, Sq: int, Skv: int, d: int, causal: bool) -> float:
+def attention_bwd_flops(BH: int, Sq: int, Skv: int, d: int, causal: bool,
+                        q_offset: int = 0) -> float:
     """S and dP again, dV, dQ, dK over the visible pairs."""
-    return 5 * 2.0 * BH * visible_pairs(Sq, Skv, causal) * d
+    return 5 * 2.0 * BH * visible_pairs(Sq, Skv, causal, q_offset) * d
 
 
 def decode_flops(BH: int, n_valid: int, d: int) -> float:

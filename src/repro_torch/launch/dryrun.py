@@ -4,12 +4,16 @@ measured on one card.
 Counterpart of ``repro/launch/dryrun.py``, which compiles each (arch x
 shape x mesh) cell for 512 fake TPU devices and reads XLA's memory and cost
 analyses.  The port compiles nothing, so its counterpart of the fake
-devices is **rank 0's local program, run once**, in a process whose default
-process group is torch's no-op ``fake`` backend at the cell's world size
-(256 ranks for ``32x8``, 512 for ``2x32x8``).  The state, the parameters and
-the cache are allocated at rank 0's local shapes only (never a global
-tree: llama3-405b has 405 B parameters), from the plan's Shardings, and
-filled from a ``torch.Generator``.
+devices is **one rank's local program, run once**, in a process whose
+default process group is torch's no-op ``fake`` backend at the cell's world
+size (256 ranks for ``32x8``, 512 for ``2x32x8``).  The rank is 0, but
+under a plan that splits the sequence of a train or prefill cell
+(``train_step.seq_split_axis``), where rank 0 holds the first tokens and
+does the least causal attention, it is the last rank along that axis (the
+row's ``rank``).  The state, the parameters and the cache are allocated at
+that rank's local shapes only (never a global tree: llama3-405b has 405 B
+parameters), from the plan's Shardings, and filled from a
+``torch.Generator``.
 
 **Collectives move nothing** in such a world: every all-gather,
 all-reduce and reduce-scatter completes at once and leaves its output as
@@ -23,7 +27,8 @@ on ``lower_torch.h100_cluster`` (or a named plan):
 
 * train: ``train_step.jit_train_step``; prefill: ``api.logits_fn`` inside
   the plan's step (parameters gathered a layer at a time, the batch's rows
-  this rank's); decode: ``serve_step.jit_serve_step`` against a cache
+  this rank's, and its block of the tokens under a sequence split);
+  decode: ``serve_step.jit_serve_step`` against a cache
   whose every position but the last is filled (``index`` = seq_len - 1);
 * one step under counting (a ``FlopCounterMode`` for the plain PyTorch
   operations' flops, a dispatch mode for their bytes, each kernel launch's
@@ -87,24 +92,24 @@ def _train_cfg(arch: str):
 
 
 # ------------------------------------------------------------ the fake world
-def fake_world(world: int) -> None:
+def fake_world(world: int, rank: int = 0) -> None:
     """A default process group of ``world`` ranks on torch's no-op ``fake``
-    backend, this process rank 0: every collective completes without moving
-    data."""
+    backend, this process ``rank``: every collective completes without
+    moving data."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         raise RuntimeError("a process group is already initialised: the dry run makes its "
                            "own no-op world")
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
 
 
-def world_mesh(axis_names, sizes):
-    """Rank 0's Mesh over the default (fake) group, with a process group for
-    every set of axes."""
+def world_mesh(axis_names, sizes, rank: int = 0):
+    """``rank``'s Mesh over the default (fake) group, with a process group
+    for every set of axes."""
     from repro_torch.launch.mesh import _axis_groups
     from repro_torch.parallel.sharding import Mesh
-    mesh = Mesh(tuple(axis_names), tuple(sizes), rank=0)
+    mesh = Mesh(tuple(axis_names), tuple(sizes), rank=rank)
     mesh.groups.update(_axis_groups(mesh))
     return mesh
 
@@ -221,9 +226,25 @@ def _choose_plan(ranked, plan_name: str, api, shape):
     raise ValueError(f"unknown plan {plan_name!r}")
 
 
+def measured_rank(api, shape, plan, axis_names, sizes) -> int:
+    """The rank a cell measures: the last along the sequence axis where the
+    plan splits a train or prefill cell's sequence (its queries see the most
+    keys), else 0."""
+    import numpy as np
+
+    from repro_torch.parallel.sharding import Mesh
+    from repro_torch.train.train_step import seq_split_axis
+    mesh = Mesh(tuple(axis_names), tuple(sizes))
+    ax = seq_split_axis(api, plan, mesh, shape.seq_len) if shape.kind != "decode" else None
+    if ax is None:
+        return 0
+    coords = [mesh.shape[a] - 1 if a == ax else 0 for a in mesh.axis_names]
+    return int(np.ravel_multi_index(coords, mesh.sizes))
+
+
 def _build_step(api, tcfg, shape, plan, mesh, gen, device):
-    """The cell's step as a closure over rank 0's local inputs, with the
-    bytes of its arguments, outputs and aliased outputs."""
+    """The cell's step as a closure over the measured rank's local inputs,
+    with the bytes of its arguments, outputs and aliased outputs."""
     from repro_torch.parallel import spmd
     from repro_torch.parallel.sharding import part_axes
     from repro_torch.train import serve_step as SS, train_step as TS
@@ -261,17 +282,19 @@ def _build_step(api, tcfg, shape, plan, mesh, gen, device):
                  for k, v in specs.items()}
         placements = TS.param_placements(api, plan, mesh)
         axes = api.param_axes()
+        seq = TS.seq_split_axis(api, plan, mesh, shape.seq_len)
 
         @torch.no_grad()
         def run():
-            local, batch_part = TS.local_batch(batch, specs, plan, mesh)
+            local, batch_part = TS.local_batch(batch, specs, plan, mesh, seq)
             step = spmd.Step(plan, mesh, batch_part, local["tokens"].shape[0],
-                             local=api.local_compute)
+                             local=api.local_compute, seq_axis=seq)
             with spmd.step_context(step):
                 return api.logits_fn(spmd.serving_params(params, axes, placements), local)
-        B, S = batch["tokens"].shape
-        # a vocabulary-local head leaves each rank its block of the logits
-        _, batch_part = TS.local_batch(batch, specs, plan, mesh)
+        # the rank's rows and tokens (its block of them under a sequence
+        # split); a vocabulary-local head leaves each rank its block of the logits
+        local, batch_part = TS.local_batch(batch, specs, plan, mesh, seq)
+        B, S = local["tokens"].shape
         tp = spmd.local_axis_of(plan, mesh, part_axes(batch_part)) \
             if api.local_compute else None
         head = p_sh["embed"]["table"].spec[:1] if cfg.tie_embeddings \
@@ -356,12 +379,13 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     t0 = time.perf_counter()
     ranked = plan_mesh(api, shape, tcfg, multi_pod=multi_pod)
     plan = _choose_plan(ranked, plan_name, api, shape)
-    fake_world(chips)
-    mesh = world_mesh(axis_names, sizes)
+    rank = measured_rank(api, shape, plan, axis_names, sizes)
+    fake_world(chips, rank)
+    mesh = world_mesh(axis_names, sizes, rank)
     gen = torch.Generator(device=dev).manual_seed(0)
     row: Dict[str, Any] = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                            "chips": chips, "plan": plan.name, "hw": hw.name,
-                           "device": str(dev)}
+                           "device": str(dev), "rank": rank, "coords": mesh.coords()}
     row["planner_ranking"] = [
         {"plan": r.plan.name, "total_s": r.cost.total_s, "dominant": r.cost.dominant,
          "feasible": r.cost.feasible, "hbm_gb": round(r.cost.hbm_bytes_per_chip / 1e9, 2),
@@ -426,7 +450,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     _write(row, out_dir, arch, shape_name, mesh_name, tag)
     gb = "not measured" if per_device is None else f"{per_device / 1e9:.2f}GB"
     ms = "not measured" if measured_ms is None else f"{measured_ms:.2f}ms"
-    print(f"[dryrun] {arch} {shape_name} {mesh_name} plan={plan.name} "
+    print(f"[dryrun] {arch} {shape_name} {mesh_name} plan={plan.name} rank={rank} "
           f"setup={compile_s:.1f}s per_device={gb} dominant={report.dominant} "
           f"roofline_frac={report.roofline_fraction:.3f} measured={ms} "
           f"bound={report.bound_s * 1e3:.2f}ms")

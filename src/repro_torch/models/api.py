@@ -55,6 +55,17 @@ class ModelAPI:
         cross-attention have none yet."""
         return self.cfg.family in ("dense", "vlm", "moe")
 
+    @property
+    def sequence_split(self) -> bool:
+        """Whether the family computes a block of the tokens under a plan
+        that splits the sequence (``spmd.Step(seq_axis=...)``: attention
+        through K2 with the rank's query offset over K/V gathered along the
+        sequence, ``tp2d``'s embed-split products).  Only the dense family
+        so far; the VLM (whose patches sit ahead of the prompt), the MoE,
+        rwkv6, zamba2 and the encoder-decoder run such a plan on their
+        whole activations."""
+        return self.cfg.family == "dense"
+
     # -- params -------------------------------------------------------------
     def init(self, generator: torch.Generator, device="cuda", shardings=None) -> Params:
         """Random parameters from ``generator`` on ``device``, in the spec's

@@ -150,19 +150,49 @@ def prepare_cross(params: Params, memory: torch.Tensor, cfg: ModelConfig,
                   cache: Dict[str, Any]) -> Dict[str, Any]:
     """Project the encoder memory into every layer's cross K/V once per
     request, written into the cache in place (as the reference's, without
-    the projection's bias)."""
-    if memory.shape[1] != cache["cross_k"].shape[2]:
+    the projection's bias).  Under a serving step whose plan splits the
+    cross K/V (over ``kv_seq``, ``kv_heads``) the cache holds this rank's
+    block of it."""
+    return _project_cross(params, memory, cfg, cache)[0]
+
+
+def _project_cross(params: Params, memory: torch.Tensor, cfg: ModelConfig,
+                   cache: Dict[str, Any]) -> Tuple[Dict[str, Any], Optional[list]]:
+    """:func:`prepare_cross`, and where the serving step's plan splits the
+    cross K/V, every layer's whole (k, v) in the cache's dtype for the
+    prompt pass that follows (None where the cache holds them whole)."""
+    length = spmd.cache_length(cache["cross_k"], 2)
+    if memory.shape[1] != length:
         raise ValueError(f"a memory of {memory.shape[1]} positions does not fit a cache "
-                         f"made for {cache['cross_k'].shape[2]}")
+                         f"made for {length}")
+    split = spmd.cache_split(cache["cross_k"])
+    blocks = {}
+    if split is not None:
+        for logical, dim in (("kv_seq", 1), ("kv_heads", 2)):
+            if split.mesh_axes_of(logical):
+                off, n = split.block(logical)
+                blocks[dim] = slice(off, off + n)
+    whole = [] if blocks else None
     for i in range(cfg.n_layers):
-        p = _blocks(params, "dec_blocks", i)["cross_attn"]
+        p = spmd.for_use(_blocks(params, "dec_blocks", i)["cross_attn"])
+        kv = []
         for name, w in (("cross_k", p["wk"]), ("cross_v", p["wv"])):
-            cache[name][i] = torch.einsum("bsd,dhk->bshk", memory, w.to(memory.dtype))
-    return dict(cache)
+            x = torch.einsum("bsd,dhk->bshk", memory, w.to(memory.dtype))
+            if blocks:
+                kv.append(x.to(cache[name].dtype))
+                x = x[:, blocks.get(1, slice(None)), blocks.get(2, slice(None))]
+            cache[name][i] = x
+        if whole is not None:
+            whole.append(tuple(kv))
+    return dict(cache), whole
 
 
 def _cached_pass(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
-                 cfg: ModelConfig, last_only: bool) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                 cfg: ModelConfig, last_only: bool, cross: Optional[list] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The decoder over ``tokens`` against the cache; ``cross``: every
+    layer's whole cross (k, v) where the cache holds only this rank's block
+    (:func:`_project_cross`)."""
     idx = int(cache["index"])
     length = spmd.cache_length(cache["k"], 2)
     if idx + tokens.shape[1] > length:
@@ -172,7 +202,8 @@ def _cached_pass(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
     for i in range(cfg.n_layers):
         x, _ = L.remat(False, _dec_block, _blocks(params, "dec_blocks", i), x, None, cfg,
                        kv_cache=(cache["k"][i], cache["v"][i]), cache_index=idx,
-                       cross_kv=(cache["cross_k"][i], cache["cross_v"][i]))
+                       cross_kv=(cache["cross_k"][i], cache["cross_v"][i]) if cross is None
+                       else cross[i])
     if last_only:
         x = x[:, -1:]
     return _head(params, x, cfg), dict(cache, index=idx + tokens.shape[1])
@@ -204,5 +235,5 @@ def prefill(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
     if int(cache["index"]) != 0:
         raise ValueError(f"prefill fills an empty cache; this one holds "
                          f"{int(cache['index'])} tokens")
-    cache = prepare_cross(params, encode(params, frames, cfg), cfg, cache)
-    return _cached_pass(params, tokens, cache, cfg, last_only=True)
+    cache, cross = _project_cross(params, encode(params, frames, cfg), cfg, cache)
+    return _cached_pass(params, tokens, cache, cfg, last_only=True, cross=cross)

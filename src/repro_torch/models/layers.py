@@ -22,6 +22,18 @@ after the row-parallel product; the embedding as a masked lookup into the
 local rows of the table; the LM head's logits over the local vocabulary,
 which :func:`softmax_xent` and :func:`fused_head_xent` reduce over the
 axis and :func:`whole_vocab` gathers for serving.
+
+Under a plan-sharded step with a sequence axis (``spmd.Step.seq_axis``:
+``tp2d``, ``zero3_sp``, ``sequence_parallel``) the activations hold the
+rank's block of the tokens, ``[o, o + S)``.  Self-attention applies RoPE
+at those positions, gathers K and V over the axis (the first ``o + S``
+keys: ``spmd.gather_seq``) and runs K2 with the query offset ``o``
+(context parallelism); a prompt pass writes the rank's block of the
+serving cache.  Under ``tp2d`` the ``embed`` dim of the activations and of
+every weight is the rank's block too (``spmd.embed_of``): a product over
+``embed`` is summed over that axis (``spmd.psum``), a product into
+``embed`` takes its input through ``spmd.enter``, and the RMS norm sums its
+squares over the axis.
 """
 from __future__ import annotations
 
@@ -57,9 +69,19 @@ def rmsnorm_spec(d: int) -> Params:
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm over the last dim; over the ranks' blocks of it where the
+    step split ``embed`` (the squares summed over the axis)."""
     dt = x.dtype
     x32 = x.float()
-    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    axis = spmd.embed_of(p["scale"])
+    if axis is None:
+        var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    else:
+        n = x.shape[-1] * spmd.current().mesh.shape[axis]
+        # each rank's block of the normalised row is its own: the sum's
+        # gradient is summed over the axis too
+        sq = spmd.enter(torch.sum(torch.square(x32), dim=-1, keepdim=True), axis)
+        var = spmd.psum(sq, axis) / n
     out = x32 * torch.rsqrt(var + eps)
     return (out * p["scale"].float()).to(dt)
 
@@ -100,12 +122,39 @@ def attention_spec(cfg: ModelConfig, cross: bool = False) -> Params:
     return spec
 
 
+def _proj_in(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, x, w)`` contracting ``embed``: summed over the ranks'
+    blocks where the step split it."""
+    y = torch.einsum(eq, x, w.to(x.dtype))
+    axis = spmd.embed_of(w)
+    return y if axis is None else _sum_partials(y, axis)
+
+
+def _sum_partials(y: torch.Tensor, axis: str) -> torch.Tensor:
+    """The partial product ``y``, a temporary no one else holds, summed over
+    the ranks along ``axis``: in place where autograd does not record (a
+    prompt pass keeps no copy of a product as large as the logits)."""
+    if torch.is_grad_enabled() and y.requires_grad:
+        return spmd.psum(y, axis)
+    return spmd.all_reduce(y, spmd.current().mesh.group((axis,)), (axis,), inplace=True)
+
+
+def _proj_out(eq: str, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, h, w)`` into ``embed``: the rank's block of it where the
+    step split it (``h``, whole on every rank, gets the blocks' gradients
+    summed)."""
+    axis = spmd.embed_of(w)
+    if axis is not None:
+        h = spmd.enter(h, axis)
+    return torch.einsum(eq, h, w.to(h.dtype))
+
+
 def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  kv_input: Optional[torch.Tensor] = None):
     kv_x = x if kv_input is None else kv_input
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", kv_x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", kv_x, p["wv"].to(x.dtype))
+    q = _proj_in("bsd,dhk->bshk", x, p["wq"])
+    k = _proj_in("bsd,dhk->bshk", kv_x, p["wk"])
+    v = _proj_in("bsd,dhk->bshk", kv_x, p["wv"])
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -192,14 +241,15 @@ def _sdpa_plain(q, k, v, causal: bool, sm_scale: float,
 
 
 def _sdpa_kernel(q, k, v, causal: bool, sm_scale: float, q_per_kv: int,
-                 kv_valid_len: Optional[int] = None) -> torch.Tensor:
+                 kv_valid_len: Optional[int] = None, q_offset: int = 0) -> torch.Tensor:
     """Attention through the kernels of ``repro_torch.kernels.ops``.
 
     q: (B,S,H,D); k/v: (B,T,Hkv,D), *not* repeated: the kernels map query
     head h to kv head h // q_per_kv themselves and read k/v through a
     strided (B,Hkv,T,D) view, so a serving cache is neither repeated nor
     transposed.  S == 1 goes to flash-decode over the first ``kv_valid_len``
-    keys, anything else to the FlashAttention kernel over all T keys.
+    keys, anything else to the FlashAttention kernel over all T keys, its
+    causal mask placing query row 0 at ``q_offset``.
     """
     from repro_torch.kernels import ops
     B, S, H, D = q.shape
@@ -213,23 +263,30 @@ def _sdpa_kernel(q, k, v, causal: bool, sm_scale: float, q_per_kv: int,
                                kv_valid_len=kv_valid_len, q_per_kv=q_per_kv)
     else:
         out = ops.attention(qf, kf, vf, sm_scale=sm_scale, causal=causal,
-                            q_per_kv=q_per_kv)
+                            q_per_kv=q_per_kv, q_offset=q_offset)
     return out.reshape(B, H, S, D).permute(0, 2, 1, 3)
 
 
 def _attend(q, k, v, causal: bool, cfg: ModelConfig,
-            kv_valid_len: Optional[int] = None, q_per_kv: Optional[int] = None
-            ) -> torch.Tensor:
+            kv_valid_len: Optional[int] = None, q_per_kv: Optional[int] = None,
+            q_offset: int = 0) -> torch.Tensor:
     """q: (B,S,H,D) against k/v: (B,T,Hkv,D), not repeated (``q_per_kv``
     query heads a kv head, the config's by default): through the kernels
     when ``cfg.kernels == "cuda"``, else the plain path (dense, or chunked
-    over the keys for long sequences, as the reference's XLA path)."""
+    over the keys for long sequences, as the reference's XLA path).  A
+    causal ``q_offset`` (the position of query row 0) must be ``T - S``:
+    the queries are the last of the keys' positions, which is what the
+    plain path's end-aligned mask assumes."""
     sm_scale = cfg.head_dim_ ** -0.5
     g = cfg.q_per_kv if q_per_kv is None else q_per_kv
+    if causal and q_offset and k.shape[1] - q.shape[1] != q_offset:
+        raise ValueError(f"a causal query offset of {q_offset} over {k.shape[1]} keys for "
+                         f"{q.shape[1]} queries: the queries must be the last positions")
     if cfg.kernels == "cuda":
         if q.dtype != k.dtype:
             k, v = k.to(q.dtype), v.to(q.dtype)
-        return _sdpa_kernel(q, k, v, causal, sm_scale, g, kv_valid_len=kv_valid_len)
+        return _sdpa_kernel(q, k, v, causal, sm_scale, g, kv_valid_len=kv_valid_len,
+                            q_offset=q_offset)
     kr = _repeat_kv(k, g)
     vr = _repeat_kv(v, g)
     return _sdpa_plain(q, kr, vr, causal, sm_scale, kv_valid_len=kv_valid_len)
@@ -262,6 +319,12 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
       mask and one token through flash-decode over every key; the reference
       sends ``precomputed_kv`` through its plain path even with its kernels
       on.
+    * under a step that splits the sequence (``spmd.seq_axis``), ``x`` is
+      the rank's token block ``[o, o + S)``: self-attention attends over the
+      keys gathered along the axis with K2's query offset ``o``
+      (:func:`_context_parallel`); a prompt pass writes the rank's block of
+      the cache (:func:`_prompt_into_split`), as does a prompt pass of the
+      whole sequence into a cache the plan splits.
     """
     B, S, d = x.shape
     hd = cfg.head_dim_
@@ -274,47 +337,49 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         if kv_cache is not None:
             raise ValueError("cross-attention (kv_input, precomputed_kv) takes no cache")
         if precomputed_kv is not None:
-            q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+            q = _proj_in("bsd,dhk->bshk", x, p["wq"])
             if "bq" in p:
                 q = q + p["bq"].to(x.dtype)
             split = spmd.cache_split(precomputed_kv[0])
             if split is not None and split.split_dims():
-                if S != 1:
-                    raise NotImplementedError(
-                        "a multi-token cross-attention pass over a cross K/V the plan "
-                        "splits is not supported: prefill unsharded")
-                out = _decode_split(q, None, None, *precomputed_kv, None, split, cfg)
-                return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), None
+                if S == 1:
+                    out = _decode_split(q, None, None, *precomputed_kv, None, split, cfg)
+                    return _proj_out("bshk,hkd->bsd", out, p["wo"]), None
+                # a prompt given the cross K/V as the plan splits it: whole again
+                precomputed_kv = _gather_split(precomputed_kv, split)
             k, v = (t.to(x.dtype) for t in precomputed_kv)
         else:
             q, k, v = _project_qkv(p, x, cfg, kv_input)
         out = _attend(q, k, v, False, cfg)
-        return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), None
+        return _proj_out("bshk,hkd->bsd", out, p["wo"]), None
     q, k, v = _project_qkv(p, x, cfg)
     cached = kv_cache is not None and cache_index is not None
+    o = spmd.seq_range(S)[0]                 # the position of this rank's first token
     if use_rope:
         if cached:
-            pos = cache_index + torch.arange(S, device=x.device)
+            pos = cache_index + o + torch.arange(S, device=x.device)
         else:
             pos = positions if positions is not None \
-                else torch.arange(S, device=x.device)
+                else o + torch.arange(S, device=x.device)
         cos, sin = rope_frequencies(hd, cfg.rope_theta, pos)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    if kv_cache is None and spmd.seq_axis() is not None:
+        out = _context_parallel(q, k, v, o, causal, cfg)
+        return _proj_out("bshk,hkd->bsd", out, p["wo"]), None
     new_cache = None
     valid = None
     is_causal = causal and kv_cache is None
     if kv_cache is not None:
         ck, cv = kv_cache
         split = spmd.cache_split(ck) if cached else None
-        if split is not None and split.split_dims():
-            if S > 1:
-                raise NotImplementedError(
-                    "a multi-token pass into a cache the plan splits (a prompt or a "
-                    "chunked prefill) is not supported: prefill unsharded, then place "
-                    "the cache by serve_step.cache_shardings")
+        splits = split is not None and bool(split.split_dims())
+        if cached and S > 1 and (splits or spmd.seq_axis() is not None):
+            out = _prompt_into_split(q, k, v, ck, cv, cache_index, split, causal, cfg)
+            return _proj_out("bshk,hkd->bsd", out, p["wo"]), (ck, cv)
+        if splits:
             out = _decode_split(q, k, v, ck, cv, cache_index, split, cfg)
-            return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), (ck, cv)
+            return _proj_out("bshk,hkd->bsd", out, p["wo"]), (ck, cv)
         if cached:
             if S > 1 and cache_index != 0:
                 raise NotImplementedError(
@@ -333,8 +398,67 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             is_causal = causal
         new_cache = (ck, cv)
     out = _attend(q, k, v, is_causal, cfg, kv_valid_len=valid)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    return out, new_cache
+    return _proj_out("bshk,hkd->bsd", out, p["wo"]), new_cache
+
+
+def _context_parallel(q, k, v, o: int, causal: bool, cfg: ModelConfig) -> torch.Tensor:
+    """Attention of this rank's queries, positions ``[o, o + S)`` of a
+    sequence the step splits, over the keys of every rank along the axis
+    (the all-gather form of context parallelism): causally only the first
+    ``o + S`` keys are gathered and K2 masks with the query offset ``o``.
+    The gather's backward hands each rank's keys the gradient of every
+    later rank's queries."""
+    S = q.shape[1]
+    keep = o + S if causal else None
+    k, v = (spmd.gather_seq(t, 1, keep=keep) for t in (k, v))
+    return _attend(q, k, v, causal, cfg, q_offset=o if causal else 0)
+
+
+def _prompt_into_split(q, k, v, ck, cv, cache_index: int, split, causal: bool,
+                       cfg: ModelConfig) -> torch.Tensor:
+    """A prompt pass (S > 1 tokens from cache index 0) into this rank's
+    ``ck``/``cv``, which the serving step's plan may split over ``kv_seq``
+    and ``kv_heads`` (``split``: their ``spmd.CacheSplit``, or None for a
+    whole cache).  The prompt's keys and values are whole on every rank
+    (gathered over the sequence axis where the step splits the tokens);
+    the rank writes the positions and heads of its cache block that the
+    prompt covers, and its queries attend causally over the prompt's keys in
+    the cache's dtype (as the unsplit prompt pass reads them back), with
+    the query offset of its token block.  The decode steps that follow run
+    :func:`_decode_split`."""
+    if cache_index != 0:
+        raise NotImplementedError(
+            "a multi-token pass into a cache that already holds keys (chunked prefill) "
+            "is not supported: prefill from index 0")
+    S = q.shape[1]
+    o = spmd.seq_range(S)[0]
+    k_all, v_all = (spmd.gather_seq(t, 1) for t in (k, v))
+    T = k_all.shape[1]
+    off, t_local, h0, hn = 0, ck.shape[1], 0, ck.shape[2]
+    if split is not None:
+        if split.mesh_axes_of("kv_seq"):
+            off, t_local = split.block("kv_seq")
+        if split.mesh_axes_of("kv_heads"):
+            h0, hn = split.block("kv_heads")
+    n = min(max(T - off, 0), t_local)
+    if n:
+        ck[:, :n] = k_all[:, off:off + n, h0:h0 + hn].to(ck.dtype)
+        cv[:, :n] = v_all[:, off:off + n, h0:h0 + hn].to(cv.dtype)
+    keep = o + S if causal else T
+    kk, vv = (t[:, :keep].to(ck.dtype) for t in (k_all, v_all))
+    return _attend(q, kk, vv, causal, cfg, q_offset=o if causal else 0)
+
+
+def _gather_split(kv, split) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A (k, v) pair the serving step's plan splits over ``kv_seq`` and
+    ``kv_heads`` (``split``), whole again: each split dim gathered over its
+    mesh axes in block order."""
+    k, v = kv
+    for logical, dim in (("kv_seq", 1), ("kv_heads", 2)):
+        axes = split.mesh_axes_of(logical)
+        if axes:
+            k, v = spmd.gather_over(k, axes, dim), spmd.gather_over(v, axes, dim)
+    return k, v
 
 
 def _local_kv_heads(h0: int, hl: int, G: int):
@@ -507,15 +631,17 @@ def mlp_spec(cfg: ModelConfig, d_ff: Optional[int] = None) -> Params:
 
 def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The gated MLP; over this rank's ffn columns where the step left them
-    split (column-parallel gate and up, row-parallel down, summed)."""
+    split (column-parallel gate and up, row-parallel down, summed); over
+    the ranks' ``embed`` blocks where the step split that (gate and up
+    summed, down into the rank's block)."""
     axis = spmd.local_of(p["w_gate"])
     if axis is not None:
         x = spmd.enter(x, axis)
-    g = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(x.dtype))
-    u = torch.einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype))
+    g = _proj_in("bsd,df->bsf", x, p["w_gate"])
+    u = _proj_in("bsd,df->bsf", x, p["w_up"])
     # jax.nn.gelu defaults to the tanh approximation
     act = F.gelu(g, approximate="tanh") if cfg.mlp_activation == "gelu" else F.silu(g)
-    out = torch.einsum("bsf,fd->bsd", act * u, p["w_down"].to(x.dtype))
+    out = _proj_out("bsf,fd->bsd", act * u, p["w_down"])
     return out if axis is None else spmd.psum(out, axis)
 
 
@@ -558,6 +684,8 @@ def lm_head(p: Params, x: torch.Tensor, cfg: ModelConfig,
         x = spmd.enter(x, axis)
     w = src.to(x.dtype).T if cfg.tie_embeddings else src.to(x.dtype)
     logits = torch.einsum("bsd,dv->bsv", x, w)
+    if spmd.embed_of(src) is not None:
+        logits = _sum_partials(logits, spmd.embed_of(src))
     return logits if axis is None else spmd.mark_local(logits, axis)
 
 
@@ -593,7 +721,7 @@ def _chunk_xent_sum(xs: torch.Tensor, w: torch.Tensor, ls: torch.Tensor,
     axis = spmd.local_of(w)
     if axis is not None:
         return spmd.vocab_xent_sum(torch.einsum(eq, xs, w.to(xs.dtype)), ls, axis)
-    logits = torch.einsum(eq, xs, w.to(xs.dtype)).float()
+    logits = _proj_in(eq, xs, w).float()
     gold = torch.gather(logits, -1, ls[..., None].long())[..., 0]
     return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
 
@@ -615,7 +743,7 @@ def fused_head_xent(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, *,
         x = spmd.enter(x, axis)            # each rank's vocabulary block: part of dx
     c = min(chunk, S)
     if S % c:
-        logits = torch.einsum(eq, x, w.to(x.dtype))
+        logits = torch.einsum(eq, x, w.to(x.dtype)) if axis is not None else _proj_in(eq, x, w)
         return softmax_xent(logits if axis is None else spmd.mark_local(logits, axis), labels)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(S // c):

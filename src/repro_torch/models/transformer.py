@@ -95,7 +95,9 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross-entropy of ``batch["tokens"]`` against
     ``batch["labels"]``, as the reference's ``loss_fn``: through the fused
-    head + loss above :data:`layers.FUSED_XENT_THRESHOLD` tokens x vocab."""
+    head + loss above :data:`layers.FUSED_XENT_THRESHOLD` tokens x vocab.
+    Under a step that splits the sequence the batch is this rank's token
+    block and the loss its mean (the step averages it over the ranks)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = layers(params, _embed(params, tokens, cfg), cfg)
@@ -143,8 +145,11 @@ def cached_layers(params: Params, x: torch.Tensor, cache: Dict[str, Any],
                   cfg: ModelConfig, last_only: bool, block=block_apply
                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """:func:`_cached_pass` on embeddings ``x`` (B, S, d) already made (the
-    VLM prepends its image prefix to the text's)."""
-    idx, n = int(cache["index"]), x.shape[1]
+    VLM prepends its image prefix to the text's).  Under a step that splits
+    the sequence ``x`` is this rank's block of the prompt: the cache takes
+    the whole prompt's length, and the last token's logits come from the
+    rank that holds it, on every rank."""
+    idx, n = int(cache["index"]), spmd.seq_length(x.shape[1])
     length = spmd.cache_length(cache["k"], 2)
     if idx + n > length:
         raise ValueError(f"cache of {length} keys cannot take {n} more at index {idx}")
@@ -154,7 +159,7 @@ def cached_layers(params: Params, x: torch.Tensor, cache: Dict[str, Any],
         x, _ = L.remat(False, block, _layer(params, i), x, cfg,
                        kv_cache=(cache["k"][i], cache["v"][i]), cache_index=idx)
     if last_only:
-        x = x[:, -1:]
+        x = spmd.last_token(x)
     logits = L.whole_vocab(_head(params, x, cfg))
     return logits, {"k": cache["k"], "v": cache["v"],
                     "index": idx + n}

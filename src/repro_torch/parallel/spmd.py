@@ -11,8 +11,8 @@ process groups of :class:`~repro_torch.parallel.sharding.Mesh`.
   buffers and the checkpoint writer all take plain tensors), placed by the
   plan (``train_step.state_shardings``).
 * **Batch.** The batch is split over the plan's ``batch`` mesh axes
-  (:attr:`Step.batch_axes`); an input split over any other axis (``seq``
-  under ``zero3_sp`` / ``tp2d``) is gathered for use.
+  (:attr:`Step.batch_axes`); an input split over any other axis is gathered
+  for use, but the sequence of a step with a :attr:`Step.seq_axis`.
 * **Gather for use.** A parameter is all-gathered where the model uses it:
   a layer's parameters inside ``layers.remat``, so again in the
   recomputation, the others once a step (:func:`for_use`).  The gather's
@@ -41,6 +41,23 @@ process groups of :class:`~repro_torch.parallel.sharding.Mesh`.
   layers (norms, residuals) stay whole on every rank, and families without
   such layers (rwkv6, zamba2, the encoder-decoder) run with ``local=False``.
   Without a local axis, activations are computed whole on every rank.
+* **Sequence-split compute** (context parallelism, what GSPMD does under
+  ``tp2d``, ``zero3_sp`` and ``sequence_parallel``: ``seq`` and ``kv_seq``
+  claim ``model`` before the heads, ffn and vocabulary, which stay whole).
+  A step built with ``seq=True`` whose plan maps ``seq`` and ``kv_seq`` to
+  one mesh axis of more than one rank that splits no batch has a
+  :attr:`Step.seq_axis` (:func:`seq_axis_of`): each rank computes its block
+  of the tokens (:func:`seq_range`).  Attention gathers K and V over the
+  axis (:func:`gather_seq`, whose backward reduce-scatters) and runs K2
+  with the rank's query offset.  The ranks along the axis saw different
+  tokens, so a parameter's gradient is **summed over it** as over a batch
+  axis (:attr:`Step.reduce_axes`), and so are the loss and metrics.  Under
+  ``tp2d`` the residual's ``embed`` is also split, over
+  :attr:`Step.embed_axis`: :func:`for_use` leaves every leaf's ``embed``
+  dim split over it (marked: :func:`embed_of`) and gathers the rest, and
+  ``models/layers.py`` multiplies the rank's ``embed`` block by the
+  weight's, summing the partial products over the axis (:func:`psum`);
+  the products whose output is the ``embed`` dim need no sum.
 * **Expert parallelism.** Under a plan that maps ``experts`` to one mesh
   axis, the grouped expert weights keep that axis sharded (each rank runs
   only its experts; ``models.moe``), and the rank's partial outputs are
@@ -130,15 +147,17 @@ def _record(kind: str, out: torch.Tensor, axes: Sequence[str]) -> None:
         _TALLY.add(kind, out.numel() * out.element_size(), axes)
 
 
-def all_reduce(x: torch.Tensor, group, axes: Sequence[str] = (), op: str = "sum"
-               ) -> torch.Tensor:
+def all_reduce(x: torch.Tensor, group, axes: Sequence[str] = (), op: str = "sum",
+               inplace: bool = False) -> torch.Tensor:
     """Sum (or ``op="max"``) of ``x`` over ``group``, the ranks along mesh
-    ``axes`` (a new tensor), or ``x`` itself when the group is None (one
-    rank)."""
+    ``axes`` (a new tensor, or ``x`` itself summed in place with
+    ``inplace`` and a contiguous ``x``), or ``x`` itself when the group is
+    None (one rank)."""
     if group is None:
         return x
     import torch.distributed as dist
-    x = x.clone(memory_format=torch.contiguous_format)
+    if not (inplace and x.is_contiguous()):
+        x = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
                     group=group)
     _record("all-reduce", x, axes)
@@ -187,6 +206,22 @@ def gather_over(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
     return gather_blocks(x, mesh, spec, shape, tuple(a for a in mesh.axis_names if a in axes))
 
 
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+    """The sum of ``x`` over the ranks along ``axis``, of which this rank
+    keeps its block along ``dim`` (``x.shape[dim]`` divided by the ranks,
+    in rank order).  ``x`` itself on one rank."""
+    group = mesh.group((axis,))
+    if group is None:
+        return x
+    import torch.distributed as dist
+    n = mesh.shape[axis]
+    parts = [c.contiguous() for c in x.chunk(n, dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    _record("reduce-scatter", out, (axis,))
+    return out
+
+
 # ----------------------------------------------------------------- placement
 @dataclass(frozen=True)
 class Placement:
@@ -213,8 +248,8 @@ class Placement:
 
 class _ForUse(torch.autograd.Function):
     """Forward: the parameter as the model uses it, gathered over ``axes``.
-    Backward: the gradient summed over the batch group, then this rank's
-    block."""
+    Backward: the gradient summed over ``batch_axes`` (the step's batch and
+    sequence axes: their ranks saw other tokens), then this rank's block."""
 
     @staticmethod
     def forward(ctx, local, mesh, spec, shape, axes, batch_axes):
@@ -296,6 +331,122 @@ def pmean(x: torch.Tensor, axis: str) -> torch.Tensor:
     return x if group is None else _Psum.apply(x, group, axis, 1.0 / mesh.shape[axis])
 
 
+# --------------------------------------------------------- sequence-split compute
+_EMBED = "_spmd_embed_axis"
+
+
+def seq_axis_of(plan: ShardingPlan, mesh: Mesh, seq_len: Optional[int] = None
+                ) -> Optional[str]:
+    """The mesh axis a step splits the sequence over: the one axis the plan
+    maps ``seq`` and ``kv_seq`` to, when the mesh gives it more than one
+    rank, the plan's batch does not take it and (given ``seq_len``) it
+    divides the sequence, as :meth:`ShardingPlan.spec` would place it.
+    None otherwise."""
+    ax = plan.mesh_axes("seq")
+    if isinstance(ax, tuple) and len(ax) == 1:
+        ax = ax[0]
+    if not isinstance(ax, str) or mesh.shape.get(ax, 1) <= 1:
+        return None
+    if part_axes(plan.mesh_axes("kv_seq")) != (ax,) or ax in part_axes(plan.mesh_axes("batch")):
+        return None
+    if seq_len is not None and seq_len % mesh.shape[ax]:
+        return None
+    return ax
+
+
+def embed_axis_of(plan: ShardingPlan, mesh: Mesh, seq_axis: Optional[str]) -> Optional[str]:
+    """The mesh axis that splits the residual's ``embed`` dim in a step
+    that splits the sequence over ``seq_axis`` (``tp2d``: ``data``): the
+    plan's ``embed`` axis when it has more than one rank and neither the
+    batch nor the sequence takes it.  None otherwise."""
+    ax = plan.mesh_axes("embed")
+    if seq_axis is None or not isinstance(ax, str) or mesh.shape.get(ax, 1) <= 1:
+        return None
+    if ax == seq_axis or ax in part_axes(plan.mesh_axes("batch")):
+        return None
+    return ax
+
+
+def seq_axis() -> Optional[str]:
+    """The current step's sequence axis (None outside a step or without one)."""
+    step = current()
+    return None if step is None else step.seq_axis
+
+
+def seq_range(n_local: int) -> Tuple[int, int]:
+    """This rank's token block ``[o, o + n_local)`` of a sequence split
+    over the step's :attr:`Step.seq_axis` in :class:`Sharding`'s block order
+    (``(0, n_local)`` without one)."""
+    ax = seq_axis()
+    return (0 if ax is None else axis_index(ax) * n_local), n_local
+
+
+def seq_length(n_local: int) -> int:
+    """The global length of a sequence of which this rank holds ``n_local``
+    tokens."""
+    ax = seq_axis()
+    return n_local if ax is None else n_local * current().mesh.shape[ax]
+
+
+class _GatherSeq(torch.autograd.Function):
+    """Forward: every rank's block along ``dim``, gathered over the
+    sequence axis in rank order, of which the first ``keep`` positions are
+    kept.  Backward: the gradient padded with zeros to the whole sequence,
+    summed over the axis and cut to this rank's block (a reduce-scatter):
+    a rank's keys get the gradient of every later rank's queries."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, keep):
+        # the mesh is kept: on the card the autograd engine runs the backward
+        # on its own thread, outside the step's context
+        ctx.mesh, ctx.axis, ctx.dim = current().mesh, axis, dim
+        full = gather_over(x, axis, dim)
+        ctx.total = full.shape[dim]
+        return full if keep >= ctx.total else full.narrow(dim, 0, keep)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if grad.shape[ctx.dim] < ctx.total:
+            pad = list(grad.shape)
+            pad[ctx.dim] = ctx.total - grad.shape[ctx.dim]
+            grad = torch.cat([grad, grad.new_zeros(pad)], dim=ctx.dim)
+        return reduce_scatter(grad, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+def gather_seq(x: torch.Tensor, dim: int, keep: Optional[int] = None) -> torch.Tensor:
+    """Every rank's block of ``x`` along ``dim`` over the step's sequence
+    axis, in order, cut to its first ``keep`` positions (default all): the
+    keys and values a rank's queries see.  Differentiable: the backward
+    reduce-scatters.  ``x`` itself without a sequence axis."""
+    ax = seq_axis()
+    if ax is None:
+        return x if keep is None else x.narrow(dim, 0, keep)
+    total = x.shape[dim] * current().mesh.shape[ax]
+    return _GatherSeq.apply(x, ax, dim, total if keep is None else keep)
+
+
+def last_token(x: torch.Tensor) -> torch.Tensor:
+    """The last position of a (B, S, ...) activation whose sequence the
+    step splits: the last rank's, on every rank (``x[:, -1:]`` without a
+    sequence axis)."""
+    ax = seq_axis()
+    last = x[:, -1:]
+    return last if ax is None else gather_over(last, ax, 1)[:, -1:]
+
+
+def mark_embed(t: torch.Tensor, axis: str) -> torch.Tensor:
+    """Mark ``t`` as holding this rank's block of its ``embed`` dim along
+    ``axis``; returns ``t``."""
+    setattr(t, _EMBED, axis)
+    return t
+
+
+def embed_of(t: torch.Tensor) -> Optional[str]:
+    """The mesh axis ``t``'s ``embed`` dim is split over, as
+    :meth:`Step.for_use` left it under ``tp2d``; None for a whole one."""
+    return getattr(t, _EMBED, None)
+
+
 # ------------------------------------------------ head-, ffn-, vocab-local compute
 # the logical axes a layer with a local rule computes in parts
 LOCAL_AXES = ("q_heads", "kv_heads", "ffn", "vocab")
@@ -306,8 +457,10 @@ def local_axis_of(plan: ShardingPlan, mesh: Mesh, batch_axes: Sequence[str]) -> 
     """The mesh axis a step computes heads, ffn columns and vocabulary
     slices over: the one axis the plan maps ``q_heads``, ``ffn`` and
     ``vocab`` to, when it has more than one rank, does not split the batch
-    and the plan splits no sequence over the mesh (``tp2d``, ``zero3_sp``:
-    sequence-parallel attention is not ported).  None otherwise."""
+    and the plan splits no sequence over the mesh (``tp2d``, ``zero3_sp``,
+    ``sequence_parallel``: ``seq`` claims that axis first, so heads, ffn and
+    vocabulary are whole in the reference's layout; :func:`seq_axis_of`).
+    None otherwise."""
     parts = {plan.mesh_axes(a) for a in ("q_heads", "ffn", "vocab")}
     if len(parts) != 1:
         return None
@@ -357,16 +510,20 @@ def vocab_xent_sum(logits: torch.Tensor, labels: torch.Tensor, axis: str) -> tor
 # -------------------------------------------------------------- step context
 class Step:
     """One rank's view of a plan-sharded step: the plan, the mesh, the mesh
-    axes the batch is split over and the expert axis, if any."""
+    axes the batch is split over, the expert axis, the local axis and the
+    sequence and embed axes, if any."""
 
     def __init__(self, plan: ShardingPlan, mesh: Mesh, batch_part, local_batch: int,
-                 cache: Optional[dict] = None, local: bool = False):
+                 cache: Optional[dict] = None, local: bool = False,
+                 seq_axis: Optional[str] = None):
         """``batch_part``: the batch dim's entry of the batch's spec (None,
         an axis, or axes in the order the rows are blocked);
         ``local_batch``: the rows this rank holds; ``cache``: a serving
         step's cache leaves (name -> (this rank's tensor, its
         :class:`CacheSplit`)); ``local``: compute heads, ffn columns and
-        vocabulary locally where the plan allows it (:attr:`local_axis`)."""
+        vocabulary locally where the plan allows it (:attr:`local_axis`);
+        ``seq_axis``: the mesh axis the rank's tokens are a block of
+        (:func:`seq_axis_of`), None for a whole sequence."""
         self.plan, self.mesh, self.batch_part = plan, mesh, batch_part
         self.local_batch = local_batch
         self._cache = {t.untyped_storage().data_ptr(): split
@@ -383,12 +540,25 @@ class Step:
         self.expert_axis = (e_ax if isinstance(e_ax, str) and e_ax in mesh.shape
                             and set(plan_batch) == set(self.batch_axes) else None)
         self.local_axis = local_axis_of(plan, mesh, self.batch_axes) if local else None
+        if seq_axis is not None and (seq_axis in self.batch_axes
+                                     or mesh.shape.get(seq_axis, 1) <= 1):
+            raise ValueError(f"{seq_axis!r} cannot split the sequence on {mesh.shape} with the "
+                             f"batch over {self.batch_axes}")
+        self.seq_axis = seq_axis
+        self.embed_axis = embed_axis_of(plan, mesh, seq_axis)
+        # the ranks whose tokens differ: a gradient and a mean are summed over them
+        reduce = set(self.batch_axes) | ({seq_axis} if seq_axis else set())
+        self.reduce_axes = tuple(a for a in mesh.axis_names if a in reduce)
+        self.reduce_group = mesh.group(self.reduce_axes)
+        self.loss_shards = math.prod(mesh.shape[a] for a in self.reduce_axes)
 
     def for_use(self, leaf: torch.Tensor, placement: Placement) -> torch.Tensor:
         """``leaf`` (this rank's shard) gathered over every mesh axis its
         placement splits it over, but a grouped expert weight's ``experts``
-        dim under expert parallelism, and a head / ffn / vocab dim split over
-        :attr:`local_axis` (the result is then marked: :func:`local_of`)."""
+        dim under expert parallelism, a head / ffn / vocab dim split over
+        :attr:`local_axis` (the result is then marked: :func:`local_of`) and
+        an ``embed`` dim under :attr:`embed_axis` (marked: :func:`embed_of`).
+        Its gradient is summed over :attr:`reduce_axes`."""
         keep = set()
         if self.expert_axis is not None and placement.axes[:1] == ("experts",) \
                 and placement.sharding.spec[0] == self.expert_axis:
@@ -398,14 +568,24 @@ class Step:
                  if self.local_axis is not None and ax in LOCAL_AXES
                  and i < len(spec) and spec[i] == self.local_axis}
         keep |= local
+        embed = set()
+        if self.embed_axis is not None:
+            embed = {i for i, ax in enumerate(placement.axes) if ax == "embed"}
+            if any(i >= len(spec) or spec[i] != self.embed_axis for i in embed):
+                raise ValueError(f"a leaf of {placement.shape} over {placement.axes} does not "
+                                 f"split its embed dim over {self.embed_axis!r} ({spec}): "
+                                 f"the step splits the residual's")
+            keep |= embed
         spec = P(*(None if i in keep else part for i, part in enumerate(spec)))
         shape = tuple(leaf.shape[i] if i in keep else n
                       for i, n in enumerate(placement.shape))
         axes = Sharding(self.mesh, spec).mesh_axes()
-        if self.mesh.group(axes) is None and self.batch_group is None:
+        if self.mesh.group(axes) is None and self.reduce_group is None:
             out = leaf
         else:
-            out = _ForUse.apply(leaf, self.mesh, spec, shape, axes, self.batch_axes)
+            out = _ForUse.apply(leaf, self.mesh, spec, shape, axes, self.reduce_axes)
+        if embed:
+            mark_embed(out, self.embed_axis)
         return mark_local(out, self.local_axis) if local else out
 
     def cache_split(self, t: torch.Tensor) -> Optional["CacheSplit"]:
@@ -414,11 +594,11 @@ class Step:
         return self._cache.get(t.untyped_storage().data_ptr()) if self._cache else None
 
     def batch_mean(self, x: torch.Tensor) -> torch.Tensor:
-        """Mean over the batch shards of a per-rank mean."""
-        if self.batch_group is None:
+        """Mean over the batch (and sequence) shards of a per-rank mean."""
+        if self.reduce_group is None:
             return x
-        return all_reduce(x.detach().float(), self.batch_group, self.batch_axes) \
-            / self.batch_shards
+        return all_reduce(x.detach().float(), self.reduce_group, self.reduce_axes) \
+            / self.loss_shards
 
     def global_norm(self, grads, placements) -> torch.Tensor:
         """The unsharded gradient's global norm from every rank's shards:

@@ -30,7 +30,17 @@ cache (``parallel/spmd.py``):
   computes its heads, ffn columns and vocabulary block under a plan with a
   local axis (``spmd.Step(local=True)``), writing its kv heads into a
   cache split over ``kv_heads`` on that axis (or every kv head into a
-  whole one).
+  whole one); for the families with sequence-split rules
+  (``ModelAPI.sequence_split``) under a plan that splits the sequence
+  (``sequence_parallel``, ``tp2d``) each rank computes its block of the
+  prompt's tokens (K2 with the rank's query offset over the keys gathered
+  along the sequence), and the last token's logits come from the rank that
+  holds it;
+* a prompt pass writes into the rank's block of a cache split over
+  ``kv_seq`` (and ``kv_heads``) the positions it covers, from the prompt's
+  keys and values, whole or gathered (``models/layers.py``), and the
+  encoder-decoder stores its block of the cross K/V; chunked prefill (a
+  prompt into a cache that already holds keys) raises.
 """
 from __future__ import annotations
 
@@ -106,7 +116,8 @@ def jit_serve_step(api: ModelAPI, plan: ShardingPlan, mesh: Mesh,
 def _planned_serve_step(api: ModelAPI, plan: ShardingPlan, mesh: Mesh,
                         cache_abstract: Optional[Dict[str, Any]],
                         tokens_shape: Optional[Tuple[int, int]]) -> Callable:
-    from repro_torch.train.train_step import param_placements, place_leaf, place_tree
+    from repro_torch.train.train_step import (param_placements, place_leaf, place_tree,
+                                              seq_split_axis)
     placements = param_placements(api, plan, mesh)
     p_sh = param_shardings(api, plan, mesh)
     abstract = api.abstract_params()
@@ -133,6 +144,11 @@ def _planned_serve_step(api: ModelAPI, plan: ShardingPlan, mesh: Mesh,
         t_sh = token_sharding(plan, mesh, known["tokens"])
         prompt = tokens.shape[1] > 1
         tokens = place_leaf(tokens, t_sh, (known["tokens"][0], tokens.shape[1]))
+        seq = seq_split_axis(api, plan, mesh, tokens.shape[1]) if prompt else None
+        if seq is not None:
+            n = tokens.shape[1] // mesh.shape[seq]
+            o = mesh.coords()[seq] * n
+            tokens = tokens[:, o:o + n]
         # a prompt's frontend input (patches, frames) has the tokens' rows
         rows = Sharding(mesh, P(t_sh.spec[0] if len(t_sh.spec) else None))
         inputs = {k: place_leaf(v, rows, (known["tokens"][0],) + tuple(v.shape[1:]))
@@ -144,7 +160,7 @@ def _planned_serve_step(api: ModelAPI, plan: ShardingPlan, mesh: Mesh,
             splits[k] = (local[k], spmd.CacheSplit(c_sh[k], shape, tuple(cache_axes[k])))
         batch_part = t_sh.spec[0] if len(t_sh.spec) else None
         step = spmd.Step(plan, mesh, batch_part, tokens.shape[0], cache=splits,
-                         local=prompt and api.local_compute)
+                         local=prompt and api.local_compute, seq_axis=seq)
         with spmd.step_context(step):
             model_params = spmd.serving_params(params, axes, placements)
             if prompt:

@@ -25,8 +25,12 @@ on every rank, on the rank's shards of the state and rows of the batch, as
 it, or left split where the layer computes its heads, ffn columns or
 vocabulary locally; its gradient summed over the batch axes and sliced to
 the rank's shard; the global clip norm; the optimizer on the shards: AdamW elementwise,
-Adafactor's means and int8's scales over whole leaves).  On a mesh of one rank it is the
-unsharded step's arithmetic.
+Adafactor's means and int8's scales over whole leaves).  Under a plan that
+splits the sequence (``tp2d``, ``zero3_sp``, ``sequence_parallel``) a
+family with sequence-split rules (``ModelAPI.sequence_split``) keeps each
+rank's block of the tokens and labels and computes only those; the
+gradients and the loss are then summed over the sequence axis too.  On a
+mesh of one rank it is the unsharded step's arithmetic.
 """
 from __future__ import annotations
 
@@ -192,7 +196,7 @@ def _step(api: ModelAPI, tcfg: TrainConfig, state: TrainState,
     ``placements`` the parameters', ``opt_specs`` each leaf's Adafactor
     ``vr`` / ``vc`` specs): int8's scales and Adafactor's means are then the
     whole leaves'."""
-    scale = 1.0 if sharded is None else 1.0 / sharded.batch_shards
+    scale = 1.0 if sharded is None else 1.0 / sharded.loss_shards
     norm_fn = None if sharded is None else (lambda g: sharded.global_norm(g, placements))
     if tcfg.microbatches <= 1:
         grads = zero_grads(state.params)
@@ -263,27 +267,45 @@ def _planned_step(api: ModelAPI, tcfg: TrainConfig, plan: ShardingPlan, mesh: Me
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         state = place_tree(state, st_sh, abstract)
-        local, batch_part = local_batch(batch, batch_specs, plan, mesh)
+        seq = seq_split_axis(api, plan, mesh, (batch_specs or batch)["tokens"].shape[1])
+        local, batch_part = local_batch(batch, batch_specs, plan, mesh, seq)
         # the model sees one microbatch's rows at a time
         rows = local["tokens"].shape[0] // max(1, tcfg.microbatches)
-        step = spmd.Step(plan, mesh, batch_part, rows, local=api.local_compute)
+        step = spmd.Step(plan, mesh, batch_part, rows, local=api.local_compute, seq_axis=seq)
         with spmd.step_context(step):
             return _step(api, tcfg, state, local, step, placements, opt_specs)
 
     return train_step
 
 
+def seq_split_axis(api: ModelAPI, plan: ShardingPlan, mesh: Mesh, seq_len: int
+                   ) -> Optional[str]:
+    """The mesh axis a step of ``api``'s family splits a sequence of
+    ``seq_len`` tokens over under ``plan`` (``spmd.seq_axis_of``), None
+    where the family has no sequence-split rules or the plan splits none."""
+    return spmd.seq_axis_of(plan, mesh, seq_len) if api.sequence_split else None
+
+
 def local_batch(batch: Dict[str, torch.Tensor], batch_specs: Optional[Dict[str, Any]],
-                plan: ShardingPlan, mesh: Mesh) -> Tuple[Dict[str, torch.Tensor], Any]:
+                plan: ShardingPlan, mesh: Mesh, seq_axis: Optional[str] = None
+                ) -> Tuple[Dict[str, torch.Tensor], Any]:
     """The batch as this rank's step uses it (given whole, or as this rank's
     rows under :func:`batch_shardings` of ``batch_specs``, None: the batch
-    is whole): the rows stay this rank's, a split over any other axis (seq)
-    is gathered.  Also the batch dim's entry of the tokens' spec."""
+    is whole): the rows stay this rank's; a split over any other axis is
+    gathered, but the sequence's over ``seq_axis`` (:func:`seq_split_axis`),
+    whose block stays this rank's.  Also the batch dim's entry of the
+    tokens' spec."""
     specs = batch_specs if batch_specs is not None else batch
     b_sh = batch_shardings(specs, plan, mesh)
     local = {}
     for k, x in batch.items():
         x = place_leaf(x, b_sh[k], tuple(specs[k].shape))
+        if seq_axis is not None and x.dim() >= 2:
+            if b_sh[k].spec[1:2] != (seq_axis,):
+                raise ValueError(f"{k}: the plan does not split its sequence over "
+                                 f"{seq_axis!r} ({b_sh[k].spec})")
+            local[k] = x
+            continue
         use = P(None, *b_sh[k].spec[1:])
         shape = tuple(x.shape[:1]) + tuple(specs[k].shape[1:])
         local[k] = spmd.gather_blocks(x, mesh, use, shape, Sharding(mesh, use).mesh_axes())

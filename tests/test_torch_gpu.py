@@ -1025,6 +1025,53 @@ def test_flash_attention_bwd_kernel_at_d256(cuda, case, dtype):
         assert torch.equal(a, c)
 
 
+# context-parallel blocks (a rank's queries against the keys before its last
+# one): batch x heads, q_per_kv, Sq, Skv, head dim, q_offset
+OFFSET_CASES = [(8, 4, 128, 640, 64, 500),        # an offset no tile divides
+                (8, 4, 128, 640, 128, 512),       # the last block: Skv - Sq
+                (8, 1, 100, 300, 32, 64),         # ragged block
+                (4, 1, 96, 640, 256, 64),         # keys after the last query: dK, dV 0
+                (16, 8, 512, 4096, 128, 3584)]    # llama3-405b's last rank of 8 at 4096
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", OFFSET_CASES)
+def test_flash_attention_kernels_with_q_offset(cuda, case, dtype):
+    """K2 at every tile that fits a block and K2-bwd with a query offset,
+    against their plain versions given the same offset; K2-bwd bit-equal on
+    a second call, and zero dK/dV for keys no query of the block sees."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as FA, flash_attention_bwd as FAB
+    BH, g, Sq, Skv, d, off = case
+    gen = torch.Generator(device=cuda).manual_seed(BH + Sq + off)
+    q = torch.randn(BH, Sq, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(BH // g, Skv, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(BH // g, Skv, d, generator=gen, device=cuda).to(dtype)
+    dout = torch.randn(BH, Sq, d, generator=gen, device=cuda).to(dtype)
+    want, plse = FA.flash_attention_plain(q, k, v, causal=True, q_per_kv=g, return_lse=True,
+                                          q_offset=off)
+    for bq, bkv in FA.legal_tiles(d, q.element_size()):
+        got, lse = FA.flash_attention(q, k, v, causal=True, block_q=bq, block_kv=bkv,
+                                      q_per_kv=g, return_lse=True, q_offset=off)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+        torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-4)
+    kernels.reset_launch_counts()
+    grads = FAB.flash_attention_bwd(q, k, v, got, lse, dout, causal=True, q_per_kv=g,
+                                    q_offset=off)
+    again = FAB.flash_attention_bwd(q, k, v, got, lse, dout, causal=True, q_per_kv=g,
+                                    q_offset=off)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_bwd"] == 2
+    plain = FAB.flash_attention_bwd_plain(q, k, v, got, lse, dout, causal=True, q_per_kv=g,
+                                          q_offset=off)
+    for a, b, c in zip(grads, plain, again):
+        torch.testing.assert_close(a.float(), b.float(), **_tol(dtype))
+        assert torch.equal(a, c)
+    if off + Sq < Skv:
+        assert not grads[1][:, off + Sq:].any() and not grads[2][:, off + Sq:].any()
+
+
 def test_flash_attention_bwd_refuses_what_is_not_compiled(cuda):
     from repro_torch.kernels import flash_attention_bwd as FAB
     q = torch.randn(2, 16, 48, device=cuda)

@@ -94,12 +94,14 @@ def _prefill(arch):
 def test_local_axis_follows_the_plan():
     """The local axis is the one mesh axis the plan maps heads, ffn and
     vocabulary to, when it has ranks and splits neither the batch nor the
-    sequence."""
+    sequence; where the plan splits the sequence (tp2d, zero3_sp) the step
+    has a sequence axis instead (``tests/test_torch_seq_parallel.py``)."""
     mesh = SH.Mesh(("data", "model"), (2, 2))
-    for name, want in (("megatron_tp", "model"), ("zero3", "model"),
-                       ("expert_parallel", "model"), ("tp2d", None), ("zero3_sp", None),
-                       ("pure_dp", None)):
+    for name, want, seq in (("megatron_tp", "model", None), ("zero3", "model", None),
+                            ("expert_parallel", "model", None), ("tp2d", None, "model"),
+                            ("zero3_sp", None, "model"), ("pure_dp", None, None)):
         assert spmd.local_axis_of(plan_named(name), mesh, ("data",)) == want, name
+        assert spmd.seq_axis_of(plan_named(name), mesh, S) == seq, name
     assert spmd.local_axis_of(plan_named("megatron_tp"), SH.Mesh(("data", "model"), (2, 1)),
                               ("data",)) is None
     assert [build_model(get_config(a).reduced()).local_compute

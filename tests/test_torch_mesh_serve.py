@@ -29,6 +29,17 @@ keys as a card of 132 SMs would.  Held here:
   ``flash_decode.combine_partials``) taken exactly when the plan splits ``kv_seq``,
   the one-launch decode (``ops.flash_decode``) exactly when it does not.
 
+Prompt passes into a split cache: the same step given the empty cache and
+the 70-token prompt, under ``kv_sequence_split`` (the prompt computed whole
+on every rank, each rank writing the positions of its ``kv_seq`` block),
+``sequence_parallel`` (each rank's 35 tokens, K/V gathered over ``model``)
+and, for the encoder-decoder, ``kv_sequence_split`` and ``megatron_tp``
+(its cross K/V split over ``kv_seq`` or kv heads: projected whole, each rank
+storing its block; and once with the prompt pass reading the split cross
+K/V from the cache, which it gathers): every rank's cache block after the prompt equals its
+block of the unsharded prefill's cache, the prompt's last-token logits and
+the decode steps that follow equal the unsharded ones (1e-5).
+
 The placements ``jit_serve_step`` uses (tokens, parameters, cache) equal
 the reference's ``jit_serve_step`` in-shardings on the fake-device meshes
 of ``tests/test_torch_parallel.py``.
@@ -236,6 +247,74 @@ def test_jit_serve_step_over_gloo_ranks_matches_unsharded_and_reference(mesh_sha
                     (arch, plan, calls)
     if mesh_shape[1] > 1:
         assert zero_valid_seen
+
+
+# the plans each family's prompt pass into a split cache is held under
+PREFILL_PLANS = {DENSE: ("kv_sequence_split", "sequence_parallel"),
+                 ENCDEC: ("kv_sequence_split", "megatron_tp")}
+
+
+@functools.lru_cache(maxsize=None)
+def _prefilled(arch):
+    """The port's unsharded one-pass prefill of the prompt into an empty
+    float32 cache (its last-token logits and a copy of the cache), then
+    each decode step's logits and the final cache."""
+    _, _, _, api, params, tokens, frames = _pair(arch)
+    inputs = {} if frames is None else {"frames": torch.from_numpy(frames)}
+    cache = api.init_cache(api.cfg, B, BUFFER, dtype=torch.float32, device="cpu")
+    with torch.no_grad():
+        first, cache = api.prefill(params, torch.from_numpy(tokens[:, :PROMPT]), cache,
+                                   **inputs)
+        after = {k: v.clone() for k, v in cache.items() if isinstance(v, torch.Tensor)}
+        logits = []
+        for t in range(PROMPT, PROMPT + STEPS):
+            out, cache = api.decode_step(params, torch.from_numpy(tokens[:, t:t + 1]), cache)
+            logits.append(out)
+    return first, after, logits, cache
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 2)])
+def test_prompt_pass_into_a_split_cache_matches_the_unsharded_prefill(mesh_shape, tmp_path):
+    cases = []
+    for arch, plans in PREFILL_PLANS.items():
+        _, _, _, api, params, tokens, frames = _pair(arch)
+        empty = api.init_cache(api.cfg, B, BUFFER, dtype=torch.float32, device="cpu")
+        ids = [torch.from_numpy(tokens[:, t:t + 1]) for t in range(PROMPT, PROMPT + STEPS)]
+        inputs = {} if frames is None else {"frames": torch.from_numpy(frames)}
+        torch.save({"params": params, "cache": empty, "ids": ids, "inputs": inputs,
+                    "prompt": torch.from_numpy(tokens[:, :PROMPT])},
+                   tmp_path / f"prompt-{arch}.pt")
+        cases += [{"name": f"{arch}-{p}", "arch": arch, "plan": p, "data": f"prompt-{arch}.pt",
+                   "reduced": REDUCED.get(arch, {})} for p in plans]
+    # a prompt pass handed a cross K/V split over kv_seq that it did not project
+    cases.append(dict(cases[-2], name=f"{ENCDEC}-gather-cross", gather_cross=True))
+    assert cases[-1]["plan"] == "kv_sequence_split"
+    spawn({"mode": "serve", "mesh": list(mesh_shape), "cases": cases, "kernels": "cuda",
+           "sm_count": 132}, tmp_path)
+    for case in cases:
+        arch, plan = case["arch"], case["plan"]
+        first, after, want_logits, want_cache = _prefilled(arch)
+        api = _pair(arch)[3]
+        for rank in range(math.prod(mesh_shape)):
+            got = torch.load(tmp_path / f"{case['name']}.rank{rank}.pt", weights_only=False)
+            what = f"{arch} {plan} {mesh_shape} rank {rank}"
+            mesh = SH.Mesh(("data", "model"), mesh_shape, rank=rank)
+            c_sh = SS.cache_shardings(api, after, plan_named(plan), mesh)
+            pre = got["prefill"]
+            assert pre["index"] == PROMPT, what
+            split = [k for k, t in pre["cache"].items() if t.shape != after[k].shape]
+            assert split, (what, "the plan splits no cache leaf")
+            for k, t in pre["cache"].items():
+                torch.testing.assert_close(t, c_sh[k].local(after[k]), rtol=0, atol=1e-5,
+                                           msg=lambda m: f"{what} prefill {k}: {m}")
+            torch.testing.assert_close(pre["logits"], first, rtol=0, atol=1e-5,
+                                       msg=lambda m: f"{what} prefill logits: {m}")
+            for s in range(STEPS):
+                torch.testing.assert_close(got["logits"][s], want_logits[s], rtol=0, atol=1e-5,
+                                           msg=lambda m: f"{what} step {s}: {m}")
+            for k, t in got["cache"].items():
+                torch.testing.assert_close(t, c_sh[k].local(want_cache[k]), rtol=0, atol=1e-5,
+                                           msg=lambda m: f"{what} {k}: {m}")
 
 
 @pytest.mark.parametrize("mesh_shape", [(16, 16), (32, 8)])

@@ -17,6 +17,9 @@ slices as ``jax.jit``'s in_shardings would.  The results are held here:
 * split leaves under Adafactor (float32 and bfloat16 state) and AdamW with
   int8 compression on 2x2: every rank's shards of the whole state
   (parameters, factored moments, residual) equal the unsharded step's;
+* ``zero3_sp`` and ``tp2d`` (the sequence over ``model``) run the dense
+  model on each rank's token block (``tests/test_torch_seq_parallel.py``)
+  and again on the whole-activation path, both held as above;
 * the MoE's expert-parallel branch taken with each rank's expert slice,
   split exactly when the ``model`` axis holds more than one rank; under
   ``pure_dp`` (no expert axis) the MoE gathers the global batch and
@@ -60,6 +63,12 @@ TCFG = dict(learning_rate=1e-4, warmup_steps=1, total_steps=10)
 DENSE, MOE = "qwen2.5-3b", "qwen3-moe-30b-a3b"
 CASES = [(DENSE, p) for p in ("megatron_tp", "zero3", "pure_dp", "zero3_sp", "tp2d")] + \
         [(MOE, p) for p in ("expert_parallel", "expert_parallel_zero3", "pure_dp")]
+# the plans that split the sequence run the dense model on its rank's tokens
+# (above) and, as a case of its own, on the whole-activation path (the
+# worker's "local_compute": false): each case's name and its worker options
+RUNS = [(arch, plan, f"{arch}-{plan}", {}) for arch, plan in CASES] + \
+       [(DENSE, p, f"{DENSE}-{p}-whole", {"local_compute": False})
+        for p in ("zero3_sp", "tp2d")]
 
 
 def _spawn(job: dict, tmp_path: Path) -> None:
@@ -154,15 +163,15 @@ def test_jit_train_step_over_gloo_ranks_matches_unsharded_and_reference(mesh_sha
         torch.save(_port_state(arch), tmp_path / f"state-{arch}.pt")
     torch.save([train_launch.to_device(b, "cpu") for b in _pair(DENSE)[3]],
                tmp_path / "batches.pt")
-    for arch, plan in CASES:
-        cases.append({"name": f"{arch}-{plan}", "arch": arch, "plan": plan,
-                      "state": f"state-{arch}.pt", "steps": STEPS})
+    for arch, plan, name, extra in RUNS:
+        cases.append(dict({"name": name, "arch": arch, "plan": plan,
+                           "state": f"state-{arch}.pt", "steps": STEPS}, **extra))
     # both models' batches are the same draws
     for a, b in zip(_pair(MOE)[3], _pair(DENSE)[3]):
         assert all(np.array_equal(a[k], b[k]) for k in a)
     _spawn({"mode": "train", "mesh": list(mesh_shape), "cases": cases}, tmp_path)
     world = math.prod(mesh_shape)
-    for arch, plan in CASES:
+    for arch, plan, name, _ in RUNS:
         dp = _batch_shards(plan, mesh_shape)
         # the expert-parallel branch works per batch shard; pure_dp maps no
         # experts, so the MoE dispatches the global batch, as unsharded
@@ -172,7 +181,7 @@ def test_jit_train_step_over_gloo_ranks_matches_unsharded_and_reference(mesh_sha
         api = _pair(arch)[1]
         E = api.cfg.n_experts
         for rank in range(world):
-            got = torch.load(tmp_path / f"{arch}-{plan}.rank{rank}.pt", weights_only=False)
+            got = torch.load(tmp_path / f"{name}.rank{rank}.pt", weights_only=False)
             losses = [h["loss"] for h in got["history"]]
             assert losses == pytest.approx(want_losses, rel=1e-5), (plan, rank)
             assert losses == pytest.approx(ref_losses, rel=1e-4, abs=1e-4), (plan, rank)

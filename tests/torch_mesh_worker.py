@@ -16,24 +16,32 @@ NCCL refuses two ranks on one card) and runs the job's cases:
 * ``save``: one step of the first case, then ``CheckpointManager.save_sharded``;
 * ``restore``: ``restore(shardings=)`` of that checkpoint onto this mesh;
 * a case with ``"local_compute": false`` runs the whole-activation path
-  (``ModelAPI.local_compute`` false for the rest of the process);
+  (``ModelAPI.local_compute`` and ``ModelAPI.sequence_split`` false while
+  it runs); a case's ``"reduced"`` overrides the reduced config's sizes;
 * ``local``: each case's training steps as ``train`` does, with the
   collectives counted (``spmd.counting_collectives``: bytes by kind and
   mesh axis), then one multi-token prefill pass of the case's prompt (and its
   frontend input) through ``serve_step.jit_serve_step`` into an empty cache
-  (the head-, ffn- and
-  vocab-local path); writes the losses, this rank's shards, the counts and
-  the prefill's logits and cache slice;
+  (the head-, ffn- and vocab-local path, or the sequence-split one under
+  a plan that splits the sequence), with K2's query offsets recorded;
+  writes the losses, this rank's shards, the counts and the prefill's
+  logits, cache slice and offsets;
 * ``serve``: each case's decode steps through ``serve_step.jit_serve_step``
   from the job's prefilled cache (whole) and weights (whole), teacher-forced
-  on the job's ids; writes each step's logits, this rank's final cache slice
-  and how often each decode function ran (``ops.flash_decode``,
+  on the job's ids; or, where the job's data holds a ``prompt`` (and its
+  frontend ``inputs``), from its empty cache after the prompt pass through
+  the same step (its logits and this rank's cache slice kept; with
+  ``"gather_cross": true`` the encoder-decoder's prompt pass is not handed
+  the cross K/V it projected whole and reads the split cache's instead);
+  writes each step's logits, this rank's final cache slice and how often
+  each decode function ran (``ops.flash_decode``,
   ``ops.flash_decode_partials``, ``flash_decode.combine_partials``) to
   ``<out>/<case>.rank<r>.pt``.
 
 Only ``repro_torch`` is imported: the test holds the results against the
 reference and the unsharded step.
 """
+import contextlib
 import datetime
 import json
 import math
@@ -118,13 +126,26 @@ def model(arch: str, kernels=None, **reduced):
     return build_model(replace(cfg, kernels=kernels) if kernels else cfg)
 
 
+@contextlib.contextmanager
+def whole_path(case):
+    """With ``"local_compute": false`` in the case: the whole-activation
+    path while it runs, every head, ffn and vocabulary leaf gathered for use
+    and the sequence whole, as in a family without local or sequence-split
+    rules."""
+    if case.get("local_compute") is not False:
+        yield
+        return
+    from repro_torch.models.api import ModelAPI
+    saved = ModelAPI.local_compute, ModelAPI.sequence_split
+    ModelAPI.local_compute = ModelAPI.sequence_split = property(lambda self: False)
+    try:
+        yield
+    finally:
+        ModelAPI.local_compute, ModelAPI.sequence_split = saved
+
+
 def run_case(job, case, mesh):
-    if case.get("local_compute") is False:
-        # the whole-activation path: every head, ffn and vocabulary leaf
-        # gathered for use, as in a family without local rules
-        from repro_torch.models.api import ModelAPI
-        ModelAPI.local_compute = property(lambda self: False)
-    api = model(case["arch"], job.get("kernels"))
+    api = model(case["arch"], job.get("kernels"), **case.get("reduced", {}))
     tcfg = TrainConfig(**dict(job["tcfg"], **case.get("tcfg", {})))
     plan = plan_named(case["plan"])
     device = job.get("device", "cpu")
@@ -167,6 +188,7 @@ def check_dtensor(mesh, api, tcfg, plan):
 def run_local_case(job, case, mesh):
     """``case``'s train steps under a collective tally, then one prefill
     pass of the job's prompt (whole) through the plan-sharded serve step."""
+    from repro_torch.kernels import ops
     from repro_torch.parallel import spmd
     from repro_torch.train import serve_step as SS
     with spmd.counting_collectives() as tally:
@@ -182,10 +204,20 @@ def run_local_case(job, case, mesh):
     abstract = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
                 for k, v in cache.items() if isinstance(v, torch.Tensor)}
     step = SS.jit_serve_step(api, plan, mesh, abstract, tokens_shape=tuple(prompt.shape))
-    logits, cache = step(params, prompt, cache, **inputs)
+    offsets, attention = [], ops.attention
+
+    def recorded(*a, **k):
+        offsets.append(k.get("q_offset", 0))
+        return attention(*a, **k)
+    ops.attention = recorded
+    try:
+        logits, cache = step(params, prompt, cache, **inputs)
+    finally:
+        ops.attention = attention
     return {"history": history, "state": state, "coords": mesh.coords(),
             "gathered": tally.bytes["all-gather"], "reduced": tally.bytes["all-reduce"],
-            "prefill_logits": logits, "cache_index": cache["index"],
+            "scattered": tally.bytes["reduce-scatter"],
+            "prefill_logits": logits, "cache_index": cache["index"], "q_offsets": offsets,
             "cache": {k: v for k, v in cache.items() if isinstance(v, torch.Tensor)}}
 
 
@@ -197,6 +229,8 @@ def run_serve_case(job, case, mesh):
     data = torch.load(os.path.join(job["dir"], case["data"]), weights_only=False,
                       map_location=device)
     from repro_torch.kernels import flash_decode as FD
+    from repro_torch.models import encdec
+    project = encdec._project_cross
     where = {"flash_decode": ops, "flash_decode_partials": ops, "combine_partials": FD}
     calls = {name: 0 for name in where}
 
@@ -223,6 +257,14 @@ def run_serve_case(job, case, mesh):
                     for k, v in cache.items() if isinstance(v, torch.Tensor)}
         step = SS.jit_serve_step(api, plan_named(case["plan"]), mesh, abstract,
                                  tokens_shape=tuple(data["ids"][0].shape))
+        prefill = None
+        if case.get("gather_cross"):
+            encdec._project_cross = lambda *a, **k: (project(*a, **k)[0], None)
+        if "prompt" in data:
+            first, cache = step(data["params"], data["prompt"], cache, **data.get("inputs", {}))
+            prefill = {"logits": first, "index": cache["index"],
+                       "cache": {k: v.clone() for k, v in cache.items()
+                                 if isinstance(v, torch.Tensor)}}
         logits = []
         for ids in data["ids"]:
             out, cache = step(data["params"], ids, cache)
@@ -231,8 +273,9 @@ def run_serve_case(job, case, mesh):
         for name, fn in saved.items():
             setattr(where[name], name, fn)
         FD.sm_count = sm_count
-    return {"logits": logits, "cache": {k: v for k, v in cache.items()
-                                        if isinstance(v, torch.Tensor)},
+        encdec._project_cross = project
+    return {"logits": logits, "prefill": prefill,
+            "cache": {k: v for k, v in cache.items() if isinstance(v, torch.Tensor)},
             "index": cache["index"], "calls": calls,
             "launches": kernels.launch_counts(), "coords": mesh.coords()}
 
@@ -248,7 +291,8 @@ def main():
         out = job["dir"]
         if job["mode"] == "train":
             for case in job["cases"]:
-                api, tcfg, plan, state, history, trace = run_case(job, case, mesh)
+                with whole_path(case):
+                    api, tcfg, plan, state, history, trace = run_case(job, case, mesh)
                 from repro_torch import kernels
                 launches = kernels.launch_counts()
                 checked = check_dtensor(mesh, api, tcfg, plan)
@@ -258,8 +302,9 @@ def main():
                            os.path.join(out, f"{case['name']}.rank{rank}.pt"))
         elif job["mode"] == "local":
             for case in job["cases"]:
-                torch.save(run_local_case(job, case, mesh),
-                           os.path.join(out, f"{case['name']}.rank{rank}.pt"))
+                with whole_path(case):
+                    res = run_local_case(job, case, mesh)
+                torch.save(res, os.path.join(out, f"{case['name']}.rank{rank}.pt"))
         elif job["mode"] == "serve":
             for case in job["cases"]:
                 torch.save(run_serve_case(job, case, mesh),

@@ -29,7 +29,12 @@ these phases, each printing one JSON line; any failure raises:
             plain version, one PyTorch library call where one computes the
             same function, and the roofline bound; at the served bf16 K1 and
             K4 shapes also the staged GEMM body's fastest tile and the host
-            microseconds per call of each body;
+            microseconds per call of each body; K5 and K5-bwd at rwkv6-3b's
+            shape from a nonzero initial state (and K5-bwd from a nonzero
+            final-state gradient), held by the per-call bounds (one bf16
+            step for K5's output; 2e-2 of each gradient's largest entry and
+            2^-10 relative RMS for K5-bwd's six), with 5-bit controls that
+            must be rejected;
 4. planner  ``ops.matmul`` with no block at the model's projection shape:
             planner -> GEMM kernel on the TMA body, search then registry
             hit, no fallback; every compiled bf16 GEMM tile (both bodies)
@@ -176,6 +181,29 @@ these phases, each printing one JSON line; any failure raises:
             ``model``), losses within 1e-3 relative of the one-rank step's,
             K2 and K2-bwd counted exactly, every K2-bwd call of the first
             step within its bound, a 5-bit control rejected;
+   recurrent_parallel rwkv6, zamba2 and the encoder-decoder computed in
+            parts on two ``gloo`` ranks (``chip_smoke.py
+            --recurrent-parallel-rank``): ``rwkv6-3b`` and ``zamba2-1.2b``
+            at full width and depth, the 4 x 512 prompt through
+            ``jit_serve_step`` under megatron_tp (each rank's heads and ffn
+            columns) and under sequence_parallel (each rank's 256 tokens,
+            the state entering them carried from the other rank's block),
+            ``seamless-m4t-medium`` under megatron_tp; each prefill's logits,
+            and each cache leaf's slice, at most 1.25 x as far from the
+            unsharded float32 prefill's as the unsharded bf16 prefill's (the
+            served phases' rule: two correct bf16 paths at full depth end
+            far apart, rwkv6's states 25 % of their largest entry); K5
+            launched L a rank under megatron_tp and 2 L under
+            sequence_parallel, every call within one bf16 step of its plain
+            version from the same initial state, a 5-bit control rejected;
+            then rwkv6-3b at 4 layers trained two steps under zero3_sp and
+            two under megatron_tp, and zamba2-1.2b at 4 Mamba2 layers (2
+            sites) two under zero3_sp (float32, AdamW at 1e-4), losses
+            within 1e-3 relative of the one-rank steps' and the first
+            gradient's norm within 2e-2, every K5-bwd call within its
+            bound (2e-2 of
+            each output's largest entry, 2^-10 relative RMS) with a 5-bit
+            control rejected;
 16. dryrun  ``python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape
             {train_4k,prefill_32k,decode_32k} --mesh single`` and
             ``--shape train_4k --plan tp2d --microbatches 8``, four
@@ -637,6 +665,73 @@ def wkv6_bwd_cases(timer, gen) -> list:
     return cases
 
 
+def wkv6_train_case(timer, gen) -> dict:
+    """K5 at rwkv6-3b's training and serving pass (160 rows x T 512 x d 64,
+    chunk 16, bf16) from a zero state."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rwkv6
+    rcfg = get_config(RWKV_ARCH)
+    return wkv6_case(timer, gen, BATCH * rwkv6._n_heads(rcfg), PROMPT, rwkv6._head_dim(rcfg),
+                     rwkv6.WKV_CHUNK, torch.bfloat16, serving=True)
+
+
+def wkv6_state_cases(timer, gen) -> list:
+    """K5 from a nonzero initial state and K5-bwd from a nonzero initial
+    state and final-state gradient, at rwkv6-3b's shape in bf16 (the
+    sequence-split passes of ``recurrent_parallel``): the state is the
+    final state of a plain scan of another block (the size a carried state
+    has), the gradient ~ N(0, 1).  Held by the per-call bounds: K5's output
+    within one bf16 step of its plain version and its final state within
+    2e-3 (:func:`wkv6_step_errors`); each of K5-bwd's six gradients within
+    2e-2 of its largest entry and WKV_BWD_REL_RMS relative RMS; a 5-bit
+    control (the outputs rounded to 5 mantissa bits) rejected by each.  No
+    PyTorch call computes either function.  The bounds count the state's
+    bytes (read, and for K5-bwd the gradients' read and written) beside the
+    zero-state cases'."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, rwkv6 as K, rwkv6_bwd as KB
+    from repro_torch.models import rwkv6
+    rcfg = get_config(RWKV_ARCH)
+    BH, T, d, c = BATCH * rwkv6._n_heads(rcfg), PROMPT, rwkv6._head_dim(rcfg), rwkv6.WKV_CHUNK
+    dev, dtype = timer.flush.device, torch.bfloat16
+    xs = wkv6_inputs(gen, dev, BH, T, d, dtype)
+    _, state0 = K.wkv6_plain(*wkv6_inputs(gen, dev, BH, T, d, torch.float32), chunk=c)
+    dstate = torch.randn(BH, d, d, generator=gen, device=dev)
+    label = f"BH={BH} T={T} d={d} chunk={c} from a state"
+    run = lambda: ops.wkv6(*xs, chunk=c, state0=state0)
+    plain = lambda: K.wkv6_plain(*xs, chunk=c, state0=state0)
+    (o, state), (po, pstate) = run(), plain()
+    torch.cuda.synchronize()
+    err, share, ok, s_err = wkv6_step_errors(o, state, po, pstate)
+    control = wkv6_step_errors(coarse(o, 5), state, po, pstate)
+    if not ok or control[2]:
+        raise AssertionError(f"wkv6 {label}: o {err} ({share} of one bf16 step), state "
+                             f"{s_err}; 5-bit control within: {control[2]}")
+    fwd = {"name": "wkv6", "shape": label, "dtype": dname(dtype), "serving": True,
+           "from_state": True, "max_abs_err": err, "share_of_bf16_step": share,
+           "state_rel_err": s_err, "control_5_bits_share": control[1],
+           "control_5_bits_rejected": not control[2], "kernel_ms": timer.ms(run),
+           "plain_ms": timer.ms(plain), "library_ms": None}
+    fwd.update(bound(work().wkv6_flops(BH, T, d, c), nbytes(*xs, o, state, state0),
+                     torch.float32))
+    do = torch.randn(BH, T, d, generator=gen, device=dev).to(dtype)
+    run = lambda: KB.wkv6_bwd(*xs, do, chunk=c, state0=state0, dstate=dstate)
+    plain = lambda: KB.wkv6_bwd_plain(*xs, do, chunk=c, state0=state0, dstate=dstate)
+    stats = []
+    got = bwd_per_call(stats, KB.wkv6_bwd, KB.wkv6_bwd_plain, of_largest=True)(
+        *xs, do, chunk=c, state0=state0, dstate=dstate)
+    per_call = summarize_per_call(stats, WKV_BWD_REL_RMS)
+    if len(got) != 6 or not per_call["within"] or not per_call["control_5_bits_rejected"]:
+        raise AssertionError(f"wkv6_bwd {label}: {per_call}")
+    bwd = {"name": "wkv6_bwd", "shape": label, "dtype": dname(dtype), "serving": True,
+           "from_state": True, "max_abs_err": per_call["max_abs_err"], "per_call": per_call,
+           "kernel_ms": timer.ms(run), "plain_ms": timer.ms(plain, n=5), "library_ms": None,
+           "library": "none: no PyTorch call computes a WKV backward"}
+    bwd.update(bound(work().wkv6_bwd_flops(BH, T, d, c),
+                     nbytes(*xs, do, *got, state0, dstate), torch.float32))
+    return [fwd, bwd]
+
+
 def wkv6_bwd_residency(BH: int, d: int, c: int, dtype) -> dict:
     """K5-bwd's launch as its Python mirror gives it (blocks a row, shared
     memory, blocks an SM, waves on this card's SMs) and the clusters the
@@ -890,6 +985,7 @@ def phase_kernels(timer, gen):
         cases.append(wkv6_case(timer, gen, 8, 100, rd, rwkv6.WKV_CHUNK, dtype, False))
     cases.append(wkv6_case(timer, gen, 16, 256, rd, 32, torch.float32, False, floor=True))
     cases += wkv6_bwd_cases(timer, gen)
+    cases += wkv6_state_cases(timer, gen)
     # the backward kernels: K2-bwd at the prompt passes training runs (d 128:
     # qwen2.5-3b first, the shape with the most launches, then the MoE; d 64:
     # zamba2, internvl2, seamless's encoder and cross pass) and one ragged
@@ -1531,6 +1627,18 @@ def coarse_wkv6(bits: int):
 BF16_ULP = 2.0 ** -7                  # bf16's spacing relative to a value, at most
 
 
+def wkv6_step_errors(o, state, po, pstate) -> tuple:
+    """One K5 call against its plain version on the same inputs: (largest
+    difference of o, its largest share of the one-bf16-step bound
+    ``2^-7 |plain| + 1e-4 max |plain|``, whether o is within that bound and
+    the final state within 2e-3 of its largest entry, the state's error)."""
+    diff, ref = (o.float() - po.float()).abs(), po.float().abs()
+    slack = BF16_ULP * ref + 1e-4 * ref.max()
+    s_err = ((state - pstate).abs().max() / pstate.abs().max().clamp(min=1e-30)).item()
+    return (diff.max().item(), (diff / slack).max().item(),
+            bool((diff <= slack).all()) and s_err <= 2e-3, s_err)
+
+
 def per_call_check(api, params, prompts, scan=None) -> dict:
     """One prefill in which every call of the WKV scan (the kernel, or
     ``scan`` in its place) is held against the plain version on the same
@@ -1546,12 +1654,7 @@ def per_call_check(api, params, prompts, scan=None) -> dict:
 
     def checked(*args, chunk):
         o, state = kernel(*args, chunk=chunk)
-        po, pstate = K.wkv6_plain(*args, chunk=chunk)
-        diff, ref = (o.float() - po.float()).abs(), po.float().abs()
-        slack = BF16_ULP * ref + 1e-4 * ref.max()
-        s_err = ((state - pstate).abs().max() / pstate.abs().max().clamp(min=1e-30)).item()
-        errs.append((diff.max().item(), (diff / slack).max().item(),
-                     bool((diff <= slack).all()) and s_err <= 2e-3, s_err))
+        errs.append(wkv6_step_errors(o, state, *K.wkv6_plain(*args, chunk=chunk)))
         return o, state
 
     cache = api.init_cache(api.cfg, prompts.shape[0], prompts.shape[1] + 1,
@@ -2089,8 +2192,9 @@ def bwd_per_call(stats: list, kernel, plain, bits: int = 5, of_largest: bool = F
 def summarize_per_call(stats: list, rel_rms: float = ATTN_REL_RMS) -> dict:
     return {"calls": len(stats), "max_abs_err": max(r["max_abs_err"] for r in stats),
             "max_rel_rms": max(r["max_rel_rms"] for r in stats),
-            "max_rel_rms_by_output": [max(r["rel_rms"][i] for r in stats)
-                                      for i in range(len(stats[0]["rel_rms"]))],
+            "max_rel_rms_by_output": [max(r["rel_rms"][i] for r in stats
+                                          if i < len(r["rel_rms"]))
+                                      for i in range(max(len(r["rel_rms"]) for r in stats))],
             "rel_rms_bound": rel_rms,
             "within": all(r["within_2e-2"] and r["max_rel_rms"] <= rel_rms for r in stats),
             "control_5_bits_max_rel_rms": max(r["control_max_rel_rms"] for r in stats),
@@ -3301,6 +3405,346 @@ def phase_seq_parallel(device) -> dict:
             for k in last["prefill"]["launches"]}
 
 
+# recurrent_parallel: the prefills (arch, plans) at full width and depth, and
+# the training cases (arch, plan) at RECURRENT_TRAIN_LAYERS layers
+RECURRENT_PREFILLS = ((RWKV_ARCH, ("megatron_tp", "sequence_parallel")),
+                      (HYBRID_ARCH, ("megatron_tp", "sequence_parallel")),
+                      (ENCDEC_ARCH, ("megatron_tp",)))
+RECURRENT_TRAIN = ((RWKV_ARCH, "zero3_sp"), (RWKV_ARCH, "megatron_tp"),
+                   (HYBRID_ARCH, "zero3_sp"))
+RECURRENT_TRAIN_LAYERS, RECURRENT_TRAIN_STEPS = 4, 2
+RECURRENT_TIMEOUT_S = 600
+
+
+def gap(x: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """Largest and root-mean-square difference of ``x`` from ``ref``."""
+    diff = x.float() - ref.float()
+    return diff.abs().max().item(), diff.square().mean().sqrt().item()
+
+
+def within_scaled(dist, base, scale: float) -> bool:
+    """:func:`within` for a tensor of any size: ``dist`` from the float32
+    run at most 1.25 x the unsharded path's ``base``, plus 2e-2 of the
+    float32 tensor's largest entry in the largest difference."""
+    return dist[0] <= 1.25 * base[0] + 2e-2 * scale and dist[1] <= 1.25 * base[1]
+
+
+def recurrent_plan(name: str):
+    """The fixed plan ``name``, or the planner's derived zero3_sp (megatron
+    TP, ``embed`` over ``data``, the sequence over ``model``)."""
+    from repro_torch.parallel import planner_bridge as PB, sharding as SH
+    if name == "zero3_sp":
+        return PB._rename(PB._zero3().with_rule("seq", "model").with_rule("kv_seq", "model"),
+                          "zero3_sp")
+    return SH.FIXED_PLANS[name]()
+
+
+def recurrent_train_setup(device, arch):
+    """``arch`` at full width and RECURRENT_TRAIN_LAYERS layers (zamba2: 4
+    Mamba2 layers, 2 shared-attention sites; kernel path, remat) computing
+    in float32, its seed-0 train state, AdamW and the batches.  float32:
+    rwkv6-3b's gradient at this init is ill-conditioned, and in bf16 two
+    correct paths, the kernels' and the plain one, give its embedding a
+    gradient of norm 198 and 181, their head-local steps 102 and 279 (2
+    layers; ``grad_probe.py``, PERF.md), so bf16 steps cannot be held to
+    each other."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.launch import common, train as TL
+    from repro_torch.models import build_model
+    from repro_torch.train import train_step as TS
+    cfg = replace(common.launch_config(arch), n_layers=RECURRENT_TRAIN_LAYERS,
+                  compute_dtype="float32")
+    api = build_model(cfg)
+    # at 1e-3 the first AdamW step takes rwkv6's 4-layer model from a loss
+    # of 11.6 to 28.7 (PERF.md): a diverging step, after which the loss
+    # moves with the sign of every gradient entry near 0 and two correct
+    # bf16 paths end 0.4 % apart; at 1e-4 the step is a step
+    tcfg = TrainConfig(learning_rate=1e-4, total_steps=RECURRENT_TRAIN_STEPS, warmup_steps=1)
+    state = TS.init_state(api, tcfg, device=device)
+    source = make_source(DataConfig(vocab_size=cfg.vocab_size), cfg)
+    batches = [TL.to_device(source.batch_at(i, BATCH, PROMPT), device)
+               for i in range(RECURRENT_TRAIN_STEPS)]
+    return api, tcfg, state, batches
+
+
+def checked_wkv6(errs: list):
+    """K5's wrapper holding every call against its plain version on the
+    same inputs (from the same initial state): one bf16 step for o, 2e-3
+    for the final state, and the same bound on o rounded to 5 mantissa bits
+    (a control that must fail on some call)."""
+    from repro_torch.kernels import rwkv6 as K
+    kernel = K.wkv6
+
+    def call(*args, chunk, **kw):
+        o, state = kernel(*args, chunk=chunk, **kw)
+        po, pstate = K.wkv6_plain(*args, chunk=chunk, **kw)
+        errs.append(wkv6_step_errors(o, state, po, pstate)
+                    + (wkv6_step_errors(coarse(o, 5), state, po, pstate)[2],
+                       "state0" in kw))
+        return o, state
+
+    return call
+
+
+def summarize_wkv6(errs: list) -> dict:
+    return {"calls": len(errs), "from_a_state": sum(e[5] for e in errs),
+            "o_max_abs_err": max((e[0] for e in errs), default=0.0),
+            "o_max_share_of_bound": max((e[1] for e in errs), default=0.0),
+            "state_max_rel_err": max((e[3] for e in errs), default=0.0),
+            "within": all(e[2] for e in errs),
+            "control_5_bits_rejected": any(not e[4] for e in errs)}
+
+
+def recurrent_parallel_rank(job_path: str, rank: int) -> None:
+    """One rank of ``recurrent_parallel`` (``chip_smoke.py
+    --recurrent-parallel-rank JOB R``): a ``gloo`` rank on card 0 of a 1x2
+    mesh.
+
+    1. For each of RECURRENT_PREFILLS, random bf16 weights from seed 0 at
+       full width and depth: the unsharded prefill of the serve prompts (4 x
+       512, the stub frontend input from seed 0) through the kernels, and
+       the same in float32 on the plain path (the oracles); then for each
+       plan, with the counts set to 0, the prompt through ``jit_serve_step``
+       into an empty cache, every K5 call held against its plain version
+       (:func:`checked_wkv6`).
+    2. For each of RECURRENT_TRAIN: RECURRENT_TRAIN_STEPS steps through
+       ``jit_train_step`` from the seed-0 state, every K5 and K5-bwd call of
+       the first step against its plain version.
+    Writes its results to ``JOB.rank<R>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.kernels import rwkv6 as K, rwkv6_bwd as KB
+    from repro_torch.launch import common, serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train import serve_step as SS, train_step as TS
+    job = json.load(open(job_path))
+    dist.init_process_group("gloo", init_method="file://" + job["store"], rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=300))
+    out = {"rank": rank, "prefill": {}, "train": {}, "seconds": {}}
+    try:
+        mesh = make_host_mesh(1, 2)
+        device = torch.device("cuda", 0)
+        for arch, plans in RECURRENT_PREFILLS:
+            t_arch = time.perf_counter()
+            cfg = common.launch_config(arch)
+            api = build_model(cfg)
+            params = serve.load_params(api, device, seed=0)
+            prompts = serve.make_prompts(cfg, BATCH, PROMPT, device)
+            inputs = api.frontend_inputs(BATCH, torch.Generator(device=device).manual_seed(0),
+                                         device)
+            length = PROMPT + NEW_TOKENS
+            cache = api.init_cache(cfg, BATCH, length, device=device)
+            f32 = build_model(replace(cfg, kernels="plain", compute_dtype="float32"))
+            with torch.no_grad():
+                want, cache = api.prefill(params, prompts, cache, **inputs)
+                exact, c32 = f32.prefill(params, prompts,
+                                         f32.init_cache(f32.cfg, BATCH, length, device=device),
+                                         **inputs)
+            base = gap(want, exact)
+            leaves = [k for k, v in cache.items() if isinstance(v, torch.Tensor)]
+            for name in plans:
+                plan = recurrent_plan(name)
+                c_sh = SS.cache_shardings(api, cache, plan, mesh)
+                empty = {k: (torch.zeros_like(v) if k in leaves else 0)
+                         for k, v in cache.items()}
+                shapes = {k: torch.empty(cache[k].shape, dtype=cache[k].dtype, device="meta")
+                          for k in leaves}
+                step = SS.jit_serve_step(api, plan, mesh, shapes, tokens_shape=(BATCH, PROMPT))
+                errs = []
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(device)
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                with patched(K, "wkv6", checked_wkv6(errs)):
+                    logits, local = step(params, prompts, empty, **inputs)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                launches = kernels.launch_counts()
+                dist_ = gap(logits, exact)
+                cache_err = {}
+                for k in leaves:
+                    w, e = c_sh[k].local(cache[k]), c_sh[k].local(c32[k])
+                    scale = e.float().abs().max().item()
+                    got_, base_ = gap(local[k], e), gap(w, e)
+                    cache_err[k] = {"vs_float32_max": got_[0], "vs_float32_rms": got_[1],
+                                    "unsharded_vs_float32_max": base_[0],
+                                    "unsharded_vs_float32_rms": base_[1],
+                                    "vs_unsharded_max": gap(local[k], w)[0],
+                                    "largest_float32": scale,
+                                    "within": within_scaled(got_, base_, scale)}
+                out["prefill"][f"{arch} {name}"] = {
+                    "arch": arch, "plan": name, "launches": launches,
+                    "ms_with_per_call_checks": ms, "index": local["index"],
+                    "finite": bool(torch.isfinite(logits).all()),
+                    "vs_float32_max": dist_[0], "vs_float32_rms": dist_[1],
+                    "unsharded_vs_float32_max": base[0], "unsharded_vs_float32_rms": base[1],
+                    "within": within(dist_, base),
+                    "vs_unsharded_max": (logits.float() - want.float()).abs().max().item(),
+                    "cache": cache_err, "wkv6_per_call": summarize_wkv6(errs),
+                    "peak_bytes": torch.cuda.max_memory_allocated(device)}
+                del step, local, logits, empty
+            del api, f32, params, cache, want, exact, c32
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["seconds"][arch] = time.perf_counter() - t_arch
+        for arch, name in RECURRENT_TRAIN:
+            t_case = time.perf_counter()
+            api, tcfg, state, batches = recurrent_train_setup(device, arch)
+            step = TS.jit_train_step(api, tcfg, recurrent_plan(name), mesh, batches[0])
+            errs, stats, history, step_s = [], [], [], []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            kernels.reset_launch_counts()
+            for i, b in enumerate(batches):
+                ctx = contextlib.ExitStack()
+                if i == 0:
+                    ctx.enter_context(patched(K, "wkv6", checked_wkv6(errs)))
+                    ctx.enter_context(patched(KB, "wkv6_bwd", bwd_per_call(
+                        stats, KB.wkv6_bwd, KB.wkv6_bwd_plain, of_largest=True)))
+                t0 = time.perf_counter()
+                with ctx:
+                    state, m = step(state, b)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                history.append({k: float(v) for k, v in m.items()})
+            out["train"][f"{arch} {name}"] = {
+                "arch": arch, "plan": name, "n_layers": api.cfg.n_layers, "history": history,
+                "step_ms": [x * 1e3 for x in step_s], "launches": kernels.launch_counts(),
+                "wkv6_per_call": summarize_wkv6(errs),
+                "wkv6_bwd_per_call": summarize_per_call(stats, WKV_BWD_REL_RMS) if stats
+                else None,
+                "peak_bytes": torch.cuda.max_memory_allocated(device)}
+            del api, state, step, batches
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["seconds"][f"{arch} {name}"] = time.perf_counter() - t_case
+        out.update(ok=True, coords=mesh.coords(), backend=dist.get_backend())
+    except Exception:  # noqa: BLE001 - reported to the parent, which fails
+        import traceback
+        out.update(ok=False, error=traceback.format_exc()[-3000:])
+    finally:
+        with open(f"{job_path}.rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+
+
+def phase_recurrent_parallel(device) -> dict:
+    """rwkv6, zamba2 and the encoder-decoder computed in parts on two
+    ``gloo`` ranks of the one card (a 1x2 mesh,
+    :func:`recurrent_parallel_rank`).  First, here, the one-rank training
+    oracles: each of RECURRENT_TRAIN's models unsharded for
+    RECURRENT_TRAIN_STEPS steps.  Then on each rank the prefills and steps.
+    Checks, for each rank: every prefill's logits finite, at most 1.25 x as
+    far from the unsharded float32 prefill as the unsharded bf16 prefill
+    (:func:`within`), every cache leaf's slice likewise against the
+    float32 prefill's (:func:`within_scaled`), the index 512, the launches
+    exact (K5 L
+    a rank under megatron_tp and 2 L under sequence_parallel, K2 once a
+    shared-attention site or an attention pass, nothing else); every K5
+    call within one bf16 step of its plain version, from the same state,
+    and the 5-bit control rejected; the steps' losses within 1e-3 relative
+    of the one-rank steps' and the first gradient's norm within 2e-2 (in
+    float32, :func:`recurrent_train_setup`; rwkv6-3b's gradient at this init
+    amplifies a perturbation: two correct float32 paths, the one-rank step
+    and a sharded one, agree leaf by leaf to 4e-5 at one layer and 7e-3 at
+    four, where qwen2.5-3b's and zamba2-1.2b's agree to 3e-6 and 7e-6 at
+    four (``grad_probe.py``, PERF.md); a rank's part of a gradient lost or
+    summed twice is 30 % off or more), the
+    launches exact, every K5-bwd call of the
+    first step within its bound and its control rejected.  Returns rank 1's
+    launches (prefills and steps)."""
+    from repro_torch.launch import common
+    from repro_torch.train import train_step as TS
+    losses, norms = {}, {}
+    t0 = time.perf_counter()
+    for arch in dict(RECURRENT_TRAIN):
+        api, tcfg, state, batches = recurrent_train_setup(device, arch)
+        step = TS.make_train_step(api, tcfg)
+        losses[arch] = []
+        for b in batches:
+            state, m = step(state, b)
+            losses[arch].append(float(m["loss"]))
+            norms.setdefault(arch, float(m["grad_norm"]))
+        del api, state, step, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    oracle_s = time.perf_counter() - t0
+    results, wall_s = run_ranks("--recurrent-parallel-rank", "recurrent-parallel", {},
+                                RECURRENT_TIMEOUT_S)
+    zero = {k: 0 for k in next(iter(results[0]["prefill"].values()))["launches"]}
+    L = {arch: common.launch_config(arch).n_layers for arch, _ in RECURRENT_PREFILLS}
+    sites = L[HYBRID_ARCH] // common.launch_config(HYBRID_ARCH).attn_every
+    want_prefill = {RWKV_ARCH: lambda plan: dict(zero, wkv6=L[RWKV_ARCH] * (
+                        2 if plan == "sequence_parallel" else 1)),
+                    HYBRID_ARCH: lambda plan: dict(zero, flash_attention=sites),
+                    ENCDEC_ARCH: lambda plan: dict(zero, flash_attention=3 * L[ENCDEC_ARCH])}
+    Lt, n = RECURRENT_TRAIN_LAYERS, RECURRENT_TRAIN_STEPS
+    want_train = {(RWKV_ARCH, "zero3_sp"): dict(zero, wkv6=4 * Lt * n, wkv6_bwd=2 * Lt * n),
+                  (RWKV_ARCH, "megatron_tp"): dict(zero, wkv6=2 * Lt * n, wkv6_bwd=Lt * n),
+                  (HYBRID_ARCH, "zero3_sp"): dict(zero, flash_attention=2 * (Lt // 2) * n,
+                                                  flash_attention_bwd=(Lt // 2) * n)}
+    for res in results:
+        r = res["coords"]["model"]
+        for key, pre in res["prefill"].items():
+            bad = []
+            if pre["launches"] != want_prefill[pre["arch"]](pre["plan"]):
+                bad.append(f"launches {pre['launches']}")
+            if not (pre["finite"] and pre["within"] and pre["index"] == PROMPT):
+                bad.append("logits against the float32 prefill")
+            if not all(c["within"] for c in pre["cache"].values()):
+                bad.append(f"cache {pre['cache']}")
+            pc = pre["wkv6_per_call"]
+            if pre["arch"] == RWKV_ARCH and not (pc["within"] and pc["control_5_bits_rejected"]
+                                                 and pc["calls"] == pre["launches"]["wkv6"]):
+                bad.append(f"K5 per call {pc}")
+            if bad:
+                raise AssertionError(f"recurrent_parallel rank {r}, {key}: {bad}: {pre}")
+        for key, tr in res["train"].items():
+            arch, plan = tr["arch"], tr["plan"]
+            got = [h["loss"] for h in tr["history"]]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, losses[arch]))
+            tr["loss_rel_err_vs_one_rank"] = rel
+            bad = []
+            if tr["launches"] != want_train[(arch, plan)]:
+                bad.append(f"launches {tr['launches']}")
+            norm = abs(tr["history"][0]["grad_norm"] - norms[arch]) / norms[arch]
+            tr["grad_norm_rel_err_vs_one_rank"] = norm
+            if rel > 1e-3 or norm > 2e-2 or not all(math.isfinite(x) for x in got):
+                bad.append(f"losses {got} against {losses[arch]}, first gradient norm "
+                           f"{tr['history'][0]['grad_norm']} against {norms[arch]}")
+            if arch == RWKV_ARCH:
+                pc, pb = tr["wkv6_per_call"], tr["wkv6_bwd_per_call"]
+                if not (pc["within"] and pc["control_5_bits_rejected"] and pb["within"]
+                        and pb["control_5_bits_rejected"]):
+                    bad.append(f"per call K5 {pc}, K5-bwd {pb}")
+            if bad:
+                raise AssertionError(f"recurrent_parallel rank {r}, {key}: {bad}")
+    emit({"phase": "recurrent_parallel", "mesh": [1, 2], "batch": BATCH, "prompt_len": PROMPT,
+          "prefills": {a: list(p) for a, p in RECURRENT_PREFILLS},
+          "train": [list(c) for c in RECURRENT_TRAIN], "train_layers": RECURRENT_TRAIN_LAYERS,
+          "train_steps": RECURRENT_TRAIN_STEPS, "one_rank_losses": losses,
+          "ranks": results, "wall_s": wall_s, "one_rank_oracle_s": oracle_s,
+          "check": "prefill logits and every cache leaf's slice at most 1.25 x as far from "
+                   "the unsharded float32 prefill's as the unsharded bf16 prefill's (max + "
+                   "2e-2, of the largest entry for a cache leaf; rms); exact "
+                   "launches; every K5 call within one bf16 step of its plain version from "
+                   "the same state, every K5-bwd call of the first step within 2e-2 of each "
+                   f"output's largest entry and {WKV_BWD_REL_RMS} relative rms, 5-bit "
+                   "controls rejected; losses within 1e-3 relative of the one-rank steps' "
+                   "(float32, AdamW at 1e-4), the first gradient's norm within 2e-2",
+          "card": smi_line()})
+    last = results[-1]
+    total = dict(zero)
+    for part in list(last["prefill"].values()) + list(last["train"].values()):
+        for k, v in part["launches"].items():
+            total[k] += v
+    return total
+
+
 # (arch, shape, plan, microbatches) of the dry-run cells: qwen2.5-3b's three
 # under the planner's choice (megatron_tp and kv_sequence_split), and its
 # train_4k under tp2d, whose products over the embed blocks are summed over
@@ -3820,6 +4264,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["seq_parallel"] = phase_seq_parallel(device)
     lap("seq_parallel")
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["recurrent_parallel"] = phase_recurrent_parallel(device)
+    lap("recurrent_parallel")
     # the dry run's processes share the card with this one
     gc.collect()
     torch.cuda.empty_cache()
@@ -3863,7 +4311,8 @@ def main() -> int:
                   and x["dtype"] == "bfloat16"]
         if len(served) > 1:
             kernels_line[-1]["served_shapes"] = [
-                {k: x[k] for k in ("model", "shape", "q_offset", "block", "body", "kernel_ms",
+                {k: x[k] for k in ("model", "shape", "q_offset", "from_state", "block", "body",
+                                   "kernel_ms",
                                    "staged_ms", "plain_ms", "library_ms", "bound_ms",
                                    "bound_by", "max_abs_err", "host_us", "staged_host_us")
                  if k in x}
@@ -3884,5 +4333,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) == 4 and sys.argv[1] == "--seq-parallel-rank":
         seq_parallel_rank(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
+    if len(sys.argv) == 4 and sys.argv[1] == "--recurrent-parallel-rank":
+        recurrent_parallel_rank(sys.argv[2], int(sys.argv[3]))
         sys.exit(0)
     sys.exit(main())

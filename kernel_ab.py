@@ -18,20 +18,25 @@ The rows, bf16 unless marked: K2-bwd at the training passes of every attention
 family, K4-bwd at the MoE's prefill (with its dX, dW and copy pieces as that
 checkout's backward launches them), K1-bwd (with its dA, dB and copy pieces
 likewise) and K1 at qwen2.5-3b's projection, K4 at the MoE's four served
-shapes, and K5-bwd at every shape ``chip_smoke.py`` times it (rwkv6-3b's
+shapes, K5 at rwkv6-3b's training pass from a zero state, and K5-bwd at
+every shape ``chip_smoke.py`` times it (rwkv6-3b's
 training pass, 160 rows x T 512 x d 64 at chunk 16, in bf16 and float32;
 head dims 16 and 32; an odd T at chunk 1; decays at the floor at chunk 32).
 
 With ``--digests`` each checkout instead runs its own K2 (``flash_attention``:
 bf16 and float32, every compiled head dim, causal and not, at every tile
 that fits a block) and K2-bwd on inputs made from one seed, without a query
-offset (the argument an older checkout does not have), into a fresh build
-directory ``TREE/build/ab-digests-<i>``.  Each tree's line then gives
+offset (the argument an older checkout does not have), and its K5
+(``wkv6``) and K5-bwd (``wkv6_bwd``) from a zero state (no ``state0``, no
+final-state gradient: the arguments an older checkout does not have) at
+every compiled head dim, bf16 and float32, chunks 1, 16 and 32 and
+rwkv6-3b's training pass, into a fresh build directory
+``TREE/build/ab-digests-<i>``.  Each tree's line then gives
 ``outputs_equal`` (every output's SHA-256 equal to the first tree's, with
-the ones that differ) and, apart from it, ``spill_growth``: the K2 and
-K2-bwd kernels whose ``ptxas`` spilled bytes exceed the first tree's (keyed
-by kernel and template arguments: the parameter lists may differ).  The
-script exits 1 when an output differs.
+the ones that differ) and, apart from it, ``spill_growth``: the K2, K2-bwd,
+K5 and K5-bwd kernels whose ``ptxas`` spilled bytes exceed the first tree's
+(keyed by kernel and template arguments: the parameter lists may differ).
+The script exits 1 when an output differs.
 """
 from __future__ import annotations
 
@@ -44,6 +49,10 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the --digests inputs: batch x heads, q_per_kv, Sq, Skv
 DIGEST_SHAPES = [(16, 4, 320, 320), (8, 2, 200, 136), (4, 1, 77, 150)]
+# the K5 / K5-bwd --digests inputs: rows, T, chunk (every compiled head dim),
+# and rwkv6-3b's training pass at d 64
+WKV_DIGEST_SHAPES = [(8, 128, 16), (6, 96, 32), (4, 101, 1)]
+WKV_TRAIN_SHAPE = (160, 512, 64, 16)
 
 
 def one(tree: str) -> dict:
@@ -80,6 +89,7 @@ def one(tree: str) -> dict:
                              lower_torch.plan_gemm_blocks(M, N, K, bf16), True))
     cases += [S.grouped_case(timer, gen, E, cap, a, b, bf16, True)
               for cap in caps for a, b in ((d, f), (f, d))]
+    cases.append(S.wkv6_train_case(timer, gen))
     cases += S.wkv6_bwd_cases(timer, gen)
     keep = ("kernel_ms", "dx_ms", "dw_ms", "dA_ms", "dB_ms", "copy_ms", "launched",
             "library_ms", "bound_ms", "max_active_clusters")
@@ -127,13 +137,38 @@ def one_digests(tree: str) -> dict:
                     grads = FAB.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal,
                                                     q_per_kv=g)
                     out[f"bwd {tag}"] = "".join(_digest(x) for x in grads)
+    out.update(wkv_digests(dev))
     torch.cuda.synchronize()
     usage = ptxas_usage(_build.build_info().get("compiler_output", ""))
-    flash = {n.split("Ev")[0]: u for n, u in usage.items()
-             if "flash_fwd" in n or "flash_bwd" in n}
-    if not flash:
-        raise RuntimeError(f"{tree}: no K2 / K2-bwd kernel in this process's build")
-    return {"tree": tree, "digests": out, "ptxas": flash}
+    kernels = {n.split("Ev")[0]: u for n, u in usage.items()
+               if any(k in n for k in ("flash_fwd", "flash_bwd", "wkv6_kernel", "wkv6_bwd"))}
+    if not kernels:
+        raise RuntimeError(f"{tree}: no K2 / K2-bwd / K5 / K5-bwd kernel in this process's build")
+    return {"tree": tree, "digests": out, "ptxas": kernels}
+
+
+def wkv_digests(dev) -> dict:
+    """The SHA-256 of K5's output and final state and of K5-bwd's five
+    gradients from a zero state, at WKV_DIGEST_SHAPES for every compiled
+    head dim and at WKV_TRAIN_SHAPE, bf16 and float32."""
+    import torch
+
+    from repro_torch.kernels import rwkv6 as K5, rwkv6_bwd as K5B
+    shapes = [(BH, T, d, c) for d in K5.COMPILED_HEAD_DIMS for BH, T, c in WKV_DIGEST_SHAPES]
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for BH, T, d, c in shapes + [WKV_TRAIN_SHAPE]:
+            gen = torch.Generator(device=dev).manual_seed(BH + T + d + c)
+            r, k, v, dout = (torch.randn(BH, T, d, generator=gen, device=dev) for _ in range(4))
+            lw = (-torch.exp(torch.randn(BH, T, d, generator=gen, device=dev))).clamp(min=-4.0)
+            u = torch.randn(BH, d, generator=gen, device=dev) * 0.5
+            xs = [x.to(dtype) for x in (r, k, v, lw, u)]
+            tag = f"{str(dtype)[6:]} d{d} BH{BH} T{T} chunk{c}"
+            o, state = K5.wkv6(*xs, chunk=c)
+            out[f"wkv6 {tag}"] = _digest(o) + _digest(state)
+            grads = K5B.wkv6_bwd(*xs, dout.to(dtype), chunk=c)
+            out[f"wkv6_bwd {tag}"] = "".join(_digest(x) for x in grads)
+    return out
 
 
 def compare_digests(rows) -> bool:
@@ -150,7 +185,7 @@ def compare_digests(rows) -> bool:
                   if u.get("spill_bytes", 0) > base_ptxas.get(n, {}).get("spill_bytes", 0)}
         print(json.dumps({"tree": row["tree"], "order": row["order"],
                           "outputs": len(row["digests"]), "outputs_equal": not differ,
-                          "differ_from_first": differ, "flash_kernels": len(row["ptxas"]),
+                          "differ_from_first": differ, "kernels": len(row["ptxas"]),
                           "spill_growth": growth,
                           "max_registers": max(u.get("registers", 0)
                                                for u in row["ptxas"].values())}), flush=True)

@@ -163,12 +163,12 @@ _SIGNATURES = {
     # m, l, acc, out, BH, splits, d, out_bf16, stream
     "repro_flash_decode_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_flash_decode_smem_bytes": [_I, _I],
-    # r, k, v, log_w, u, o, state, BH, T, d, chunk, is_bf16, stream
-    "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # r, k, v, log_w, u, o, state0 (or null), state, BH, T, d, chunk, is_bf16, stream
+    "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_wkv6_smem_bytes": [_I, _I],
-    # r, k, v, log_w, u, dout, dr, dk, dv, dlog_w, du, scratch, BH, T, d, chunk,
-    # is_bf16, stream
-    "repro_wkv6_bwd": [_P] * 12 + [_I] * 5 + [_P],
+    # r, k, v, log_w, u, dout, dr, dk, dv, dlog_w, du, scratch, state0, dstate,
+    # dstate0 (each may be null), BH, T, d, chunk, is_bf16, stream
+    "repro_wkv6_bwd": [_P] * 15 + [_I] * 5 + [_P],
     # d, chunk, is_bf16: a block's shared memory, the blocks an SM its launch
     # bounds ask for, the most clusters the device holds at once; d: blocks a row
     "repro_wkv6_bwd_smem_bytes": [_I, _I, _I],

@@ -56,6 +56,12 @@
 //
 // A masked score (s >= t) is never computed: its two factors may reach
 // e^{C * 4 / 2} each, whose product overflows float32 at chunk 32.
+//
+// The scan starts from zero, or from a float32 initial state (BH, d, d)
+// when `state0` is not null: the state buffer of chunk -1 and the state
+// warps' registers load it where they would write zeros.  A sequence split
+// over ranks scans each rank's block from the state the earlier blocks
+// leave (models/rwkv6.py); a null pointer runs the zero start as before.
 #include "common.cuh"
 
 namespace repro {
@@ -88,7 +94,7 @@ template <typename T, int D, int CM>
 __global__ void __launch_bounds__(WKV_THREADS, CM <= 16 ? 2 : 1)
 wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
             const T* __restrict__ lw, const T* __restrict__ u, T* __restrict__ o,
-            float* __restrict__ state_out, int T_len, int C) {
+            const float* __restrict__ state0, float* __restrict__ state_out, int T_len, int C) {
   constexpr int NT = WKV_THREADS;
   constexpr int HALF = NT / 2;                       // output threads; the rest carry the state
   constexpr int LD = D + 4;                          // padded float row
@@ -122,7 +128,9 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
   const int NC = T_len / C;
 
   for (int i = tid; i < D; i += NT) U[i] = to_float(u[(long long)blockIdx.x * D + i]);
-  for (int e = tid; e < D * LD; e += NT) Sb[D * LD + e] = 0.f;   // S_{-1} = 0, buffer 1
+  const float* S0 = state0 ? state0 + (long long)blockIdx.x * D * D : nullptr;
+  for (int e = tid; e < D * LD; e += NT)                          // S_{-1}: buffer 1
+    Sb[D * LD + e] = S0 && e % LD < D ? S0[(e / LD) * D + e % LD] : 0.f;
 
   // the decay scan: channel li, steps [lt0, lt0 + TQ) of the chunk
   const int li = tid % D;
@@ -143,6 +151,12 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int b = 0; b < 8; ++b) Sr[a][b] = 0.f;
+  if (S0 && s_owner) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) Sr[a][b] = S0[(si0 + a) * D + sj0 + b];
+  }
 
   T raw_r[TQMAX], raw_k[TQMAX], raw_w[TQMAX];        // chunk n + 3, arriving
   float xr[TQMAX], xk[TQMAX], xcl[TQMAX];            // after L1a: r, k, local cumsum of log w
@@ -365,7 +379,8 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
 
 template <typename T>
 int launch_wkv6(const void* r, const void* k, const void* v, const void* lw, const void* u,
-                void* o, float* state, int BH, int T_len, int d, int chunk, cudaStream_t s) {
+                void* o, const float* state0, float* state, int BH, int T_len, int d, int chunk,
+                cudaStream_t s) {
   if (chunk < 1 || chunk > WKV_CMAX || T_len < 1 || T_len % chunk || BH < 1) return -1;
 #define REPRO_WKV_CASE(D_)                                                                  \
   if (d == D_) {                                                                            \
@@ -376,8 +391,8 @@ int launch_wkv6(const void* r, const void* k, const void* v, const void* lw, con
     if (err != cudaSuccess) return (int)err;                                                \
     kern<<<BH, WKV_THREADS, smem, s>>>(                                                     \
         static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),       \
-        static_cast<const T*>(lw), static_cast<const T*>(u), static_cast<T*>(o), state,     \
-        T_len, chunk);                                                                      \
+        static_cast<const T*>(lw), static_cast<const T*>(u), static_cast<T*>(o), state0,    \
+        state, T_len, chunk);                                                                    \
     return (int)cudaGetLastError();                                                         \
   }
   REPRO_WKV_CASE(16)
@@ -392,15 +407,17 @@ int launch_wkv6(const void* r, const void* k, const void* v, const void* lw, con
 // Plain C interface: no allocation, no synchronisation; launches on the
 // stream it is handed and returns cudaGetLastError(), or -1 for a shape that
 // is not compiled (d not in {16, 32, 64}, a chunk outside [1, 32] or one
-// that does not divide T).
+// that does not divide T).  `state0` is the float32 initial state
+// (BH, d, d), or null for a zero start.
 extern "C" int repro_wkv6(const void* r, const void* k, const void* v, const void* lw,
-                          const void* u, void* o, void* state, int BH, int T, int d,
-                          int chunk, int is_bf16, void* stream) {
+                          const void* u, void* o, const void* state0, void* state, int BH,
+                          int T, int d, int chunk, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* s0 = static_cast<const float*>(state0);
   float* st = static_cast<float*>(state);
   if (is_bf16)
-    return repro::launch_wkv6<__nv_bfloat16>(r, k, v, lw, u, o, st, BH, T, d, chunk, s);
-  return repro::launch_wkv6<float>(r, k, v, lw, u, o, st, BH, T, d, chunk, s);
+    return repro::launch_wkv6<__nv_bfloat16>(r, k, v, lw, u, o, s0, st, BH, T, d, chunk, s);
+  return repro::launch_wkv6<float>(r, k, v, lw, u, o, s0, st, BH, T, d, chunk, s);
 }
 
 // Dynamic shared memory of one block for head dimension d and a chunk of c

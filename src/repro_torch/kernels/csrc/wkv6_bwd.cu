@@ -5,7 +5,10 @@
 // trains on its XLA path).  This kernel is the gradient of csrc/wkv6.cu's
 // function.  Per head, with S_t = diag(w_t) S_{t-1} + k_t v_t^T and
 // o_t = r_t^T S_{t-1} + (sum_i r_t u k_t) v_t, the state's gradient
-// G_{t-1} = diag(w_t) G_t + r_t dO_t^T runs backward from G_T = 0.  Chunk by
+// G_{t-1} = diag(w_t) G_t + r_t dO_t^T runs backward from G_T, the final
+// state's gradient (`dstate`, zero when null), to G_0, the initial state's
+// (`dstate0`, written when not null; the forward starts from `state0`, zero
+// when null).  Chunk by
 // chunk, in wkv6.cu's notation (A = r e^{cum_excl}, RS = r e^{cum_excl - c},
 // KS = k e^{c - cum}, KC = k e^{last - cum}, P = tril(RS KS^T, -1)), with
 // dP = tril(dO v^T, -1) and db_t = dO_t . v_t, a chunk with start state S0
@@ -17,9 +20,18 @@
 //     G0 = e^{last} G1 + A^T dO,      du = sum_t r k db,
 //
 // and with dr' = dr - u k db, dk' = dk - u r db the log-decay's gradient is
-// a suffix sum over the whole sequence, exclusive on r, inclusive on k:
+// a suffix sum over the whole sequence, exclusive on r, inclusive on k,
+// plus one term a channel from the end boundary (S_T the final state):
 //
-//     dlog_w[s] = sum_{t > s} r_t dr'_t - sum_{t >= s} k_t dk'_t.
+//     dlog_w[s][i] = sum_j S_T[i,j] G_T[i,j] + sum_{t > s} r_t dr'_t
+//                    - sum_{t >= s} k_t dk'_t,
+//
+// since dlog_w[s][i] = sum_j G_s[i,j] w_s[i] S_{s-1}[i,j] telescopes from
+// s = T.  Sweep 1 ends holding S_T's columns J in registers; with `dstate`
+// each block sums S_T G_T over them, and the cluster folds the owned
+// channels' sums (rank order, one more cluster barrier) into the suffix
+// sum's start.  Null `state0`, `dstate` and `dstate0` run the zero-state
+// path with no added work.
 //
 // What bounds it on an H100: at rwkv6-3b's training shape (160 rows, T 512,
 // d 64, chunk 16, bf16) the chunked backward needs about 3.75 GFLOP in
@@ -258,7 +270,8 @@ wkv6_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __res
                 const T* __restrict__ lw, const T* __restrict__ u, const T* __restrict__ dout,
                 T* __restrict__ dr, T* __restrict__ dk, T* __restrict__ dv,
                 T* __restrict__ dlw, T* __restrict__ du, float* __restrict__ rdr,
-                int T_len, int C, int vec) {
+                const float* __restrict__ state0, const float* __restrict__ dstate,
+                float* __restrict__ dstate0, int T_len, int C, int vec) {
   using G = WkvbGeo<D, CM, sizeof(T)>;
   constexpr int NT = G::NT, W = G::W, LDW = G::LDW, LDK = G::LDK;
   constexpr int TPR = G::TPR, CPT = G::CPT, SPT = G::SPT, TPT = G::TPT;
@@ -564,8 +577,12 @@ wkv6_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __res
   };
 
   float st[CPT];                                 // S[si][J part] (sweep 1), G (sweep 2)
+  // this thread's part of a (d x d) state or gradient: row si, columns j0 + sj ..
+  // (recomputed where used: nothing stays live across the sweeps for it)
+  auto part = [&](const float* base_) { return base_ + (row * D + si) * D + j0 + sj; };
 #pragma unroll
   for (int jj = 0; jj < CPT; ++jj) st[jj] = 0.f;
+  if (state0) load_floats(st, part(state0));     // S_0
   int xb = 0;
   const int ch = j0 + ec;                        // the channel this thread folds
 
@@ -618,9 +635,26 @@ wkv6_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __res
   }
 
   // ---- sweep 2: backward over the chunks, dk, dv, dlog_w, du ---------------------
+  float run_a = 0.f, run_b = 0.f, du_acc = 0.f;
+  if (dstate) {
+    // sum_j S_T G_T over the row's columns J, then over the cluster for the
+    // owned channel: the start of its dlog_w suffix sum
+    float gt[CPT];
+    load_floats(gt, part(dstate));
+    float phi = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < CPT; ++jj) phi = fmaf(st[jj], gt[jj], phi);
+#pragma unroll
+    for (int m = 1; m < TPR; m <<= 1) phi += __shfl_xor_sync(FULL, phi, m);
+    __syncthreads();                             // the last chunk's epilogue read PF
+    if (sh == 0) PF[si] = phi;
+    cluster.sync();
+#pragma unroll
+    for (int q = 0; q < G::NS; ++q) run_a += cluster.map_shared_rank(PF, q)[ch];
+  }
 #pragma unroll
   for (int jj = 0; jj < CPT; ++jj) st[jj] = 0.f;  // G after the last chunk
-  float run_a = 0.f, run_b = 0.f, du_acc = 0.f;
+  if (dstate) load_floats(st, part(dstate));
   __threadfence();                               // the scratch rows are written before
   __syncthreads();                               // any thread fetches them back
   fetch(NC - 1, true);
@@ -756,6 +790,7 @@ wkv6_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __res
 #pragma unroll
   for (int m = 4; m >= 1; m >>= 1) du_acc += __shfl_xor_sync(FULL, du_acc, m);
   if (eg == 0) du[row * D + ch] = from_float<T>(du_acc);
+  if (dstate0) store_floats(const_cast<float*>(part(dstate0)), st);  // G_0: the initial state's gradient
   cluster.sync();                                // no block leaves while a peer reads it
 }
 
@@ -787,8 +822,9 @@ cudaError_t wkvb_prepare() {
 template <typename T, int D, int CM>
 int launch_wkv6_bwd_cm(const void* r, const void* k, const void* v, const void* lw,
                        const void* u, const void* dout, void* dr, void* dk, void* dv,
-                       void* dlw, void* du, float* rdr, int BH, int T_len, int chunk, int vec,
-                       cudaStream_t s) {
+                       void* dlw, void* du, float* rdr, const float* state0,
+                       const float* dstate, float* dstate0, int BH, int T_len, int chunk,
+                       int vec, cudaStream_t s) {
   cudaError_t err = wkvb_prepare<T, D, CM>();
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
@@ -798,7 +834,8 @@ int launch_wkv6_bwd_cm(const void* r, const void* k, const void* v, const void* 
                            static_cast<const T*>(lw), static_cast<const T*>(u),
                            static_cast<const T*>(dout), static_cast<T*>(dr),
                            static_cast<T*>(dk), static_cast<T*>(dv), static_cast<T*>(dlw),
-                           static_cast<T*>(du), rdr, T_len, chunk, vec);
+                           static_cast<T*>(du), rdr, state0, dstate, dstate0, T_len, chunk,
+                           vec);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -806,7 +843,8 @@ int launch_wkv6_bwd_cm(const void* r, const void* k, const void* v, const void* 
 template <typename T>
 int launch_wkv6_bwd(const void* r, const void* k, const void* v, const void* lw,
                     const void* u, const void* dout, void* dr, void* dk, void* dv, void* dlw,
-                    void* du, float* rdr, int BH, int T_len, int d, int chunk, cudaStream_t s) {
+                    void* du, float* rdr, const float* state0, const float* dstate,
+                    float* dstate0, int BH, int T_len, int d, int chunk, cudaStream_t s) {
   if (chunk < 1 || chunk > WKVB_CMAX || T_len < 1 || T_len % chunk || BH < 1) return -1;
   // A chunk below 16 runs at 16 (the whole sequence if shorter), the last
   // chunk ragged: the same gradient, in fewer chunk steps of fixed cost.
@@ -818,9 +856,11 @@ int launch_wkv6_bwd(const void* r, const void* k, const void* v, const void* lw,
   if (d == D_) {                                                                            \
     if (chunk <= 16)                                                                        \
       return launch_wkv6_bwd_cm<T, D_, 16>(r, k, v, lw, u, dout, dr, dk, dv, dlw, du, rdr,  \
-                                           BH, T_len, chunk, vec, s);                       \
+                                           state0, dstate, dstate0, BH, T_len, chunk, vec,  \
+                                           s);                                              \
     return launch_wkv6_bwd_cm<T, D_, WKVB_CMAX>(r, k, v, lw, u, dout, dr, dk, dv, dlw, du,  \
-                                                rdr, BH, T_len, chunk, vec, s);             \
+                                                rdr, state0, dstate, dstate0, BH, T_len,    \
+                                                chunk, vec, s);                             \
   }
   REPRO_WKVB_CASE(16)
   REPRO_WKVB_CASE(32)
@@ -848,18 +888,26 @@ int wkvb_max_clusters() {
 // is not compiled (d not in {16, 32, 64}, a chunk outside [1, 32] or one
 // that does not divide T).  `scratch` is a float32 buffer of BH * T * d
 // floats that the kernel writes in sweep 1 and reads back in sweep 2 (r dr',
-// laid out [row][chunk][channel][step]).
+// laid out [row][chunk][channel][step]).  `state0` (the forward's initial
+// state), `dstate` (the final state's gradient) and `dstate0` (written: the
+// initial state's gradient) are float32 (BH, d, d) at 16-byte aligned
+// bases, or null: a zero initial state, a zero final-state gradient, none
+// wanted.
 extern "C" int repro_wkv6_bwd(const void* r, const void* k, const void* v, const void* lw,
                               const void* u, const void* dout, void* dr, void* dk, void* dv,
-                              void* dlw, void* du, void* scratch, int BH, int T, int d,
+                              void* dlw, void* du, void* scratch, const void* state0,
+                              const void* dstate, void* dstate0, int BH, int T, int d,
                               int chunk, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* rdr = static_cast<float*>(scratch);
+  const float* s0 = static_cast<const float*>(state0);
+  const float* gT = static_cast<const float*>(dstate);
+  float* g0 = static_cast<float*>(dstate0);
   if (is_bf16)
     return repro::launch_wkv6_bwd<__nv_bfloat16>(r, k, v, lw, u, dout, dr, dk, dv, dlw, du, rdr,
-                                                 BH, T, d, chunk, s);
-  return repro::launch_wkv6_bwd<float>(r, k, v, lw, u, dout, dr, dk, dv, dlw, du, rdr, BH, T, d,
-                                       chunk, s);
+                                                 s0, gT, g0, BH, T, d, chunk, s);
+  return repro::launch_wkv6_bwd<float>(r, k, v, lw, u, dout, dr, dk, dv, dlw, du, rdr, s0, gT,
+                                       g0, BH, T, d, chunk, s);
 }
 
 // Dynamic shared memory of one block for head dimension d, a chunk of c

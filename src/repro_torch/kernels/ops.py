@@ -19,7 +19,8 @@ Responsibilities:
   whose backward runs kernels too: K2's backward (``flash_attention_bwd``)
   from the log-sum-exp the forward kept, K1's and K4's as products of the
   same kernel that read the forward's operands as they are stored, and K5's backward
-  (``rwkv6_bwd.wkv6_bwd``) from the forward's operands.  Otherwise
+  (``rwkv6_bwd.wkv6_bwd``) from the forward's operands, its initial state
+  and the final state's gradient.  Otherwise
   (serving runs under ``torch.no_grad``) the forward launches exactly as
   before.  On CPU tensors forward and backward are the plain versions.
 
@@ -250,36 +251,46 @@ class _GroupedMatmul(torch.autograd.Function):
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
-         u: torch.Tensor, *, chunk: int = _rwkv.DEFAULT_CHUNK
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """RWKV6 WKV scan.  r/k/v/log_w: (BH, T, d); u: (BH, d) -> (o, final
-    state (BH, d, d) float32).
+         u: torch.Tensor, *, chunk: int = _rwkv.DEFAULT_CHUNK,
+         state0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 WKV scan.  r/k/v/log_w: (BH, T, d); u: (BH, d); state0: the
+    float32 initial state (BH, d, d), None for zero -> (o, final state (BH,
+    d, d) float32).
 
     The chunk is the largest power of two that divides T and is at most
     ``chunk``, as in the reference, and at most the kernel's longest chunk;
     nothing pads, so a prompt of odd length runs at chunk 1.
-    Differentiable in r, k, v, log_w and u: where autograd records, the
-    backward is K5-bwd at the same chunk.  The final state is marked
-    non-differentiable (the reference's loss never reads it): it never
-    requires a gradient."""
+    Differentiable in r, k, v, log_w, u and state0, through o and the final
+    state: where autograd records, the backward is K5-bwd at the same chunk
+    (from the final state's gradient where the caller reads the state, and
+    giving the initial state's where one was passed)."""
     c = fit_block(r.shape[1], min(chunk, _rwkv.MAX_CHUNK))
-    if _records(r, k, v, log_w, u):
-        return _Wkv6.apply(r, k, v, log_w, u, c)
-    return _rwkv.wkv6(r, k, v, log_w, u, chunk=c)
+    if _records(r, k, v, log_w, u, *(() if state0 is None else (state0,))):
+        return _Wkv6.apply(r, k, v, log_w, u, state0, c)
+    return _rwkv.wkv6(r, k, v, log_w, u, chunk=c, **_given(state0=state0))
+
+
+def _given(**kw):
+    """The keyword arguments that are not None (a call without a state keeps
+    the zero-state signature)."""
+    return {k: x for k, x in kw.items() if x is not None}
 
 
 class _Wkv6(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, r, k, v, log_w, u, chunk):
-        o, state = _rwkv.wkv6(r, k, v, log_w, u, chunk=chunk)
-        ctx.save_for_backward(r, k, v, log_w, u)
+    def forward(ctx, r, k, v, log_w, u, state0, chunk):
+        # an output no one reads gets no gradient (None), not a tensor of zeros:
+        # the backward then passes K5-bwd no final-state gradient at all
+        ctx.set_materialize_grads(False)
+        o, state = _rwkv.wkv6(r, k, v, log_w, u, chunk=chunk, **_given(state0=state0))
+        ctx.save_for_backward(r, k, v, log_w, u, state0)
         ctx.chunk = chunk
-        ctx.mark_non_differentiable(state)
         return o, state
 
     @staticmethod
-    def backward(ctx, do, _dstate):
-        r, k, v, log_w, u = ctx.saved_tensors
-        grads = _rwkvb.wkv6_bwd(r, k, v, log_w, u, do.to(r.dtype).contiguous(),
-                                chunk=ctx.chunk)
-        return (*grads, None)
+    def backward(ctx, do, dstate):
+        r, k, v, log_w, u, state0 = ctx.saved_tensors
+        do = torch.zeros_like(r) if do is None else do.to(r.dtype).contiguous()
+        grads = _rwkvb.wkv6_bwd(r, k, v, log_w, u, do, chunk=ctx.chunk,
+                                **_given(state0=state0, dstate=dstate))
+        return (*grads[:5], grads[5] if state0 is not None else None, None)

@@ -14,11 +14,13 @@ CUDA tensor launches the kernel or raises.
 
 Against the reference, both also return the **final state** (BH, d, d) in
 float32: the reference kernel leaves it in its scratch memory, the port's
-prefill hands it to decode.  Both start from a zero state.
+prefill hands it to decode.  Both start from a zero state, or from a
+float32 initial state ``state0`` (BH, d, d): a sequence split over ranks
+scans each rank's block from the state the earlier blocks leave.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -54,19 +56,21 @@ def _chunk_of(T: int, chunk: int) -> int:
 
 
 def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
-               u: torch.Tensor, *, chunk: int = DEFAULT_CHUNK
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               u: torch.Tensor, *, chunk: int = DEFAULT_CHUNK,
+               state0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's chunked math in plain PyTorch, float32 inside.
 
-    r/k/v/log_w: (BH, T, d); u: (BH, d) -> (o (BH, T, d) in r's type,
-    final state (BH, d, d) float32).  A masked score is selected away, never
-    multiplied by 0: at chunk 32 its two factors may overflow to inf."""
+    r/k/v/log_w: (BH, T, d); u: (BH, d); state0: (BH, d, d) or None (zero)
+    -> (o (BH, T, d) in r's type, final state (BH, d, d) float32).  A masked
+    score is selected away, never multiplied by 0: at chunk 32 its two
+    factors may overflow to inf."""
     BH, T, d = r.shape
     c = _chunk_of(T, chunk)
     uf = u.float()
-    S = torch.zeros((BH, d, d), dtype=torch.float32, device=r.device)
+    S = torch.zeros((BH, d, d), dtype=torch.float32, device=r.device) if state0 is None \
+        else state0.float()
     if T == 0:
-        return torch.empty_like(r), S
+        return torch.empty_like(r), S.clone()
     lower = torch.tril(torch.ones(c, c, dtype=torch.bool, device=r.device), -1)
     outs = []
     for t0 in range(0, T, c):
@@ -92,13 +96,28 @@ def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.T
     return torch.cat(outs, dim=1).to(r.dtype), S
 
 
-def _check(r, k, v, log_w, u) -> None:
+def _check(r, k, v, log_w, u, *states) -> None:
+    """Shapes and devices of the operands, and of the (BH, d, d) states
+    given (None: not given)."""
     if r.dim() != 3 or any(x.shape != r.shape for x in (k, v, log_w)) \
             or u.shape != (r.shape[0], r.shape[2]):
         raise ValueError(f"wkv6 wants r/k/v/log_w (BH, T, d) and u (BH, d), got "
                          f"{[tuple(x.shape) for x in (r, k, v, log_w, u)]}")
-    if any(x.device != r.device for x in (k, v, log_w, u)):
+    given = [x for x in states if x is not None]
+    if any(x.shape != (r.shape[0], r.shape[2], r.shape[2]) for x in given):
+        raise ValueError(f"wkv6's states are (BH, d, d) = {(r.shape[0], r.shape[2], r.shape[2])}, "
+                         f"got {[tuple(x.shape) for x in given]}")
+    if any(x.device != r.device for x in (k, v, log_w, u, *given)):
         raise ValueError("wkv6's operands lie on different devices")
+
+
+def _state_arg(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A state as the kernels read it: float32, contiguous, at a 16-byte
+    aligned base (None stays None)."""
+    if x is None:
+        return None
+    x = x.detach().to(torch.float32).contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _check_compiled(name: str, xs, d: int, T: int, c: int) -> None:
@@ -119,19 +138,22 @@ def _check_compiled(name: str, xs, d: int, T: int, c: int) -> None:
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
-         u: torch.Tensor, *, chunk: int = DEFAULT_CHUNK
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r/k/v/log_w: (BH, T, d); u: (BH, d) -> (o (BH, T, d) in r's type,
-    final state (BH, d, d) float32).
+         u: torch.Tensor, *, chunk: int = DEFAULT_CHUNK,
+         state0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r/k/v/log_w: (BH, T, d); u: (BH, d); state0: the initial state (BH,
+    d, d), None for zero -> (o (BH, T, d) in r's type, final state (BH, d,
+    d) float32).
 
     ``log_w`` is the elementwise log of the decay (<= 0); ``min(chunk, T)``
     must divide T.  On a CUDA tensor all five operands are float32 or
     bfloat16 of one type, contiguous, with d in :data:`COMPILED_HEAD_DIMS`
-    and a chunk of at most :data:`MAX_CHUNK`."""
+    and a chunk of at most :data:`MAX_CHUNK`; ``state0`` is read in
+    float32."""
     global launches
-    _check(r, k, v, log_w, u)
+    _check(r, k, v, log_w, u, state0)
     if r.device.type == "cpu":
-        return wkv6_plain(r, k, v, log_w, u, chunk=chunk)
+        return wkv6_plain(r, k, v, log_w, u, chunk=chunk,
+                          **({} if state0 is None else {"state0": state0}))
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 runs on cpu or cuda tensors, not {r.device}")
     BH, T, d = r.shape
@@ -141,15 +163,17 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
     state = torch.empty((BH, d, d), dtype=torch.float32, device=r.device)
     if BH == 0:
         return o, state
+    s0 = _state_arg(state0)
     if T == 0:
-        return o, state.zero_()
+        return o, state.zero_() if s0 is None else state.copy_(s0)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _build.lib().repro_wkv6(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(), u.data_ptr(),
-            o.data_ptr(), state.data_ptr(), BH, T, d, c,
+            o.data_ptr(), None if s0 is None else s0.data_ptr(), state.data_ptr(), BH, T, d, c,
             int(r.dtype == torch.bfloat16), stream)
     _build.check(code, f"wkv6 BH={BH} T={T} d={d} chunk={c}")
     launches += 1
-    _work.add("wkv6", _work.wkv6_flops(BH, T, d, c), _work.nbytes(r, k, v, log_w, u, o, state))
+    _work.add("wkv6", _work.wkv6_flops(BH, T, d, c),
+              _work.nbytes(r, k, v, log_w, u, o, state, *([] if s0 is None else [s0])))
     return o, state

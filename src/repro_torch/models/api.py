@@ -49,21 +49,31 @@ class ModelAPI:
     @property
     def local_compute(self) -> bool:
         """Whether every layer of the family that holds a head, ffn or vocab
-        dim has a local rule (``models/layers.py``), so a plan-sharded step
-        may compute them in parts (``spmd.Step(local=True)``).  rwkv6's time
-        and channel mix, zamba2's Mamba2 block and the encoder-decoder's
-        cross-attention have none yet."""
-        return self.cfg.family in ("dense", "vlm", "moe")
+        dim has a local rule (``models/layers.py``; rwkv6's time and channel
+        mix, ``models/rwkv6.py``; the Mamba2 block, ``models/mamba2.py``), so
+        a plan-sharded step may compute them in parts (``spmd.Step(local=
+        True)``).  True for every family."""
+        return True
 
     @property
     def sequence_split(self) -> bool:
         """Whether the family computes a block of the tokens under a plan
         that splits the sequence (``spmd.Step(seq_axis=...)``: attention
         through K2 with the rank's query offset over K/V gathered along the
-        sequence, ``tp2d``'s embed-split products).  Only the dense family
-        so far; the VLM (whose patches sit ahead of the prompt), the MoE,
-        rwkv6, zamba2 and the encoder-decoder run such a plan on their
-        whole activations."""
+        sequence; rwkv6's and Mamba2's scans from the state the earlier
+        blocks leave, and their token shifts and convolutions across the
+        block boundary).  The dense family, rwkv6 and zamba2; the VLM (whose
+        patches sit ahead of the prompt), the MoE and the encoder-decoder
+        run such a plan on their whole activations."""
+        return self.cfg.family in ("dense", "ssm", "hybrid")
+
+    @property
+    def embed_split(self) -> bool:
+        """Whether the family's layers take a residual whose ``embed`` dim a
+        sequence-split step also splits (``tp2d``: ``spmd.Step.embed_axis``).
+        Only the dense family: several of rwkv6's ``embed`` leaves index its
+        heads' channels, so rwkv6 and zamba2 run tp2d on their whole
+        activations."""
         return self.cfg.family == "dense"
 
     # -- params -------------------------------------------------------------

@@ -160,7 +160,9 @@ def _project_cross(params: Params, memory: torch.Tensor, cfg: ModelConfig,
                    cache: Dict[str, Any]) -> Tuple[Dict[str, Any], Optional[list]]:
     """:func:`prepare_cross`, and where the serving step's plan splits the
     cross K/V, every layer's whole (k, v) in the cache's dtype for the
-    prompt pass that follows (None where the cache holds them whole)."""
+    prompt pass that follows (None where the cache holds them whole, or
+    where the step computes the rank's kv heads: the prompt pass then reads
+    the cache, through the head-local cross-attention)."""
     length = spmd.cache_length(cache["cross_k"], 2)
     if memory.shape[1] != length:
         raise ValueError(f"a memory of {memory.shape[1]} positions does not fit a cache "
@@ -175,6 +177,18 @@ def _project_cross(params: Params, memory: torch.Tensor, cfg: ModelConfig,
     whole = [] if blocks else None
     for i in range(cfg.n_layers):
         p = spmd.for_use(_blocks(params, "dec_blocks", i)["cross_attn"])
+        if spmd.local_of(p["wk"]) is not None:
+            # head-local: the rank's kv heads, into the rank's block of a cache
+            # split over kv_heads on the axis or gathered into a whole one; the
+            # prompt pass reads the cache
+            if 1 in blocks:
+                raise NotImplementedError("a head-local prompt pass into a cross K/V cache "
+                                          "split over kv_seq")
+            for name, w in (("cross_k", p["wk"]), ("cross_v", p["wv"])):
+                x = torch.einsum("bsd,dhk->bshk", memory, w.to(memory.dtype))
+                spmd.store(cache[name][i], x, "kv_heads", 2)
+            whole = None
+            continue
         kv = []
         for name, w in (("cross_k", p["wk"]), ("cross_v", p["wv"])):
             x = torch.einsum("bsd,dhk->bshk", memory, w.to(memory.dtype))
@@ -206,7 +220,7 @@ def _cached_pass(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
                        else cross[i])
     if last_only:
         x = x[:, -1:]
-    return _head(params, x, cfg), dict(cache, index=idx + tokens.shape[1])
+    return L.whole_vocab(_head(params, x, cfg)), dict(cache, index=idx + tokens.shape[1])
 
 
 def cache_logical_axes() -> Dict[str, Tuple]:

@@ -23,6 +23,8 @@ local rows of the table; the LM head's logits over the local vocabulary,
 which :func:`softmax_xent` and :func:`fused_head_xent` reduce over the
 axis and :func:`whole_vocab` gathers for serving.
 
+Cross-attention takes the same head-local rule (:func:`_cross_local`).
+
 Under a plan-sharded step with a sequence axis (``spmd.Step.seq_axis``:
 ``tp2d``, ``zero3_sp``, ``sequence_parallel``) the activations hold the
 rank's block of the tokens, ``[o, o + S)``.  Self-attention applies RoPE
@@ -333,6 +335,10 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         return _attention_local(p, x, cfg, axis, causal=causal, positions=positions,
                                 kv_cache=kv_cache, cache_index=cache_index,
                                 use_rope=use_rope)
+    if axis is not None:
+        if kv_cache is not None:
+            raise ValueError("cross-attention (kv_input, precomputed_kv) takes no cache")
+        return _cross_local(p, x, cfg, axis, kv_input, precomputed_kv), None
     if kv_input is not None or precomputed_kv is not None:
         if kv_cache is not None:
             raise ValueError("cross-attention (kv_input, precomputed_kv) takes no cache")
@@ -540,6 +546,51 @@ def _attention_local(p: Params, x: torch.Tensor, cfg: ModelConfig, axis: str, *,
     out = _attend(q, k, v, is_causal, cfg, kv_valid_len=valid, q_per_kv=g)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return spmd.psum(out, axis), kv_cache
+
+
+def _cross_local(p: Params, x: torch.Tensor, cfg: ModelConfig, axis: str,
+                 kv_input: Optional[torch.Tensor], precomputed_kv) -> torch.Tensor:
+    """Cross-attention (over every key, no RoPE) over this rank's query
+    heads, whose ``wq``/``bq``/``wo`` the step left split over ``axis``:
+    ``kv_input`` (the encoder memory, entered: its gradient summed over the
+    axis) projected to the kv heads those query heads read (``wk``/``wv``
+    split alike, or whole and sliced as :func:`_attention_local` does), or
+    ``precomputed_kv`` holding every kv head or this rank's (a cache the
+    serving plan splits over ``kv_heads`` on the axis).  The output of the
+    row-parallel ``wo`` product is summed over ``axis``."""
+    G = cfg.q_per_kv
+    x = spmd.enter(x, axis)
+    hl = p["wq"].shape[1]
+    h0 = spmd.axis_index(axis) * hl
+    lo, hi, index, g = _local_kv_heads(h0, hl, G)
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    if precomputed_kv is not None:
+        k, v = (t.to(x.dtype) for t in precomputed_kv)
+        if k.shape[2] == cfg.n_kv_heads and hi - lo != cfg.n_kv_heads:
+            k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    else:
+        mem = spmd.enter(kv_input, axis)
+        kv = {}
+        for n in ("wk", "wv", "bk", "bv"):
+            if n in p:
+                w = p[n]
+                if spmd.local_of(w) is None:          # whole: this rank's kv heads
+                    w = spmd.enter(w, axis)
+                    w = w[:, lo:hi] if n[0] == "w" else w[lo:hi]
+                kv[n] = w
+        k = torch.einsum("bsd,dhk->bshk", mem, kv["wk"].to(mem.dtype))
+        v = torch.einsum("bsd,dhk->bshk", mem, kv["wv"].to(mem.dtype))
+        if "bk" in kv:
+            k, v = k + kv["bk"].to(mem.dtype), v + kv["bv"].to(mem.dtype)
+    if k.shape[2] != hi - lo:
+        raise ValueError(f"{k.shape[2]} kv heads for the {hi - lo} query heads "
+                         f"[{h0}, {h0 + hl}) read")
+    if index is not None:
+        k, v = k[:, :, index], v[:, :, index]
+    out = _attend(q, k, v, False, cfg, q_per_kv=g)
+    return spmd.psum(torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), axis)
 
 
 def _decode_split(q, k, v, ck, cv, cache_index: Optional[int], split, cfg: ModelConfig

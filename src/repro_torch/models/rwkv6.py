@@ -18,6 +18,13 @@ Simplification vs. the released checkpoints (the reference's, kept):
 token-shift interpolation uses per-channel static mixes (RWKV5-style) rather
 than the full 5-way data-dependent lerp; the decay LoRA is kept faithful.
 
+Under a plan-sharded step with a local axis the time mix computes the
+rank's heads and the channel mix its ffn columns (:func:`time_mix`,
+:func:`channel_mix`); under one that splits the sequence the rank computes
+its token block, its scan started from the state the earlier blocks leave
+(:func:`_scan_split`) and its token shifts fed the previous rank's last
+row.
+
 The reference has no multi-token prefill for this family (its serve loop
 feeds the prompt token by token); :func:`prefill` is the port's, and equals
 that loop.  :func:`loss_fn` is the reference's: the mean cross-entropy of
@@ -107,32 +114,116 @@ def rwkv6_spec(cfg: ModelConfig) -> Params:
 
 
 # ------------------------------------------------------------- WKV core
-def wkv6_chunked(r, k, v, log_w, u, chunk: int = WKV_CHUNK
+def wkv6_chunked(r, k, v, log_w, u, chunk: int = WKV_CHUNK, state0=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's ``wkv6_chunked_jnp``: the kernel's chunked math in plain
-    PyTorch, returning (o, final state).  Shapes as in ``kernels.rwkv6.wkv6``;
-    like the reference, ``min(chunk, T)`` must divide T."""
-    return _rwkv.wkv6_plain(r, k, v, log_w, u, chunk=chunk)
+    PyTorch, returning (o, final state), from ``state0`` (zero when None).
+    Shapes as in ``kernels.rwkv6.wkv6``; like the reference, ``min(chunk,
+    T)`` must divide T."""
+    kw = {} if state0 is None else {"state0": state0}
+    return _rwkv.wkv6_plain(r, k, v, log_w, u, chunk=chunk, **kw)
+
+
+def _scan(r, k, v, lw, u, cfg: ModelConfig, state0=None):
+    """The chunked WKV scan of one pass: K5 (``ops.wkv6``) with
+    ``cfg.kernels == "cuda"`` on the decay and bonus rounded to the compute
+    dtype, as the reference's kernel path casts them (mirrored, not fixed);
+    else the plain chunked math."""
+    kw = {} if state0 is None else {"state0": state0}
+    if cfg.kernels == "cuda":
+        return ops.wkv6(r, k, v, lw.to(r.dtype), u.to(r.dtype), chunk=WKV_CHUNK, **kw)
+    return wkv6_chunked(r, k, v, lw, u, **kw)
+
+
+def _scan_split(r, k, v, lw, u, cfg: ModelConfig):
+    """The scan of this rank's token block of a sequence the step splits,
+    from the state the earlier ranks' blocks leave: the block scanned from
+    zero gives its own final state, whose (state, summed log-decay) pairs
+    are gathered over the sequence axis and folded in rank order
+    (``spmd.carry_states``), and the block is scanned again from the state
+    entering it, two K5 launches a layer on the kernel path.  The decays
+    summed are the ones the scan reads (rounded to the compute dtype on the
+    kernel path).  Returns (o, the state after the whole sequence)."""
+    _, own = _scan(r, k, v, lw, u, cfg)
+    read = lw.to(r.dtype) if cfg.kernels == "cuda" else lw
+    entering, final = spmd.carry_states(own, read.float().sum(dim=1)[..., None])
+    o, _ = _scan(r, k, v, lw, u, cfg, state0=entering)
+    return o, final
 
 
 def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Shift sequence right by one; ``prev`` supplies the carry for decode."""
+    """Shift sequence right by one; ``prev`` supplies the carry for decode
+    (and the previous rank's last row under a sequence split)."""
     if prev is None:
         return F.pad(x, (0, 0, 1, 0))[:, :-1]
     return torch.cat([prev[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _shifted(x: torch.Tensor, shift_prev=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` shifted right by one and the row a cache keeps for the next
+    token: under a sequence split the previous rank's last row comes in
+    across the block boundary, and the row kept is the sequence's last
+    (the last rank's, on every rank)."""
+    if spmd.seq_axis() is None:
+        return _token_shift(x, shift_prev), x[:, -1]
+    prev, last = spmd.seq_edges(x, 1)
+    return _token_shift(x, prev[:, 0]), last[:, 0]
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("btd,df->btf", x, w.to(x.dtype))
 
 
+# the dims the plan may leave split for local compute
+_TM_SPLIT = {"wr": 1, "wk": 1, "wv": 1, "wg": 1, "wo": 0, "u": 0}
+_CM_SPLIT = {"wk": 1, "wv": 0, "wr": 1}
+
+
+def _heads_fit(p: Params, hd: int, axis: str) -> bool:
+    """Whether the time mix's split lines up with whole heads: r/k/v/g's
+    columns, ``wo``'s rows and ``u``'s heads all split over ``axis`` into
+    the same whole heads (else the layer runs whole)."""
+    n = p["wr"].shape[1]
+    return (n % hd == 0 and all(spmd.local_of(p[k]) == axis for k in _TM_SPLIT)
+            and all(p[k].shape[1] == n for k in ("wk", "wv", "wg"))
+            and p["wo"].shape[0] == n and p["u"].shape[0] * hd == n)
+
+
+# whole leaves a local time mix uses on every rank: their gradients are
+# summed over the axis; the last three index the heads' channels
+_TM_WHOLE = ("mix_r", "mix_k", "mix_v", "mix_w", "mix_g", "wA", "w0", "wB", "ln_x")
+
+
 def time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *, shift_prev=None, state=None):
     """Returns (out, (new_shift, new_state)).  ``state``: (B,H,hd,hd) for
     single-token decode; None for a chunked pass from a zero state, whose
-    final state is returned (the reference returns None there)."""
+    final state is returned (the reference returns None there).
+
+    Under a step that left ``wr`` split over its local axis (heads-local, as
+    GSPMD places the reference's activations) the rank computes its heads:
+    r/k/v/g column-parallel, ``u`` its rows, K5 and the group norm over its
+    B x hn rows, ``wo`` row-parallel and summed over the axis.  ``w0``,
+    ``wB``'s output and ``ln_x`` are named ``embed`` but index the heads'
+    channels: they stay whole and the rank takes its heads' slice after
+    ``spmd.enter`` (whose backward sums the gradient over the axis), as it
+    does for the other whole leaves it uses and for ``x``; its new state is
+    its heads'.  A split that cuts a head runs the layer whole
+    (``spmd.unsplit``).  Under a step that splits the sequence the rank scans its
+    token block from the state the earlier blocks leave (:func:`_scan_split`)
+    and returns the sequence's final state and last row."""
     B, T, d = x.shape
     H, hd = _n_heads(cfg), _head_dim(cfg)
-    xp = _token_shift(x, shift_prev)
+    axis = spmd.local_of(p["wr"]) if state is None else None
+    if axis is not None and not _heads_fit(p, hd, axis):
+        p, axis = spmd.unsplit(p, _TM_SPLIT), None
+    hn = H
+    if axis is not None:
+        x = spmd.enter(x, axis)
+        hn = p["wr"].shape[1] // hd
+        cols = slice(spmd.axis_index(axis) * hn * hd, (spmd.axis_index(axis) + 1) * hn * hd)
+        p = dict(p, **{n: spmd.enter(p[n], axis) for n in _TM_WHOLE})
+        p.update(w0=p["w0"][cols], wB=p["wB"][:, cols], ln_x=p["ln_x"][cols])
+    xp, last = _shifted(x, shift_prev)
 
     def mixed(name):
         return x + (xp - x) * p[f"mix_{name}"].to(x.dtype)
@@ -145,20 +236,18 @@ def time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *, shift_prev=None, s
     # range; applied at the source so every WKV path sees the same decays
     lw = torch.clamp(lw, min=-4.0)
 
-    def to_heads(t):                    # (B,T,d) -> (B*H, T, hd), contiguous
-        return t.reshape(B, T, H, hd).transpose(1, 2).reshape(B * H, T, hd).contiguous()
+    def to_heads(t):                    # (B,T,n hd) -> (B*n, T, hd), contiguous
+        n = t.shape[-1] // hd
+        return t.reshape(B, T, n, hd).transpose(1, 2).reshape(B * n, T, hd).contiguous()
 
-    u = p["u"].float()[None].expand(B, H, hd).reshape(B * H, hd)
+    u = p["u"].float()[None].expand(B, hn, hd).reshape(B * hn, hd)
     if state is None:
-        if cfg.kernels == "cuda":
-            # the reference's kernel path casts the decay and the bonus to the
-            # compute dtype before the kernel; mirrored, not fixed
-            o, S = ops.wkv6(to_heads(r), to_heads(k), to_heads(v),
-                            to_heads(lw.to(x.dtype)), u.to(x.dtype),
-                            chunk=WKV_CHUNK)
+        heads = [to_heads(t) for t in (r, k, v, lw)]
+        if spmd.seq_axis() is not None:
+            o, S = _scan_split(*heads, u, cfg)
         else:
-            o, S = wkv6_chunked(to_heads(r), to_heads(k), to_heads(v), to_heads(lw), u)
-        new_state = S.reshape(B, H, hd, hd)
+            o, S = _scan(*heads, u, cfg)
+        new_state = S.reshape(B, hn, hd, hd)
     else:
         # single-token recurrence (decode): T == 1, float32 decay and state;
         # a state the serving plan splits over heads runs its own heads, and
@@ -177,15 +266,17 @@ def time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *, shift_prev=None, s
         o = o.to(x.dtype).reshape(B, hn, T, hd)
         if heads:
             o = spmd.gather_over(o, heads, 1)
-    o = o.reshape(B, H, T, hd).transpose(1, 2)
+        hn = H
+    o = o.reshape(B, hn, T, hd).transpose(1, 2)
     # per-head group norm, population variance
     oh = o.float()
     mean = oh.mean(dim=-1, keepdim=True)
     var = oh.var(dim=-1, keepdim=True, unbiased=False)
     oh = (oh - mean) * torch.rsqrt(var + 64e-5)
-    o = (oh.reshape(B, T, d) * p["ln_x"].float()).to(x.dtype)
+    o = (oh.reshape(B, T, hn * hd) * p["ln_x"].float()).to(x.dtype)
     o = o * F.silu(g)
-    return _mm(o, p["wo"]), (x[:, -1], new_state)
+    out = _mm(o, p["wo"])
+    return (out if axis is None else spmd.psum(out, axis)), (last, new_state)
 
 
 def _state_heads(state: torch.Tensor, H: int):
@@ -204,11 +295,28 @@ def _state_heads(state: torch.Tensor, H: int):
 
 
 def channel_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *, shift_prev=None):
-    xp = _token_shift(x, shift_prev)
+    """Returns (out, new_shift).  Under a step that left ``wk`` split over
+    its local axis: ``wk`` column-parallel over the rank's ffn columns and
+    ``wv`` row-parallel.  ``wr`` is named ``("embed", "q_heads")`` but its
+    output gates ``wv``'s embed output elementwise, so the rank's ``wr``
+    columns are a block of embed channels: the partial ``wv`` products are
+    reduce-scattered to that block, gated there and the product gathered
+    (the bytes of one all-reduce)."""
+    axis = spmd.local_of(p["wk"])
+    if axis is not None and not (spmd.local_of(p["wv"]) == axis == spmd.local_of(p["wr"])):
+        p, axis = spmd.unsplit(p, _CM_SPLIT), None
+    if axis is not None:
+        x = spmd.enter(x, axis)
+        p = dict(p, mix_k=spmd.enter(p["mix_k"], axis), mix_r=spmd.enter(p["mix_r"], axis))
+    xp, last = _shifted(x, shift_prev)
     xk = x + (xp - x) * p["mix_k"].to(x.dtype)
     xr = x + (xp - x) * p["mix_r"].to(x.dtype)
     kk = torch.square(F.relu(_mm(xk, p["wk"])))
-    return torch.sigmoid(_mm(xr, p["wr"])) * _mm(kk, p["wv"]), x[:, -1]
+    gate = torch.sigmoid(_mm(xr, p["wr"]))
+    if axis is None:
+        return gate * _mm(kk, p["wv"]), last
+    out = gate * spmd.scatter_sum(_mm(kk, p["wv"]), axis, 2)
+    return spmd.gather_alike(out, axis, 2), last
 
 
 def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -272,9 +380,10 @@ def cache_logical_axes() -> Dict[str, Tuple]:
 
 
 def _store(cache: Dict[str, Any], i: int, carry) -> None:
-    """Write layer ``i``'s (shift_tm, state, shift_cm) into the cache."""
+    """Write layer ``i``'s (shift_tm, state, shift_cm) into the cache (the
+    state's heads all, or this rank's: ``spmd.store``)."""
     shift_tm, state, shift_cm = carry
-    cache["state"][i] = state
+    spmd.store(cache["state"][i], state, "q_heads", 1)
     cache["shift_tm"][i] = shift_tm
     cache["shift_cm"][i] = shift_cm
 
@@ -304,12 +413,15 @@ def prefill(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
     Each layer's state is the WKV scan's final state; its shifts are the last
     row of each sublayer's normalised input; the index is the prompt length.
     This equals feeding the prompt to :func:`decode_step` token by token, the
-    reference's serving prefill (same state, shifts and last logits)."""
+    reference's serving prefill (same state, shifts and last logits).  Under
+    a serving step that splits the prompt, ``tokens`` are this rank's block
+    and every rank stores the whole prompt's states and last rows."""
     if int(cache["index"]) != 0:
         raise ValueError(f"prefill fills an empty cache; this one holds "
                          f"{int(cache['index'])} tokens")
     x = L.embed(params["embed"], tokens, cfg)
     for i in range(cfg.n_layers):
-        x, carry = block_apply(transformer._layer(params, i), x, cfg)
+        x, carry = L.remat(False, block_apply, transformer._layer(params, i), x, cfg)
         _store(cache, i, carry)
-    return transformer._head(params, x[:, -1:], cfg), dict(cache, index=tokens.shape[1])
+    return (L.whole_vocab(transformer._head(params, spmd.last_token(x), cfg)),
+            dict(cache, index=spmd.seq_length(tokens.shape[1])))

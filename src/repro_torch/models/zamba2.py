@@ -123,25 +123,24 @@ def _cached_pass(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
     and stores the pair it ends with; a decode step runs the single-token
     recurrence from the stored pair."""
     G, A = _groups(cfg)
-    idx = int(cache["index"])
+    idx, n = int(cache["index"]), spmd.seq_length(tokens.shape[1])
     length = spmd.cache_length(cache["attn_k"], 2)
-    if idx + tokens.shape[1] > length:
-        raise ValueError(f"cache of {length} keys cannot take {tokens.shape[1]} more at "
-                         f"index {idx}")
+    if idx + n > length:
+        raise ValueError(f"cache of {length} keys cannot take {n} more at index {idx}")
     x = L.embed(params["embed"], tokens, cfg)
     for g in range(G):
         for a in range(A):
-            state = {} if prompt else {"ssd_state": cache["ssd"][g, a],
-                                       "conv_state": cache["conv"][g, a]}
+            state = {"carry": True} if prompt else {"ssd_state": cache["ssd"][g, a],
+                                                    "conv_state": cache["conv"][g, a]}
             x, (ssd, conv) = L.remat(False, _mamba_block, _mamba_layer(params, g, a), x,
                                      cfg, **state)
-            cache["ssd"][g, a] = ssd
-            cache["conv"][g, a] = conv
+            spmd.store(cache["ssd"][g, a], ssd, "ssm_heads", 1)
+            spmd.store(cache["conv"][g, a], conv, "ffn", 2)
         x, _ = L.remat(False, _shared_attn_apply, params["shared_attn"], x, cfg,
                        kv_cache=(cache["attn_k"][g], cache["attn_v"][g]), cache_index=idx)
     if prompt:
-        x = x[:, -1:]
-    return _head(params, x, cfg), dict(cache, index=idx + tokens.shape[1])
+        x = spmd.last_token(x)
+    return L.whole_vocab(_head(params, x, cfg)), dict(cache, index=idx + n)
 
 
 def cache_logical_axes() -> Dict[str, Tuple]:
@@ -175,7 +174,9 @@ def prefill(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
     :func:`decode_step` token by token, the reference's serving prefill
     (same states, KV contents and last logits).  The prompt's length must be
     a multiple of the scan's chunk (32) or at most 32, as the reference's
-    ``ssd_chunked`` requires."""
+    ``ssd_chunked`` requires; under a serving step that splits the prompt,
+    so must each rank's block of it, and every rank stores the whole
+    prompt's states."""
     if int(cache["index"]) != 0:
         raise ValueError(f"prefill fills an empty cache; this one holds "
                          f"{int(cache['index'])} tokens")

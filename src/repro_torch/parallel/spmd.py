@@ -38,9 +38,13 @@ process groups of :class:`~repro_torch.parallel.sharding.Mesh`.
   the cross-entropy reduces its log-sum-exp and label logit over it
   (:func:`vocab_xent_sum`).  Such a leaf's gradient is the rank's own
   block, summed over the batch axes only.  Activations outside those
-  layers (norms, residuals) stay whole on every rank, and families without
-  such layers (rwkv6, zamba2, the encoder-decoder) run with ``local=False``.
-  Without a local axis, activations are computed whole on every rank.
+  layers (norms, residuals) stay whole on every rank.  Every family has
+  such rules: attention (self and cross), the MLP, the embedding and the
+  head in ``models/layers.py``, rwkv6's time and channel mix
+  (``models/rwkv6.py``) and the Mamba2 block (``models/mamba2.py``, which
+  also keeps ``ssm_heads`` split; a leaf it uses whole, split by the plan,
+  comes in through :func:`gather_used`).  Without a local axis,
+  activations are computed whole on every rank.
 * **Sequence-split compute** (context parallelism, what GSPMD does under
   ``tp2d``, ``zero3_sp`` and ``sequence_parallel``: ``seq`` and ``kv_seq``
   claim ``model`` before the heads, ffn and vocabulary, which stay whole).
@@ -49,9 +53,14 @@ process groups of :class:`~repro_torch.parallel.sharding.Mesh`.
   :attr:`Step.seq_axis` (:func:`seq_axis_of`): each rank computes its block
   of the tokens (:func:`seq_range`).  Attention gathers K and V over the
   axis (:func:`gather_seq`, whose backward reduce-scatters) and runs K2
-  with the rank's query offset.  The ranks along the axis saw different
-  tokens, so a parameter's gradient is **summed over it** as over a batch
-  axis (:attr:`Step.reduce_axes`), and so are the loss and metrics.  Under
+  with the rank's query offset.  A recurrent layer (rwkv6's WKV scan,
+  Mamba2's SSD scan) starts its block from the state the earlier ranks'
+  blocks leave, folded from every rank's own final state
+  (:func:`carry_states`), and its token shifts and causal convolution read
+  the previous rank's last rows (:func:`seq_edges`).  The ranks along the
+  axis saw different tokens, so a parameter's gradient is **summed over
+  it** as over a batch axis (:attr:`Step.reduce_axes`), and so are the
+  loss and metrics.  Under
   ``tp2d`` the residual's ``embed`` is also split, over
   :attr:`Step.embed_axis`: :func:`for_use` leaves every leaf's ``embed``
   dim split over it (marked: :func:`embed_of`) and gathers the rest, and
@@ -388,12 +397,13 @@ def seq_length(n_local: int) -> int:
     return n_local if ax is None else n_local * current().mesh.shape[ax]
 
 
-class _GatherSeq(torch.autograd.Function):
-    """Forward: every rank's block along ``dim``, gathered over the
-    sequence axis in rank order, of which the first ``keep`` positions are
-    kept.  Backward: the gradient padded with zeros to the whole sequence,
-    summed over the axis and cut to this rank's block (a reduce-scatter):
-    a rank's keys get the gradient of every later rank's queries."""
+class _GatherSum(torch.autograd.Function):
+    """Forward: every rank's block along ``dim``, gathered over mesh
+    ``axis`` in rank order, of which the first ``keep`` positions are kept.
+    Backward: the gradient padded with zeros to the whole, summed over the
+    axis and cut to this rank's block (a reduce-scatter): every rank used
+    the whole, so each block's gradient is the sum of theirs (a rank's keys
+    get the gradient of every later rank's queries)."""
 
     @staticmethod
     def forward(ctx, x, axis, dim, keep):
@@ -422,7 +432,141 @@ def gather_seq(x: torch.Tensor, dim: int, keep: Optional[int] = None) -> torch.T
     if ax is None:
         return x if keep is None else x.narrow(dim, 0, keep)
     total = x.shape[dim] * current().mesh.shape[ax]
-    return _GatherSeq.apply(x, ax, dim, total if keep is None else keep)
+    return _GatherSum.apply(x, ax, dim, total if keep is None else keep)
+
+
+def gather_used(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """Every rank's block of ``x`` along ``dim`` over mesh ``axis``, in
+    order, for code every rank runs on the whole but whose gradient each
+    rank holds in part: the backward sums the gradient over the axis and
+    keeps this rank's block (a reduce-scatter).  ``x`` itself on one rank."""
+    if current().mesh.group((axis,)) is None:
+        return x
+    return _GatherSum.apply(x, axis, dim, x.shape[dim] * current().mesh.shape[axis])
+
+
+def seq_edges(x: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """For a (B, S, ...) activation the step splits along the sequence: the
+    last ``n`` positions (dim 1) of the previous rank's block, the halo a
+    token shift or a causal convolution reads across the block boundary
+    (zeros on the first rank), and the last ``n`` of the whole sequence
+    (the last rank's, on every rank: what a prompt pass leaves in a
+    recurrent cache).  One gather of every rank's last ``n`` rows;
+    differentiable: a row's gradient goes back to the rank that sent it, and
+    every rank, the first too, takes part in the backward."""
+    ax = seq_axis()
+    zeros = x.new_zeros((x.shape[0], n) + tuple(x.shape[2:]))
+    if x.shape[1] < n:
+        raise ValueError(f"a block of {x.shape[1]} positions cannot hand on the last {n}")
+    tails = gather_seq(x[:, x.shape[1] - n:], 1)          # (B, R n, ...)
+    padded = torch.cat([zeros, tails], dim=1)
+    return padded.narrow(1, axis_index(ax) * n, n), tails[:, tails.shape[1] - n:]
+
+
+def _gather_dim(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` along mesh ``axis`` concatenated along ``dim`` in
+    rank order (``mesh`` given: a backward runs outside the step's context)."""
+    shape = list(x.shape)
+    shape[dim] *= mesh.shape[axis]
+    return gather_blocks(x, mesh, P(*([None] * dim + [axis])), shape, (axis,))
+
+
+class _ScatterSum(torch.autograd.Function):
+    """Forward: the sum over ``axis`` of which this rank keeps its block
+    along ``dim`` (a reduce-scatter).  Backward: the blocks' gradients
+    gathered (every rank's part fed every block)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = current().mesh, axis, dim
+        return reduce_scatter(x, ctx.mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_dim(grad.contiguous(), ctx.mesh, ctx.axis, ctx.dim), None, None
+
+
+class _GatherOwn(torch.autograd.Function):
+    """Forward: every rank's block along ``dim`` gathered over ``axis``, for
+    code every rank runs alike on the whole.  Backward: this rank's block of
+    the (alike) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.n = current().mesh, axis, dim, x.shape[dim]
+        return _gather_dim(x, ctx.mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        at = ctx.mesh.coords()[ctx.axis] * ctx.n
+        return grad.narrow(ctx.dim, at, ctx.n).contiguous(), None, None
+
+
+def scatter_sum(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum over mesh ``axis`` of the
+    ranks' partial results ``x`` (a reduce-scatter, differentiable); ``x``
+    itself on one rank."""
+    if current().mesh.group((axis,)) is None:
+        return x
+    return _ScatterSum.apply(x, axis, dim)
+
+
+def gather_alike(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """Every rank's block ``x`` along ``dim`` over mesh ``axis``, in order,
+    for code every rank then runs alike (differentiable: each block gets its
+    own part of the gradient back); ``x`` itself on one rank."""
+    if current().mesh.group((axis,)) is None:
+        return x
+    return _GatherOwn.apply(x, axis, dim)
+
+
+def unsplit(params: dict, dims: dict) -> dict:
+    """``params`` with every leaf named in ``dims`` that the step left split
+    for local compute (:func:`local_of`) gathered along its dim ``dims[name]``
+    (:func:`gather_alike`): for a layer whose local rule does not fit this
+    split (a block of columns that cuts a head), which then runs whole on
+    every rank."""
+    return {n: gather_alike(t, local_of(t), dims[n]) if n in dims and local_of(t) else t
+            for n, t in params.items()}
+
+
+def store(slot: torch.Tensor, value: torch.Tensor, logical: str, dim: int) -> None:
+    """Write a recurrent state into its serving-cache slot (a view of a
+    cache leaf: all of it, or this rank's block under the serving plan):
+    ``value`` holds all of the ``logical`` dim (``dim`` of the slot), or
+    this rank's block of it over the step's :attr:`Step.local_axis` (then
+    gathered where the slot holds more).  Outside a step: a copy."""
+    step = current()
+    split = cache_split(slot) if step is not None else None
+    whole = slot.shape[dim] if split is None else split.shape[split.axes.index(logical)]
+    if value.shape[dim] not in (whole, slot.shape[dim]):
+        value = gather_over(value, step.local_axis, dim)
+    if value.shape[dim] != slot.shape[dim]:
+        off, n = split.block(logical)
+        value = value.narrow(dim, off, n)
+    slot.copy_(value)
+
+
+def carry_states(state: torch.Tensor, log_decay: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrent state entering this rank's token block, and the state
+    after the last rank's, for a linear recurrence ``h_t = a_t h_{t-1} +
+    x_t`` whose sequence the step splits: ``state`` is this rank's block
+    scanned from zero (its own final state) and ``log_decay`` the block's
+    summed log-decay, broadcastable against it.  Both are gathered over the
+    sequence axis (differentiable: the backward reduce-scatters) and folded
+    in rank order in float32, ``H(r + 1) = exp(L_r) H(r) + S_r`` from
+    ``H(0) = 0``, the same on every rank."""
+    s, ld = state.float(), log_decay.float()
+    ss = gather_seq(s[None], 0)                          # (R, ...) in rank order
+    lds = gather_seq(ld[None], 0)
+    h = [torch.zeros_like(s)]
+    for j in range(ss.shape[0]):
+        h.append(torch.exp(lds[j]) * h[-1] + ss[j])
+    # every rank's graph holds every gathered block (the first rank's too),
+    # so the backward's reduce-scatter runs on all of them
+    hs = torch.stack(h)
+    return hs[axis_index(seq_axis())], hs[-1]
 
 
 def last_token(x: torch.Tensor) -> torch.Tensor:
@@ -449,7 +593,7 @@ def embed_of(t: torch.Tensor) -> Optional[str]:
 
 # ------------------------------------------------ head-, ffn-, vocab-local compute
 # the logical axes a layer with a local rule computes in parts
-LOCAL_AXES = ("q_heads", "kv_heads", "ffn", "vocab")
+LOCAL_AXES = ("q_heads", "kv_heads", "ffn", "vocab", "ssm_heads")
 _LOCAL = "_spmd_local_axis"
 
 

@@ -25,17 +25,18 @@ cache (``parallel/spmd.py``):
   updated in place (the donation); its ``index`` is one Python int on
   every rank;
 * a call with more than one token a row is the multi-token prefill pass
-  (``api.prefill``, into an empty cache; the last token's logits): for
-  the families with local rules (``ModelAPI.local_compute``) each rank
-  computes its heads, ffn columns and vocabulary block under a plan with a
-  local axis (``spmd.Step(local=True)``), writing its kv heads into a
-  cache split over ``kv_heads`` on that axis (or every kv head into a
-  whole one); for the families with sequence-split rules
+  (``api.prefill``, into an empty cache; the last token's logits): each
+  rank computes its heads, ffn columns and vocabulary block under a plan
+  with a local axis (``spmd.Step(local=True)``), writing its kv heads (and
+  recurrent states' heads) into a cache split over them on that axis (or
+  every head into a whole one); for the families with sequence-split rules
   (``ModelAPI.sequence_split``) under a plan that splits the sequence
   (``sequence_parallel``, ``tp2d``) each rank computes its block of the
   prompt's tokens (K2 with the rank's query offset over the keys gathered
-  along the sequence), and the last token's logits come from the rank that
-  holds it;
+  along the sequence; rwkv6's and Mamba2's scans from the state the
+  earlier blocks leave), every rank stores the whole prompt's recurrent
+  states and last rows, and the last token's logits come from the rank
+  that holds it;
 * a prompt pass writes into the rank's block of a cache split over
   ``kv_seq`` (and ``kv_heads``) the positions it covers, from the prompt's
   keys and values, whole or gathered (``models/layers.py``), and the

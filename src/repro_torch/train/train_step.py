@@ -27,8 +27,10 @@ vocabulary locally; its gradient summed over the batch axes and sliced to
 the rank's shard; the global clip norm; the optimizer on the shards: AdamW elementwise,
 Adafactor's means and int8's scales over whole leaves).  Under a plan that
 splits the sequence (``tp2d``, ``zero3_sp``, ``sequence_parallel``) a
-family with sequence-split rules (``ModelAPI.sequence_split``) keeps each
-rank's block of the tokens and labels and computes only those; the
+family with sequence-split rules (``ModelAPI.sequence_split``; under
+``tp2d``, which splits ``embed`` too, only one with embed-split rules,
+``ModelAPI.embed_split``) keeps each rank's block of the tokens and labels
+and computes only those; the
 gradients and the loss are then summed over the sequence axis too.  On a
 mesh of one rank it is the unsharded step's arithmetic.
 """
@@ -282,8 +284,13 @@ def seq_split_axis(api: ModelAPI, plan: ShardingPlan, mesh: Mesh, seq_len: int
                    ) -> Optional[str]:
     """The mesh axis a step of ``api``'s family splits a sequence of
     ``seq_len`` tokens over under ``plan`` (``spmd.seq_axis_of``), None
-    where the family has no sequence-split rules or the plan splits none."""
-    return spmd.seq_axis_of(plan, mesh, seq_len) if api.sequence_split else None
+    where the family has no sequence-split rules, the plan splits none, or
+    the plan also splits the residual's ``embed`` (``tp2d``) and the family
+    has no rules for that (``ModelAPI.embed_split``)."""
+    ax = spmd.seq_axis_of(plan, mesh, seq_len) if api.sequence_split else None
+    if ax is not None and not api.embed_split and spmd.embed_axis_of(plan, mesh, ax):
+        return None
+    return ax
 
 
 def local_batch(batch: Dict[str, torch.Tensor], batch_specs: Optional[Dict[str, Any]],

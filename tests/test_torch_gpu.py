@@ -609,6 +609,74 @@ def test_wkv6_bwd_kernel_reads_unaligned_operands(cuda, dtype):
     _within_share_of_largest(got, aligned, 2e-3 if dtype == torch.float32 else 2e-2)
 
 
+def _wkv_state(BH, d, device, seed=7):
+    """An initial state of the size a scan leaves (a plain scan of another
+    block), and a final-state gradient ~ N(0, 1), both float32."""
+    from repro_torch.kernels import rwkv6 as K
+    _, state0 = K.wkv6_plain(*_wkv_inputs(BH, 64, d, torch.float32, device), chunk=16)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return state0, torch.randn(BH, d, d, generator=gen, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(160, 512, 64, 16), (6, 96, 32, 32), (4, 37, 16, 1),
+                                  (5, 96, 64, 8)])
+def test_wkv6_kernels_from_an_initial_state(cuda, case, dtype):
+    """K5 from a nonzero ``state0`` and K5-bwd with nonzero ``state0`` and
+    final-state gradient ``dstate`` against their plain versions: o at 2e-3
+    (float32) / 2e-2 (bf16), the final state at 2e-3 of its largest entry;
+    each gradient, the initial state's too, within 2e-3 / 2e-2 of its
+    largest entry, the same bits on a second call.  A scan in two blocks,
+    the second from the first's final state, equals the scan of the whole
+    at the same tolerance."""
+    from repro_torch.kernels import rwkv6 as K, rwkv6_bwd as KB
+    BH, T, d, chunk = case
+    xs = _wkv_bwd_inputs(BH, T, d, dtype, cuda)
+    state0, dstate = _wkv_state(BH, d, cuda)
+    o, state = K.wkv6(*xs[:5], chunk=chunk, state0=state0)
+    want_o, want_state = K.wkv6_plain(*xs[:5], chunk=chunk, state0=state0)
+    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(state, want_state, rtol=2e-3,
+                               atol=2e-3 * want_state.abs().max().item())
+    got = KB.wkv6_bwd(*xs, chunk=chunk, state0=state0, dstate=dstate)
+    again = KB.wkv6_bwd(*xs, chunk=chunk, state0=state0, dstate=dstate)
+    want = KB.wkv6_bwd_plain(*xs, chunk=chunk, state0=state0, dstate=dstate)
+    torch.cuda.synchronize()
+    assert len(got) == 6 and got[5].dtype == torch.float32
+    _within_share_of_largest(got[:5], want[:5], tol)
+    scale = want[5].abs().max().item()
+    torch.testing.assert_close(got[5], want[5], rtol=tol, atol=tol * scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if T % 2 == 0 and (T // 2) % chunk == 0:
+        h = T // 2
+        o1, s1 = K.wkv6(*(x[:, :h].contiguous() for x in xs[:4]), xs[4], chunk=chunk)
+        o2, s2 = K.wkv6(*(x[:, h:].contiguous() for x in xs[:4]), xs[4], chunk=chunk,
+                        state0=s1)
+        whole, ws = K.wkv6(*xs[:5], chunk=chunk)
+        torch.testing.assert_close(torch.cat([o1, o2], 1).float(), whole.float(), rtol=tol,
+                                   atol=tol)
+        torch.testing.assert_close(s2, ws, rtol=2e-3, atol=2e-3 * ws.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernels_with_a_zero_state_equal_no_state(cuda, dtype):
+    """A zero ``state0`` and a zero ``dstate`` run the added loads and the
+    added dlog_w term on zeros: K5's output and state and K5-bwd's five
+    gradients equal the calls without them, bit for bit, and the initial
+    state's gradient is finite."""
+    from repro_torch.kernels import rwkv6 as K, rwkv6_bwd as KB
+    xs = _wkv_bwd_inputs(8, 128, 64, dtype, cuda)
+    zero = torch.zeros(8, 64, 64, device=cuda)
+    assert all(torch.equal(a, b) for a, b in zip(K.wkv6(*xs[:5], chunk=16),
+                                                  K.wkv6(*xs[:5], chunk=16, state0=zero)))
+    got = KB.wkv6_bwd(*xs, chunk=16, state0=zero, dstate=zero)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got[:5], KB.wkv6_bwd(*xs, chunk=16)))
+    assert torch.isfinite(got[5]).all()
+
+
 def test_wkv6_bwd_training_grid_is_resident_on_the_card(cuda):
     """The card holds every cluster of the training shape's launch at once
     (cudaOccupancyMaxActiveClusters: 160 rows of 4 blocks at d 64, chunk
@@ -646,7 +714,7 @@ def test_ops_wkv6_gradient_on_the_card_matches_the_cpu(cuda, dtype):
     def grads(device):
         leaves = [x.detach().to(device).requires_grad_() for x in xs[:5]]
         o, state = ops.wkv6(*leaves, chunk=16)
-        assert not state.requires_grad
+        assert state.requires_grad
         return torch.autograd.grad(o, leaves, xs[5].to(device))
 
     kernels.reset_launch_counts()

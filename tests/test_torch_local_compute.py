@@ -106,7 +106,7 @@ def test_local_axis_follows_the_plan():
                               ("data",)) is None
     assert [build_model(get_config(a).reduced()).local_compute
             for a in ("gemma-7b", "qwen3-moe-30b-a3b", "internvl2-1b", "rwkv6-3b",
-                      "zamba2-1.2b", "seamless-m4t-medium")] == [True] * 3 + [False] * 3
+                      "zamba2-1.2b", "seamless-m4t-medium")] == [True] * 6
 
 
 @pytest.mark.parametrize("case", [

@@ -226,14 +226,22 @@ def test_ops_wkv6_gradient_in_bfloat16():
 
 
 def test_ops_wkv6_final_state_does_not_require_a_gradient():
-    """The reference's loss never reads the final state, so the Function
-    marks it non-differentiable: no caller can take it for one."""
+    """A loss that does not read the final state (the reference's) hands
+    K5-bwd no final-state gradient: the gradients equal ``wkv6_bwd`` called
+    without one, bit for bit.  The final state itself is differentiable (a
+    sequence split over ranks carries it into the next block's scan), and
+    its gradient reaches the operands."""
     xs = _t(_inputs(np.random.default_rng(1), 2, 32, 16))
     leaves = [x.clone().requires_grad_() for x in xs[:5]]
     with torch.enable_grad():
         o, state = ops.wkv6(*leaves, chunk=16)
-    assert o.requires_grad and not state.requires_grad and state.grad_fn is None
+    assert o.requires_grad and state.requires_grad and state.grad_fn is o.grad_fn
     assert state.shape == (2, 16, 16) and state.dtype == torch.float32
+    got = torch.autograd.grad(o, leaves, xs[5], retain_graph=True)
+    want = KB.wkv6_bwd(*(x.detach() for x in leaves), xs[5], chunk=16)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    via_state = torch.autograd.grad(state.sum(), leaves)
+    assert all(torch.isfinite(g).all() for g in via_state) and via_state[3].abs().max() > 0
 
 
 def test_ops_wkv6_under_no_grad_records_nothing_and_scans_once(monkeypatch):

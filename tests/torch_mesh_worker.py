@@ -18,6 +18,8 @@ NCCL refuses two ranks on one card) and runs the job's cases:
 * a case with ``"local_compute": false`` runs the whole-activation path
   (``ModelAPI.local_compute`` and ``ModelAPI.sequence_split`` false while
   it runs); a case's ``"reduced"`` overrides the reduced config's sizes;
+  ``"columns": "contiguous"`` makes Mamba2's head-local path read the
+  rank's contiguous block of ``in_proj`` (a wrong rule a test must catch);
 * ``local``: each case's training steps as ``train`` does, with the
   collectives counted (``spmd.counting_collectives``: bytes by kind and
   mesh axis), then one multi-token prefill pass of the case's prompt (and its
@@ -124,6 +126,33 @@ def model(arch: str, kernels=None, **reduced):
     from dataclasses import replace
     cfg = replace(get_config(arch).reduced(**reduced), compute_dtype="float32")
     return build_model(replace(cfg, kernels=kernels) if kernels else cfg)
+
+
+@contextlib.contextmanager
+def mamba_columns(case):
+    """With ``"columns": "contiguous"`` in the case: Mamba2's head-local
+    path reads the rank's contiguous block of ``in_proj``'s columns (and of
+    the conv's channels), as many as its heads need, in place of its heads'
+    own (a wrong rule that a test must catch)."""
+    if case.get("columns") != "contiguous":
+        yield
+        return
+    from repro_torch.models import mamba2
+    right = mamba2.mamba2_head_columns
+
+    def contiguous(cfg, h0, hn):
+        cols, ch = right(cfg, h0, hn)
+        d_inner, H, dh, ds = mamba2.dims(cfg)
+        ranks = H // hn
+        n, c = 2 * d_inner + 2 * ds + H, d_inner + 2 * ds
+        return ((h0 // hn * (n // ranks) + torch.arange(len(cols))) % n,
+                (h0 // hn * (c // ranks) + torch.arange(len(ch))) % c)
+
+    mamba2.mamba2_head_columns = contiguous
+    try:
+        yield
+    finally:
+        mamba2.mamba2_head_columns = right
 
 
 @contextlib.contextmanager
@@ -302,7 +331,7 @@ def main():
                            os.path.join(out, f"{case['name']}.rank{rank}.pt"))
         elif job["mode"] == "local":
             for case in job["cases"]:
-                with whole_path(case):
+                with whole_path(case), mamba_columns(case):
                     res = run_local_case(job, case, mesh)
                 torch.save(res, os.path.join(out, f"{case['name']}.rank{rank}.pt"))
         elif job["mode"] == "serve":

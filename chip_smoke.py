@@ -169,7 +169,10 @@ these phases, each printing one JSON line; any failure raises:
             36 x 33 launches a rank and the one-launch K3 none, the first
             step's partials and combines within their per-call bound of
             their plain versions; ms per token, peak memory per rank, the
-            ranking line;
+            ranking line; ``rwkv``, ``hybrid``, ``vlm``, ``encdec``,
+            ``gemma``, ``seq_parallel`` and ``recurrent_parallel`` run
+            while its ranks run (they wait on ``gloo`` more than on the
+            card);
    seq_parallel the plans that split the sequence on two ``gloo`` ranks
             (``chip_smoke.py --seq-parallel-rank``): ``qwen2.5-3b`` at full
             width and depth under sequence_parallel, the 4 x 512 prompt
@@ -204,6 +207,26 @@ these phases, each printing one JSON line; any failure raises:
             bound (2e-2 of
             each output's largest entry, 2^-10 relative RMS) with a 5-bit
             control rejected;
+   family_seq_parallel every family split over the sequence on ``gloo``
+            ranks (``chip_smoke.py --family-seq-rank``): on a 1x2 mesh
+            ``internvl2-1b`` (its 256 stub patches ahead of the prompt in
+            one split sequence) and ``seamless-m4t-medium`` (its 1024 stub
+            frames and the prompt each split) at full width and depth and
+            ``qwen3-moe-30b-a3b`` at full width and 2 layers (routing
+            replayed from the unsharded kernel run; the global capacity
+            from the ranks' exchanged pair counts), the 4 x 512 prompt
+            through ``jit_serve_step`` under sequence_parallel, held by the
+            served phases' rule against the float32 prefill, the MoE's
+            pairs routed to and kept by every expert over the ranks equal
+            to the unsharded pass's; then float32 steps: 4 layers of
+            internvl2-1b, 2 of the MoE (zero3_sp: the expert-parallel
+            branch over the gathered sequence; sequence_parallel: the
+            count exchange) and 2 + 2 of seamless under zero3_sp, and on a
+            2x2 mesh 4 layers of rwkv6-3b and zamba2-1.2b under tp2d (the
+            embed dim over ``data``), losses within 1e-3 relative of the
+            one-rank steps' and first gradient norms within 2e-2; exact
+            launches; every K2, K2-bwd, K4, K4-bwd, K5 and K5-bwd call held
+            against its plain version, 5-bit controls rejected;
 16. dryrun  ``python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape
             {train_4k,prefill_32k,decode_32k} --mesh single`` and
             ``--shape train_4k --plan tp2d --microbatches 8``, four
@@ -216,9 +239,11 @@ these phases, each printing one JSON line; any failure raises:
             on ``model`` must be 0 under megatron_tp: no head, ffn or
             vocabulary leaf is gathered; under tp2d nothing is gathered on
             ``data`` and the partial products are summed there); a failed
-            cell fails the phase.  llama3-405b's tp2d cells take longer than
-            this script may (its prefill_32k 408 s):
-            run them with the same command on their own.
+            cell fails the phase; the three qwen2.5-3b cells of the
+            planner's choice run while ``resilient`` runs, the tp2d cell
+            last.  llama3-405b's tp2d cells
+            take longer than this script may (its prefill_32k 408 s): run
+            them with the same command on their own.
 
 The kernels phase also holds the backward kernels against their plain
 versions: K2-bwd (dq, dk, dv; the forward kernel's log-sum-exp too; bf16 on
@@ -2897,45 +2922,90 @@ def phase_mesh_train(device, train_losses, moe_loss, moe_bwd_per_step):
     return total
 
 
-def run_ranks(flag: str, name: str, job: dict, timeout: int) -> tuple:
-    """``chip_smoke.py FLAG JOB R`` for R in 0 and 1, two ``gloo`` ranks on
-    the one card (NCCL refuses two ranks on one device), with ``job`` and a
-    ``file://`` store under ``build/``; each writes ``JOB.rank<R>.json``.
-    Returns the two results with the wall seconds; raises with a rank's
-    error and output tail when one failed."""
+def start_ranks(flag: str, name: str, job: dict, world: int = 2) -> dict:
+    """Start ``chip_smoke.py FLAG JOB R`` for each R of ``world`` ``gloo``
+    ranks on the one card (NCCL refuses two ranks on one device), with
+    ``job`` and a ``file://`` store under ``build/``; each writes
+    ``JOB.rank<R>.json`` and its output to ``JOB.rank<R>.log``.  Returns
+    what :func:`finish_ranks` waits on: the caller may work meanwhile."""
     build = os.path.join(ROOT, "build")
     os.makedirs(build, exist_ok=True)
     job_path = os.path.join(build, f"{name}-{os.getpid()}.json")
     store = os.path.join(build, f"{name}-store-{os.getpid()}")
-    for f in [store] + [f"{job_path}.rank{r}.json" for r in range(2)]:
+    for f in [store] + [f"{job_path}.rank{r}.json" for r in range(world)]:
         if os.path.exists(f):
             os.remove(f)
     with open(job_path, "w") as f:
         json.dump(dict(job, store=store), f)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
+    logs = [open(f"{job_path}.rank{r}.log", "w") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, job_path,
-                               str(r)], env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+                               str(r)], env=env, stdout=logs[r], stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    return {"name": name, "job_path": job_path, "procs": procs, "logs": logs,
+            "t0": time.perf_counter()}
+
+
+def finish_ranks(started: dict, timeout: int, meanwhile=None) -> tuple:
+    """Run ``meanwhile`` (a callable, if given) here while the ranks
+    :func:`start_ranks` started run, then wait for them (killing them after
+    ``timeout`` seconds from their start, or at once if ``meanwhile``
+    raises).  Returns the results with the wall seconds; raises with a
+    rank's error and output tail when one failed."""
+    procs, job_path = started["procs"], started["job_path"]
     try:
-        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+        if meanwhile is not None:
+            meanwhile()
+        for p in procs:
+            p.wait(timeout=max(1.0, timeout - (time.perf_counter() - started["t0"])))
+    except subprocess.TimeoutExpired:
+        pass
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    wall_s = time.perf_counter() - t0
+        for f in started["logs"]:
+            f.close()
+    wall_s = time.perf_counter() - started["t0"]
     results, failed = [], []
-    for r, (p, log) in enumerate(zip(procs, logs)):
+    for r, p in enumerate(procs):
         path = f"{job_path}.rank{r}.json"
         res = json.load(open(path)) if os.path.exists(path) else {"ok": False}
         if p.returncode != 0 or not res.get("ok"):
+            log = open(f"{job_path}.rank{r}.log").read()
             failed.append(f"rank {r} (exit {p.returncode}): {res.get('error', '')}\n"
                           f"{log[-2000:]}")
         results.append(res)
     if failed:
-        raise AssertionError(f"{name} failed on " + "\n".join(failed))
+        raise AssertionError(f"{started['name']} failed on " + "\n".join(failed))
     return results, wall_s
+
+
+def beside(main_fn, side_fn) -> tuple:
+    """Run ``side_fn`` on a thread while ``main_fn`` runs here; both
+    results, once both have ended (the side's error raised then)."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = side_fn()
+        except BaseException as err:  # noqa: BLE001 - raised below
+            box["err"] = err
+    thread = threading.Thread(target=run)
+    thread.start()
+    try:
+        result = main_fn()
+    finally:
+        thread.join()
+    if "err" in box:
+        raise box["err"]
+    return result, box["out"]
+
+
+def run_ranks(flag: str, name: str, job: dict, timeout: int, world: int = 2) -> tuple:
+    """:func:`start_ranks`, then :func:`finish_ranks`."""
+    return finish_ranks(start_ranks(flag, name, job, world), timeout)
 
 
 MESH_SERVE_BUFFER, MESH_SERVE_EMPTY_BUFFER = 1024, 2048
@@ -3094,7 +3164,7 @@ def _per_call_row(got: torch.Tensor, want: torch.Tensor) -> tuple:
             bool(torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2)))
 
 
-def phase_mesh_serve(device, served: dict) -> dict:
+def phase_mesh_serve(device, served: dict, meanwhile=None) -> dict:
     """The plan-sharded serve step on two ``gloo`` ranks of the one card (a
     1x2 mesh; NCCL refuses two ranks on one device): qwen2.5-3b at full
     width and depth under kv_sequence_split (the
@@ -3108,7 +3178,8 @@ def phase_mesh_serve(device, served: dict) -> dict:
     and K3' launched 36 x 33 = 1,188 times and the one-launch K3 never; the
     zero-valid-key step passes; the first decode step's per-call checks
     pass.  Reports prefill ms, decode ms per token, peak memory per rank and
-    the ranking line."""
+    the ranking line.  ``meanwhile`` (a callable) runs here while the ranks
+    run: they wait on ``gloo`` more than on the card."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import lower_torch
     from repro_torch.launch import common
@@ -3125,8 +3196,9 @@ def phase_mesh_serve(device, served: dict) -> dict:
     ids_path = os.path.join(ROOT, "build", f"mesh-serve-{os.getpid()}.ids.pt")
     os.makedirs(os.path.dirname(ids_path), exist_ok=True)
     torch.save(served["ids"].cpu(), ids_path)
-    results, wall_s = run_ranks("--mesh-serve-rank", "mesh-serve", {"ids": ids_path},
-                                MESH_SERVE_TIMEOUT_S)
+    results, wall_s = finish_ranks(
+        start_ranks("--mesh-serve-rank", "mesh-serve", {"ids": ids_path}),
+        MESH_SERVE_TIMEOUT_S, meanwhile)
     steps = served["ids"].shape[1] + 1
     summary = []
     for res in results:
@@ -3168,6 +3240,7 @@ def phase_mesh_serve(device, served: dict) -> dict:
     emit({"phase": "mesh_serve", "arch": cfg.name, "n_layers": L, "batch": BATCH,
           "prompt_len": PROMPT, "buffers": [MESH_SERVE_BUFFER, MESH_SERVE_EMPTY_BUFFER],
           "mesh": [1, 2], "ranks": summary, "wall_s": wall_s,
+          "overlapped_with": getattr(meanwhile, "phases", None),
           "serve_decode_ms_per_token": served["decode_ms_per_token"],
           "ranking_line": ranking_line,
           "check": "prefill through the step: logits and the rank's cache block within "
@@ -3745,6 +3818,491 @@ def phase_recurrent_parallel(device) -> dict:
     return total
 
 
+# family_seq_parallel: the prefills (arch, layers or None for full depth) under
+# sequence_parallel on a 1x2 mesh, and the float32 training cases (mesh, arch,
+# plan) of FAMILY_TRAIN_STEPS steps, each model cut to FAMILY_TRAIN_LAYERS
+FAMILY_PREFILLS = ((VLM_ARCH, None), (ENCDEC_ARCH, None), (MOE_ARCH, MOE_TRAIN_LAYERS))
+FAMILY_TRAIN = (((1, 2), VLM_ARCH, "zero3_sp"), ((1, 2), MOE_ARCH, "zero3_sp"),
+                ((1, 2), MOE_ARCH, "sequence_parallel"), ((1, 2), ENCDEC_ARCH, "zero3_sp"),
+                ((2, 2), RWKV_ARCH, "tp2d"), ((2, 2), HYBRID_ARCH, "tp2d"))
+FAMILY_TRAIN_LAYERS = {VLM_ARCH: {"n_layers": 4}, MOE_ARCH: {"n_layers": MOE_TRAIN_LAYERS},
+                       ENCDEC_ARCH: {"n_layers": 2, "n_encoder_layers": 2},
+                       RWKV_ARCH: {"n_layers": 4}, HYBRID_ARCH: {"n_layers": 4}}
+FAMILY_TRAIN_STEPS = 2
+FAMILY_TIMEOUT_S = 600
+
+
+def family_plan(name: str):
+    """The fixed plan ``name``, or the planner's derived zero3_sp or tp2d."""
+    from repro_torch.parallel import planner_bridge as PB
+    return PB._tp2d() if name == "tp2d" else recurrent_plan(name)
+
+
+def family_train_setup(device, arch):
+    """``arch`` at full width and the depth of FAMILY_TRAIN_LAYERS (kernel
+    path, remat) computing in float32, its seed-0 train state, AdamW at
+    1e-4 (the MoE: Adafactor, whose factored moments leave two ranks'
+    whole float32 weights and gradients room on the one card, where
+    AdamW's two moments of 1.9 B parameters would not) and the batches
+    (with the stub frontend inputs)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.launch import common, train as TL
+    from repro_torch.models import build_model
+    from repro_torch.train import train_step as TS
+    cfg = replace(common.launch_config(arch), compute_dtype="float32",
+                  **FAMILY_TRAIN_LAYERS[arch])
+    api = build_model(cfg)
+    tcfg = TrainConfig(learning_rate=1e-4, total_steps=FAMILY_TRAIN_STEPS, warmup_steps=1,
+                       optimizer="adafactor" if arch == MOE_ARCH else "adamw")
+    state = TS.init_state(api, tcfg, device=device)
+    source = make_source(DataConfig(vocab_size=cfg.vocab_size), cfg)
+    batches = [TL.to_device(source.batch_at(i, BATCH, PROMPT), device)
+               for i in range(FAMILY_TRAIN_STEPS)]
+    return api, tcfg, state, batches
+
+
+def one_output_per_call(stats: list, kernel, plain):
+    """A forward wrapper of one output held against its plain version on
+    the same inputs, computed without autograd (:func:`bwd_per_call`'s rows:
+    within 2e-2 of the output's largest entry, the relative RMS, a 5-bit
+    control)."""
+    def plain_nograd(*a, **k):
+        with torch.no_grad():
+            return (plain(*a, **k),)
+    check = bwd_per_call(stats, lambda *a, **k: (kernel(*a, **k),), plain_nograd,
+                         of_largest=True)
+    return lambda *a, **k: check(*a, **k)[0]
+
+
+@contextlib.contextmanager
+def checked_kernels(stats: dict):
+    """Every K2, K2-bwd, K4, K4-bwd, K5 and K5-bwd call held against its
+    plain version on the same inputs (rows in ``stats`` by kernel): K2 and
+    K4 through their ``ops`` wrappers, K4-bwd inside
+    ``ops._GroupedMatmul.backward`` (dX and dW against the plain grouped
+    products), K5 by :func:`checked_wkv6`."""
+    from repro_torch.kernels import (flash_attention as FA, flash_attention_bwd as FAB,
+                                     moe_gmm, ops, rwkv6 as K, rwkv6_bwd as KB)
+    real_bwd = ops._GroupedMatmul.backward
+
+    def plain_bwd(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype)
+        with torch.no_grad():
+            return (moe_gmm.grouped_matmul_plain(dy, w.transpose(1, 2), out_dtype=x.dtype),
+                    moe_gmm.grouped_matmul_plain(x.transpose(1, 2), dy, out_dtype=w.dtype))
+
+    class Saved:
+        """The backward's context with its saved tensors unpacked once (a
+        checkpointed forward's may be unpacked only once)."""
+
+        def __init__(self, ctx):
+            self._ctx, self.saved_tensors = ctx, ctx.saved_tensors
+
+        def __getattr__(self, name):
+            return getattr(self._ctx, name)
+
+    check = bwd_per_call(stats["grouped_matmul_bwd"], lambda ctx, dy: real_bwd(ctx, dy)[:2],
+                         plain_bwd, of_largest=True)
+
+    def gmm_bwd(ctx, dy):
+        return check(Saved(ctx), dy)
+    with contextlib.ExitStack() as ctx:
+        ctx.enter_context(patched(ops, "attention", one_output_per_call(
+            stats["flash_attention"], ops.attention, FA.flash_attention_plain)))
+        ctx.enter_context(patched(ops, "grouped_matmul", one_output_per_call(
+            stats["grouped_matmul"], ops.grouped_matmul, moe_gmm.grouped_matmul_plain)))
+        ctx.enter_context(patched(FAB, "flash_attention_bwd", bwd_per_call(
+            stats["flash_attention_bwd"], FAB.flash_attention_bwd,
+            FAB.flash_attention_bwd_plain)))
+        ctx.enter_context(patched(KB, "wkv6_bwd", bwd_per_call(
+            stats["wkv6_bwd"], KB.wkv6_bwd, KB.wkv6_bwd_plain, of_largest=True)))
+        ctx.enter_context(patched(K, "wkv6", checked_wkv6(stats["wkv6"])))
+        saved = ops._GroupedMatmul.__dict__["backward"]
+        ops._GroupedMatmul.backward = staticmethod(lambda c, dy: (*gmm_bwd(c, dy), None, None))
+        try:
+            yield
+        finally:
+            ops._GroupedMatmul.backward = saved
+
+
+def summarize_checked(stats: dict) -> dict:
+    """Each kernel's per-call rows: K5's by :func:`summarize_wkv6`, K5-bwd's
+    with 2^-10, the others with :data:`ATTN_REL_RMS`."""
+    out = {}
+    for name, rows in stats.items():
+        if not rows:
+            continue
+        if name == "wkv6":
+            out[name] = summarize_wkv6(rows)
+        else:
+            out[name] = summarize_per_call(rows, WKV_BWD_REL_RMS if name == "wkv6_bwd"
+                                           else ATTN_REL_RMS)
+    return out
+
+
+def new_stats() -> dict:
+    return {k: [] for k in ("flash_attention", "flash_attention_bwd", "grouped_matmul",
+                            "grouped_matmul_bwd", "wkv6", "wkv6_bwd")}
+
+
+def block_router(recorded, rows: int, block: tuple):
+    """``moe._router`` replaying another run's expert choices (in call
+    order) on this rank's block ``(o, n)`` of each row's tokens: the
+    recorded (rows x S, k) choices cut to the block."""
+    o, n = block
+    cut = [idx.view(rows, -1, idx.shape[-1])[:, o:o + n].reshape(-1, idx.shape[-1])
+           for idx in recorded]
+    return replaying_router(cut)
+
+
+def family_prefill(arch, layers, mesh, device) -> dict:
+    """``arch`` (random bf16 weights from seed 0, at ``layers`` layers or its
+    full depth) prefilled unsharded through the kernels, then on the plain
+    path in bf16 and in float32 (the MoE's with the kernel run's routing
+    replayed), then through ``jit_serve_step`` under sequence_parallel into
+    an empty cache (the MoE's routing replayed on the rank's block), every
+    kernel call held against its plain version, the launches counted from
+    0; the MoE's pairs routed to and kept by each expert."""
+    from repro_torch import kernels
+    from repro_torch.launch import common, serve
+    from repro_torch.models import build_model, moe
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import serve_step as SS
+    cfg = common.launch_config(arch)
+    if layers:
+        cfg = replace(cfg, n_layers=layers)
+    api = build_model(cfg)
+    params = serve.load_params(api, device, seed=0)
+    prompts = serve.make_prompts(cfg, BATCH, PROMPT, device)
+    inputs = api.frontend_inputs(BATCH, torch.Generator(device=device).manual_seed(0), device)
+    length = api.prefix_len() + PROMPT + NEW_TOKENS
+    cache = api.init_cache(cfg, BATCH, length, device=device)
+    plain = build_model(replace(cfg, kernels="plain"))
+    f32 = build_model(replace(cfg, kernels="plain", compute_dtype="float32"))
+    routed, router = [], moe._router
+
+    def recording(xf, router_w, c):
+        out = router(xf, router_w, c)
+        routed.append(out[1])
+        return out
+
+    moe.DISPATCH_TRACE = []
+    with torch.no_grad(), patched(moe, "_router", recording):
+        want, cache = api.prefill(params, prompts, cache, **inputs)
+    unsharded, moe.DISPATCH_TRACE = moe.DISPATCH_TRACE, None
+    with torch.no_grad(), patched(moe, "_router", replaying_router(routed)):
+        base_logits, _ = plain.prefill(params, prompts, plain.init_cache(
+            plain.cfg, BATCH, length, device=device), **inputs)
+    with torch.no_grad(), patched(moe, "_router", replaying_router(routed)):
+        exact, c32 = f32.prefill(params, prompts,
+                                 f32.init_cache(f32.cfg, BATCH, length, device=device), **inputs)
+    base = gap(base_logits, exact)
+    plan = SH.sequence_parallel_plan()
+    leaves = [k for k, v in cache.items() if isinstance(v, torch.Tensor)]
+    c_sh = SS.cache_shardings(api, cache, plan, mesh)
+    empty = {k: (torch.zeros_like(v) if k in leaves else 0) for k, v in cache.items()}
+    shapes = {k: torch.empty(cache[k].shape, dtype=cache[k].dtype, device="meta")
+              for k in leaves}
+    step = SS.jit_serve_step(api, plan, mesh, shapes, tokens_shape=(BATCH, PROMPT))
+    stats = new_stats()
+    r = mesh.coords()["model"]
+    moe.DISPATCH_TRACE = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with checked_kernels(stats), patched(moe, "_router", block_router(
+            routed, BATCH, (r * PROMPT // 2, PROMPT // 2))):
+        logits, local = step(params, prompts, empty, **inputs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = kernels.launch_counts()
+    split, moe.DISPATCH_TRACE = moe.DISPATCH_TRACE, None
+    dist_ = gap(logits, exact)
+    cache_err = {}
+    for k in leaves:
+        w, e = c_sh[k].local(cache[k]), c_sh[k].local(c32[k])
+        scale = e.float().abs().max().item()
+        got_, base_ = gap(local[k], e), gap(w, e)
+        cache_err[k] = {"vs_float32_max": got_[0], "vs_float32_rms": got_[1],
+                        "unsharded_vs_float32_max": base_[0],
+                        "unsharded_vs_float32_rms": base_[1],
+                        "vs_unsharded_max": gap(local[k], w)[0], "largest_float32": scale,
+                        "within": within_scaled(got_, base_, scale)}
+    out = {"arch": arch, "n_layers": cfg.n_layers, "launches": launches,
+           "ms_with_per_call_checks": ms, "index": local["index"],
+           "finite": bool(torch.isfinite(logits).all()),
+           "vs_float32_max": dist_[0], "vs_float32_rms": dist_[1],
+           "plain_vs_float32_max": base[0], "plain_vs_float32_rms": base[1],
+           "unsharded_vs_float32_max": gap(want, exact)[0],
+           "within": within(dist_, base),
+           "vs_unsharded_max": (logits.float() - want.float()).abs().max().item(),
+           "cache": cache_err, "per_call": summarize_checked(stats),
+           "peak_bytes": torch.cuda.max_memory_allocated(device)}
+    if unsharded:
+        out["moe"] = {"unsharded_kept": [t["kept"].tolist() for t in unsharded],
+                      "unsharded_routed": [t["routed"].tolist() for t in unsharded],
+                      "kept": [t["kept"].tolist() for t in split],
+                      "routed": [t["routed"].tolist() for t in split],
+                      "buffers": [list(t["buffer"]) for t in split],
+                      "unsharded_buffers": [list(t["buffer"]) for t in unsharded],
+                      "capacity": moe._capacity(BATCH * PROMPT, cfg)}
+    return out
+
+
+def family_seq_rank(job_path: str, rank: int) -> None:
+    """One rank of ``family_seq_parallel`` (``chip_smoke.py
+    --family-seq-rank JOB R``): a ``gloo`` rank on card 0 of the job's mesh
+    (1x2 or 2x2).  On 1x2, each of FAMILY_PREFILLS (:func:`family_prefill`);
+    then each of FAMILY_TRAIN's cases on this mesh: FAMILY_TRAIN_STEPS
+    float32 steps through ``jit_train_step`` from the seed-0 state, every
+    kernel call of the first step held against its plain version.  Writes
+    its results to ``JOB.rank<R>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.train import train_step as TS
+    job = json.load(open(job_path))
+    shape = tuple(job["mesh"])
+    dist.init_process_group("gloo", init_method="file://" + job["store"], rank=rank,
+                            world_size=math.prod(shape),
+                            timeout=datetime.timedelta(seconds=300))
+    out = {"rank": rank, "prefill": {}, "train": {}, "seconds": {}}
+    try:
+        mesh = make_host_mesh(*shape)
+        device = torch.device("cuda", 0)
+        for arch, layers in (FAMILY_PREFILLS if shape == (1, 2) else ()):
+            t0 = time.perf_counter()
+            out["prefill"][arch] = family_prefill(arch, layers, mesh, device)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["seconds"][arch] = time.perf_counter() - t0
+        for mesh_shape, arch, name in FAMILY_TRAIN:
+            if tuple(mesh_shape) != shape:
+                continue
+            t_case = time.perf_counter()
+            api, tcfg, state, batches = family_train_setup(device, arch)
+            step = TS.jit_train_step(api, tcfg, family_plan(name), mesh, batches[0])
+            stats, history, step_s = new_stats(), [], []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            kernels.reset_launch_counts()
+            moe.DISPATCH_TRACE = []
+            with backward_launches() as bwd:
+                for i, b in enumerate(batches):
+                    ctx = contextlib.ExitStack()
+                    if i == 0:
+                        ctx.enter_context(checked_kernels(stats))
+                    t0 = time.perf_counter()
+                    with ctx:
+                        state, m = step(state, b)
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t0)
+                    history.append({k: float(v) for k, v in m.items()})
+            trace, moe.DISPATCH_TRACE = moe.DISPATCH_TRACE, None
+            out["train"][f"{arch} {name}"] = {
+                "arch": arch, "plan": name, "mesh": list(shape),
+                "layers": FAMILY_TRAIN_LAYERS[arch],
+                "history": history, "step_ms": [x * 1e3 for x in step_s],
+                "launches": dict(kernels.launch_counts(), **dict(bwd)),
+                "moe_buffers": sorted({tuple(t["buffer"]) for t in trace}),
+                "per_call": summarize_checked(stats),
+                "peak_bytes": torch.cuda.max_memory_allocated(device)}
+            del api, state, step, batches
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["seconds"][f"{arch} {name}"] = time.perf_counter() - t_case
+        out.update(ok=True, coords=mesh.coords(), backend=dist.get_backend())
+    except Exception:  # noqa: BLE001 - reported to the parent, which fails
+        import traceback
+        out.update(ok=False, error=traceback.format_exc()[-3000:])
+    finally:
+        with open(f"{job_path}.rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+
+
+def family_launches(arch: str, plan: str, zero: dict, n: int = FAMILY_TRAIN_STEPS) -> dict:
+    """The kernel launches a rank makes in ``n`` steps of ``arch`` (remat:
+    every forward kernel twice a step)."""
+    L = FAMILY_TRAIN_LAYERS[arch]
+    if arch == RWKV_ARCH:          # two K5 scans a layer: the block's own, then from the state
+        return dict(zero, wkv6=4 * L["n_layers"] * n, wkv6_bwd=2 * L["n_layers"] * n)
+    if arch == ENCDEC_ARCH:        # encoder self, decoder self and cross
+        passes = L["n_encoder_layers"] + 2 * L["n_layers"]
+    else:                          # zamba2: a shared-attention site every two layers
+        passes = L["n_layers"] // (2 if arch == HYBRID_ARCH else 1)
+    out = dict(zero, flash_attention=2 * passes * n, flash_attention_bwd=passes * n)
+    if arch == MOE_ARCH:           # three expert products a layer; dX and dW of each,
+        # which K4's counter counts too
+        out.update(grouped_matmul=12 * L["n_layers"] * n,
+                   grouped_matmul_bwd=6 * L["n_layers"] * n)
+    return out
+
+
+def checked_calls(launches: dict) -> dict:
+    """The calls :func:`checked_kernels` holds against their plain versions
+    where a rank launched ``launches``, by kernel: a K4-bwd call launches
+    K4 twice (dX and dW), and K4's counter counts those launches too."""
+    calls = {k: launches.get(k, 0) for k in new_stats()}
+    calls["grouped_matmul"] -= calls["grouped_matmul_bwd"]
+    calls["grouped_matmul_bwd"] //= 2
+    return {k: v for k, v in calls.items() if v}
+
+
+def phase_family_seq_parallel(device) -> dict:
+    """Every family split over the sequence, on ``gloo`` ranks of the one
+    card (:func:`family_seq_rank`): a 1x2 mesh, and a 2x2 mesh for tp2d,
+    whose residual's ``embed`` is split over ``data`` too; here, while the
+    ranks of one mesh run, the one-rank float32 steps of the models the
+    other mesh trains.  Checks, for
+    each rank: the internvl2-1b, seamless-m4t-medium and (2 layers)
+    qwen3-moe-30b-a3b prompt passes under sequence_parallel with finite
+    logits at most 1.25 x as far from the float32 prefill's as the
+    unsharded bf16 (the MoE: plain, routing replayed) prefill's, every cache
+    leaf's slice likewise, exact launches, the MoE's pairs routed to and
+    kept by every expert, summed over the ranks, equal to the unsharded
+    pass's; the steps' losses within 1e-3 relative of the one-rank steps'
+    and the first gradient's norm within 2e-2, exact launches; every
+    kernel call (K2, K2-bwd, K4, K4-bwd, K5, K5-bwd) of a prefill and of a
+    first step held against its plain version (as many calls as the
+    launches, :func:`checked_calls`), within its bound, and a 5-bit control
+    rejected.  Returns the launches of rank 1 of each mesh, summed."""
+    from repro_torch.launch import common
+    from repro_torch.train import train_step as TS
+    losses, norms, oracle_s = {}, {}, 0.0
+
+    def oracles(shape):
+        # the one-rank steps of the models another mesh's ranks train, here
+        # while those ranks run (they wait on gloo more than on the card)
+        nonlocal oracle_s
+        t0 = time.perf_counter()
+        for arch in dict.fromkeys(a for m, a, _ in FAMILY_TRAIN if tuple(m) == shape):
+            api, tcfg, state, batches = family_train_setup(device, arch)
+            step = TS.make_train_step(api, tcfg)
+            losses[arch] = []
+            for b in batches:
+                state, m = step(state, b)
+                losses[arch].append(float(m["loss"]))
+                norms.setdefault(arch, float(m["grad_norm"]))
+            del api, state, step, batches
+            gc.collect()
+            torch.cuda.empty_cache()
+        oracle_s += time.perf_counter() - t0
+
+    from repro_torch.kernels import _build
+    _build.lib()                 # built once here, before the ranks load it
+    results, walls = {}, {}
+    for shape, other in (((2, 2), (1, 2)), ((1, 2), (2, 2))):
+        started = start_ranks("--family-seq-rank", f"family-seq-{shape[0]}x{shape[1]}",
+                              {"mesh": list(shape)}, world=math.prod(shape))
+        results[shape], walls[shape] = finish_ranks(started, FAMILY_TIMEOUT_S,
+                                                    lambda: oracles(other))
+    first = next(iter(results[(1, 2)][0]["prefill"].values()))["launches"]
+    zero = {k: 0 for k in list(first) + ["gemm_bwd", "grouped_matmul_bwd"]}
+    layers = {arch: (n or common.launch_config(arch).n_layers) for arch, n in FAMILY_PREFILLS}
+    want_prefill = {VLM_ARCH: dict(zero, flash_attention=layers[VLM_ARCH]),
+                    ENCDEC_ARCH: dict(zero, flash_attention=3 * layers[ENCDEC_ARCH]),
+                    MOE_ARCH: dict(zero, flash_attention=layers[MOE_ARCH],
+                                   grouped_matmul=3 * layers[MOE_ARCH])}
+    kept = {}
+    for shape, ranks in results.items():
+        for res in ranks:
+            r = res["rank"]
+            for arch, pre in res["prefill"].items():
+                bad = []
+                got = {k: pre["launches"].get(k, 0) for k in zero}
+                if got != want_prefill[arch]:
+                    bad.append(f"launches {pre['launches']}")
+                if not (pre["finite"] and pre["within"]
+                        and pre["index"] == common.launch_config(arch).frontend_len
+                        * (arch == VLM_ARCH) + PROMPT):
+                    bad.append("logits against the float32 prefill")
+                if not all(c["within"] for c in pre["cache"].values()):
+                    bad.append(f"cache {pre['cache']}")
+                calls = {k: pc["calls"] for k, pc in pre["per_call"].items()}
+                if calls != checked_calls(pre["launches"]):
+                    bad.append(f"checked calls {calls} for launches {pre['launches']}")
+                for name, pc in pre["per_call"].items():
+                    if not (pc["within"] and pc["control_5_bits_rejected"]):
+                        bad.append(f"{name} per call {pc}")
+                if "moe" in pre:
+                    kept.setdefault(shape, []).append(pre["moe"])
+                if bad:
+                    raise AssertionError(f"family_seq_parallel {shape} rank {r}, {arch} "
+                                         f"prefill: {bad}")
+            for key, tr in res["train"].items():
+                arch, plan = tr["arch"], tr["plan"]
+                got = [h["loss"] for h in tr["history"]]
+                rel = max(abs(a - b) / abs(b) for a, b in zip(got, losses[arch]))
+                norm = abs(tr["history"][0]["grad_norm"] - norms[arch]) / norms[arch]
+                tr.update(loss_rel_err_vs_one_rank=rel, grad_norm_rel_err_vs_one_rank=norm)
+                bad = []
+                have = {k: tr["launches"].get(k, 0) for k in zero}
+                if have != family_launches(arch, plan, zero):
+                    bad.append(f"launches {tr['launches']}")
+                if rel > 1e-3 or norm > 2e-2 or not all(math.isfinite(x) for x in got):
+                    bad.append(f"losses {got} against {losses[arch]}, first gradient norm "
+                               f"{tr['history'][0]['grad_norm']} against {norms[arch]}")
+                # the first step's calls
+                calls = {k: pc["calls"] for k, pc in tr["per_call"].items()}
+                if calls != checked_calls(family_launches(arch, plan, zero, n=1)):
+                    bad.append(f"checked calls {calls} in the first step")
+                for name, pc in tr["per_call"].items():
+                    if not (pc["within"] and pc["control_5_bits_rejected"]):
+                        bad.append(f"{name} per call {pc}")
+                if bad:
+                    raise AssertionError(f"family_seq_parallel {shape} rank {r}, {key}: {bad}")
+    # the MoE's pairs routed to and kept by each expert, over the ranks, as unsharded
+    moe_ranks = kept[(1, 2)]
+    for layer, want_kept in enumerate(moe_ranks[0]["unsharded_kept"]):
+        for what in ("kept", "routed"):
+            total = [sum(m[what][layer][e] for m in moe_ranks)
+                     for e in range(len(want_kept))]
+            want = moe_ranks[0][f"unsharded_{what}"][layer]
+            if total != want:
+                raise AssertionError(f"family_seq_parallel: layer {layer}'s pairs {what} by "
+                                     f"expert over the ranks {total}, unsharded {want}")
+    routed = sum(sum(x) for x in moe_ranks[0]["unsharded_routed"])
+    dropped = routed - sum(sum(x) for x in moe_ranks[0]["unsharded_kept"])
+    emit({"phase": "family_seq_parallel", "meshes": [[1, 2], [2, 2]], "batch": BATCH,
+          "prompt_len": PROMPT, "prefills": [list(p) for p in FAMILY_PREFILLS],
+          "prefill_plan": "sequence_parallel",
+          "train": [[list(m), a, p] for m, a, p in FAMILY_TRAIN],
+          "train_layers": FAMILY_TRAIN_LAYERS, "train_steps": FAMILY_TRAIN_STEPS,
+          "one_rank_losses": losses, "one_rank_grad_norms": norms,
+          "moe_pairs": {"routed": routed, "dropped": dropped,
+                        "dropped_share": dropped / routed,
+                        "capacity": moe_ranks[0]["capacity"],
+                        "unsharded_buffer": moe_ranks[0]["unsharded_buffers"][0],
+                        "rank_buffers": [m["buffers"][0] for m in moe_ranks]},
+          "ranks": {f"{s[0]}x{s[1]}": v for s, v in results.items()},
+          "wall_s": {f"{s[0]}x{s[1]}": v for s, v in walls.items()},
+          "one_rank_oracle_s": oracle_s,
+          "check": "prefill logits and every cache leaf's slice at most 1.25 x as far from "
+                   "the float32 prefill's as the unsharded bf16 prefill's (the MoE: the "
+                   "plain path, routing replayed); exact launches; the MoE's routed and "
+                   "kept pairs by expert over the ranks equal to the unsharded pass's; "
+                   "every K2, K4, K2-bwd and K4-bwd call within 2e-2 of its largest entry "
+                   f"and {ATTN_REL_RMS} relative rms of its plain version, K5 within one "
+                   f"bf16 step, K5-bwd within {WKV_BWD_REL_RMS}, 5-bit controls rejected; "
+                   "losses within 1e-3 relative of the one-rank steps' (float32, AdamW at "
+                   "1e-4), the first gradient's norm within 2e-2",
+          "card": smi_line()})
+    total = dict(zero)
+    for shape, ranks in results.items():
+        last = ranks[-1]
+        for part in list(last["prefill"].values()) + list(last["train"].values()):
+            for k in total:
+                total[k] += part["launches"].get(k, 0)
+    return total
+
+
 # (arch, shape, plan, microbatches) of the dry-run cells: qwen2.5-3b's three
 # under the planner's choice (megatron_tp and kv_sequence_split), and its
 # train_4k under tp2d, whose products over the embed blocks are summed over
@@ -3759,23 +4317,29 @@ DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", "auto", 0),
                 ("qwen2.5-3b", "decode_32k", "auto", 0),
                 ("qwen2.5-3b", "train_4k", "tp2d", 8))
 DRYRUN_TIMEOUT_S = 420
+# the cells that run while resilient runs (10.5 GB of the card at most,
+# beside its 57 GB); the tp2d cell (50 GB) runs last, alone (beside
+# mesh_serve's 22 GB it ran out of memory)
+DRYRUN_BESIDE = tuple(c for c in DRYRUN_CELLS if c[2] == "auto")
 
 
-def phase_dryrun() -> dict:
+def phase_dryrun(cells=DRYRUN_CELLS, beside=None, out=emit) -> dict:
     """``python -m repro_torch.launch.dryrun --arch A --shape S --mesh
-    single [--plan P --microbatches M]`` for each of DRYRUN_CELLS, each in
-    its own process: one rank of a 256-rank no-op world at full width and
-    depth (rank 0, or under a plan that splits the sequence the last rank
-    along it).  Prints each row's plan, rank, per-device bytes, roofline
+    single [--plan P --microbatches M]`` for each of ``cells``, each in
+    its own process (``beside``: the phase that runs meanwhile, for the
+    report; ``out`` takes the JSON lines): one rank of a 256-rank no-op
+    world at full width and depth (rank 0, or under a plan that splits the
+    sequence the last rank along it).  Prints each row's plan, rank,
+    per-device bytes, roofline
     terms, measured ms and collective bytes by kind; fails if a cell fails
     (an out-of-memory with its measured bytes), if a megatron_tp train or
     prefill cell gathers on ``model``, or if a tp2d cell gathers on ``data``
     or sums nothing there.  Returns the kernels launched in the counted
     steps, summed over the cells."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    cells, total = [], {}
+    rows, total = [], {}
     report_dir = os.path.join(ROOT, "reports", "dryrun_torch")
-    for arch, shape, plan, microbatches in DRYRUN_CELLS:
+    for arch, shape, plan, microbatches in cells:
         t0 = time.perf_counter()
         tag = [] if plan == "auto" else ["--plan", plan, "--tag", plan]
         tag += ["--microbatches", str(microbatches)] if microbatches else []
@@ -3786,7 +4350,7 @@ def phase_dryrun() -> dict:
                             + ("" if plan == "auto" else f"_{plan}") + ".json")
         row = json.load(open(path)) if os.path.exists(path) else {}
         if r.returncode != 0:
-            emit({"phase": "dryrun", "arch": arch, "cell": shape, "failed": r.returncode,
+            out({"phase": "dryrun", "arch": arch, "cell": shape, "failed": r.returncode,
                   "per_device_bytes": row.get("per_device_bytes"), "error": row.get("error"),
                   "tail": (r.stdout + r.stderr).strip().splitlines()[-20:]})
             raise AssertionError(f"dryrun {arch} {shape} failed (exit {r.returncode})")
@@ -3805,7 +4369,7 @@ def phase_dryrun() -> dict:
         if row["plan"] == "tp2d" and (gathered_data or not summed_data):
             raise AssertionError(f"dryrun {arch} {shape}: under tp2d {gathered_data} bytes "
                                  f"all-gathered and {summed_data} all-reduced on data")
-        cells.append({
+        rows.append({
             "arch": arch, "shape": shape, "plan": row["plan"], "rank": row.get("rank"),
             "coords": row.get("coords"), "seconds": time.perf_counter() - t0,
             "per_device_bytes": row["per_device_bytes"], "fits_hbm": row["fits_hbm"],
@@ -3825,8 +4389,8 @@ def phase_dryrun() -> dict:
             "bw_fraction": rf.get("bw_fraction"), "min_stream_bytes": rf.get("min_stream_bytes"),
             "planner_ranking": [(x["plan"], x["dominant"], x["hbm_gb"])
                                 for x in row["planner_ranking"]][:3]})
-    emit({"phase": "dryrun", "mesh": "32x8", "world": 256, "cells": cells,
-          "this_process_reserved_bytes": torch.cuda.memory_reserved(),
+    out({"phase": "dryrun", "mesh": "32x8", "world": 256, "cells": rows,
+          "beside": beside, "this_process_reserved_bytes": torch.cuda.memory_reserved(),
           "card": smi_line()})
     return total
 
@@ -4198,33 +4762,51 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_launches, served = phase_serve(device)
     lap("serve")
+    by_path = {"serve": serve_launches}
+
+    def beside_mesh_serve():
+        # the other served models, then two phases whose gloo ranks share the
+        # card with mesh_serve's (about 60 GB of it together): mesh_serve's
+        # ranks wait on gloo more than on the card; its lap is the wait
+        # after these
+        lap("mesh_serve_start")
+        gc.collect()
+        torch.cuda.empty_cache()                # the dense model's weights go first
+        by_path["rwkv"] = phase_rwkv(device)
+        lap("rwkv")
+        # the head-dim-64 families: prompt passes through K2 and decode-step
+        # attentions through K3 (zamba2: 19 shared-attention sites; internvl2:
+        # 24 layers; seamless: 12 encoder + 12 decoder self + 12 cross passes,
+        # 12 self + 12 cross a step)
+        for phase, arch, passes, per_step in (("hybrid", HYBRID_ARCH, 19, 19),
+                                              ("vlm", VLM_ARCH, 24, 24),
+                                              ("encdec", ENCDEC_ARCH, 36, 24)):
+            gc.collect()
+            torch.cuda.empty_cache()            # the last model's weights go first
+            by_path[phase] = phase_attention_family(device, phase, arch, passes, per_step)
+            lap(phase)
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path["gemma"] = phase_gemma(device)
+        lap("gemma")
+        for name, phase in (("seq_parallel", phase_seq_parallel),
+                            ("recurrent_parallel", phase_recurrent_parallel)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            by_path[name] = phase(device)
+            lap(name)
+    beside_mesh_serve.phases = ["rwkv", "hybrid", "vlm", "encdec", "gemma", "seq_parallel",
+                                "recurrent_parallel"]
     gc.collect()
     torch.cuda.empty_cache()
-    serve_obs_launches = phase_serve_obs(served)
+    by_path["mesh_serve"] = phase_mesh_serve(device, served, beside_mesh_serve)
+    lap("mesh_serve")
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["serve_obs"] = phase_serve_obs(served)
     lap("serve_obs")
     phase_tenants()
     lap("tenants")
-    gc.collect()
-    torch.cuda.empty_cache()                # the dense model's weights go first
-    rwkv_launches = phase_rwkv(device)
-    lap("rwkv")
-    # the head-dim-64 families: prompt passes through K2 and decode-step
-    # attentions through K3 (zamba2: 19 shared-attention sites; internvl2:
-    # 24 layers; seamless: 12 encoder + 12 decoder self + 12 cross passes,
-    # 12 self + 12 cross a step)
-    by_path = {"serve": serve_launches, "serve_obs": serve_obs_launches,
-               "rwkv": rwkv_launches}
-    for phase, arch, passes, per_step in (("hybrid", HYBRID_ARCH, 19, 19),
-                                          ("vlm", VLM_ARCH, 24, 24),
-                                          ("encdec", ENCDEC_ARCH, 36, 24)):
-        gc.collect()
-        torch.cuda.empty_cache()                # the last model's weights go first
-        by_path[phase] = phase_attention_family(device, phase, arch, passes, per_step)
-        lap(phase)
-    gc.collect()
-    torch.cuda.empty_cache()
-    by_path["gemma"] = phase_gemma(device)
-    lap("gemma")
     gc.collect()
     torch.cuda.empty_cache()
     moe_launches, moe_by_body = phase_moe(device)
@@ -4237,7 +4819,15 @@ def main() -> int:
     lap("train")
     gc.collect()
     torch.cuda.empty_cache()
-    by_path["resilient"] = phase_resilient(device, uninterrupted)
+    # the dry run's smaller cells, each a process of its own, while
+    # resilient's restores wait on the disk here (its training captures
+    # this process's output: their lines are printed after it)
+    held = []
+    by_path["resilient"], by_path["dryrun"] = beside(
+        lambda: phase_resilient(device, uninterrupted),
+        lambda: phase_dryrun(DRYRUN_BESIDE, beside="resilient", out=held.append))
+    for line in held:
+        emit(line)
     lap("resilient")
     gc.collect()
     torch.cuda.empty_cache()
@@ -4258,20 +4848,14 @@ def main() -> int:
     lap("mesh_train")
     gc.collect()
     torch.cuda.empty_cache()
-    by_path["mesh_serve"] = phase_mesh_serve(device, served)
-    lap("mesh_serve")
+    by_path["family_seq_parallel"] = phase_family_seq_parallel(device)
+    lap("family_seq_parallel")
+    # the tp2d dry-run cell (50 GB) last, its process alone beside this one
     gc.collect()
     torch.cuda.empty_cache()
-    by_path["seq_parallel"] = phase_seq_parallel(device)
-    lap("seq_parallel")
-    gc.collect()
-    torch.cuda.empty_cache()
-    by_path["recurrent_parallel"] = phase_recurrent_parallel(device)
-    lap("recurrent_parallel")
-    # the dry run's processes share the card with this one
-    gc.collect()
-    torch.cuda.empty_cache()
-    by_path["dryrun"] = phase_dryrun()
+    rest = phase_dryrun(tuple(c for c in DRYRUN_CELLS if c not in DRYRUN_BESIDE))
+    by_path["dryrun"] = {k: by_path["dryrun"].get(k, 0) + rest.get(k, 0)
+                         for k in set(by_path["dryrun"]) | set(rest)}
     lap("dryrun")
     emit({"phase_seconds": seconds})
     by_path["planner"] = {"gemm_bwd": gemm_bwd_launches}
@@ -4280,7 +4864,7 @@ def main() -> int:
                     flash_decode_partials=by_path["mesh_serve"]["flash_decode_partials"],
                     flash_decode_combine=by_path["mesh_serve"]["flash_decode_combine"],
                     grouped_matmul=moe_launches["grouped_matmul"],
-                    wkv6=rwkv_launches["wkv6"],
+                    wkv6=by_path["rwkv"]["wkv6"],
                     flash_attention_bwd=by_path["train"]["flash_attention_bwd"],
                     gemm_bwd=gemm_bwd_launches,
                     grouped_matmul_bwd=by_path["moe_train"]["grouped_matmul_bwd"],
@@ -4336,5 +4920,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) == 4 and sys.argv[1] == "--recurrent-parallel-rank":
         recurrent_parallel_rank(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
+    if len(sys.argv) == 4 and sys.argv[1] == "--family-seq-rank":
+        family_seq_rank(sys.argv[2], int(sys.argv[3]))
         sys.exit(0)
     sys.exit(main())

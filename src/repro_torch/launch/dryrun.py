@@ -283,18 +283,25 @@ def _build_step(api, tcfg, shape, plan, mesh, gen, device):
         placements = TS.param_placements(api, plan, mesh)
         axes = api.param_axes()
         seq = TS.seq_split_axis(api, plan, mesh, shape.seq_len)
+        block = seq if api.block_inputs else None
+
+        def local_step():
+            local, batch_part = TS.local_batch(batch, specs, plan, mesh, block)
+            return local, spmd.Step(plan, mesh, batch_part, local["tokens"].shape[0],
+                                    local=api.local_compute, seq_axis=seq)
 
         @torch.no_grad()
         def run():
-            local, batch_part = TS.local_batch(batch, specs, plan, mesh, seq)
-            step = spmd.Step(plan, mesh, batch_part, local["tokens"].shape[0],
-                             local=api.local_compute, seq_axis=seq)
+            local, step = local_step()
             with spmd.step_context(step):
                 return api.logits_fn(spmd.serving_params(params, axes, placements), local)
-        # the rank's rows and tokens (its block of them under a sequence
-        # split); a vocabulary-local head leaves each rank its block of the logits
-        local, batch_part = TS.local_batch(batch, specs, plan, mesh, seq)
-        B, S = local["tokens"].shape
+        # the rank's rows and the positions of its block that reach the head;
+        # a vocabulary-local head leaves each rank its block of the logits
+        local, step = local_step()
+        B = local["tokens"].shape[0]
+        with spmd.step_context(step):
+            S = api.head_positions(local["tokens"].shape[1])
+        batch_part = step.batch_part
         tp = spmd.local_axis_of(plan, mesh, part_axes(batch_part)) \
             if api.local_compute else None
         head = p_sh["embed"]["table"].spec[:1] if cfg.tie_embeddings \

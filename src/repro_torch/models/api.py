@@ -62,19 +62,36 @@ class ModelAPI:
         through K2 with the rank's query offset over K/V gathered along the
         sequence; rwkv6's and Mamba2's scans from the state the earlier
         blocks leave, and their token shifts and convolutions across the
-        block boundary).  The dense family, rwkv6 and zamba2; the VLM (whose
-        patches sit ahead of the prompt), the MoE and the encoder-decoder
-        run such a plan on their whole activations."""
-        return self.cfg.family in ("dense", "ssm", "hybrid")
+        block boundary; the MoE's dispatch from exchanged counts; the VLM
+        over its block of [patches; prompt]; the encoder-decoder over its
+        blocks of the frames and of the prompt).  True for every family."""
+        return True
 
     @property
     def embed_split(self) -> bool:
         """Whether the family's layers take a residual whose ``embed`` dim a
-        sequence-split step also splits (``tp2d``: ``spmd.Step.embed_axis``).
-        Only the dense family: several of rwkv6's ``embed`` leaves index its
-        heads' channels, so rwkv6 and zamba2 run tp2d on their whole
-        activations."""
-        return self.cfg.family == "dense"
+        sequence-split step also splits (``tp2d``: ``spmd.Step.embed_axis``):
+        the dense family, rwkv6 and zamba2.  The MoE, the VLM and the
+        encoder-decoder run tp2d on their whole activations."""
+        return self.cfg.family in ("dense", "ssm", "hybrid")
+
+    @property
+    def block_inputs(self) -> bool:
+        """Whether a step that splits the sequence hands the model its block
+        of the tokens (and frames): every family but the VLM, which takes
+        its inputs whole and builds its block of [patches; prompt]."""
+        return self.cfg.family != "vlm"
+
+    def seq_lengths(self, seq_len: int) -> Tuple[int, ...]:
+        """The lengths the ranks along a split sequence must divide for a
+        prompt of ``seq_len`` tokens: the prompt's; the VLM's patches and
+        prompt as one sequence; the encoder-decoder's prompt and frames."""
+        fam = self.cfg.family
+        if fam == "vlm":
+            return (self.cfg.frontend_len + seq_len,)
+        if fam == "audio":
+            return (seq_len, self.cfg.frontend_len)
+        return (seq_len,)
 
     # -- params -------------------------------------------------------------
     def init(self, generator: torch.Generator, device="cuda", shardings=None) -> Params:
@@ -147,6 +164,16 @@ class ModelAPI:
         x = torch.randn((batch, cfg.frontend_len, cfg.frontend_dim), generator=generator,
                         device=require_device(device)) * 0.02
         return {name: x.to(L.cdtype(cfg))}
+
+    def head_positions(self, n_tokens: int) -> int:
+        """How many of a prompt's positions reach the head on this rank, the
+        prompt's ``n_tokens`` tokens as the step hands them to the model:
+        all of them; the VLM's text positions in the rank's block of
+        [patches; prompt] (``vlm._text_rows``, under the step's context)."""
+        if self.cfg.family != "vlm":
+            return n_tokens
+        t0, t1 = vlm._text_rows(self.cfg.frontend_len, n_tokens)
+        return t1 - t0
 
     def prefix_len(self) -> int:
         """Cache positions the frontend input takes ahead of the prompt: the

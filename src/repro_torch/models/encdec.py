@@ -9,6 +9,13 @@ the encoder memory and an MLP.  Serving projects the memory's cross K/V once
 per request (:func:`prepare_cross`) and keeps them in the cache beside the
 decoder's self-attention KV.  The cache is updated **in place**.  With
 ``cfg.remat`` every encoder and decoder block is recomputed in the backward.
+
+Under a plan-sharded step that splits the sequence, the frames and the
+decoder's tokens are both split over the one axis: the adapter, the norms
+and the MLPs run on the rank's block, the encoder's bidirectional
+self-attention and the decoder's cross-attention gather K and V over the
+axis (every frame), the decoder's self-attention is causal with the rank's
+query offset, and a prompt pass writes the rank's blocks of the caches.
 """
 from __future__ import annotations
 
@@ -164,9 +171,9 @@ def _project_cross(params: Params, memory: torch.Tensor, cfg: ModelConfig,
     where the step computes the rank's kv heads: the prompt pass then reads
     the cache, through the head-local cross-attention)."""
     length = spmd.cache_length(cache["cross_k"], 2)
-    if memory.shape[1] != length:
-        raise ValueError(f"a memory of {memory.shape[1]} positions does not fit a cache "
-                         f"made for {length}")
+    if spmd.seq_length(memory.shape[1]) != length:
+        raise ValueError(f"a memory of {spmd.seq_length(memory.shape[1])} positions does not "
+                         f"fit a cache made for {length}")
     split = spmd.cache_split(cache["cross_k"])
     blocks = {}
     if split is not None:
@@ -191,7 +198,9 @@ def _project_cross(params: Params, memory: torch.Tensor, cfg: ModelConfig,
             continue
         kv = []
         for name, w in (("cross_k", p["wk"]), ("cross_v", p["wv"])):
-            x = torch.einsum("bsd,dhk->bshk", memory, w.to(memory.dtype))
+            # under a step that splits the sequence the memory is the rank's
+            # block: its K/V gathered, whole for the prompt pass
+            x = spmd.gather_seq(torch.einsum("bsd,dhk->bshk", memory, w.to(memory.dtype)), 1)
             if blocks:
                 kv.append(x.to(cache[name].dtype))
                 x = x[:, blocks.get(1, slice(None)), blocks.get(2, slice(None))]
@@ -207,11 +216,10 @@ def _cached_pass(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
     """The decoder over ``tokens`` against the cache; ``cross``: every
     layer's whole cross (k, v) where the cache holds only this rank's block
     (:func:`_project_cross`)."""
-    idx = int(cache["index"])
+    idx, n = int(cache["index"]), spmd.seq_length(tokens.shape[1])
     length = spmd.cache_length(cache["k"], 2)
-    if idx + tokens.shape[1] > length:
-        raise ValueError(f"cache of {length} keys cannot take {tokens.shape[1]} more at "
-                         f"index {idx}")
+    if idx + n > length:
+        raise ValueError(f"cache of {length} keys cannot take {n} more at index {idx}")
     x = L.embed(params["embed"], tokens, cfg)
     for i in range(cfg.n_layers):
         x, _ = L.remat(False, _dec_block, _blocks(params, "dec_blocks", i), x, None, cfg,
@@ -219,8 +227,8 @@ def _cached_pass(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
                        cross_kv=(cache["cross_k"][i], cache["cross_v"][i]) if cross is None
                        else cross[i])
     if last_only:
-        x = x[:, -1:]
-    return L.whole_vocab(_head(params, x, cfg)), dict(cache, index=idx + tokens.shape[1])
+        x = spmd.last_token(x)
+    return L.whole_vocab(_head(params, x, cfg)), dict(cache, index=idx + n)
 
 
 def cache_logical_axes() -> Dict[str, Tuple]:

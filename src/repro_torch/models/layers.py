@@ -326,7 +326,10 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
       keys gathered along the axis with K2's query offset ``o``
       (:func:`_context_parallel`); a prompt pass writes the rank's block of
       the cache (:func:`_prompt_into_split`), as does a prompt pass of the
-      whole sequence into a cache the plan splits.
+      whole sequence into a cache the plan splits.  Cross-attention's
+      ``kv_input`` is then the rank's block of the memory: its K and V are
+      gathered over the axis (``spmd.gather_seq``), so the queries see every
+      memory position.
     """
     B, S, d = x.shape
     hd = cfg.head_dim_
@@ -356,6 +359,9 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             k, v = (t.to(x.dtype) for t in precomputed_kv)
         else:
             q, k, v = _project_qkv(p, x, cfg, kv_input)
+            # the memory is the rank's block where the step splits the
+            # sequence: every query attends over all of it
+            k, v = spmd.gather_seq(k, 1), spmd.gather_seq(v, 1)
         out = _attend(q, k, v, False, cfg)
         return _proj_out("bshk,hkd->bsd", out, p["wo"]), None
     q, k, v = _project_qkv(p, x, cfg)
@@ -748,16 +754,23 @@ def whole_vocab(logits: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ losses
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 total: Optional[int] = None) -> torch.Tensor:
     """Mean token cross-entropy, numerically stable in float32; over the
     ranks' vocabulary blocks of a vocabulary-local head
-    (``spmd.vocab_xent_sum``)."""
+    (``spmd.vocab_xent_sum``).  With ``total``: the positions are this
+    rank's part of ``total`` that the ranks along a split sequence hold in
+    unequal parts, and the loss is its share of their mean
+    (``spmd.seq_share``)."""
     axis = spmd.local_of(logits)
     if axis is not None:
-        return spmd.vocab_xent_sum(logits, labels, axis) / labels.numel()
+        s = spmd.vocab_xent_sum(logits, labels, axis)
+        return s / labels.numel() if total is None else spmd.seq_share(s, total)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if total is not None:
+        return spmd.seq_share(torch.sum(logz - gold), total)
     return torch.mean(logz - gold)
 
 

@@ -25,7 +25,10 @@ step that splits the sequence the rank computes its token block: the
 causal conv reads the previous rank's last K - 1 inputs, and the scan's
 state entering the block is the fold of the earlier blocks' own final
 states (``spmd.carry_states``), whose read is added to the block's
-zero-start scan.
+zero-start scan.  Under ``tp2d`` the rank also holds a block of the
+residual's channels: ``in_proj``'s partial products are summed over the
+ranks that hold the others, the conv, the scan and the gated norm run on
+whole heads, and ``out_proj`` produces the rank's block.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel import spmd
+from . import layers as L
 from .param import LeafSpec
 
 Params = Dict[str, Any]
@@ -172,7 +176,10 @@ def mamba2_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         p = spmd.unsplit(p, _SPLIT)
     B, T, d = x.shape
     d_inner, H, dh, ds = dims(cfg)
+    e_ax = spmd.embed_of(p["in_proj"])
     proj = x @ p["in_proj"].to(x.dtype)
+    if e_ax is not None:                 # tp2d: x is the rank's block of embed
+        proj = L._sum_partials(proj, e_ax)
     z, xin, Bm, Cm, dt = torch.split(proj, [d_inner, d_inner, ds, ds, H], dim=-1)
     conv_in = torch.cat([xin, Bm, Cm], dim=-1)
     split_seq = ssd_state is None and spmd.seq_axis() is not None
@@ -216,6 +223,8 @@ def mamba2_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     y32 = (y * F.silu(z)).float()
     var = torch.mean(torch.square(y32), dim=-1, keepdim=True)
     y = (y32 * torch.rsqrt(var + cfg.norm_eps) * p["norm_scale"].float()).to(x.dtype)
+    if e_ax is not None:                 # the rank's block of embed out
+        y = spmd.enter(y, e_ax)
     return y @ p["out_proj"].to(x.dtype), (new_state, new_conv)
 
 

@@ -23,7 +23,7 @@ rank's heads and the channel mix its ffn columns (:func:`time_mix`,
 :func:`channel_mix`); under one that splits the sequence the rank computes
 its token block, its scan started from the state the earlier blocks leave
 (:func:`_scan_split`) and its token shifts fed the previous rank's last
-row.
+row; under ``tp2d`` it also holds a block of the residual's channels.
 
 The reference has no multi-token prefill for this family (its serve loop
 feeds the prompt token by token); :func:`prefill` is the port's, and equals
@@ -174,6 +174,18 @@ def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("btd,df->btf", x, w.to(x.dtype))
 
 
+def _mm_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` contracting ``embed``: the ranks' partial products summed
+    where the step split it (``tp2d``)."""
+    return L._proj_in("btd,df->btf", x, w)
+
+
+def _mm_out(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w`` into ``embed``: the rank's block of it where the step
+    split it (``h`` whole, its gradient summed over the ranks)."""
+    return L._proj_out("btf,fd->btd", h, w)
+
+
 # the dims the plan may leave split for local compute
 _TM_SPLIT = {"wr": 1, "wk": 1, "wv": 1, "wg": 1, "wo": 0, "u": 0}
 _CM_SPLIT = {"wk": 1, "wv": 0, "wr": 1}
@@ -210,7 +222,13 @@ def time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *, shift_prev=None, s
     its heads'.  A split that cuts a head runs the layer whole
     (``spmd.unsplit``).  Under a step that splits the sequence the rank scans its
     token block from the state the earlier blocks leave (:func:`_scan_split`)
-    and returns the sequence's final state and last row."""
+    and returns the sequence's final state and last row.
+    Under ``tp2d`` (the step split ``embed`` too) ``x`` is the rank's block
+    of channels: r/k/v/g and the decay LoRA's ``wA`` are contracted over it
+    and summed, leaving whole heads; ``w0``, ``wB`` and ``ln_x`` (which
+    index the heads' channels) are gathered whole (``spmd.gather_alike``:
+    every rank computes the same heads, so its gradient is its own block of
+    theirs); ``wo`` produces the rank's block."""
     B, T, d = x.shape
     H, hd = _n_heads(cfg), _head_dim(cfg)
     axis = spmd.local_of(p["wr"]) if state is None else None
@@ -223,15 +241,22 @@ def time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *, shift_prev=None, s
         cols = slice(spmd.axis_index(axis) * hn * hd, (spmd.axis_index(axis) + 1) * hn * hd)
         p = dict(p, **{n: spmd.enter(p[n], axis) for n in _TM_WHOLE})
         p.update(w0=p["w0"][cols], wB=p["wB"][:, cols], ln_x=p["ln_x"][cols])
+    e_ax = spmd.embed_of(p["wr"])
+    if e_ax is not None:
+        # named embed, these index the heads' channels, which are whole here
+        p = dict(p, w0=spmd.gather_alike(p["w0"], e_ax, 0),
+                 wB=spmd.gather_alike(p["wB"], e_ax, 1), ln_x=spmd.gather_alike(p["ln_x"], e_ax, 0))
     xp, last = _shifted(x, shift_prev)
 
     def mixed(name):
         return x + (xp - x) * p[f"mix_{name}"].to(x.dtype)
 
     xr, xk, xv, xw, xg = (mixed(n) for n in "rkvwg")
-    r, k, v, g = _mm(xr, p["wr"]), _mm(xk, p["wk"]), _mm(xv, p["wv"]), _mm(xg, p["wg"])
-    lw = -torch.exp(p["w0"].float()
-                    + torch.tanh(xw.float() @ p["wA"].float()) @ p["wB"].float())
+    r, k, v, g = (_mm_in(t, p[n]) for t, n in ((xr, "wr"), (xk, "wk"), (xv, "wv"), (xg, "wg")))
+    lora = xw.float() @ p["wA"].float()
+    if e_ax is not None:
+        lora = L._sum_partials(lora, e_ax)
+    lw = -torch.exp(p["w0"].float() + torch.tanh(lora) @ p["wB"].float())
     # decay floor: keeps the chunked kernels' midpoint-offset factors in f32
     # range; applied at the source so every WKV path sees the same decays
     lw = torch.clamp(lw, min=-4.0)
@@ -275,7 +300,7 @@ def time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *, shift_prev=None, s
     oh = (oh - mean) * torch.rsqrt(var + 64e-5)
     o = (oh.reshape(B, T, hn * hd) * p["ln_x"].float()).to(x.dtype)
     o = o * F.silu(g)
-    out = _mm(o, p["wo"])
+    out = _mm_out(o, p["wo"])
     return (out if axis is None else spmd.psum(out, axis)), (last, new_state)
 
 
@@ -301,7 +326,10 @@ def channel_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *, shift_prev=None
     output gates ``wv``'s embed output elementwise, so the rank's ``wr``
     columns are a block of embed channels: the partial ``wv`` products are
     reduce-scattered to that block, gated there and the product gathered
-    (the bytes of one all-reduce)."""
+    (the bytes of one all-reduce).  Under ``tp2d`` ``x`` is the rank's block
+    of channels: ``wk`` is contracted over it and summed, ``wv`` produces
+    the rank's block, and ``wr``'s partial products are reduce-scattered to
+    that block to gate it."""
     axis = spmd.local_of(p["wk"])
     if axis is not None and not (spmd.local_of(p["wv"]) == axis == spmd.local_of(p["wr"])):
         p, axis = spmd.unsplit(p, _CM_SPLIT), None
@@ -311,7 +339,13 @@ def channel_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *, shift_prev=None
     xp, last = _shifted(x, shift_prev)
     xk = x + (xp - x) * p["mix_k"].to(x.dtype)
     xr = x + (xp - x) * p["mix_r"].to(x.dtype)
-    kk = torch.square(F.relu(_mm(xk, p["wk"])))
+    kk = torch.square(F.relu(_mm_in(xk, p["wk"])))
+    e_ax = spmd.embed_of(p["wr"])
+    if e_ax is not None:
+        # wr's output gates the rank's embed block of wv's: the partial
+        # products reduce-scattered to that block
+        gate = torch.sigmoid(spmd.scatter_sum(_mm(xr, p["wr"]), e_ax, 2))
+        return gate * _mm_out(kk, p["wv"]), last
     gate = torch.sigmoid(_mm(xr, p["wr"]))
     if axis is None:
         return gate * _mm(kk, p["wv"]), last

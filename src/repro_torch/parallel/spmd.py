@@ -71,7 +71,12 @@ process groups of :class:`~repro_torch.parallel.sharding.Mesh`.
   axis, the grouped expert weights keep that axis sharded (each rank runs
   only its experts; ``models.moe``), and the rank's partial outputs are
   summed over it (:func:`psum`); :func:`enter` marks the inputs whose
-  gradients the ranks along the axis hold in parts.
+  gradients the ranks along the axis hold in parts.  Without an expert
+  axis, the MoE's ranks that hold blocks of the tokens exchange per-row,
+  per-expert pair counts (:func:`gather_counts`) instead of the tokens, and
+  sum the load-balancing loss's means with :func:`psum_shared`, whose
+  backward sums too: each rank adds the result to its own share of the
+  loss.
 * **Clip norm and metrics.** The clip norm is the global gradient's, each
   element counted once (:meth:`Step.global_norm`); the loss and metrics are
   means over the global batch (:meth:`Step.batch_mean`).
@@ -303,22 +308,6 @@ class _Psum(torch.autograd.Function):
         return (grad * ctx.scale if ctx.scale != 1.0 else grad), None, None, None
 
 
-def gather_batch(x: torch.Tensor):
-    """``x``'s rows from every rank along the batch axes (dim 0), for code
-    the reference runs on the global batch, and the function that takes
-    this rank's rows back out of a result on the global batch.  The rows'
-    gradient comes back summed over those ranks.  Outside a step with a
-    split batch: ``x`` and the identity."""
-    step = current()
-    if step is None or step.batch_group is None:
-        return x, lambda y: y
-    spec = P(step.batch_part)
-    shape = (x.shape[0] * step.batch_shards,) + tuple(x.shape[1:])
-    rows = Sharding(step.mesh, spec).index(shape)[0]
-    full = _ForUse.apply(x, step.mesh, spec, shape, step.batch_axes, step.batch_axes)
-    return full, lambda y: y[rows]
-
-
 def enter(x: torch.Tensor, axis: str) -> torch.Tensor:
     """``x`` entering code whose ranks along ``axis`` compute different
     parts of its gradient (the reference's replicated ``shard_map`` input)."""
@@ -338,6 +327,61 @@ def pmean(x: torch.Tensor, axis: str) -> torch.Tensor:
     mesh = current().mesh
     group = mesh.group((axis,))
     return x if group is None else _Psum.apply(x, group, axis, 1.0 / mesh.shape[axis])
+
+
+class _PsumShared(torch.autograd.Function):
+    """Sum over mesh ``axes`` of per-rank results that every rank then
+    adds to its own share of a loss the step sums over those ranks: the
+    backward sums the gradient over them too (the transpose of an
+    all-reduce), times ``scale`` both ways."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, scale):
+        ctx.mesh, ctx.axes, ctx.scale = mesh, axes, scale
+        out = all_reduce(x, mesh.group(axes), axes)
+        return out * scale if scale != 1.0 else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = reduce_over(grad, ctx.mesh, ctx.axes)
+        return (grad * ctx.scale if ctx.scale != 1.0 else grad), None, None, None
+
+
+def psum_shared(x: torch.Tensor, axes: Sequence[str], scale: float = 1.0) -> torch.Tensor:
+    """``scale`` times the sum of ``x`` over the current step's ranks along
+    mesh ``axes``, for a value every one of those ranks adds to its share of
+    the loss (the step sums the shares over them): unlike :func:`psum`,
+    whose consumers are replicated code counted once, each rank's ``x``
+    gets the gradient summed over the ranks.  ``x`` (times ``scale``) where
+    the axes hold one rank."""
+    mesh = current().mesh
+    key = tuple(a for a in mesh.axis_names if a in axes)
+    if mesh.group(key) is None:
+        return x * scale if scale != 1.0 else x
+    return _PsumShared.apply(x, mesh, key, scale)
+
+
+def gather_counts(counts: torch.Tensor) -> torch.Tensor:
+    """Every rank's (rows, n) counts along the step's batch axes and its
+    sequence axis: (global rows, sequence ranks, n), the rows in the
+    batch's global order and, for each, the ranks' blocks of its sequence
+    in order (one rank's counts of its own rows without a split)."""
+    step = current()
+    seq = step.seq_axis
+    shape = (counts.shape[0] * step.batch_shards, step.mesh.shape[seq] if seq else 1,
+             counts.shape[1])
+    return gather_blocks(counts[:, None].contiguous(), step.mesh,
+                         P(step.batch_part, seq, None), shape, step.reduce_axes)
+
+
+def batch_row0(rows: int) -> int:
+    """The global index of this rank's first batch row under the current
+    step, which holds ``rows`` of them (0 without a split batch)."""
+    step = current()
+    if step is None or step.batch_group is None:
+        return 0
+    shape = (rows * step.batch_shards,)
+    return Sharding(step.mesh, P(step.batch_part)).index(shape)[0].start
 
 
 # --------------------------------------------------------- sequence-split compute
@@ -395,6 +439,24 @@ def seq_length(n_local: int) -> int:
     tokens."""
     ax = seq_axis()
     return n_local if ax is None else n_local * current().mesh.shape[ax]
+
+
+def seq_block(total: int) -> Tuple[int, int]:
+    """:func:`seq_range` of this rank's share of a sequence of ``total``
+    positions: the VLM's patches and prompt are one such sequence."""
+    return seq_range(total // seq_length(1))
+
+
+def seq_share(total_sum: torch.Tensor, count: int) -> torch.Tensor:
+    """A loss summed over this rank's part of ``count`` positions that the
+    ranks along the step's sequence axis hold in unequal parts (the VLM's
+    text), as the per-rank value the step averages: the rank's share
+    ``total_sum / count`` times the ranks along the axis, so that the mean
+    over them (:meth:`Step.batch_mean`, and the gradient's
+    ``1 / loss_shards``) is the sum of the shares, the global mean."""
+    ax = seq_axis()
+    ranks = 1 if ax is None else current().mesh.shape[ax]
+    return total_sum * (ranks / count)
 
 
 class _GatherSum(torch.autograd.Function):
@@ -702,11 +764,17 @@ class Step:
         dim under expert parallelism, a head / ffn / vocab dim split over
         :attr:`local_axis` (the result is then marked: :func:`local_of`) and
         an ``embed`` dim under :attr:`embed_axis` (marked: :func:`embed_of`).
-        Its gradient is summed over :attr:`reduce_axes`."""
+        Its gradient is summed over :attr:`reduce_axes` (a grouped expert
+        weight's not over the expert axis: its rank saw every token its
+        experts took)."""
         keep = set()
+        reduce = self.reduce_axes
         if self.expert_axis is not None and placement.axes[:1] == ("experts",) \
                 and placement.sharding.spec[0] == self.expert_axis:
             keep.add(0)          # a grouped expert weight keeps its experts local
+            # the expert's whole gradient is on its own rank, even where the
+            # sequence is split over the expert axis (the tokens are gathered)
+            reduce = tuple(a for a in reduce if a != self.expert_axis)
         spec = placement.sharding.spec
         local = {i for i, ax in enumerate(placement.axes)
                  if self.local_axis is not None and ax in LOCAL_AXES
@@ -724,10 +792,10 @@ class Step:
         shape = tuple(leaf.shape[i] if i in keep else n
                       for i, n in enumerate(placement.shape))
         axes = Sharding(self.mesh, spec).mesh_axes()
-        if self.mesh.group(axes) is None and self.reduce_group is None:
+        if self.mesh.group(axes) is None and self.mesh.group(reduce) is None:
             out = leaf
         else:
-            out = _ForUse.apply(leaf, self.mesh, spec, shape, axes, self.reduce_axes)
+            out = _ForUse.apply(leaf, self.mesh, spec, shape, axes, reduce)
         if embed:
             mark_embed(out, self.embed_axis)
         return mark_local(out, self.local_axis) if local else out

@@ -34,9 +34,11 @@ cache (``parallel/spmd.py``):
   (``sequence_parallel``, ``tp2d``) each rank computes its block of the
   prompt's tokens (K2 with the rank's query offset over the keys gathered
   along the sequence; rwkv6's and Mamba2's scans from the state the
-  earlier blocks leave), every rank stores the whole prompt's recurrent
-  states and last rows, and the last token's logits come from the rank
-  that holds it;
+  earlier blocks leave; the MoE's dispatch from exchanged counts; the
+  VLM's block of [patches; prompt], from both given whole; the
+  encoder-decoder's blocks of the frames and of the prompt), every rank
+  stores the whole prompt's recurrent states and last rows, and the last
+  token's logits come from the rank that holds it;
 * a prompt pass writes into the rank's block of a cache split over
   ``kv_seq`` (and ``kv_heads``) the positions it covers, from the prompt's
   keys and values, whole or gathered (``models/layers.py``), and the
@@ -146,14 +148,16 @@ def _planned_serve_step(api: ModelAPI, plan: ShardingPlan, mesh: Mesh,
         prompt = tokens.shape[1] > 1
         tokens = place_leaf(tokens, t_sh, (known["tokens"][0], tokens.shape[1]))
         seq = seq_split_axis(api, plan, mesh, tokens.shape[1]) if prompt else None
-        if seq is not None:
-            n = tokens.shape[1] // mesh.shape[seq]
-            o = mesh.coords()[seq] * n
-            tokens = tokens[:, o:o + n]
         # a prompt's frontend input (patches, frames) has the tokens' rows
         rows = Sharding(mesh, P(t_sh.spec[0] if len(t_sh.spec) else None))
         inputs = {k: place_leaf(v, rows, (known["tokens"][0],) + tuple(v.shape[1:]))
                   for k, v in inputs.items()}
+        if seq is not None and api.block_inputs:
+            # the rank's block of the prompt (and of the frames), as a batch
+            # split over the sequence holds it (train_step.local_batch)
+            block = Sharding(mesh, P(None, seq))
+            tokens = block.local(tokens)
+            inputs = {k: block.local(v) for k, v in inputs.items()}
         local = dict(cache)
         splits = {}
         for k, shape in shapes.items():

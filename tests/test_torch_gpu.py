@@ -1494,3 +1494,106 @@ def test_serve_one_sequence_on_the_card_matches_the_plain_path(cuda):
         outs.append((first, step))
     for got, want in zip(*outs):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# the attention blocks of the families split over the sequence: batch x heads,
+# q_per_kv, Sq, Skv, head dim, causal, q_offset
+FAMILY_BLOCKS = [(4 * 14, 7, 384, 768, 64, True, 384),   # internvl2-1b: rank 1 of 2 of [256; 512]
+                 (4 * 16, 1, 512, 1024, 64, False, 0),   # seamless's encoder: 512 of 1024 frames
+                 (4 * 16, 1, 256, 1024, 64, False, 0)]   # its cross-attention: 256 tokens, every frame
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FAMILY_BLOCKS)
+def test_flash_attention_kernels_at_the_split_families_blocks(cuda, case, dtype):
+    """K2 and K2-bwd through ``ops.attention`` at a rank's block of the
+    VLM's combined sequence (causal, at its offset) and of the
+    encoder-decoder's frames and prompt (no mask, against every gathered
+    key), against their plain versions."""
+    from repro_torch.kernels import flash_attention as FA, ops
+    BH, g, Sq, Skv, d, causal, off = case
+    gen = torch.Generator(device=cuda).manual_seed(BH + Sq + Skv)
+    q = torch.randn(BH, Sq, d, generator=gen, device=cuda).to(dtype).requires_grad_()
+    k = torch.randn(BH // g, Skv, d, generator=gen, device=cuda).to(dtype).requires_grad_()
+    v = torch.randn(BH // g, Skv, d, generator=gen, device=cuda).to(dtype).requires_grad_()
+    dout = torch.randn(BH, Sq, d, generator=gen, device=cuda).to(dtype)
+    kw = dict(causal=causal, q_per_kv=g, **({"q_offset": off} if off else {}))
+    got = ops.attention(q, k, v, **kw)
+    grads = torch.autograd.grad(got, (q, k, v), dout)
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    plain = torch.autograd.grad(want, (q, k, v), dout)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    for a, b in zip(grads, plain):
+        torch.testing.assert_close(a.float(), b.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 24, 128, 64), (128, 160, 2048, 768)])
+def test_grouped_matmul_on_a_rank_buffer(cuda, shape, dtype):
+    """K4 and K4-bwd through ``ops.grouped_matmul`` on a rank's expert
+    buffer of ``min(capacity, tokens)`` rows (a reduced MoE's 24; the
+    full MoE's 160), against the plain grouped products."""
+    from repro_torch.kernels import moe_gmm, ops
+    E, rows, d_in, d_out = shape
+    gen = torch.Generator(device=cuda).manual_seed(E + rows)
+    x = (torch.randn(E, rows, d_in, generator=gen, device=cuda) * d_in ** -0.5).to(dtype)
+    w = torch.randn(E, d_in, d_out, generator=gen, device=cuda).to(dtype)
+    dy = torch.randn(E, rows, d_out, generator=gen, device=cuda).to(dtype)
+    x.requires_grad_()
+    w.requires_grad_()
+    got = ops.grouped_matmul(x, w)
+    grads = torch.autograd.grad(got, (x, w), dy)
+    want = moe_gmm.grouped_matmul_plain(x, w)
+    plain = torch.autograd.grad(want, (x, w), dy)
+    tol = _tol(dtype) if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    for a, b in zip(grads, plain):
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 2)])
+def test_moe_split_over_the_sequence_on_the_card(cuda, tmp_path, mesh_shape):
+    """``moe_mlp`` under sequence_parallel on ``gloo`` ranks of the one card,
+    through K4 (reduced qwen3-moe-30b-a3b, capacity factor 0.5, float32):
+    each rank's output block within 1e-4 of the unsharded pass on the
+    card, its kept (token, slot) pairs equal, the router's gradient within
+    1e-4 of its largest entry, and only the counts all-gathered."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from torch_mesh_worker import spawn
+    extra = {"capacity_factor": 0.5, "router_aux_weight": 1.0}
+    cfg = replace(get_config("qwen3-moe-30b-a3b").reduced(**extra), compute_dtype="float32",
+                  kernels="cuda")
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    gen = torch.Generator().manual_seed(0)
+    arr = lambda *s: torch.randn(s, generator=gen) * 0.2
+    data = {"x": arr(4, 16, d), "c": arr(4, 16, d),
+            "p": {"router": arr(d, E), "w_gate": arr(E, d, f), "w_up": arr(E, d, f),
+                  "w_down": arr(E, f, d)}}
+    torch.save(data, tmp_path / "moe.pt")
+    p = {k: v.to(cuda).requires_grad_() for k, v in data["p"].items()}
+    moe.DISPATCH_TRACE = []
+    y, aux = moe.moe_mlp(p, data["x"].to(cuda), cfg)
+    (torch.sum(y * data["c"].to(cuda)) + aux).backward()
+    trace, moe.DISPATCH_TRACE = moe.DISPATCH_TRACE, None
+    keep = trace[0]["keep"].view(4, 16, -1).cpu()
+    assert not keep.all()
+    spawn({"mode": "families", "mesh": list(mesh_shape), "device": "cuda", "kernels": "cuda",
+           "tcfg": {}, "cases": [{"name": "moe", "kind": "moe", "arch": "qwen3-moe-30b-a3b",
+                                  "plan": "sequence_parallel", "reduced": extra,
+                                  "data": "moe.pt"}]}, tmp_path)
+    for rank in range(mesh_shape[0] * mesh_shape[1]):
+        got = torch.load(tmp_path / f"moe.rank{rank}.pt", weights_only=False,
+                         map_location="cpu")
+        dp, m = got["coords"]["data"], got["coords"]["model"]
+        rows = slice(dp * 4 // mesh_shape[0], (dp + 1) * 4 // mesh_shape[0])
+        cols = slice(m * 8, (m + 1) * 8)
+        torch.testing.assert_close(got["y"], y.detach().cpu()[rows, cols], rtol=1e-4, atol=1e-4)
+        assert torch.equal(got["keep"][0].cpu(), keep[rows, cols].reshape(-1, keep.shape[-1]))
+        scale = float(p["router"].grad.abs().max())
+        torch.testing.assert_close(got["router_grad"].cpu(), p["router"].grad.cpu(), rtol=0,
+                                   atol=1e-4 * scale)
+        counts = 4.0 * 4 * mesh_shape[1] * E
+        assert got["gathered"] == {"data": counts, "model": counts}

@@ -95,7 +95,8 @@ def _setup(arch, extra=()):
         losses.append(float(m["loss"]))
     inputs = dict(prompt)
     tokens = inputs.pop("tokens")
-    cache = api.init_cache(api.cfg, B, PROMPT + 4, dtype=torch.float32, device="cpu")
+    cache = api.init_cache(api.cfg, B, api.prefix_len() + PROMPT + 4, dtype=torch.float32,
+                           device="cpu")
     with torch.no_grad():
         logits, cache = api.prefill(start.params, tokens, cache, **inputs)
     return api, start, batches, prompt, losses, state, logits, cache, noisy
@@ -118,18 +119,18 @@ def _gathered_a_step(cfg, rows: int) -> int:
 
 
 def test_every_family_has_local_rules_and_the_recurrent_ones_split_the_sequence():
-    """``local_compute`` is true for all six families; ``sequence_split``
-    for the dense family, rwkv6 and zamba2; under tp2d (the residual's
-    embed split too) rwkv6 and zamba2 get no sequence axis and run their
-    whole activations, while the dense family splits."""
+    """``local_compute`` and ``sequence_split`` are true for all six
+    families; under tp2d (the residual's embed split too) the dense family,
+    rwkv6 and zamba2 split the sequence, while the MoE, the VLM and the
+    encoder-decoder get no sequence axis and run their whole activations."""
     archs = ("qwen2.5-3b", "qwen3-moe-30b-a3b", "internvl2-1b", "rwkv6-3b", "zamba2-1.2b",
              "seamless-m4t-medium")
     apis = [build_model(get_config(a).reduced()) for a in archs]
     assert all(api.local_compute for api in apis)
-    assert [api.sequence_split for api in apis] == [True, False, False, True, True, False]
+    assert [api.sequence_split for api in apis] == [True] * 6
     mesh = SH.Mesh(("data", "model"), (2, 2))
     for api in apis:
-        want = "model" if api.cfg.family == "dense" else None
+        want = "model" if api.cfg.family in ("dense", "ssm", "hybrid") else None
         assert TS.seq_split_axis(api, plan_named("tp2d"), mesh, S) == want, api.cfg.name
         if api.sequence_split:
             for name in SPLIT:

@@ -28,6 +28,10 @@ NCCL refuses two ranks on one card) and runs the job's cases:
   a plan that splits the sequence), with K2's query offsets recorded;
   writes the losses, this rank's shards, the counts and the prefill's
   logits, cache slice and offsets;
+* ``families``: each case by its ``kind``: ``local`` as the mode above
+  (with the first step's gradients), ``moe`` (``moe.moe_mlp`` alone on the
+  rank's block of the case's input, :func:`run_moe_case`) or ``forward``
+  (the model's logits and loss under the plan's step, :func:`run_forward_case`);
 * ``serve``: each case's decode steps through ``serve_step.jit_serve_step``
   from the job's prefilled cache (whole) and weights (whole), teacher-forced
   on the job's ids; or, where the job's data holds a ``prompt`` (and its
@@ -173,7 +177,9 @@ def whole_path(case):
         ModelAPI.local_compute, ModelAPI.sequence_split = saved
 
 
-def run_case(job, case, mesh):
+def run_case(job, case, mesh, grads=None):
+    """The case's train steps; with ``grads`` (a list) the first step's
+    gradients (this rank's shards, before the optimizer) appended to it."""
     api = model(case["arch"], job.get("kernels"), **case.get("reduced", {}))
     tcfg = TrainConfig(**dict(job["tcfg"], **case.get("tcfg", {})))
     plan = plan_named(case["plan"])
@@ -184,12 +190,23 @@ def run_case(job, case, mesh):
                          map_location=device)
     step = TS.jit_train_step(api, tcfg, plan, mesh, batches[0])
     from repro_torch import kernels
+    from repro_torch.train import optimizer as opt
     kernels.reset_launch_counts()
     moe.EP_TRACE = []
     history = []
-    for b in batches[:case["steps"]]:
-        state, m = step(state, b)
-        history.append({k: float(v) for k, v in m.items()})
+    update = opt.opt_update
+
+    def recorded(g, *a, **k):
+        if grads is not None and not grads:
+            grads.append({n: t.clone() for n, t in C._flatten_with_paths(g)})
+        return update(g, *a, **k)
+    opt.opt_update = recorded
+    try:
+        for b in batches[:case["steps"]]:
+            state, m = step(state, b)
+            history.append({k: float(v) for k, v in m.items()})
+    finally:
+        opt.opt_update = update
     trace, moe.EP_TRACE = moe.EP_TRACE, None
     return api, tcfg, plan, state, history, trace
 
@@ -220,8 +237,9 @@ def run_local_case(job, case, mesh):
     from repro_torch.kernels import ops
     from repro_torch.parallel import spmd
     from repro_torch.train import serve_step as SS
+    grads = []
     with spmd.counting_collectives() as tally:
-        api, tcfg, plan, state, history, _ = run_case(job, case, mesh)
+        api, tcfg, plan, state, history, _ = run_case(job, case, mesh, grads)
     device = job.get("device", "cpu")
     inputs = dict(torch.load(os.path.join(job["dir"], case.get("prompt", "prompt.pt")),
                              map_location=device))
@@ -243,11 +261,131 @@ def run_local_case(job, case, mesh):
         logits, cache = step(params, prompt, cache, **inputs)
     finally:
         ops.attention = attention
-    return {"history": history, "state": state, "coords": mesh.coords(),
+    return {"history": history, "state": state, "coords": mesh.coords(), "grads": grads[0],
             "gathered": tally.bytes["all-gather"], "reduced": tally.bytes["all-reduce"],
             "scattered": tally.bytes["reduce-scatter"],
             "prefill_logits": logits, "cache_index": cache["index"], "q_offsets": offsets,
             "cache": {k: v for k, v in cache.items() if isinstance(v, torch.Tensor)}}
+
+
+def _block_of(mesh, plan, x, seq_len, block_inputs=True):
+    """This rank's rows of ``x`` (B, L, ...) under ``plan``'s batch split and,
+    where the plan splits a sequence of ``seq_len`` over ``model``, its
+    block along dim 1; the Step's batch entry and the sequence axis."""
+    from repro_torch.parallel import spmd
+    spec = TS.batch_shardings({"t": torch.empty(x.shape[:2], device="meta")}, plan,
+                              mesh)["t"].spec
+    seq = spmd.seq_axis_of(plan, mesh, seq_len)
+    x = SH.Sharding(mesh, SH.P(spec[0], seq if block_inputs else None)).local(x)
+    return x, spec[0], seq
+
+
+def whole_ranks_offsets(expert_idx, rows, cfg):
+    """A wrong ``moe._queue_offsets`` (a test must catch it): the global
+    queue ordered rank by rank, every pair of an earlier rank (in the mesh's
+    rank order) ahead of this rank's, instead of interleaving the ranks'
+    blocks inside each batch row."""
+    from repro_torch.parallel import spmd
+    E, T = cfg.n_experts, expert_idx.shape[0]
+    e = expert_idx.long()
+    row = (torch.arange(T) // (T // rows))[:, None].expand_as(e)
+    flat = (row * E + e).reshape(-1)
+    counts = torch.zeros(rows * E, dtype=torch.int32).scatter_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.int32)).view(rows, E)
+    every = spmd.gather_counts(counts).long()               # (B_g, R, E)
+    R = every.shape[1]
+    per_rank = every.view(-1, rows, R, E).sum(dim=1)        # (batch shards, R, E)
+    step = spmd.current()
+    g = spmd.batch_row0(rows) // rows
+    r = spmd.axis_index(step.seq_axis) if step.seq_axis else 0
+    ahead = per_rank.reshape(-1, E)[:g * R + r].sum(dim=0)
+    return ahead[e.reshape(-1)]
+
+
+def run_moe_case(job, case, mesh):
+    """``moe.moe_mlp`` alone on this rank's block of the case's input under
+    the case's plan: its output block, the kept (token, slot) pairs and the
+    buffers of every dispatch, the collectives, and the router's gradient
+    of the objective ``sum(y * c) + aux`` (each rank back-propagates its
+    block's part times the ranks, plus aux, over the ranks, as the step
+    does; the gradients summed over the ranks); with ``"pin": "whole_ranks"``
+    the queue offsets of :func:`whole_ranks_offsets`."""
+    from repro_torch.parallel import spmd
+    data = torch.load(os.path.join(job["dir"], case["data"]),
+                      map_location=job.get("device", "cpu"))
+    cfg = model(case["arch"], job.get("kernels"), **case.get("reduced", {})).cfg
+    plan = plan_named(case["plan"])
+    S = data["x"].shape[1]
+    x, batch_part, seq = _block_of(mesh, plan, data["x"], S)
+    c, _, _ = _block_of(mesh, plan, data["c"], S)
+    p = {k: v.clone().requires_grad_() for k, v in data["p"].items()}
+    step = spmd.Step(plan, mesh, batch_part, x.shape[0], seq_axis=seq)
+    right = moe._queue_offsets
+    if case.get("pin") == "whole_ranks":
+        moe._queue_offsets = whole_ranks_offsets
+    moe.DISPATCH_TRACE = []
+    try:
+        with spmd.counting_collectives() as tally, spmd.step_context(step):
+            y, aux = moe.moe_mlp(p, x, cfg)
+            share = step.loss_shards * torch.sum(y * c) + aux
+            (share / step.loss_shards).backward()
+            grad = spmd.reduce_over(p["router"].grad, mesh, step.reduce_axes)
+    finally:
+        moe._queue_offsets = right
+        trace, moe.DISPATCH_TRACE = moe.DISPATCH_TRACE, None
+    return {"y": y.detach(), "aux": float(aux), "router_grad": grad, "coords": mesh.coords(),
+            "keep": [t["keep"] for t in trace], "buffers": [t["buffer"] for t in trace],
+            "gathered": tally.bytes["all-gather"], "reduced": tally.bytes["all-reduce"]}
+
+
+def run_forward_case(job, case, mesh):
+    """The case's model forward (``api.logits_fn``) and loss under a step of
+    the case's plan, from whole parameters and a whole batch handed over as
+    a train step hands them; with ``"pin": "cross_block"`` the
+    encoder-decoder's cross-attention attends over the rank's memory block
+    only (a wrong rule a test must catch).  Also the mean over the ranks
+    of each rank's own mean loss (where every rank holds labels)."""
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import spmd
+    api = model(case["arch"], job.get("kernels"), **case.get("reduced", {}))
+    if case.get("dtype"):
+        from dataclasses import replace
+        api = build_model(replace(api.cfg, compute_dtype=case["dtype"]))
+    data = torch.load(os.path.join(job["dir"], case["data"]),
+                      map_location=job.get("device", "cpu"))
+    plan = plan_named(case["plan"])
+    batch = data["batch"]
+    seq = TS.seq_split_axis(api, plan, mesh, batch["tokens"].shape[1])
+    local, batch_part = TS.local_batch(batch, None, plan, mesh,
+                                       seq if api.block_inputs else None)
+    step = spmd.Step(plan, mesh, batch_part, local["tokens"].shape[0], seq_axis=seq)
+    attention, gather = L.attention, spmd.gather_seq
+
+    def cross_block(p, x, cfg, **k):
+        if k.get("kv_input") is None:
+            return attention(p, x, cfg, **k)
+        spmd.gather_seq = lambda t, dim, keep=None: t
+        try:
+            return attention(p, x, cfg, **k)
+        finally:
+            spmd.gather_seq = gather
+    if case.get("pin") == "cross_block":
+        L.attention = cross_block
+    try:
+        with torch.no_grad(), spmd.step_context(step):
+            logits = api.logits_fn(data["params"], local)
+            loss = step.batch_mean(api.loss_fn(data["params"], local)[0])
+            means = None
+            if api.cfg.family == "vlm" and seq is not None:
+                from repro_torch.models import vlm
+                t0, t1 = vlm._text_rows(local["patches"].shape[1], local["labels"].shape[1])
+                own = L.softmax_xent(logits, local["labels"][:, t0:t1]) if t1 > t0 \
+                    else torch.tensor(float("nan"))
+                means = step.batch_mean(own)          # nan where a rank holds no text
+    finally:
+        L.attention = attention
+    return {"logits": logits, "loss": float(loss), "coords": mesh.coords(), "seq": seq,
+            "mean_of_means": None if means is None else float(means)}
 
 
 def run_serve_case(job, case, mesh):
@@ -333,6 +471,12 @@ def main():
             for case in job["cases"]:
                 with whole_path(case), mamba_columns(case):
                     res = run_local_case(job, case, mesh)
+                torch.save(res, os.path.join(out, f"{case['name']}.rank{rank}.pt"))
+        elif job["mode"] == "families":
+            run = {"local": run_local_case, "moe": run_moe_case, "forward": run_forward_case}
+            for case in job["cases"]:
+                with whole_path(case):
+                    res = run[case["kind"]](job, case, mesh)
                 torch.save(res, os.path.join(out, f"{case['name']}.rank{rank}.pt"))
         elif job["mode"] == "serve":
             for case in job["cases"]:

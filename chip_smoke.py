@@ -52,6 +52,14 @@ these phases, each printing one JSON line; any failure raises:
             batch 4, prompt 512, 32 greedy tokens through
             ``repro_torch.launch.serve``, compared step by step with the same
             loop run on the plain PyTorch attention;
+   chunked_prefill the same weights and prompt written in chunks of 128,
+            128 and 256 tokens (``serve.generate(..., prefill_chunks=)``),
+            then 32 decode steps: K2 36 x 3 times at offsets 0, 128, 256
+            over 128, 256, 512 keys, every call against its plain version
+            with a 5-bit control rejected; the logits after each chunk and
+            the cache within 2e-2 of one-pass prefills; the ids equal to
+            ``serve``'s, or the logits at the first that differs within
+            2e-2;
    serve_obs the same model and run through ``serve.main`` with
             ``--introspect-port 0 --introspect-hold 5 --flightrec PATH
             --plan-budget-ms 10``: ids, launches and blocks equal the serve
@@ -98,7 +106,10 @@ these phases, each printing one JSON line; any failure raises:
             random router turns bf16 differences into other experts), are
             held against the same loop in float32, with a control that must
             fail; the share of prefill expert choices that agree when the
-            plain run routes by itself is reported;
+            plain run routes by itself is reported; then (``moe_chunked``)
+            the prompt in two chunks of 256, each dispatched at its own
+            capacity, and 2 decode steps: every K2 and K4 call against its
+            plain version, the float32 rule with the routing replayed;
 11. train   ``qwen2.5-3b`` trained at full width and depth (float32 master
             weights from seed 0, bf16 compute, remat, AdamW, batch 4 x 512):
             the first step's gradient through the kernels, through the plain
@@ -222,8 +233,11 @@ these phases, each printing one JSON line; any failure raises:
             internvl2-1b, 2 of the MoE (zero3_sp: the expert-parallel
             branch over the gathered sequence; sequence_parallel: the
             count exchange) and 2 + 2 of seamless under zero3_sp, and on a
-            2x2 mesh 4 layers of rwkv6-3b and zamba2-1.2b under tp2d (the
-            embed dim over ``data``), losses within 1e-3 relative of the
+            2x2 mesh the three prefills under tp2d (the MoE's pairs on each
+            rank's slice of the experts as unsharded), 4 layers of rwkv6-3b
+            and zamba2-1.2b under tp2d (the embed dim over ``data``) and one
+            step each of internvl2, the MoE and seamless under tp2d,
+            losses within 1e-3 relative of the
             one-rank steps' and first gradient norms within 2e-2; exact
             launches; every K2, K2-bwd, K4, K4-bwd, K5 and K5-bwd call held
             against its plain version, 5-bit controls rejected;
@@ -1453,6 +1467,7 @@ def phase_serve(device):
     ref = serve.generate(plain_api, params, prompts, NEW_TOKENS, keep_step_logits=True,
                          forced_ids=res.generated)
     agreement = against_plain("serve", res, ref)
+    chunked = phase_chunked_prefill(api, params, prompts, res)
     emit({"phase": "serve", "arch": cfg.name, "n_layers": L, "d_model": cfg.d_model,
           "n_params": api.n_params(), "batch": BATCH, "prompt_len": PROMPT,
           "new_tokens": NEW_TOKENS, "compute_dtype": cfg.compute_dtype,
@@ -1470,7 +1485,104 @@ def phase_serve(device):
                       "blocks": {k: b for k, (b, _) in res.blocks.items()},
                       "prefill_ms": res.prefill_s * 1e3,
                       "decode_ms_per_token": res.decode_s * 1e3 / NEW_TOKENS,
-                      "tok_per_s": BATCH * NEW_TOKENS / res.decode_s}
+                      "tok_per_s": BATCH * NEW_TOKENS / res.decode_s}, chunked
+
+
+CHUNKS = (128, 128, 256)          # the chunked prefill's chunks of the 512-token prompt
+
+
+def phase_chunked_prefill(api, params, prompts, served) -> dict:
+    """qwen2.5-3b on ``serve``'s weights and prompt, through
+    ``serve.generate(..., prefill_chunks=CHUNKS)``: the prompt written in
+    chunks of 128, 128 and 256 tokens, each a causal pass at the cache's
+    index (K2 with the query offset 0, 128, 256 over the first 128, 256,
+    512 keys), then NEW_TOKENS decode steps.  Launches exact (counted from
+    0 around the run); every K2 call of the chunks, written again, held
+    against its plain version on the same inputs (within 2e-2 of its
+    largest entry and ATTN_REL_RMS, a 5-bit control rejected); the logits
+    after each chunk within 2e-2 of a one-pass prefill of the same prefix,
+    the whole cache within 2e-2 of the one-pass prefill's; the decoded ids
+    equal to ``serve``'s, or at the first that differs the logits that chose
+    it within 2e-2 of ``serve``'s."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as FA, ops
+    from repro_torch.launch import serve
+    cfg, L = api.cfg, api.cfg.n_layers
+    stats, offsets, keys = [], [], []
+    attention = ops.attention
+
+    def recording(q, k, v, **kw):
+        offsets.append(kw.get("q_offset", 0))
+        keys.append(k.shape[-2])
+        return attention(q, k, v, **kw)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with patched(ops, "attention", recording):
+        res = serve.generate(api, params, prompts, NEW_TOKENS, keep_step_logits=True,
+                             prefill_chunks=CHUNKS)
+    launches = kernels.launch_counts()
+    # the chunks again, every K2 call held against its plain version
+    with torch.no_grad(), patched(ops, "attention", one_output_per_call(
+            stats, ops.attention, FA.flash_attention_plain)):
+        chunked_cache, at = api.init_cache(cfg, BATCH, PROMPT + 2, device=prompts.device), 0
+        for n in CHUNKS:
+            _, chunked_cache = api.prefill(params, prompts[:, at:at + n], chunked_cache)
+            at += n
+    want = {"gemm": 0, "flash_attention": len(CHUNKS) * L, "flash_decode": L * NEW_TOKENS,
+            "flash_decode_partials": 0, "flash_decode_combine": 0, "grouped_matmul": 0,
+            "wkv6": 0, "flash_attention_bwd": 0, "wkv6_bwd": 0}
+    bad = []
+    if launches != want:
+        bad.append(f"launches {launches}, expected {want}")
+    ends = [sum(CHUNKS[:i + 1]) for i in range(len(CHUNKS))]
+    if offsets != [e - n for e, n in zip(ends, CHUNKS) for _ in range(L)] \
+            or keys != [e for e in ends for _ in range(L)]:
+        bad.append(f"K2 offsets {sorted(set(offsets))} over keys {sorted(set(keys))}")
+    per_call = summarize_per_call(stats)
+    if per_call["calls"] != want["flash_attention"] or not per_call["within"] \
+            or not per_call["control_5_bits_rejected"]:
+        bad.append(f"K2 per call {per_call}")
+    # one-pass prefills of each chunk's prefix, off the counted run
+    chunk_errs, cache_errs = [], {}
+    with torch.no_grad():
+        for e, got in zip(ends, res.chunk_logits):
+            cache = api.init_cache(cfg, BATCH, PROMPT + 2, device=prompts.device)
+            logits, cache = api.prefill(params, prompts[:, :e], cache)
+            want_l = logits[:, -1, :cfg.vocab_size].float()
+            chunk_errs.append((got - want_l).abs().max().item())
+            if not torch.allclose(got, want_l, rtol=2e-2, atol=2e-2):
+                bad.append(f"logits after {e} tokens {chunk_errs[-1]} from the one-pass's")
+        for name in ("k", "v"):
+            a, b = chunked_cache[name].float(), cache[name].float()
+            cache_errs[name] = (a - b).abs().max().item()
+            if not torch.allclose(a, b, rtol=2e-2, atol=2e-2):
+                bad.append(f"cache {name} {cache_errs[name]} from the one-pass prefill's")
+    flips = (res.generated != served.generated.to(res.generated.device)).any(dim=0)
+    first = int(flips.nonzero()[0]) if bool(flips.any()) else None
+    ids = {"equal_serve": first is None, "first_flip": first}
+    if first is not None:
+        mine = ([res.prefill_logits] + res.step_logits)[first]
+        theirs = ([served.prefill_logits] + served.step_logits)[first]
+        ids["logit_err_at_flip"] = (mine - theirs).abs().max().item()
+        if ids["logit_err_at_flip"] > 2e-2:
+            bad.append(f"ids flip at step {first} with logits {ids['logit_err_at_flip']} apart")
+    out = {"phase": "chunked_prefill", "arch": cfg.name, "n_layers": L, "batch": BATCH,
+           "prompt_len": PROMPT, "chunks": list(CHUNKS), "new_tokens": NEW_TOKENS,
+           "prefill_ms": res.prefill_s * 1e3, "one_pass_prefill_ms": served.prefill_s * 1e3,
+           "decode_ms_per_token": res.decode_s * 1e3 / NEW_TOKENS, "launches": launches,
+           "k2_offsets": sorted(set(offsets)), "k2_keys": sorted(set(keys)),
+           "per_call": per_call, "chunk_logit_err_vs_one_pass": chunk_errs,
+           "cache_err_vs_one_pass": cache_errs, "ids": ids,
+           "check": "exact launches; K2 at offsets 0/128/256 over 128/256/512 keys, every "
+                    f"call within 2e-2 of its largest entry and {ATTN_REL_RMS} relative rms "
+                    "of its plain version, 5-bit control rejected; logits after each chunk "
+                    "and the cache within 2e-2 of one-pass prefills; ids equal serve's or "
+                    "the logits at the first flip within 2e-2"}
+    emit(out)
+    if bad:
+        raise AssertionError(f"chunked_prefill: {bad}")
+    return launches
 
 
 def against_plain(phase: str, res, ref) -> dict:
@@ -1526,8 +1638,9 @@ def patched(module, name, value):
         setattr(module, name, old)
 
 
-def recorded_run(api, params, prompts, ids=None):
-    """``serve.generate`` that records every routing decision, in call order."""
+def recorded_run(api, params, prompts, ids=None, chunks=None, tokens=NEW_TOKENS):
+    """``serve.generate`` that records every routing decision, in call order
+    (``chunks``: the prompt written in chunks of those sizes)."""
     from repro_torch.launch import serve
     from repro_torch.models import moe
     router, routed = moe._router, []
@@ -1538,20 +1651,20 @@ def recorded_run(api, params, prompts, ids=None):
         return out
 
     with patched(moe, "_router", recording):
-        res = serve.generate(api, params, prompts, NEW_TOKENS, keep_step_logits=True,
-                             forced_ids=ids)
+        res = serve.generate(api, params, prompts, tokens, keep_step_logits=True,
+                             forced_ids=ids, prefill_chunks=chunks)
     return res, routed
 
 
-def replayed_run(api, params, prompts, ids, routed):
+def replayed_run(api, params, prompts, ids, routed, chunks=None, tokens=NEW_TOKENS):
     """``serve.generate`` fed ``ids`` and the routing another run recorded."""
     from repro_torch.launch import serve
     from repro_torch.models import moe
     router, replay = moe._router, iter(routed)
     with patched(moe, "_router",
                  lambda xf, router_w, c: (*next(replay), router(xf, router_w, c)[2])):
-        res = serve.generate(api, params, prompts, NEW_TOKENS, keep_step_logits=True,
-                             forced_ids=ids)
+        res = serve.generate(api, params, prompts, tokens, keep_step_logits=True,
+                             forced_ids=ids, prefill_chunks=chunks)
     if next(replay, None) is not None:
         raise AssertionError("moe: a replayed run made fewer router calls than the "
                              "recorded one")
@@ -1579,10 +1692,13 @@ def coarse_products(bits: int):
 
 
 def from_float32(run, exact) -> tuple:
-    """Largest and root-mean-square difference of every prefill and step
-    logit of ``run`` from the float32 run."""
-    diff = torch.cat([(a.float() - b.float()).flatten() for a, b in zip(
-        [run.prefill_logits, *run.step_logits], [exact.prefill_logits, *exact.step_logits])])
+    """Largest and root-mean-square difference of every logit of ``run`` from
+    the float32 run: after each prompt chunk (the last is the prefill's), and
+    of each step."""
+    def logits(r):
+        return [*r.chunk_logits[:-1], r.prefill_logits, *r.step_logits]
+    diff = torch.cat([(a.float() - b.float()).flatten()
+                      for a, b in zip(logits(run), logits(exact), strict=True)])
     return diff.abs().max().item(), diff.square().mean().sqrt().item()
 
 
@@ -1625,7 +1741,7 @@ def float32_rule(res, plain_run, exact_run, greedy, controls=None) -> dict:
             "kernel_vs_float32_rms": kern[1], "plain_vs_float32_rms": plain[1],
             "max_ratio": kern[0] / plain[0], "rms_ratio": kern[1] / plain[1],
             "within": within(kern, plain) and chosen_ok,
-            "ids_equal_float32_argmax": f"{same}/{BATCH * NEW_TOKENS}" if greedy else None,
+            "ids_equal_float32_argmax": f"{same}/{ids.numel()}" if greedy else None,
             "kernel_vs_plain_max": max((a - b).abs().max().item() for a, b in zip(
                 [res.prefill_logits, *res.step_logits],
                 [ref.prefill_logits, *ref.step_logits])),
@@ -2120,7 +2236,87 @@ def phase_moe(device):
                                  f"float32 than the plain path allows: {check}")
     if not controls["5_mantissa_bits"]["rejected"]:
         raise AssertionError("moe: the float32 check did not reject the 5-bit control")
-    return launches, by_body["grouped_matmul"]
+    chunked = moe_chunked_prefill(api, plain_api, f32_api, params, prompts)
+    return launches, by_body["grouped_matmul"], chunked
+
+
+MOE_CHUNKS, MOE_CHUNK_TOKENS = (256, 256), 2
+
+
+def moe_chunked_prefill(api, plain_api, f32_api, params, prompts) -> dict:
+    """The ``moe`` phase's weights and prompt written in chunks of 256 and
+    256 tokens (``serve.generate(..., prefill_chunks=MOE_CHUNKS)``; each
+    chunk dispatched with its own capacity, ``_capacity(B x 256)``), then
+    MOE_CHUNK_TOKENS decode steps.  Launches exact (counted from 0 around
+    the run); every K2 and K4 call held against its plain version on the
+    same inputs (within 2e-2 of its largest entry and ATTN_REL_RMS, a 5-bit
+    control rejected); the logits after each chunk and of each step held to
+    the float32 rule with the kernel run's routing replayed in the plain and
+    float32 runs, and a run whose expert products keep 5 mantissa bits
+    rejected by the same rule."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as FA, moe_gmm, ops
+    from repro_torch.models import moe
+    cfg, L = api.cfg, api.cfg.n_layers
+    stats = {"flash_attention": [], "grouped_matmul": []}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    moe.DISPATCH_TRACE = []
+    with patched(ops, "attention", one_output_per_call(
+            stats["flash_attention"], ops.attention, FA.flash_attention_plain)), \
+            patched(ops, "grouped_matmul", one_output_per_call(
+                stats["grouped_matmul"], ops.grouped_matmul, moe_gmm.grouped_matmul_plain)):
+        res, routed = recorded_run(api, params, prompts, chunks=MOE_CHUNKS,
+                                   tokens=MOE_CHUNK_TOKENS)
+    launches = kernels.launch_counts()
+    trace, moe.DISPATCH_TRACE = moe.DISPATCH_TRACE, None
+    passes = len(MOE_CHUNKS) + MOE_CHUNK_TOKENS
+    want = {"gemm": 0, "flash_attention": len(MOE_CHUNKS) * L,
+            "flash_decode": L * MOE_CHUNK_TOKENS, "flash_decode_partials": 0,
+            "flash_decode_combine": 0, "grouped_matmul": 3 * L * passes, "wkv6": 0,
+            "flash_attention_bwd": 0, "wkv6_bwd": 0}
+    bad = [] if launches == want else [f"launches {launches}, expected {want}"]
+    per_call = {k: summarize_per_call(v) for k, v in stats.items()}
+    for name, pc in per_call.items():
+        if pc["calls"] != want[name] or not (pc["within"] and pc["control_5_bits_rejected"]):
+            bad.append(f"{name} per call {pc}")
+    cap = moe._capacity(BATCH * MOE_CHUNKS[0], cfg)
+    prefill = trace[:len(MOE_CHUNKS) * L]
+    if any(t["buffer"][1] != cap for t in prefill):
+        bad.append(f"chunk buffers {sorted({tuple(t['buffer']) for t in prefill})}, capacity {cap}")
+    routed_pairs = sum(int(t["routed"].sum()) for t in prefill)
+    kept_pairs = sum(int(t["kept"].sum()) for t in prefill)
+
+    def replay(run_api):
+        return lambda ids: replayed_run(run_api, params, prompts, ids, routed, MOE_CHUNKS,
+                                        MOE_CHUNK_TOKENS)
+
+    def coarser(ids):
+        with patched(moe_gmm, "grouped_matmul_plain", coarse_products(5)):
+            return replay(plain_api)(ids)
+    rule = float32_rule(res, replay(plain_api), replay(f32_api), True, {5: coarser})
+    control = dict(rule.pop("_controls")[5])
+    rule["control_5_mantissa_bits"] = dict(control, rejected=control.pop("float32_rule_rejects"))
+    if not rule["within"]:
+        bad.append(f"the kernel path is further from float32 than the plain path allows: {rule}")
+    if not rule["control_5_mantissa_bits"]["rejected"]:
+        bad.append("the float32 check did not reject the 5-bit control")
+    if not all(torch.isfinite(x).all() for x in [res.prefill_logits, *res.step_logits]):
+        bad.append("non-finite logits")
+    emit({"phase": "moe_chunked", "arch": cfg.name, "n_layers": L, "batch": BATCH,
+          "prompt_len": PROMPT, "chunks": list(MOE_CHUNKS), "new_tokens": MOE_CHUNK_TOKENS,
+          "prefill_ms": res.prefill_s * 1e3, "launches": launches, "per_call": per_call,
+          "chunk_capacity": cap, "chunk_pairs_routed": routed_pairs,
+          "chunk_pairs_dropped": routed_pairs - kept_pairs,
+          "float32_rule": rule,
+          "check": "exact launches; every K2 and K4 call within 2e-2 of its largest entry "
+                   f"and {ATTN_REL_RMS} relative rms of its plain version, 5-bit control "
+                   "rejected; each chunk dispatched at its own capacity; logits after "
+                   "each chunk and of each step at most 1.25 x as far from the float32 "
+                   "run as the plain run's (routing replayed), 5-bit control rejected"})
+    if bad:
+        raise AssertionError(f"moe_chunked: {bad}")
+    return launches
 
 
 # ------------------------------------------------------------------ training
@@ -2669,8 +2865,10 @@ def replaying_router(recorded):
     replay = iter(recorded)
 
     def router(xf, router_w, cfg):
+        from repro_torch.models import layers as L
         idx = next(replay)
-        logits = torch.einsum("td,de->te", xf, router_w.to(xf.dtype))
+        # summed over the ranks' embed blocks where a tp2d step split them
+        logits = L._proj_in("td,de->te", xf, router_w)
         probs = torch.softmax(logits.float(), dim=-1)
         gate = probs.gather(1, idx)
         gate = gate / torch.sum(gate, dim=-1, keepdim=True)
@@ -3822,13 +4020,20 @@ def phase_recurrent_parallel(device) -> dict:
 # sequence_parallel on a 1x2 mesh, and the float32 training cases (mesh, arch,
 # plan) of FAMILY_TRAIN_STEPS steps, each model cut to FAMILY_TRAIN_LAYERS
 FAMILY_PREFILLS = ((VLM_ARCH, None), (ENCDEC_ARCH, None), (MOE_ARCH, MOE_TRAIN_LAYERS))
+# the prompt passes' plan on each mesh: 2x2 runs tp2d (the residual's embed
+# over data too)
+FAMILY_PREFILL_PLAN = {(1, 2): "sequence_parallel", (2, 2): "tp2d"}
 FAMILY_TRAIN = (((1, 2), VLM_ARCH, "zero3_sp"), ((1, 2), MOE_ARCH, "zero3_sp"),
                 ((1, 2), MOE_ARCH, "sequence_parallel"), ((1, 2), ENCDEC_ARCH, "zero3_sp"),
-                ((2, 2), RWKV_ARCH, "tp2d"), ((2, 2), HYBRID_ARCH, "tp2d"))
+                ((2, 2), RWKV_ARCH, "tp2d"), ((2, 2), HYBRID_ARCH, "tp2d"),
+                ((2, 2), VLM_ARCH, "tp2d"), ((2, 2), MOE_ARCH, "tp2d"),
+                ((2, 2), ENCDEC_ARCH, "tp2d"))
 FAMILY_TRAIN_LAYERS = {VLM_ARCH: {"n_layers": 4}, MOE_ARCH: {"n_layers": MOE_TRAIN_LAYERS},
                        ENCDEC_ARCH: {"n_layers": 2, "n_encoder_layers": 2},
                        RWKV_ARCH: {"n_layers": 4}, HYBRID_ARCH: {"n_layers": 4}}
 FAMILY_TRAIN_STEPS = 2
+# the MoE, the VLM and the encoder-decoder take one step under tp2d
+FAMILY_STEPS = {(a, "tp2d"): 1 for a in (VLM_ARCH, MOE_ARCH, ENCDEC_ARCH)}
 FAMILY_TIMEOUT_S = 600
 
 
@@ -3957,14 +4162,17 @@ def block_router(recorded, rows: int, block: tuple):
     return replaying_router(cut)
 
 
-def family_prefill(arch, layers, mesh, device) -> dict:
+def family_prefill(arch, layers, mesh, device, plan_name="sequence_parallel") -> dict:
     """``arch`` (random bf16 weights from seed 0, at ``layers`` layers or its
     full depth) prefilled unsharded through the kernels, then on the plain
     path in bf16 and in float32 (the MoE's with the kernel run's routing
-    replayed), then through ``jit_serve_step`` under sequence_parallel into
-    an empty cache (the MoE's routing replayed on the rank's block), every
-    kernel call held against its plain version, the launches counted from
-    0; the MoE's pairs routed to and kept by each expert."""
+    replayed), then through ``jit_serve_step`` under ``plan_name``
+    (sequence_parallel or tp2d) into an empty cache (the MoE's routing
+    replayed on the rank's block of the tokens, or under tp2d, whose
+    expert-parallel branch routes the gathered sequence, on all of them),
+    every kernel call held against its plain version, the launches counted
+    from 0; the MoE's pairs routed to and kept by each expert of the rank's
+    slice."""
     from repro_torch import kernels
     from repro_torch.launch import common, serve
     from repro_torch.models import build_model, moe
@@ -3999,7 +4207,7 @@ def family_prefill(arch, layers, mesh, device) -> dict:
         exact, c32 = f32.prefill(params, prompts,
                                  f32.init_cache(f32.cfg, BATCH, length, device=device), **inputs)
     base = gap(base_logits, exact)
-    plan = SH.sequence_parallel_plan()
+    plan = family_plan(plan_name)
     leaves = [k for k, v in cache.items() if isinstance(v, torch.Tensor)]
     c_sh = SS.cache_shardings(api, cache, plan, mesh)
     empty = {k: (torch.zeros_like(v) if k in leaves else 0) for k, v in cache.items()}
@@ -4013,8 +4221,9 @@ def family_prefill(arch, layers, mesh, device) -> dict:
     torch.cuda.reset_peak_memory_stats(device)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    with checked_kernels(stats), patched(moe, "_router", block_router(
-            routed, BATCH, (r * PROMPT // 2, PROMPT // 2))):
+    router = replaying_router(routed) if plan_name == "tp2d" else block_router(
+        routed, BATCH, (r * PROMPT // 2, PROMPT // 2))
+    with checked_kernels(stats), patched(moe, "_router", router):
         logits, local = step(params, prompts, empty, **inputs)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
@@ -4031,7 +4240,7 @@ def family_prefill(arch, layers, mesh, device) -> dict:
                         "unsharded_vs_float32_rms": base_[1],
                         "vs_unsharded_max": gap(local[k], w)[0], "largest_float32": scale,
                         "within": within_scaled(got_, base_, scale)}
-    out = {"arch": arch, "n_layers": cfg.n_layers, "launches": launches,
+    out = {"arch": arch, "plan": plan_name, "n_layers": cfg.n_layers, "launches": launches,
            "ms_with_per_call_checks": ms, "index": local["index"],
            "finite": bool(torch.isfinite(logits).all()),
            "vs_float32_max": dist_[0], "vs_float32_rms": dist_[1],
@@ -4048,15 +4257,19 @@ def family_prefill(arch, layers, mesh, device) -> dict:
                       "routed": [t["routed"].tolist() for t in split],
                       "buffers": [list(t["buffer"]) for t in split],
                       "unsharded_buffers": [list(t["buffer"]) for t in unsharded],
-                      "capacity": moe._capacity(BATCH * PROMPT, cfg)}
+                      "capacity": moe._capacity(BATCH * PROMPT, cfg),
+                      # the rank's expert slice: all of them but under tp2d
+                      "e_lo": (r * split[0]["buffer"][0]
+                               if split[0]["buffer"][0] < cfg.n_experts else 0)}
     return out
 
 
 def family_seq_rank(job_path: str, rank: int) -> None:
     """One rank of ``family_seq_parallel`` (``chip_smoke.py
     --family-seq-rank JOB R``): a ``gloo`` rank on card 0 of the job's mesh
-    (1x2 or 2x2).  On 1x2, each of FAMILY_PREFILLS (:func:`family_prefill`);
-    then each of FAMILY_TRAIN's cases on this mesh: FAMILY_TRAIN_STEPS
+    (1x2 or 2x2).  Each of FAMILY_PREFILLS under the mesh's
+    FAMILY_PREFILL_PLAN (:func:`family_prefill`); then each of
+    FAMILY_TRAIN's cases on this mesh: FAMILY_TRAIN_STEPS (FAMILY_STEPS)
     float32 steps through ``jit_train_step`` from the seed-0 state, every
     kernel call of the first step held against its plain version.  Writes
     its results to ``JOB.rank<R>.json``."""
@@ -4076,9 +4289,10 @@ def family_seq_rank(job_path: str, rank: int) -> None:
     try:
         mesh = make_host_mesh(*shape)
         device = torch.device("cuda", 0)
-        for arch, layers in (FAMILY_PREFILLS if shape == (1, 2) else ()):
+        for arch, layers in FAMILY_PREFILLS:
             t0 = time.perf_counter()
-            out["prefill"][arch] = family_prefill(arch, layers, mesh, device)
+            out["prefill"][arch] = family_prefill(arch, layers, mesh, device,
+                                                  FAMILY_PREFILL_PLAN[shape])
             gc.collect()
             torch.cuda.empty_cache()
             out["seconds"][arch] = time.perf_counter() - t0
@@ -4087,6 +4301,7 @@ def family_seq_rank(job_path: str, rank: int) -> None:
                 continue
             t_case = time.perf_counter()
             api, tcfg, state, batches = family_train_setup(device, arch)
+            batches = batches[:FAMILY_STEPS.get((arch, name), FAMILY_TRAIN_STEPS)]
             step = TS.jit_train_step(api, tcfg, family_plan(name), mesh, batches[0])
             stats, history, step_s = new_stats(), [], []
             torch.cuda.synchronize()
@@ -4162,12 +4377,14 @@ def phase_family_seq_parallel(device) -> dict:
     ranks of one mesh run, the one-rank float32 steps of the models the
     other mesh trains.  Checks, for
     each rank: the internvl2-1b, seamless-m4t-medium and (2 layers)
-    qwen3-moe-30b-a3b prompt passes under sequence_parallel with finite
-    logits at most 1.25 x as far from the float32 prefill's as the
-    unsharded bf16 (the MoE: plain, routing replayed) prefill's, every cache
-    leaf's slice likewise, exact launches, the MoE's pairs routed to and
-    kept by every expert, summed over the ranks, equal to the unsharded
-    pass's; the steps' losses within 1e-3 relative of the one-rank steps'
+    qwen3-moe-30b-a3b prompt passes, under sequence_parallel on 1x2 and
+    tp2d on 2x2, with finite logits at most 1.25 x as far from the float32
+    prefill's as the unsharded bf16 (the MoE: plain, routing replayed)
+    prefill's, every cache leaf's slice likewise, exact launches, the MoE's
+    pairs routed to and kept by every expert equal to the unsharded
+    pass's (summed over the ranks' blocks of the tokens; under tp2d each
+    rank's slice of the experts); the steps (under tp2d the three take
+    one, FAMILY_STEPS) with losses within 1e-3 relative of the one-rank steps'
     and the first gradient's norm within 2e-2, exact launches; every
     kernel call (K2, K2-bwd, K4, K4-bwd, K5, K5-bwd) of a prefill and of a
     first step held against its plain version (as many calls as the
@@ -4182,7 +4399,8 @@ def phase_family_seq_parallel(device) -> dict:
         # while those ranks run (they wait on gloo more than on the card)
         nonlocal oracle_s
         t0 = time.perf_counter()
-        for arch in dict.fromkeys(a for m, a, _ in FAMILY_TRAIN if tuple(m) == shape):
+        for arch in dict.fromkeys(a for m, a, _ in FAMILY_TRAIN
+                                  if tuple(m) == shape and a not in losses):
             api, tcfg, state, batches = family_train_setup(device, arch)
             step = TS.make_train_step(api, tcfg)
             losses[arch] = []
@@ -4244,7 +4462,8 @@ def phase_family_seq_parallel(device) -> dict:
                 tr.update(loss_rel_err_vs_one_rank=rel, grad_norm_rel_err_vs_one_rank=norm)
                 bad = []
                 have = {k: tr["launches"].get(k, 0) for k in zero}
-                if have != family_launches(arch, plan, zero):
+                steps = FAMILY_STEPS.get((arch, plan), FAMILY_TRAIN_STEPS)
+                if have != family_launches(arch, plan, zero, n=steps):
                     bad.append(f"launches {tr['launches']}")
                 if rel > 1e-3 or norm > 2e-2 or not all(math.isfinite(x) for x in got):
                     bad.append(f"losses {got} against {losses[arch]}, first gradient norm "
@@ -4258,7 +4477,9 @@ def phase_family_seq_parallel(device) -> dict:
                         bad.append(f"{name} per call {pc}")
                 if bad:
                     raise AssertionError(f"family_seq_parallel {shape} rank {r}, {key}: {bad}")
-    # the MoE's pairs routed to and kept by each expert, over the ranks, as unsharded
+    # the MoE's pairs routed to and kept by each expert, over the ranks, as
+    # unsharded: summed over the blocks of the tokens (sequence_parallel), or
+    # each rank's slice of the experts over all of them (tp2d)
     moe_ranks = kept[(1, 2)]
     for layer, want_kept in enumerate(moe_ranks[0]["unsharded_kept"]):
         for what in ("kept", "routed"):
@@ -4268,11 +4489,18 @@ def phase_family_seq_parallel(device) -> dict:
             if total != want:
                 raise AssertionError(f"family_seq_parallel: layer {layer}'s pairs {what} by "
                                      f"expert over the ranks {total}, unsharded {want}")
+            for m in kept[(2, 2)]:
+                got = m[what][layer]
+                if got != m[f"unsharded_{what}"][layer][m["e_lo"]:m["e_lo"] + len(got)] \
+                        or len(got) * 2 != len(want_kept):
+                    raise AssertionError(f"family_seq_parallel tp2d: layer {layer}'s pairs "
+                                         f"{what} by expert {got} from expert {m['e_lo']}")
     routed = sum(sum(x) for x in moe_ranks[0]["unsharded_routed"])
     dropped = routed - sum(sum(x) for x in moe_ranks[0]["unsharded_kept"])
     emit({"phase": "family_seq_parallel", "meshes": [[1, 2], [2, 2]], "batch": BATCH,
           "prompt_len": PROMPT, "prefills": [list(p) for p in FAMILY_PREFILLS],
-          "prefill_plan": "sequence_parallel",
+          "prefill_plan": {f"{s[0]}x{s[1]}": p for s, p in FAMILY_PREFILL_PLAN.items()},
+          "train_steps_of": {f"{a} {p}": n for (a, p), n in FAMILY_STEPS.items()},
           "train": [[list(m), a, p] for m, a, p in FAMILY_TRAIN],
           "train_layers": FAMILY_TRAIN_LAYERS, "train_steps": FAMILY_TRAIN_STEPS,
           "one_rank_losses": losses, "one_rank_grad_norms": norms,
@@ -4760,9 +4988,9 @@ def main() -> int:
     lap("planner")
     del timer
     torch.cuda.empty_cache()
-    serve_launches, served = phase_serve(device)
+    serve_launches, served, chunked_launches = phase_serve(device)
     lap("serve")
-    by_path = {"serve": serve_launches}
+    by_path = {"serve": serve_launches, "chunked_prefill": chunked_launches}
 
     def beside_mesh_serve():
         # the other served models, then two phases whose gloo ranks share the
@@ -4809,7 +5037,7 @@ def main() -> int:
     lap("tenants")
     gc.collect()
     torch.cuda.empty_cache()
-    moe_launches, moe_by_body = phase_moe(device)
+    moe_launches, moe_by_body, by_path["moe_chunked"] = phase_moe(device)
     by_path["moe"] = moe_launches
     lap("moe")
     # training last: every served model's weights go first

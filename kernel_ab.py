@@ -26,7 +26,9 @@ head dims 16 and 32; an odd T at chunk 1; decays at the floor at chunk 32).
 With ``--digests`` each checkout instead runs its own K2 (``flash_attention``:
 bf16 and float32, every compiled head dim, causal and not, at every tile
 that fits a block) and K2-bwd on inputs made from one seed, without a query
-offset (the argument an older checkout does not have), and its K5
+offset (the argument an older checkout does not have; a checkout whose K2
+takes one also runs the chunked prefill's offset shapes, bf16, every tile),
+and its K5
 (``wkv6``) and K5-bwd (``wkv6_bwd``) from a zero state (no ``state0``, no
 final-state gradient: the arguments an older checkout does not have) at
 every compiled head dim, bf16 and float32, chunks 1, 16 and 32 and
@@ -49,6 +51,12 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 # the --digests inputs: batch x heads, q_per_kv, Sq, Skv
 DIGEST_SHAPES = [(16, 4, 320, 320), (8, 2, 200, 136), (4, 1, 77, 150)]
+# the --digests inputs with a query offset, where the checkout's K2 takes
+# one: the chunked prefill's later chunks (qwen2.5-3b's 128 at 128 and
+# 256 at 256; qwen3-moe's 256 at 256) -- batch x heads, q_per_kv, Sq, Skv, d,
+# offset
+OFFSET_DIGEST_SHAPES = [(64, 8, 128, 256, 128, 128), (64, 8, 256, 512, 128, 256),
+                        (128, 8, 256, 512, 128, 256)]
 # the K5 / K5-bwd --digests inputs: rows, T, chunk (every compiled head dim),
 # and rwkv6-3b's training pass at d 64
 WKV_DIGEST_SHAPES = [(8, 128, 16), (6, 96, 32), (4, 101, 1)]
@@ -137,6 +145,17 @@ def one_digests(tree: str) -> dict:
                     grads = FAB.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal,
                                                     q_per_kv=g)
                     out[f"bwd {tag}"] = "".join(_digest(x) for x in grads)
+    import inspect
+    if "q_offset" in inspect.signature(FA.flash_attention).parameters:
+        for BH, g, Sq, Skv, d, off in OFFSET_DIGEST_SHAPES:
+            gen = torch.Generator(device=dev).manual_seed(BH + Sq + Skv + off)
+            q, k, v = (torch.randn(n, s, d, generator=gen, device=dev).to(torch.bfloat16)
+                       for n, s in ((BH, Sq), (BH // g, Skv), (BH // g, Skv)))
+            for bq, bkv in FA.legal_tiles(d, q.element_size()):
+                o = FA.flash_attention(q, k, v, causal=True, block_q=bq, block_kv=bkv,
+                                       q_per_kv=g, q_offset=off)
+                out[f"fwd bf16 d{d} BH{BH} g{g} {Sq}x{Skv} offset {off} tile {bq}x{bkv}"] = \
+                    _digest(o)
     out.update(wkv_digests(dev))
     torch.cuda.synchronize()
     usage = ptxas_usage(_build.build_info().get("compiler_output", ""))

@@ -288,7 +288,7 @@ def _build_step(api, tcfg, shape, plan, mesh, gen, device):
         def local_step():
             local, batch_part = TS.local_batch(batch, specs, plan, mesh, block)
             return local, spmd.Step(plan, mesh, batch_part, local["tokens"].shape[0],
-                                    local=api.local_compute, seq_axis=seq)
+                                    local=True, seq_axis=seq)
 
         @torch.no_grad()
         def run():
@@ -302,8 +302,7 @@ def _build_step(api, tcfg, shape, plan, mesh, gen, device):
         with spmd.step_context(step):
             S = api.head_positions(local["tokens"].shape[1])
         batch_part = step.batch_part
-        tp = spmd.local_axis_of(plan, mesh, part_axes(batch_part)) \
-            if api.local_compute else None
+        tp = spmd.local_axis_of(plan, mesh, part_axes(batch_part))
         head = p_sh["embed"]["table"].spec[:1] if cfg.tie_embeddings \
             else p_sh["lm_head"]["w"].spec[1:2]
         vocab = cfg.padded_vocab // (mesh.shape[tp] if tp and tuple(head) == (tp,) else 1)

@@ -46,7 +46,7 @@ from __future__ import annotations
 import argparse
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
@@ -75,6 +75,7 @@ class ServeResult:
     launches: Dict[str, int] = field(default_factory=dict)
     blocks: Dict[Any, Any] = field(default_factory=dict)
     peak_bytes: int = 0
+    chunk_logits: List[torch.Tensor] = field(default_factory=list)  # after each prompt chunk
 
 
 def _sync(device: torch.device) -> None:
@@ -102,11 +103,17 @@ def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, device) -> torch
 def generate(api: ModelAPI, params, prompts: torch.Tensor, tokens: int, *,
              inputs: Optional[Dict[str, torch.Tensor]] = None,
              keep_step_logits: bool = False,
-             forced_ids: Optional[torch.Tensor] = None) -> ServeResult:
+             forced_ids: Optional[torch.Tensor] = None,
+             prefill_chunks: Optional[Sequence[int]] = None) -> ServeResult:
     """Prefill ``prompts`` in one causal pass, then decode ``tokens`` ids
     greedily.  ``inputs`` is the stub frontend input the VLM and the
     encoder-decoder take (:meth:`ModelAPI.frontend_inputs`).  The kernels'
     launch counters are read around the run.
+
+    With ``prefill_chunks`` (sizes that sum to the prompt's length) the
+    prompt is written as chunks, each a causal pass at the cache's index
+    (chunked prefill; the frontend input goes with the first), and
+    ``chunk_logits`` holds the last token's logits after each.
 
     With ``forced_ids`` (batch, tokens) the loop feeds those ids instead of
     its own argmax (teacher forcing), which lets two attention paths be
@@ -122,12 +129,20 @@ def generate(api: ModelAPI, params, prompts: torch.Tensor, tokens: int, *,
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
+    sizes = list(prefill_chunks or [prompt_len])
+    if sum(sizes) != prompt_len or min(sizes) < 1:
+        raise ValueError(f"prefill chunks {sizes} do not cover a prompt of {prompt_len}")
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = api.prefill(params, prompts, cache, **inputs)
+    at, chunk_logits = 0, []
+    for i, n in enumerate(sizes):
+        logits, cache = api.prefill(params, prompts[:, at:at + n], cache,
+                                    **(inputs if i == 0 else {}))
+        chunk_logits.append(logits[:, -1, :cfg.vocab_size].float())
+        at += n
     _sync(device)
     prefill_s = time.perf_counter() - t0
-    prefill_logits = logits[:, -1, :cfg.vocab_size].float()
+    prefill_logits = chunk_logits[-1]
 
     def pick(i: int, logits: torch.Tensor) -> torch.Tensor:
         if forced_ids is not None:
@@ -154,7 +169,8 @@ def generate(api: ModelAPI, params, prompts: torch.Tensor, tokens: int, *,
         launches={k: after[k] - before[k] for k in after},
         blocks=lower_torch.resolved_blocks(),
         peak_bytes=(torch.cuda.max_memory_allocated(device)
-                    if device.type == "cuda" else 0))
+                    if device.type == "cuda" else 0),
+        chunk_logits=chunk_logits if prefill_chunks else [])
 
 
 def _traced(fn, device: torch.device, repeat: int) -> Dict[str, Any]:

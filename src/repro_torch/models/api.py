@@ -47,35 +47,6 @@ class ModelAPI:
     cache_axes: Optional[Callable] = None     # () -> logical axes of the cache's leaves
 
     @property
-    def local_compute(self) -> bool:
-        """Whether every layer of the family that holds a head, ffn or vocab
-        dim has a local rule (``models/layers.py``; rwkv6's time and channel
-        mix, ``models/rwkv6.py``; the Mamba2 block, ``models/mamba2.py``), so
-        a plan-sharded step may compute them in parts (``spmd.Step(local=
-        True)``).  True for every family."""
-        return True
-
-    @property
-    def sequence_split(self) -> bool:
-        """Whether the family computes a block of the tokens under a plan
-        that splits the sequence (``spmd.Step(seq_axis=...)``: attention
-        through K2 with the rank's query offset over K/V gathered along the
-        sequence; rwkv6's and Mamba2's scans from the state the earlier
-        blocks leave, and their token shifts and convolutions across the
-        block boundary; the MoE's dispatch from exchanged counts; the VLM
-        over its block of [patches; prompt]; the encoder-decoder over its
-        blocks of the frames and of the prompt).  True for every family."""
-        return True
-
-    @property
-    def embed_split(self) -> bool:
-        """Whether the family's layers take a residual whose ``embed`` dim a
-        sequence-split step also splits (``tp2d``: ``spmd.Step.embed_axis``):
-        the dense family, rwkv6 and zamba2.  The MoE, the VLM and the
-        encoder-decoder run tp2d on their whole activations."""
-        return self.cfg.family in ("dense", "ssm", "hybrid")
-
-    @property
     def block_inputs(self) -> bool:
         """Whether a step that splits the sequence hands the model its block
         of the tokens (and frames): every family but the VLM, which takes
@@ -229,7 +200,7 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             logits_fn=lambda p, b: vlm.forward(p, b["tokens"], b["patches"], cfg),
             loss_fn=lambda p, b: vlm.loss_fn(p, b, cfg),
             decode_step=lambda p, t, c: vlm.decode_step(p, t, c, cfg),
-            prefill=lambda p, t, c, *, patches: vlm.prefill(p, t, c, cfg, patches=patches),
+            prefill=lambda p, t, c, *, patches=None: vlm.prefill(p, t, c, cfg, patches=patches),
             init_cache=vlm.init_cache, cache_axes=transformer.cache_logical_axes)
     if fam == "audio":
         return ModelAPI(
@@ -237,6 +208,6 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             logits_fn=lambda p, b: encdec.forward(p, b["frames"], b["tokens"], cfg),
             loss_fn=lambda p, b: encdec.loss_fn(p, b, cfg),
             decode_step=lambda p, t, c: encdec.decode_step(p, t, c, cfg),
-            prefill=lambda p, t, c, *, frames: encdec.prefill(p, t, c, cfg, frames=frames),
+            prefill=lambda p, t, c, *, frames=None: encdec.prefill(p, t, c, cfg, frames=frames),
             init_cache=encdec.init_cache, cache_axes=encdec.cache_logical_axes)
     raise ValueError(f"unknown family {fam!r}")

@@ -16,6 +16,10 @@ and the MLPs run on the rank's block, the encoder's bidirectional
 self-attention and the decoder's cross-attention gather K and V over the
 axis (every frame), the decoder's self-attention is causal with the rank's
 query offset, and a prompt pass writes the rank's blocks of the caches.
+Under ``tp2d`` every activation also holds the rank's block of ``embed``
+(the adapter writes it, the K/V projections sum their partial products over
+the blocks).  A prompt may go in as chunks: the first carries the frames,
+the later ones run the decoder over the cross K/V the first cached.
 """
 from __future__ import annotations
 
@@ -199,8 +203,9 @@ def _project_cross(params: Params, memory: torch.Tensor, cfg: ModelConfig,
         kv = []
         for name, w in (("cross_k", p["wk"]), ("cross_v", p["wv"])):
             # under a step that splits the sequence the memory is the rank's
-            # block: its K/V gathered, whole for the prompt pass
-            x = spmd.gather_seq(torch.einsum("bsd,dhk->bshk", memory, w.to(memory.dtype)), 1)
+            # block: its K/V gathered, whole for the prompt pass (under tp2d
+            # the product over its embed block summed first)
+            x = spmd.gather_seq(L._proj_in("bsd,dhk->bshk", memory, w), 1)
             if blocks:
                 kv.append(x.to(cache[name].dtype))
                 x = x[:, blocks.get(1, slice(None)), blocks.get(2, slice(None))]
@@ -248,14 +253,22 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
 
 
 def prefill(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
-            cfg: ModelConfig, *, frames: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+            cfg: ModelConfig, *, frames: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Encode ``frames``, project the memory's cross K/V into the empty cache
     and run the decoder's causal prompt pass over ``tokens`` (self-attention
     written into the cache, cross-attention over the cached memory K/V).
     Returns the last token's logits (B, 1, V): with a float32 cache they
-    equal the reference's ``forward`` at the last position."""
+    equal the reference's ``forward`` at the last position.  A later chunk
+    of the prompt (the cache's index > 0, no frames) runs the decoder only,
+    over the cross K/V the first pass cached."""
     if int(cache["index"]) != 0:
-        raise ValueError(f"prefill fills an empty cache; this one holds "
-                         f"{int(cache['index'])} tokens")
+        if frames is not None:
+            raise ValueError(f"the frames go into an empty cache only, with the first pass; "
+                             f"this one holds {int(cache['index'])} tokens (a later chunk "
+                             f"runs the decoder alone)")
+        return _cached_pass(params, tokens, cache, cfg, last_only=True)
+    if frames is None:
+        raise ValueError("the first pass into an empty cache carries the frames")
     cache, cross = _project_cross(params, encode(params, frames, cfg), cfg, cache)
     return _cached_pass(params, tokens, cache, cfg, last_only=True, cross=cross)

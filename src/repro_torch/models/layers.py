@@ -309,10 +309,11 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     * cached: ``kv_cache=(k, v)`` of shape (B, T, nkv, hd); the S new tokens'
       k/v are written at ``cache_index`` **in place** and the same tensors
       are returned.  With S == 1 this is a decode step over the
-      ``cache_index + 1`` valid keys.  With S > 1 it is a prompt pass: the
-      tokens attend causally to each other (which is what feeding them one
-      by one computes), and the cache must be empty below them
-      (``cache_index == 0``).
+      ``cache_index + 1`` valid keys.  With S > 1 it is a prompt pass, or a
+      chunk of one at ``cache_index`` > 0 (chunked prefill): the tokens
+      attend over the cache's first ``cache_index + S`` keys in its dtype,
+      causally with the query offset ``cache_index`` (which is what feeding
+      them one by one computes).
     * cross-attention, over all keys of another sequence, with no RoPE:
       ``kv_input`` (B, T, d) is projected to k/v here; ``precomputed_kv``
       hands over projected (k, v) of shape (B, T, nkv, hd), cast to the
@@ -380,7 +381,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         out = _context_parallel(q, k, v, o, causal, cfg)
         return _proj_out("bshk,hkd->bsd", out, p["wo"]), None
     new_cache = None
-    valid = None
+    valid, offset = None, 0
     is_causal = causal and kv_cache is None
     if kv_cache is not None:
         ck, cv = kv_cache
@@ -393,23 +394,21 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             out = _decode_split(q, k, v, ck, cv, cache_index, split, cfg)
             return _proj_out("bshk,hkd->bsd", out, p["wo"]), (ck, cv)
         if cached:
-            if S > 1 and cache_index != 0:
-                raise NotImplementedError(
-                    "a multi-token pass into a cache that already holds keys "
-                    "(chunked prefill) is not supported: prefill from index 0")
             ck[:, cache_index:cache_index + S] = k.to(ck.dtype)
             cv[:, cache_index:cache_index + S] = v.to(cv.dtype)
             valid = cache_index + S
         # attend over the cache, in its dtype, as the reference does
         k, v = ck, cv
         if cached and S > 1:
-            # prompt pass: the S tokens see each other causally, which is
-            # what feeding them one by one computes
+            # a prompt pass or a later chunk: the S tokens see the keys ahead
+            # of them and each other causally, which is what feeding them
+            # one by one computes
             k, v = ck[:, :valid], cv[:, :valid]
             valid = None
             is_causal = causal
+            offset = cache_index if causal else 0
         new_cache = (ck, cv)
-    out = _attend(q, k, v, is_causal, cfg, kv_valid_len=valid)
+    out = _attend(q, k, v, is_causal, cfg, kv_valid_len=valid, q_offset=offset)
     return _proj_out("bshk,hkd->bsd", out, p["wo"]), new_cache
 
 
@@ -437,11 +436,14 @@ def _prompt_into_split(q, k, v, ck, cv, cache_index: int, split, causal: bool,
     prompt covers, and its queries attend causally over the prompt's keys in
     the cache's dtype (as the unsplit prompt pass reads them back), with
     the query offset of its token block.  The decode steps that follow run
-    :func:`_decode_split`."""
+    :func:`_decode_split`.  A chunk at ``cache_index`` > 0 would need the
+    keys the other ranks' blocks hold, and raises."""
     if cache_index != 0:
         raise NotImplementedError(
-            "a multi-token pass into a cache that already holds keys (chunked prefill) "
-            "is not supported: prefill from index 0")
+            f"a chunk at cache index {cache_index} into a cache split over kv_seq "
+            f"(chunked prefill): its queries need the keys other ranks hold (ROADMAP "
+            f"Queue 1, chunked prefill into a kv_seq-split cache); prefill such a cache "
+            f"from index 0")
     S = q.shape[1]
     o = spmd.seq_range(S)[0]
     k_all, v_all = (spmd.gather_seq(t, 1) for t in (k, v))
@@ -497,8 +499,9 @@ def _attention_local(p: Params, x: torch.Tensor, cfg: ModelConfig, axis: str, *,
     only the kv heads its query heads read (every kv head where a whole
     cache must be filled), their gradient summed over ``axis``.  A cache
     must be whole or split over ``kv_heads`` on ``axis``; its rank's heads
-    are written.  The output of the row-parallel ``wo`` product is summed
-    over ``axis``."""
+    are written, at any index (a chunk at ``cache_index`` > 0 attends
+    causally over the keys ahead of it too).  The output of the
+    row-parallel ``wo`` product is summed over ``axis``."""
     B, S, _ = x.shape
     G = cfg.q_per_kv
     x = spmd.enter(x, axis)
@@ -513,10 +516,8 @@ def _attention_local(p: Params, x: torch.Tensor, cfg: ModelConfig, axis: str, *,
             raise NotImplementedError(
                 f"head-local attention into a cache split over {dims} "
                 f"({split.sharding.spec}): only a split of kv_heads over {axis!r}")
-        if cache_index is None or (S > 1 and cache_index != 0):
-            raise NotImplementedError(
-                "a multi-token pass into a cache that already holds keys "
-                "(chunked prefill) is not supported: prefill from index 0")
+        if cache_index is None:
+            raise NotImplementedError("head-local attention into a cache takes its index")
     p = dict(p)
     if spmd.local_of(p["wk"]) is not None:
         # the plan split kv_heads too: the rank's kv heads are its query heads'
@@ -536,20 +537,22 @@ def _attention_local(p: Params, x: torch.Tensor, cfg: ModelConfig, axis: str, *,
                else positions if positions is not None else torch.arange(S, device=x.device))
         cos, sin = rope_frequencies(cfg.head_dim_, cfg.rope_theta, pos)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    valid, is_causal = None, causal
+    valid, is_causal, offset = None, causal, 0
     if ck is not None:
         if ck.shape[2] != k.shape[2]:
             raise ValueError(f"cache of {ck.shape[2]} kv heads for {k.shape[2]} projected")
         ck[:, cache_index:cache_index + S] = k.to(ck.dtype)
         cv[:, cache_index:cache_index + S] = v.to(cv.dtype)
         if S > 1:
-            k, v = ck[:, :S], cv[:, :S]
+            # a prompt pass or a later chunk, causal over the keys ahead of it
+            k, v = ck[:, :cache_index + S], cv[:, :cache_index + S]
+            offset = cache_index if causal else 0
         else:
             k, v, valid, is_causal = ck, cv, cache_index + 1, False
     k, v = k[:, :, sel], v[:, :, sel]
     if index is not None:
         k, v = k[:, :, index], v[:, :, index]
-    out = _attend(q, k, v, is_causal, cfg, kv_valid_len=valid, q_per_kv=g)
+    out = _attend(q, k, v, is_causal, cfg, kv_valid_len=valid, q_per_kv=g, q_offset=offset)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return spmd.psum(out, axis), kv_cache
 

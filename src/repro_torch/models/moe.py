@@ -38,7 +38,11 @@ Two execution paths, as in the reference's ``moe_mlp``:
   the step also splits the sequence over the expert axis (``zero3_sp``),
   the rank gathers its data shard's whole sequence first, as the
   reference's ``shard_map`` sees it, and reduce-scatters the summed output
-  back to its block;
+  back to its block; under ``tp2d`` (experts and sequence on ``model``,
+  the residual's ``embed`` on ``data``) the rows are also the rank's block
+  of the embed channels: the router's logits and the gate and up products
+  are summed over the blocks (so every rank routes alike), down writes the
+  rank's block;
 * **single-shard** (serving, tests, a step whose plan does not map the
   experts): the same dispatch over all ``E`` experts, on the global batch
   as the reference computes it.  A plan-sharded step whose ranks hold
@@ -154,22 +158,36 @@ def _dispatch_ffn_combine(xf: torch.Tensor, p_gate, p_up, p_down,
     # as XLA's default precision does for the reference (cuBLAS may reduce
     # bf16 partial sums in bf16)
     mm = ops.grouped_matmul if cfg.kernels == "cuda" else moe_gmm.grouped_matmul_plain
+    # under tp2d the rows are the rank's block of the embed channels: gate
+    # and up are partial products summed over the embed axis, down writes
+    # the rank's block (its input entered: each block's gradient is a part)
+    axis = spmd.embed_of(p_gate)
     g = mm(xe, wg)
     u = mm(xe, wu)
-    ye = mm(act(g) * u, wd)
+    if axis is not None:
+        g, u = L._sum_partials(g, axis), L._sum_partials(u, axis)
+    h = act(g) * u
+    ye = mm(h if axis is None else spmd.enter(h, axis), wd)
 
     # The combine: each token's k weighted expert rows, put back in (token,
     # slot) order and summed.  The reference scatter-adds them in the compute
     # dtype; this is the same sum without atomics, so it does not change from
-    # run to run on the card.
-    gathered = ye[se_c, rank_c] * torch.where(keep, sw, 0.0)[:, None].to(xf.dtype)
+    # run to run on the card.  A gate weight scales the rank's embed block
+    # only, so its gradient is summed over the blocks.
+    weights = torch.where(keep, sw, 0.0)
+    if axis is not None:
+        weights = spmd.enter(weights, axis)
+    gathered = ye[se_c, rank_c] * weights[:, None].to(xf.dtype)
     per_slot = torch.empty_like(gathered)
     per_slot[order] = gathered
     return per_slot.view(T, k, d).sum(dim=1)
 
 
 def _router(xf: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig):
-    logits = torch.einsum("td,de->te", xf, router_w.to(xf.dtype))
+    """Gate values, expert ids and the load-balancing loss of tokens ``xf``;
+    under tp2d (``xf`` the rank's block of the embed channels) the logits
+    are summed over the blocks first, so every rank routes alike."""
+    logits = L._proj_in("td,de->te", xf, router_w)
     probs = torch.softmax(logits.float(), dim=-1)
     gate_vals, expert_idx = torch.topk(probs, cfg.experts_per_token, dim=-1)
     gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
@@ -267,7 +285,7 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig
     load-balancing loss (:func:`_queue_offsets`, :func:`_balance_loss`).
 
     The expert-parallel path under a step that splits the sequence over the
-    expert axis (``zero3_sp``) gathers the rank's data shard's whole
+    expert axis (``zero3_sp``, ``tp2d``) gathers the rank's data shard's whole
     sequence (``spmd.gather_seq``: its backward reduce-scatters), routes it
     as the reference's ``shard_map`` does, and reduce-scatters the partial
     outputs back to the rank's block (``spmd.scatter_sum``)."""
@@ -393,14 +411,14 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
 
 def prefill(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
             cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Fill an empty cache with a full prompt in one causal pass and return
-    the last token's logits (B, 1, V).
+    """Write a prompt, or the next chunk of one, into the cache at its index
+    in one causal pass and return the last token's logits (B, 1, V).
 
-    Every layer dispatches all B * S prompt tokens together, with capacity
-    ``_capacity(B * S)``, exactly as the reference's ``moe.forward`` does, so
-    the logits equal ``forward(tokens)[0][:, -1:]``.  Where that capacity
-    drops tokens, they differ from feeding the prompt to :func:`decode_step`
-    token by token (capacity ``_capacity(B)``, which drops nothing at
-    B <= 8)."""
+    Every layer dispatches the pass's B * S tokens together, with capacity
+    ``_capacity(B * S)`` of the pass (the chunk's, as the reference's
+    ``decode_step`` given a chunk computes it), so a whole prompt's logits
+    equal ``forward(tokens)[0][:, -1:]``.  Where that capacity drops tokens,
+    they differ from feeding the tokens to :func:`decode_step` one by one
+    (capacity ``_capacity(B)``, which drops nothing at B <= 8)."""
     return transformer._cached_pass(params, tokens, cache, cfg, last_only=True,
                                     block=_serve_block)

@@ -452,7 +452,9 @@ def prefill(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
     and every rank stores the whole prompt's states and last rows."""
     if int(cache["index"]) != 0:
         raise ValueError(f"prefill fills an empty cache; this one holds "
-                         f"{int(cache['index'])} tokens")
+                         f"{int(cache['index'])} tokens: the reference decodes rwkv6 one "
+                         f"token at a time from its state (decode_step), with no "
+                         f"multi-token pass into a state that holds tokens")
     x = L.embed(params["embed"], tokens, cfg)
     for i in range(cfg.n_layers):
         x, carry = L.remat(False, block_apply, transformer._layer(params, i), x, cfg)

@@ -177,11 +177,14 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
 
 def prefill(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
             cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Fill an empty cache with a full prompt in one causal pass and return
-    the last token's logits (B, 1, V).
+    """Write a prompt, or the next chunk of one, into the cache at its index
+    in one causal pass and return the last token's logits (B, 1, V).
 
-    This equals feeding the prompt to :func:`decode_step` token by token
-    (same cache contents, same last-token logits).  It deliberately does
-    *not* copy the reference's ``prefill``, which is not causal inside the
-    prompt."""
+    This equals feeding the tokens to :func:`decode_step` one by one (same
+    cache contents, same last-token logits), so a prompt prefilled in chunks
+    of any sizes leaves the cache and logits of the one-pass prefill.  It
+    deliberately does *not* copy the reference's ``prefill`` (or its
+    ``decode_step`` given several tokens, the reference's chunked prefill),
+    which is not causal inside the pass.  :func:`decode_step` stays one
+    token a row; the chunks go through here."""
     return _cached_pass(params, tokens, cache, cfg, last_only=True)

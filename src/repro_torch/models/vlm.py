@@ -6,7 +6,8 @@ caller hands over precomputed patch embeddings (B, n_patches, frontend_dim);
 a linear connector projects them into the LM's embedding space and they are
 prepended to the token embeddings (the InternVL "LLM-as-decoder" wiring).
 Logits are over the text positions only.  Serving runs the image prefix and
-the prompt through one cached causal pass (:func:`prefill`); a decode step
+the prompt through one cached causal pass (:func:`prefill`; a prompt in
+chunks: the patches with the first, the later ones text); a decode step
 is the dense transformer's, its positions counting the prefix.  The loss
 is over the text positions.  Under a plan-sharded step that splits the
 sequence, the patches and the prompt are one sequence of ``P + S_text``
@@ -16,7 +17,7 @@ the text positions of its block only.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -100,15 +101,24 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
 
 
 def prefill(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
-            cfg: ModelConfig, *, patches: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Fill an empty cache with the image prefix and the prompt in one causal
-    pass and return the last text token's logits (B, 1, V).  The cache must
-    hold ``P + S_text`` keys and more for the tokens to come.  Under a
-    serving step that splits the sequence, ``tokens`` and ``patches`` come
-    whole and the rank computes its block of [patches; prompt], writing the
-    block of the cache that its plan gives it."""
-    if int(cache["index"]) != 0:
-        raise ValueError(f"prefill fills an empty cache; this one holds "
-                         f"{int(cache['index'])} tokens")
-    return TF.cached_layers(params, _prefix(params, tokens, patches, cfg), cache, cfg,
-                            last_only=True)
+            cfg: ModelConfig, *, patches: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Write the image prefix and the prompt (or its first chunk) into an
+    empty cache in one causal pass, or a later chunk of text at the cache's
+    index, and return the last text token's logits (B, 1, V).  The patches
+    go in with the first pass only.  The cache must hold ``P + S_text``
+    keys and more for the tokens to come.  Under a serving step that splits
+    the sequence, ``tokens`` and ``patches`` come whole and the rank
+    computes its block of [patches; prompt], writing the block of the cache
+    that its plan gives it."""
+    if int(cache["index"]) == 0:
+        if patches is None:
+            raise ValueError("the first pass into an empty cache carries the patches")
+        x = _prefix(params, tokens, patches, cfg)
+    else:
+        if patches is not None:
+            raise ValueError(f"the patches go into an empty cache only, with the first pass; "
+                             f"this one holds {int(cache['index'])} positions (a later chunk "
+                             f"is text alone)")
+        x = L.embed(params["embed"], tokens, cfg)
+    return TF.cached_layers(params, x, cache, cfg, last_only=True)

@@ -179,5 +179,7 @@ def prefill(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
     prompt's states."""
     if int(cache["index"]) != 0:
         raise ValueError(f"prefill fills an empty cache; this one holds "
-                         f"{int(cache['index'])} tokens")
+                         f"{int(cache['index'])} tokens: the reference decodes zamba2 one "
+                         f"token at a time from its state (decode_step), with no "
+                         f"multi-token pass into a state that holds tokens")
     return _cached_pass(params, tokens, cache, cfg, prompt=True)

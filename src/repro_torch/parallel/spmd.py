@@ -388,13 +388,33 @@ def batch_row0(rows: int) -> int:
 _EMBED = "_spmd_embed_axis"
 
 
+_WHOLE = False
+
+
+@contextlib.contextmanager
+def whole_activations():
+    """For tests only: every step built inside computes whole activations,
+    the layout the split paths are held against.  No step then has a local
+    axis (:func:`local_axis_of`) or a sequence axis (:func:`seq_axis_of`),
+    so every head, ffn and vocabulary leaf is gathered for use and the
+    sequence stays whole on every rank."""
+    global _WHOLE
+    prev, _WHOLE = _WHOLE, True
+    try:
+        yield
+    finally:
+        _WHOLE = prev
+
+
 def seq_axis_of(plan: ShardingPlan, mesh: Mesh, seq_len: Optional[int] = None
                 ) -> Optional[str]:
     """The mesh axis a step splits the sequence over: the one axis the plan
     maps ``seq`` and ``kv_seq`` to, when the mesh gives it more than one
     rank, the plan's batch does not take it and (given ``seq_len``) it
     divides the sequence, as :meth:`ShardingPlan.spec` would place it.
-    None otherwise."""
+    None otherwise, and inside :func:`whole_activations`."""
+    if _WHOLE:
+        return None
     ax = plan.mesh_axes("seq")
     if isinstance(ax, tuple) and len(ax) == 1:
         ax = ax[0]
@@ -666,7 +686,9 @@ def local_axis_of(plan: ShardingPlan, mesh: Mesh, batch_axes: Sequence[str]) -> 
     and the plan splits no sequence over the mesh (``tp2d``, ``zero3_sp``,
     ``sequence_parallel``: ``seq`` claims that axis first, so heads, ffn and
     vocabulary are whole in the reference's layout; :func:`seq_axis_of`).
-    None otherwise."""
+    None otherwise, and inside :func:`whole_activations`."""
+    if _WHOLE:
+        return None
     parts = {plan.mesh_axes(a) for a in ("q_heads", "ffn", "vocab")}
     if len(parts) != 1:
         return None

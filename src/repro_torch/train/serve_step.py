@@ -24,26 +24,32 @@ cache (``parallel/spmd.py``):
   ``out_shardings=(None, c_sh)``) and the cache as this rank's slice,
   updated in place (the donation); its ``index`` is one Python int on
   every rank;
-* a call with more than one token a row is the multi-token prefill pass
-  (``api.prefill``, into an empty cache; the last token's logits): each
-  rank computes its heads, ffn columns and vocabulary block under a plan
-  with a local axis (``spmd.Step(local=True)``), writing its kv heads (and
-  recurrent states' heads) into a cache split over them on that axis (or
-  every head into a whole one); for the families with sequence-split rules
-  (``ModelAPI.sequence_split``) under a plan that splits the sequence
-  (``sequence_parallel``, ``tp2d``) each rank computes its block of the
-  prompt's tokens (K2 with the rank's query offset over the keys gathered
-  along the sequence; rwkv6's and Mamba2's scans from the state the
-  earlier blocks leave; the MoE's dispatch from exchanged counts; the
-  VLM's block of [patches; prompt], from both given whole; the
-  encoder-decoder's blocks of the frames and of the prompt), every rank
-  stores the whole prompt's recurrent states and last rows, and the last
-  token's logits come from the rank that holds it;
-* a prompt pass writes into the rank's block of a cache split over
-  ``kv_seq`` (and ``kv_heads``) the positions it covers, from the prompt's
-  keys and values, whole or gathered (``models/layers.py``), and the
-  encoder-decoder stores its block of the cross K/V; chunked prefill (a
-  prompt into a cache that already holds keys) raises.
+* a call with more than one token a row, or with a frontend input
+  (patches, frames), is a prompt pass (``api.prefill``; the last token's
+  logits): each rank computes its heads, ffn columns and vocabulary block
+  under a plan with a local axis (``spmd.Step(local=True)``), writing its
+  kv heads (and recurrent states' heads) into a cache split over them on
+  that axis (or every head into a whole one); under a plan that splits the
+  sequence (``sequence_parallel``, ``tp2d``; there the residual's
+  ``embed`` too) each rank computes its block of the prompt's tokens (K2
+  with the rank's query offset over the keys gathered along the sequence;
+  rwkv6's and Mamba2's scans from the state the earlier blocks leave; the
+  MoE's dispatch from exchanged counts, or, with the experts on the
+  sequence's axis, over its data shard's gathered sequence; the VLM's
+  block of [patches; prompt], from both given whole; the encoder-decoder's
+  blocks of the frames and of the prompt), every rank stores the whole
+  prompt's recurrent states and last rows, and the last token's logits
+  come from the rank that holds it;
+* a prompt pass from index 0 writes into the rank's block of a cache split
+  over ``kv_seq`` (and ``kv_heads``) the positions it covers, from the
+  prompt's keys and values, whole or gathered (``models/layers.py``), and
+  the encoder-decoder stores its block of the cross K/V;
+* a later chunk of a prompt (chunked prefill: the cache's index > 0) is
+  computed whole on every rank, or over its heads where the cache is split
+  over ``kv_heads``: K2 at the query offset of the cache's index over the
+  keys ahead of it; into a cache split over ``kv_seq`` it raises
+  ``NotImplementedError``, and so do rwkv6's and zamba2's states, which the
+  reference decodes one token at a time (``ValueError``).
 """
 from __future__ import annotations
 
@@ -145,9 +151,12 @@ def _planned_serve_step(api: ModelAPI, plan: ShardingPlan, mesh: Mesh,
         shapes, c_sh = known["cache"], known["c_sh"]
         params = place_tree(params, p_sh, abstract)
         t_sh = token_sharding(plan, mesh, known["tokens"])
-        prompt = tokens.shape[1] > 1
+        prompt = tokens.shape[1] > 1 or bool(inputs)
         tokens = place_leaf(tokens, t_sh, (known["tokens"][0], tokens.shape[1]))
-        seq = seq_split_axis(api, plan, mesh, tokens.shape[1]) if prompt else None
+        # a prompt from index 0 may be split over the sequence; a later chunk
+        # runs whole (or over the heads of a cache split over them)
+        seq = seq_split_axis(api, plan, mesh, tokens.shape[1]) \
+            if prompt and int(cache["index"]) == 0 else None
         # a prompt's frontend input (patches, frames) has the tokens' rows
         rows = Sharding(mesh, P(t_sh.spec[0] if len(t_sh.spec) else None))
         inputs = {k: place_leaf(v, rows, (known["tokens"][0],) + tuple(v.shape[1:]))
@@ -165,7 +174,7 @@ def _planned_serve_step(api: ModelAPI, plan: ShardingPlan, mesh: Mesh,
             splits[k] = (local[k], spmd.CacheSplit(c_sh[k], shape, tuple(cache_axes[k])))
         batch_part = t_sh.spec[0] if len(t_sh.spec) else None
         step = spmd.Step(plan, mesh, batch_part, tokens.shape[0], cache=splits,
-                         local=prompt and api.local_compute, seq_axis=seq)
+                         local=prompt, seq_axis=seq)
         with spmd.step_context(step):
             model_params = spmd.serving_params(params, axes, placements)
             if prompt:

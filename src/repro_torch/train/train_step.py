@@ -27,13 +27,12 @@ vocabulary locally; its gradient summed over the batch axes and sliced to
 the rank's shard; the global clip norm; the optimizer on the shards: AdamW elementwise,
 Adafactor's means and int8's scales over whole leaves).  Under a plan that
 splits the sequence (``tp2d``, ``zero3_sp``, ``sequence_parallel``) every
-family (``ModelAPI.sequence_split``; under ``tp2d``, which splits ``embed``
-too, only one with embed-split rules, ``ModelAPI.embed_split``) keeps each
-rank's block of the tokens and labels (the VLM takes them and its patches
-whole and builds its block of [patches; prompt]) and computes only that
-block; the
-gradients and the loss are then summed over the sequence axis too.  On a
-mesh of one rank it is the unsharded step's arithmetic.
+family keeps each rank's block of the tokens and labels (the VLM takes them
+and its patches whole and builds its block of [patches; prompt]) and
+computes only that block, under ``tp2d`` over the rank's block of the
+residual's ``embed`` too; the gradients and the loss are then summed over
+the sequence axis too.  On a mesh of one rank it is the unsharded step's
+arithmetic.
 """
 from __future__ import annotations
 
@@ -275,7 +274,7 @@ def _planned_step(api: ModelAPI, tcfg: TrainConfig, plan: ShardingPlan, mesh: Me
                                         seq if api.block_inputs else None)
         # the model sees one microbatch's rows at a time
         rows = local["tokens"].shape[0] // max(1, tcfg.microbatches)
-        step = spmd.Step(plan, mesh, batch_part, rows, local=api.local_compute, seq_axis=seq)
+        step = spmd.Step(plan, mesh, batch_part, rows, local=True, seq_axis=seq)
         with spmd.step_context(step):
             return _step(api, tcfg, state, local, step, placements, opt_specs)
 
@@ -287,18 +286,10 @@ def seq_split_axis(api: ModelAPI, plan: ShardingPlan, mesh: Mesh, seq_len: int
     """The mesh axis a step of ``api``'s family splits a prompt of
     ``seq_len`` tokens over under ``plan`` (``spmd.seq_axis_of`` of each of
     ``ModelAPI.seq_lengths``: the VLM's patches and prompt together, the
-    encoder-decoder's frames too), None where the family has no
-    sequence-split rules, the plan splits none or the axis does not divide
-    those lengths, or the plan also splits the residual's ``embed``
-    (``tp2d``) and the family has no rules for that
-    (``ModelAPI.embed_split``)."""
-    if not api.sequence_split:
-        return None
+    encoder-decoder's frames too), None where the plan splits none or the
+    axis does not divide those lengths."""
     axes = {spmd.seq_axis_of(plan, mesh, n) for n in api.seq_lengths(seq_len)}
-    ax = axes.pop() if len(axes) == 1 else None
-    if ax is not None and not api.embed_split and spmd.embed_axis_of(plan, mesh, ax):
-        return None
-    return ax
+    return axes.pop() if len(axes) == 1 else None
 
 
 def local_batch(batch: Dict[str, torch.Tensor], batch_specs: Optional[Dict[str, Any]],

@@ -1500,16 +1500,24 @@ def test_serve_one_sequence_on_the_card_matches_the_plain_path(cuda):
 # q_per_kv, Sq, Skv, head dim, causal, q_offset
 FAMILY_BLOCKS = [(4 * 14, 7, 384, 768, 64, True, 384),   # internvl2-1b: rank 1 of 2 of [256; 512]
                  (4 * 16, 1, 512, 1024, 64, False, 0),   # seamless's encoder: 512 of 1024 frames
-                 (4 * 16, 1, 256, 1024, 64, False, 0)]   # its cross-attention: 256 tokens, every frame
+                 (4 * 16, 1, 256, 1024, 64, False, 0),   # its cross-attention: 256 tokens
+                 (4 * 32, 8, 256, 512, 128, True, 256),  # qwen3-moe under tp2d: rank 1 of 2
+                 # chunked prefill: a chunk's queries at the cache's index over
+                 # the keys ahead of it (qwen2.5-3b's second and third chunks of
+                 # 128, 128, 256; qwen3-moe's second of 256, 256)
+                 (4 * 16, 8, 128, 256, 128, True, 128),
+                 (4 * 16, 8, 256, 512, 128, True, 256),
+                 (4 * 32, 8, 256, 512, 128, True, 256)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", FAMILY_BLOCKS)
 def test_flash_attention_kernels_at_the_split_families_blocks(cuda, case, dtype):
     """K2 and K2-bwd through ``ops.attention`` at a rank's block of the
-    VLM's combined sequence (causal, at its offset) and of the
+    VLM's combined sequence (causal, at its offset), of the
     encoder-decoder's frames and prompt (no mask, against every gathered
-    key), against their plain versions."""
+    key) and of the MoE's prompt, and at a later chunk of a chunked
+    prefill (causal, at the cache's index), against their plain versions."""
     from repro_torch.kernels import flash_attention as FA, ops
     BH, g, Sq, Skv, d, causal, off = case
     gen = torch.Generator(device=cuda).manual_seed(BH + Sq + Skv)
@@ -1528,11 +1536,14 @@ def test_flash_attention_kernels_at_the_split_families_blocks(cuda, case, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(8, 24, 128, 64), (128, 160, 2048, 768)])
+@pytest.mark.parametrize("shape", [(8, 24, 128, 64), (128, 160, 2048, 768),
+                                   (64, 160, 1024, 768), (64, 160, 768, 1024)])
 def test_grouped_matmul_on_a_rank_buffer(cuda, shape, dtype):
     """K4 and K4-bwd through ``ops.grouped_matmul`` on a rank's expert
     buffer of ``min(capacity, tokens)`` rows (a reduced MoE's 24; the
-    full MoE's 160), against the plain grouped products."""
+    full MoE's 160; under tp2d on 2x2 a rank's 64 experts over its half
+    of the embed channels, gate and up from it, down into it), against the
+    plain grouped products."""
     from repro_torch.kernels import moe_gmm, ops
     E, rows, d_in, d_out = shape
     gen = torch.Generator(device=cuda).manual_seed(E + rows)

@@ -95,7 +95,8 @@ def test_local_axis_follows_the_plan():
     """The local axis is the one mesh axis the plan maps heads, ffn and
     vocabulary to, when it has ranks and splits neither the batch nor the
     sequence; where the plan splits the sequence (tp2d, zero3_sp) the step
-    has a sequence axis instead (``tests/test_torch_seq_parallel.py``)."""
+    has a sequence axis instead (``tests/test_torch_seq_parallel.py``).
+    ``spmd.whole_activations`` takes both away."""
     mesh = SH.Mesh(("data", "model"), (2, 2))
     for name, want, seq in (("megatron_tp", "model", None), ("zero3", "model", None),
                             ("expert_parallel", "model", None), ("tp2d", None, "model"),
@@ -104,9 +105,11 @@ def test_local_axis_follows_the_plan():
         assert spmd.seq_axis_of(plan_named(name), mesh, S) == seq, name
     assert spmd.local_axis_of(plan_named("megatron_tp"), SH.Mesh(("data", "model"), (2, 1)),
                               ("data",)) is None
-    assert [build_model(get_config(a).reduced()).local_compute
-            for a in ("gemma-7b", "qwen3-moe-30b-a3b", "internvl2-1b", "rwkv6-3b",
-                      "zamba2-1.2b", "seamless-m4t-medium")] == [True] * 6
+    # the tests' whole-activation layout: no local axis and no sequence axis
+    with spmd.whole_activations():
+        assert spmd.local_axis_of(plan_named("megatron_tp"), mesh, ("data",)) is None
+        assert spmd.seq_axis_of(plan_named("tp2d"), mesh, S) is None
+    assert spmd.local_axis_of(plan_named("megatron_tp"), mesh, ("data",)) == "model"
 
 
 @pytest.mark.parametrize("case", [

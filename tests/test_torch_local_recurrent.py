@@ -119,22 +119,20 @@ def _gathered_a_step(cfg, rows: int) -> int:
 
 
 def test_every_family_has_local_rules_and_the_recurrent_ones_split_the_sequence():
-    """``local_compute`` and ``sequence_split`` are true for all six
-    families; under tp2d (the residual's embed split too) the dense family,
-    rwkv6 and zamba2 split the sequence, while the MoE, the VLM and the
-    encoder-decoder get no sequence axis and run their whole activations."""
+    """Every family has local rules (a megatron plan's step has a local
+    axis for all six) and splits the sequence under every plan that splits
+    it: under tp2d (the residual's embed split too) as under
+    sequence_parallel and zero3_sp, all six get the ``model`` axis."""
     archs = ("qwen2.5-3b", "qwen3-moe-30b-a3b", "internvl2-1b", "rwkv6-3b", "zamba2-1.2b",
              "seamless-m4t-medium")
     apis = [build_model(get_config(a).reduced()) for a in archs]
-    assert all(api.local_compute for api in apis)
-    assert [api.sequence_split for api in apis] == [True] * 6
     mesh = SH.Mesh(("data", "model"), (2, 2))
     for api in apis:
-        want = "model" if api.cfg.family in ("dense", "ssm", "hybrid") else None
-        assert TS.seq_split_axis(api, plan_named("tp2d"), mesh, S) == want, api.cfg.name
-        if api.sequence_split:
-            for name in SPLIT:
-                assert TS.seq_split_axis(api, plan_named(name), mesh, S) == "model"
+        for name in ("tp2d",) + SPLIT:
+            assert TS.seq_split_axis(api, plan_named(name), mesh, S) == "model", \
+                (api.cfg.name, name)
+        for name in LOCAL:
+            assert TS.seq_split_axis(api, plan_named(name), mesh, S) is None, api.cfg.name
 
 
 def test_mamba2_takes_its_heads_columns():

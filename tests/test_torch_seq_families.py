@@ -137,9 +137,10 @@ def _forward_data(arch, dtype, S):
     rng = np.random.default_rng(1)
     toks = rng.integers(1, ref_cfg.vocab_size, size=(XB, S + 1)).astype(np.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    name = {"vlm": "patches", "audio": "frames"}[ref_cfg.family]
-    batch[name] = (rng.standard_normal((XB, ref_cfg.frontend_len, ref_cfg.frontend_dim))
-                   * 0.02).astype(np.float32)
+    name = {"vlm": "patches", "audio": "frames"}.get(ref_cfg.family)
+    if name is not None:
+        batch[name] = (rng.standard_normal((XB, ref_cfg.frontend_len, ref_cfg.frontend_dim))
+                       * 0.02).astype(np.float32)
     want = np.asarray(ref_api.logits_fn(params, {k: jnp.asarray(v) for k, v in batch.items()}
                                         ).astype(jnp.float32))
     port = build_model(replace(get_config(arch).reduced(), compute_dtype=dtype))
@@ -207,6 +208,12 @@ def _oracle(arch, extra, dp):
     return losses, state, first, torch.cat([lg for lg, _ in parts]), whole, noisy
 
 
+def _batch_shards(plan: str, mesh_shape) -> int:
+    """The batch shards of ``plan`` on a (data, model) mesh."""
+    axes = SH.part_axes(plan_named(plan).mesh_axes("batch"))
+    return math.prod(n for a, n in zip(("data", "model"), mesh_shape) if a in axes)
+
+
 def _gathered_over_data(cfg, mesh_shape) -> float:
     """Float32 bytes a tp2d step of two STEPS gathers over ``data``: no
     weight but rwkv6's ``w0``, ``ln_x`` (d each) and ``wB`` (64 x d), whole
@@ -231,18 +238,16 @@ def _moe_gathers(cfg, mesh_shape, rows: int) -> float:
 
 # ------------------------------------------------------------------- tests
 def test_every_family_splits_the_sequence_and_the_recurrent_ones_tp2d():
-    """``sequence_split`` is true for all six families and ``embed_split``
-    for the dense family, rwkv6 and zamba2; the VLM divides its patches and
-    prompt together (16 + 16 over 2 and 4, 16 + 6 over 2 only), the
-    encoder-decoder its frames too."""
+    """All six families split the sequence under tp2d on 2x2 (the
+    residual's embed over ``data`` too), the recurrent ones as the rest;
+    the VLM divides its patches and prompt together (16 + 16 over 2 and 4,
+    16 + 6 over 2 only), the encoder-decoder its frames too."""
     mesh = SH.Mesh(("data", "model"), (2, 2))
     wide = SH.Mesh(("data", "model"), (1, 4))
     for arch in (MOE, VLM, ENCDEC, "rwkv6-3b", "zamba2-1.2b", "qwen2.5-3b"):
         api = build_model(get_config(arch).reduced())
-        assert api.sequence_split and api.block_inputs == (arch != VLM)
-        assert api.embed_split == (arch in ("rwkv6-3b", "zamba2-1.2b", "qwen2.5-3b"))
-        tp2d = TS.seq_split_axis(api, plan_named("tp2d"), mesh, 16)
-        assert tp2d == ("model" if api.embed_split else None), arch
+        assert api.block_inputs == (arch != VLM)
+        assert TS.seq_split_axis(api, plan_named("tp2d"), mesh, 16) == "model", arch
     vlm = build_model(get_config(VLM).reduced())
     assert vlm.seq_lengths(16) == (32,)
     assert TS.seq_split_axis(vlm, plan_named("sequence_parallel"), wide, 16) == "model"
@@ -395,8 +400,10 @@ def _check_forwards(tmp_path, mesh_shape):
 def _check_steps(tmp_path, mesh_shape, checked):
     for arch, plan, extra in checked:
         api = _setup(arch, extra)[0]
-        # the expert-parallel branch routes each data shard alone
-        dp = mesh_shape[0] if arch == MOE and plan_named(plan).mesh_axes("experts") else 1
+        # the expert-parallel branch routes each data shard alone (tp2d
+        # splits no batch on this mesh: one shard)
+        dp = _batch_shards(plan, mesh_shape) \
+            if arch == MOE and plan_named(plan).mesh_axes("experts") else 1
         losses, want, want_grads, logits, want_cache, noisy = _oracle(arch, extra, dp)
         for rank in range(math.prod(mesh_shape)):
             got = torch.load(tmp_path / f"{arch}-{plan}.rank{rank}.pt", weights_only=False)

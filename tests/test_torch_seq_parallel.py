@@ -126,9 +126,11 @@ def test_seq_axis_follows_the_plan():
             assert spmd.local_axis_of(plan, mesh, ("data",)) is None, name
     assert spmd.seq_axis_of(plan_named("tp2d"), mesh, 15) is None          # 2 does not divide 15
     assert spmd.seq_axis_of(plan_named("tp2d"), SH.Mesh(("data", "model"), (2, 1)), 16) is None
-    assert [build_model(get_config(a).reduced()).sequence_split
+    # every family splits its sequence (and, under tp2d, the embed) alike
+    assert [TS.seq_split_axis(build_model(get_config(a).reduced()), plan_named("tp2d"),
+                              mesh, 16)
             for a in ("llama3-405b", "gemma-7b", "qwen3-moe-30b-a3b", "internvl2-1b",
-                      "rwkv6-3b", "zamba2-1.2b", "seamless-m4t-medium")] == [True] * 7
+                      "rwkv6-3b", "zamba2-1.2b", "seamless-m4t-medium")] == ["model"] * 7
 
 
 @pytest.mark.parametrize("mesh_shape,plans", [((2, 2), ("tp2d", "zero3_sp")),

@@ -119,13 +119,26 @@ def test_causal_prefill_equals_reference_token_by_token_loop(pair):
 
 
 def test_reference_multi_token_prefill_is_not_causal(pair):
-    """Pins the reference trap the port does not copy."""
+    """Pins the reference trap the port does not copy, from an empty cache
+    and for a chunk into one that holds 3 tokens (its ``decode_step`` given
+    several tokens): the port's prefill of the same chunk is causal."""
     all_ref, _ = pair.ref_loop(pair.tokens, max_len=S + 3)
     cache = pair.ref_api.init_cache(pair.ref_cfg, B, S + 3, jnp.float32)
     logits, _ = ref_transformer.prefill(pair.ref_params, jnp.asarray(pair.tokens), cache,
                                         pair.ref_cfg)
     first = np.abs(_np(logits[:, 0]) - _np(all_ref[0][:, 0])).max()
     assert first > 1e-3          # token 0 already sees later tokens there
+    c = 3
+    _, held = pair.ref_loop(pair.tokens[:, :c], max_len=S + 3)
+    chunk, _ = pair.ref_decode(pair.ref_params, jnp.asarray(pair.tokens[:, c:]), held)
+    first = np.abs(_np(chunk[:, 0]) - _np(all_ref[c][:, 0])).max()
+    assert first > 1e-3          # the chunk's first token sees the chunk's later ones
+    port = pair.api.init_cache(pair.cfg, B, S + 3, dtype=torch.float32, device="cpu")
+    tokens = torch.from_numpy(pair.tokens).long()
+    with torch.no_grad():
+        _, port = pair.api.prefill(pair.params, tokens[:, :c], port)
+        got, port = pair.api.prefill(pair.params, tokens[:, c:c + 1], port)
+    np.testing.assert_allclose(_np(got[:, 0]), _np(all_ref[c][:, 0]), rtol=1e-5, atol=1e-5)
 
 
 def test_serve_greedy_ids_equal_reference_loop(pair):
@@ -180,12 +193,18 @@ def test_cache_defaults_to_bfloat16_and_converts(pair):
 
 
 def test_prefill_refuses_a_second_chunk(pair):
-    cache = pair.api.init_cache(pair.cfg, B, 12, device="cpu")
+    """A second chunk is taken only where the cache has room for it (the
+    chunked prefill itself: ``tests/test_torch_chunked_prefill.py``), and
+    ``decode_step`` stays one token a row."""
+    cache = pair.api.init_cache(pair.cfg, B, 6, device="cpu")
     prompts = torch.from_numpy(pair.tokens).long()
     with torch.no_grad():
         _, cache = pair.api.prefill(pair.params, prompts[:, :4], cache)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="cannot take"):
             pair.api.prefill(pair.params, prompts[:, 4:], cache)
+        assert cache["index"] == 4
+        _, cache = pair.api.prefill(pair.params, prompts[:, 4:6], cache)
+        assert cache["index"] == 6
         with pytest.raises(ValueError):
             pair.api.decode_step(pair.params, prompts[:, :2], cache)
 

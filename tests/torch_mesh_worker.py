@@ -16,8 +16,8 @@ NCCL refuses two ranks on one card) and runs the job's cases:
 * ``save``: one step of the first case, then ``CheckpointManager.save_sharded``;
 * ``restore``: ``restore(shardings=)`` of that checkpoint onto this mesh;
 * a case with ``"local_compute": false`` runs the whole-activation path
-  (``ModelAPI.local_compute`` and ``ModelAPI.sequence_split`` false while
-  it runs); a case's ``"reduced"`` overrides the reduced config's sizes;
+  (inside ``spmd.whole_activations``); a case's ``"reduced"`` overrides the
+  reduced config's sizes;
   ``"columns": "contiguous"`` makes Mamba2's head-local path read the
   rank's contiguous block of ``in_proj`` (a wrong rule a test must catch);
 * ``local``: each case's training steps as ``train`` does, with the
@@ -27,7 +27,8 @@ NCCL refuses two ranks on one card) and runs the job's cases:
   (the head-, ffn- and vocab-local path, or the sequence-split one under
   a plan that splits the sequence), with K2's query offsets recorded;
   writes the losses, this rank's shards, the counts and the prefill's
-  logits, cache slice and offsets;
+  logits, cache slice and offsets; with ``"decode": true`` also one decode
+  step after it, its logits, cache slice and K3 partials calls;
 * ``families``: each case by its ``kind``: ``local`` as the mode above
   (with the first step's gradients), ``moe`` (``moe.moe_mlp`` alone on the
   rank's block of the case's input, :func:`run_moe_case`) or ``forward``
@@ -42,7 +43,8 @@ NCCL refuses two ranks on one card) and runs the job's cases:
   writes each step's logits, this rank's final cache slice and how often
   each decode function ran (``ops.flash_decode``,
   ``ops.flash_decode_partials``, ``flash_decode.combine_partials``) to
-  ``<out>/<case>.rank<r>.pt``.
+  ``<out>/<case>.rank<r>.pt``; a case with ``"chunked": true`` prefills
+  the job's prompt in chunks instead (:func:`run_chunk_case`).
 
 Only ``repro_torch`` is imported: the test holds the results against the
 reference and the unsharded step.
@@ -159,22 +161,14 @@ def mamba_columns(case):
         mamba2.mamba2_head_columns = right
 
 
-@contextlib.contextmanager
 def whole_path(case):
     """With ``"local_compute": false`` in the case: the whole-activation
-    path while it runs, every head, ffn and vocabulary leaf gathered for use
-    and the sequence whole, as in a family without local or sequence-split
-    rules."""
+    path while it runs (``spmd.whole_activations``), every head, ffn and
+    vocabulary leaf gathered for use and the sequence whole."""
+    from repro_torch.parallel import spmd
     if case.get("local_compute") is not False:
-        yield
-        return
-    from repro_torch.models.api import ModelAPI
-    saved = ModelAPI.local_compute, ModelAPI.sequence_split
-    ModelAPI.local_compute = ModelAPI.sequence_split = property(lambda self: False)
-    try:
-        yield
-    finally:
-        ModelAPI.local_compute, ModelAPI.sequence_split = saved
+        return contextlib.nullcontext()
+    return spmd.whole_activations()
 
 
 def run_case(job, case, mesh, grads=None):
@@ -261,11 +255,28 @@ def run_local_case(job, case, mesh):
         logits, cache = step(params, prompt, cache, **inputs)
     finally:
         ops.attention = attention
-    return {"history": history, "state": state, "coords": mesh.coords(), "grads": grads[0],
-            "gathered": tally.bytes["all-gather"], "reduced": tally.bytes["all-reduce"],
-            "scattered": tally.bytes["reduce-scatter"],
-            "prefill_logits": logits, "cache_index": cache["index"], "q_offsets": offsets,
-            "cache": {k: v for k, v in cache.items() if isinstance(v, torch.Tensor)}}
+    out = {"history": history, "state": state, "coords": mesh.coords(), "grads": grads[0],
+           "gathered": tally.bytes["all-gather"], "reduced": tally.bytes["all-reduce"],
+           "scattered": tally.bytes["reduce-scatter"],
+           "prefill_logits": logits, "cache_index": cache["index"], "q_offsets": offsets,
+           "cache": {k: v.clone() for k, v in cache.items() if isinstance(v, torch.Tensor)}}
+    if case.get("decode"):
+        # one decode step after the prompt pass (the prompt's first ids as its
+        # token), counting the K3 partials calls of a cache split over kv_seq
+        from repro_torch.kernels import flash_decode as FD
+        partials, calls = FD.flash_decode_partials_plain, []
+
+        def counted(*a, **k):
+            calls.append(1)
+            return partials(*a, **k)
+        FD.flash_decode_partials_plain = counted
+        try:
+            out["decode_logits"], cache = step(params, prompt[:, :1], cache)
+        finally:
+            FD.flash_decode_partials_plain = partials
+        out.update(decode_partials=len(calls), decode_cache={
+            k: v for k, v in cache.items() if isinstance(v, torch.Tensor)})
+    return out
 
 
 def _block_of(mesh, plan, x, seq_len, block_inputs=True):
@@ -338,13 +349,30 @@ def run_moe_case(job, case, mesh):
             "gathered": tally.bytes["all-gather"], "reduced": tally.bytes["all-reduce"]}
 
 
+def partial_router(xf, router_w, cfg):
+    """A wrong ``moe._router`` (a test must catch it): under tp2d each rank
+    routes on the logits of its own block of the embed channels, the sum
+    over the blocks left out."""
+    logits = torch.einsum("td,de->te", xf, router_w.to(xf.dtype))
+    probs = torch.softmax(logits.float(), dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, cfg.experts_per_token, dim=-1)
+    gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+    chosen = torch.zeros_like(probs).scatter_add_(1, expert_idx, torch.ones_like(gate_vals))
+    return gate_vals, expert_idx, moe._balance_loss(probs, chosen, cfg)
+
+
 def run_forward_case(job, case, mesh):
     """The case's model forward (``api.logits_fn``) and loss under a step of
     the case's plan, from whole parameters and a whole batch handed over as
-    a train step hands them; with ``"pin": "cross_block"`` the
+    a train step hands them; with ``"placed": true`` the parameters are
+    this rank's shards, used as a plan-sharded step uses them (under tp2d
+    their embed dims stay split); with ``"pin": "cross_block"`` the
     encoder-decoder's cross-attention attends over the rank's memory block
-    only (a wrong rule a test must catch).  Also the mean over the ranks
-    of each rank's own mean loss (where every rank holds labels)."""
+    only, with ``"pin": "router_partial"`` the MoE routes on partial logits
+    (:func:`partial_router`; wrong rules a test must catch).  Also the mean
+    over the ranks of each rank's own mean loss (where every rank holds
+    labels) and the MoE's pairs routed to each expert of the rank's slice
+    in each layer's dispatch."""
     from repro_torch.models import layers as L
     from repro_torch.parallel import spmd
     api = model(case["arch"], job.get("kernels"), **case.get("reduced", {}))
@@ -359,7 +387,13 @@ def run_forward_case(job, case, mesh):
     local, batch_part = TS.local_batch(batch, None, plan, mesh,
                                        seq if api.block_inputs else None)
     step = spmd.Step(plan, mesh, batch_part, local["tokens"].shape[0], seq_axis=seq)
-    attention, gather = L.attention, spmd.gather_seq
+    params = data["params"]
+    if case.get("placed"):
+        from repro_torch.train import serve_step as SS
+        local_params = TS.place_tree(params, SS.param_shardings(api, plan, mesh),
+                                     api.abstract_params())
+        placements = TS.param_placements(api, plan, mesh)
+    attention, gather, router = L.attention, spmd.gather_seq, moe._router
 
     def cross_block(p, x, cfg, **k):
         if k.get("kv_input") is None:
@@ -371,10 +405,16 @@ def run_forward_case(job, case, mesh):
             spmd.gather_seq = gather
     if case.get("pin") == "cross_block":
         L.attention = cross_block
+    if case.get("pin") == "router_partial":
+        moe._router = partial_router
+    moe.DISPATCH_TRACE = []
     try:
         with torch.no_grad(), spmd.step_context(step):
-            logits = api.logits_fn(data["params"], local)
-            loss = step.batch_mean(api.loss_fn(data["params"], local)[0])
+            if case.get("placed"):
+                params = spmd.serving_params(local_params, api.param_axes(), placements)
+            logits = api.logits_fn(params, local)
+            routed = [t["routed"] for t in moe.DISPATCH_TRACE]
+            loss = step.batch_mean(api.loss_fn(params, local)[0])
             means = None
             if api.cfg.family == "vlm" and seq is not None:
                 from repro_torch.models import vlm
@@ -383,9 +423,9 @@ def run_forward_case(job, case, mesh):
                     else torch.tensor(float("nan"))
                 means = step.batch_mean(own)          # nan where a rank holds no text
     finally:
-        L.attention = attention
+        L.attention, moe._router, moe.DISPATCH_TRACE = attention, router, None
     return {"logits": logits, "loss": float(loss), "coords": mesh.coords(), "seq": seq,
-            "mean_of_means": None if means is None else float(means)}
+            "mean_of_means": None if means is None else float(means), "routed": routed}
 
 
 def run_serve_case(job, case, mesh):
@@ -447,6 +487,38 @@ def run_serve_case(job, case, mesh):
             "launches": kernels.launch_counts(), "coords": mesh.coords()}
 
 
+def run_chunk_case(job, case, mesh):
+    """A prompt through ``serve_step.jit_serve_step`` in the data's
+    ``chunks`` from its empty ``cache`` (the first chunk with the frontend
+    ``inputs``): after each chunk the logits and this rank's cache slice;
+    the message of a chunk the step refuses (``NotImplementedError``), after
+    which no chunk runs."""
+    from repro_torch import kernels
+    from repro_torch.train import serve_step as SS
+    api = model(case["arch"], job.get("kernels"), **case.get("reduced", {}))
+    data = torch.load(os.path.join(job["dir"], case["data"]), weights_only=False,
+                      map_location=job.get("device", "cpu"))
+    cache = data["cache"]
+    abstract = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                for k, v in cache.items() if isinstance(v, torch.Tensor)}
+    step = SS.jit_serve_step(api, plan_named(case["plan"]), mesh, abstract,
+                             tokens_shape=tuple(data["chunks"][0].shape))
+    kernels.reset_launch_counts()
+    done, error = [], None
+    for i, ids in enumerate(data["chunks"]):
+        try:
+            logits, cache = step(data["params"], ids, cache,
+                                 **(data.get("inputs", {}) if i == 0 else {}))
+        except NotImplementedError as e:
+            error = str(e)
+            break
+        done.append({"logits": logits, "index": cache["index"],
+                     "cache": {k: v.clone() for k, v in cache.items()
+                               if isinstance(v, torch.Tensor)}})
+    return {"chunks": done, "error": error, "coords": mesh.coords(),
+            "launches": kernels.launch_counts()}
+
+
 def main():
     job = json.load(open(sys.argv[1]))
     rank = int(sys.argv[2])
@@ -480,7 +552,8 @@ def main():
                 torch.save(res, os.path.join(out, f"{case['name']}.rank{rank}.pt"))
         elif job["mode"] == "serve":
             for case in job["cases"]:
-                torch.save(run_serve_case(job, case, mesh),
+                run = run_chunk_case if case.get("chunked") else run_serve_case
+                torch.save(run(job, case, mesh),
                            os.path.join(out, f"{case['name']}.rank{rank}.pt"))
         elif job["mode"] == "save":
             case = job["cases"][0]

@@ -257,7 +257,27 @@ these phases, each printing one JSON line; any failure raises:
             planner's choice run while ``resilient`` runs, the tp2d cell
             last.  llama3-405b's tp2d cells
             take longer than this script may (its prefill_32k 408 s): run
-            them with the same command on their own.
+            them with the same command on their own; the chunked prompt's
+            ranks (``mesh_chunked``) run beside the tp2d cell;
+   mesh_chunked the chunked prompt into a cache split over ``kv_seq`` on
+            two ``gloo`` ranks (``chip_smoke.py --mesh-chunk-rank``):
+            ``qwen2.5-3b`` at full width and depth under
+            kv_sequence_split, the 512-token prompt in chunks of 256, 128
+            and 128 into a cache of 640 (blocks [0, 320) and [320, 640):
+            the first chunk leaves rank 1 no visible key, the second
+            straddles position 320), each rank's K2 with its log-sum-exp
+            over its own block and K3' folding the ranks' rows, then a
+            decode step: after every chunk and the step the logits and the
+            rank's cache block within 2e-2 of the unsharded chunk loop's
+            (made once, on rank 0) and under the float32 rule with a 5-bit
+            control rejected, exact launches, every K2 call with its
+            log-sum-exp and every K3' fold of chunk rows within its
+            per-call bound of its plain version, 5-bit controls rejected;
+   examples ``examples/torch_serve_decode.py`` and
+            ``examples/torch_train_lm.py`` (each exits 0 with its kernels
+            launched) and ``python -m repro_torch.plancache warm``, after
+            which a fresh process resolves a warmed GEMM and flash request
+            from the store, all while ``resilient`` runs.
 
 The kernels phase also holds the backward kernels against their plain
 versions: K2-bwd (dq, dk, dv; the forward kernel's log-sum-exp too; bf16 on
@@ -577,6 +597,97 @@ def decode_cases(timer, gen, B, H, Hkv, Skv, valid, d, dtype, serving, splits=No
     combine.update(bound(work().combine_flops(B * H, s, d), nbytes(mp, lp, accp, out),
                          torch.float32))
     return [both, partials, combine]
+
+
+# qwen2.5-3b's chunked prefill into a cache split over kv_seq on two ranks
+# (mesh_chunked, under mesh_serve's plan): a buffer of 640 positions in
+# blocks of 320, the 512-token prompt in chunks of 256, 128 and 128, then a
+# decode step
+MESH_CHUNK_BUFFER, MESH_CHUNKS, MESH_CHUNK_STEPS = 640, (256, 128, 128), 1
+
+
+def chunk_fold_cases(timer, gen) -> list:
+    """K2 with its log-sum-exp and K3' as a chunk into a cache split over
+    kv_seq runs them (``models/layers.py``: ``_block_partials``,
+    ``_chunk_over_ranks``), at qwen2.5-3b's rank shape in mesh_serve: the
+    last chunk (128 rows at positions 384-511) over rank 1's block of 320
+    keys, its first row at offset 64 of the block; then K3' folding the two
+    ranks' (output, log-sum-exp) rows, (4·16·128, 2, 1, 128), checked also
+    against K2's plain version over both blocks whole.  K2's library time is
+    SDPA with the same mask (which returns no log-sum-exp); no one PyTorch
+    call computes the fold.  K2's bytes count the keys its rows can see.
+    ``rounding`` reports where the fold's bf16 output departs from one
+    attention over both blocks rounded once: with the blocks' outputs from
+    K2 (bf16), from K2's plain version rounded to bf16, and from the plain
+    version in float32 (no rounding before the fold)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA, flash_decode as FD, ops
+    from repro_torch.models import layers as L
+    dev = timer.flush.device
+    cfg = replace(get_config(ARCH), kernels="cuda")
+    B, H, Hkv, d = BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    g, block, S = H // Hkv, MESH_CHUNK_BUFFER // 2, MESH_CHUNKS[-1]
+    index = PROMPT - S
+    off = index - block
+    dtype = torch.bfloat16
+    q, k4, v4 = _qkv(gen, dev, B, H, Hkv, S, block, d, dtype)
+    kw = dict(sm_scale=d ** -0.5, causal=True, q_per_kv=g, q_offset=off, return_lse=True)
+    run = lambda: ops.attention(q, k4, v4, **kw)
+    plain = lambda: FA.flash_attention_plain(q, k4, v4, **kw)
+    (out, lse), (pout, plse) = run(), plain()
+    label = f"BH={B * H} kv_heads={B * Hkv} Sq={S} Skv={block} d={d} causal=True " \
+            f"q_offset={off} return_lse"
+    err = max(compare(f"flash_attention {label}", out, pout, dtype),
+              compare(f"flash_attention {label} log-sum-exp", lse, plse, dtype))
+    q4 = q.reshape(B, H, S, d)
+    lib = lambda: _library_attention(q4, k4, v4, True, off, g)
+    compare("library attention", lib().reshape(B * H, S, d), pout, dtype, tol=2e-2)
+    seen = min(block, off + S)
+    k2 = {"name": "flash_attention", "shape": label, "dtype": dname(dtype), "q_offset": off,
+          "serving": True, "model": f"{cfg.name} chunk into a kv_seq block (rank 1 of 2)",
+          "max_abs_err": err, "kernel_ms": timer.ms(run), "plain_ms": timer.ms(plain),
+          "library_ms": timer.ms(lib)}
+    k2.update(bound(work().attention_flops(B * H, S, block, d, True, off),
+                    nbytes(q, out, lse) + 2 * B * Hkv * seen * d * q.element_size(), dtype))
+    # the two ranks' rows: rank 0's block [0, 320) (every key visible) and
+    # rank 1's above, as _block_partials hands them to the fold
+    k0, v0 = (torch.randn(B, block, Hkv, d, generator=gen, device=dev).to(dtype)
+              for _ in range(2))
+    qs = q4.permute(0, 2, 1, 3)
+    parts = [L._block_partials(qs, k0, v0, index, cfg),
+             L._block_partials(qs, k4.permute(0, 2, 1, 3), v4.permute(0, 2, 1, 3), off, cfg)]
+    m, l, acc = (torch.cat(t, dim=1).contiguous() for t in zip(*parts))
+    fold = lambda: FD.combine_partials(m, l, acc, out_dtype=dtype)
+    fold_plain = lambda: FD.combine_partials_plain(m, l, acc, out_dtype=dtype)
+    flabel = f"rows={m.shape[0]} splits={m.shape[1]} d={d} (chunk rows of 2 ranks)"
+    err_c = compare(f"flash_decode_combine {flabel}", fold(), fold_plain(), dtype)
+    kk, vv = (torch.cat([a, b.permute(0, 2, 1, 3)], dim=1).permute(0, 2, 1, 3)
+              for a, b in ((k0, k4), (v0, v4)))
+    whole = FA.flash_attention_plain(q, kk, vv, sm_scale=d ** -0.5, causal=True, q_per_kv=g,
+                                     q_offset=index)
+    compare("the fold against attention over both blocks", fold().reshape(B * H, S, d),
+            whole, dtype)
+    plain_cfg = replace(cfg, kernels="plain")
+    blocks = ((k0, v0, index), (k4.permute(0, 2, 1, 3), v4.permute(0, 2, 1, 3), off))
+
+    def folded(to):
+        parts = [L._block_partials(to(qs), to(kb), to(vb), o, plain_cfg) for kb, vb, o in blocks]
+        m, l, acc = (torch.cat(t, dim=1).contiguous() for t in zip(*parts))
+        return FD.combine_partials_plain(m, l, acc, out_dtype=dtype).reshape(B * H, S, d)
+
+    rounding = {}
+    for name, got in (("k2_bf16", fold().reshape(B * H, S, d)),
+                      ("plain_bf16", folded(lambda t: t)),
+                      ("plain_float32", folded(lambda t: t.float()))):
+        rounding[name] = {"max_abs_err": (got.float() - whole.float()).abs().max().item(),
+                          "elements_not_bit_equal": int((got != whole).sum().item())}
+    k3 = {"name": "flash_decode_combine", "shape": flabel, "dtype": dname(dtype),
+          "serving": True, "model": f"{cfg.name} chunk rows folded over 2 kv_seq ranks",
+          "max_abs_err": err_c, "kernel_ms": timer.ms(fold), "plain_ms": timer.ms(fold_plain),
+          "library_ms": None, "rounding": dict(rounding, elements=whole.numel())}
+    k3.update(bound(work().combine_flops(m.shape[0], m.shape[1], d),
+                    nbytes(m, l, acc, fold()), torch.float32))
+    return [k2, k3]
 
 
 def grouped_case(timer, gen, E, cap, d_in, d_out, dtype, serving):
@@ -1072,6 +1183,7 @@ def phase_kernels(timer, gen):
         cases.append(grouped_bwd_case(timer, gen, E, moe._capacity(BATCH * PROMPT, mcfg), d_in,
                                       d_out, torch.bfloat16, True))
     cases.append(grouped_bwd_case(timer, gen, 8, 24, 96, 160, torch.float32, False))
+    cases += chunk_fold_cases(timer, gen)
     emit({"phase": "kernels", "timing": "median of 25 single launches, L2 flushed "
           "before each, CUDA events", "cases": cases, "plain_modules": [ssd_case(timer, gen)]})
     return cases
@@ -2780,6 +2892,113 @@ def phase_resilient(device, uninterrupted: dict) -> dict:
     return per_call
 
 
+EXAMPLES_TIMEOUT_S = 600
+# a shape the warm sweep plans for qwen2.5-3b (its down projection at 4,096
+# tokens) and one of its flash cells
+WARMED_GEMM, WARMED_FLASH = (4096, 2048, 11008), (4096, 4096, 128)
+
+
+def start_examples() -> dict:
+    """The examples phase's processes, started together (each its own, on
+    the card but for the CPU-only sweep): ``examples/torch_serve_decode.py``
+    as given, ``examples/torch_train_lm.py --steps 3 --save-every 2`` into a
+    fresh checkpoint directory, and ``python -m repro_torch.plancache warm
+    --fast --skip-mesh --archs qwen2.5-3b`` into a fresh plan store, all
+    under ``build/``; when the sweep has ended, a fresh process with fast
+    search on its store asks for a GEMM and a flash block plan at shapes
+    the sweep planned and prints where each came from.
+    :func:`finish_examples` waits for them."""
+    import shlex
+    work_dir = os.path.join(ROOT, "build", f"examples-{os.getpid()}")
+    os.makedirs(work_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    store = os.path.join(work_dir, "plancache")
+    probe = ("from repro_torch.core import lower_torch as LT\n"
+             f"LT.plan_gemm_blocks(*{WARMED_GEMM}); LT.plan_flash_blocks(*{WARMED_FLASH})\n"
+             "print(sorted((k[0], v[1]) for k, v in LT.resolved_blocks().items()))\n")
+    warm = (shlex.join([sys.executable, "-m", "repro_torch.plancache", "warm", "--fast",
+                        "--skip-mesh", "--archs", ARCH])
+            + " && " + shlex.join([sys.executable, "-c", probe]))
+    runs = {"serve_decode": ([sys.executable,
+                              os.path.join(ROOT, "examples", "torch_serve_decode.py")], env),
+            "train_lm": ([sys.executable, os.path.join(ROOT, "examples", "torch_train_lm.py"),
+                          "--steps", "3", "--save-every", "2", "--ckpt-dir",
+                          os.path.join(work_dir, "ckpt")], env),
+            "warm": (["/bin/sh", "-c", warm],
+                     dict(env, REPRO_PLAN_CACHE_DIR=store, REPRO_FAST_SEARCH="1"))}
+    procs = {}
+    for name, (args, run_env) in runs.items():
+        log = open(os.path.join(work_dir, f"{name}.log"), "w")
+        procs[name] = (subprocess.Popen(args, env=run_env, stdout=log,
+                                        stderr=subprocess.STDOUT, cwd=ROOT,
+                                        start_new_session=True), log)
+    return {"dir": work_dir, "procs": procs, "t0": time.perf_counter()}
+
+
+def stop_examples(started: dict) -> None:
+    """Kill what is left of :func:`start_examples`' processes, each with the
+    processes it started (its session)."""
+    import signal
+    for proc, _ in started["procs"].values():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def _launch_line(log: str, who: str) -> dict:
+    """The counts an entry point prints on its ``[who] kernel launches:``
+    line."""
+    found = re.search(rf"\[{who}\] kernel launches: (.*)", log)
+    return {} if not found else {k: int(v) for k, v in
+                                 (kv.split("=") for kv in found.group(1).split())}
+
+
+def finish_examples(started: dict) -> dict:
+    """Wait for :func:`start_examples`' processes (killed at
+    EXAMPLES_TIMEOUT_S); each must exit 0, the serve example with K2 and
+    K3 launched, the training example with K2 and K2-bwd launched and its
+    checkpoint of step 2 written, the warmed GEMM and flash requests
+    resolved from the store, ``(cache)``."""
+    out, bad = {}, []
+    for name, (proc, log) in started["procs"].items():
+        try:
+            proc.wait(timeout=max(1.0, EXAMPLES_TIMEOUT_S
+                                  - (time.perf_counter() - started["t0"])))
+        except subprocess.TimeoutExpired:
+            stop_examples(started)
+        log.close()
+        text = open(os.path.join(started["dir"], f"{name}.log")).read()
+        out[name] = {"exit": proc.returncode, "tail": text.splitlines()[-4:]}
+        if proc.returncode != 0:
+            bad.append(f"{name} exited {proc.returncode}: {text[-2000:]}")
+    out["serve_decode"]["launches"] = _launch_line(
+        open(os.path.join(started["dir"], "serve_decode.log")).read(), "serve")
+    out["train_lm"]["launches"] = _launch_line(
+        open(os.path.join(started["dir"], "train_lm.log")).read(), "train")
+    if not (out["serve_decode"]["launches"].get("flash_attention", 0) > 0
+            and out["serve_decode"]["launches"].get("flash_decode", 0) > 0):
+        bad.append(f"serve_decode launched {out['serve_decode']['launches']}")
+    if not (out["train_lm"]["launches"].get("flash_attention", 0) > 0
+            and out["train_lm"]["launches"].get("flash_attention_bwd", 0) > 0):
+        bad.append(f"train_lm launched {out['train_lm']['launches']}")
+    ckpt = os.path.join(started["dir"], "ckpt", f"{ARCH}-reduced", "step_00000002")
+    if not os.path.isdir(ckpt):
+        bad.append(f"no checkpoint at {ckpt}")
+    out["warmed_request"] = out["warm"]["tail"][-1] if out["warm"]["tail"] else ""
+    if out["warmed_request"] != str([("flash_blocks", "cache"), ("gemm_blocks", "cache")]):
+        bad.append(f"a warmed request did not resolve from the store: "
+                   f"{out['warmed_request']}")
+    out["wall_s"] = time.perf_counter() - started["t0"]
+    emit({"phase": "examples", **out,
+          "check": "each exits 0; serve_decode launches K2 and K3, train_lm K2 and K2-bwd "
+                   "and writes its step-2 checkpoint; after the warm sweep a fresh process "
+                   "resolves a warmed GEMM and flash request (cache)"})
+    if bad:
+        raise AssertionError(f"examples: {bad}")
+    return {"serve_decode": out["serve_decode"]["launches"],
+            "train_lm": out["train_lm"]["launches"]}
+
+
 TENANT_HOLD_S = 3.0
 
 
@@ -3345,6 +3564,239 @@ def mesh_serve_rank(job_path: str, rank: int) -> None:
         dist.destroy_process_group()
 
 
+MESH_CHUNK_TIMEOUT_S = 420
+
+
+def mesh_chunk_rank(job_path: str, rank: int) -> None:
+    """One rank of ``mesh_chunked`` (``chip_smoke.py --mesh-chunk-rank JOB
+    R``): a ``gloo`` rank on card 0 of a 1x2 mesh, qwen2.5-3b at full size
+    under kv_sequence_split (``mesh_serve``'s plan).  Rank 0 makes the
+    unsharded runs and hands rank 1 its part (:func:`mesh_chunk_oracle`),
+    then both run the chunked prompt (:func:`mesh_chunked_run`).  Writes
+    its results to ``JOB.rank<R>.json``, with the rank's peak memory
+    before the chunks and from them on."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.launch import common, serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel import planner_bridge as PB
+    from repro_torch.train import serve_step as SS, train_step as TS
+    job = json.load(open(job_path))
+    dist.init_process_group("gloo", init_method="file://" + job["store"], rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=300))
+    out = {"rank": rank}
+    try:
+        mesh = make_host_mesh(1, 2)
+        device = torch.device("cuda", 0)
+        cfg = common.launch_config(ARCH)
+        api = build_model(cfg)
+        plan = PB.candidate_plans(cfg, mesh_serve_shape(MESH_SERVE_BUFFER))[0]
+        if plan.name != "kv_sequence_split":
+            raise AssertionError(f"the first decode candidate is {plan.name}")
+        params = serve.load_params(api, device, seed=0)
+        prompts = serve.make_prompts(cfg, BATCH, PROMPT, device)
+        ids = torch.load(job["ids"]).to(device)
+        oracle_path = f"{job_path}.oracle.pt"
+        # rank 0 makes the unsharded runs before it takes its shards, rank 1
+        # drops the whole weights before it waits for them: the ranks run
+        # beside the tp2d dry-run cell's 50 GB
+        if rank == 0:
+            oracle = mesh_chunk_oracle(api, params, plan, mesh, prompts, ids, device,
+                                       oracle_path)
+        p_local = TS.place_tree(params, SS.param_shardings(api, plan, mesh),
+                                api.abstract_params())
+        del params
+        torch.cuda.empty_cache()
+        if rank != 0:
+            oracle = mesh_chunk_oracle(api, None, plan, mesh, prompts, ids, device,
+                                       oracle_path)
+        setup_peak = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        out.update(ok=True, plan=plan.name,
+                   **mesh_chunked_run(api, plan, mesh, p_local, prompts, ids, oracle),
+                   peak_bytes=torch.cuda.max_memory_allocated(device),
+                   setup_peak_bytes=setup_peak,
+                   coords=mesh.coords(), backend=dist.get_backend())
+    except Exception as err:  # noqa: BLE001 - reported to the parent, which fails
+        import traceback
+        out.update(ok=False, error=traceback.format_exc()[-3000:])
+    finally:
+        with open(f"{job_path}.rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+
+
+def mesh_chunk_loop(api, params, prompts, forced, c_shs) -> tuple:
+    """The unsharded chunk loop ``mesh_chunked`` is held against: the prompt
+    in chunks of MESH_CHUNKS into a cache of MESH_CHUNK_BUFFER, then a
+    decode step for each of the ``forced`` ids, the calls
+    ``serve.generate(..., prefill_chunks=MESH_CHUNKS, forced_ids=forced)``
+    makes.  After each chunk and step the last token's logits (float32) and
+    each rank's block (``c_shs``: the cache's shardings, one a rank) of the
+    cache's K and V, on the host; the cache in float32 for a float32 model,
+    else bf16."""
+    cfg = api.cfg
+    dtype = torch.float32 if cfg.compute_dtype == "float32" else torch.bfloat16
+    cache = api.init_cache(cfg, BATCH, MESH_CHUNK_BUFFER, dtype=dtype, device=prompts.device)
+    logits_out, blocks, at = [], [], 0
+    with torch.no_grad():
+        for i in range(len(MESH_CHUNKS) + forced.shape[1]):
+            if i < len(MESH_CHUNKS):
+                logits, cache = api.prefill(params, prompts[:, at:at + MESH_CHUNKS[i]], cache)
+                at += MESH_CHUNKS[i]
+            else:
+                t = i - len(MESH_CHUNKS)
+                logits, cache = api.decode_step(params, forced[:, t:t + 1], cache)
+            logits_out.append(logits[:, -1, :cfg.vocab_size].float().cpu())
+            blocks.append([{k: c_sh[k].local(cache[k]).cpu() for k in ("k", "v")}
+                           for c_sh in c_shs])
+    return logits_out, blocks
+
+
+def mesh_chunk_oracle(api, params, plan, mesh, prompts, ids, device, path: str) -> dict:
+    """The unsharded runs ``mesh_chunked`` holds the sharded chunks against,
+    made once, on rank 0 (``params``: the whole weights there, None on
+    rank 1): :func:`mesh_chunk_loop` on the first MESH_CHUNK_STEPS ids
+    through the kernels, and through the plain path in bf16 and in float32
+    (the yardsticks of the float32 rule, :func:`within`).  Rank 0 writes
+    rank 1's logits and blocks to ``path``; rank 1 reads them after a
+    barrier.  They stay on the host.  Also the empty local cache, the
+    cache's shapes the sharded step takes and the block's offset."""
+    import torch.distributed as dist
+    from repro_torch.models import build_model
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.train import serve_step as SS
+    cfg = api.cfg
+    full = api.init_cache(cfg, BATCH, MESH_CHUNK_BUFFER, device="meta")
+    c_sh = SS.cache_shardings(api, full, plan, mesh)
+    if mesh.rank == 0:
+        c_shs = [SS.cache_shardings(api, full, plan, SH.Mesh(("data", "model"), (1, 2), rank=r))
+                 for r in range(2)]
+        forced = ids[:, :MESH_CHUNK_STEPS]
+        runs = {name: mesh_chunk_loop(run_api, params, prompts, forced, c_shs)
+                for name, run_api in (
+                    ("kernels", api), ("plain", build_model(replace(cfg, kernels="plain"))),
+                    ("float32", build_model(replace(cfg, kernels="plain",
+                                                    compute_dtype="float32"))))}
+        part = {r: {name: (logits, [b[r] for b in blocks])
+                    for name, (logits, blocks) in runs.items()} for r in range(2)}
+        torch.save(part[1], path)
+        mine = part[0]
+        dist.barrier()
+    else:
+        dist.barrier()
+        mine = torch.load(path, map_location="cpu")
+        os.remove(path)
+    empty = {k: (0 if k == "index" else
+                 torch.zeros(c_sh[k].local_shape(v.shape), dtype=v.dtype, device=device))
+             for k, v in full.items()}
+    return {"logits": mine["kernels"][0], "blocks": mine["kernels"][1],
+            "runs": {k: mine[k] for k in ("plain", "float32")}, "empty": empty,
+            "shapes": {k: v for k, v in full.items() if k != "index"},
+            "offset": c_sh["k"].index(full["k"].shape)[2].start}
+
+
+def _dist(got: list, want: list) -> tuple:
+    """Largest and root-mean-square difference over the tensors of two
+    lists, in float32."""
+    diff = torch.cat([(a.float() - b.float()).flatten().cpu() for a, b in zip(got, want)])
+    return diff.abs().max().item(), diff.square().mean().sqrt().item()
+
+
+def float32_row(got_logits, got_block: dict, oracle: dict, i: int) -> dict:
+    """The float32 rule (:func:`within`) for the logits and this rank's
+    cache block after the ``i``-th chunk or step: their distance from the
+    unsharded float32 run at most 1.25 x the unsharded plain bf16 path's,
+    and, where the block holds a written key, a control (the block rounded
+    to 5 mantissa bits) against it."""
+    (f_logits, f_blocks), (p_logits, p_blocks) = (oracle["runs"][k] for k in ("float32",
+                                                                            "plain"))
+    names = sorted(got_block)
+    block = lambda b: [b[k] for k in names]
+    out = {}
+    for what, got, plain, exact in (
+            ("logits", [got_logits], [p_logits[i]], [f_logits[i]]),
+            ("cache", block(got_block), block(p_blocks[i]), block(f_blocks[i]))):
+        kern, base = _dist(got, exact), _dist(plain, exact)
+        out[what] = {"vs_float32": kern, "plain_vs_float32": base,
+                     "within": within(kern, base)}
+    # the control where the block holds a written key (rank 1's is empty
+    # before the prompt reaches it)
+    if any(bool(t.any()) for t in block(got_block)):
+        ctl = _dist([coarse(t, 5) for t in block(got_block)], block(f_blocks[i]))
+        out["cache"]["control_5_bits_vs_float32"] = ctl
+        out["cache"]["control_5_bits_rejected"] = not within(
+            ctl, out["cache"]["plain_vs_float32"])
+    return out
+
+
+def mesh_chunked_run(api, plan, mesh, p_local, prompts, ids, oracle) -> dict:
+    """The 512-token prompt in chunks of MESH_CHUNKS through
+    ``jit_serve_step`` into this rank's block of an empty cache of
+    MESH_CHUNK_BUFFER split over kv_seq (blocks [0, 320) and [320, 640)),
+    then MESH_CHUNK_STEPS decode steps, with the counts set to 0 just before
+    and read just after.  While the chunks run, every K2 call that returns
+    its log-sum-exp and every K3' fold of chunk rows is held against its
+    plain version on the same inputs (:func:`bwd_per_call`: within 2e-2 of
+    the output's largest entry and ATTN_REL_RMS, a 5-bit control of the
+    kernel's output), so a chunk's time includes those plain calls.  Each
+    chunk and step: its time, the last token's logits and this rank's cache
+    block against the unsharded kernel run's, and both under the float32
+    rule (:func:`float32_row`)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as FA, flash_decode as FD, ops
+    from repro_torch.train import serve_step as SS
+    cfg = api.cfg
+    step = SS.jit_serve_step(api, plan, mesh, oracle["shapes"], tokens_shape=(BATCH, 1))
+    forced = ids[:, :MESH_CHUNK_STEPS]
+    k2_stats, fold_stats = [], []
+    attention = ops.attention
+    k2_check = bwd_per_call(k2_stats, attention, FA.flash_attention_plain, of_largest=True)
+    fold_check = one_output_per_call(fold_stats, FD.combine_partials,
+                                     FD.combine_partials_plain)
+
+    def checked_attention(q, k, v, **kw):
+        return k2_check(q, k, v, **kw) if kw.get("return_lse") else attention(q, k, v, **kw)
+
+    calls, at = [], 0
+    for n in MESH_CHUNKS:
+        calls.append((n, prompts[:, at:at + n]))
+        at += n
+    calls += [(1, forced[:, t:t + 1]) for t in range(MESH_CHUNK_STEPS)]
+    local = {k: (v if k == "index" else torch.zeros_like(v)) for k, v in oracle["empty"].items()}
+    rows = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for i, (n, tokens) in enumerate(calls):
+        ctx = contextlib.ExitStack()
+        if i < len(MESH_CHUNKS):
+            ctx.enter_context(patched(ops, "attention", checked_attention))
+            ctx.enter_context(patched(FD, "combine_partials", fold_check))
+        t0 = time.perf_counter()
+        with ctx:
+            logits, local = step(p_local, tokens, local)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = logits[:, -1, :cfg.vocab_size].float().cpu()
+        block = oracle["blocks"][i]
+        mine = {k: local[k].cpu() for k in block}
+        rows.append({
+            "tokens": n, "index": local["index"], "ms": ms,
+            "max_abs_err": (got - oracle["logits"][i]).abs().max().item(),
+            "within": bool(torch.allclose(got, oracle["logits"][i], rtol=2e-2, atol=2e-2)),
+            "finite": bool(torch.isfinite(got).all()),
+            "cache_block_max_abs_err": max((mine[k].float() - block[k].float()).abs().max()
+                                           .item() for k in block),
+            "cache_block_bit_equal": all(torch.equal(mine[k], block[k]) for k in block),
+            "float32_rule": float32_row(got, mine, oracle, i)})
+    return {"rows": rows, "launches": kernels.launch_counts(), "offset": oracle["offset"],
+            "prefill_ms": sum(r["ms"] for r in rows[:len(MESH_CHUNKS)]),
+            "per_call": {"flash_attention_lse": summarize_per_call(k2_stats),
+                         "flash_decode_combine": summarize_per_call(fold_stats)}}
+
+
 def mesh_serve_shape(buffer: int):
     """The decode cell of the mesh_serve phase (batch 4, a cache of
     ``buffer``), whose first candidate plan the phase runs."""
@@ -3360,6 +3812,86 @@ def _per_call_row(got: torch.Tensor, want: torch.Tensor) -> tuple:
         if want.float().norm() > 0 else diff.norm().item()
     return (diff.abs().max().item(), rel,
             bool(torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2)))
+
+
+def check_mesh_chunked(rank: int, res: dict, L: int) -> dict:
+    """The parent's checks of one rank's :func:`mesh_chunked_run`: exact
+    launches (K2 once a layer a chunk, with its log-sum-exp for the two
+    chunks at index > 0; K3' once a layer for each of those and each decode
+    step; K3's partials once a layer a step; the one-launch K3 never);
+    after every chunk and step the logits within 2e-2 (absolute and
+    relative, as ``chunked_prefill`` holds a chunked run) of the unsharded
+    kernel run's, and the logits and the rank's cache block under the
+    float32 rule, a 5-bit control of the block rejected by it (a K2 output
+    rounded to bf16 before the fold moves a later layer's keys by a few
+    bf16 steps, some elements by more than 2e-2); both per-call checks
+    within with their 5-bit controls rejected."""
+    later, steps = len(MESH_CHUNKS) - 1, MESH_CHUNK_STEPS
+    want = {"flash_attention": len(MESH_CHUNKS) * L, "flash_decode_partials": steps * L,
+            "flash_decode_combine": (later + steps) * L, "flash_decode": 0}
+    bad = []
+    if any(res["launches"][k] != n for k, n in want.items()):
+        bad.append(f"launches {res['launches']}, expected {want}")
+    for row in res["rows"]:
+        rule = row["float32_rule"]
+        if not (row["within"] and row["finite"] and rule["logits"]["within"]
+                and rule["cache"]["within"]
+                and rule["cache"].get("control_5_bits_rejected", True)):
+            bad.append(f"disagrees with the unsharded chunked run: {row}")
+    if [r["index"] for r in res["rows"]] != [sum(MESH_CHUNKS[:i + 1]) for i in
+                                             range(len(MESH_CHUNKS))] + [
+            PROMPT + t + 1 for t in range(steps)]:
+        bad.append(f"cache indices {[r['index'] for r in res['rows']]}")
+    for name, pc in res["per_call"].items():
+        if not (pc["calls"] == later * L and pc["within"] and pc["control_5_bits_rejected"]):
+            bad.append(f"{name} per call {pc}")
+    if not res["rows"][-1]["float32_rule"]["cache"].get("control_5_bits_rejected"):
+        bad.append("the 5-bit control of the last cache block was not rejected")
+    if bad:
+        raise AssertionError(f"mesh_chunked rank {rank}: the chunked prompt into the "
+                             f"kv_seq split cache: {bad}")
+    return {"launches": {k: res["launches"][k] for k in want},
+            "k2_with_lse_calls": res["per_call"]["flash_attention_lse"]["calls"],
+            "k3_combine_chunk_row_calls": res["per_call"]["flash_decode_combine"]["calls"],
+            **{k: res[k] for k in ("offset", "prefill_ms", "rows", "per_call")}}
+
+
+def phase_mesh_chunked(served: dict, meanwhile) -> tuple:
+    """The chunked prompt into a cache split over kv_seq on two ``gloo``
+    ranks of the one card (:func:`mesh_chunk_rank`): qwen2.5-3b at full
+    width and depth under kv_sequence_split, the 512-token prompt in chunks
+    of 256, 128 and 128 into a cache of MESH_CHUNK_BUFFER (the first chunk
+    wholly in rank 0's block, the second straddling position 320, the third
+    seeing all of rank 0's block), then MESH_CHUNK_STEPS decode steps
+    teacher-forced on the serve phase's ids; the parent's checks are
+    :func:`check_mesh_chunked`.  ``meanwhile`` (a callable) runs here while
+    the ranks run.  Returns rank 0's launches and what ``meanwhile``
+    returned."""
+    from repro_torch.launch import common
+    cfg = common.launch_config(ARCH)
+    ids_path = os.path.join(ROOT, "build", f"mesh-chunk-{os.getpid()}.ids.pt")
+    os.makedirs(os.path.dirname(ids_path), exist_ok=True)
+    torch.save(served["ids"][:, :MESH_CHUNK_STEPS].cpu(), ids_path)
+    got = {}
+    results, wall_s = finish_ranks(
+        start_ranks("--mesh-chunk-rank", "mesh-chunk", {"ids": ids_path}),
+        MESH_CHUNK_TIMEOUT_S, lambda: got.update(meanwhile=meanwhile()))
+    summary = [{"rank": res["rank"], "coords": res["coords"], "backend": res["backend"],
+                "plan": res["plan"], "peak_bytes": res["peak_bytes"],
+                "setup_peak_bytes": res["setup_peak_bytes"],
+                **check_mesh_chunked(res["rank"], res, cfg.n_layers)} for res in results]
+    emit({"phase": "mesh_chunked", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "batch": BATCH, "prompt_len": PROMPT, "chunks": list(MESH_CHUNKS),
+          "buffer": MESH_CHUNK_BUFFER, "decode_steps": MESH_CHUNK_STEPS, "mesh": [1, 2],
+          "ranks": summary, "wall_s": wall_s, "overlapped_with": "dryrun (the tp2d cell)",
+          "check": "exact launches; logits and the rank's cache block within 2e-2 of the "
+                   "unsharded chunked run's after every chunk and step, and under the "
+                   "float32 rule with a 5-bit control of the block rejected; every K2 call "
+                   "with its log-sum-exp and every K3' fold of chunk rows within 2e-2 of "
+                   f"the largest entry and {ATTN_REL_RMS} relative rms of its plain "
+                   "version, 5-bit controls rejected",
+          "card": smi_line()})
+    return results[0]["launches"], got["meanwhile"]
 
 
 def phase_mesh_serve(device, served: dict, meanwhile=None) -> dict:
@@ -5047,16 +5579,26 @@ def main() -> int:
     lap("train")
     gc.collect()
     torch.cuda.empty_cache()
-    # the dry run's smaller cells, each a process of its own, while
+    # the dry run's smaller cells, each a process of its own, and the
+    # examples' processes (small models, and the CPU's warm sweep) while
     # resilient's restores wait on the disk here (its training captures
     # this process's output: their lines are printed after it)
     held = []
-    by_path["resilient"], by_path["dryrun"] = beside(
-        lambda: phase_resilient(device, uninterrupted),
-        lambda: phase_dryrun(DRYRUN_BESIDE, beside="resilient", out=held.append))
+    examples = start_examples()
+    try:
+        by_path["resilient"], by_path["dryrun"] = beside(
+            lambda: phase_resilient(device, uninterrupted),
+            lambda: phase_dryrun(DRYRUN_BESIDE, beside="resilient", out=held.append))
+    except BaseException:
+        stop_examples(examples)
+        raise
     for line in held:
         emit(line)
     lap("resilient")
+    launched = finish_examples(examples)
+    by_path["example_serve"], by_path["example_train"] = (launched["serve_decode"],
+                                                          launched["train_lm"])
+    lap("examples")
     gc.collect()
     torch.cuda.empty_cache()
     by_path["moe_train"], moe_train_loss = phase_moe_train(device)
@@ -5078,10 +5620,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["family_seq_parallel"] = phase_family_seq_parallel(device)
     lap("family_seq_parallel")
-    # the tp2d dry-run cell (50 GB) last, its process alone beside this one
+    # the tp2d dry-run cell (50 GB) last, its process beside this one's
+    # wait, and meanwhile the chunked prompt's two gloo ranks (about 20 GB)
     gc.collect()
     torch.cuda.empty_cache()
-    rest = phase_dryrun(tuple(c for c in DRYRUN_CELLS if c not in DRYRUN_BESIDE))
+    by_path["mesh_chunked"], rest = phase_mesh_chunked(
+        served, lambda: phase_dryrun(tuple(c for c in DRYRUN_CELLS if c not in DRYRUN_BESIDE)))
     by_path["dryrun"] = {k: by_path["dryrun"].get(k, 0) + rest.get(k, 0)
                          for k in set(by_path["dryrun"]) | set(rest)}
     lap("dryrun")
@@ -5142,6 +5686,9 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--mesh-serve-rank":
         mesh_serve_rank(sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
+    if len(sys.argv) == 4 and sys.argv[1] == "--mesh-chunk-rank":
+        mesh_chunk_rank(sys.argv[2], int(sys.argv[3]))
         sys.exit(0)
     if len(sys.argv) == 4 and sys.argv[1] == "--seq-parallel-rank":
         seq_parallel_rank(sys.argv[2], int(sys.argv[3]))

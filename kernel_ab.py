@@ -27,8 +27,9 @@ With ``--digests`` each checkout instead runs its own K2 (``flash_attention``:
 bf16 and float32, every compiled head dim, causal and not, at every tile
 that fits a block) and K2-bwd on inputs made from one seed, without a query
 offset (the argument an older checkout does not have; a checkout whose K2
-takes one also runs the chunked prefill's offset shapes, bf16, every tile),
-and its K5
+takes one also runs the chunked prefill's offset shapes, bf16, every tile,
+with their log-sum-exp),
+its K3' (``combine_partials``) on partials with empty splits, and its K5
 (``wkv6``) and K5-bwd (``wkv6_bwd``) from a zero state (no ``state0``, no
 final-state gradient: the arguments an older checkout does not have) at
 every compiled head dim, bf16 and float32, chunks 1, 16 and 32 and
@@ -53,10 +54,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DIGEST_SHAPES = [(16, 4, 320, 320), (8, 2, 200, 136), (4, 1, 77, 150)]
 # the --digests inputs with a query offset, where the checkout's K2 takes
 # one: the chunked prefill's later chunks (qwen2.5-3b's 128 at 128 and
-# 256 at 256; qwen3-moe's 256 at 256) -- batch x heads, q_per_kv, Sq, Skv, d,
-# offset
+# 256 at 256; qwen3-moe's 256 at 256; qwen2.5-3b's last chunk over the
+# second of two kv_seq blocks of 320, its rows at offset 64 of the block) --
+# batch x heads, q_per_kv, Sq, Skv, d, offset
 OFFSET_DIGEST_SHAPES = [(64, 8, 128, 256, 128, 128), (64, 8, 256, 512, 128, 256),
-                        (128, 8, 256, 512, 128, 256)]
+                        (128, 8, 256, 512, 128, 256), (64, 8, 128, 320, 128, 64)]
+# the K3' (combine_partials) --digests inputs: rows, splits, d, bf16 output
+# (the chunk rows of qwen2.5-3b folded over two kv_seq ranks; a decode step
+# over 16 splits; d 256)
+COMBINE_DIGEST_SHAPES = [(8192, 2, 128, True), (64, 16, 128, True), (64, 5, 256, False)]
 # the K5 / K5-bwd --digests inputs: rows, T, chunk (every compiled head dim),
 # and rwkv6-3b's training pass at d 64
 WKV_DIGEST_SHAPES = [(8, 128, 16), (6, 96, 32), (4, 101, 1)]
@@ -152,11 +158,12 @@ def one_digests(tree: str) -> dict:
             q, k, v = (torch.randn(n, s, d, generator=gen, device=dev).to(torch.bfloat16)
                        for n, s in ((BH, Sq), (BH // g, Skv), (BH // g, Skv)))
             for bq, bkv in FA.legal_tiles(d, q.element_size()):
-                o = FA.flash_attention(q, k, v, causal=True, block_q=bq, block_kv=bkv,
-                                       q_per_kv=g, q_offset=off)
+                o, lse = FA.flash_attention(q, k, v, causal=True, block_q=bq, block_kv=bkv,
+                                            q_per_kv=g, q_offset=off, return_lse=True)
                 out[f"fwd bf16 d{d} BH{BH} g{g} {Sq}x{Skv} offset {off} tile {bq}x{bkv}"] = \
-                    _digest(o)
+                    _digest(o) + _digest(lse)
     out.update(wkv_digests(dev))
+    out.update(combine_digests(dev))
     torch.cuda.synchronize()
     usage = ptxas_usage(_build.build_info().get("compiler_output", ""))
     kernels = {n.split("Ev")[0]: u for n, u in usage.items()
@@ -164,6 +171,28 @@ def one_digests(tree: str) -> dict:
     if not kernels:
         raise RuntimeError(f"{tree}: no K2 / K2-bwd / K5 / K5-bwd kernel in this process's build")
     return {"tree": tree, "digests": out, "ptxas": kernels}
+
+
+def combine_digests(dev) -> dict:
+    """The SHA-256 of K3''s output (``flash_decode.combine_partials``) on
+    partials made from one seed at COMBINE_DIGEST_SHAPES, an empty split
+    ((-1e30, 0, 0), as a rank whose block a row cannot see hands over) in
+    every eighth row."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as FD
+    out = {}
+    for rows, splits, d, bf16 in COMBINE_DIGEST_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(rows + splits + d)
+        m = torch.randn(rows, splits, 1, 1, generator=gen, device=dev) * 4
+        l = torch.rand(rows, splits, 1, 1, generator=gen, device=dev) + 0.5
+        acc = torch.randn(rows, splits, 1, d, generator=gen, device=dev)
+        m[::8, 0], l[::8, 0], acc[::8, 0] = -1e30, 0.0, 0.0
+        got = FD.combine_partials(m, l, acc,
+                                  out_dtype=torch.bfloat16 if bf16 else torch.float32)
+        out[f"combine rows{rows} splits{splits} d{d} {'bf16' if bf16 else 'f32'}"] = \
+            _digest(got)
+    return out
 
 
 def wkv_digests(dev) -> dict:

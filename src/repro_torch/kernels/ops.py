@@ -113,13 +113,15 @@ def gemm_launch_block(M: int, N: int, K: int, dtype: torch.dtype,
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               sm_scale: Optional[float] = None, causal: bool = False,
               block_q: Optional[int] = None, block_kv: Optional[int] = None,
-              q_per_kv: int = 1, q_offset: int = 0) -> torch.Tensor:
+              q_per_kv: int = 1, q_offset: int = 0, return_lse: bool = False):
     """FlashAttention fwd.  q: (BH, Sq, d); k/v: (BH, Skv, d), or with
     ``q_per_kv`` > 1 the un-repeated (BH / q_per_kv, Skv, d) or a strided
     (batch, kv_heads, Skv, d) view; ``q_offset``: the causal position of
     query row 0.  Differentiable: where autograd records, the forward also
     keeps its log-sum-exp and the backward is K2-bwd (with the same
-    offset)."""
+    offset).  With ``return_lse`` (not differentiable) also each row's
+    float32 log-sum-exp, (BH, Sq): what a fold of key blocks held by other
+    ranks weighs this block's output by."""
     BH, Sq, d = q.shape
     Skv = k.shape[-2]
     if block_q is None or block_kv is None:
@@ -137,9 +139,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         bq, bkv = max(under or legal, key=lambda t: (t[0] * t[1], t[0]))
     scale = sm_scale if sm_scale is not None else d ** -0.5
     if _records(q, k, v):
+        if return_lse:
+            raise ValueError("attention(..., return_lse=True) is not differentiable")
         return _Attention.apply(q, k, v, scale, causal, bq, bkv, q_per_kv, q_offset)
     return _fa.flash_attention(q, k, v, sm_scale=scale, causal=causal, block_q=bq,
-                               block_kv=bkv, q_per_kv=q_per_kv, q_offset=q_offset)
+                               block_kv=bkv, q_per_kv=q_per_kv, q_offset=q_offset,
+                               return_lse=return_lse)
 
 
 class _Attention(torch.autograd.Function):

@@ -427,40 +427,116 @@ def _context_parallel(q, k, v, o: int, causal: bool, cfg: ModelConfig) -> torch.
 
 def _prompt_into_split(q, k, v, ck, cv, cache_index: int, split, causal: bool,
                        cfg: ModelConfig) -> torch.Tensor:
-    """A prompt pass (S > 1 tokens from cache index 0) into this rank's
+    """A prompt pass (S > 1 tokens at ``cache_index``) into this rank's
     ``ck``/``cv``, which the serving step's plan may split over ``kv_seq``
     and ``kv_heads`` (``split``: their ``spmd.CacheSplit``, or None for a
-    whole cache).  The prompt's keys and values are whole on every rank
+    whole cache).  The chunk's keys and values are whole on every rank
     (gathered over the sequence axis where the step splits the tokens);
     the rank writes the positions and heads of its cache block that the
-    prompt covers, and its queries attend causally over the prompt's keys in
-    the cache's dtype (as the unsplit prompt pass reads them back), with
-    the query offset of its token block.  The decode steps that follow run
-    :func:`_decode_split`.  A chunk at ``cache_index`` > 0 would need the
-    keys the other ranks' blocks hold, and raises."""
-    if cache_index != 0:
-        raise NotImplementedError(
-            f"a chunk at cache index {cache_index} into a cache split over kv_seq "
-            f"(chunked prefill): its queries need the keys other ranks hold (ROADMAP "
-            f"Queue 1, chunked prefill into a kv_seq-split cache); prefill such a cache "
-            f"from index 0")
+    chunk covers.
+
+    * From index 0 the rank's queries attend causally over the prompt's
+      keys in the cache's dtype (as the unsplit prompt pass reads them
+      back), with the query offset of its token block.
+    * A later chunk (chunked prefill), its tokens whole on every rank,
+      needs the keys ahead of it, which the ranks along ``kv_seq`` hold in
+      blocks: each rank attends with every chunk row over its own block
+      (K2 with its log-sum-exp, at the query offset of the chunk within the
+      block), and K3' folds the ranks' (output, log-sum-exp) pairs
+      (:func:`_chunk_over_ranks`).  No cache block is gathered.  A later
+      chunk under a step that splits its tokens, or into a cache split
+      over ``kv_heads`` too, raises ``NotImplementedError``: the serving
+      step splits the tokens only from index 0, and no plan splits both.
+
+    The decode steps that follow run :func:`_decode_split`."""
     S = q.shape[1]
     o = spmd.seq_range(S)[0]
     k_all, v_all = (spmd.gather_seq(t, 1) for t in (k, v))
     T = k_all.shape[1]
     off, t_local, h0, hn = 0, ck.shape[1], 0, ck.shape[2]
+    kv_axes = heads = ()
     if split is not None:
-        if split.mesh_axes_of("kv_seq"):
+        kv_axes, heads = split.mesh_axes_of("kv_seq"), split.mesh_axes_of("kv_heads")
+        if kv_axes:
             off, t_local = split.block("kv_seq")
-        if split.mesh_axes_of("kv_heads"):
+        if heads:
             h0, hn = split.block("kv_heads")
-    n = min(max(T - off, 0), t_local)
-    if n:
-        ck[:, :n] = k_all[:, off:off + n, h0:h0 + hn].to(ck.dtype)
-        cv[:, :n] = v_all[:, off:off + n, h0:h0 + hn].to(cv.dtype)
-    keep = o + S if causal else T
-    kk, vv = (t[:, :keep].to(ck.dtype) for t in (k_all, v_all))
-    return _attend(q, kk, vv, causal, cfg, q_offset=o if causal else 0)
+    if cache_index and (not kv_axes or heads or spmd.seq_axis() is not None):
+        raise NotImplementedError(
+            f"a chunk at cache index {cache_index} into a cache split over "
+            f"{split.split_dims() if split is not None else 'nothing'}"
+            f"{' under a step that splits its tokens' if spmd.seq_axis() else ''}: a "
+            f"later chunk goes into a cache split over kv_seq alone, its tokens whole "
+            f"(ROADMAP Queue 1, item 2c)")
+    # the chunk's positions [cache_index, cache_index + T) that the block holds
+    lo, hi = max(cache_index, off), min(cache_index + T, off + t_local)
+    if hi > lo:
+        ck[:, lo - off:hi - off] = k_all[:, lo - cache_index:hi - cache_index,
+                                         h0:h0 + hn].to(ck.dtype)
+        cv[:, lo - off:hi - off] = v_all[:, lo - cache_index:hi - cache_index,
+                                         h0:h0 + hn].to(cv.dtype)
+    if cache_index == 0:
+        keep = o + S if causal else T
+        kk, vv = (t[:, :keep].to(ck.dtype) for t in (k_all, v_all))
+        return _attend(q, kk, vv, causal, cfg, q_offset=o if causal else 0)
+    if not causal:
+        raise ValueError(f"a chunk at cache index {cache_index} attends causally")
+    return _chunk_over_ranks(q, ck, cv, cache_index - off, kv_axes, cfg)
+
+
+def _block_partials(q, ck, cv, q_offset: int, cfg: ModelConfig):
+    """Every chunk row's attention over one block of the cache, as the
+    partials of one split: q (B, S, H, D), row r at position ``q_offset + r``
+    relative to the block's first key; ck/cv (B, T_block, Hkv, D).  Returns
+    float32 (m, l, acc) of shapes (B·H·S, 1, 1, 1), (B·H·S, 1, 1, 1),
+    (B·H·S, 1, 1, D) in (batch, head, row) order: m the row's log-sum-exp,
+    l 1 and acc its output, or for a row that sees none of the block's keys
+    the empty split's (-1e30, 0, 0) that K3's partials kernel writes.  Rows
+    ahead of the block (a negative position) are not handed to K2, which
+    takes no negative offset; a row K2 finds wholly masked (its
+    log-sum-exp :data:`~repro_torch.kernels.flash_attention.LSE_MASKED`)
+    becomes the empty split too, or its zero output would take the weight of
+    the others.  Through K2 with ``return_lse`` when ``cfg.kernels ==
+    "cuda"``, else its plain version."""
+    from repro_torch.kernels import flash_attention as FA, ops
+    B, S, H, D = q.shape
+    g = H // ck.shape[2]
+    r0 = min(max(-q_offset, 0), S)
+    out = torch.zeros((B * H, S, D), dtype=torch.float32, device=q.device)
+    lse = torch.full((B * H, S), FA.LSE_MASKED, dtype=torch.float32, device=q.device)
+    if r0 < S:
+        qf = q[:, r0:].permute(0, 2, 1, 3).reshape(B * H, S - r0, D).contiguous()
+        kf, vf = ck.permute(0, 2, 1, 3), cv.permute(0, 2, 1, 3)
+        kw = dict(sm_scale=cfg.head_dim_ ** -0.5, causal=True, q_per_kv=g,
+                  q_offset=q_offset + r0, return_lse=True)
+        if cfg.kernels == "cuda":
+            if kf.dtype != qf.dtype:
+                kf, vf = kf.to(qf.dtype), vf.to(qf.dtype)
+            o_r, lse_r = ops.attention(qf, kf, vf, **kw)
+        else:
+            o_r, lse_r = FA.flash_attention_plain(qf, kf, vf, **kw)
+        out[:, r0:] = o_r.float()
+        lse[:, r0:] = lse_r
+    empty = lse >= 0.5 * FA.LSE_MASKED       # such a row's output is 0
+    m = torch.where(empty, torch.full_like(lse, FA.NEG_INF), lse)
+    l = (~empty).float()
+    return m.reshape(-1, 1, 1, 1), l.reshape(-1, 1, 1, 1), out.reshape(-1, 1, 1, D)
+
+
+def _chunk_over_ranks(q, ck, cv, q_offset: int, kv_axes, cfg: ModelConfig) -> torch.Tensor:
+    """q: (B, S, H, D), every row of a chunk, against this rank's block of
+    a cache split along ``kv_axes`` (``q_offset``: the chunk's first
+    position relative to the block's first key): the
+    rank's :func:`_block_partials`, gathered along the split dim in rank
+    order and folded by one log-sum-exp combine (K3' when ``cfg.kernels ==
+    "cuda"``, else its plain version) into q's dtype."""
+    from repro_torch.kernels import flash_decode as FD
+    B, S, H, D = q.shape
+    m, l, acc = (spmd.gather_over(t, kv_axes, 1).contiguous()
+                 for t in _block_partials(q, ck, cv, q_offset, cfg))
+    combine = FD.combine_partials if cfg.kernels == "cuda" else FD.combine_partials_plain
+    out = combine(m, l, acc, out_dtype=q.dtype)
+    return out.reshape(B, H, S, D).permute(0, 2, 1, 3)
 
 
 def _gather_split(kv, split) -> Tuple[torch.Tensor, torch.Tensor]:

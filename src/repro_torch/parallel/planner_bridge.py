@@ -381,8 +381,7 @@ def plan_mesh(api: ModelAPI, shape: ShapeConfig, tcfg: TrainConfig, *,
     Rankings are persisted in the plan registry keyed on (model config,
     shape cell, train config, pod df model) — ``launch/serve.py`` and
     ``launch/train.py`` therefore start with a hot cache after
-    ``python -m repro.plancache warm`` (the reference's; the port's warm
-    sweep is ROADMAP.md Queue 1 item 7).  ``cache=False`` forces a fresh
+    ``python -m repro_torch.plancache warm``.  ``cache=False`` forces a fresh
     ranking.  ``hw`` is the cluster (default :func:`default_cluster`); its
     name and digest are part of the registry key."""
     hw = hw if hw is not None else default_cluster(multi_pod)
@@ -477,7 +476,7 @@ def plan_mesh_many(cells: Sequence[Tuple[str, str]], tcfg: TrainConfig, *,
     (pid-unique temp renames + the advisory stats lock keep concurrent
     publishes coherent), so a sharded sweep leaves the exact cache state a
     sequential one would.  This is the mesh-granularity face of the search
-    executor; the AOT warm sweep (``python -m repro.plancache warm
+    executor; the AOT warm sweep (``python -m repro_torch.plancache warm
     --jobs``) rides the same worker pool.
     """
     from repro_torch.parallel import search_exec

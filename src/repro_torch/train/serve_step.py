@@ -47,9 +47,11 @@ cache (``parallel/spmd.py``):
 * a later chunk of a prompt (chunked prefill: the cache's index > 0) is
   computed whole on every rank, or over its heads where the cache is split
   over ``kv_heads``: K2 at the query offset of the cache's index over the
-  keys ahead of it; into a cache split over ``kv_seq`` it raises
-  ``NotImplementedError``, and so do rwkv6's and zamba2's states, which the
-  reference decodes one token at a time (``ValueError``).
+  keys ahead of it; into a cache split over ``kv_seq`` each rank runs K2
+  with its log-sum-exp over its own block and K3' folds the ranks'
+  results (``models/layers.py``).  rwkv6's and zamba2's states take no
+  later chunk: the reference decodes them one token at a time
+  (``ValueError``).
 """
 from __future__ import annotations
 

@@ -18,7 +18,18 @@ A prompt of 16 tokens goes in as chunks of 3, 1, 4 and 8, in float32:
 * the same chunks through a 1x2 ``gloo`` ``megatron_tp`` serve step (the
   cache split over ``kv_heads``, head-local attention) against the unsplit
   chunked pass, and under ``kv_sequence_split`` (the cache split over
-  ``kv_seq``) the second chunk raises ``NotImplementedError``;
+  ``kv_seq`` in two blocks, the boundary inside the last chunk) against the
+  unsplit chunked pass into the same buffer, followed by two decode steps:
+  each rank attends with every row of a later chunk over its own block (K2
+  with its log-sum-exp at the chunk's offset in the block) and K3' folds
+  the ranks; the third chunk leaves rank 1 with no visible key, the fourth
+  straddles the boundary, and a case whose cache holds garbage past the
+  prefix shows that no key past it is read.  The serving step splits only a
+  prompt from index 0 over a sequence axis, so no case splits a later
+  chunk's tokens;
+* the rank fold alone (two key blocks' partials folded by K3''s plain
+  version) equals K2's plain version over the whole prefix, rows that one
+  block masks wholly included;
 * a chunk past the cache's end raises ``ValueError``, and so does a chunk
   into rwkv6's or zamba2's non-empty state (the reference decodes them one
   token at a time);
@@ -95,11 +106,24 @@ class Pair:
             at += n
         return out
 
-    def chunked(self, chunks=None):
-        """The port's chunked prefill: after each chunk its logits and a copy
-        of the cache."""
-        cache = self.api.init_cache(self.cfg, B, self.max_len, dtype=torch.float32,
-                                    device="cpu")
+    def cache(self, max_len=None, garbage=False):
+        """An empty float32 cache of ``max_len`` positions (the pair's by
+        default); with ``garbage`` its self-attention K/V filled with
+        random values (seed 1), which only positions past the prefix keep."""
+        cache = self.api.init_cache(self.cfg, B, max_len or self.max_len,
+                                    dtype=torch.float32, device="cpu")
+        if garbage:
+            gen = torch.Generator().manual_seed(1)
+            for name in ("k", "v"):
+                cache[name].copy_(torch.randn(cache[name].shape, generator=gen))
+        return cache
+
+    def chunked(self, chunks=None, cache=None, decode=()):
+        """The port's chunked prefill into ``cache`` (an empty one of the
+        pair's length by default), then a decode step for each of the
+        ``decode`` ids: after each chunk and step its logits and a copy of
+        the cache."""
+        cache = self.cache() if cache is None else cache
         out = []
         with torch.no_grad():
             for i, ids in enumerate(chunks or self.chunks()):
@@ -107,7 +131,22 @@ class Pair:
                                                  **(self.inputs() if i == 0 else {}))
                 out.append((logits, {k: v.clone() if isinstance(v, torch.Tensor) else v
                                      for k, v in cache.items()}))
+            for ids in decode:
+                logits, cache = self.api.decode_step(self.params, ids, cache)
+                out.append((logits, {k: v.clone() if isinstance(v, torch.Tensor) else v
+                                     for k, v in cache.items()}))
         return out
+
+    def kv_split_len(self):
+        """A buffer of two kv_seq blocks whose boundary falls inside the last
+        chunk, after the third: 16 + 4 positions past the prefix in blocks
+        of ``prefix + 10``."""
+        return 2 * (self.api.prefix_len() + 10)
+
+    def decode_ids(self, n=2):
+        rng = np.random.default_rng(2)
+        return [torch.from_numpy(rng.integers(1, self.cfg.vocab_size, size=(B, 1))).long()
+                for _ in range(n)]
 
     def ref_cache(self):
         cache = self.ref_api.init_cache(self.ref_cfg, B, self.max_len, jnp.float32)
@@ -170,42 +209,104 @@ def test_chunks_equal_the_reference_token_loop(arch):
             _close(got[-1][1][name], one[name], f"{arch} one pass {name}")
 
 
-def _chunk_case(p, arch, plan, chunks, tmp_path):
+def _chunk_case(p, arch, plan, chunks, tmp_path, name=None, cache=None, decode=()):
+    name = name or plan
     data = {"params": p.params, "chunks": chunks, "inputs": p.inputs(),
-            "cache": p.api.init_cache(p.cfg, B, p.max_len, dtype=torch.float32, device="cpu")}
-    torch.save(data, tmp_path / f"chunks-{plan}.pt")
-    return {"name": plan, "arch": arch, "reduced": dict(ARCHS[arch]), "plan": plan,
-            "data": f"chunks-{plan}.pt", "chunked": True}
+            "cache": p.cache() if cache is None else cache, "decode": list(decode)}
+    torch.save(data, tmp_path / f"chunks-{name}.pt")
+    return {"name": name, "arch": arch, "reduced": dict(ARCHS[arch]), "plan": plan,
+            "data": f"chunks-{name}.pt", "chunked": True}
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
-def test_head_local_chunks_equal_the_unsplit_ones_and_a_kv_seq_split_refuses(arch, tmp_path):
+def test_chunks_split_over_heads_or_kv_seq_equal_the_unsplit_ones(arch, tmp_path):
     p = Pair(arch, ARCHS[arch])
-    want = p.chunked()
-    ids = p.chunks()
-    # under kv_sequence_split the second chunk has more than one token: a
-    # single token decodes
-    cases = [_chunk_case(p, arch, "megatron_tp", ids, tmp_path),
-             _chunk_case(p, arch, "kv_sequence_split", [ids[0], torch.cat(ids[1:3], dim=1)],
-                         tmp_path)]
+    want = {"megatron_tp": p.chunked()}
+    ids, decode = p.chunks(), p.decode_ids()
+    cases = [_chunk_case(p, arch, "megatron_tp", ids, tmp_path)]
+    T = p.kv_split_len()
+    for name, garbage in (("kv_sequence_split", False), ("kv_seq_garbage_tail", True)):
+        cache = p.cache(T, garbage)
+        cases.append(_chunk_case(p, arch, "kv_sequence_split", ids, tmp_path, name=name,
+                                 cache=cache, decode=decode))
+        want[name] = p.chunked(cache=p.cache(T, garbage), decode=decode)
     spawn({"mode": "serve", "mesh": [1, 2], "cases": cases, "kernels": "cuda"}, tmp_path)
-    for rank in range(2):
-        mesh = SH.Mesh(("data", "model"), (1, 2), rank=rank)
-        got = torch.load(tmp_path / f"megatron_tp.rank{rank}.pt", weights_only=False)
-        assert got["error"] is None and len(got["chunks"]) == len(CHUNKS)
-        for i, ((logits, cache), part) in enumerate(zip(want, got["chunks"])):
-            what = f"{arch} rank {rank} chunk {i}"
-            _close(part["logits"], logits, what)
-            assert part["index"] == cache["index"], what
-            c_sh = SS.cache_shardings(p.api, cache, plan_named("megatron_tp"), mesh)
-            for name, w in cache.items():
-                if name == "index":
-                    continue
-                assert c_sh[name].spec[3] == "model", (what, name, c_sh[name].spec)
-                _close(part["cache"][name], c_sh[name].local(w), f"{what} cache {name}")
-        split = torch.load(tmp_path / f"kv_sequence_split.rank{rank}.pt", weights_only=False)
-        assert len(split["chunks"]) == 1 and "kv_seq" in split["error"], split["error"]
-        _close(split["chunks"][0]["logits"], want[0][0], f"{arch} rank {rank} kv_seq")
+    P = p.api.prefix_len()
+    for case in cases:
+        name, plan = case["name"], plan_named(case["plan"])
+        for rank in range(2):
+            mesh = SH.Mesh(("data", "model"), (1, 2), rank=rank)
+            got = torch.load(tmp_path / f"{name}.rank{rank}.pt", weights_only=False)
+            assert got["error"] is None and len(got["chunks"]) == len(want[name]), got["error"]
+            for i, ((logits, cache), part) in enumerate(zip(want[name], got["chunks"])):
+                what = f"{arch} {name} rank {rank} step {i}"
+                _close(part["logits"], logits, what)
+                assert part["index"] == cache["index"], what
+                c_sh = SS.cache_shardings(p.api, cache, plan, mesh)
+                for leaf, w in cache.items():
+                    if leaf == "index":
+                        continue
+                    split = {"megatron_tp": 3}.get(name, 2)
+                    if leaf in ("k", "v") or name == "megatron_tp":
+                        assert c_sh[leaf].spec[split] == "model", (what, leaf, c_sh[leaf].spec)
+                    _close(part["cache"][leaf], c_sh[leaf].local(w), f"{what} cache {leaf}")
+        if name != "megatron_tp":
+            # the blocks split at prefix + 10: after the third chunk (prefix
+            # + 8 positions) rank 1 holds no key, the fourth straddles it
+            assert T // 2 == P + 10 and P + sum(CHUNKS[:3]) < T // 2 < P + sum(CHUNKS)
+
+
+def test_rank_fold_equals_attention_over_the_whole_prefix():
+    """:func:`layers._block_partials` of two key blocks, stacked as the
+    gather over the ranks stacks them and folded by K3''s plain version,
+    against K2's plain version over the whole prefix at the chunk's index.
+    The chunk (rows at positions 5-12) against blocks [0, 8) and [8, 16):
+    rows 0-2 lie ahead of the second block, which masks them wholly; keys
+    past position 12 are garbage that the causal mask must skip."""
+    from repro_torch.kernels import flash_attention as FA, flash_decode as FD
+    from repro_torch.models import layers as L
+    cfg = replace(get_config("qwen2.5-3b").reduced(n_kv_heads=2), compute_dtype="float32",
+                  kernels="cuda")
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    gen = torch.Generator().manual_seed(0)
+    index, S, block = 5, 8, 8
+    q = torch.randn(B, S, H, D, generator=gen)
+    ck, cv = (torch.randn(B, 2 * block, Hkv, D, generator=gen) for _ in range(2))
+    parts = [L._block_partials(q, ck[:, b * block:(b + 1) * block],
+                               cv[:, b * block:(b + 1) * block], index - b * block, cfg)
+             for b in range(2)]
+    m, l, acc = (torch.cat(t, dim=1) for t in zip(*parts))
+    # the second block's rows ahead of it: the empty split's form
+    m2, l2 = parts[1][0].reshape(B, H, S), parts[1][1].reshape(B, H, S)
+    assert (m2[..., :block - index] == FA.NEG_INF).all() and (l2[..., :block - index] == 0).all()
+    assert (l2[..., block - index:] == 1).all()
+    got = FD.combine_partials_plain(m, l, acc).reshape(B, H, S, D)
+    qf = q.permute(0, 2, 1, 3).reshape(B * H, S, D)
+    want, _ = FA.flash_attention_plain(qf, ck.permute(0, 2, 1, 3), cv.permute(0, 2, 1, 3),
+                                       sm_scale=D ** -0.5, causal=True, q_per_kv=H // Hkv,
+                                       q_offset=index, return_lse=True)
+    _close(got, want.reshape(B, H, S, D), "fold of two blocks")
+    # a chunk wholly ahead of a block launches nothing: its rows take K2's
+    # wholly-masked log-sum-exp (+1e30), mapped to the empty split's form so
+    # that their zero output takes no weight
+    lone = L._block_partials(q[:, :1], ck[:, :block], cv[:, :block], -1, cfg)
+    assert lone[0].eq(FA.NEG_INF).all() and lone[1].eq(0).all() and lone[2].eq(0).all()
+
+
+def test_a_later_chunk_into_a_cache_not_split_over_kv_seq_refuses():
+    """The later-chunk branch of :func:`layers._prompt_into_split` folds
+    the ranks' blocks along ``kv_seq``; handed a cache without that split
+    (no serving plan routes one there) it raises before writing a key."""
+    from repro_torch.models import layers as L
+    cfg = replace(get_config("qwen2.5-3b").reduced(n_kv_heads=2), compute_dtype="float32")
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(B, 4, H, D, generator=gen)
+    k, v = (torch.randn(B, 4, Hkv, D, generator=gen) for _ in range(2))
+    ck, cv = torch.zeros(B, 16, Hkv, D), torch.zeros(B, 16, Hkv, D)
+    with pytest.raises(NotImplementedError, match="item 2c"):
+        L._prompt_into_split(q, k, v, ck, cv, 3, None, True, cfg)
+    assert not ck.any() and not cv.any()
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", MOE, VLM, ENCDEC])

@@ -44,7 +44,8 @@ NCCL refuses two ranks on one card) and runs the job's cases:
   each decode function ran (``ops.flash_decode``,
   ``ops.flash_decode_partials``, ``flash_decode.combine_partials``) to
   ``<out>/<case>.rank<r>.pt``; a case with ``"chunked": true`` prefills
-  the job's prompt in chunks instead (:func:`run_chunk_case`).
+  the job's prompt in chunks instead, then decodes its ``decode`` ids
+  (:func:`run_chunk_case`).
 
 Only ``repro_torch`` is imported: the test holds the results against the
 reference and the unsharded step.
@@ -489,10 +490,11 @@ def run_serve_case(job, case, mesh):
 
 def run_chunk_case(job, case, mesh):
     """A prompt through ``serve_step.jit_serve_step`` in the data's
-    ``chunks`` from its empty ``cache`` (the first chunk with the frontend
-    ``inputs``): after each chunk the logits and this rank's cache slice;
-    the message of a chunk the step refuses (``NotImplementedError``), after
-    which no chunk runs."""
+    ``chunks`` from its ``cache`` (the first chunk with the frontend
+    ``inputs``), then a decode step for each of its ``decode`` ids: after
+    each chunk and step the logits and this rank's cache slice; the message
+    of a call the step refuses (``NotImplementedError``), after which
+    nothing runs."""
     from repro_torch import kernels
     from repro_torch.train import serve_step as SS
     api = model(case["arch"], job.get("kernels"), **case.get("reduced", {}))
@@ -505,7 +507,7 @@ def run_chunk_case(job, case, mesh):
                              tokens_shape=tuple(data["chunks"][0].shape))
     kernels.reset_launch_counts()
     done, error = [], None
-    for i, ids in enumerate(data["chunks"]):
+    for i, ids in enumerate(data["chunks"] + data.get("decode", [])):
         try:
             logits, cache = step(data["params"], ids, cache,
                                  **(data.get("inputs", {}) if i == 0 else {}))

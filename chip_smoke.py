@@ -94,8 +94,8 @@ these phases, each printing one JSON line; any failure raises:
             bits must fail;
    gemma    ``gemma-7b`` (head dim 256, MHA, GeGLU) at full width and depth
             (28 layers, 8.54 B parameters, 17.1 GB in bf16) as ``serve``
-            runs qwen2.5-3b: K2 28 and K3 28 x 32 launches exactly, no
-            planner fallback, every logit within 2e-2 of the plain path's,
+            runs qwen2.5-3b: K2 28 (all on its TMA + wgmma body) and K3
+            28 x 32 launches exactly, no planner fallback, every logit within 2e-2 of the plain path's,
             every K2 and K3 call of a prefill and a decode step within its
             per-call bound of its plain version, and a control whose K2/K3
             outputs keep 5 mantissa bits rejected;
@@ -153,7 +153,8 @@ these phases, each printing one JSON line; any failure raises:
             gradients and AdamW state): as ``train``, the float32 rule on
             the first gradient, every K2-bwd call (d 256) within its bound
             with a 5-bit control rejected, three AdamW steps through
-            ``launch.train`` with exact counts (K2 24, K2-bwd 12);
+            ``launch.train`` with exact counts (K2 24, K2-bwd 12, every
+            call on the TMA + wgmma bodies);
 14. mesh_train plan-sharded training through ``train_step.jit_train_step`` on
             a 1x1 ``launch.mesh.make_host_mesh`` over a world-1 NCCL process
             group: ``qwen2.5-3b`` as in ``train``, three steps under
@@ -509,6 +510,21 @@ def _offset_kw(q_offset: int) -> dict:
     return {"q_offset": q_offset} if q_offset else {}
 
 
+def attention_body(module, fn, dtype):
+    """Run ``fn`` once and name the body its one K2 (or K2-bwd) launch ran
+    on: the key of ``module.launches_by_body`` that moved.  A checkout that
+    counts no bodies ran every bf16 call on the mma.sync body."""
+    counts = getattr(module, "launches_by_body", None)
+    if counts is None:
+        return ("mma" if dtype == torch.bfloat16 else "f32"), fn()
+    before = dict(counts)
+    out = fn()
+    moved = [b for b in counts if counts[b] != before[b]]
+    if len(moved) != 1 or counts[moved[0]] != before[moved[0]] + 1:
+        raise AssertionError(f"{module.__name__}: one call moved the body counts {moved}")
+    return moved[0], out
+
+
 def flash_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving, model=None,
                q_offset=0):
     from repro_torch.kernels import flash_attention as FA, ops
@@ -518,7 +534,7 @@ def flash_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving, model=
     off = _offset_kw(q_offset)
     run = lambda: ops.attention(q, k4, v4, causal=causal, q_per_kv=g, **off)
     plain = lambda: FA.flash_attention_plain(q, k4, v4, causal=causal, q_per_kv=g, **off)
-    out = run()
+    body, out = attention_body(FA, run, dtype)
     err = compare(f"flash_attention {Sq}x{Skv} d={d} q_offset={q_offset} {dname(dtype)}", out,
                   plain(), dtype)
     q4 = q.reshape(B, H, Sq, d)
@@ -527,7 +543,7 @@ def flash_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving, model=
     res = {"name": "flash_attention", "shape": f"BH={B * H} kv_heads={B * Hkv} "
            f"Sq={Sq} Skv={Skv} d={d} causal={causal}" + (f" q_offset={q_offset}"
                                                         if q_offset else ""),
-           "dtype": dname(dtype), "q_offset": q_offset,
+           "dtype": dname(dtype), "q_offset": q_offset, "body": body,
            "serving": serving, "model": model, "max_abs_err": err, "kernel_ms": timer.ms(run),
            "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib)}
     res.update(bound(work().attention_flops(B * H, Sq, Skv, d, causal, **off),
@@ -927,15 +943,16 @@ def flash_bwd_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving, mo
                                                   q_per_kv=g, **off)
     label = (f"BH={B * H} kv_heads={B * Hkv} Sq={Sq} Skv={Skv} d={d} causal={causal}"
              + (f" q_offset={q_offset}" if q_offset else ""))
+    body, grads = attention_body(FAB, run, dtype)
     err = max(compare(f"flash_attention_bwd {name} {label} {dname(dtype)}", a, b, dtype)
-              for name, a, b in zip(("dq", "dk", "dv"), run(), plain()))
+              for name, a, b in zip(("dq", "dk", "dv"), grads, plain()))
     q4 = q.reshape(B, H, Sq, d).detach().requires_grad_()
     kl, vl = (t.detach().contiguous().requires_grad_() for t in (k4, v4))
     lib_out = _library_attention(q4, kl, vl, causal, q_offset, g)
     dout4 = dout.reshape(B, H, Sq, d)
     lib = lambda: torch.autograd.grad(lib_out, (q4, kl, vl), dout4, retain_graph=True)
     res = {"name": "flash_attention_bwd", "shape": label, "dtype": dname(dtype),
-           "q_offset": q_offset,
+           "q_offset": q_offset, "body": body,
            "serving": serving, "model": model, "max_abs_err": err, "lse_max_abs_err": lse_err,
            "kernel_ms": timer.ms(run), "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib)}
     res.update(bound(work().attention_bwd_flops(B * H, Sq, Skv, d, causal, **off),
@@ -2174,8 +2191,9 @@ def phase_attention_family(device, phase: str, arch: str, prompt_passes: int,
 
 def phase_gemma(device) -> dict:
     """gemma-7b served at full width and depth, the first head-dim-256
-    model: K2 on every layer's prompt pass and K3 on every decode-step
-    attention, launch counts exact, no planner fallback; judged as
+    model: K2 on every layer's prompt pass (all on its TMA + wgmma body) and
+    K3 on every decode-step attention, launch counts exact, no planner
+    fallback; judged as
     ``serve`` judges qwen2.5-3b (every logit within 2e-2 of the plain
     path's, :func:`against_plain`), and every K2 and K3 call of a prefill
     and a decode step held against its plain version on the same inputs
@@ -2196,12 +2214,17 @@ def phase_gemma(device) -> dict:
     kernels.reset_launch_counts()
     res = serve.generate(api, params, prompts, NEW_TOKENS, keep_step_logits=True)
     launches = kernels.launch_counts()
+    by_body = kernels.launches_by_body()["flash_attention"]
     L = cfg.n_layers
     want = {"gemm": 0, "flash_attention": L, "flash_decode": L * NEW_TOKENS,
             "flash_decode_partials": 0, "flash_decode_combine": 0, "grouped_matmul": 0,
             "wkv6": 0, "flash_attention_bwd": 0, "wkv6_bwd": 0}
     if launches != want:
         raise AssertionError(f"gemma: kernel launches {launches}, expected {want}")
+    # every prompt pass (bf16, head dim 256, aligned) on K2's TMA + wgmma body
+    if by_body != {"tma": L, "mma": 0, "f32": 0}:
+        raise AssertionError(f"gemma: K2 launches by body {by_body}, expected all {L} on "
+                             f"the TMA body")
     check_outputs("gemma", res, cfg)
     fallbacks = check_planner("gemma", res)
     plain_api = build_model(replace(cfg, kernels="plain"))
@@ -2219,7 +2242,8 @@ def phase_gemma(device) -> dict:
           "tok_per_s": BATCH * NEW_TOKENS / res.decode_s,
           "plain_prefill_ms": ref.prefill_s * 1e3,
           "plain_decode_ms_per_token": ref.decode_s * 1e3 / NEW_TOKENS,
-          "peak_bytes": res.peak_bytes, "launches": launches, "planner_fallbacks": fallbacks,
+          "peak_bytes": res.peak_bytes, "launches": launches,
+          "flash_attention_launches_by_body": by_body, "planner_fallbacks": fallbacks,
           **agreement, "per_call": per_call, "control_5_mantissa_bits": control,
           "first_ids": res.generated[0, :16].tolist(),
           "blocks": {f"{t}{list(s)}": [list(b), src]
@@ -5316,7 +5340,8 @@ def phase_gemma_train(device) -> dict:
     call of that step against its plain version on the same inputs with a
     5-bit control that must be rejected; three AdamW steps through
     ``launch.train.run`` with exact counts (K2 twice a layer a step with
-    remat, K2-bwd once), finite losses."""
+    remat, K2-bwd once, every call on the TMA + wgmma bodies), finite
+    losses."""
     from repro_torch import kernels
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data import DataConfig, make_source
@@ -5333,9 +5358,11 @@ def phase_gemma_train(device) -> dict:
     f32_loss, _, exact = TS.value_and_grad(
         build_model(replace(cfg, kernels="plain", compute_dtype="float32")), params, batch)
     stats = []
+    kernels.reset_launch_counts()
     with patched(FAB, "flash_attention_bwd", bwd_per_call(stats, FAB.flash_attention_bwd,
                                                            FAB.flash_attention_bwd_plain)):
         kern_loss, _, grads = TS.value_and_grad(api, params, batch)
+    per_call_body = kernels.launches_by_body()["flash_attention_bwd"]
     kern = leaf_distances(grads, exact)
     del grads
     plain_loss, _, grads = TS.value_and_grad(build_model(replace(cfg, kernels="plain")),
@@ -5354,9 +5381,14 @@ def phase_gemma_train(device) -> dict:
     res = TL.run(api, tcfg, steps, BATCH, PROMPT, device, state=state, log_every=1,
                  log=lambda line: None)
     launches = res.launches
+    by_body = {k: kernels.launches_by_body()[k] for k in ("flash_attention",
+                                                          "flash_attention_bwd")}
     want = {"gemm": 0, "flash_attention": 2 * L * steps, "flash_attention_bwd": L * steps,
             "flash_decode": 0, "flash_decode_partials": 0, "flash_decode_combine": 0,
             "grouped_matmul": 0, "wkv6": 0, "wkv6_bwd": 0}
+    # every K2 and K2-bwd call of the steps (bf16, head dim 256) on the TMA bodies
+    want_body = {"flash_attention": {"tma": 2 * L * steps, "mma": 0, "f32": 0},
+                 "flash_attention_bwd": {"tma": L * steps, "mma": 0, "f32": 0}}
     finite = all(math.isfinite(h[k]) for h in res.history for k in ("loss", "grad_norm"))
     emit({"phase": "gemma_train", "arch": cfg.name, "n_layers": L,
           "full_depth_layers": common.launch_config(GEMMA_ARCH).n_layers,
@@ -5368,9 +5400,14 @@ def phase_gemma_train(device) -> dict:
           "gradients": rule, "per_call": per_call, "history": res.history,
           "step_ms": [t * 1e3 for t in res.step_s],
           "tok_per_s": [BATCH * PROMPT / t for t in res.step_s],
-          "peak_bytes": res.peak_bytes, "launches": launches})
+          "peak_bytes": res.peak_bytes, "launches": launches, "launches_by_body": by_body,
+          "per_call_body": per_call_body})
     if launches != want:
         raise AssertionError(f"gemma_train: kernel launches {launches}, expected {want}")
+    if by_body != want_body or per_call_body != {"tma": L, "mma": 0, "f32": 0}:
+        raise AssertionError(f"gemma_train: K2 / K2-bwd launches by body {by_body} (the "
+                             f"checked step's K2-bwd: {per_call_body}), expected all on the "
+                             f"TMA bodies")
     if not finite:
         raise AssertionError(f"gemma_train: a loss or gradient norm is not finite: "
                              f"{res.history}")
@@ -5417,13 +5454,16 @@ SOURCES = {
 # where a cache is split over ranks (mesh_serve), ``ops.flash_decode``
 # computes both in one launch elsewhere
 OFF_MAIN_PATH = ()
+# the TMA + wgmma bodies of K2 and K2-bwd, compiled at head dim 256 only (their
+# mangled names carry no head dim): every aligned bf16 call of gemma-7b
+D256_TMA_BODIES = ("flash_fwd_tma_kernel", "flash_bwd_dq_tma_kernel", "flash_bwd_dkv_tma_kernel")
 # the bodies instantiated at head dim 256 (gemma-7b)
 D256_BODIES = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "decode_mma_kernel",
                "decode_f32_kernel", "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel",
-               "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+               "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel") + D256_TMA_BODIES
 # the bodies redesigned last: their registers and spills go in the build line
 REDESIGNED = ("decode_mma_kernel", "decode_f32_kernel", "wkv6_kernel", "flash_bwd_dq_mma_kernel",
-              "flash_bwd_dkv_mma_kernel", "wkv6_bwd_kernel")
+              "flash_bwd_dkv_mma_kernel", "wkv6_bwd_kernel") + D256_TMA_BODIES
 # the TMA GEMM core's instantiations end their mangled template arguments with
 # GROUPED, A_T, B_T and MINB: MINB 1 the deep ring, 2 the short-K ring
 RING = re.compile(r"ELi([12])EEEv")
@@ -5485,14 +5525,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # the head-dim-256 instantiations of K2, K3 (and its partials epilogue)
-    # and K2-bwd: registers and spilled bytes of each
-    d256 = {k: v for k, v in ptxas.items() if "Li256E" in k}
+    # and K2-bwd, and K2's and K2-bwd's TMA bodies: registers and spilled
+    # bytes of each
+    d256 = {k: v for k, v in ptxas.items()
+            if "Li256E" in k or any(b in k for b in D256_TMA_BODIES)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled_here": bool(info.get("built")), "library": info.get("path"),
           "sources": [p.name for p in _build.sources()], "ptxas": ptxas,
           "redesigned": redesigned, "head_dim_256": d256})
     if info.get("built") and not all(any(b in k for k in d256) for b in D256_BODIES):
         raise AssertionError(f"a head-dim-256 body was not compiled: {sorted(d256)}")
+    tma_spills = {k: v for k, v in d256.items()
+                  if any(b in k for b in D256_TMA_BODIES) and v.get("spill_bytes")}
+    if tma_spills:
+        raise AssertionError(f"a TMA body of K2 or K2-bwd spills: {tma_spills}")
     spilled = {k: v for k, v in ptxas.items()
                if "gemm_tma_kernel" in k and v.get("spill_bytes")}
     if info.get("built") and (spilled or not any("gemm_tma_kernel" in k for k in ptxas)

@@ -14,8 +14,10 @@ prints one JSON line of kernel times; the script prints the card's name and
 power limit last.  Name the trees as parent, change, change, parent to see
 the drift across the call.  Needs one NVIDIA GPU.
 
-The rows, bf16 unless marked: K2-bwd at the training passes of every attention
-family, K4-bwd at the MoE's prefill (with its dX, dW and copy pieces as that
+The rows, bf16 unless marked: K2 and K2-bwd at gemma-7b's prefill and
+training pass (head dim 256, each row naming the body it timed: ``tma`` or
+``mma``, the mma.sync body of a checkout that counts no bodies), K2-bwd at
+the training passes of every other attention family, K4-bwd at the MoE's prefill (with its dX, dW and copy pieces as that
 checkout's backward launches them), K1-bwd (with its dA, dB and copy pieces
 likewise) and K1 at qwen2.5-3b's projection, K4 at the MoE's four served
 shapes, K5 at rwkv6-3b's training pass from a zero state, and K5-bwd at
@@ -34,12 +36,15 @@ its K3' (``combine_partials``) on partials with empty splits, and its K5
 final-state gradient: the arguments an older checkout does not have) at
 every compiled head dim, bf16 and float32, chunks 1, 16 and 32 and
 rwkv6-3b's training pass, into a fresh build directory
-``TREE/build/ab-digests-<i>``.  Each tree's line then gives
-``outputs_equal`` (every output's SHA-256 equal to the first tree's, with
-the ones that differ) and, apart from it, ``spill_growth``: the K2, K2-bwd,
-K5 and K5-bwd kernels whose ``ptxas`` spilled bytes exceed the first tree's
-(keyed by kernel and template arguments: the parameter lists may differ).
-The script exits 1 when an output differs.
+``TREE/build/ab-digests-<i>``.  Each K2 / K2-bwd output is keyed with the
+body that computed it.  Each tree's line then gives ``outputs_equal``
+(every output's SHA-256 equal to the first tree's where both trees ran the
+same body, with the ones that differ), ``differ_by_body`` (the outputs that
+differ because another body computed them) and, apart from it,
+``spill_growth``: the K2, K2-bwd, K5 and K5-bwd kernels whose ``ptxas``
+spilled bytes exceed the first tree's (keyed by kernel and template
+arguments: the parameter lists may differ).  The script exits 1 when an
+output of the same body differs.
 """
 from __future__ import annotations
 
@@ -94,8 +99,12 @@ def one(tree: str) -> dict:
                   True) for c in (cfg, mcfg)]
     attention += [(model, B, H, Hkv, Sq, Skv, 64, causal)
                   for model, B, H, Hkv, Sq, Skv, causal in S.served_flash_d64()]
-    cases = [S.flash_bwd_case(timer, gen, B, H, Hkv, Sq, Skv, hd, causal, bf16, True, model)
-             for model, B, H, Hkv, Sq, Skv, hd, causal in attention]
+    gcfg = get_config(S.GEMMA_ARCH)
+    gemma = (S.BATCH, gcfg.n_heads, gcfg.n_kv_heads, S.PROMPT, S.PROMPT, gcfg.head_dim_, True,
+             bf16, True, gcfg.name)
+    cases = [S.flash_case(timer, gen, *gemma), S.flash_bwd_case(timer, gen, *gemma)]
+    cases += [S.flash_bwd_case(timer, gen, B, H, Hkv, Sq, Skv, hd, causal, bf16, True, model)
+              for model, B, H, Hkv, Sq, Skv, hd, causal in attention]
     cases += [S.grouped_bwd_case(timer, gen, E, caps[1], a, b, bf16, True)
               for a, b in ((d, f), (f, d))]
     cases.append(S.gemm_bwd_case(timer, gen, M, N, K, bf16, True))
@@ -105,7 +114,7 @@ def one(tree: str) -> dict:
               for cap in caps for a, b in ((d, f), (f, d))]
     cases.append(S.wkv6_train_case(timer, gen))
     cases += S.wkv6_bwd_cases(timer, gen)
-    keep = ("kernel_ms", "dx_ms", "dw_ms", "dA_ms", "dB_ms", "copy_ms", "launched",
+    keep = ("body", "kernel_ms", "dx_ms", "dw_ms", "dA_ms", "dB_ms", "copy_ms", "launched",
             "library_ms", "bound_ms", "max_active_clusters")
     rows = {f"{c['name']} {c.get('model') or ''} {c['shape']} {c['dtype']}".replace("  ", " "):
             {k: c[k] for k in keep if k in c} for c in cases}
@@ -123,7 +132,7 @@ def one_digests(tree: str) -> dict:
     DIGEST_SHAPES inputs, and the registers and spilled bytes ``ptxas``
     reported for its K2 and K2-bwd kernels."""
     sys.path.insert(0, HERE)
-    from chip_smoke import ptxas_usage
+    from chip_smoke import attention_body, ptxas_usage
     sys.path.insert(0, os.path.join(tree, "src"))
     import torch
 
@@ -133,7 +142,7 @@ def one_digests(tree: str) -> dict:
         raise RuntimeError(f"repro_torch came from {FA.__file__}, not from {tree}")
 
     dev = torch.device("cuda", 0)
-    out = {}
+    out, bodies = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         for d in FA.COMPILED_HEAD_DIMS:
             for BH, g, Sq, Skv in DIGEST_SHAPES:
@@ -145,11 +154,14 @@ def one_digests(tree: str) -> dict:
                 for causal in (True, False):
                     tag = f"{str(dtype)[6:]} d{d} BH{BH} g{g} {Sq}x{Skv} causal={causal}"
                     for bq, bkv in FA.legal_tiles(d, q.element_size()):
-                        o, lse = FA.flash_attention(q, k, v, causal=causal, block_q=bq,
-                                                    block_kv=bkv, q_per_kv=g, return_lse=True)
-                        out[f"fwd {tag} tile {bq}x{bkv}"] = _digest(o) + _digest(lse)
-                    grads = FAB.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal,
-                                                    q_per_kv=g)
+                        key = f"fwd {tag} tile {bq}x{bkv}"
+                        bodies[key], (o, lse) = attention_body(FA, lambda: FA.flash_attention(
+                            q, k, v, causal=causal, block_q=bq, block_kv=bkv, q_per_kv=g,
+                            return_lse=True), dtype)
+                        out[key] = _digest(o) + _digest(lse)
+                    bodies[f"bwd {tag}"], grads = attention_body(
+                        FAB, lambda: FAB.flash_attention_bwd(q, k, v, o, lse, dout,
+                                                             causal=causal, q_per_kv=g), dtype)
                     out[f"bwd {tag}"] = "".join(_digest(x) for x in grads)
     import inspect
     if "q_offset" in inspect.signature(FA.flash_attention).parameters:
@@ -158,10 +170,11 @@ def one_digests(tree: str) -> dict:
             q, k, v = (torch.randn(n, s, d, generator=gen, device=dev).to(torch.bfloat16)
                        for n, s in ((BH, Sq), (BH // g, Skv), (BH // g, Skv)))
             for bq, bkv in FA.legal_tiles(d, q.element_size()):
-                o, lse = FA.flash_attention(q, k, v, causal=True, block_q=bq, block_kv=bkv,
-                                            q_per_kv=g, q_offset=off, return_lse=True)
-                out[f"fwd bf16 d{d} BH{BH} g{g} {Sq}x{Skv} offset {off} tile {bq}x{bkv}"] = \
-                    _digest(o) + _digest(lse)
+                key = f"fwd bf16 d{d} BH{BH} g{g} {Sq}x{Skv} offset {off} tile {bq}x{bkv}"
+                bodies[key], (o, lse) = attention_body(FA, lambda: FA.flash_attention(
+                    q, k, v, causal=True, block_q=bq, block_kv=bkv, q_per_kv=g, q_offset=off,
+                    return_lse=True), q.dtype)
+                out[key] = _digest(o) + _digest(lse)
     out.update(wkv_digests(dev))
     out.update(combine_digests(dev))
     torch.cuda.synchronize()
@@ -170,7 +183,7 @@ def one_digests(tree: str) -> dict:
                if any(k in n for k in ("flash_fwd", "flash_bwd", "wkv6_kernel", "wkv6_bwd"))}
     if not kernels:
         raise RuntimeError(f"{tree}: no K2 / K2-bwd / K5 / K5-bwd kernel in this process's build")
-    return {"tree": tree, "digests": out, "ptxas": kernels}
+    return {"tree": tree, "digests": out, "bodies": bodies, "ptxas": kernels}
 
 
 def combine_digests(dev) -> dict:
@@ -220,20 +233,28 @@ def wkv_digests(dev) -> dict:
 
 
 def compare_digests(rows) -> bool:
-    """One line a tree: its outputs against the first tree's, and apart from
-    that its K2 / K2-bwd kernels that spill more than the first tree's.
-    True when every output is equal."""
+    """One line a tree: its outputs against the first tree's, those that
+    another body computed apart, and apart from that its K2 / K2-bwd kernels
+    that spill more than the first tree's.  True when every output of the
+    same body is equal."""
     base, base_ptxas = rows[0]["digests"], rows[0]["ptxas"]
+    base_bodies = rows[0].get("bodies", {})
     equal = True
     for row in rows:
-        differ = sorted(k for k in base if row["digests"].get(k) != base[k])
+        bodies = row.get("bodies", {})
+        changed = sorted(k for k in base if row["digests"].get(k) != base[k])
+        by_body = [k for k in changed if bodies.get(k) != base_bodies.get(k)]
+        differ = [k for k in changed if k not in by_body]
         growth = {n: {"spill_bytes": u.get("spill_bytes", 0),
                       "first_tree": base_ptxas.get(n, {}).get("spill_bytes", 0)}
                   for n, u in row["ptxas"].items()
                   if u.get("spill_bytes", 0) > base_ptxas.get(n, {}).get("spill_bytes", 0)}
         print(json.dumps({"tree": row["tree"], "order": row["order"],
                           "outputs": len(row["digests"]), "outputs_equal": not differ,
-                          "differ_from_first": differ, "kernels": len(row["ptxas"]),
+                          "differ_from_first": differ, "differ_by_body": by_body,
+                          "bodies": {b: sum(1 for x in bodies.values() if x == b)
+                                     for b in sorted(set(bodies.values()))},
+                          "kernels": len(row["ptxas"]),
                           "spill_growth": growth,
                           "max_registers": max(u.get("registers", 0)
                                                for u in row["ptxas"].values())}), flush=True)

@@ -143,14 +143,27 @@ _SIGNATURES = {
                                    _F, _I, _I, _I, _I, _I, _P],
     "repro_flash_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_STRIDES,
                                   _F, _I, _I, _I, _I, _I, _P],
+    # the TMA + wgmma body at d 256 (bf16, aligned): q, k, v, o, lse (or NULL), BH,
+    # Sq, Skv, H, q_per_kv, 6 strides, sm_scale, causal, q_off, bq, bkv, stream
+    "repro_flash_attention_tma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, *_STRIDES,
+                                  _F, _I, _I, _I, _I, _P],
+    # bq, bkv, minb (1: the blocks an SM its launch bounds ask for, 0: shared memory);
+    # bq, bkv: the blocks an SM the runtime finds room for
+    "repro_flash_tma_smem_bytes": [_I, _I, _I],
+    "repro_flash_tma_occupancy": [_I, _I],
     # q, k, v, o, dout, lse, delta, dq, dk, dv, BH, Sq, Skv, d, H, q_per_kv,
     # 6 strides, sm_scale, causal, q_off, stream (two launches: dQ and delta, then
     # dK/dV; the bf16 dK/dV launch runs each group's query heads as one cluster)
     "repro_flash_attention_bwd_bf16": [_P] * 10 + [_I] * 6 + [*_STRIDES, _F, _I, _I, _P],
     "repro_flash_attention_bwd_f32": [_P] * 10 + [_I] * 6 + [*_STRIDES, _F, _I, _I, _P],
-    # d, kernel (0 dQ, 1 dK/dV), is_bf16; q_per_kv
+    # the TMA + wgmma body at d 256: the same without d (a dK/dV block walks
+    # its group's query heads; no cluster)
+    "repro_flash_attention_bwd_tma": [_P] * 10 + [_I] * 5 + [*_STRIDES, _F, _I, _I, _P],
+    # d, kernel (0 dQ, 1 dK/dV), is_bf16; q_per_kv; kernel (the TMA body)
     "repro_flash_bwd_smem_bytes": [_I, _I, _I],
     "repro_flash_bwd_cluster": [_I],
+    "repro_flash_bwd_tma_smem_bytes": [_I],
+    "repro_flash_bwd_tma_occupancy": [_I],
     "repro_flash_smem_bytes_bf16": [_I, _I, _I],
     "repro_flash_smem_bytes_f32": [_I, _I, _I],
     # q, k, v, out, n_groups, G, hkv, d, kv_len, splits, 6 strides, sm_scale,

@@ -4,7 +4,11 @@ Counterpart of ``repro/kernels/flash_attention.py``.  The CUDA kernel
 (``csrc/flash_attention.cuh``) gives one thread block a (head, query tile)
 pair and loops over the KV axis inside it; in bf16 each warp keeps its
 scores, probabilities and output in registers (``mma.sync``) while the next
-K/V tile arrives by ``cp.async``.  It is compiled for head
+K/V tile arrives by ``cp.async``.  At head dim 256 an aligned bf16 call
+takes the Hopper body instead (``csrc/flash_attention_tma.cu``: TMA loads,
+``wgmma`` products, one consumer warpgroup per 64 query rows); which body a
+call takes is :func:`body_of` its arguments, decided before the launch, and
+:data:`launches_by_body` counts each.  It is compiled for head
 dimensions :data:`COMPILED_HEAD_DIMS` and the tiles :data:`COMPILED_TILES`;
 the planner (``core/lower_torch.py``) chooses among those that fit a block's
 shared memory.  A tensor on the CPU goes to :func:`flash_attention_plain`; a
@@ -36,6 +40,7 @@ import torch
 
 from . import _build
 from . import work as _work
+from .gemm import SM_SMEM
 
 NEG_INF = -1e30
 LSE_MASKED = 1e30                   # log-sum-exp of a row with no visible key
@@ -46,20 +51,54 @@ COMPILED_TILES = tuple((bq, bkv) for bq in TILE_Q for bkv in TILE_KV)
 DEFAULT_BLOCK_Q = 64
 DEFAULT_BLOCK_KV = 64
 MAX_SMEM = 232448                   # bytes one block may use on sm_90
+TMA_HEAD_DIM = 256                  # the head dim the TMA + wgmma body serves
+# "tma": TMA + wgmma (bf16, d 256, aligned); "mma": the mma.sync body (every
+# other bf16 call); "f32": the float32 body
+BODIES = ("tma", "mma", "f32")
 
 launches = 0                        # kernel launches made by flash_attention()
+launches_by_body = {b: 0 for b in BODIES}
 
 
-def flash_smem_bytes(bq: int, bkv: int, d: int, elem_size: int) -> int:
-    """Shared memory one block of the kernel takes (mirrors ``FlashLayout``
-    in ``csrc/flash_attention.cuh``).  bf16: the Q tile and two stages of K
-    and V tiles, rows padded by 16 bytes; scores, probabilities and output
-    stay in registers.  float32: the Q, K and V tiles, float32 scores and the
-    float32 output accumulator (at d 256 only the (64, 32) tile fits)."""
+def body_of(dtype: torch.dtype, d: int, strides, pointers) -> str:
+    """The body a CUDA call runs, from its arguments alone: ``"tma"`` for
+    bf16 at head dim 256 whose k/v strides (in elements) are multiples of 8
+    and whose pointers are 16-byte aligned (TMA's rule for addresses and
+    row strides), ``"mma"`` for any other bf16 call, ``"f32"`` for float32."""
+    if dtype == torch.float32:
+        return "f32"
+    aligned = all(s % 8 == 0 for s in strides) and all(p % 16 == 0 for p in pointers)
+    return "tma" if d == TMA_HEAD_DIM and aligned else "mma"
+
+
+def flash_smem_bytes(bq: int, bkv: int, d: int, elem_size: int,
+                     body: Optional[str] = None) -> int:
+    """Shared memory one block of the kernel takes, for the body an aligned
+    call of this head dim and element size runs unless ``body`` names
+    another.  ``"tma"`` (mirrors ``FwdCfg`` in ``csrc/flash_attention_tma.cu``):
+    1 KB for the 128-byte swizzle's alignment, the Q tile and two stages of
+    K and V tiles, unpadded, and seven mbarriers.  ``"mma"`` (``FlashLayout``
+    in ``csrc/flash_attention.cuh``): the Q tile and two stages of K and V
+    tiles, rows padded by 16 bytes; scores, probabilities and output stay in
+    registers.  float32: the Q, K and V tiles, float32 scores and the float32
+    output accumulator (at d 256 only the (64, 32) tile fits)."""
+    if body is None and elem_size == 2:
+        body = "tma" if d == TMA_HEAD_DIM else "mma"
+    if body == "tma":
+        return 1024 + (bq + 2 * 2 * bkv) * d * 2 + 8 * 7
     if elem_size == 2:
         return (bq + 2 * 2 * bkv) * (d + 8) * 2
     qkv = (bq + 2 * bkv) * (d + 4) * 4
     return qkv + bq * (bkv + 4) * 4 + bq * (d + 4) * 4
+
+
+def tma_blocks_per_sm(bq: int, bkv: int) -> int:
+    """Blocks of the TMA body an SM holds (its ``__launch_bounds__``): two
+    where a block of one consumer warpgroup leaves room for a second in
+    shared memory ((64, 32): 160 threads, at most 200 registers each), else
+    one."""
+    fits = 2 * (flash_smem_bytes(bq, bkv, TMA_HEAD_DIM, 2) + 1024) <= SM_SMEM
+    return 2 if bq == 64 and fits else 1
 
 
 def legal_tiles(d: int, elem_size: int) -> Tuple[Tuple[int, int], ...]:
@@ -172,18 +211,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                v4.stride(0), v4.stride(1), v4.stride(2)]
     vec_ok = int(all(s % vec == 0 for s in strides)
                  and all(t.data_ptr() % 16 == 0 for t in (q, k4, v4)))
+    body = body_of(q.dtype, d, strides, [t.data_ptr() for t in (q, k4, v4, out)])
     heads_per_batch = k4.shape[1] * q_per_kv
-    fn = (_build.lib().repro_flash_attention_bf16 if q.dtype == torch.bfloat16
-          else _build.lib().repro_flash_attention_f32)
+    lse_ptr = lse.data_ptr() if return_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(q.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
-                  lse.data_ptr() if return_lse else None, BH, Sq, Skv, d, heads_per_batch,
-                  q_per_kv, *strides, sm_scale, int(causal), q_offset, block_q, block_kv,
-                  vec_ok, stream)
+        if body == "tma":
+            code = _build.lib().repro_flash_attention_tma(
+                q.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), lse_ptr, BH, Sq,
+                Skv, heads_per_batch, q_per_kv, *strides, sm_scale, int(causal), q_offset,
+                block_q, block_kv, stream)
+        else:
+            fn = (_build.lib().repro_flash_attention_bf16 if body == "mma"
+                  else _build.lib().repro_flash_attention_f32)
+            code = fn(q.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), lse_ptr, BH,
+                      Sq, Skv, d, heads_per_batch, q_per_kv, *strides, sm_scale, int(causal),
+                      q_offset, block_q, block_kv, vec_ok, stream)
     _build.check(code, f"flash_attention BH={BH} Sq={Sq} Skv={Skv} d={d} tile "
-                       f"{(block_q, block_kv)}")
+                       f"{(block_q, block_kv)} body {body}")
     launches += 1
+    launches_by_body[body] += 1
     _work.add("flash_attention", _work.attention_flops(BH, Sq, Skv, d, causal, q_offset),
               _work.nbytes(q, k4, v4, out))
     return (out, lse) if return_lse else out

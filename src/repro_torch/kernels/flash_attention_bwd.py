@@ -17,11 +17,17 @@ writes delta = rowsum(dO o)) with one block per (query head, 64-row query
 tile), then dK and dV with one block per (query head, 64-key tile), the
 blocks of one kv head's group a thread-block cluster that folds their
 partial dK/dV through distributed shared memory (:func:`bwd_geometry`
-mirrors the grids, the cluster and the shared memory).  At d 256 each
-launch cuts the output columns in two over ``gridDim.z``
-(:func:`bwd_column_splits`), so a warp holds the registers of d 128.
-float32 keeps the
-first scalar body, whose dK/dV block loops over its group's query heads.
+mirrors the grids, the cluster and the shared memory).  At d 256 an aligned
+bf16 call takes the Hopper body (``csrc/flash_attention_bwd_tma.cu``: TMA
+loads, ``wgmma`` products; a dQ block of 128 query rows, each warpgroup
+working its own 64 on its own; a dK/dV block whose two warpgroups share
+P^T and dS^T through shared memory, each holding half of the output
+columns, with no cluster: it walks its group's query heads in turn).  An
+unaligned one keeps the mma.sync body, which at d 256 cuts the output
+columns in two over ``gridDim.z`` (:func:`bwd_column_splits`).  float32
+keeps the first scalar body, whose dK/dV block loops over its group's
+query heads.  Which body a call takes is ``flash_attention.body_of`` its
+arguments, decided before the launch; :data:`launches_by_body` counts each.
 No float atomics: the result repeats exactly.  :data:`launches` counts calls
 of the wrapper that reached the card; one call is those two kernel launches.
 A tensor on the CPU goes to :func:`flash_attention_bwd_plain`; a CUDA tensor
@@ -35,22 +41,43 @@ import torch
 
 from . import _build
 from . import work as _work
-from .flash_attention import COMPILED_HEAD_DIMS, NEG_INF, _kv_4d
+from .flash_attention import BODIES, COMPILED_HEAD_DIMS, NEG_INF, TMA_HEAD_DIM, _kv_4d, body_of
 from .gemm import SM_SMEM
 
 launches = 0                        # calls of flash_attention_bwd() on the card (2 kernels each)
+launches_by_body = {b: 0 for b in BODIES}
 
 BWD_ROWS = 64                       # bf16: query rows of a dQ block, key rows of a dK/dV block
+TMA_DQ_ROWS, TMA_DQ_KEYS = 128, 32  # the TMA body's dQ block: query rows, keys a ring tile
 MAX_CLUSTER = 8                     # the portable cluster size
 
 
-def bwd_smem_bytes(d: int, kernel: str, elem_size: int) -> int:
-    """Shared memory one block of the ``"dq"`` or ``"dkv"`` launch takes
-    (mirrors ``repro_flash_bwd_smem_bytes``).  bf16: 64-row tiles with rows
-    padded by 16 bytes, the dQ block's Q and dO and two stages of K and V,
-    the dK/dV block's K and V and two stages of Q, dO and their rows' float32
-    lse and delta.  float32 (the scalar body): float32 tiles with rows padded
-    by one float, 64-row dQ blocks (32-row at d 256) and 32-row dK/dV blocks."""
+def _bf16_body(d: int, body: Optional[str]) -> str:
+    """The bf16 body of an aligned call at this head dim, unless named."""
+    return body or ("tma" if d == TMA_HEAD_DIM else "mma")
+
+
+def bwd_smem_bytes(d: int, kernel: str, elem_size: int, body: Optional[str] = None) -> int:
+    """Shared memory one block of the ``"dq"`` or ``"dkv"`` launch takes,
+    for the body an aligned call runs unless ``body`` names another.
+    ``"tma"`` (d 256; mirrors ``repro_flash_bwd_tma_smem_bytes``): 1 KB for
+    the swizzle's alignment, unpadded tiles of 256 columns, and five
+    mbarriers; the dQ block 128 rows of Q and dO, two ring stages of 32 rows
+    of K and V and 128 float32 delta, the dK/dV block 64 rows of K and V,
+    two ring stages of 64 rows of Q and dO and two 8 KB bf16 tiles each of
+    P^T and dS^T.  ``"mma"`` (mirrors
+    ``repro_flash_bwd_smem_bytes``): 64-row tiles with rows padded by 16
+    bytes, the dQ block's Q and dO and two stages of K and V, the dK/dV
+    block's K and V and two stages of Q, dO and their rows' float32 lse and
+    delta.  float32 (the scalar body): float32 tiles with rows padded by one
+    float, 64-row dQ blocks (32-row at d 256) and 32-row dK/dV blocks."""
+    if elem_size == 2 and _bf16_body(d, body) == "tma":
+        row = d * 2
+        if kernel == "dq":
+            tiles = 2 * TMA_DQ_ROWS * row + 2 * 2 * TMA_DQ_KEYS * row + TMA_DQ_ROWS * 4
+        else:
+            tiles = 6 * BWD_ROWS * row + 4 * BWD_ROWS * 128
+        return 1024 + tiles + 8 * 5
     if elem_size == 2:
         tile = BWD_ROWS * (d + 8) * 2
         return 6 * tile if kernel == "dq" else 6 * tile + 2 * 2 * BWD_ROWS * 4
@@ -61,12 +88,16 @@ def bwd_smem_bytes(d: int, kernel: str, elem_size: int) -> int:
     return (2 * 32 * ld + 2 * 64 * ld + 2 * 64 * 33 + 2 * 64) * 4
 
 
-def bwd_column_splits(d: int) -> int:
-    """Parts the bf16 launches cut the output columns into (``gridDim.z``):
-    1 up to d 128; 2 at d 256, where a warp's dK and dV rows over the whole
-    d would take 256 float32 registers a thread.  Each part computes S and
-    dP over the whole d again."""
-    return 1 if d <= 128 else d // 128
+def bwd_column_splits(d: int, body: Optional[str] = None) -> int:
+    """Parts the bf16 launches cut the output columns into over the grid
+    (``gridDim.z``).  The mma.sync body: 1 up to d 128; 2 at d 256, where a
+    warp's dK and dV rows over the whole d would take 256 float32 registers
+    a thread, each part computing S and dP over the whole d again.  The TMA
+    body (aligned calls at d 256): 1, its two warpgroups each holding half
+    of the columns of one block."""
+    if d <= 128 or _bf16_body(d, body) == "tma":
+        return 1
+    return d // 128
 
 
 def bwd_cluster(q_per_kv: int) -> int:
@@ -80,28 +111,38 @@ def bwd_cluster(q_per_kv: int) -> int:
 
 
 def bwd_geometry(BH: int, Sq: int, Skv: int, d: int, q_per_kv: int = 1,
-                 causal: bool = True, q_offset: int = 0) -> dict:
-    """The two bf16 launches of one call: for each, the grid (with a third
-    axis, the column parts, at d 256), the cluster, the shared memory of a
-    block, the blocks one SM holds (by shared memory and the two blocks
-    ``__launch_bounds__`` asks for: one at d 256) and each block's work in
-    (64 x 64)-tile products, in the order the blocks launch."""
+                 causal: bool = True, q_offset: int = 0, body: Optional[str] = None) -> dict:
+    """The two bf16 launches of one call, on the body an aligned call runs
+    unless ``body`` names another: for each, the grid (with a third axis,
+    the column parts, on the mma.sync body at d 256), the cluster, the
+    shared memory of a block, the blocks one SM holds (by shared memory and
+    what ``__launch_bounds__`` asks for: two, or one at d 256) and each
+    block's work in (64 x 64)-tile pairs, in the order the blocks launch.
+    The TMA body has no cluster (a dK/dV block takes every query head of its
+    group) and a dQ block of 128 query rows."""
     n = BWD_ROWS
     nq, nkv = -(-Sq // n), -(-Skv // n)
-    cl = bwd_cluster(q_per_kv)
+    tma = d == TMA_HEAD_DIM and _bf16_body(d, body) == "tma"
+    cl = 1 if tma else bwd_cluster(q_per_kv)
     heads = q_per_kv // cl
-    parts = bwd_column_splits(d)
+    parts = bwd_column_splits(d, body)
     z = () if parts == 1 else (parts,)
 
     def per_sm(smem: int) -> int:
-        return min(2, SM_SMEM // (smem + 1024))
+        return min(1 if d > 128 else 2, SM_SMEM // (smem + 1024))
 
-    # dQ: query tiles heaviest first (gridDim.y reversed), key tiles a row sees
+    # dQ: query tiles heaviest first (gridDim.y reversed), key tiles a row sees;
+    # the TMA body's block takes two 64-row tiles
+    rows_q = TMA_DQ_ROWS if tma else n
+    nq = -(-Sq // rows_q)
     dq_work = []
     for y in range(nq):
-        q0 = (nq - 1 - y) * n
-        end = min(Skv, q_offset + q0 + n) if causal else Skv
-        dq_work += [-(-end // n)] * BH
+        q0 = (nq - 1 - y) * rows_q
+        pairs = 0
+        for r in range(q0, min(Sq, q0 + rows_q), n):
+            end = min(Skv, q_offset + r + n) if causal else Skv
+            pairs += -(-end // n)
+        dq_work += [pairs] * BH
     # dK/dV: key tiles in order (the first sees most queries), query tiles
     # from the first row that can see the tile, for each of the block's heads
     dkv_work = []
@@ -110,7 +151,7 @@ def bwd_geometry(BH: int, Sq: int, Skv: int, d: int, q_per_kv: int = 1,
         tiles = -(-(Sq - first) // n) if first < Sq else 0
         dkv_work += [heads * tiles] * (BH // q_per_kv * cl)
     dq_work, dkv_work = dq_work * parts, dkv_work * parts
-    smem_q, smem_kv = bwd_smem_bytes(d, "dq", 2), bwd_smem_bytes(d, "dkv", 2)
+    smem_q, smem_kv = bwd_smem_bytes(d, "dq", 2, body), bwd_smem_bytes(d, "dkv", 2, body)
     return {"dq": {"grid": (BH, nq, *z), "cluster": 1, "smem": smem_q,
                    "blocks_per_sm": per_sm(smem_q), "work": dq_work},
             "dkv": {"grid": (BH // q_per_kv * cl, nkv, *z), "cluster": cl,
@@ -212,16 +253,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     strides = [k4.stride(0), k4.stride(1), k4.stride(2),
                v4.stride(0), v4.stride(1), v4.stride(2)]
     heads_per_batch = k4.shape[1] * q_per_kv
-    fn = (_build.lib().repro_flash_attention_bwd_bf16 if q.dtype == torch.bfloat16
-          else _build.lib().repro_flash_attention_bwd_f32)
+    body = body_of(q.dtype, d, strides,
+                   [t.data_ptr() for t in (q, k4, v4, o, dout, dq, dk, dv)])
+    lib = _build.lib()
+    fn = {"tma": lib.repro_flash_attention_bwd_tma, "mma": lib.repro_flash_attention_bwd_bf16,
+          "f32": lib.repro_flash_attention_bwd_f32}[body]
+    # the TMA body is compiled at d 256 only and takes no head dim
+    dims = (BH, Sq, Skv) if body == "tma" else (BH, Sq, Skv, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(q.data_ptr(), k4.data_ptr(), v4.data_ptr(), o.data_ptr(), dout.data_ptr(),
                   lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                  dv.data_ptr(), BH, Sq, Skv, d, heads_per_batch, q_per_kv, *strides,
+                  dv.data_ptr(), *dims, heads_per_batch, q_per_kv, *strides,
                   sm_scale, int(causal), q_offset, stream)
-    _build.check(code, f"flash_attention_bwd BH={BH} Sq={Sq} Skv={Skv} d={d}")
+    _build.check(code, f"flash_attention_bwd BH={BH} Sq={Sq} Skv={Skv} d={d} body {body}")
     launches += 1
+    launches_by_body[body] += 1
     _work.add("flash_attention_bwd", _work.attention_bwd_flops(BH, Sq, Skv, d, causal, q_offset),
               _work.nbytes(q, k4, v4, o, lse, dout, dq, dk, dv))
     return dq, dk.reshape(k.shape), dv.reshape(v.shape)

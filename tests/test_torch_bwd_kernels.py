@@ -107,28 +107,42 @@ def test_flash_bwd_blocks_fit_two_an_sm(d):
 
 
 def test_flash_bwd_blocks_at_d256_fit_one_an_sm():
-    """Head dim 256: a bf16 block's 64-row tiles take about 200 KB, so one
-    block an SM, and both launches split the output columns in two over a
-    third grid axis; float32's dQ block takes 32 query rows so that it fits
-    (64 rows would take 280,320 bytes)."""
-    assert FAB.bwd_smem_bytes(256, "dq", 2) == 202752
-    assert FAB.bwd_smem_bytes(256, "dkv", 2) == 203776
+    """Head dim 256: a block of the TMA body (aligned bf16) takes about
+    195-225 KB, so one block an SM: the dQ block 128 rows of Q and dO, two
+    ring stages of 32 keys of K and V and 128 float32 delta; the dK/dV block
+    64 rows of K and V, two ring stages of 64 rows of Q and dO and two 8 KB
+    bf16 tiles each of P^T and dS^T.  No third grid axis, no cluster.  The
+    mma.sync body (unaligned calls) keeps its 202,752 / 203,776 bytes and its
+    two column parts over the grid; float32's dQ block takes 32 query rows so
+    that it fits (64 rows would take 280,320 bytes)."""
+    assert FAB.bwd_smem_bytes(256, "dq", 2) == 1024 + 2 * 65536 + 4 * 16384 + 512 + 40 == 198184
+    assert FAB.bwd_smem_bytes(256, "dkv", 2) == 1024 + 6 * 32768 + 4 * 8192 + 40 == 230440
+    assert FAB.bwd_smem_bytes(256, "dq", 2, "mma") == 202752
+    assert FAB.bwd_smem_bytes(256, "dkv", 2, "mma") == 203776
     assert FAB.bwd_smem_bytes(256, "dq", 4) == 205952
     assert FAB.bwd_smem_bytes(256, "dkv", 4) == 214784
     for kernel in ("dq", "dkv"):
-        for es in (2, 4):
-            assert FAB.SM_SMEM // 2 - 1024 < FAB.bwd_smem_bytes(256, kernel, es) <= 232448
-    assert FAB.bwd_column_splits(256) == 2
+        for es, body in ((2, None), (2, "mma"), (4, None)):
+            assert FAB.SM_SMEM // 2 - 1024 < FAB.bwd_smem_bytes(256, kernel, es, body) <= 232448
+    assert FAB.bwd_column_splits(256) == 1
+    assert FAB.bwd_column_splits(256, "mma") == 2
     assert [FAB.bwd_column_splits(d) for d in (32, 64, 128)] == [1, 1, 1]
     # gemma-7b's training pass: 64 heads (G 1), 512 x 512 causal
     geo = FAB.bwd_geometry(64, 512, 512, 256, 1, causal=True)
     for launch in ("dq", "dkv"):
         info = geo[launch]
-        assert info["blocks_per_sm"] == 1
-        assert info["grid"][2] == 2
-        assert info["grid"][0] * info["grid"][1] * 2 == len(info["work"]) >= H100_SMS
-    assert geo["dq"]["grid"] == (64, 8, 2) and geo["dkv"]["grid"] == (64, 8, 2)
-    assert sum(geo["dq"]["work"]) == sum(geo["dkv"]["work"])
+        assert info["blocks_per_sm"] == 1 and info["cluster"] == 1
+        assert info["grid"][0] * info["grid"][1] == len(info["work"]) >= H100_SMS
+    assert geo["dq"]["grid"] == (64, 4) and geo["dkv"]["grid"] == (64, 8)
+    assert sum(geo["dq"]["work"]) == sum(geo["dkv"]["work"]) == 64 * 36
+    old = FAB.bwd_geometry(64, 512, 512, 256, 1, causal=True, body="mma")
+    assert old["dq"]["grid"] == (64, 8, 2) and old["dkv"]["grid"] == (64, 8, 2)
+    assert sum(old["dq"]["work"]) == 2 * sum(geo["dq"]["work"])
+    # a group of 16 (two heads a cluster block on the mma.sync body): one TMA
+    # block per (kv head, key tile) walks all 16 heads
+    grouped = FAB.bwd_geometry(32, 130, 160, 256, 16, causal=True)["dkv"]
+    assert grouped["grid"] == (2, 3) and grouped["heads_per_block"] == 16
+    assert grouped["work"][0] == 16 * 3
 
 
 def test_flash_bwd_geometry_of_a_causal_pass_with_more_keys_than_queries():

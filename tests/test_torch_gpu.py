@@ -232,7 +232,9 @@ def test_served_gemm_shapes_run_on_the_tma_body(cuda):
     torch.testing.assert_close(got, moe_gmm.grouped_matmul_plain(x, w, out_dtype=torch.float32),
                                rtol=2e-2, atol=2e-2)
     assert kernels.launches_by_body() == {"gemm": {"tma": 1, "staged": 0},
-                                          "grouped_matmul": {"tma": 4, "staged": 1}}
+                                          "grouped_matmul": {"tma": 4, "staged": 1},
+                                          "flash_attention": {"tma": 0, "mma": 0, "f32": 0},
+                                          "flash_attention_bwd": {"tma": 0, "mma": 0, "f32": 0}}
 
 
 def _kv_view(n_kv, Skv, d, dtype, device, offset):
@@ -822,14 +824,26 @@ def test_python_footprints_mirror_the_compiled_kernels(cuda):
     from repro_torch.kernels import flash_attention_bwd as FAB
     for d in FA.COMPILED_HEAD_DIMS:
         for i, kernel in enumerate(("dq", "dkv")):
-            assert lib.repro_flash_bwd_smem_bytes(d, i, 1) == FAB.bwd_smem_bytes(d, kernel, 2)
+            assert lib.repro_flash_bwd_smem_bytes(d, i, 1) == \
+                FAB.bwd_smem_bytes(d, kernel, 2, "mma")
             assert lib.repro_flash_bwd_smem_bytes(d, i, 0) == FAB.bwd_smem_bytes(d, kernel, 4)
+    for i, kernel in enumerate(("dq", "dkv")):       # the TMA bodies at d 256
+        assert lib.repro_flash_bwd_tma_smem_bytes(i) == FAB.bwd_smem_bytes(256, kernel, 2)
     for g in range(1, 33):
         assert lib.repro_flash_bwd_cluster(g) == FAB.bwd_cluster(g)
     for d in FA.COMPILED_HEAD_DIMS:
         for tile in FA.COMPILED_TILES:
-            assert lib.repro_flash_smem_bytes_bf16(*tile, d) == FA.flash_smem_bytes(*tile, d, 2)
+            assert lib.repro_flash_smem_bytes_bf16(*tile, d) == \
+                FA.flash_smem_bytes(*tile, d, 2, "mma")
             assert lib.repro_flash_smem_bytes_f32(*tile, d) == FA.flash_smem_bytes(*tile, d, 4)
+    for tile in FA.COMPILED_TILES:
+        assert lib.repro_flash_tma_smem_bytes(*tile, 0) == FA.flash_smem_bytes(*tile, 256, 2)
+        assert lib.repro_flash_tma_smem_bytes(*tile, 1) == FA.tma_blocks_per_sm(*tile)
+        # the runtime finds room for as many blocks as the launch bounds ask for
+        assert lib.repro_flash_tma_occupancy(*tile) == FA.tma_blocks_per_sm(*tile)
+    geo = FAB.bwd_geometry(64, 512, 512, 256, 1)
+    for i, kernel in enumerate(("dq", "dkv")):
+        assert lib.repro_flash_bwd_tma_occupancy(i) == geo[kernel]["blocks_per_sm"] == 1
 
 
 def test_gemm_kernel_unaligned_operands_take_the_scalar_path(cuda):
@@ -1000,12 +1014,19 @@ D256_DECODE = [(64, 1, 545, 513, None),           # gemma-7b's decode step: G 1
                (12, 3, 300, 7, 5), (16, 1, 545, 0, 2)]
 
 
+def _d256_body(dtype, offset) -> str:
+    """The body a d-256 call takes: float32's, the mma.sync body where the
+    k/v storage is not 16-byte aligned, else the TMA + wgmma body."""
+    return "f32" if dtype == torch.float32 else ("mma" if offset else "tma")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", D256_FLASH)
 def test_flash_attention_kernel_at_d256(cuda, case, dtype):
     """K2 at head dim 256 at every tile that fits a block (bf16 all four,
     float32 (64, 32)) and through ``ops.attention``'s planned tile, against
-    its plain version, with the log-sum-exp the backward reads."""
+    its plain version, with the log-sum-exp the backward reads; each call on
+    the body its arguments choose (``launches_by_body``)."""
     from repro_torch import kernels
     from repro_torch.kernels import flash_attention as FA, ops
     BH, g, Sq, Skv, causal, offset = case
@@ -1015,17 +1036,90 @@ def test_flash_attention_kernel_at_d256(cuda, case, dtype):
     want, plse = FA.flash_attention_plain(q, k, v, causal=causal, q_per_kv=g, return_lse=True)
     tiles = FA.legal_tiles(256, q.element_size())
     assert len(tiles) == (4 if dtype == torch.bfloat16 else 1)
+    body = _d256_body(dtype, offset)
     for bq, bkv in tiles:
+        kernels.reset_launch_counts()
         got, lse = FA.flash_attention(q, k, v, causal=causal, block_q=bq, block_kv=bkv,
                                       q_per_kv=g, return_lse=True)
         torch.cuda.synchronize()
+        assert kernels.launches_by_body()["flash_attention"][body] == 1
         torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
         torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-4)
     kernels.reset_launch_counts()
     got = ops.attention(q, k, v, causal=causal, q_per_kv=g)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["flash_attention"] == 1
+    assert kernels.launches_by_body()["flash_attention"][body] == 1
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def test_d256_row_with_every_key_masked(cuda):
+    """On the TMA bodies, a row whose scores all fall at or below the -1e30
+    sentinel: output 0 and log-sum-exp +1e30 at every tile, zero gradient,
+    nothing NaN; the rest against the plain versions (dq's column 0, a sum
+    of 1e16-sized terms that cancel, only finite)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as FA, flash_attention_bwd as FAB
+    BH, S, d = 8, 200, 256
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, dout = (torch.randn(BH, S, d, generator=gen, device=cuda) for _ in range(4))
+    q[:, :, 0] = 0.0
+    k[:, :, 0] = 1e16
+    q[:, 70, 0] = -1e16                 # row 70: every score about -6e30
+    q, k, v, dout = (t.to(torch.bfloat16) for t in (q, k, v, dout))
+    want, plse = FA.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    kernels.reset_launch_counts()
+    for bq, bkv in FA.legal_tiles(d, 2):
+        out, lse = FA.flash_attention(q, k, v, causal=True, block_q=bq, block_kv=bkv,
+                                      return_lse=True)
+        torch.cuda.synchronize()
+        assert torch.all(out[:, 70] == 0) and torch.all(lse[:, 70] == FA.LSE_MASKED)
+        torch.testing.assert_close(out.float(), want.float(), **_tol(torch.bfloat16))
+        torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-4)
+    grads = FAB.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    torch.cuda.synchronize()
+    assert kernels.launches_by_body()["flash_attention"]["tma"] == len(FA.legal_tiles(d, 2))
+    assert kernels.launches_by_body()["flash_attention_bwd"]["tma"] == 1
+    assert all(torch.isfinite(t.float()).all() for t in grads)
+    assert torch.all(grads[0][:, 70] == 0)
+    plain = FAB.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True)
+    torch.testing.assert_close(grads[0][..., 1:].float(), plain[0][..., 1:].float(),
+                               **_tol(torch.bfloat16))
+    for a, b in zip(grads[1:], plain[1:]):
+        torch.testing.assert_close(a.float(), b.float(), **_tol(torch.bfloat16))
+
+
+def test_d256_rows_at_a_kv_seq_blocks_offset(cuda):
+    """A later chunk's rows on one rank of a cache split over ``kv_seq``: 128
+    rows at offset 64 of a 320-key block (the keys after the rows' last
+    position unseen), K2 with its log-sum-exp at every tile and K2-bwd, on
+    the TMA bodies, against the plain versions; K2-bwd bit-equal on a second
+    call and zero dK/dV for the keys no row sees."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as FA, flash_attention_bwd as FAB
+    BH, Sq, Skv, d, off = 16, 128, 320, 256, 64
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn(BH, Sq, d, generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (_kv_view(BH, Skv, d, torch.bfloat16, cuda, 0) for _ in range(2))
+    dout = torch.randn(BH, Sq, d, generator=gen, device=cuda).to(torch.bfloat16)
+    want, plse = FA.flash_attention_plain(q, k, v, causal=True, return_lse=True, q_offset=off)
+    kernels.reset_launch_counts()
+    for bq, bkv in FA.legal_tiles(d, 2):
+        out, lse = FA.flash_attention(q, k, v, causal=True, block_q=bq, block_kv=bkv,
+                                      return_lse=True, q_offset=off)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), want.float(), **_tol(torch.bfloat16))
+        torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-4)
+    grads = FAB.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, q_offset=off)
+    again = FAB.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, q_offset=off)
+    torch.cuda.synchronize()
+    assert kernels.launches_by_body()["flash_attention"] == {"tma": 4, "mma": 0, "f32": 0}
+    assert kernels.launches_by_body()["flash_attention_bwd"] == {"tma": 2, "mma": 0, "f32": 0}
+    plain = FAB.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True, q_offset=off)
+    for a, b, c in zip(grads, plain, again):
+        torch.testing.assert_close(a.float(), b.float(), **_tol(torch.bfloat16))
+        assert torch.equal(a, c)
+    assert not grads[1][:, :, off + Sq:].any() and not grads[2][:, :, off + Sq:].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1068,9 +1162,11 @@ D256_BWD = [(16, 1, 512, 512, True, 0),           # gemma-7b's training pass, on
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", D256_BWD)
 def test_flash_attention_bwd_kernel_at_d256(cuda, case, dtype):
-    """K2-bwd at head dim 256 (bf16: the output columns split in two over
-    the grid; float32: 32-row dQ blocks) against its plain version from the
-    forward kernel's output and log-sum-exp, and bit-equal on a second call."""
+    """K2-bwd at head dim 256 (bf16 aligned: the TMA body, its two
+    warpgroups each holding half of the output columns; unaligned: the
+    mma.sync body, the columns split in two over the grid; float32: 32-row
+    dQ blocks) against its plain version from the forward kernel's output
+    and log-sum-exp, and bit-equal on a second call."""
     from repro_torch import kernels
     from repro_torch.kernels import flash_attention as FA, flash_attention_bwd as FAB
     BH, g, Sq, Skv, causal, offset = case
@@ -1086,6 +1182,7 @@ def test_flash_attention_bwd_kernel_at_d256(cuda, case, dtype):
     again = FAB.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, q_per_kv=g)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["flash_attention_bwd"] == 2
+    assert kernels.launches_by_body()["flash_attention_bwd"][_d256_body(dtype, offset)] == 2
     want = FAB.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal, q_per_kv=g)
     for a, b, c in zip(got, want, again):
         assert a.shape == b.shape and a.dtype == dtype
@@ -1131,6 +1228,9 @@ def test_flash_attention_kernels_with_q_offset(cuda, case, dtype):
                                     q_offset=off)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["flash_attention_bwd"] == 2
+    if d == 256:                        # aligned: the TMA bodies
+        body = _d256_body(dtype, 0)
+        assert kernels.launches_by_body()["flash_attention_bwd"][body] == 2
     plain = FAB.flash_attention_bwd_plain(q, k, v, got, lse, dout, causal=True, q_per_kv=g,
                                           q_offset=off)
     for a, b, c in zip(grads, plain, again):

@@ -415,27 +415,38 @@ def test_cpu_grouped_matmul_counts_no_body():
     got = ops.grouped_matmul(x, w, block=(128, 128, 64))
     torch.testing.assert_close(got.float(), moe_gmm.grouped_matmul_plain(x, w).float())
     assert kernels.launches_by_body() == {"gemm": {"tma": 0, "staged": 0},
-                                          "grouped_matmul": {"tma": 0, "staged": 0}}
+                                          "grouped_matmul": {"tma": 0, "staged": 0},
+                                          "flash_attention": {"tma": 0, "mma": 0, "f32": 0},
+                                          "flash_attention_bwd": {"tma": 0, "mma": 0, "f32": 0}}
 
 
 @pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_bf16_flash_footprint_is_q_and_two_kv_stages(d):
     """bf16 keeps scores, probabilities and output in registers: a block
-    holds the Q tile and two stages of K and V, rows padded by 16 bytes, and
-    every compiled tile fits one block."""
+    holds the Q tile and two stages of K and V, and every compiled tile fits
+    one block.  The mma.sync body pads rows by 16 bytes; the TMA body (d 256,
+    aligned) keeps them unpadded under the 128-byte swizzle, with 1 KB for
+    its alignment and seven 8-byte mbarriers."""
     for bq, bkv in FA.COMPILED_TILES:
-        assert FA.flash_smem_bytes(bq, bkv, d, 2) == (bq + 4 * bkv) * (d + 8) * 2
+        padded = (bq + 4 * bkv) * (d + 8) * 2
+        assert FA.flash_smem_bytes(bq, bkv, d, 2, "mma") == padded
+        want = 1024 + (bq + 4 * bkv) * d * 2 + 56 if d == 256 else padded
+        assert FA.flash_smem_bytes(bq, bkv, d, 2) == want
         assert FA.flash_smem_bytes(bq, bkv, d, 2) <= FA.MAX_SMEM
     assert FA.legal_tiles(d, 2) == FA.COMPILED_TILES
 
 
 def test_flash_footprints_at_d256():
-    """Head dim 256 (gemma-7b): every bf16 tile fits one block ((64, 32)
-    101,376 bytes, two an SM; (128, 64) 202,752, one), and in float32 only
-    (64, 32) does (208,896 bytes), so the planner's candidates are exactly
-    those."""
+    """Head dim 256 (gemma-7b): every bf16 tile fits one block on the TMA
+    body ((64, 32) 99,384 bytes, two an SM; (128, 64) 197,688, one) as on the
+    mma.sync body that unaligned calls take ((64, 32) 101,376; (128, 64)
+    202,752), and in float32 only (64, 32) does (208,896 bytes), so the
+    planner's candidates are exactly those."""
     got = {t: FA.flash_smem_bytes(*t, 256, 2) for t in FA.COMPILED_TILES}
-    assert got == {(64, 32): 101376, (64, 64): 168960, (128, 32): 135168, (128, 64): 202752}
+    assert got == {(64, 32): 99384, (64, 64): 164920, (128, 32): 132152, (128, 64): 197688}
+    assert [FA.tma_blocks_per_sm(*t) for t in FA.COMPILED_TILES] == [2, 1, 1, 1]
+    old = {t: FA.flash_smem_bytes(*t, 256, 2, "mma") for t in FA.COMPILED_TILES}
+    assert old == {(64, 32): 101376, (64, 64): 168960, (128, 32): 135168, (128, 64): 202752}
     assert FA.flash_smem_bytes(64, 32, 256, 4) == 208896
     assert FA.legal_tiles(256, 4) == ((64, 32),)
     assert 256 in FA.COMPILED_HEAD_DIMS

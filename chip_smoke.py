@@ -95,7 +95,8 @@ these phases, each printing one JSON line; any failure raises:
    gemma    ``gemma-7b`` (head dim 256, MHA, GeGLU) at full width and depth
             (28 layers, 8.54 B parameters, 17.1 GB in bf16) as ``serve``
             runs qwen2.5-3b: K2 28 (all on its TMA + wgmma body) and K3
-            28 x 32 launches exactly, no planner fallback, every logit within 2e-2 of the plain path's,
+            28 x 32 launches exactly (all on its TMA body), no planner
+            fallback, every logit within 2e-2 of the plain path's,
             every K2 and K3 call of a prefill and a decode step within its
             per-call bound of its plain version, and a control whose K2/K3
             outputs keep 5 mantissa bits rejected;
@@ -291,7 +292,12 @@ and any other kernel it launches, such as a transposing copy), each beside
 the library's backward (SDPA's, two ``torch.matmul`` / ``torch.bmm``), and
 K5-bwd (dr, dk, dv, dlog_w, du) at rwkv6-3b's training pass in bf16 and
 float32, at head dims 16 and 32, at an odd T (chunk 1) and at the decay
-floor with chunk 32 (no library call computes a WKV backward).
+floor with chunk 32 (no library call computes a WKV backward).  It also
+times K3' at ``mesh_serve``'s decode fold (64 rows, 16 splits, d 128) and at
+the chunk rows (8,192 rows, 2 splits), names the body of each K3 row (with
+the host microseconds a call of the gemma-7b row's TMA body and of the
+mma.sync body on the same cache one element off alignment), and gives the
+timer's floor: ``torch.cuda._sleep(0)`` under the same flushed events.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the main
 path (the reference's two decode functions, ``flash_decode_partials`` and
@@ -562,13 +568,16 @@ def decode_cases(timer, gen, B, H, Hkv, Skv, valid, d, dtype, serving, splits=No
     g = H // Hkv
     q, k4, v4 = _qkv(gen, dev, B, H, Hkv, 1, Skv, d, dtype)
     n = Skv if valid is None else valid
-    s = splits or FD.choose_splits(n, B * Hkv, FD.sm_count(dev), FD.MAX_CLUSTER_SPLITS)
+    # the split rule of the body the call takes (a checkout that counts no
+    # decode bodies has one rule)
+    rule = {"body": FD.body_for(q, k4, v4, g)} if hasattr(FD, "body_for") else {}
+    s = splits or FD.choose_splits(n, B * Hkv, FD.sm_count(dev), FD.MAX_CLUSTER_SPLITS, **rule)
     run = lambda: ops.flash_decode(q, k4, v4, kv_splits=splits, kv_valid_len=valid,
                                    q_per_kv=g)
     plain = lambda: FD.flash_decode_plain(q, k4, v4, kv_valid_len=valid, q_per_kv=g)
     from repro_torch import kernels
     kernels.reset_launch_counts()
-    out = run()
+    body, out = attention_body(FD, run, dtype)
     if kernels.launch_counts()["flash_decode"] != 1 or sum(kernels.launch_counts().values()) != 1:
         raise AssertionError(f"ops.flash_decode made {kernels.launch_counts()} launches")
     label = f"BH={B * H} kv_heads={B * Hkv} buffer={Skv} valid={n} d={d} splits={s}"
@@ -578,20 +587,22 @@ def decode_cases(timer, gen, B, H, Hkv, Skv, valid, d, dtype, serving, splits=No
                                                  enable_gqa=g > 1)
     compare("library decode", lib().reshape(B * H, 1, d), plain(), dtype, tol=2e-2)
     kv_bytes = work().decode_kv_bytes(B * Hkv, n, d, q.element_size())
-    both = {"name": "flash_decode", "shape": label, "dtype": dname(dtype),
+    both = {"name": "flash_decode", "shape": label, "dtype": dname(dtype), "body": body,
             "serving": serving, "model": model, "max_abs_err": err,
             "kernel_ms": timer.ms(run), "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib)}
     both.update(bound(work().decode_flops(B * H, n, d), kv_bytes + nbytes(q, out), dtype))
+    if body == "tma":
+        both.update(host_us=host_us(run), mma_host_us=host_us(mma_decode(q, k4, v4, valid, g)))
     if not stages:
         return [both]
 
-    s = splits or FD.choose_splits(n, B * Hkv, FD.sm_count(dev))
+    s = splits or FD.choose_splits(n, B * Hkv, FD.sm_count(dev), **rule)
     label = f"BH={B * H} kv_heads={B * Hkv} buffer={Skv} valid={n} d={d} splits={s}"
     part = lambda: FD.flash_decode_partials(q, k4, v4, kv_splits=s, kv_valid_len=valid,
                                             q_per_kv=g)
     part_plain = lambda: FD.flash_decode_partials_plain(q, k4, v4, kv_splits=s,
                                                         kv_valid_len=valid, q_per_kv=g)
-    m, l, acc = part()
+    pbody, (m, l, acc) = attention_body(FD, part, dtype)
     mp, lp, accp = part_plain()
     # compare the partials through the exact float32 combine: (m, l, acc) of
     # one split are only defined up to a common rescaling
@@ -599,6 +610,7 @@ def decode_cases(timer, gen, B, H, Hkv, Skv, valid, d, dtype, serving, splits=No
                     FD.combine_partials_plain(m, l, acc),
                     FD.combine_partials_plain(mp, lp, accp), dtype)
     partials = {"name": "flash_decode_partials", "shape": label, "dtype": dname(dtype),
+                "body": pbody, "model": model,
                 "serving": serving, "max_abs_err": err_p, "kernel_ms": timer.ms(part),
                 "plain_ms": timer.ms(part_plain), "library_ms": None}
     partials.update(bound(work().decode_flops(B * H, n, d), kv_bytes + nbytes(q, m, l, acc),
@@ -608,11 +620,51 @@ def decode_cases(timer, gen, B, H, Hkv, Skv, valid, d, dtype, serving, splits=No
     comb_plain = lambda: FD.combine_partials_plain(mp, lp, accp, out_dtype=dtype)
     err_c = compare("flash_decode_combine " + label, comb(), comb_plain(), dtype)
     combine = {"name": "flash_decode_combine", "shape": label, "dtype": dname(dtype),
+               "model": model,
                "serving": serving, "max_abs_err": err_c, "kernel_ms": timer.ms(comb),
                "plain_ms": timer.ms(comb_plain), "library_ms": None}
     combine.update(bound(work().combine_flops(B * H, s, d), nbytes(mp, lp, accp, out),
                          torch.float32))
     return [both, partials, combine]
+
+
+def mma_decode(q, k4, v4, valid, g):
+    """``ops.flash_decode`` on copies of k and v one element off 16-byte
+    alignment, which take the mma.sync body: the other body's host cost."""
+    from repro_torch.kernels import ops
+
+    def off(x):
+        buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+        B, H, T, d = x.shape
+        view = buf[1:1 + x.numel()].view(B, T, H, d).permute(0, 2, 1, 3)
+        view.copy_(x)
+        return view
+
+    ku, vu = off(k4), off(v4)
+    return lambda: ops.flash_decode(q, ku, vu, kv_valid_len=valid, q_per_kv=g)
+
+
+def combine_case(timer, gen, rows, splits, d, dtype, serving, model) -> dict:
+    """K3' alone on random partials, an empty split (-1e30, 0, 0) in every
+    eighth row: at mesh_serve's decode fold (64 rows, 2 ranks x 8 splits)
+    and at the chunk rows a kv_seq split of two ranks folds."""
+    from repro_torch.kernels import flash_decode as FD
+    dev = timer.flush.device
+    m = torch.randn(rows, splits, 1, 1, generator=gen, device=dev) * 4
+    l = torch.rand(rows, splits, 1, 1, generator=gen, device=dev) + 0.5
+    acc = torch.randn(rows, splits, 1, d, generator=gen, device=dev)
+    m[::8, 0], l[::8, 0], acc[::8, 0] = -1e30, 0.0, 0.0
+    comb = lambda: FD.combine_partials(m, l, acc, out_dtype=dtype)
+    comb_plain = lambda: FD.combine_partials_plain(m, l, acc, out_dtype=dtype)
+    out = comb()
+    label = f"rows={rows} splits={splits} d={d}"
+    err = compare(f"flash_decode_combine {label}", out, comb_plain(), dtype)
+    res = {"name": "flash_decode_combine", "shape": label, "dtype": dname(dtype),
+           "serving": serving, "model": model, "max_abs_err": err, "kernel_ms": timer.ms(comb),
+           "plain_ms": timer.ms(comb_plain), "library_ms": None}
+    res.update(bound(work().combine_flops(rows, splits, d), nbytes(m, l, acc, out),
+                     torch.float32))
+    return res
 
 
 # qwen2.5-3b's chunked prefill into a cache split over kv_seq on two ranks
@@ -1201,9 +1253,30 @@ def phase_kernels(timer, gen):
                                       d_out, torch.bfloat16, True))
     cases.append(grouped_bwd_case(timer, gen, 8, 24, 96, 160, torch.float32, False))
     cases += chunk_fold_cases(timer, gen)
+    cases += k3_combine_cases(timer, gen)
     emit({"phase": "kernels", "timing": "median of 25 single launches, L2 flushed "
-          "before each, CUDA events", "cases": cases, "plain_modules": [ssd_case(timer, gen)]})
+          "before each, CUDA events", "timer_floor_ms": timer_floor_ms(timer),
+          "cases": cases, "plain_modules": [ssd_case(timer, gen)]})
     return cases
+
+
+def k3_combine_cases(timer, gen) -> list:
+    """K3' at mesh_serve's own decode fold (qwen2.5-3b's 64 query heads over
+    2 ranks x 8 splits, d 128, bf16 out) and at mesh_chunked's chunk rows
+    (4 x 16 heads x 128 rows, 2 ranks), on random partials."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    H, d = BATCH * cfg.n_heads, cfg.head_dim_
+    return [combine_case(timer, gen, H, 2 * 8, d, torch.bfloat16, True,
+                         f"{cfg.name} mesh_serve decode fold (2 ranks x 8 splits)"),
+            combine_case(timer, gen, H * MESH_CHUNKS[-1], 2, d, torch.bfloat16, True,
+                         f"{cfg.name} chunk rows folded over 2 kv_seq ranks")]
+
+
+def timer_floor_ms(timer) -> float:
+    """The least a timed launch reads: an empty kernel
+    (``torch.cuda._sleep(0)``) under the same flushed events."""
+    return timer.ms(lambda: torch.cuda._sleep(0))
 
 
 def ssd_case(timer, gen) -> dict:
@@ -2225,6 +2298,11 @@ def phase_gemma(device) -> dict:
     if by_body != {"tma": L, "mma": 0, "f32": 0}:
         raise AssertionError(f"gemma: K2 launches by body {by_body}, expected all {L} on "
                              f"the TMA body")
+    # every decode-step attention on K3's TMA body
+    decode_by_body = kernels.launches_by_body()["flash_decode"]
+    if decode_by_body != {"tma": L * NEW_TOKENS, "mma": 0, "f32": 0}:
+        raise AssertionError(f"gemma: K3 launches by body {decode_by_body}, expected all "
+                             f"{L * NEW_TOKENS} on the TMA body")
     check_outputs("gemma", res, cfg)
     fallbacks = check_planner("gemma", res)
     plain_api = build_model(replace(cfg, kernels="plain"))
@@ -2243,7 +2321,8 @@ def phase_gemma(device) -> dict:
           "plain_prefill_ms": ref.prefill_s * 1e3,
           "plain_decode_ms_per_token": ref.decode_s * 1e3 / NEW_TOKENS,
           "peak_bytes": res.peak_bytes, "launches": launches,
-          "flash_attention_launches_by_body": by_body, "planner_fallbacks": fallbacks,
+          "flash_attention_launches_by_body": by_body,
+          "flash_decode_launches_by_body": decode_by_body, "planner_fallbacks": fallbacks,
           **agreement, "per_call": per_call, "control_5_mantissa_bits": control,
           "first_ids": res.generated[0, :16].tolist(),
           "blocks": {f"{t}{list(s)}": [list(b), src]
@@ -5454,16 +5533,18 @@ SOURCES = {
 # where a cache is split over ranks (mesh_serve), ``ops.flash_decode``
 # computes both in one launch elsewhere
 OFF_MAIN_PATH = ()
-# the TMA + wgmma bodies of K2 and K2-bwd, compiled at head dim 256 only (their
+# the TMA bodies of K2, K2-bwd and K3, compiled at head dim 256 only (their
 # mangled names carry no head dim): every aligned bf16 call of gemma-7b
-D256_TMA_BODIES = ("flash_fwd_tma_kernel", "flash_bwd_dq_tma_kernel", "flash_bwd_dkv_tma_kernel")
+D256_TMA_BODIES = ("flash_fwd_tma_kernel", "flash_bwd_dq_tma_kernel", "flash_bwd_dkv_tma_kernel",
+                   "decode_tma_kernel")
 # the bodies instantiated at head dim 256 (gemma-7b)
 D256_BODIES = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "decode_mma_kernel",
                "decode_f32_kernel", "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel",
                "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel") + D256_TMA_BODIES
 # the bodies redesigned last: their registers and spills go in the build line
 REDESIGNED = ("decode_mma_kernel", "decode_f32_kernel", "wkv6_kernel", "flash_bwd_dq_mma_kernel",
-              "flash_bwd_dkv_mma_kernel", "wkv6_bwd_kernel") + D256_TMA_BODIES
+              "flash_bwd_dkv_mma_kernel", "wkv6_bwd_kernel", "decode_combine_kernel") \
+    + D256_TMA_BODIES
 # the TMA GEMM core's instantiations end their mangled template arguments with
 # GROUPED, A_T, B_T and MINB: MINB 1 the deep ring, 2 the short-K ring
 RING = re.compile(r"ELi([12])EEEv")
@@ -5525,20 +5606,27 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # the head-dim-256 instantiations of K2, K3 (and its partials epilogue)
-    # and K2-bwd, and K2's and K2-bwd's TMA bodies: registers and spilled
-    # bytes of each
+    # and K2-bwd, and the TMA bodies of K2, K2-bwd and K3: registers and
+    # spilled bytes of each
     d256 = {k: v for k, v in ptxas.items()
             if "Li256E" in k or any(b in k for b in D256_TMA_BODIES)}
+    occupancy = _build.lib().repro_flash_decode_tma_occupancy()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled_here": bool(info.get("built")), "library": info.get("path"),
           "sources": [p.name for p in _build.sources()], "ptxas": ptxas,
-          "redesigned": redesigned, "head_dim_256": d256})
+          "redesigned": redesigned, "head_dim_256": d256,
+          "decode_tma_blocks_per_sm": occupancy})
     if info.get("built") and not all(any(b in k for k in d256) for b in D256_BODIES):
         raise AssertionError(f"a head-dim-256 body was not compiled: {sorted(d256)}")
-    tma_spills = {k: v for k, v in d256.items()
-                  if any(b in k for b in D256_TMA_BODIES) and v.get("spill_bytes")}
+    tma_spills = {k: v for k, v in ptxas.items()
+                  if any(b in k for b in D256_TMA_BODIES + ("decode_combine_kernel",))
+                  and v.get("spill_bytes")}
     if tma_spills:
-        raise AssertionError(f"a TMA body of K2 or K2-bwd spills: {tma_spills}")
+        raise AssertionError(f"a TMA body of K2, K2-bwd or K3, or K3', spills: {tma_spills}")
+    from repro_torch.kernels import flash_decode as FD
+    if occupancy != FD.TMA_BLOCKS_PER_SM:
+        raise AssertionError(f"K3's TMA body holds {occupancy} blocks an SM, not "
+                             f"{FD.TMA_BLOCKS_PER_SM}")
     spilled = {k: v for k, v in ptxas.items()
                if "gemm_tma_kernel" in k and v.get("spill_bytes")}
     if info.get("built") and (spilled or not any("gemm_tma_kernel" in k for k in ptxas)
@@ -5716,7 +5804,8 @@ def main() -> int:
                 {k: x[k] for k in ("model", "shape", "q_offset", "from_state", "block", "body",
                                    "kernel_ms",
                                    "staged_ms", "plain_ms", "library_ms", "bound_ms",
-                                   "bound_by", "max_abs_err", "host_us", "staged_host_us")
+                                   "bound_by", "max_abs_err", "host_us", "staged_host_us",
+                                   "mma_host_us")
                  if k in x}
                 for x in served]
     if len(kernels_line) != len(SOURCES):

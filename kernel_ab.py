@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the backward kernels, and the forward GEMMs that share K4's core, of
-several checkouts in turns on one card; or, with ``--digests``, compare
-their K2 and K2-bwd outputs bit for bit.
+"""Time the backward kernels, the forward GEMMs that share K4's core, and
+K3 and K3' at their served shapes, of several checkouts in turns on one
+card; or, with ``--digests``, compare their K2, K2-bwd, K3, K3', K5 and
+K5-bwd outputs bit for bit.
 
     python3 kernel_ab.py [--digests] TREE [TREE ...]
 
@@ -20,10 +21,16 @@ training pass (head dim 256, each row naming the body it timed: ``tma`` or
 the training passes of every other attention family, K4-bwd at the MoE's prefill (with its dX, dW and copy pieces as that
 checkout's backward launches them), K1-bwd (with its dA, dB and copy pieces
 likewise) and K1 at qwen2.5-3b's projection, K4 at the MoE's four served
-shapes, K5 at rwkv6-3b's training pass from a zero state, and K5-bwd at
+shapes, K5 at rwkv6-3b's training pass from a zero state, K5-bwd at
 every shape ``chip_smoke.py`` times it (rwkv6-3b's
 training pass, 160 rows x T 512 x d 64 at chunk 16, in bf16 and float32;
-head dims 16 and 32; an odd T at chunk 1; decays at the floor at chunk 32).
+head dims 16 and 32; an odd T at chunk 1; decays at the floor at chunk 32),
+K3 at gemma-7b's decode step (one launch, and the partials epilogue with
+K3' on its partials; each row naming the body it timed), K3' at
+mesh_serve's decode fold (64 rows, 16 splits, d 128) and at the chunk rows
+(8,192 rows, 2 splits), K3 at gemma-7b's 64 groups at fixed split counts
+(513 and 4,096 valid keys), the timer's floor (an empty kernel) and its read
+rate (``torch.sum`` over the 513-key call's K/V bytes, contiguous).
 
 With ``--digests`` each checkout instead runs its own K2 (``flash_attention``:
 bf16 and float32, every compiled head dim, causal and not, at every tile
@@ -31,7 +38,10 @@ that fits a block) and K2-bwd on inputs made from one seed, without a query
 offset (the argument an older checkout does not have; a checkout whose K2
 takes one also runs the chunked prefill's offset shapes, bf16, every tile,
 with their log-sum-exp),
-its K3' (``combine_partials``) on partials with empty splits, and its K5
+its K3' (``combine_partials``) on partials with empty splits, its K3
+(``flash_decode`` and ``flash_decode_partials``, keyed by body) at every
+compiled head dim, bf16 and float32, on the cache's strided view at
+DECODE_DIGEST_SHAPES with explicit split counts, and its K5
 (``wkv6``) and K5-bwd (``wkv6_bwd``) from a zero state (no ``state0``, no
 final-state gradient: the arguments an older checkout does not have) at
 every compiled head dim, bf16 and float32, chunks 1, 16 and 32 and
@@ -41,7 +51,7 @@ body that computed it.  Each tree's line then gives ``outputs_equal``
 (every output's SHA-256 equal to the first tree's where both trees ran the
 same body, with the ones that differ), ``differ_by_body`` (the outputs that
 differ because another body computed them) and, apart from it,
-``spill_growth``: the K2, K2-bwd, K5 and K5-bwd kernels whose ``ptxas``
+``spill_growth``: the K2, K2-bwd, K3, K3', K5 and K5-bwd kernels whose ``ptxas``
 spilled bytes exceed the first tree's (keyed by kernel and template
 arguments: the parameter lists may differ).  The script exits 1 when an
 output of the same body differs.
@@ -66,8 +76,14 @@ OFFSET_DIGEST_SHAPES = [(64, 8, 128, 256, 128, 128), (64, 8, 256, 512, 128, 256)
                         (128, 8, 256, 512, 128, 256), (64, 8, 128, 320, 128, 64)]
 # the K3' (combine_partials) --digests inputs: rows, splits, d, bf16 output
 # (the chunk rows of qwen2.5-3b folded over two kv_seq ranks; a decode step
-# over 16 splits; d 256)
-COMBINE_DIGEST_SHAPES = [(8192, 2, 128, True), (64, 16, 128, True), (64, 5, 256, False)]
+# over 16 splits; d 256; more splits than one window of 64)
+COMBINE_DIGEST_SHAPES = [(8192, 2, 128, True), (64, 16, 128, True), (64, 5, 256, False),
+                         (37, 130, 128, False)]
+# the K3 --digests inputs: batch x query heads, q_per_kv, buffer, valid keys,
+# splits (gemma-7b's decode step in the TMA body's 4 splits and the mma.sync
+# body's 5; a group of 8; a ragged short strip; G 16 at one valid key)
+DECODE_DIGEST_SHAPES = [(64, 1, 545, 513, 4), (64, 1, 545, 513, 5), (16, 8, 545, 513, 8),
+                        (12, 3, 300, 7, 5), (16, 16, 545, 1, 2)]
 # the K5 / K5-bwd --digests inputs: rows, T, chunk (every compiled head dim),
 # and rwkv6-3b's training pass at d 64
 WKV_DIGEST_SHAPES = [(8, 128, 16), (6, 96, 32), (4, 101, 1)]
@@ -114,11 +130,41 @@ def one(tree: str) -> dict:
               for cap in caps for a, b in ((d, f), (f, d))]
     cases.append(S.wkv6_train_case(timer, gen))
     cases += S.wkv6_bwd_cases(timer, gen)
+    cases += S.decode_cases(timer, gen, S.BATCH, gcfg.n_heads, gcfg.n_kv_heads,
+                            S.PROMPT + S.NEW_TOKENS + 1, S.PROMPT + 1, gcfg.head_dim_, bf16,
+                            True, model=gcfg.name)
+    cases += S.k3_combine_cases(timer, gen)
     keep = ("body", "kernel_ms", "dx_ms", "dw_ms", "dA_ms", "dB_ms", "copy_ms", "launched",
-            "library_ms", "bound_ms", "max_active_clusters")
+            "library_ms", "bound_ms", "max_active_clusters", "host_us", "mma_host_us")
     rows = {f"{c['name']} {c.get('model') or ''} {c['shape']} {c['dtype']}".replace("  ", " "):
             {k: c[k] for k in keep if k in c} for c in cases}
+    rows["timer floor"] = {"kernel_ms": S.timer_floor_ms(timer)}
+    rows.update(decode_split_rows(S, timer, gen, gcfg))
     return {"tree": tree, "rows": rows}
+
+
+def decode_split_rows(S, timer, gen, gcfg) -> dict:
+    """K3's one-launch decode at gemma-7b's 64 groups at fixed split counts,
+    513 and 4,096 valid keys of a 4,200-key cache (what the split rule
+    chooses between), and the read rate under the same timer: one
+    ``torch.sum`` over a contiguous bf16 tensor of the 513-key call's K/V
+    bytes."""
+    import torch
+
+    from repro_torch.kernels import ops
+    dev = timer.flush.device
+    H, Hkv, d = gcfg.n_heads, gcfg.n_kv_heads, gcfg.head_dim_
+    q, k4, v4 = S._qkv(gen, dev, S.BATCH, H, Hkv, 1, 4200, d, torch.bfloat16)
+    rows = {}
+    for valid, counts in ((S.PROMPT + 1, (2, 3, 4, 5, 8)), (4096, (2, 4, 8))):
+        for splits in counts:
+            run = lambda: ops.flash_decode(q, k4, v4, kv_splits=splits, kv_valid_len=valid)
+            rows[f"flash_decode {gcfg.name} valid={valid} splits={splits}"] = {
+                "kernel_ms": timer.ms(run)}
+    flat = torch.zeros(2 * S.BATCH * Hkv * (S.PROMPT + 1) * d, dtype=torch.bfloat16, device=dev)
+    rows["read floor: torch.sum of the 513-key K/V bytes"] = {
+        "kernel_ms": timer.ms(lambda: flat.sum()), "bytes": flat.numel() * 2}
+    return rows
 
 
 def _digest(t) -> str:
@@ -177,10 +223,14 @@ def one_digests(tree: str) -> dict:
                 out[key] = _digest(o) + _digest(lse)
     out.update(wkv_digests(dev))
     out.update(combine_digests(dev))
+    digests, by_body = decode_digests(dev)
+    out.update(digests)
+    bodies.update(by_body)
     torch.cuda.synchronize()
     usage = ptxas_usage(_build.build_info().get("compiler_output", ""))
     kernels = {n.split("Ev")[0]: u for n, u in usage.items()
-               if any(k in n for k in ("flash_fwd", "flash_bwd", "wkv6_kernel", "wkv6_bwd"))}
+               if any(k in n for k in ("flash_fwd", "flash_bwd", "wkv6_kernel", "wkv6_bwd",
+                                       "decode_"))}
     if not kernels:
         raise RuntimeError(f"{tree}: no K2 / K2-bwd / K5 / K5-bwd kernel in this process's build")
     return {"tree": tree, "digests": out, "bodies": bodies, "ptxas": kernels}
@@ -206,6 +256,37 @@ def combine_digests(dev) -> dict:
         out[f"combine rows{rows} splits{splits} d{d} {'bf16' if bf16 else 'f32'}"] = \
             _digest(got)
     return out
+
+
+def decode_digests(dev) -> tuple:
+    """The SHA-256 of K3's outputs (``flash_decode``, both stages in one
+    launch, and ``flash_decode_partials``' m, l and acc) at
+    DECODE_DIGEST_SHAPES for every compiled head dim, bf16 and float32, k/v
+    strided (batch, kv head, key, d) views of a (batch, key, kv head, d)
+    cache, with the body each call ran."""
+    import torch
+    sys.path.insert(0, HERE)
+    from chip_smoke import attention_body
+
+    from repro_torch.kernels import flash_decode as FD
+    out, bodies = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in FD.COMPILED_HEAD_DIMS:
+            for BH, g, T, valid, splits in DECODE_DIGEST_SHAPES:
+                gen = torch.Generator(device=dev).manual_seed(BH + T + valid + d + splits)
+                q = torch.randn(BH, 1, d, generator=gen, device=dev).to(dtype)
+                k, v = (torch.randn(1, T, BH // g, d, generator=gen, device=dev).to(dtype)
+                        .permute(0, 2, 1, 3) for _ in range(2))
+                tag = f"{str(dtype)[6:]} d{d} BH{BH} g{g} {valid}/{T} splits{splits}"
+                key = f"decode {tag}"
+                bodies[key], o = attention_body(FD, lambda: FD.flash_decode(
+                    q, k, v, kv_splits=splits, kv_valid_len=valid, q_per_kv=g), dtype)
+                out[key] = _digest(o)
+                key = f"decode_partials {tag}"
+                bodies[key], parts = attention_body(FD, lambda: FD.flash_decode_partials(
+                    q, k, v, kv_splits=splits, kv_valid_len=valid, q_per_kv=g), dtype)
+                out[key] = "".join(_digest(x) for x in parts)
+    return out, bodies
 
 
 def wkv_digests(dev) -> dict:

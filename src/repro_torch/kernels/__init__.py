@@ -30,16 +30,19 @@ def launch_counts() -> dict:
 
 def launches_by_body() -> dict:
     """K1's and K4's launches split by GEMM body (``"tma"``, ``"staged"``),
-    K2's and K2-bwd's by attention body (``"tma"``, ``"mma"``, ``"f32"``)."""
+    K2's, K2-bwd's and K3's (both epilogues) by attention body (``"tma"``,
+    ``"mma"``, ``"f32"``)."""
     return {"gemm": dict(gemm.launches_by_body),
             "grouped_matmul": dict(moe_gmm.launches_by_body),
             "flash_attention": dict(flash_attention.launches_by_body),
-            "flash_attention_bwd": dict(flash_attention_bwd.launches_by_body)}
+            "flash_attention_bwd": dict(flash_attention_bwd.launches_by_body),
+            "flash_decode": dict(flash_decode.launches_by_body)}
 
 
 def reset_launch_counts() -> None:
     for counts in (gemm.launches_by_body, moe_gmm.launches_by_body,
-                   flash_attention.launches_by_body, flash_attention_bwd.launches_by_body):
+                   flash_attention.launches_by_body, flash_attention_bwd.launches_by_body,
+                   flash_decode.launches_by_body):
         for body in counts:
             counts[body] = 0
     gemm.launches = 0

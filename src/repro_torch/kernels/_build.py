@@ -173,8 +173,14 @@ _SIGNATURES = {
     # sm_scale, is_bf16, vec_ok, stream
     "repro_flash_decode_partials": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     *_STRIDES, _F, _I, _I, _P],
+    # the TMA body at d 256 (bf16, aligned): q, k, v, out (NULL: the partials),
+    # m, l, acc (NULL: one launch), n_groups, G, hkv, buffer, kv_len, splits,
+    # 6 strides, sm_scale, stream
+    "repro_flash_decode_tma": [_P] * 7 + [_I] * 6 + [*_STRIDES, _F, _P],
+    "repro_flash_decode_tma_occupancy": [],
     # m, l, acc, out, BH, splits, d, out_bf16, stream
     "repro_flash_decode_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # d, body (0 float32, 1 mma.sync, 2 TMA)
     "repro_flash_decode_smem_bytes": [_I, _I],
     # r, k, v, log_w, u, o, state0 (or null), state, BH, T, d, chunk, is_bf16, stream
     "repro_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -40,7 +40,8 @@
 //     one round trip sets the pace, and no barrier is needed until the warps
 //     merge.  Two stages keep a block at 82 KB (d 128), so two blocks fit
 //     an SM and 16 clusters of 8 (the MoE's decode) find room at once; at
-//     d 256 (gemma-7b) a block takes 160 KB, one an SM;
+//     d 256 a block takes 160 KB, one an SM (an aligned bf16 call at d 256,
+//     gemma-7b's, runs the Hopper body of flash_decode_tma.cu instead);
 //   * the G query heads of a kv head (padded to 16) are the rows of an
 //     `mma.sync.m16n8k16` tile: scores, probabilities and the output
 //     accumulator stay in registers, with K2's fragment helpers (mma.cuh);
@@ -48,98 +49,12 @@
 //     through the cluster.
 // float32 (decode_f32_kernel) keeps the first scalar design, true float32
 // FMAs (no TF32: its tolerance is 1e-4), with the same two epilogues.
-#include <cooperative_groups.h>
+#include <cstdint>
 
-#include "common.cuh"
+#include "flash_decode.cuh"
 #include "mma.cuh"
 
 namespace repro {
-
-namespace cg = cooperative_groups;
-
-constexpr int DEC_THREADS = 128;
-constexpr int DEC_WARPS = DEC_THREADS / 32;
-constexpr int DEC_GMAX = 16;       // most query heads one kv head may serve (mma rows)
-constexpr int DEC_CHUNK = 16;      // keys a warp takes at a time: one k16 step of P V
-constexpr int DEC_STAGES = 2;      // chunks each warp keeps in flight
-constexpr int DEC_MAX_CLUSTER = 8; // the portable cluster size: most splits COMBINE takes
-constexpr int DEC_TILE = 128;      // keys per inner tile of the float32 body: one a thread
-
-// Keys a tile of the float32 body holds: 128, or 64 at d 256, where two
-// 128-key tiles of K and V (266 KB) would not fit a block.
-template <int D>
-__host__ __device__ constexpr int dec_f32_tile() { return D > 128 ? 64 : DEC_TILE; }
-
-// A split's result in shared memory: m and l per query head, then acc (G x D).
-template <int D>
-constexpr int decode_result_bytes() { return (2 * DEC_GMAX + DEC_GMAX * D) * 4; }
-
-// bf16 body: Q (16 rows), each warp's ring of K and V chunks, the result.
-// Rows padded by 16 bytes; mirrored by flash_decode.decode_smem_bytes().
-template <int D>
-struct DecodeLayout {
-  static constexpr int LD = D + 8;
-  static constexpr int Q_BYTES = DEC_GMAX * LD * 2;
-  static constexpr int CHUNK_ELEMS = DEC_CHUNK * LD;
-  static constexpr int RING_BYTES = DEC_WARPS * DEC_STAGES * 2 * CHUNK_ELEMS * 2;
-  static constexpr int WLD = D + 8;  // float row of the warps' merge scratch (over Q and ring)
-  static constexpr int TOTAL = Q_BYTES + RING_BYTES + decode_result_bytes<D>();
-  static_assert(DEC_WARPS * (2 * DEC_GMAX + DEC_GMAX * WLD) * 4 <= Q_BYTES + RING_BYTES,
-                "the warps' merge scratch reuses Q and the ring");
-};
-
-// float32 body: one K and one V tile of dec_f32_tile<D>() keys, rows padded
-// by 16 bytes, then the result.  A tile of 128 keys holds a served strip (65
-// keys at 8 splits) whole, so the body makes one pass.
-template <int D>
-constexpr int decode_f32_smem_bytes() {
-  return 2 * dec_f32_tile<D>() * (D + 4) * 4 + decode_result_bytes<D>();
-}
-
-// ---- the two epilogues: `res` holds this split's m[16], l[16], acc[16][D] -----
-// The group and split are read again from the block index rather than kept
-// live through the body.
-template <int D, bool COMBINE, typename TO>
-__device__ __forceinline__ void decode_epilogue(const float* res, TO* __restrict__ out,
-                                                float* __restrict__ m_out,
-                                                float* __restrict__ l_out,
-                                                float* __restrict__ acc_out, int G, int splits) {
-  const int tid = threadIdx.x;
-  const int group = blockIdx.x;
-  const int split = blockIdx.y;
-  if constexpr (!COMBINE) {
-    for (int e = tid; e < G * D; e += DEC_THREADS) {
-      const long long row = (long long)(group * G + e / D) * splits + split;
-      acc_out[row * D + e % D] = res[2 * DEC_GMAX + e];
-    }
-    if (tid < G) {
-      const long long row = (long long)(group * G + tid) * splits + split;
-      m_out[row] = res[tid];
-      l_out[row] = res[DEC_GMAX + tid];
-    }
-  } else {
-    // every block of the cluster writes every `splits`-th slice of the
-    // group's G x D outputs from all the splits' results
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();                                    // every split's result is final
-    for (int e = (int)cluster.block_rank() * DEC_THREADS + tid; e < G * D;
-         e += splits * DEC_THREADS) {
-      const int r = e / D;
-      float m_g = NEG_INF;
-      for (int s = 0; s < splits; ++s) m_g = fmaxf(m_g, cluster.map_shared_rank(res, s)[r]);
-      float l_g = 0.f, a_g = 0.f;
-      for (int s = 0; s < splits; ++s) {
-        const float* peer = cluster.map_shared_rank(res, s);
-        const float scale = expf(peer[r] - m_g);
-        l_g = fmaf(peer[DEC_GMAX + r], scale, l_g);
-        a_g = fmaf(peer[2 * DEC_GMAX + e], scale, a_g);
-      }
-      if (l_g == 0.f) l_g = 1.f;
-      out[(long long)group * G * D + e] = from_float<TO>(a_g / l_g);
-    }
-    cluster.sync();                    // no block leaves while a peer reads its result
-  }
-}
 
 // ---- bf16: tensor-core body -----------------------------------------------------
 template <int D, bool COMBINE>
@@ -518,32 +433,131 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   decode_epilogue<D, COMBINE>(res, out, m_out, l_out, acc_out, G, splits);
 }
 
-// Log-sum-exp combine of the per-split partials (`combine_partials`): one
-// block per query head, one thread per output column.
-__global__ void decode_combine_kernel(const float* __restrict__ m, const float* __restrict__ l,
-                                      const float* __restrict__ acc, void* __restrict__ out,
-                                      int splits, int d, int out_bf16) {
-  const int bh = blockIdx.x;
-  const int col = threadIdx.x;
-  if (col >= d) return;
-  const float* mb = m + (long long)bh * splits;
-  const float* lb = l + (long long)bh * splits;
-  const float* ab = acc + (long long)bh * splits * d;
-  float m_g = NEG_INF;
-  for (int s = 0; s < splits; ++s) m_g = fmaxf(m_g, mb[s]);
-  float l_g = 0.f;
-  float a_g = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const float scale = expf(mb[s] - m_g);
-    l_g = fmaf(lb[s], scale, l_g);
-    a_g = fmaf(ab[(long long)s * d + col], scale, a_g);
-  }
-  if (l_g == 0.f) l_g = 1.f;
-  const float r = a_g / l_g;
-  if (out_bf16) {
-    reinterpret_cast<__nv_bfloat16*>(out)[(long long)bh * d + col] = __float2bfloat16(r);
+// Log-sum-exp combine of the per-split partials (`combine_partials`, K3').
+// One warp folds one row's slice of 32 x VEC output columns; COMB_WARPS
+// warps a block.  The fold is a handful of FMAs a split, so what bounds it
+// is how many round trips to memory it waits for in series: every load of a
+// row is issued before the first one is used.  The lanes read m and l of a
+// window of COMB_WINDOW splits at once, lane s split s (and s + 32), and each
+// lane reads its VEC columns of BATCH splits' acc in 16-byte vectors (VEC
+// 4) before the fold starts.  A row of more than 64 splits reads its m's a
+// window at a time for the maximum, and its l's and scales a window at a
+// time as the fold reaches them.  BATCH (2, 4, 8 or 16) is the least that holds
+// the splits, up to 16: the registers a lane keeps for them decide how many
+// warps an SM holds, and so how many rows wait on memory at once (the chunk
+// rows' 8,192 rows of 2 splits fit the card in one wave).  The fold itself
+// is the first design's, operation for operation: the maximum of the m's,
+// then in split order
+// l_g = fmaf(l_s, e_s, l_g) and a_g = fmaf(acc_s, e_s, a_g) with
+// e_s = expf(m_s - m_g) (computed by lane s, handed to the others by a
+// shuffle), l_g == 0 -> 1, one division and one rounding; so its outputs are
+// bit-equal to the first design's.  An empty split (-1e30, 0, 0) adds 0.
+constexpr int COMB_WARPS = 4;
+constexpr int COMB_WINDOW = 64;
+
+template <int VEC>
+__device__ __forceinline__ void comb_load(float (&v)[VEC], const float* p) {
+  if constexpr (VEC == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
   } else {
-    reinterpret_cast<float*>(out)[(long long)bh * d + col] = r;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) v[e] = p[e];
+  }
+}
+
+template <int VEC, int BATCH>
+__global__ void __launch_bounds__(COMB_WARPS * 32)
+decode_combine_kernel(const float* __restrict__ m, const float* __restrict__ l,
+                      const float* __restrict__ acc, void* __restrict__ out, int rows,
+                      int splits, int d, int out_bf16) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x % 32;
+  const int slices = (d + 32 * VEC - 1) / (32 * VEC);
+  const long long item = (long long)blockIdx.x * COMB_WARPS + threadIdx.x / 32;
+  if (item >= (long long)rows * slices) return;            // the whole warp leaves
+  const long long bh = item / slices;
+  const int col = (int)(item % slices) * 32 * VEC + lane * VEC;
+  const bool active = col < d;                             // VEC divides d
+  const float* mb = m + bh * splits;
+  const float* lb = l + bh * splits;
+  const float* ab = acc + bh * splits * d + col;
+
+  // every load of the row at once: m and l of the first window, acc of the
+  // first batch
+  float m0 = lane < splits ? mb[lane] : NEG_INF;
+  float m1 = lane + 32 < splits ? mb[lane + 32] : NEG_INF;
+  float l0 = lane < splits ? lb[lane] : 0.f;
+  float l1 = lane + 32 < splits ? lb[lane + 32] : 0.f;
+  float v[BATCH][VEC];
+#pragma unroll
+  for (int i = 0; i < BATCH; ++i)
+    if (active && i < splits) comb_load<VEC>(v[i], ab + (long long)i * d);
+
+  float m_g = fmaxf(m0, m1);
+  for (int w = COMB_WINDOW; w < splits; w += COMB_WINDOW) {  // the m's of later windows
+    const float a = lane + w < splits ? mb[lane + w] : NEG_INF;
+    const float b = lane + w + 32 < splits ? mb[lane + w + 32] : NEG_INF;
+    m_g = fmaxf(m_g, fmaxf(a, b));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m_g = fmaxf(m_g, __shfl_xor_sync(FULL, m_g, off));
+  float e0 = expf(m0 - m_g);                               // this lane's splits' scales
+  float e1 = expf(m1 - m_g);
+  float l_g = 0.f;
+  float a_g[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) a_g[e] = 0.f;
+  for (int s0 = 0; s0 < splits; s0 += BATCH) {             // BATCH divides COMB_WINDOW
+    if (s0 > 0 && s0 % COMB_WINDOW == 0) {                 // the next window's l's and scales
+      m0 = lane + s0 < splits ? mb[lane + s0] : NEG_INF;
+      m1 = lane + s0 + 32 < splits ? mb[lane + s0 + 32] : NEG_INF;
+      l0 = lane + s0 < splits ? lb[lane + s0] : 0.f;
+      l1 = lane + s0 + 32 < splits ? lb[lane + s0 + 32] : 0.f;
+      e0 = expf(m0 - m_g);
+      e1 = expf(m1 - m_g);
+    }
+    if (s0 > 0) {
+#pragma unroll
+      for (int i = 0; i < BATCH; ++i)
+        if (active && s0 + i < splits) comb_load<VEC>(v[i], ab + (long long)(s0 + i) * d);
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int s = s0 + i;
+      if (s < splits) {                                    // uniform across the warp
+        const bool low = (s % COMB_WINDOW) < 32;
+        const float scale = __shfl_sync(FULL, low ? e0 : e1, s & 31);
+        const float ls = __shfl_sync(FULL, low ? l0 : l1, s & 31);
+        l_g = fmaf(ls, scale, l_g);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) a_g[e] = fmaf(v[i][e], scale, a_g[e]);
+      }
+    }
+  }
+  if (!active) return;
+  if (l_g == 0.f) l_g = 1.f;
+  const long long o = bh * d + col;
+  if (out_bf16) {
+    __nv_bfloat16* ob = reinterpret_cast<__nv_bfloat16*>(out) + o;
+    if constexpr (VEC == 4) {          // round to nearest, as __float2bfloat16
+      *reinterpret_cast<uint2*>(ob) = make_uint2(pack_bf16(a_g[0] / l_g, a_g[1] / l_g),
+                                                 pack_bf16(a_g[2] / l_g, a_g[3] / l_g));
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) ob[e] = __float2bfloat16(a_g[e] / l_g);
+    }
+  } else {
+    float r[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) r[e] = a_g[e] / l_g;
+    if constexpr (VEC == 4) {
+      *reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + o) =
+          make_float4(r[0], r[1], r[2], r[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) reinterpret_cast<float*>(out)[o + e] = r[e];
+    }
   }
 }
 
@@ -645,19 +659,46 @@ extern "C" int repro_flash_decode_partials(
 extern "C" int repro_flash_decode_combine(const void* m, const void* l, const void* acc,
                                           void* out, int BH, int splits, int d, int out_bf16,
                                           void* stream) {
-  if (d < 1 || d > 1024) return -1;
-  const int threads = ((d + 31) / 32) * 32;
-  repro::decode_combine_kernel<<<BH, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(m), static_cast<const float*>(l),
-      static_cast<const float*>(acc), out, splits, d, out_bf16);
-  return (int)cudaGetLastError();
+  if (d < 1 || d > 1024 || splits < 1) return -1;
+  if (BH < 1) return 0;
+  // 16-byte vectors where every row of acc and out starts aligned for them
+  const bool vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(acc) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % (out_bf16 ? 8 : 16) == 0;
+  const int per_row = vec4 ? (d + 127) / 128 : (d + 31) / 32;
+  const long long items = (long long)BH * per_row;
+  const long long blocks = (items + repro::COMB_WARPS - 1) / repro::COMB_WARPS;
+  if (blocks > 0x7fffffffLL) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)blocks), block(repro::COMB_WARPS * 32);
+  const float* mf = static_cast<const float*>(m);
+  const float* lf = static_cast<const float*>(l);
+  const float* af = static_cast<const float*>(acc);
+  const int batch = splits <= 2 ? 2 : splits <= 4 ? 4 : splits <= 8 ? 8 : 16;
+#define REPRO_COMB_CASE(VEC_, BATCH_)                                                       \
+  if ((vec4 ? 4 : 1) == VEC_ && batch == BATCH_) {                                           \
+    repro::decode_combine_kernel<VEC_, BATCH_><<<grid, block, 0, s>>>(mf, lf, af, out, BH,   \
+                                                                       splits, d, out_bf16); \
+    return (int)cudaGetLastError();                                                          \
+  }
+  REPRO_COMB_CASE(4, 2)
+  REPRO_COMB_CASE(4, 4)
+  REPRO_COMB_CASE(4, 8)
+  REPRO_COMB_CASE(4, 16)
+  REPRO_COMB_CASE(1, 2)
+  REPRO_COMB_CASE(1, 4)
+  REPRO_COMB_CASE(1, 8)
+  REPRO_COMB_CASE(1, 16)
+#undef REPRO_COMB_CASE
+  return -1;
 }
 
-// Dynamic shared memory of one block of the decode body for `d` and the
-// type (mirrored by flash_decode.decode_smem_bytes), -1 if not compiled.
-extern "C" int repro_flash_decode_smem_bytes(int d, int is_bf16) {
+// Dynamic shared memory of one block of the decode body for `d` and the body
+// (0 float32, 1 mma.sync, 2 TMA; mirrored by flash_decode.decode_smem_bytes),
+// -1 if not compiled.
+extern "C" int repro_flash_decode_smem_bytes(int d, int body) {
+  if (body == 2) return d == repro::DecodeTmaLayout::D ? repro::DecodeTmaLayout::TOTAL : -1;
 #define REPRO_DEC_SMEM(D_)                                                                  \
-  if (d == D_) return is_bf16 ? repro::DecodeLayout<D_>::TOTAL : repro::decode_f32_smem_bytes<D_>();
+  if (d == D_) return body ? repro::DecodeLayout<D_>::TOTAL : repro::decode_f32_smem_bytes<D_>();
   REPRO_DEC_SMEM(32)
   REPRO_DEC_SMEM(64)
   REPRO_DEC_SMEM(128)

@@ -18,6 +18,13 @@ As in ``flash_attention``, ``k``/``v`` may hold ``q_per_kv`` times fewer
 heads than ``q`` and may be a strided 4-D view ``(batch, kv_heads, Skv, d)``
 of the serving cache.  A tensor on the CPU goes to the plain versions; a
 CUDA tensor launches the kernels or raises.
+
+At head dim 256 an aligned bf16 call takes the Hopper body
+(``csrc/flash_decode_tma.cu``: a TMA ring of 32-key K and V tiles, two
+blocks an SM); which body a call takes is :func:`body_of` its arguments,
+decided before the launch, and :data:`launches_by_body` counts each launch
+of either epilogue.  :func:`choose_splits` cuts the keys by the body: the
+TMA body's splits fill one wave of one block an SM.
 """
 from __future__ import annotations
 
@@ -27,42 +34,80 @@ import torch
 
 from . import _build
 from . import work as _work
-from .flash_attention import COMPILED_HEAD_DIMS, NEG_INF, _kv_4d
+from .flash_attention import BODIES, COMPILED_HEAD_DIMS, NEG_INF, _kv_4d
+# body_of(dtype, d, strides, pointers): the body a CUDA call runs, K2's rule
+# ("tma" for aligned bf16 at d 256, "mma" for other bf16, "f32" for float32)
+from .flash_attention import body_of
 
 MAX_Q_PER_KV = 16                   # query heads one block of the kernel serves
-MIN_SPLIT_KEYS = 64                 # the kernel's inner tile
+MIN_SPLIT_KEYS = 64                 # the mma.sync and float32 bodies' inner tile
 MAX_SPLITS = 64
 MAX_CLUSTER_SPLITS = 8              # the portable cluster size: splits of one launch
 DECODE_STAGES = 2                   # 16-key chunks each warp of the bf16 body keeps in flight
 DECODE_WARPS = 4
 F32_TILE = 128                      # keys per inner tile of the float32 body (64 at d 256)
+TMA_TILE_KEYS = 32                  # keys a tile of the TMA body
+TMA_STAGES = 3                      # tiles of its ring
+TMA_BLOCKS_PER_SM = 2               # its blocks an SM can hold (its launch bounds)
 
 launches = 0                        # launches made by flash_decode()
 partials_launches = 0               # launches made by flash_decode_partials()
 combine_launches = 0                # launches made by combine_partials()
+# K3's launches (flash_decode() and flash_decode_partials()) by body
+launches_by_body = {b: 0 for b in BODIES}
+
+
+def body_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_per_kv: int = 1) -> str:
+    """:func:`body_of` the tensors of a call, k/v as the wrappers take them."""
+    k4 = _kv_4d(k, q.shape[0], q_per_kv, "k")
+    v4 = _kv_4d(v, q.shape[0], q_per_kv, "v")
+    return body_of(q.dtype, q.shape[-1], [*k4.stride()[:3], *v4.stride()[:3]],
+                   [t.data_ptr() for t in (q, k4, v4)])
 
 
 def choose_splits(kv_valid_len: int, n_groups: int, sm_count: int,
-                  max_splits: int = MAX_SPLITS) -> int:
-    """How many strips to cut the valid keys into: enough (batch x kv-head)
-    x split blocks to cover the card's ``sm_count`` multiprocessors about
-    twice, but no strip shorter than the kernel's 64-key tile and no more
-    than ``max_splits`` (:data:`MAX_CLUSTER_SPLITS` for the one-launch
-    decode, whose splits form one cluster)."""
-    want = -(-2 * sm_count // max(1, n_groups))
-    by_len = -(-max(1, kv_valid_len) // MIN_SPLIT_KEYS)
+                  max_splits: int = MAX_SPLITS, body: str = "mma") -> int:
+    """How many strips to cut the valid keys into, for the body that runs
+    them, at most ``max_splits`` (:data:`MAX_CLUSTER_SPLITS` for the
+    one-launch decode, whose splits form one cluster).  The mma.sync and
+    float32 bodies: enough (batch x kv-head) x split blocks to cover the
+    card's ``sm_count`` multiprocessors about twice, no strip shorter than
+    their 64-key tile.  The TMA body: as many splits as fit one wave of
+    one block an SM (or one split where the groups alone fill it), no strip
+    shorter than its 32-key tile.  Its blocks are sized to share an SM two
+    at a time, but at gemma-7b's 64 groups 2 splits (128 blocks) ran
+    faster than the 4 that fill both slots, at 513, 2,049 and 4,096 keys
+    (``PERF.md``); the second slot holds the groups beyond the SM count."""
+    if body == "tma":
+        want = sm_count // max(1, n_groups)
+        by_len = max(1, kv_valid_len) // TMA_TILE_KEYS
+    else:
+        want = -(-2 * sm_count // max(1, n_groups))
+        by_len = -(-max(1, kv_valid_len) // MIN_SPLIT_KEYS)
     return max(1, min(want, by_len, max_splits))
 
 
-def decode_smem_bytes(d: int, elem_size: int) -> int:
+def decode_smem_bytes(d: int, elem_size: int, body: Optional[str] = None) -> int:
     """Dynamic shared memory of one block of the decode body (mirrors
-    ``DecodeLayout`` and ``decode_f32_smem_bytes`` in
-    ``csrc/flash_decode.cu``): a split's float32 result (m and l for 16
-    query rows, acc 16 x d) plus, in bf16, the 16 query rows and each warp's
-    ring of K and V chunks (16 keys, rows padded by 16 bytes), in float32
-    one K and one V tile of :func:`f32_tile` keys (rows padded by 16 bytes)."""
+    ``DecodeLayout``, ``decode_f32_smem_bytes`` and ``DecodeTmaLayout`` in
+    ``csrc/flash_decode.cuh``), for ``body`` (default: ``"mma"`` in bf16,
+    ``"f32"`` in float32).  ``"mma"`` and ``"f32"``: a split's float32
+    result (m and l for 16 query rows, acc 16 x d) plus, in bf16, the 16
+    query rows and each warp's ring of K and V chunks (16 keys, rows padded
+    by 16 bytes), in float32 one K and one V tile of :func:`f32_tile` keys
+    (rows padded by 16 bytes).  ``"tma"`` (d 256): 1 KB to align the ring,
+    :data:`TMA_STAGES` stages of a K and a V tile of :data:`TMA_TILE_KEYS`
+    keys (unpadded, under the swizzle), the 16 query rows (padded by 16
+    bytes), two buffers of 16 x 32 float32 scores (rows padded by 32 bytes)
+    and two mbarriers a stage; the result reuses the ring."""
+    if body is None:
+        body = "mma" if elem_size == 2 else "f32"
+    if body == "tma":
+        ring = TMA_STAGES * 2 * TMA_TILE_KEYS * d * 2
+        scores = 2 * MAX_Q_PER_KV * (TMA_TILE_KEYS + 8) * 4
+        return 1024 + ring + MAX_Q_PER_KV * (d + 8) * 2 + scores + 8 * 2 * TMA_STAGES
     result = (2 * MAX_Q_PER_KV + MAX_Q_PER_KV * d) * 4
-    if elem_size == 2:
+    if body == "mma":
         ld = d + 8
         return MAX_Q_PER_KV * ld * 2 + DECODE_WARPS * DECODE_STAGES * 2 * 16 * ld * 2 + result
     return 2 * f32_tile(d) * (d + 4) * 4 + result
@@ -148,10 +193,12 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  sm_scale: Optional[float], kv_valid_len: Optional[int], q_per_kv: int,
-                 kv_splits: int) -> Tuple[torch.Tensor, torch.Tensor, list]:
-    """Check what the kernels take; return k and v as 4-D views and the C
-    arguments after the pointers: n_groups, G, hkv, d, valid length,
-    splits, six strides, sm_scale, is_bf16, vec_ok."""
+                 kv_splits: int) -> Tuple[torch.Tensor, torch.Tensor, str, list]:
+    """Check what the kernels take; return k and v as 4-D views, the body
+    the call runs and its C arguments after the pointers: for ``"tma"``
+    n_groups, G, hkv, buffer length, valid length, splits, six strides,
+    sm_scale; else n_groups, G, hkv, d, valid length, splits, six strides,
+    sm_scale, is_bf16, vec_ok."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on cpu or cuda tensors, not {q.device}")
     BH, _, d = q.shape
@@ -180,8 +227,13 @@ def _launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                v4.stride(0), v4.stride(1), v4.stride(2)]
     vec_ok = int(all(s % vec == 0 for s in strides)
                  and all(t.data_ptr() % 16 == 0 for t in (q, k4, v4)))
-    return k4, v4, [k4.shape[0] * k4.shape[1], q_per_kv, k4.shape[1], d, n, kv_splits, *strides,
-            sm_scale, int(q.dtype == torch.bfloat16), vec_ok]
+    n_groups = k4.shape[0] * k4.shape[1]
+    body = body_of(q.dtype, d, strides, [t.data_ptr() for t in (q, k4, v4)])
+    if body == "tma":
+        return k4, v4, body, [n_groups, q_per_kv, k4.shape[1], k4.shape[2], n, kv_splits,
+                              *strides, sm_scale]
+    return k4, v4, body, [n_groups, q_per_kv, k4.shape[1], d, n, kv_splits, *strides, sm_scale,
+                          int(q.dtype == torch.bfloat16), vec_ok]
 
 
 def _check_q(q: torch.Tensor, kv_splits: int) -> None:
@@ -206,17 +258,22 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kv_splits > MAX_CLUSTER_SPLITS:
         raise ValueError(f"kv_splits={kv_splits}: the one-launch decode takes at most "
                          f"{MAX_CLUSTER_SPLITS} splits (one cluster)")
-    k4, v4, args = _launch_args(q, k, v, sm_scale, kv_valid_len, q_per_kv, kv_splits)
+    k4, v4, body, args = _launch_args(q, k, v, sm_scale, kv_valid_len, q_per_kv, kv_splits)
     out = torch.empty_like(q)
+    d = q.shape[2]
+    ptrs = (q.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = _build.lib().repro_flash_decode(
-            q.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), *args, stream)
+        if body == "tma":
+            code = _build.lib().repro_flash_decode_tma(*ptrs, None, None, None, *args, stream)
+        else:
+            code = _build.lib().repro_flash_decode(*ptrs, *args, stream)
     _build.check(code, f"flash_decode BH={q.shape[0]} Skv={k4.shape[2]} valid={args[4]} "
-                       f"d={args[3]} splits={kv_splits}")
+                       f"d={d} splits={kv_splits} body={body}")
     launches += 1
-    _work.add("flash_decode", _work.decode_flops(q.shape[0], args[4], args[3]),
-              _work.decode_kv_bytes(args[0], args[4], args[3], q.element_size())
+    launches_by_body[body] += 1
+    _work.add("flash_decode", _work.decode_flops(q.shape[0], args[4], d),
+              _work.decode_kv_bytes(args[0], args[4], d, q.element_size())
               + _work.nbytes(q, out))
     return out
 
@@ -235,19 +292,23 @@ def flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                            sm_scale=sm_scale,
                                            kv_valid_len=kv_valid_len,
                                            q_per_kv=q_per_kv)
-    k4, v4, args = _launch_args(q, k, v, sm_scale, kv_valid_len, q_per_kv, kv_splits)
+    k4, v4, body, args = _launch_args(q, k, v, sm_scale, kv_valid_len, q_per_kv, kv_splits)
     BH, _, d = q.shape
     m = torch.empty((BH, kv_splits, 1, 1), dtype=torch.float32, device=q.device)
     l = torch.empty((BH, kv_splits, 1, 1), dtype=torch.float32, device=q.device)
     acc = torch.empty((BH, kv_splits, 1, d), dtype=torch.float32, device=q.device)
+    ptrs = (q.data_ptr(), k4.data_ptr(), v4.data_ptr())
+    outs = (m.data_ptr(), l.data_ptr(), acc.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = _build.lib().repro_flash_decode_partials(
-            q.data_ptr(), k4.data_ptr(), v4.data_ptr(), m.data_ptr(), l.data_ptr(),
-            acc.data_ptr(), *args, stream)
+        if body == "tma":
+            code = _build.lib().repro_flash_decode_tma(*ptrs, None, *outs, *args, stream)
+        else:
+            code = _build.lib().repro_flash_decode_partials(*ptrs, *outs, *args, stream)
     _build.check(code, f"flash_decode_partials BH={BH} Skv={k4.shape[2]} valid={args[4]} "
-                       f"d={d} splits={kv_splits}")
+                       f"d={d} splits={kv_splits} body={body}")
     partials_launches += 1
+    launches_by_body[body] += 1
     _work.add("flash_decode_partials", _work.decode_flops(BH, args[4], d),
               _work.decode_kv_bytes(args[0], args[4], d, q.element_size())
               + _work.nbytes(q, m, l, acc))

@@ -174,15 +174,17 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Decode attention: q: (BH, 1, d) vs. k/v: (BH, Skv, d) (or un-repeated /
     strided as in :func:`attention`), of which the first ``kv_valid_len`` keys
     count (``None``: all).  One launch computes the splits and their
-    combine; the split count comes from the valid length when ``kv_splits``
-    is not given, at most the cluster's 8.  The reference's ``block_kv`` has
-    no counterpart: the kernel's inner tile is fixed."""
+    combine; the split count comes from the valid length and the body the
+    call runs when ``kv_splits`` is not given, at most the cluster's 8.
+    The reference's ``block_kv`` has no counterpart: the kernel's inner
+    tile is fixed."""
     BH, _, d = q.shape
     Skv = k.shape[-2]
     valid = Skv if kv_valid_len is None else int(kv_valid_len)
     if kv_splits is None:
         kv_splits = _fd.choose_splits(valid, max(1, BH // q_per_kv),
-                                       _fd.sm_count(q.device), _fd.MAX_CLUSTER_SPLITS)
+                                       _fd.sm_count(q.device), _fd.MAX_CLUSTER_SPLITS,
+                                       _fd.body_for(q, k, v, q_per_kv))
     scale = sm_scale if sm_scale is not None else d ** -0.5
     return _fd.flash_decode(q, k, v, kv_splits=kv_splits, sm_scale=scale,
                             kv_valid_len=kv_valid_len, q_per_kv=q_per_kv)
@@ -198,15 +200,16 @@ def flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``flash_decode.combine_partials`` to fold, possibly with other ranks' partials
     of other keys.  A split with no valid key (``kv_valid_len`` 0 makes
     every split such) gives (-1e30, 0, 0), which the combine ignores.  The
-    split count comes from the valid length when ``kv_splits`` is not given.
+    split count comes from the valid length and the body when ``kv_splits``
+    is not given.
     Partials that other ranks' partials join must come in one shape on
     every rank: pass ``kv_splits``."""
     BH, _, d = q.shape
     Skv = k.shape[-2]
     valid = Skv if kv_valid_len is None else int(kv_valid_len)
     if kv_splits is None:
-        kv_splits = _fd.choose_splits(valid, max(1, BH // q_per_kv),
-                                       _fd.sm_count(q.device))
+        kv_splits = _fd.choose_splits(valid, max(1, BH // q_per_kv), _fd.sm_count(q.device),
+                                       body=_fd.body_for(q, k, v, q_per_kv))
     scale = sm_scale if sm_scale is not None else d ** -0.5
     return _fd.flash_decode_partials(q, k, v, kv_splits=kv_splits, sm_scale=scale,
                                      kv_valid_len=kv_valid_len, q_per_kv=q_per_kv)

@@ -736,11 +736,15 @@ def _partials_over_ranks(q, k, v, valid: int, kv_axes, cfg: ModelConfig) -> torc
         raise ValueError(f"{ranks} ranks along {kv_axes} exceed the combine's "
                          f"{FD.MAX_SPLITS} splits")
     qf = q.permute(0, 2, 1, 3).reshape(B * H, S, D).contiguous()
+    if cfg.kernels == "cuda" and k.dtype != q.dtype:
+        k, v = k.to(q.dtype), v.to(q.dtype)
+    # the split rule of the body the call runs (the plain path: the mma.sync
+    # body's)
+    body = FD.body_for(qf, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), g) \
+        if cfg.kernels == "cuda" else "mma"
     splits = FD.choose_splits(k.shape[1], B * k.shape[2], FD.sm_count(q.device),
-                              FD.MAX_SPLITS // ranks)
+                              FD.MAX_SPLITS // ranks, body)
     if cfg.kernels == "cuda":
-        if k.dtype != q.dtype:
-            k, v = k.to(q.dtype), v.to(q.dtype)
         m, l, acc = ops.flash_decode_partials(
             qf, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), sm_scale=sm_scale,
             kv_splits=splits, kv_valid_len=valid, q_per_kv=g)

@@ -234,7 +234,8 @@ def test_served_gemm_shapes_run_on_the_tma_body(cuda):
     assert kernels.launches_by_body() == {"gemm": {"tma": 1, "staged": 0},
                                           "grouped_matmul": {"tma": 4, "staged": 1},
                                           "flash_attention": {"tma": 0, "mma": 0, "f32": 0},
-                                          "flash_attention_bwd": {"tma": 0, "mma": 0, "f32": 0}}
+                                          "flash_attention_bwd": {"tma": 0, "mma": 0, "f32": 0},
+                                          "flash_decode": {"tma": 0, "mma": 0, "f32": 0}}
 
 
 def _kv_view(n_kv, Skv, d, dtype, device, offset):
@@ -808,6 +809,8 @@ def test_python_footprints_mirror_the_compiled_kernels(cuda):
     for d in FA.COMPILED_HEAD_DIMS:
         assert lib.repro_flash_decode_smem_bytes(d, 1) == FD.decode_smem_bytes(d, 2)
         assert lib.repro_flash_decode_smem_bytes(d, 0) == FD.decode_smem_bytes(d, 4)
+    assert lib.repro_flash_decode_smem_bytes(256, 2) == FD.decode_smem_bytes(256, 2, "tma")
+    assert lib.repro_flash_decode_tma_occupancy() == FD.TMA_BLOCKS_PER_SM
     for d in K.COMPILED_HEAD_DIMS:
         for chunk in (1, 16, 24, 32):
             assert lib.repro_wkv6_smem_bytes(d, chunk) == K.wkv6_smem_bytes(d, chunk)
@@ -1708,3 +1711,87 @@ def test_moe_split_over_the_sequence_on_the_card(cuda, tmp_path, mesh_shape):
                                    atol=1e-4 * scale)
         counts = 4.0 * 4 * mesh_shape[1] * E
         assert got["gathered"] == {"data": counts, "model": counts}
+
+
+# K3's TMA body at d 256: (batch x query heads, q_per_kv, buffer, valid keys)
+D256_TMA_DECODE = [(64, 1, 545, 513), (16, 1, 545, 1), (32, 2, 545, 31), (16, 8, 545, 513),
+                   (32, 16, 4200, 4096), (16, 16, 545, 1), (8, 2, 4200, 4096), (64, 8, 300, 31)]
+
+
+@pytest.mark.parametrize("case", D256_TMA_DECODE)
+def test_flash_decode_tma_body_at_d256(cuda, case):
+    """K3's TMA body (aligned bf16 at d 256) on the cache's strided view: the
+    one-launch decode at the split count ``ops.flash_decode`` chooses and at
+    1, 3 and 8 splits, and the partials epilogue at its own count and at 16,
+    each against its plain version (the partials through the exact float32
+    combine), every launch on the TMA body; G 1 to 16, valid 1 to 4,096."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_decode as FD, ops
+    BH, g, T, valid = case
+    gen = torch.Generator(device=cuda).manual_seed(BH + g + valid)
+    q = torch.randn(BH, 1, 256, generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(1, T, BH // g, 256, generator=gen, device=cuda).to(torch.bfloat16)
+            .permute(0, 2, 1, 3) for _ in range(2))
+    assert FD.body_for(q, k, v, g) == "tma"
+    want = FD.flash_decode_plain(q, k, v, kv_valid_len=valid, q_per_kv=g)
+    kernels.reset_launch_counts()
+    for splits in (None, 1, 3, 8):
+        got = ops.flash_decode(q, k, v, kv_splits=splits, kv_valid_len=valid, q_per_kv=g)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **_tol(torch.bfloat16))
+    for splits in (None, 16):
+        m, l, acc = ops.flash_decode_partials(q, k, v, kv_splits=splits, kv_valid_len=valid,
+                                              q_per_kv=g)
+        n = m.shape[1]
+        mp, lp, accp = FD.flash_decode_partials_plain(q, k, v, kv_splits=n, kv_valid_len=valid,
+                                                      q_per_kv=g)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(FD.combine_partials_plain(m, l, acc),
+                                   FD.combine_partials_plain(mp, lp, accp),
+                                   **_tol(torch.bfloat16))
+        # a split past the valid keys is (-1e30, 0, 0) in both
+        torch.testing.assert_close(l == 0, lp == 0)
+    assert kernels.launches_by_body()["flash_decode"] == {"tma": 6, "mma": 0, "f32": 0}
+    counts = kernels.launch_counts()
+    assert counts["flash_decode"] == 4 and counts["flash_decode_partials"] == 2
+
+
+def test_flash_decode_tma_body_at_gemmas_decode_fills_one_wave(cuda):
+    """gemma-7b's decode step: 64 groups in 2 splits, 128 blocks in one wave
+    of one block an SM; the result is the plain one and a second call is
+    bit-equal (no atomics)."""
+    from repro_torch.kernels import flash_decode as FD, ops
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    q = torch.randn(64, 1, 256, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(4, 545, 16, 256, device=cuda).to(torch.bfloat16).permute(0, 2, 1, 3)
+            for _ in range(2))
+    splits = FD.choose_splits(513, 64, sms, FD.MAX_CLUSTER_SPLITS, FD.body_for(q, k, v))
+    assert 64 * splits <= sms < 64 * (splits + 1)
+    got = ops.flash_decode(q, k, v, kv_valid_len=513)
+    again = ops.flash_decode(q, k, v, kv_valid_len=513)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = FD.flash_decode_plain(q, k, v, kv_valid_len=513)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 2, 9, 16, 64, 65, 130])
+@pytest.mark.parametrize("rows,d", [(64, 128), (8192, 128), (37, 256), (5, 33)])
+def test_combine_kernel_with_empty_splits(cuda, rows, d, splits, out_dtype):
+    """K3' against its plain version on partials with an empty split
+    (-1e30, 0, 0) in every eighth row and one row all empty (output 0):
+    16-byte vectors where d allows them (d 128, 256), scalar columns else
+    (d 33); more than one window of 64 splits (65, 130) too."""
+    from repro_torch.kernels import flash_decode as FD
+    gen = torch.Generator(device=cuda).manual_seed(rows + d + splits)
+    m = torch.randn(rows, splits, 1, 1, generator=gen, device=cuda) * 4
+    l = torch.rand(rows, splits, 1, 1, generator=gen, device=cuda) + 0.5
+    acc = torch.randn(rows, splits, 1, d, generator=gen, device=cuda)
+    m[::8, 0], l[::8, 0], acc[::8, 0] = -1e30, 0.0, 0.0
+    m[3], l[3], acc[3] = -1e30, 0.0, 0.0
+    got = FD.combine_partials(m, l, acc, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    want = FD.combine_partials_plain(m, l, acc, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and torch.all(got[3] == 0)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(out_dtype))

@@ -417,7 +417,8 @@ def test_cpu_grouped_matmul_counts_no_body():
     assert kernels.launches_by_body() == {"gemm": {"tma": 0, "staged": 0},
                                           "grouped_matmul": {"tma": 0, "staged": 0},
                                           "flash_attention": {"tma": 0, "mma": 0, "f32": 0},
-                                          "flash_attention_bwd": {"tma": 0, "mma": 0, "f32": 0}}
+                                          "flash_attention_bwd": {"tma": 0, "mma": 0, "f32": 0},
+                                          "flash_decode": {"tma": 0, "mma": 0, "f32": 0}}
 
 
 @pytest.mark.parametrize("d", [32, 64, 128, 256])

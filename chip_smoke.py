@@ -183,9 +183,9 @@ these phases, each printing one JSON line; any failure raises:
             step's partials and combines within their per-call bound of
             their plain versions; ms per token, peak memory per rank, the
             ranking line; ``rwkv``, ``hybrid``, ``vlm``, ``encdec``,
-            ``gemma``, ``seq_parallel`` and ``recurrent_parallel`` run
-            while its ranks run (they wait on ``gloo`` more than on the
-            card);
+            ``gemma``, ``seq_parallel``, ``recurrent_parallel`` and the
+            three family training phases run while its ranks run (they
+            wait on ``gloo`` more than on the card);
    seq_parallel the plans that split the sequence on two ``gloo`` ranks
             (``chip_smoke.py --seq-parallel-rank``): ``qwen2.5-3b`` at full
             width and depth under sequence_parallel, the 4 x 512 prompt
@@ -220,6 +220,21 @@ these phases, each printing one JSON line; any failure raises:
             bound (2e-2 of
             each output's largest entry, 2^-10 relative RMS) with a 5-bit
             control rejected;
+   hybrid_train, vlm_train, encdec_train ``zamba2-1.2b`` (38 Mamba2
+            layers, the shared attention at 19 sites), ``internvl2-1b`` (24
+            layers, 256 stub patches ahead of the prompt) and
+            ``seamless-m4t-medium`` (12 encoder layers over 1024 stub
+            frames, 12 decoder layers with cross-attention) trained at full
+            width and depth, one phase function for the three, as
+            ``rwkv_train``: the float32 rule on the first gradient at full
+            depth; every K2-bwd call of that step (d 64) within its bound,
+            as many checked as launched, a 5-bit control rejected; three
+            AdamW steps through ``launch.train.run``
+            with exact counts (K2 114 / 144 / 216, K2-bwd 57 / 72 / 108,
+            every call on the ``mma`` bodies, nothing else launched), the
+            full parameter count, step ms, tok/s, peak bytes and one traced
+            step; all three after ``recurrent_parallel``, while
+            ``mesh_serve``'s ranks run;
    family_seq_parallel every family split over the sequence on ``gloo``
             ranks (``chip_smoke.py --family-seq-rank``): on a 1x2 mesh
             ``internvl2-1b`` (its 256 stub patches ahead of the prompt in
@@ -973,7 +988,8 @@ def flash_bwd_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving, mo
     backward alone of scaled_dot_product_attention on the same inputs (with
     the offset's mask).  The bound counts the five products over the
     visible (query, key) pairs (S and dP again, dV, dQ, dK) and the bytes of
-    q, k, v, o, dout, lse, dq, dk, dv."""
+    q, k, v, dout, lse, dq, dk, dv, and of o for the float32 body only (the
+    bf16 bodies never read it), as ``work.attention_bwd_bytes`` does."""
     from repro_torch.kernels import flash_attention as FA, flash_attention_bwd as FAB
     dev = timer.flush.device
     g = H // Hkv
@@ -1008,7 +1024,8 @@ def flash_bwd_case(timer, gen, B, H, Hkv, Sq, Skv, d, causal, dtype, serving, mo
            "serving": serving, "model": model, "max_abs_err": err, "lse_max_abs_err": lse_err,
            "kernel_ms": timer.ms(run), "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib)}
     res.update(bound(work().attention_bwd_flops(B * H, Sq, Skv, d, causal, **off),
-                     nbytes(q, k4, v4, out, lse, dout) + nbytes(q, k4, v4), dtype))
+                     nbytes(q, k4, v4, lse, dout, *((out,) if body == "f32" else ()))
+                     + nbytes(q, k4, v4), dtype))
     return res
 
 
@@ -1220,6 +1237,12 @@ def phase_kernels(timer, gen):
     for model, B_, H_, Hkv_, Sq, Skv, causal in served_flash_d64():
         cases.append(flash_bwd_case(timer, gen, B_, H_, Hkv_, Sq, Skv, 64, causal,
                                     torch.bfloat16, serving=True, model=model))
+    # seamless's decoder self pass (512 causal, G 1), which training runs
+    # and no served K2 case times
+    scfg = get_config(ENCDEC_ARCH)
+    cases.append(flash_bwd_case(timer, gen, BATCH, scfg.n_heads, scfg.n_kv_heads, PROMPT,
+                                PROMPT, scfg.head_dim_, True, torch.bfloat16, serving=True,
+                                model=scfg.name + " decoder self"))
     # head dim 256 at gemma-7b's shapes: its prefill (16 heads, MHA), its
     # decode (G 1) with the partials kernel and K3', its training pass
     gcfg = get_config(GEMMA_ARCH)
@@ -5265,38 +5288,49 @@ def phase_dryrun(cells=DRYRUN_CELLS, beside=None, out=emit) -> dict:
 WKV_BWD_REL_RMS = 2.0 ** -10
 
 
-def rwkv_gradients(cfg, params, batch, stats=None) -> dict:
-    """rwkv6 config ``cfg``'s first-step gradient three ways: through K5 and
-    K5-bwd (every K5-bwd call checked into ``stats`` when given), through
-    the plain path (the same model with K5 and K5-bwd patched to their
-    plain versions, the kernel path's bf16 casts of the decays and the bonus
-    kept; ``kernels="plain"`` would drop them) and in float32; the float32
-    rule on gradients (:func:`gradient_rule`), the losses, each run's
-    gradient norm and the kernel run's launches."""
+def first_gradients(cfg, params, batch, module, name: str, stats=None, plain_cfg=None,
+                    plain_patches=(), of_largest: bool = False) -> dict:
+    """Config ``cfg``'s first-step gradient three ways: through the kernels
+    (every call of the backward kernel's wrapper ``module.<name>`` checked
+    against ``module.<name>_plain`` into ``stats`` when given, by
+    :func:`bwd_per_call`), through the plain path (``plain_cfg``, by default
+    ``cfg``, with ``plain_patches``' (module, name, value) in place: for
+    attention ``kernels="plain"``, dense PyTorch attention under autograd;
+    for rwkv6 K5 and K5-bwd patched to their plain versions, which keeps
+    the kernel path's bf16 casts of the decays and the bonus that
+    ``kernels="plain"`` would drop) and in float32; the float32 rule on
+    gradients (:func:`gradient_rule`), the losses, each run's gradient
+    norm, the kernel run's launches and, where that kernel counts its
+    bodies, its launches by body."""
+    from contextlib import ExitStack
+
     from repro_torch import kernels
-    from repro_torch.kernels import rwkv6 as K, rwkv6_bwd as KB
     from repro_torch.models import build_model
     from repro_torch.models.param import tree_leaves
     from repro_torch.train import train_step as TS
     is_t = lambda x: isinstance(x, torch.Tensor)
     norm = lambda g: math.sqrt(sum(x.float().square().sum().item()
                                    for x in tree_leaves(g, is_leaf=is_t)))
-    api = build_model(cfg)
     f32_loss, _, exact = TS.value_and_grad(
         build_model(replace(cfg, kernels="plain", compute_dtype="float32")), params, batch)
-    checked = KB.wkv6_bwd if stats is None else bwd_per_call(
-        stats, KB.wkv6_bwd, KB.wkv6_bwd_plain, of_largest=True)
+    kernel = getattr(module, name)
+    checked = kernel if stats is None else bwd_per_call(
+        stats, kernel, getattr(module, name + "_plain"), of_largest=of_largest)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    with patched(KB, "wkv6_bwd", checked):
-        kern_loss, _, grads = TS.value_and_grad(api, params, batch)
+    with patched(module, name, checked):
+        kern_loss, _, grads = TS.value_and_grad(build_model(cfg), params, batch)
     torch.cuda.synchronize()
     out = {"checked_grad_step_s": time.perf_counter() - t0,
            "launches": kernels.launch_counts()}
+    if name in kernels.launches_by_body():
+        out["bwd_body"] = kernels.launches_by_body()[name]
     kern, norms = leaf_distances(grads, exact), {"kernel": norm(grads), "float32": norm(exact)}
     del grads
-    with patched(K, "wkv6", K.wkv6_plain), patched(KB, "wkv6_bwd", KB.wkv6_bwd_plain):
-        plain_loss, _, grads = TS.value_and_grad(api, params, batch)
+    with ExitStack() as stack:
+        for mod, attr, value in plain_patches:
+            stack.enter_context(patched(mod, attr, value))
+        plain_loss, _, grads = TS.value_and_grad(build_model(plain_cfg or cfg), params, batch)
     plain = leaf_distances(grads, exact)
     norms["plain"] = norm(grads)
     del grads, exact
@@ -5312,7 +5346,7 @@ def phase_rwkv_train(device):
     batches of 4 x 512; every prompt-length WKV scan through K5 and its
     gradient through K5-bwd.
 
-    (a) The first step's gradient three ways (:func:`rwkv_gradients`) and
+    (a) The first step's gradient three ways (:func:`first_gradients`) and
     the float32 rule on gradients.  At full depth that rule is met but
     says little: the model's first-step gradient is chaotic there (the
     float32 and bf16 gradient norms differ by two orders of magnitude, their
@@ -5329,6 +5363,7 @@ def phase_rwkv_train(device):
     from repro_torch import kernels
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data import DataConfig, make_source
+    from repro_torch.kernels import rwkv6 as K, rwkv6_bwd as KB
     from repro_torch.launch import common, serve, train as TL
     from repro_torch.models import build_model
     from repro_torch.train import optimizer as opt, train_step as TS
@@ -5336,10 +5371,13 @@ def phase_rwkv_train(device):
     L = cfg.n_layers
     source = make_source(DataConfig(vocab_size=cfg.vocab_size), cfg)
     batch = TL.to_device(source.batch_at(0, BATCH, PROMPT), device)
+    plain = ((K, "wkv6", K.wkv6_plain), (KB, "wkv6_bwd", KB.wkv6_bwd_plain))
+    gradients = lambda c, p, stats=None: first_gradients(
+        c, p, batch, KB, "wkv6_bwd", stats, plain_patches=plain, of_largest=True)
     shallow_cfg = replace(cfg, n_layers=1)
     shallow_params = build_model(shallow_cfg).init(
         torch.Generator(device=device).manual_seed(0), device)
-    shallow = rwkv_gradients(shallow_cfg, shallow_params, batch)
+    shallow = gradients(shallow_cfg, shallow_params)
     del shallow_params
     api = build_model(cfg)
     t0 = time.perf_counter()
@@ -5347,7 +5385,7 @@ def phase_rwkv_train(device):
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     stats = []
-    full = rwkv_gradients(cfg, params, batch, stats)
+    full = gradients(cfg, params, stats)
     per_call = summarize_per_call(stats, WKV_BWD_REL_RMS)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5411,6 +5449,12 @@ def phase_rwkv_train(device):
     return launches
 
 
+# the full models' parameter counts (float32 master weights, gradient and
+# two AdamW moments: 16 bytes each, 18.7 / 7.9 / 15.6 GB of training state)
+FAMILY_PARAMS = {HYBRID_ARCH: 1_170_473_856, VLM_ARCH: 494_808_832,
+                 ENCDEC_ARCH: 978_025_472}
+
+
 def phase_gemma_train(device) -> dict:
     """gemma-7b trained at full width and 4 of its 28 layers (full depth
     needs about 137 GB of float32 weights, gradients and AdamW state): the
@@ -5434,21 +5478,10 @@ def phase_gemma_train(device) -> dict:
     params = api.init(torch.Generator(device=device).manual_seed(0), device)
     source = make_source(DataConfig(vocab_size=cfg.vocab_size), cfg)
     batch = TL.to_device(source.batch_at(0, BATCH, PROMPT), device)
-    f32_loss, _, exact = TS.value_and_grad(
-        build_model(replace(cfg, kernels="plain", compute_dtype="float32")), params, batch)
     stats = []
-    kernels.reset_launch_counts()
-    with patched(FAB, "flash_attention_bwd", bwd_per_call(stats, FAB.flash_attention_bwd,
-                                                           FAB.flash_attention_bwd_plain)):
-        kern_loss, _, grads = TS.value_and_grad(api, params, batch)
-    per_call_body = kernels.launches_by_body()["flash_attention_bwd"]
-    kern = leaf_distances(grads, exact)
-    del grads
-    plain_loss, _, grads = TS.value_and_grad(build_model(replace(cfg, kernels="plain")),
-                                             params, batch)
-    plain = leaf_distances(grads, exact)
-    del grads, exact
-    rule = gradient_rule(kern, plain)
+    first = first_gradients(cfg, params, batch, FAB, "flash_attention_bwd", stats,
+                            plain_cfg=replace(cfg, kernels="plain"))
+    rule, per_call_body = first["gradients"], first["bwd_body"]
     per_call = summarize_per_call(stats)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5474,8 +5507,7 @@ def phase_gemma_train(device) -> dict:
           "d_model": cfg.d_model, "head_dim": cfg.head_dim_, "n_params": api.n_params(),
           "batch": BATCH, "seq": PROMPT, "compute_dtype": cfg.compute_dtype,
           "remat": cfg.remat, "optimizer": tcfg.optimizer,
-          "first_step_loss": {"kernel": float(kern_loss), "plain": float(plain_loss),
-                              "float32": float(f32_loss)},
+          "first_step_loss": first["loss"],
           "gradients": rule, "per_call": per_call, "history": res.history,
           "step_ms": [t * 1e3 for t in res.step_s],
           "tok_per_s": [BATCH * PROMPT / t for t in res.step_s],
@@ -5501,6 +5533,130 @@ def phase_gemma_train(device) -> dict:
                              "control")
     del res, state, params
     return launches
+
+
+def phase_family_train(device, phase: str, arch: str) -> dict:
+    """``arch`` (zamba2-1.2b, internvl2-1b or seamless-m4t-medium) trained
+    at full width and depth: float32 master weights from seed 0, bf16
+    compute, remat, AdamW with float32 state, ``SyntheticLM`` batches of
+    4 x 512 with the stub inputs ``make_source`` gives (internvl2's 256
+    patches ahead of the prompt, seamless's 1024 frames); every attention
+    through K2 and its gradient through K2-bwd at head dim 64.
+
+    (a) The first step's gradient three ways (:func:`first_gradients`)
+    and the float32 rule on gradients at full depth (unlike rwkv6-3b's, these
+    gradients are not chaotic there: both bf16 paths lie 0.01-0.12 from
+    float32 in the worst leaf on an H100 80GB HBM3 at 700 W, so no
+    shallower copy is needed).
+    (b) Every K2-bwd call of the full-depth kernel run against its plain
+    version on the same inputs (2e-2 and ``ATTN_REL_RMS``), as many checked
+    as launched, (c) with a 5-bit control that this check must reject.
+    (d) Three AdamW steps through ``launch.train.run`` with exact launch
+    counts and finite losses and gradient norms, step ms, tok/s, peak bytes
+    and one traced step.
+
+    The counts: a forward pass makes A attention calls
+    (``models.attention_calls``: zamba2 19 sites of its 38 Mamba2 layers,
+    internvl2 24 layers, seamless 12 encoder layers and 12 decoder layers'
+    self and cross passes, 36).  Remat recomputes each layer (each zamba2
+    group, site included) in the backward, so K2 runs 2A times a step and
+    K2-bwd A times: 114 / 57, 144 / 72 and 216 / 108 over three steps,
+    every call bf16 at head dim 64 and so on the ``mma`` bodies; no other
+    kernel runs (the projections and the Mamba2 scan are PyTorch)."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.kernels import flash_attention_bwd as FAB
+    from repro_torch.launch import common, serve, train as TL
+    from repro_torch.models import attention_calls, build_model
+    from repro_torch.train import optimizer as opt, train_step as TS
+    cfg = common.launch_config(arch)
+    A = attention_calls(cfg)
+    source = make_source(DataConfig(vocab_size=cfg.vocab_size), cfg)
+    batch = TL.to_device(source.batch_at(0, BATCH, PROMPT), device)
+    api = build_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=device).manual_seed(0), device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    stats = []
+    full = first_gradients(cfg, params, batch, FAB, "flash_attention_bwd", stats,
+                           plain_cfg=replace(cfg, kernels="plain"))
+    per_call = summarize_per_call(stats)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    steps = 3
+    tcfg = TrainConfig(learning_rate=1e-3, total_steps=steps, warmup_steps=1)
+    state = TS.TrainState(params, opt.opt_init(params, tcfg))
+    lines = []
+    kernels.reset_launch_counts()
+    res = TL.run(api, tcfg, steps, BATCH, PROMPT, device, state=state, log_every=1,
+                 log=lines.append)
+    launches = res.launches
+    by_body = {k: kernels.launches_by_body()[k] for k in ("flash_attention",
+                                                          "flash_attention_bwd")}
+    zero = {name: 0 for name in launches}
+    want = dict(zero, flash_attention=2 * A * steps, flash_attention_bwd=A * steps)
+    want_body = {"flash_attention": {"tma": 0, "mma": 2 * A * steps, "f32": 0},
+                 "flash_attention_bwd": {"tma": 0, "mma": A * steps, "f32": 0}}
+    want_grad = dict(zero, flash_attention=2 * A, flash_attention_bwd=A)
+    data = TL.to_device(source.batch_at(steps, BATCH, PROMPT), device)
+    step_fn = TS.make_train_step(api, tcfg)
+    holder = {"state": res.state}
+
+    def one_step():
+        holder["state"] = step_fn(holder["state"], data)[0]
+
+    traced = serve._traced(one_step, device, 1)
+    finite = all(math.isfinite(h[k]) for h in res.history for k in ("loss", "grad_norm"))
+    n_params = api.n_params()
+    emit({"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "n_encoder_layers": cfg.n_encoder_layers, "attention_calls": A,
+          "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "head_dim": cfg.head_dim_, "frontend_len": cfg.frontend_len,
+          "n_params": n_params, "batch": BATCH, "seq": PROMPT,
+          "compute_dtype": cfg.compute_dtype, "param_dtype": cfg.param_dtype,
+          "remat": cfg.remat, "optimizer": tcfg.optimizer, "load_s": load_s,
+          "gradient_check": "kernel path's gradient distance from float32 (RMS relative to "
+                            "each leaf's RMS) at most 1.25 x the plain path's, in the worst "
+                            "leaf and over all leaves",
+          "first_step": full,
+          "per_call_check": f"every K2-bwd call of the step within 2e-2 and {ATTN_REL_RMS} "
+                            "relative rms of its plain version on the same inputs (dq, dk, "
+                            "dv); control: the outputs with 5 mantissa bits",
+          "per_call": per_call, "steps": steps, "step_lines": lines,
+          "history": res.history, "step_ms": [t * 1e3 for t in res.step_s],
+          "tok_per_s": [BATCH * PROMPT / t for t in res.step_s],
+          "peak_bytes": res.peak_bytes, "launches": launches, "launches_by_body": by_body,
+          "traced_step": traced})
+    if n_params != FAMILY_PARAMS[arch]:
+        raise AssertionError(f"{phase}: {n_params:,} parameters, the full model has "
+                             f"{FAMILY_PARAMS[arch]:,}")
+    if launches != want or full["launches"] != want_grad:
+        raise AssertionError(f"{phase}: kernel launches {launches} (first gradient "
+                             f"{full['launches']}), expected {want} ({want_grad})")
+    if by_body != want_body or full["bwd_body"] != {"tma": 0, "mma": A, "f32": 0}:
+        raise AssertionError(f"{phase}: K2 / K2-bwd launches by body {by_body} (the checked "
+                             f"step's K2-bwd: {full['bwd_body']}), expected all on the mma "
+                             f"bodies")
+    if not finite:
+        raise AssertionError(f"{phase}: a loss or gradient norm is not finite: {res.history}")
+    if not full["gradients"]["within"]:
+        raise AssertionError(f"{phase}: the kernel path's gradients are further from float32 "
+                             f"than the plain path allows: {full}")
+    if not per_call["within"] or per_call["calls"] != A:
+        raise AssertionError(f"{phase}: a K2-bwd call disagrees with its plain version, or "
+                             f"the calls were not counted: {per_call}")
+    if not per_call["control_5_bits_rejected"]:
+        raise AssertionError(f"{phase}: the per-call check did not reject the 5-bit control")
+    del holder, res, state, params
+    return launches
+
+
+# the three head-dim-64 families trained: (phase, arch)
+TRAINED_FAMILIES = (("hybrid_train", HYBRID_ARCH), ("vlm_train", VLM_ARCH),
+                    ("encdec_train", ENCDEC_ARCH))
 
 
 SOURCES = {
@@ -5689,8 +5845,15 @@ def main() -> int:
             torch.cuda.empty_cache()
             by_path[name] = phase(device)
             lap(name)
+        # the head-dim-64 families trained at full width and depth (peaks
+        # under 30 GB, below what seq_parallel's ranks took here)
+        for phase, arch in TRAINED_FAMILIES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            by_path[phase] = phase_family_train(device, phase, arch)
+            lap(phase)
     beside_mesh_serve.phases = ["rwkv", "hybrid", "vlm", "encdec", "gemma", "seq_parallel",
-                                "recurrent_parallel"]
+                                "recurrent_parallel"] + [phase for phase, _ in TRAINED_FAMILIES]
     gc.collect()
     torch.cuda.empty_cache()
     by_path["mesh_serve"] = phase_mesh_serve(device, served, beside_mesh_serve)

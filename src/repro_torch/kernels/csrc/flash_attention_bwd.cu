@@ -15,8 +15,18 @@
 // query of the block can see reads no query tile and writes zeros).
 //
 // With P = exp(sm_scale * q k^T - lse) (masked entries 0), dP = dO v^T,
-// delta = rowsum(dO o) and dS = P (dP - delta):
+// delta = rowsum(P dP) and dS = P (dP - delta):
 //   dV = P^T dO,  dK = sm_scale dS^T q,  dQ = sm_scale dS k.
+// delta is rowsum(dO o) for the exact o.  The float32 body takes it so from
+// its float32 o; the bf16 body sums P dP from the P it recomputes, by a
+// first pass over the key tiles.  From the bf16 o it would be off by
+// dO . (o - o_exact), o's rounding and that of the forward's bf16 P V
+// product, and every key of a row would take that shift in dS: the rows of
+// dS would no longer sum to 0.  Where a pass's keys are nearly alike that
+// outweighs the whole query and key gradient: seamless-m4t-medium's cross
+// attention over its 12-layer encoder's memory, at its first step, put the
+// kernel path's cross_attn/wq and wk gradients 150 x as far from float32 as
+// the plain path's (H100 80GB HBM3, 700 W).
 // Two launches, no float atomics, so the result repeats bit for bit.
 // K and V come as strided (batch, kv head, key) views, as in the forward;
 // dK and dV are written contiguous as (batch * kv heads, Skv, d).
@@ -25,7 +35,8 @@
 // on 8 kv heads, 512 x 512 causal, d 128, bf16) the five S^2 d products
 // over the visible half are about 10.7 GFLOP (0.011 ms of tensor-core time)
 // and the inputs and outputs about 37 MB (0.011 ms).  Two kernels that do
-// not share their S and dP recompute seven products, not five, and at 4096
+// not share their S and dP recompute seven products, not five (nine with
+// the dQ launch's first pass, which sums delta), and at 4096
 // FLOP an `mma.sync` with 16-row warp tiles rereads each B operand from
 // shared memory for every warp; at this size the design aims first at
 // keeping all 132 SMs busy to the end without atomics.
@@ -44,7 +55,9 @@
 //  * dQ (also writes delta): one 4-warp block per (query head, 64-row query
 //    tile), heaviest causal tiles first; each warp owns 16 query rows, keeps
 //    S, dP and its dQ rows in registers and reads K/V tiles that `cp.async`
-//    brings in two stages.
+//    brings in two stages.  It walks its key tiles twice: S and dP once
+//    more in a first pass that sums delta = rowsum(P dP) (see above), two
+//    more products a tile.
 //  * dK/dV: one 4-warp block per (query head, 64-key tile), each warp 16
 //    keys.  It computes S^T = K Q^T and dP^T = V dO^T directly, so P^T and
 //    dS^T land in the accumulator layout that the A operand of P^T dO and
@@ -466,7 +479,7 @@ __device__ __forceinline__ void a_from_acc(const float (&c0)[4], const float (&c
 template <int D>
 __global__ void __launch_bounds__(MMA_NT, 2)
 flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+                        const __nv_bfloat16* __restrict__ v,
                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                         float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int Sq,
                         int Skv, int H, int q_per_kv, long long k_sb, long long k_sh,
@@ -477,7 +490,6 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   constexpr int LD = L::LD, BQ = MMA_BQ, BKV = MMA_BKV;
   constexpr int NS = BKV / 8;               // n8 tiles of S and dP
   constexpr int NO = BwdCols<D>::N / 8;     // n8 tiles of this block's dQ columns
-  constexpr int VPL = D / 32;               // elements of a row per lane (delta)
   constexpr unsigned FULL = 0xffffffffu;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
@@ -508,27 +520,12 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   flash_copy<BKV, D, LD, MMA_NT>(Vs, vb, 0, Skv, v_st, vec_ok, tid);
   cp_async_commit();
 
-  // delta = rowsum(dO o) of the warp's 16 rows while the tiles arrive; the
-  // thread keeps its two rows' delta and log-sum-exp (log2 domain)
+  // the thread's two rows, their delta (summed by the first pass) and
+  // log-sum-exp (log2 domain)
   const int wq0 = q0 + warp * 16;
   const int row_a = wq0 + g;
   const int row_b = row_a + 8;
   float d_a = 0.f, d_b = 0.f;
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int gr = wq0 + r;
-    float s = 0.f;
-    if (gr < Sq) {
-      const long long base = row_off + (long long)gr * D + lane * VPL;
-#pragma unroll
-      for (int e = 0; e < VPL; ++e) s += to_float(dout[base + e]) * to_float(o[base + e]);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
-    if (r == g) d_a = s;
-    if (r == g + 8) d_b = s;
-    if (lane == 0 && gr < Sq && blockIdx.z == 0) delta[(long long)bh * Sq + gr] = s;
-  }
   const float l_a = row_a < Sq ? lse[(long long)bh * Sq + row_a] * LOG2E : LSE_MASKED;
   const float l_b = row_b < Sq ? lse[(long long)bh * Sq + row_b] * LOG2E : LSE_MASKED;
   const float scale_log2 = sm_scale * LOG2E;
@@ -542,23 +539,36 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
 #pragma unroll
   for (int n = 0; n < NO; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t > 0) {
+  // Two passes over the key tiles, step u the tile u mod n_tiles: the first
+  // sums delta = rowsum(P dP), the second forms dS and dQ with it.
+  for (int u = 0; u < 2 * n_tiles; ++u) {
+    const bool first = u < n_tiles;
+    const int t = first ? u : u - n_tiles;
+    if (u > 0) {
       cp_async_wait<0>();
-      __syncthreads();                      // tile t landed; every warp is done with t - 1
+      __syncthreads();                      // step u landed; every warp is done with u - 1
     }
-    if (t + 1 < n_tiles) {                  // into the stage tile t - 1 used
-      const int st = (t + 1) & 1;
-      flash_copy<BKV, D, LD, MMA_NT>(Ks + st * BKV * LD, kb, (t + 1) * BKV, Skv, k_st, vec_ok,
-                                     tid);
-      flash_copy<BKV, D, LD, MMA_NT>(Vs + st * BKV * LD, vb, (t + 1) * BKV, Skv, v_st, vec_ok,
-                                     tid);
+    if (u + 1 < 2 * n_tiles) {              // into the stage step u - 1 used
+      const int st = (u + 1) & 1;
+      const int next = (u + 1 < n_tiles ? u + 1 : u + 1 - n_tiles) * BKV;
+      flash_copy<BKV, D, LD, MMA_NT>(Ks + st * BKV * LD, kb, next, Skv, k_st, vec_ok, tid);
+      flash_copy<BKV, D, LD, MMA_NT>(Vs + st * BKV * LD, vb, next, Skv, v_st, vec_ok, tid);
     }
     cp_async_commit();
+    if (u == n_tiles) {                     // the first pass is done: each row's delta
+      d_a += __shfl_xor_sync(FULL, d_a, 1);
+      d_a += __shfl_xor_sync(FULL, d_a, 2);
+      d_b += __shfl_xor_sync(FULL, d_b, 1);
+      d_b += __shfl_xor_sync(FULL, d_b, 2);
+      if (tq == 0 && blockIdx.z == 0) {
+        if (row_a < Sq) delta[(long long)bh * Sq + row_a] = d_a;
+        if (row_b < Sq) delta[(long long)bh * Sq + row_b] = d_b;
+      }
+    }
     const int kv0 = t * BKV;
     if (causal && kv0 > q_off + wq0 + 15) continue;   // nothing visible to this warp
-    const bf16* Kt = Ks + (t & 1) * BKV * LD;
-    const bf16* Vt = Vs + (t & 1) * BKV * LD;
+    const bf16* Kt = Ks + (u & 1) * BKV * LD;
+    const bf16* Vt = Vs + (u & 1) * BKV * LD;
 
     // ---- S = Q K^T and dP = dO V^T: 16 rows x BKV keys per warp ---------------
     float s[NS][4], dp[NS][4];
@@ -586,7 +596,8 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
       }
     }
 
-    // ---- P from the log-sum-exp, dS = P (dP - delta), in place of S -------------
+    // ---- P from the log-sum-exp; the first pass sums P dP into delta, the
+    // ---- second forms dS = P (dP - delta) in place of S
     const bool need_mask = kv0 + BKV > Skv || (causal && kv0 + BKV - 1 > q_off + wq0);
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
@@ -600,9 +611,13 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
           ok = ok && kp < Skv && !(causal && qp < kp);
         }
         const float p = ok ? exp2f(x - (e < 2 ? l_a : l_b)) : 0.f;
-        s[j][e] = p * (dp[j][e] - (e < 2 ? d_a : d_b));
+        if (first)
+          (e < 2 ? d_a : d_b) += p * dp[j][e];
+        else
+          s[j][e] = p * (dp[j][e] - (e < 2 ? d_a : d_b));
       }
     }
+    if (first) continue;
 
     // ---- dQ += dS K: dS straight from the registers, high and low parts -----------
 #pragma unroll
@@ -900,8 +915,8 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
   const bf16* dot = static_cast<const bf16*>(dout);
   constexpr int halves = BwdCols<D>::SPLITS;
   kq<<<dim3(BH, nq, halves), MMA_NT, LQ::BYTES, s>>>(
-      qt, kt, vt, static_cast<const bf16*>(o), dot, lse, delta, static_cast<bf16*>(dq), Sq, Skv,
-      H, q_per_kv, k_sb, k_sh, k_st, v_sb, v_sh, v_st, sm_scale, causal, q_off, vec_ok);
+      qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dq), Sq, Skv, H, q_per_kv, k_sb, k_sh,
+      k_st, v_sb, v_sh, v_st, sm_scale, causal, q_off, vec_ok);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};

@@ -13,7 +13,8 @@
 // -1e30 sentinel, Sq != Skv, zero gradient for a row whose log-sum-exp is
 // +1e30, grouped heads over strided (batch, kv head, key, d) K/V views, and
 // dK, dV written contiguous as (batch * kv heads, Skv, d); delta =
-// rowsum(dO o) is written by the first launch for the second.  No float
+// rowsum(P dP) (flash_attention_bwd.cu says why not rowsum(dO o)) is written
+// by the first launch for the second.  No float
 // atomics: a call repeats bit for bit.
 //
 // What bounds it on an H100: gemma-7b's training pass (64 heads, G 1, 512 x
@@ -39,11 +40,12 @@
 //   (`wgmma.m64n256k16`, K read MN-major through the transpose bit).  So S
 //   and dP are computed once per pair, the two warpgroups share each K/V tile
 //   and never wait for each other, and a warpgroup whose rows see none of a
-//   key tile only releases it.  delta = rowsum(dO o) is computed while the
-//   first tiles land.  (A 64-row block whose warpgroups split the keys of S
-//   and dP and the columns of dQ, handing dS over through shared memory
-//   behind a named barrier each tile, took 0.096 ms against 0.080 on
-//   gemma-7b's training pass, H100 80GB HBM3 at 700 W.)
+//   key tile only releases it.  A first pass over the key tiles (S and dP
+//   again) sums delta = rowsum(P dP) from the P recomputed here.  (A 64-row
+//   block whose warpgroups split the keys of S and dP and the columns of dQ,
+//   handing dS over through shared memory behind a named barrier each tile,
+//   took 0.096 ms against 0.080 on gemma-7b's training pass, H100 80GB HBM3
+//   at 700 W, before that first pass.)
 // * dK/dV launch: one block per (kv head, 64-key tile), the first key tiles
 //   (which see most queries) first; K and V resident, Q, dO in the ring; the
 //   block walks every query tile that can see its keys for each query head of
@@ -99,8 +101,7 @@ struct DqLayout {
   static constexpr int Q = 0, DO = NBOX * QBOX;         // 64 KB each
   static constexpr int RING = 2 * NBOX * QBOX;          // stage s: K, then V
   static constexpr int STAGE = 2 * NBOX * KBOX;         // 32 KB
-  static constexpr int DELTA = RING + STAGES * STAGE;   // 128 floats
-  static constexpr int BARS = DELTA + BQ * 4;           // qd_full, full[2], empty[2]
+  static constexpr int BARS = RING + STAGES * STAGE;    // qd_full, full[2], empty[2]
   static constexpr int SMEM = ALIGN + BARS + 8 * (1 + 2 * STAGES);
 };
 struct DkvLayout {
@@ -128,8 +129,8 @@ flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
                         const __grid_constant__ CUtensorMap map_v,
                         const __grid_constant__ CUtensorMap map_do,
-                        const __grid_constant__ CUtensorMap map_dq, const bf16* __restrict__ o,
-                        const bf16* __restrict__ dout, const float* __restrict__ lse,
+                        const __grid_constant__ CUtensorMap map_dq,
+                        const float* __restrict__ lse,
                         float* __restrict__ delta, int Sq, int Skv, int H, int q_per_kv,
                         float sm_scale, int causal, int q_off) {
   using L = DqLayout;
@@ -139,7 +140,6 @@ flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint32_t qd_full = base + L::BARS;
   auto full = [&](int s) { return base + L::BARS + 8u * (1 + s); };
   auto empty = [&](int s) { return base + L::BARS + 8u * (1 + STAGES + s); };
-  float* s_delta = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) + L::DELTA);
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest causal tiles first
@@ -158,13 +158,15 @@ flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   __syncthreads();
 
-  // the loads: Q and dO once, K and V tile t into stage t % STAGES, by a
-  // thread of warpgroup 1, whose rows see every key tile of the block
+  // the loads: Q and dO once, then the key tiles twice (two passes, see
+  // below), step u's tile (u mod n_tiles) into stage u % STAGES, by a thread
+  // of warpgroup 1, whose rows see every key tile of the block
   const bool loader = threadIdx.x == 128;
   const int kv_b = bh / H;
   const int kv_h = (bh % H) / q_per_kv;
-  auto load_kv = [&](int t) {
-    const int s = t % STAGES;
+  auto load_kv = [&](int u) {
+    const int s = u % STAGES;
+    const int t = u < n_tiles ? u : u - n_tiles;
     const uint32_t kt = base + L::RING + s * L::STAGE;
     mbar_expect_tx(full(s), L::STAGE);
 #pragma unroll
@@ -181,7 +183,7 @@ flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap map_q,
       tma_load_3d(base + L::Q + j * L::QBOX, &map_q, qd_full, 64 * j, q0, bh);
       tma_load_3d(base + L::DO + j * L::QBOX, &map_do, qd_full, 64 * j, q0, bh);
     }
-    for (int t = 0; t < STAGES && t < n_tiles; ++t) load_kv(t);
+    for (int u = 0; u < STAGES && u < 2 * n_tiles; ++u) load_kv(u);
   }
 
   {
@@ -194,40 +196,9 @@ flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int g = lane >> 2;
     const int tq = lane & 3;
 
-    // delta = rowsum(dO o) of the block's 128 rows while the tiles land: two
-    // threads a row, 128 columns each in 16-byte loads
-    {
-      const int r = threadIdx.x / 2;
-      const int part = threadIdx.x % 2;
-      const int gr = q0 + r;
-      float acc = 0.f;
-      if (gr < Sq) {
-        const long long at = ((long long)bh * Sq + gr) * D + part * 128;
-        const uint4* po = reinterpret_cast<const uint4*>(o + at);
-        const uint4* pd = reinterpret_cast<const uint4*>(dout + at);
-#pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          const uint4 a = po[e], b = pd[e];
-          const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-          const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float2 fa = __bfloat1622float2(a2[i]);
-            const float2 fb = __bfloat1622float2(b2[i]);
-            acc += fa.x * fb.x + fa.y * fb.y;
-          }
-        }
-      }
-      acc += __shfl_xor_sync(FULL, acc, 1);
-      if (part == 0) {
-        s_delta[r] = acc;
-        if (gr < Sq) delta[(long long)bh * Sq + gr] = acc;
-      }
-    }
-    named_sync<1, THREADS>();
     const int r0 = q0 + 64 * wg;            // the warpgroup's first row
     const int ra = 64 * wg + warp * 16 + g; // the thread's rows of the block: ra, ra + 8
-    const float d_a = s_delta[ra], d_b = s_delta[ra + 8];
+    float d_a = 0.f, d_b = 0.f;             // their delta, summed by the first pass
     const float l_a = q0 + ra < Sq ? lse[(long long)bh * Sq + q0 + ra] * LOG2E : LSE_MASKED;
     const float l_b = q0 + ra + 8 < Sq ? lse[(long long)bh * Sq + q0 + ra + 8] * LOG2E
                                        : LSE_MASKED;
@@ -245,9 +216,22 @@ flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int i = 0; i < 128; ++i) dq[i] = 0.f;
     mbar_wait(qd_full, 0);
 
-    for (int t = 0; t < n_tiles; ++t) {
-      const int s = t % STAGES;
-      const int ph = (t / STAGES) & 1;
+    // Two passes over the key tiles, step u the tile u mod n_tiles: the first
+    // sums delta = rowsum(P dP) from the P recomputed here (flash_attention_bwd.cu
+    // says why not rowsum(dO o)), the second forms dS and dQ with it.
+    for (int u = 0; u < 2 * n_tiles; ++u) {
+      const bool first = u < n_tiles;
+      const int t = first ? u : u - n_tiles;
+      const int s = u % STAGES;
+      const int ph = (u / STAGES) & 1;
+      if (u == n_tiles) {                   // the first pass is done: each row's delta
+        d_a += __shfl_xor_sync(FULL, d_a, 1);
+        d_a += __shfl_xor_sync(FULL, d_a, 2);
+        d_b += __shfl_xor_sync(FULL, d_b, 1);
+        d_b += __shfl_xor_sync(FULL, d_b, 2);
+        if (tq == 0 && q0 + ra < Sq) delta[(long long)bh * Sq + q0 + ra] = d_a;
+        if (tq == 0 && q0 + ra + 8 < Sq) delta[(long long)bh * Sq + q0 + ra + 8] = d_b;
+      }
       mbar_wait(full(s), ph);
       if (t < n_vis) {
         const int kv0 = t * BKV;
@@ -274,7 +258,8 @@ flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap map_q,
         fence_operands(sc);
         fence_operands(dp);
 
-        // ---- dS = P (dP - delta), P from the log-sum-exp, in place of S ----------------
+        // ---- P from the log-sum-exp; the first pass sums P dP into delta, the
+        // ---- second forms dS = P (dP - delta) in place of S
         const bool need_mask =
             kv0 + BKV > Skv || (causal && kv0 + BKV - 1 > q_off + r0 + warp * 16);
 #pragma unroll
@@ -289,36 +274,41 @@ flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap map_q,
               ok = ok && kp < Skv && !(causal && qp < kp);
             }
             const float p = ok ? exp2f(x - (e < 2 ? l_a : l_b)) : 0.f;
-            sc[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? d_a : d_b));
+            if (first)
+              (e < 2 ? d_a : d_b) += p * dp[4 * j + e];
+            else
+              sc[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? d_a : d_b));
           }
         }
-        // the accumulator's n8 tiles 2 kk and 2 kk + 1 are the k16 step kk of the
-        // A fragment
-        uint32_t pa[BKV / 16][4];
+        if (!first) {
+          // the accumulator's n8 tiles 2 kk and 2 kk + 1 are the k16 step kk of the
+          // A fragment
+          uint32_t pa[BKV / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < BKV / 16; ++kk) {
-          pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-          pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-          pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-          pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-        }
+          for (int kk = 0; kk < BKV / 16; ++kk) {
+            pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+            pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+            pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+            pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+          }
 
-        // ---- dQ += dS K: dS from registers, K MN-major across its four boxes ------------
-        fence_operands(dq);
-        wgmma_fence();
+          // ---- dQ += dS K: dS from registers, K MN-major across its four boxes ----------
+          fence_operands(dq);
+          wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BKV / 16; ++kk)
-          WgmmaRS<256, 1>::mma(dq, pa[kk], smem_desc(kt + kk * 16 * 128, L::KBOX, 1024));
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_operands(dq);
+          for (int kk = 0; kk < BKV / 16; ++kk)
+            WgmmaRS<256, 1>::mma(dq, pa[kk], smem_desc(kt + kk * 16 * 128, L::KBOX, 1024));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operands(dq);
 #pragma unroll
-        for (int kk = 0; kk < BKV / 16; ++kk) fence_regs(pa[kk]);
+          for (int kk = 0; kk < BKV / 16; ++kk) fence_regs(pa[kk]);
+        }
       }
       mbar_arrive(empty(s));
-      if (loader && t + STAGES < n_tiles) {  // both warpgroups are done with the stage
+      if (loader && u + STAGES < 2 * n_tiles) {   // both warpgroups are done with the stage
         mbar_wait(empty(s), ph);
-        load_kv(t + STAGES);
+        load_kv(u + STAGES);
       }
     }
 
@@ -586,8 +576,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
       !encode_3d(&mdv, dv, D, Skv, (long long)B * Hkv, 64, ROWS))
     return -3;
   flash_bwd_dq_tma_kernel<<<dim3(BH, nq), THREADS, DqLayout::SMEM, s>>>(
-      mq128, mk32, mv32, mdo128, mdq, static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dout), lse, delta, Sq, Skv, H, q_per_kv, sm_scale, causal, q_off);
+      mq128, mk32, mv32, mdo128, mdq, lse, delta, Sq, Skv, H, q_per_kv, sm_scale, causal, q_off);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dkv_tma_kernel<<<dim3(B * Hkv, nkv), THREADS, DkvLayout::SMEM, s>>>(

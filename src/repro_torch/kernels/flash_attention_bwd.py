@@ -13,9 +13,13 @@ hand over), the query offset (``q_offset``: row r masks as position
 
 The CUDA kernel (``csrc/flash_attention_bwd.cu``) is two launches.  In bf16
 both run their products on the tensor cores (``mma.sync``): dQ (which also
-writes delta = rowsum(dO o)) with one block per (query head, 64-row query
-tile), then dK and dV with one block per (query head, 64-key tile), the
-blocks of one kv head's group a thread-block cluster that folds their
+writes delta = rowsum(P dP), summed by a first pass over its key tiles from
+the P it recomputes: from the bf16 o the rows of dS would not sum to 0, and
+where a pass's keys are nearly alike, as in seamless-m4t-medium's cross
+attention at its first step, that shift outweighs the query and key
+gradients) with one block per (query head, 64-row query tile), then dK and
+dV with one block per (query head, 64-key tile), the blocks of one kv
+head's group a thread-block cluster that folds their
 partial dK/dV through distributed shared memory (:func:`bwd_geometry`
 mirrors the grids, the cluster and the shared memory).  At d 256 an aligned
 bf16 call takes the Hopper body (``csrc/flash_attention_bwd_tma.cu``: TMA
@@ -62,8 +66,8 @@ def bwd_smem_bytes(d: int, kernel: str, elem_size: int, body: Optional[str] = No
     for the body an aligned call runs unless ``body`` names another.
     ``"tma"`` (d 256; mirrors ``repro_flash_bwd_tma_smem_bytes``): 1 KB for
     the swizzle's alignment, unpadded tiles of 256 columns, and five
-    mbarriers; the dQ block 128 rows of Q and dO, two ring stages of 32 rows
-    of K and V and 128 float32 delta, the dK/dV block 64 rows of K and V,
+    mbarriers; the dQ block 128 rows of Q and dO and two ring stages of 32
+    rows of K and V, the dK/dV block 64 rows of K and V,
     two ring stages of 64 rows of Q and dO and two 8 KB bf16 tiles each of
     P^T and dS^T.  ``"mma"`` (mirrors
     ``repro_flash_bwd_smem_bytes``): 64-row tiles with rows padded by 16
@@ -74,7 +78,7 @@ def bwd_smem_bytes(d: int, kernel: str, elem_size: int, body: Optional[str] = No
     if elem_size == 2 and _bf16_body(d, body) == "tma":
         row = d * 2
         if kernel == "dq":
-            tiles = 2 * TMA_DQ_ROWS * row + 2 * 2 * TMA_DQ_KEYS * row + TMA_DQ_ROWS * 4
+            tiles = 2 * TMA_DQ_ROWS * row + 2 * 2 * TMA_DQ_KEYS * row
         else:
             tiles = 6 * BWD_ROWS * row + 4 * BWD_ROWS * 128
         return 1024 + tiles + 8 * 5
@@ -168,7 +172,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 (no autograd): P = exp(sm_scale q k^T - lse), 0 where masked
     (by position, row r at ``q_offset + r``, or at or below the -1e30
     sentinel as in the forward);
-    dV = P^T dO; dS = P (dO v^T - rowsum(dO o)); dQ = sm_scale dS k;
+    dV = P^T dO; dS = P (dP - rowsum(P dP)) with dP = dO v^T (rowsum(dO o)
+    for the exact o, as the bf16 kernel sums it); dQ = sm_scale dS k;
     dK = sm_scale dS^T q, the query heads of a group summed.  dk/dv come back
     contiguous in the shape ``k``/``v`` were given in, in their dtype."""
     BH, Sq, d = q.shape
@@ -178,7 +183,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf = k4.reshape(-1, Skv, d).float().repeat_interleave(q_per_kv, dim=0)
     vf = v4.reshape(-1, Skv, d).float().repeat_interleave(q_per_kv, dim=0)
     sm_scale = sm_scale if sm_scale is not None else d ** -0.5
-    qf, of, dof = q.float(), o.float(), dout.float()
+    qf, dof = q.float(), dout.float()
     s = torch.einsum("hqd,hkd->hqk", qf, kf) * sm_scale
     visible = s > 0.5 * NEG_INF
     if causal:
@@ -186,9 +191,9 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ki = torch.arange(Skv, device=q.device)[None, :]
         visible = visible & (qi >= ki)
     p = torch.where(visible, torch.exp(s - lse.float()[..., None]), torch.zeros_like(s))
-    delta = (dof * of).sum(dim=-1, keepdim=True)
     dv = torch.einsum("hqk,hqd->hkd", p, dof)
-    ds = p * (torch.einsum("hqd,hkd->hqk", dof, vf) - delta)
+    dp = torch.einsum("hqd,hkd->hqk", dof, vf)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
     dq = torch.einsum("hqk,hkd->hqd", ds, kf) * sm_scale
     dk = torch.einsum("hqk,hqd->hkd", ds, qf) * sm_scale
 
@@ -270,5 +275,5 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     launches += 1
     launches_by_body[body] += 1
     _work.add("flash_attention_bwd", _work.attention_bwd_flops(BH, Sq, Skv, d, causal, q_offset),
-              _work.nbytes(q, k4, v4, o, lse, dout, dq, dk, dv))
+              _work.attention_bwd_bytes(q, k4, v4, o, lse, dout, body))
     return dq, dk.reshape(k.shape), dv.reshape(v.shape)

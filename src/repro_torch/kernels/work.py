@@ -49,6 +49,14 @@ def attention_bwd_flops(BH: int, Sq: int, Skv: int, d: int, causal: bool,
     return 5 * 2.0 * BH * visible_pairs(Sq, Skv, causal, q_offset) * d
 
 
+def attention_bwd_bytes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor, body: str) -> int:
+    """q, k, v, lse and dO read, dQ, dK and dV (like q, k and v) written;
+    o read by the float32 body only, which takes delta = rowsum(dO o): the
+    bf16 bodies sum delta = rowsum(P dP) from the P they recompute."""
+    return nbytes(q, k, v, lse, dout, *((o,) if body == "f32" else ())) + nbytes(q, k, v)
+
+
 def decode_flops(BH: int, n_valid: int, d: int) -> float:
     """One query row a head against ``n_valid`` keys: QK^T and PV."""
     return 4.0 * BH * n_valid * d

@@ -160,6 +160,21 @@ def _cast(spec, cfg: ModelConfig):
 _FRONTEND = {"vlm": "patches", "audio": "frames"}
 
 
+def attention_calls(cfg: ModelConfig) -> int:
+    """Prompt-length attention calls of one forward pass: one a layer for
+    the dense, MoE and VLM families; one a group of ``attn_every`` Mamba2
+    layers for the hybrid (its shared block's sites); one an encoder layer
+    and two a decoder layer (self, then cross over the encoder's memory)
+    for the encoder-decoder; none for RWKV6."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    if cfg.family == "audio":
+        return (cfg.n_encoder_layers or cfg.n_layers) + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
 def build_model(cfg: ModelConfig) -> ModelAPI:
     fam = cfg.family
     if fam == "dense":

@@ -108,14 +108,14 @@ def test_flash_bwd_blocks_fit_two_an_sm(d):
 
 def test_flash_bwd_blocks_at_d256_fit_one_an_sm():
     """Head dim 256: a block of the TMA body (aligned bf16) takes about
-    195-225 KB, so one block an SM: the dQ block 128 rows of Q and dO, two
-    ring stages of 32 keys of K and V and 128 float32 delta; the dK/dV block
+    195-225 KB, so one block an SM: the dQ block 128 rows of Q and dO and two
+    ring stages of 32 keys of K and V (its delta is summed in registers); the dK/dV block
     64 rows of K and V, two ring stages of 64 rows of Q and dO and two 8 KB
     bf16 tiles each of P^T and dS^T.  No third grid axis, no cluster.  The
     mma.sync body (unaligned calls) keeps its 202,752 / 203,776 bytes and its
     two column parts over the grid; float32's dQ block takes 32 query rows so
     that it fits (64 rows would take 280,320 bytes)."""
-    assert FAB.bwd_smem_bytes(256, "dq", 2) == 1024 + 2 * 65536 + 4 * 16384 + 512 + 40 == 198184
+    assert FAB.bwd_smem_bytes(256, "dq", 2) == 1024 + 2 * 65536 + 4 * 16384 + 40 == 197672
     assert FAB.bwd_smem_bytes(256, "dkv", 2) == 1024 + 6 * 32768 + 4 * 8192 + 40 == 230440
     assert FAB.bwd_smem_bytes(256, "dq", 2, "mma") == 202752
     assert FAB.bwd_smem_bytes(256, "dkv", 2, "mma") == 203776

@@ -1243,6 +1243,50 @@ def test_flash_attention_kernels_with_q_offset(cuda, case, dtype):
         assert not grads[1][:, off + Sq:].any() and not grads[2][:, off + Sq:].any()
 
 
+@pytest.mark.parametrize("d,body,G", [(64, "mma", 1), (64, "mma", 7), (128, "mma", 8),
+                                     (256, "tma", 1), (256, "mma", 1)])
+def test_flash_attention_bwd_sums_delta_from_its_own_p(cuda, d, body, G, record_property):
+    """Keys and values nearly alike (seamless-m4t-medium's cross pass over a
+    uniform encoder memory, at its first step): each bf16 body's dQ, dK
+    and dV against float64 autograd of attention.  dQ is a small remainder
+    of cancelling terms there: delta = rowsum(dO o) of the bf16 o put it
+    off by more than its own size (tests/test_torch_attention_delta.py);
+    each body sums delta from the P it recomputes.  The mma.sync bodies,
+    whose dS enters dQ as two bf16 parts, keep dQ within the plain
+    version's bound (0.05); the TMA body at d 256 rounds dS to one bf16
+    (its design: one bf16 for P and for dS) and keeps it within 0.2 (0.15 measured on an H100
+    80GB HBM3, 700 W).  The unaligned case (k and v one element off) runs
+    the mma.sync body at d 256."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as FA, flash_attention_bwd as FAB
+    g = torch.Generator(device=cuda).manual_seed(1)
+    BH, Sq, Skv = 4 * G, 64, 128
+    q = torch.randn(BH, Sq, d, generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn(BH // G, Skv, d, generator=g, device=cuda)
+    v = torch.randn(BH // G, Skv, d, generator=g, device=cuda)
+    pad = 1 if body == "mma" and d == 256 else 0
+    kv = []
+    for t in (k, v):
+        near = (t[:, :1] + 0.01 * t).to(torch.bfloat16)
+        buf = torch.zeros(near.numel() + pad, dtype=torch.bfloat16, device=cuda)
+        kv.append(buf[pad:].view(near.shape).copy_(near))
+    k, v = kv
+    dout = torch.randn(BH, Sq, d, generator=g, device=cuda).to(torch.bfloat16)
+    out, lse = FA.flash_attention(q, k, v, q_per_kv=G, return_lse=True)
+    kernels.reset_launch_counts()
+    dq, dk, dv = FAB.flash_attention_bwd(q, k, v, out, lse, dout, q_per_kv=G)
+    assert kernels.launches_by_body()["flash_attention_bwd"][body] == 1
+    qd, kd, vd = (t.double().requires_grad_() for t in (q, k, v))
+    kr, vr = (t.repeat_interleave(G, dim=0) for t in (kd, vd))
+    od = torch.softmax(qd @ kr.transpose(1, 2) * d ** -0.5, dim=-1) @ vr
+    want = torch.autograd.grad(od, (qd, kd, vd), dout.double())
+    rel = lambda a, b: float((a.double() - b).norm() / b.norm())
+    record_property("dq_rel", rel(dq, want[0]))     # the reading, in --junitxml's report
+    assert rel(dq, want[0]) < (0.2 if body == "tma" else 0.05), rel(dq, want[0])
+    assert rel(dk, want[1]) < 2.0 ** -8 and rel(dv, want[2]) < 2.0 ** -8, \
+        (rel(dk, want[1]), rel(dv, want[2]))
+
+
 def test_flash_attention_bwd_refuses_what_is_not_compiled(cuda):
     from repro_torch.kernels import flash_attention_bwd as FAB
     q = torch.randn(2, 16, 48, device=cuda)
@@ -1289,31 +1333,39 @@ def test_matmul_and_grouped_matmul_backward_launch_their_kernels(cuda, dtype):
             **_tol(dtype))
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-30b-a3b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-30b-a3b", "rwkv6-3b", "zamba2-1.2b",
+                                  "internvl2-1b", "seamless-m4t-medium"])
 def test_train_step_reduced_on_the_card_launches_exactly(cuda, arch):
     """One reduced train step through ``launch/train.py``'s loop: with remat
-    K2 runs twice a layer and K2-bwd once; the MoE's expert products three
-    times forward, three times again in the recompute and six times in the
-    backward; RWKV6's WKV scan (K5) twice a layer and K5-bwd once.  Finite
-    loss and gradient norm."""
+    K2 runs twice an attention call and K2-bwd once (attention calls are
+    layers for the dense, MoE and VLM families, the shared block's sites for
+    zamba2, the encoder's layers and the decoder's self and cross passes for
+    the encoder-decoder), every one on the ``mma`` body (bf16, head dim
+    below 256); the MoE's expert products three times forward, three times
+    again in the recompute and six times in the backward; RWKV6's WKV scan
+    (K5) twice a layer and K5-bwd once.  Finite loss and gradient norm."""
+    from repro_torch import kernels
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch import train as TL
     from repro_torch.launch.common import launch_config
-    from repro_torch.models import build_model
+    from repro_torch.models import attention_calls, build_model
     cfg = launch_config(arch, reduced=True)
     api = build_model(cfg)
     tcfg = TrainConfig(total_steps=1, warmup_steps=1)
+    kernels.reset_launch_counts()
     res = TL.run(api, tcfg, 1, 2, 64, cuda, log=lambda line: None)
-    L = cfg.n_layers
+    L, A = cfg.n_layers, attention_calls(cfg)
     rwkv = cfg.family == "ssm"
-    assert res.launches["flash_attention"] == (0 if rwkv else 2 * L)
-    assert res.launches["flash_attention_bwd"] == (0 if rwkv else L)
+    assert res.launches["flash_attention"] == 2 * A
+    assert res.launches["flash_attention_bwd"] == A
     assert res.launches["grouped_matmul"] == (12 * L if cfg.family == "moe" else 0)
     assert res.launches["wkv6"] == (2 * L if rwkv else 0)
     assert res.launches["wkv6_bwd"] == (L if rwkv else 0)
+    body = kernels.launches_by_body()
+    assert body["flash_attention"] == {"tma": 0, "mma": 2 * A, "f32": 0}
+    assert body["flash_attention_bwd"] == {"tma": 0, "mma": A, "f32": 0}
     assert all(torch.isfinite(torch.tensor(h["loss"])) for h in res.history)
     assert torch.isfinite(torch.tensor(res.history[0]["grad_norm"]))
-
 
 
 def test_train_main_on_the_card_restores_in_place_and_replays(cuda, tmp_path, monkeypatch):

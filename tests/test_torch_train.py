@@ -193,6 +193,9 @@ CASES = {
     "adamw_int8": {"grad_compression": "int8"},
     "adafactor": {"optimizer": "adafactor"},
     "rwkv6_adamw": {"arch": "rwkv6-3b", "learning_rate": 1e-3},
+    "zamba2_adamw": {"arch": "zamba2-1.2b"},
+    "internvl2_adamw": {"arch": "internvl2-1b"},
+    "seamless_adamw": {"arch": "seamless-m4t-medium"},
 }
 # Where a parameter is held at 1e-5 of its leaf's largest entry: where the
 # reference's first gradient is above this share of its leaf's largest.  The
@@ -370,6 +373,52 @@ def test_train_main_trains_rwkv6_on_cpu(capsys, tmp_path):
     assert "wkv6=0" in out and "wkv6_bwd=0" in out
     assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in res.history)
     assert int(res.state.opt_state.step) == 2
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "internvl2-1b", "seamless-m4t-medium"])
+def test_train_main_trains_the_attention_families_on_cpu(arch, capsys, tmp_path):
+    """``--arch`` zamba2-1.2b (the shared attention), internvl2-1b (the stub
+    patches ahead of the prompt) and seamless-m4t-medium (the stub frames,
+    the encoder and the decoder's cross-attention): K2's and K2-bwd's plain
+    versions on the CPU, the reference's step lines."""
+    res = train_launch.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "2",
+                             "--batch", "2", "--seq", "16", "--log-every", "1",
+                             "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert out.count("[train] step ") == 2 and "gnorm=" in out and "tok/s" in out
+    assert "flash_attention=0" in out and "flash_attention_bwd=0" in out
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in res.history)
+    assert int(res.state.opt_state.step) == 2
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-moe-30b-a3b", "rwkv6-3b", "zamba2-1.2b",
+                                  "internvl2-1b", "seamless-m4t-medium"])
+def test_attention_calls_count_the_wrapper_calls_of_a_step(arch, monkeypatch):
+    """``models.attention_calls`` (what the card's launch checks are reckoned
+    from) against the K2 and K2-bwd wrapper calls of one reduced training
+    step on the CPU, where each wrapper runs its plain version: with remat
+    K2 twice an attention call and K2-bwd once."""
+    from repro_torch.kernels import flash_attention as FA, flash_attention_bwd as FAB
+    from repro_torch.launch.common import launch_config
+    from repro_torch.models import attention_calls
+    calls = {"fwd": 0, "bwd": 0}
+
+    def counted(fn, key):
+        def call(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(FA, "flash_attention", counted(FA.flash_attention, "fwd"))
+    monkeypatch.setattr(FAB, "flash_attention_bwd", counted(FAB.flash_attention_bwd, "bwd"))
+    cfg = launch_config(arch, reduced=True)
+    api = build_model(cfg)
+    params = api.init(torch.Generator().manual_seed(0), torch.device("cpu"))
+    source = pipeline.make_source(pipeline.DataConfig(vocab_size=cfg.vocab_size), cfg)
+    TS.value_and_grad(api, params, train_launch.to_device(source.batch_at(0, 2, 16), "cpu"))
+    A = attention_calls(cfg)
+    assert (A > 0) == (arch != "rwkv6-3b")
+    assert calls == {"fwd": 2 * A, "bwd": A}, (calls, A)
 
 
 def _losses(res):
